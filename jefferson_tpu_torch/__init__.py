@@ -1,0 +1,19 @@
+"""PyTorch / CUDA port of jefferson_tpu for one NVIDIA H100.
+
+The JAX package ``jefferson_tpu`` stays the reference; this package mirrors
+its module names (``ops``, ``engine``, ``kernels`` for ``pallas``) so each
+counterpart is easy to find.  It imports ``torch`` and never ``jax``; the
+host modules that import no jax (config, hrtf.kemar, trajectory, io,
+native, oracle, testing) are reused from ``jefferson_tpu`` as they are.
+
+Every public entry point takes an explicit ``device=``: nothing probes for
+a device and nothing falls back to another.  The engine is float32 end to
+end and never TF32 — the distance ramp's 12-bit phase split
+(``ops/filters.distance_phase_split``) and the 1e-6 oracle gate need full
+fp32 products, so both TF32 switches are turned off on import.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,255 @@
+"""Benchmark of the port: sustained 128-sample blocks/s on one CUDA device.
+
+The workload is the JAX package's ``bench.py`` workload: 256 concurrent
+moving sources (circular orbits, crossfade on every block), 64 blocks per
+step, overlap-save history carried from step to step, through the batched
+one-hot fused step with one compact table and compact distance.
+
+Timing: CUDA events around 20 steps in a row after warm-up, divided by 20;
+the result is the median of 7 such runs.  The fused step alone is also timed through
+the CUDA kernel and through its plain-PyTorch twin on the same operands.
+Parity: one fresh step's source 0 against ``render_oracle``; RMS must stay
+under 1e-4, else this raises.
+
+    python -m jefferson_tpu_torch.bench --device cuda
+
+Prints ONE JSON line to stdout (metric, value, unit, vs_baseline); the
+step, kernel and twin times, the card and its power limit, and the device
+time of each launch per step (torch.profiler over 10 carried steps, with
+the device's idle share) go to stderr.
+``vs_baseline`` is against the original CUDA engine's ~0.3 ms per block
+(3,333 blocks/s, BASELINE.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from jefferson_tpu import DEFAULT_CONFIG, synthetic_database
+from jefferson_tpu.oracle.reference import render_oracle
+from jefferson_tpu.trajectory.trajectory import CircularOrbit
+
+from .convert import spectra_from_numpy
+from .engine.batch import batched_chunk_fn_fused, onehot_step_operands
+from .engine.plan import compact_filter_ids, make_plan
+from .engine.renderer import dedup_distance
+from .kernels import fused_step
+
+BASELINE_BLOCKS_PER_S = 3333.3
+SOURCES, BLOCKS = 256, 64  # the JAX bench.py workload: sources x blocks per step
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+@dataclasses.dataclass
+class Workload:
+    """One step of the bench workload, staged on the device."""
+
+    n_sources: int
+    nb: int
+    u_pad: int
+    n_dist: int | None
+    spectra: tuple
+    hists: torch.Tensor
+    feds: torch.Tensor
+    chunk: tuple            # the chunk function's operands after (spectra, hists, feds)
+    dsel: torch.Tensor | None
+    step: object            # batched_chunk_fn_fused(...)
+
+
+def orbit(i: int, nb: int, cfg=DEFAULT_CONFIG, radius_step: float = 0.0) -> np.ndarray:
+    """Source i's trajectory: a circular orbit at 5° elevation and radius
+    1 + i * radius_step (the bench: r = 1 for every source)."""
+    return CircularOrbit(period_s=0.4 + 0.01 * i, ele=5, r=1.0 + i * radius_step).sample(nb, cfg)
+
+
+def moving_scene(n_sources: int, n_blocks: int, cfg=DEFAULT_CONFIG, seed: int = 1):
+    """(signals (S, n_blocks*fpb), positions (S, n_blocks, 3)) of a scene
+    that ``BatchRenderer`` takes through the shared one-hot step: circular
+    orbits at r = 1 whose elevations (1..9 degrees, between the 0 and 10
+    degree rings of the HRTF grid) keep each source's (filter, weight) rows
+    apart, so the hold-scene dedup declines, while the whole scene touches
+    at most the two rings' 144 filters, so one compact table holds them."""
+    rng = np.random.default_rng(seed)
+    fpb = cfg.frames_per_buffer
+    signals = (rng.standard_normal((n_sources, n_blocks * fpb)) * 0.2).astype(np.float32)
+    positions = np.stack([
+        CircularOrbit(period_s=0.4 + 0.01 * i, ele=1 + i % 9, r=1.0).sample(n_blocks, cfg)
+        for i in range(n_sources)
+    ])
+    return signals, positions
+
+
+def build_workload(db, n_sources: int, nb: int, device, seed: int = 0,
+                   radius_step: float = 0.0) -> Workload:
+    """The bench step's inputs, made from ``seed``, on ``device``.  With
+    ``radius_step`` > 0 the sources sit at distinct radii, so the step takes
+    the per-row distance form instead of the compact one."""
+    cfg = db.config
+    rng = np.random.default_rng(seed)
+    feds = rng.standard_normal((n_sources, nb * cfg.frames_per_buffer)).astype(np.float32) * 0.2
+    plans = [make_plan(orbit(i, nb, cfg, radius_step), cfg) for i in range(n_sources)]
+    stack = lambda attr: np.stack([getattr(p, attr) for p in plans])
+    uniq_ids, ridx, ridx_last, u_pad = compact_filter_ids(
+        stack("idx_old"), np.stack([p.idx_new[-1] for p in plans])
+    )
+    if u_pad > fused_step.MAX_ONEHOT_U:
+        raise NotImplementedError(f"{u_pad} unique filters: beyond the shared one-hot form")
+    dist = dedup_distance(*(np.concatenate([getattr(p, a) for p in plans])
+                            for a in ("u_hi", "u_lo", "inv_frac")))
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if dist is None:
+        d_args, dsel, nd = tuple(put(stack(a)) for a in ("u_hi", "u_lo", "inv_frac")), None, None
+    else:
+        d_args, dsel, nd = tuple(put(a) for a in dist[:3]), put(dist[3].reshape(n_sources, nb)), dist[4]
+    chunk = (put(uniq_ids), put(ridx), put(stack("w_old")), put(ridx_last),
+             put(np.stack([p.w_new[-1] for p in plans])), put(stack("xfade")), *d_args)
+    return Workload(
+        n_sources=n_sources, nb=nb, u_pad=u_pad, n_dist=nd,
+        spectra=spectra_from_numpy(db.spectra, device),
+        hists=torch.zeros((n_sources, cfg.history_len), dtype=torch.float32, device=device),
+        feds=put(feds), chunk=chunk, dsel=dsel,
+        step=batched_chunk_fn_fused(cfg, nb, n_dist=nd),
+    )
+
+
+def run_step(wl: Workload, hists=None):
+    """One step from ``hists`` (default: the zero history)."""
+    h = wl.hists if hists is None else hists
+    return wl.step(wl.spectra, h, wl.feds, *wl.chunk, dsel=wl.dsel)
+
+
+def step_operands(wl: Workload, config=DEFAULT_CONFIG):
+    """The fused step's (args, kwargs) for the workload's first step."""
+    args, kwargs, _ = onehot_step_operands(
+        config, wl.nb, wl.n_dist, wl.spectra, wl.hists, wl.feds, *wl.chunk, dsel=wl.dsel
+    )
+    return args, kwargs
+
+
+def parity_rms(wl: Workload, db) -> float:
+    """RMS of one fresh step's source 0 against render_oracle."""
+    cfg = db.config
+    out, _ = run_step(wl)
+    got = out[0].cpu().numpy().reshape(wl.nb * cfg.frames_per_buffer, 2)
+    want = render_oracle(wl.feds[0].cpu().numpy(), db, [tuple(p) for p in orbit(0, wl.nb, cfg)], cfg)
+    return float(np.sqrt(np.mean((got.astype(np.float64) - want) ** 2)))
+
+
+def time_ms(fn, reps: int = 20, rounds: int = 7, warmup: int = 3) -> float:
+    """Device ms per call of ``fn()``: CUDA events around ``reps`` calls in a
+    row, divided by ``reps``; the median of ``rounds`` such runs, after
+    ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+def time_steps_ms(wl: Workload) -> float:
+    """Device ms per step (``time_ms``), the history carried from step to
+    step."""
+    h = [wl.hists]
+
+    def step():
+        _, h[0] = run_step(wl, h[0])
+
+    return time_ms(step)
+
+
+def profile_steps(wl: Workload, steps: int = 10) -> list[tuple[str, float, float]]:
+    """Device time by kernel over ``steps`` carried steps, from
+    torch.profiler: [(kernel, ms per step, launches per step)], largest
+    first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, h = run_step(wl)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            _, h = run_step(wl, h)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count / steps)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", required=True, help="a CUDA device, e.g. cuda or cuda:0")
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type != "cuda":
+        ap.error("the bench measures a CUDA device")
+    with torch.cuda.device(device):
+        return run(device)
+
+
+def run(device) -> int:
+    """Parity check, then the timings and the per-kernel profile; prints
+    the result line."""
+    cfg = DEFAULT_CONFIG
+    db = synthetic_database(cfg)
+    name = torch.cuda.get_device_name(device)
+    log(f"device: {name} (nvidia-smi: {card()}); torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    wl = build_workload(db, SOURCES, BLOCKS, device)
+    log(f"{SOURCES} sources x {BLOCKS} blocks per step, compact table U={wl.u_pad}, "
+        f"compact distance: {wl.n_dist} triples")
+    rms = parity_rms(wl, db)
+    log(f"parity (step vs render_oracle, source 0): rms = {rms:.3e} (budget 1e-4)")
+    if not rms < 1e-4:
+        raise AssertionError(f"bench parity outside budget: rms={rms:.3e}")
+
+    step_ms = time_steps_ms(wl)
+    fargs, fkw = step_operands(wl, cfg)
+    kernel_ms = time_ms(lambda: fused_step.fused_step_onehot_xfade(*fargs, **fkw))
+    plain_ms = time_ms(lambda: fused_step.fused_step_onehot_xfade_reference(*fargs, **fkw))
+    bps = SOURCES * BLOCKS / (step_ms * 1e-3)
+    rt = bps * cfg.frames_per_buffer / cfg.sample_rate
+    log(f"step: {step_ms:.4f} ms per {SOURCES}x{BLOCKS}-block step -> "
+        f"{bps:,.0f} blocks/s = {rt:,.0f}x real time  [{card()}]")
+    log(f"fused step alone: kernel {kernel_ms:.4f} ms, plain twin {plain_ms:.4f} ms  [{card()}]")
+    rows = profile_steps(wl)
+    busy = sum(r[1] for r in rows)
+    log(f"device time per step {busy:.4f} ms of {step_ms:.4f} ms "
+        f"(idle share {1 - busy / step_ms:.3f}); by kernel:")
+    for kernel, ms, calls in rows:
+        log(f"  {ms:9.4f} ms  x{calls:g}  {kernel[:110]}")
+    print(json.dumps({
+        "metric": "blocks_per_sec_per_chip",
+        "value": round(bps, 1),
+        "unit": "128-sample 44.1kHz blocks/s/chip",
+        "vs_baseline": round(bps / BASELINE_BLOCKS_PER_S, 2),
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

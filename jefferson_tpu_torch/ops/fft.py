@@ -1,0 +1,138 @@
+"""Split-plane DFT ops as float32 torch matmuls.
+
+Counterpart of ``jefferson_tpu/ops/fft.py`` (matmul backend only).  The
+NumPy basis builders below are verbatim copies of the JAX module's: the
+sliding forward and the direct forward stay numerically in lockstep only
+because ``_subblock_dft_matrices`` slices ``_dft_matrices`` (the
+tail-association invariant), so the port must build *the same* bases.
+``tests/test_torch_ops.py`` pins each copy bit-for-bit to the original.
+
+Convention: the forward is unnormalized; the inverse bases carry the 1/N
+and the 2x weight on interior bins.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=8)
+def _dft_matrices(n: int):
+    """Forward real-DFT basis (n, bins) as float32 cos/sin matrices
+    (NumPy; ``on_device`` makes the per-device tensor copies)."""
+    bins = n // 2 + 1
+    k = np.arange(bins)[None, :]
+    t = np.arange(n)[:, None]
+    ang = 2.0 * np.pi * t * k / n
+    return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _idft_matrices(n: int):
+    """Inverse basis (bins, n): y = a @ Cr + b @ Ci with the 1/N and the
+    2x weight on interior bins folded in (a=Re, b=Im of the half-spectrum)."""
+    bins = n // 2 + 1
+    k = np.arange(bins)[:, None]
+    t = np.arange(n)[None, :]
+    ang = 2.0 * np.pi * k * t / n
+    w = np.full((bins, 1), 2.0)
+    w[0, 0] = 1.0
+    if n % 2 == 0:
+        w[-1, 0] = 1.0
+    cr = (w * np.cos(ang) / n).astype(np.float32)
+    ci = (-w * np.sin(ang) / n).astype(np.float32)
+    return cr, ci
+
+
+@functools.lru_cache(maxsize=8)
+def _subblock_dft_matrices(n: int, sub: int):
+    """DFT basis of a length-``sub`` block zero-padded to n: (sub, bins)
+    planes — exactly the first ``sub`` rows of the full basis, SLICED from
+    it so the sliding forward and the direct rfft_split stay numerically
+    in lockstep by construction (the tail-association invariant depends on
+    these two paths agreeing)."""
+    return tuple(np.ascontiguousarray(m[:sub]) for m in _dft_matrices(n))
+
+
+@functools.lru_cache(maxsize=8)
+def _sliding_twiddles(n: int, sub: int):
+    """Twiddles e^{-2πi k (sub*m)/n} for m = 0..n/sub-1: (q, bins) planes."""
+    q = n // sub
+    bins = n // 2 + 1
+    k = np.arange(bins)[None, :]
+    m = np.arange(q)[:, None]
+    ang = 2.0 * np.pi * k * m / q
+    return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _idft_tail_matrices(n: int, tail: int):
+    cr, ci = _idft_matrices(n)
+    return np.ascontiguousarray(cr[:, n - tail :]), np.ascontiguousarray(ci[:, n - tail :])
+
+
+@functools.lru_cache(maxsize=32)
+def on_device(builder, *args, device: torch.device):
+    """A NumPy basis builder's planes as float32 tensors on ``device``
+    (built and copied once per device)."""
+    return tuple(torch.from_numpy(m).to(device) for m in builder(*args))
+
+
+def rfft_split(x: torch.Tensor, n: int):
+    """(…, n) real -> ((…, bins) re, (…, bins) im) float32 planes."""
+    cr, ci = on_device(_dft_matrices, n, device=x.device)
+    return x @ cr, x @ ci
+
+
+def _twiddle_accumulate(pr, pi, num_blocks: int, q: int, twr, twi):
+    """X[b] = sum_m tw[m] · P[b+m] along dim -2, in the JAX module's order:
+    m = 0 first (twiddle 1), then m = 1..q-1 added one at a time."""
+    xr = pr[..., 0:num_blocks, :]
+    xi = pi[..., 0:num_blocks, :]
+    for m in range(1, q):
+        a, b = twr[m], twi[m]
+        prm = pr[..., m : m + num_blocks, :]
+        pim = pi[..., m : m + num_blocks, :]
+        xr = xr + (a * prm - b * pim)
+        xi = xi + (a * pim + b * prm)
+    return xr, xi
+
+
+def rfft_sliding_split(stream: torch.Tensor, num_blocks: int, sub: int, n: int):
+    """Overlap-save windows' DFTs from the contiguous sample stream.
+
+    stream: (num_blocks*sub + (n - sub),) — history followed by fed samples.
+    Window b is stream[b*sub : b*sub + n]; its DFT is the sum over the
+    q = n/sub zero-padded sub-block DFTs P[b..b+q-1] with q-th-root
+    twiddles: X[b] = sum_m e^{-2πik m/q} P[b+m].
+    """
+    q = n // sub
+    assert stream.shape[-1] == num_blocks * sub + (n - sub)
+    subs = stream.reshape(num_blocks + q - 1, sub)
+    cr, ci = on_device(_subblock_dft_matrices, n, sub, device=stream.device)
+    twr, twi = on_device(_sliding_twiddles, n, sub, device=stream.device)
+    return _twiddle_accumulate(subs @ cr, subs @ ci, num_blocks, q, twr, twi)
+
+
+def rfft_sliding_split_batched(streams: torch.Tensor, num_blocks: int, sub: int, n: int):
+    """Batched rfft_sliding_split: streams (S, num_blocks*sub + n - sub) ->
+    ((S, num_blocks, bins) re, im).  The sub-block DFT is one tall matmul
+    over all sources' sub-blocks."""
+    q = n // sub
+    s = streams.shape[0]
+    rows = num_blocks + q - 1
+    subs = streams.reshape(s * rows, sub)
+    cr, ci = on_device(_subblock_dft_matrices, n, sub, device=streams.device)
+    twr, twi = on_device(_sliding_twiddles, n, sub, device=streams.device)
+    pr = (subs @ cr).reshape(s, rows, -1)
+    pi = (subs @ ci).reshape(s, rows, -1)
+    return _twiddle_accumulate(pr, pi, num_blocks, q, twr, twi)
+
+
+def irfft_tail_split(re: torch.Tensor, im: torch.Tensor, n: int, tail: int) -> torch.Tensor:
+    """Inverse of rfft_split, returning only the last ``tail`` samples."""
+    cr, ci = on_device(_idft_tail_matrices, n, tail, device=re.device)
+    return re @ cr + im @ ci

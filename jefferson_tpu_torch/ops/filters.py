@@ -1,0 +1,89 @@
+"""Frequency-domain filter ops on float32 planes: distance factor, complex
+multiply, crossfade.  Counterpart of ``jefferson_tpu/ops/filters.py``.
+
+``distance_phase_split`` is host NumPy, copied from the JAX module (which
+imports jax and so cannot be reused); ``tests/test_torch_ops.py`` pins it
+bit-for-bit to the original.  The device ops keep the JAX op order, which
+is the contract the CUDA kernel's distance planes follow too.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+_MASK_LOW12 = np.int32(~0xFFF)
+
+
+def distance_phase_split(fsvs: float, radii: np.ndarray, num_bins: int):
+    """Host-side prep for the distance factor, float64-accurate on device.
+
+    The distance cue's phase ramp is arg[k] = 2π·fsvs·r·k/N (reference:
+    Jefferson/src/CPUSoundSource.cpp:46-47, kernels.cu:116-125).  For k up to
+    512 a plain float32 product loses ~1e-4 rad of phase, so the per-block
+    cycle step u = fsvs·r/N is split into a 12-bit head ``u_hi`` (whose
+    product with any k < 4096 is exact in fp32) plus a tail ``u_lo``; the
+    device reduces mod 1 after the exact head product, keeping phase error
+    below ~1e-7 rad — matching the reference's double-precision cos/sin.
+
+    Returns (u_hi, u_lo, inv_frac) float32 arrays shaped like ``radii``.
+    ``radii`` are the *scaled* radii (|coords|/distance_scale) in float32.
+    """
+    r = np.asarray(radii, dtype=np.float32)
+    from jefferson_tpu.native import HAVE_NATIVE
+
+    if HAVE_NATIVE and r.ndim == 1:  # bit-exact C++ port (tests/test_native.py)
+        from jefferson_tpu.native import distance_phase_split as native_dps
+
+        return native_dps(float(fsvs), r, num_bins)
+    fsvs32 = np.float32(fsvs)
+    u = np.float64(fsvs32) * r.astype(np.float64) / np.float64(num_bins)
+    u_hi = np.float32(u)
+    u_hi = (u_hi.view(np.int32) & _MASK_LOW12).view(np.float32)
+    u_lo = np.float32(u - u_hi)
+    # frac = 1 + fsvs * r^2 in float32 like the reference
+    frac = np.float32(1.0) + fsvs32 * r * r
+    inv_frac = (np.float32(1.0) / frac).astype(np.float32)
+    return u_hi, u_lo, inv_frac
+
+
+def cmul(ar, ai, br, bi):
+    """Elementwise complex multiply on explicit planes."""
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def distance_factors_split(u_hi, u_lo, inv_frac, num_bins: int):
+    """(B,) phase-split params -> (B, num_bins) re/im distance planes.
+
+    Op order is the JAX module's: the head product is exact, each mod-1
+    reduction is a separate subtract, and nothing is fused."""
+    k = torch.arange(num_bins, dtype=torch.float32, device=u_hi.device)
+    head = u_hi[:, None] * k[None, :]
+    head = head - torch.floor(head)
+    cycles = head + u_lo[:, None] * k[None, :]
+    cycles = cycles - torch.floor(cycles)
+    arg = (2.0 * math.pi) * cycles
+    return torch.cos(arg) * inv_frac[:, None], -torch.sin(arg) * inv_frac[:, None]
+
+
+def xfade_ramp(frames: int, device) -> torch.Tensor:
+    """The crossfade ramp f[n] = n/(frames-1), float32, on ``device``.
+
+    Divided on the host: torch's CUDA division by a Python scalar multiplies
+    by the reciprocal, which can be one ulp off the true quotient that the
+    JAX package and the CUDA step compute."""
+    return (torch.arange(frames, dtype=torch.float32) / (frames - 1)).to(device)
+
+
+def crossfade_tails(y_old, y_new, xfade):
+    """Linear crossfade of the final block frames when the source moved.
+
+    y_old/y_new: (B, 2, frames); xfade: (B,) bool.
+    f[n] = n/(frames-1); out = old*(1-f) + new*f (reference:
+    Jefferson/src/kernels.cu:132-137 — the new filter ramps in).
+    """
+    fn = xfade_ramp(y_new.shape[-1], y_new.device)
+    mixed = y_old * (1.0 - fn) + y_new * fn
+    return torch.where(xfade[:, None, None], mixed, y_new)

@@ -1,0 +1,90 @@
+"""The port imports without jax or triton, turns TF32 off, and its chip
+smoke test refuses to run without a CUDA device.
+
+Each check runs in a fresh interpreter: tests/conftest.py imports jax into
+this one.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_MODULES = [
+    "jefferson_tpu_torch",
+    "jefferson_tpu_torch.bench",
+    "jefferson_tpu_torch.convert",
+    "jefferson_tpu_torch.engine.batch",
+    "jefferson_tpu_torch.engine.plan",
+    "jefferson_tpu_torch.engine.renderer",
+    "jefferson_tpu_torch.kernels.build",
+    "jefferson_tpu_torch.kernels.fused_step",
+    "jefferson_tpu_torch.ops.fft",
+    "jefferson_tpu_torch.ops.filters",
+]
+
+
+def _python(code: str, cwd=ROOT, timeout=120):
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_every_port_module_lists_in_the_test():
+    found = {
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in (ROOT / "jefferson_tpu_torch").rglob("*.py")
+    }
+    found = {m for m in found if not m.endswith(("engine", "ops", "kernels"))}
+    assert found == set(PORT_MODULES)
+
+
+def test_port_imports_without_jax_or_triton():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+        "import torch\n"
+        "print(json.dumps({'jax': sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')),\n"
+        "  'triton': 'triton' in sys.modules,\n"
+        "  'jax_plan': 'jefferson_tpu.engine.plan' in sys.modules,\n"
+        "  'tf32': [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32],\n"
+        "  'precision': torch.get_float32_matmul_precision()}))\n"
+    )
+    proc = _python(code)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {"jax": [], "triton": False, "jax_plan": False,
+                   "tf32": [False, False], "precision": "highest"}
+
+
+def _smoke(cwd):
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_cuda_device(tmp_path, alone):
+    """No CPU fallback: without a card the smoke test exits non-zero and
+    prints no result line, from the checkout and alone in a directory."""
+    cwd = ROOT
+    if alone:
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    proc = _smoke(cwd)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    assert "is_available() is false" in proc.stderr
+
+
+def test_bench_refuses_a_cpu_device():
+    proc = _python("import sys; from jefferson_tpu_torch import bench; "
+                   "sys.exit(bench.main(['--device', 'cpu']))")
+    assert proc.returncode == 2
+    assert "measures a CUDA device" in proc.stderr
+    assert proc.stdout == ""

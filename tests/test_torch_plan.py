@@ -1,0 +1,189 @@
+"""The port's host planning, pinned bit-for-bit to the JAX package's.
+
+``jefferson_tpu.engine.plan`` imports jax, so the port keeps NumPy copies of
+the planning functions the batched render uses; every copy must give the
+same arrays as the original on the same inputs.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from jefferson_tpu import DEFAULT_CONFIG, EngineConfig
+from jefferson_tpu.engine import batch as jbatch
+from jefferson_tpu.engine import plan as jplan
+from jefferson_tpu.engine import renderer as jrenderer
+from jefferson_tpu.trajectory.trajectory import CircularOrbit, StaticPosition
+from jefferson_tpu_torch.engine import batch as tbatch
+from jefferson_tpu_torch.engine import plan as tplan
+from jefferson_tpu_torch.engine import renderer as trenderer
+
+torch.set_num_threads(1)
+
+
+def _positions(kind: str, blocks: int, cfg=DEFAULT_CONFIG, i: int = 0):
+    if kind == "orbit":
+        return CircularOrbit(period_s=0.4 + 0.01 * i, ele=5 + i, r=1.0 + 0.1 * i).sample(blocks, cfg)
+    if kind == "static":
+        return StaticPosition(azi=25 * i, ele=10, r=0.6).sample(blocks, cfg)
+    rng = np.random.default_rng(i)  # scattered: azimuth and radius jump every block
+    return np.stack([rng.uniform(-30, 400, blocks), rng.uniform(-45, 95, blocks),
+                     rng.uniform(0.05, 3.0, blocks)], axis=1)
+
+
+def _assert_plans_equal(got, want):
+    for f in dataclasses.fields(want):
+        g, w = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(w, np.ndarray):
+            assert g.dtype == w.dtype, f.name
+            np.testing.assert_array_equal(g, w, err_msg=f.name)
+        else:
+            assert g == w, f.name
+
+
+@pytest.mark.parametrize("kind", ["orbit", "static", "scattered"])
+@pytest.mark.parametrize("initial_old", [(0.0, 0.0), None, (33.4, -12.6)])
+def test_make_plan_is_bit_equal(kind, initial_old):
+    pos = _positions(kind, 40)
+    _assert_plans_equal(tplan.make_plan(pos, DEFAULT_CONFIG, initial_old),
+                        jplan.make_plan(pos, DEFAULT_CONFIG, initial_old))
+
+
+def test_make_plan_rejects_what_the_original_rejects():
+    for bad in (np.zeros((4, 2)), np.zeros((0, 3))):
+        with pytest.raises(ValueError):
+            jplan.make_plan(bad)
+        with pytest.raises(ValueError):
+            tplan.make_plan(bad)
+
+
+@pytest.mark.parametrize("pad_b", [0, 1, 7])
+def test_pad_plan_is_bit_equal(pad_b):
+    pos = _positions("orbit", 13)
+    _assert_plans_equal(tplan.pad_plan(tplan.make_plan(pos), pad_b),
+                        jplan.pad_plan(jplan.make_plan(pos), pad_b))
+
+
+@pytest.mark.parametrize("u_pad", [None, 64])
+def test_compact_filter_ids_is_bit_equal(u_pad):
+    plans = [jplan.make_plan(_positions("orbit", 24, i=i)) for i in range(3)]
+    idx_old = np.stack([p.idx_old for p in plans])
+    idx_last = np.stack([p.idx_new[-1] for p in plans])
+    got = tplan.compact_filter_ids(idx_old, idx_last, u_pad=u_pad)
+    want = jplan.compact_filter_ids(idx_old, idx_last, u_pad=u_pad)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    assert got[3] == want[3]
+    with pytest.raises(ValueError, match="exceed the bucket"):
+        tplan.compact_filter_ids(idx_old, idx_last, u_pad=8)
+
+
+def test_dedup_rows_is_bit_equal():
+    p = jplan.make_plan(_positions("orbit", 60))
+    idx = np.concatenate([p.idx_new, p.idx_new[:20]])
+    w = np.concatenate([p.w_new, p.w_new[:20]])
+    for g, want in zip(tplan.dedup_rows(idx, w), jplan.dedup_rows(idx, w)):
+        assert g.dtype == want.dtype
+        np.testing.assert_array_equal(g, want)
+
+
+@pytest.mark.parametrize("n", [100, 3 * 128, 5 * 128 + 77])
+def test_fed_stream_is_bit_equal(n):
+    sig = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    np.testing.assert_array_equal(tplan.fed_stream(sig, 4), jplan.fed_stream(sig, 4))
+    for bad in (np.zeros((2, 2), np.float32), np.zeros(0, np.float32)):
+        with pytest.raises(ValueError):
+            tplan.fed_stream(bad, 4)
+
+
+@pytest.mark.parametrize("radius_step", [0.0, 0.05])
+@pytest.mark.parametrize("cap", [None, 2])
+def test_dedup_distance_is_bit_equal(radius_step, cap):
+    plans = [jplan.make_plan(CircularOrbit(period_s=0.5, ele=5, r=1.0 + i * radius_step)
+                             .sample(16, DEFAULT_CONFIG)) for i in range(4)]
+    cat = [np.concatenate([getattr(p, a) for p in plans]) for a in ("u_hi", "u_lo", "inv_frac")]
+    got, want = trenderer.dedup_distance(*cat, cap=cap), jrenderer.dedup_distance(*cat, cap=cap)
+    if want is None:
+        assert got is None
+        return
+    assert got[4] == want[4]
+    for g, w in zip(got[:4], want[:4]):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+def test_dedup_distance_empty_and_scattered():
+    empty = np.zeros(0, np.float32)
+    assert trenderer.dedup_distance(empty, empty, empty) is None
+    p = jplan.make_plan(_positions("scattered", 30))
+    assert trenderer.dedup_distance(p.u_hi, p.u_lo, p.inv_frac) is None
+    assert jrenderer.dedup_distance(p.u_hi, p.u_lo, p.inv_frac) is None
+
+
+@pytest.mark.parametrize("b,seg,max_tb", [
+    (1024, 64, 256), (64, 16, 256), (48, 16, 256), (96, 32, 64), (512, 512, 256),
+    (300, 300, 256), (36, 12, 256), (24, 3, 256), (0, 8, 256), (40, 16, 256), (64, 8, 8),
+])
+def test_pick_fused_tile_is_equal(b, seg, max_tb):
+    assert trenderer.pick_fused_tile(b, seg, max_tb) == jrenderer.pick_fused_tile(b, seg, max_tb)
+
+
+@pytest.mark.parametrize("kind,s,blocks", [
+    ("orbit", 4, 300), ("static", 8, 700), ("static", 64, 300), ("orbit", 2, 1), ("static", 0, 5),
+])
+@pytest.mark.parametrize("fused", [True, False])
+def test_auto_chunk_is_equal(kind, s, blocks, fused):
+    plans = [tplan.make_plan(_positions(kind, blocks, i=i)) for i in range(s)]
+    assert tbatch._auto_chunk(s, blocks, plans, fused) == jbatch._auto_chunk(s, blocks, plans, fused)
+
+
+@pytest.mark.parametrize("group", [None, 1, 2])
+def test_group_bucket_is_equal(group):
+    plans = [tplan.make_plan(_positions("scattered", 12, i=i)) for i in range(4)]
+    io = np.stack([p.idx_old for p in plans])
+    il = np.stack([p.idx_new[-1] for p in plans])
+    assert tbatch._group_bucket(io, il, group) == jbatch._group_bucket(io, il, group)
+
+
+@pytest.mark.parametrize("kind,s,blocks,cb", [
+    ("orbit", 4, 48, 16), ("orbit", 3, 40, 32), ("scattered", 8, 32, 16), ("scattered", 2, 64, 64),
+])
+@pytest.mark.parametrize("max_u", [256, 16])
+def test_plan_batch_onehot_shared_branch_is_equal(kind, s, blocks, cb, max_u, monkeypatch):
+    """The port returns the JAX planner's ('shared', u_pad) verbatim, and
+    None wherever the JAX planner leaves the shared form."""
+    import jefferson_tpu.pallas.fused_step as jfs
+
+    from jefferson_tpu_torch.kernels import fused_step as tfs
+
+    monkeypatch.setattr(jfs, "MAX_ONEHOT_U", max_u)
+    monkeypatch.setattr(tfs, "MAX_ONEHOT_U", max_u)
+    plans = [tplan.make_plan(_positions(kind, blocks, i=i)) for i in range(s)]
+    got = tbatch._plan_batch_onehot(plans, blocks, cb)
+    want = jbatch._plan_batch_onehot(plans, blocks, cb, s)
+    if want is not None and want[0] == "shared":
+        assert got == want
+    else:
+        assert got is None
+
+
+def test_hold_scene_test_matches_the_jax_dedup_decision():
+    """``_is_hold_scene`` is the JAX BatchRenderer's dedup test (batch.py
+    render, 'u_pad * 2 > s * (cb + 1)' declines)."""
+    cfg = DEFAULT_CONFIG
+    static = [tplan.make_plan(_positions("static", 32, i=i)) for i in range(4)]
+    movers = [tplan.make_plan(CircularOrbit(period_s=0.4 + 0.01 * i, ele=1 + 2 * i, r=1.0)
+                              .sample(32, cfg)) for i in range(4)]
+    assert tbatch._is_hold_scene(static, 32, 16)
+    assert not tbatch._is_hold_scene(movers, 32, 16)
+    # a single chunk padded far past its blocks holds its last position
+    assert tbatch._is_hold_scene([tbatch.pad_plan(p, 224) for p in movers], 256, 256)
+
+
+def test_unaligned_geometry_plan_copies_stay_equal():
+    cfg = EngineConfig(frames_per_buffer=96, hrtf_len=256)
+    pos = _positions("orbit", 9, cfg)
+    _assert_plans_equal(tplan.make_plan(pos, cfg), jplan.make_plan(pos, cfg))
