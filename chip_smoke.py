@@ -3,22 +3,37 @@
 
     python chip_smoke.py
 
-Phases, one line each; any failure exits non-zero without a result line:
+Phases, one line each or more; any failure exits non-zero without a result
+line:
   1. env     torch/CUDA versions and the card (nvidia-smi name, power limit);
              fails when torch.cuda.is_available() is false.
-  2. build   nvcc builds csrc/fused_step_onehot.cu for sm_90a.
-  3. kernel  the CUDA step against its plain-PyTorch twin at the bench shape
-             (256 sources x 64 blocks, compact table), with compact and with
-             per-row distance: max|diff| <= 5e-7, and the carried
-             overlap-save history bit-equal to the stream's tail.
-  4. path    the main path with the launch count set to 0 before and read
-             after: four bench steps (256 x 64, history carried) through
-             batched_chunk_fn_fused, the first against render_oracle, and
-             BatchRenderer(device="cuda").render of 16 moving sources x 512
-             blocks, every source against render_oracle; max|diff| <= 1e-6
-             and RMS < 1e-4 for both, and the kernel launched.
-  5. bench   the bench step (blocks/s), and the fused step's kernel and twin
-             times in turns (twin, kernel, kernel, twin), beside the card.
+  2. build   nvcc builds csrc/fused_step_onehot.cu and csrc/fused_step_gather.cu
+             for sm_90a, both at once.
+  3. kernel  every CUDA step against its plain-PyTorch twin, max|diff| <= 5e-7:
+             the batched one-hot step (row 1) at the bench shape (256 sources
+             x 64 blocks), compact and per-row distance, with the carried
+             overlap-save history bit-equal to the stream's tail; the
+             single-stream steps at B = 2048 blocks, compact and per-row
+             distance: one-hot (row 3), grouped one-hot with 4 groups of 512
+             blocks and 256-block tiles (row 4), and the gather form (row 5)
+             with and without the crossfade; and row 5's two forms bit-equal
+             on a crossfade-free chunk.
+  4. path    each main path with the launch counts set to 0 before and read
+             after.  The batched path: four bench steps (256 x 64, history
+             carried) through batched_chunk_fn_fused, the first against
+             render_oracle, and BatchRenderer(device="cuda").render of 16
+             moving sources x 512 blocks, every source against render_oracle.
+             The single-source path: Renderer(device="cuda"), chunks of 2048,
+             on the reference's sweep scenario (3, 5) (12,556 blocks) with and
+             without the sparse crossfade side-pass, the sweep gate's mover
+             (12,556 blocks), a circular orbit (0.4 s, 5 degrees) and a
+             rising helix (12,556 blocks each), each against render_oracle: max|diff| <= 1e-6, RMS <
+             1e-4, the margin against the sweep's 2e-7 beside the JAX
+             package's; each takes the JAX dispatch's arm on every chunk, and
+             rows 1, 3, 4 and both forms of row 5 launched.
+  5. bench   the bench step (blocks/s); each step's kernel and twin times in
+             turns (twin, kernel, kernel, twin); each render's wall time and
+             the device time by kernel of two of them; beside the card.
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -32,7 +47,34 @@ import time
 KERNEL_TOL = 5e-7    # CUDA step vs twin: fp32 DFT sums in another order
 ORACLE_TOL = 1e-6    # end to end, tests/test_engine_parity.py
 ORACLE_RMS = 1e-4    # bench.py's parity budget
+SWEEP_EPS = 2e-7     # the reference sweep gate's eps (jefferson_tpu/bench/sweep.py)
 RENDER_S, RENDER_B = 16, 512
+STREAM_B = 2048      # rows of a single-stream step: the Renderer's chunk
+GROUP_TB, GROUP_TILES = 256, 2   # row 4: 4 groups of 512 blocks at B = 2048
+SIGNAL_SAMPLES = 131072          # the sweep CLI's default noise input
+
+# kernel -> (its CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "fused_step_onehot_xfade": (
+        "jefferson_tpu_torch/csrc/fused_step_onehot.cu", "jefferson_tpu/pallas/fused_step.py:840"),
+    "fused_step_stream_onehot_xfade": (
+        "jefferson_tpu_torch/csrc/fused_step_onehot.cu", "jefferson_tpu/pallas/fused_step.py:582"),
+    "fused_step_stream_onehot_grouped_xfade": (
+        "jefferson_tpu_torch/csrc/fused_step_onehot.cu", "jefferson_tpu/pallas/fused_step.py:687"),
+    "fused_step_stream_xfade": (
+        "jefferson_tpu_torch/csrc/fused_step_gather.cu", "jefferson_tpu/pallas/fused_step.py:1035"),
+    "fused_step_stream_xfade/no_xfade": (
+        "jefferson_tpu_torch/csrc/fused_step_gather.cu", "jefferson_tpu/pallas/fused_step.py:1035"),
+}
+# single-stream form (bench.stream_step) -> kernel name
+FORMS = {
+    "onehot": "fused_step_stream_onehot_xfade",
+    "grouped": "fused_step_stream_onehot_grouped_xfade",
+    "gather": "fused_step_stream_xfade",
+    "gather_noxf": "fused_step_stream_xfade/no_xfade",
+}
+# the JAX package's full-scale margins (ROADMAP.md, the gate-margin ladder)
+JAX_MARGIN = {"sweep": 0.596, "sweep_no_sparse": 0.596, "mover": 0.745}
 
 
 def say(phase: str, msg: str) -> None:
@@ -55,6 +97,25 @@ def oracle_diff(got, signal, positions, db):
     return float(d.max()), float(np.sqrt(np.mean(d**2)))
 
 
+def renders(bench):
+    """The single-source path's scenarios: name -> (positions, Renderer
+    options, the arm the JAX dispatch takes on every chunk)."""
+    from jefferson_tpu.trajectory.trajectory import CircularOrbit
+
+    sweep = bench.sweep_positions(3.0, 5.0)
+    n = len(sweep)
+    return {
+        "sweep": (sweep, {}, ("dedup_fused", False, 16)),
+        "sweep_no_sparse": (sweep, {"sparse_xfade": False}, ("dedup_fused", True, None)),
+        "mover": (bench.mover_positions(n), {}, ("onehot_grouped", True, None)),
+        # the orbit revisits its 360 positions every 0.4 s, so the dedup
+        # takes it; the helix's positions do not repeat
+        "orbit": (CircularOrbit(period_s=0.4, ele=5, r=1.0).sample(n), {},
+                  ("dedup_fused", True, None)),
+        "helix": (bench.helix_positions(n), {}, ("onehot", True, None)),
+    }
+
+
 def main() -> int:
     import torch
 
@@ -68,6 +129,7 @@ def main() -> int:
     from jefferson_tpu import DEFAULT_CONFIG, synthetic_database
     from jefferson_tpu_torch import bench
     from jefferson_tpu_torch.engine.batch import BatchRenderer
+    from jefferson_tpu_torch.engine.renderer import Renderer
     from jefferson_tpu_torch.kernels import build, fused_step
 
     smi = bench.card()
@@ -79,13 +141,17 @@ def main() -> int:
     fpb = cfg.frames_per_buffer
     db = synthetic_database(cfg)
 
+    # ---- build -------------------------------------------------------------
     t0 = time.perf_counter()
-    lib = build.build("fused_step_onehot")
-    ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
-    say("build", f"{lib.name} in {time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(ptxas)}")
+    libs = build.build_all(["fused_step_onehot", "fused_step_gather"])
+    say("build", f"{', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s")
+    for lib in libs:
+        ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
+                 if "registers" in ln or "Compiling entry" in ln]
+        say("build", f"{lib.name} ptxas: {' | '.join(ptxas)}")
 
-    errs = []
+    # ---- kernels against their twins ----------------------------------------
+    errs = {name: 0.0 for name in KERNELS}
     for what, radius_step in (("compact distance", 0.0), ("per-row distance", 0.01)):
         wl = bench.build_workload(db, S, NB, device, radius_step=radius_step)
         if (wl.n_dist is None) != (radius_step > 0):
@@ -98,17 +164,49 @@ def main() -> int:
         _, hists = bench.run_step(wl)
         streams = torch.cat([wl.hists, wl.feds], dim=1)
         hist_ok = torch.equal(hists, streams[:, NB * fpb :])
-        say("kernel", f"{what}, {S}x{NB}, U={wl.u_pad}: max|kernel - twin| = {err:.3e} "
+        say("kernel", f"row 1, {what}, {S}x{NB}, U={wl.u_pad}: max|kernel - twin| = {err:.3e} "
                       f"(limit {KERNEL_TOL:.0e}); history bit-equal: {hist_ok}")
         if not (err <= KERNEL_TOL and hist_ok and bool(torch.isfinite(got).all())):
-            return fail("kernel", f"{what}: kernel disagrees with its twin")
-        errs.append(err)
+            return fail("kernel", f"row 1, {what}: kernel disagrees with its twin")
+        errs["fused_step_onehot_xfade"] = max(errs["fused_step_onehot_xfade"], err)
 
-    # ---- the main path, counted ------------------------------------------
+    for form, name in FORMS.items():
+        # the grouped form's default trajectory (the mover) has per-row
+        # distance; the orbit gives it the compact form
+        variants = [{}, {"radius_step": 0.01}] + ([{"trajectory": "orbit"}]
+                                                  if form == "grouped" else [])
+        for variant in variants:
+            fn, args, kw = bench.stream_step(db, form, STREAM_B, device, tb=GROUP_TB,
+                                             group_tiles=GROUP_TILES, xf_every=7, **variant)
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+            want = getattr(fused_step, fn.__name__ + "_reference")(*args, **kw)
+            err = float((got - want).abs().max())
+            dist = "compact" if "n_dist" in kw else "per-row"
+            extra = f", {STREAM_B // (GROUP_TB * GROUP_TILES)} groups of U={kw['u_pad']}" \
+                if form == "grouped" else ""
+            say("kernel", f"{name}, B={STREAM_B}, {dist} distance{extra}: max|kernel - twin| = "
+                          f"{err:.3e} (limit {KERNEL_TOL:.0e})")
+            if not (err <= KERNEL_TOL and got.shape == (STREAM_B, 2 * fpb)
+                    and bool(torch.isfinite(got).all())):
+                return fail("kernel", f"{name}: kernel disagrees with its twin")
+            errs[name] = max(errs[name], err)
+
+    fn, args, kw = bench.stream_step(db, "gather", STREAM_B, device, trajectory="hold", seed=4)
+    _, args_n, kw_n = bench.stream_step(db, "gather_noxf", STREAM_B, device, trajectory="hold",
+                                        seed=4)
+    y_xf, y_noxf = fn(*args, **kw), fn(*args_n, **kw_n)
+    bit_equal = bool(not args[-1].any()) and torch.equal(y_xf, y_noxf)
+    say("kernel", f"row 5 on a crossfade-free chunk of {STREAM_B}: with_xfade=False bit-equal "
+                  f"to with_xfade=True: {bit_equal}")
+    if not bit_equal:
+        return fail("kernel", "row 5's two forms differ on a crossfade-free chunk")
+
+    # ---- the batched main path, counted ------------------------------------
     wl = bench.build_workload(db, S, NB, device)
     signals, positions = bench.moving_scene(RENDER_S, RENDER_B, cfg)
     renderer = BatchRenderer(db, device=device)
-    fused_step.launches = 0
+    fused_step.reset_launches()
     t0 = time.perf_counter()
     first, h = bench.run_step(wl)
     for _ in range(3):
@@ -119,10 +217,11 @@ def main() -> int:
     rendered = renderer.render(signals, positions)
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
-    launches = fused_step.launches
+    batched = dict(fused_step.launches)
 
-    if launches < 4 + RENDER_B // 256:
-        return fail("path", f"the main path launched the CUDA step {launches} times")
+    row1 = batched["fused_step_onehot_xfade"]
+    if row1 < 4 + RENDER_B // 256 or sum(batched.values()) != row1:
+        return fail("path", f"the batched path launched {batched}")
     finite = bool(torch.isfinite(first).all()) and bool(torch.isfinite(out).all())
     if first.shape != (S, NB, fpb, 2) or not finite:
         return fail("path", f"bench step output {tuple(first.shape)} not finite / not (S, nb, fpb, 2)")
@@ -139,32 +238,91 @@ def main() -> int:
     say("path", f"BatchRenderer {RENDER_S} sources x {RENDER_B} blocks in {render_s:.2f} s "
                 f"(host planning included); vs render_oracle (every source): max|diff| "
                 f"{r_max:.3e} (limit {ORACLE_TOL:.0e}), rms {r_rms:.3e} (limit {ORACLE_RMS:.0e}); "
-                f"{launches} kernel launches on the path")
+                f"{row1} kernel launches on the path")
     if not (max(step_max, r_max) <= ORACLE_TOL and max(step_rms, r_rms) < ORACLE_RMS):
         return fail("path", "the port disagrees with the oracle")
 
+    # ---- the single-source main path, counted ------------------------------
+    signal = (np.random.default_rng(0).standard_normal(SIGNAL_SAMPLES) * 0.2).astype(np.float32)
+    scenarios = renders(bench)
+    outs, walls, logs = {}, {}, {}
+    fused_step.reset_launches()
+    for name, (pos, opts, _) in scenarios.items():
+        r = Renderer(db, device=device, **opts)
+        t0 = time.perf_counter()
+        outs[name] = r.render(signal, pos)
+        walls[name] = time.perf_counter() - t0
+        logs[name] = r.dispatch
+    single = dict(fused_step.launches)
+
+    for name, (pos, _, arm) in scenarios.items():
+        got, log = outs[name], logs[name]
+        if got.shape != (len(pos) * fpb, 2) or not np.isfinite(got).all():
+            return fail("path", f"{name}: output {got.shape} not finite / not (B*fpb, 2)")
+        d_max, d_rms = oracle_diff(got, signal, pos, db)
+        jax = JAX_MARGIN.get(name)
+        say("path", f"Renderer {name}, {len(pos)} blocks, {len(log)} chunks as {sorted(set(log))} "
+                    f"in {walls[name]:.2f} s (host planning included): vs render_oracle max|diff| "
+                    f"{d_max:.3e} (limit {ORACLE_TOL:.0e}), rms {d_rms:.3e} (limit "
+                    f"{ORACLE_RMS:.0e}); margin against {SWEEP_EPS:.0e} {d_max / SWEEP_EPS:.3f} "
+                    f"(JAX package: {'none recorded' if jax is None else jax})")
+        if not (d_max <= ORACLE_TOL and d_rms < ORACLE_RMS):
+            return fail("path", f"{name}: the port disagrees with the oracle")
+        if set(log) != {arm}:
+            return fail("path", f"{name}: dispatch {sorted(set(log))}, the JAX dispatch takes {arm}")
+    say("path", f"single-source launches: {single}")
+    if single["fused_step_onehot_xfade"] or not all(single[FORMS[f]] for f in FORMS):
+        return fail("path", f"the single-source path did not launch every step: {single}")
+    if not any(sparse for _, _, sparse in logs["sweep"]):
+        return fail("path", "the sparse side-pass did not run")
+
     # ---- timings -----------------------------------------------------------
     step_ms = bench.time_steps_ms(wl)
-    args, kw = bench.step_operands(wl, cfg)
-    kernel = lambda: fused_step.fused_step_onehot_xfade(*args, **kw)
-    twin = lambda: fused_step.fused_step_onehot_xfade_reference(*args, **kw)
-    plain_a, kernel_a, kernel_b, plain_b = (bench.time_ms(f) for f in (twin, kernel, kernel, twin))
-    kernel_ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
     bps = S * NB / (step_ms * 1e-3)
-    say("bench", f"{S}x{NB} step {step_ms:.4f} ms = {bps:,.0f} blocks/s; fused step: kernel "
-                 f"{kernel_a:.4f}/{kernel_b:.4f} ms, twin {plain_a:.4f}/{plain_b:.4f} ms  "
-                 f"[{bench.card()}]")
+    say("bench", f"{S}x{NB} step {step_ms:.4f} ms = {bps:,.0f} blocks/s  [{bench.card()}]")
+    times = {}
+    ops = {"fused_step_onehot_xfade": (
+        fused_step.fused_step_onehot_xfade, fused_step.fused_step_onehot_xfade_reference,
+        *bench.step_operands(wl, cfg))}
+    for form, name in FORMS.items():
+        fn, args, kw = bench.stream_step(db, form, STREAM_B, device, tb=GROUP_TB,
+                                         group_tiles=GROUP_TILES)
+        ops[name] = (fn, getattr(fused_step, fn.__name__ + "_reference"), args, kw)
+    for name, (fn, twin, args, kw) in ops.items():
+        k = lambda: fn(*args, **kw)
+        p = lambda: twin(*args, **kw)
+        plain_a, kernel_a, kernel_b, plain_b = (bench.time_ms(f) for f in (p, k, k, p))
+        times[name] = ((kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2)
+        shape = f"{S}x{NB}" if name == "fused_step_onehot_xfade" else f"B={STREAM_B}"
+        say("bench", f"{name} ({shape}): kernel {kernel_a:.4f}/{kernel_b:.4f} ms, twin "
+                     f"{plain_a:.4f}/{plain_b:.4f} ms  [{bench.card()}]")
+    for name, (pos, opts, _) in scenarios.items():
+        r = Renderer(db, device=device, **opts)
+        t0 = time.perf_counter()
+        r.render(signal, pos)
+        wall = time.perf_counter() - t0
+        say("bench", f"Renderer {name}: {wall:.3f} s wall for {len(pos)} blocks "
+                     f"({len(pos) / wall:,.0f} blocks/s, host planning and transfers included)  "
+                     f"[{bench.card()}]")
+        if name in ("sweep", "mover"):
+            rows = bench.device_profile(lambda: r.render(signal, pos))
+            busy = sum(row[1] for row in rows)
+            say("bench", f"Renderer {name} under torch.profiler: device busy {busy:.3f} ms "
+                         f"of {wall * 1e3:.1f} ms wall; by kernel:")
+            for kernel, ms, calls in rows[:12]:
+                say("bench", f"  {ms:9.4f} ms  x{calls:g}  {kernel[:100]}")
 
+    launches = {**single, "fused_step_onehot_xfade": row1}
     print(json.dumps({"kernels": [{
-        "name": "fused_step_onehot_xfade",
+        "name": name,
         "route": "cuda",
-        "source": "jefferson_tpu_torch/csrc/fused_step_onehot.cu",
-        "replaces": "jefferson_tpu/pallas/fused_step.py:347",
-        "launches": launches,
-        "max_abs_err": max(errs),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": errs[name],
+        "ms": times[name][0],
+        "plain_ms": times[name][1],
+    } for name, (source, replaces) in KERNELS.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

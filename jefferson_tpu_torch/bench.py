@@ -34,13 +34,14 @@ import torch
 
 from jefferson_tpu import DEFAULT_CONFIG, synthetic_database
 from jefferson_tpu.oracle.reference import render_oracle
-from jefferson_tpu.trajectory.trajectory import CircularOrbit
+from jefferson_tpu.trajectory.trajectory import AzimuthSweep, CircularOrbit
 
 from .convert import spectra_from_numpy
 from .engine.batch import batched_chunk_fn_fused, onehot_step_operands
-from .engine.plan import compact_filter_ids, make_plan
-from .engine.renderer import dedup_distance
+from .engine.plan import compact_filter_ids, compact_filter_ids_grouped, make_plan
+from .engine.renderer import cat_table, dedup_distance
 from .kernels import fused_step
+from .kernels.fused_step import blend_cat
 
 BASELINE_BLOCKS_PER_S = 3333.3
 SOURCES, BLOCKS = 256, 64  # the JAX bench.py workload: sources x blocks per step
@@ -130,6 +131,119 @@ def build_workload(db, n_sources: int, nb: int, device, seed: int = 0,
     )
 
 
+def sweep_positions(start_azi: float, ele: float) -> np.ndarray:
+    """The reference's benchmarkTesting scenario (precision_test.cu:2093-2148,
+    ``jefferson_tpu.bench.sweep``): r = 0.5, a 5-degree azimuth step every
+    172 blocks, 72 steps -> (12,556, 3) positions."""
+    traj = AzimuthSweep(start_azi=start_azi, ele=ele, r=0.5, step_deg=5.0,
+                        blocks_per_step=172, num_steps=72)
+    return traj.sample(traj.total_blocks)
+
+
+def mover_positions(num_blocks: int, ele_period: int = 997) -> np.ndarray:
+    """The sweep gate's mover (a copy of ``jefferson_tpu.bench.sweep.
+    mover_positions``, whose module imports jax): azimuth 1.3 degrees per
+    block, elevation over the whole grid, r = 0.5 -> more unique filters
+    per 2048-block chunk than one compact table takes."""
+    i = np.arange(num_blocks)
+    azi = (i * 1.3) % 360.0
+    ele = 25.0 + 65.0 * np.sin(i * (2.0 * np.pi / ele_period))
+    return np.stack([azi, ele, np.full(num_blocks, 0.5)], axis=1)
+
+
+def helix_positions(num_blocks: int, period_s: float = 0.4, rise_deg: float = 0.5,
+                    cfg=DEFAULT_CONFIG) -> np.ndarray:
+    """A source circling the listener once per ``period_s`` while rising
+    ``rise_deg`` per turn from -10 degrees, r = 1.  Its positions do not
+    repeat, so the renderer's dedup declines, while a 2048-block chunk
+    stays within one compact table: the single-source one-hot form."""
+    i = np.arange(num_blocks)
+    turn = period_s * cfg.sample_rate / cfg.frames_per_buffer  # blocks per turn
+    return np.stack([(i * 360.0 / turn) % 360.0, -10.0 + rise_deg * i / turn,
+                     np.full(num_blocks, 1.0)], axis=1)
+
+
+STREAM_FORMS = ("onehot", "grouped", "gather", "gather_noxf")
+
+
+def stream_step(db, form: str, b: int, device, *, seed: int = 0, radius_step: float = 0.0,
+                tb: int | None = None, group_tiles: int | None = None, xf_every: int = 0,
+                trajectory: str | None = None):
+    """One single-stream step's operands, made from ``seed`` -> (wrapper,
+    args, kwargs): ``wrapper(*args, **kwargs)`` runs the step and the
+    wrapper's twin takes the same operands.
+
+    ``form``: "onehot" (row 3), "grouped" (row 4, tables per ``group_tiles``
+    tiles of ``tb`` blocks), "gather" and "gather_noxf" (row 5 with and
+    without the crossfade; the latter takes the plan's new rows).
+    ``trajectory``: "orbit" (a circular orbit at 5 degrees, r = 1: compact
+    distance), "mover" (``mover_positions``: wide filter sets, per-row
+    distance), or "hold" (a fixed position, no crossfade: then "gather" and
+    "gather_noxf" on one seed are the no-crossfade contract's pair, the same
+    output bit for bit); default "mover" for "grouped", else "orbit".
+    ``radius_step`` > 0 moves the radius every block (per-row distance);
+    ``xf_every`` > 0 turns the crossfade off on every that-many-th row."""
+    cfg = db.config
+    fpb = cfg.frames_per_buffer
+    rng = np.random.default_rng(seed)
+    trajectory = trajectory or ("mover" if form == "grouped" else "orbit")
+    if trajectory == "mover":
+        pos = mover_positions(b)
+    elif trajectory == "hold":
+        pos = np.tile([40.0, 10.0, 1.0], (b, 1))
+    else:
+        pos = CircularOrbit(period_s=0.4, ele=5, r=1.0).sample(b, cfg)
+    if radius_step:
+        pos[:, 2] = 1.0 + radius_step * np.arange(b)
+    plan = make_plan(pos, cfg, initial_old=None if trajectory == "hold" else (0.0, 0.0))
+    stream = np.concatenate([(rng.standard_normal(cfg.history_len) * 0.2),
+                             rng.standard_normal(b * fpb) * 0.2]).astype(np.float32)
+    xf = plan.xfade.astype(np.float32)[:, None]
+    if xf_every:
+        xf[::xf_every] = 0.0
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    dist = dedup_distance(plan.u_hi, plan.u_lo, plan.inv_frac)
+    if dist is None:
+        d_args = tuple(put(getattr(plan, a)[:, None]) for a in ("u_hi", "u_lo", "inv_frac"))
+        kw = {}
+    else:
+        d_args = tuple(put(a[:, None]) for a in dist[:3])
+        kw = dict(dsel=put(dist[3][:, None]), n_dist=dist[4])
+    kw.update(pad_len=cfg.pad_len, bins=cfg.num_bins, fpb=fpb)
+    cat = cat_table(spectra_from_numpy(db.spectra, device))
+    last_i, last_w = plan.idx_new[-1:], plan.w_new[-1:]
+    if form == "onehot":
+        uniq, ridx, rlast, _ = compact_filter_ids(plan.idx_old, last_i)
+        args = (cat[put(uniq).long()], put(ridx), put(plan.w_old), put(rlast), put(last_w))
+        fn = fused_step.fused_step_stream_onehot_xfade
+    elif form == "grouped":
+        u_pad = 8
+        while True:  # the smallest bucket that holds every group's filters
+            try:
+                uniq, ridx, rbnd = compact_filter_ids_grouped(
+                    plan.idx_old, last_i, tb * group_tiles, tb, u_pad)
+                break
+            except ValueError:
+                u_pad *= 2
+        wbnd = np.concatenate([plan.w_old[tb::tb], last_w])
+        args = (cat[put(uniq).long()], put(ridx), put(plan.w_old), put(rbnd), put(wbnd))
+        kw.update(tb=tb, group_tiles=group_tiles, u_pad=u_pad)
+        fn = fused_step.fused_step_stream_onehot_grouped_xfade
+    elif form == "gather":
+        g_old = blend_cat(cat, put(plan.idx_old), put(plan.w_old))
+        args = (g_old, blend_cat(cat, put(last_i), put(last_w)))
+        fn = fused_step.fused_step_stream_xfade
+    elif form == "gather_noxf":
+        args = (blend_cat(cat, put(plan.idx_new), put(plan.w_new)), None)
+        kw.update(with_xfade=False)
+        fn = fused_step.fused_step_stream_xfade
+        xf = None
+    else:
+        raise ValueError(f"form {form!r} not in {STREAM_FORMS}")
+    args = (put(stream), *d_args, *args, None if xf is None else put(xf))
+    return fn, args, kw
+
+
 def run_step(wl: Workload, hists=None):
     """One step from ``hists`` (default: the zero history)."""
     h = wl.hists if hists is None else hists
@@ -182,22 +296,32 @@ def time_steps_ms(wl: Workload) -> float:
     return time_ms(step)
 
 
-def profile_steps(wl: Workload, steps: int = 10) -> list[tuple[str, float, float]]:
-    """Device time by kernel over ``steps`` carried steps, from
-    torch.profiler: [(kernel, ms per step, launches per step)], largest
+def device_profile(fn, calls: int = 1) -> list[tuple[str, float, float]]:
+    """Device time by kernel over ``calls`` calls of ``fn()``, from
+    torch.profiler: [(kernel, ms per call, launches per call)], largest
     first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _, h = run_step(wl)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            _, h = run_step(wl, h)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count / steps)
+    rows = [(e.key, e.self_device_time_total / 1e3 / calls, e.count / calls)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     return sorted(rows, key=lambda r: -r[1])
+
+
+def profile_steps(wl: Workload, steps: int = 10) -> list[tuple[str, float, float]]:
+    """Device time by kernel per step over ``steps`` carried steps
+    (``device_profile``)."""
+    h = [run_step(wl)[1]]
+
+    def step():
+        _, h[0] = run_step(wl, h[0])
+
+    return device_profile(step, steps)
 
 
 def main(argv=None) -> int:

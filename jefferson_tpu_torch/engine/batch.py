@@ -247,7 +247,7 @@ class BatchRenderer:
             raise NotImplementedError(
                 f"wide scene: more unique filters per chunk than MAX_ONEHOT_U="
                 f"{fused_step.MAX_ONEHOT_U}; the JAX package uses grouped tables "
-                "(kernel row 2, ROADMAP queue 2 item 4) or the gather form "
+                "(kernel row 2, ROADMAP queue 2 item 2) or the gather form "
                 "(kernel row 6, item 1), not ported yet"
             )
         tb = pick_fused_tile(s * cb, cb)
@@ -257,7 +257,7 @@ class BatchRenderer:
         if tb % cb:
             raise NotImplementedError(
                 f"chunk_blocks={cb} > 256: the JAX package renders it through the "
-                "apply-only form (kernel row 7, ROADMAP queue 2 item 6), not ported yet"
+                "apply-only form (kernel row 7, ROADMAP queue 2 item 3), not ported yet"
             )
         return plan[1]
 

@@ -1,7 +1,7 @@
 """Host-side render plan: per-block positions -> gather indices and weights.
 
 NumPy copy of the parts of ``jefferson_tpu/engine/plan.py`` that the
-batched render uses.  The original imports jax through
+port's renderers use.  The original imports jax through
 ``ops/filters.py``, so the port keeps this jax-free copy (using the local
 ``distance_phase_split``); ``tests/test_torch_plan.py`` pins every function
 bit-for-bit to its JAX-package counterpart.
@@ -133,8 +133,9 @@ def dedup_rows(idx: np.ndarray, w: np.ndarray):
     """Unique (indices, weights) rows -> (uniq_idx, uniq_w, inverse).
 
     Keys are the raw bit patterns (int32 indices + float32 weight bits), so
-    deduplication is exact.  The port uses it only to decide, as the JAX
-    BatchRenderer does, whether a render is a hold scene.
+    deduplication is exact.  The single-source Renderer blends only the
+    unique rows of a chunk; the batched renderer uses it to decide, as the
+    JAX BatchRenderer does, whether a render is a hold scene.
     """
     idx = np.asarray(idx, dtype=np.int32)
     w = np.asarray(w, dtype=np.float32)
@@ -175,6 +176,44 @@ def compact_filter_ids(idx_old: np.ndarray, idx_last: np.ndarray, u_pad: int | N
         u_pad = max(8, 1 << int(np.ceil(np.log2(len(np.unique(all_ids))))))
     uniq_pad, lut = _compact_table(all_ids, u_pad, "chunk")
     return uniq_pad, lut[idx_old], lut[idx_last], u_pad
+
+
+def compact_filter_ids_grouped(
+    idx_old: np.ndarray, idx_last: np.ndarray, group: int, tb: int, u_pad: int
+):
+    """Per-group compact tables for the grouped one-hot step (wide movers).
+
+    The chunk's blocks split into groups of ``group`` blocks, each with its
+    own compact table of ``u_pad`` rows; the step blends tile i against the
+    table of group i // (group // tb).  idx_old: (B, 4) OLD-aligned rows;
+    idx_last: (1, 4) the chunk's final new row; ``tb``: the step's tile
+    (boundary rows are per tile).
+
+    Returns (uniq_ids (G*u_pad,), ridx (B, 4), rbnd (B/tb, 4)), all remapped
+    into the owning group's table (each group's table includes its
+    boundary rows' filters: the next tile's first old row, and idx_last for
+    the chunk's final tile).
+    """
+    idx_old = np.asarray(idx_old, np.int32)
+    idx_last = np.asarray(idx_last, np.int32)
+    b = idx_old.shape[0]
+    assert b % group == 0 and group % tb == 0
+    n_tiles = b // tb
+    tables, ridx = [], np.empty_like(idx_old)
+    rbnd = np.empty((n_tiles, 4), np.int32)
+    for g, start in enumerate(range(0, b, group)):
+        stop = start + group
+        bnds = np.concatenate(
+            [idx_old[start + tb : stop : tb], idx_old[stop : stop + 1]]
+            if stop < b
+            else [idx_old[start + tb : stop : tb], idx_last]
+        )
+        ids = np.concatenate([idx_old[start:stop].reshape(-1), bnds.reshape(-1)])
+        table, lut = _compact_table(ids, u_pad, f"group {g}")
+        tables.append(table)
+        ridx[start:stop] = lut[idx_old[start:stop]]
+        rbnd[start // tb : stop // tb] = lut[bnds]
+    return np.concatenate(tables), ridx, rbnd
 
 
 def fed_stream(signal: np.ndarray, num_blocks: int, config: EngineConfig = DEFAULT_CONFIG) -> np.ndarray:

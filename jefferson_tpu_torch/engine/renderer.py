@@ -1,6 +1,6 @@
-"""The unfused interpolating FD chain and the planning helpers it shares
-with the batched renderer.  Counterpart of a subset of
-``jefferson_tpu/engine/renderer.py`` (matmul backend only):
+"""The single-source renderer, its chunk functions, and the planning helpers
+it shares with the batched renderer.  Counterpart of
+``jefferson_tpu/engine/renderer.py`` (matmul backend, FD_COMPLEX):
 
     sliding sub-block forward DFT -> (B, bins) planes
     -> extended HRTF blend (old set = previous block's new set) per ear
@@ -8,18 +8,32 @@ with the batched renderer.  Counterpart of a subset of
     -> crossfade tails -> (B, fpb, 2)
 
 Every tensor is a float32 (rows, bins) plane; the filter table is the
-combined-plane layout [rL | iL | rR | iR].
+combined-plane layout [rL | iL | rR | iR].  The chunk functions keep the
+JAX package's signatures; the fused ones run the CUDA steps of
+``kernels/fused_step`` (their plain twins for CPU tensors).
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
 import torch
 
-from jefferson_tpu.config import EngineConfig
+from jefferson_tpu.config import EngineConfig, ProcessType
+from jefferson_tpu.hrtf.kemar import HRTFDatabase
 
+from ..convert import spectra_from_numpy
+from ..kernels import fused_step
+from ..kernels.fused_step import blend_cat
 from ..ops import fft as fft_ops
 from ..ops.filters import cmul, distance_factors_split, xfade_ramp
+from .plan import (
+    RenderPlan, compact_filter_ids, compact_filter_ids_grouped, dedup_rows, fed_stream,
+    make_plan,
+)
+
+_FD_COMPLEX = (ProcessType.TPU_FD_COMPLEX, ProcessType.CPU_FD_COMPLEX)
 
 
 def _segments(full: torch.Tensor, num_blocks: int, config: EngineConfig) -> torch.Tensor:
@@ -65,6 +79,32 @@ def _fd_complex_chunk(
     return out, new_hist
 
 
+def _fd_complex_chunk_dedup(
+    spectra, hist, fed, uniq_idx, uniq_w, inv, xfade, u_hi, u_lo, inv_frac,
+    *, config: EngineConfig, num_blocks: int, with_xfade: bool,
+):
+    """Deduplicated variant of the unfused chunk: blend only the U unique
+    (index, weight) rows and broadcast them with one row gather; the same
+    per-row op order as the direct chunk.  ``inv`` maps extended row b ->
+    unique id; with_xfade consumes B+1 rows (old[b] == new[b-1] by plan
+    construction), otherwise B."""
+    full = torch.cat([hist, fed])
+    new_hist = full[num_blocks * config.frames_per_buffer :]
+    xr, xi = _forward_split(full, num_blocks, config)
+    g_cat = blend_cat(cat_table(spectra), uniq_idx, uniq_w)  # (U, 4*bins)
+    g = split_planes(g_cat[inv.long()], config.num_bins)
+    if with_xfade:
+        g_old = tuple(a[:num_blocks] for a in g)
+        g_new = tuple(a[1:] for a in g)
+    else:
+        g_old, g_new = None, g
+    out = apply_filters_core(
+        xr, xi, g_old, g_new, xfade, u_hi, u_lo, inv_frac,
+        config=config, with_xfade=with_xfade,
+    )
+    return out, new_hist
+
+
 def dedup_distance(u_hi, u_lo, inv_frac, cap: int | None = None):
     """Compact-distance plan: (duh(8,), dul(8,), df(8,), sel(B,) int32, n)
     when the render's (u_hi, u_lo, inv_frac) triples take at most ``cap``
@@ -74,9 +114,7 @@ def dedup_distance(u_hi, u_lo, inv_frac, cap: int | None = None):
     |coordinates| round trip wobbles r by an ulp on scattered blocks, so
     "constant r" still yields 2-4 triples).  The step then takes each row's
     ramp from its exact triple: the same values as the per-row form."""
-    from ..kernels.fused_step import MAX_DIST_UNIQ
-
-    cap = MAX_DIST_UNIQ if cap is None else cap
+    cap = fused_step.MAX_DIST_UNIQ if cap is None else cap
     # the step's unique-triple operand has 8 rows
     assert cap <= 8, f"compact-distance cap {cap} exceeds the kernel's 8 rows"
     if len(u_hi) == 0:
@@ -100,9 +138,10 @@ def dedup_distance(u_hi, u_lo, inv_frac, cap: int | None = None):
 def pick_fused_tile(b: int, seg: int, max_tb: int = 256) -> int | None:
     """Largest fused-step tile <= max_tb compatible with (B, seg), or None.
 
-    Needs tb | B, (seg | tb or tb | seg), and tb % 8 == 0.  The CUDA step
-    does not tile by it; the batched renderer uses it to leave the one-hot
-    form exactly where the JAX package's dispatch does."""
+    Needs tb | B, (seg | tb or tb | seg), and tb % 8 == 0.  The CUDA steps
+    do not tile by it; the renderers use it to take the fused forms exactly
+    where the JAX package's dispatch does, and the grouped one-hot form
+    keeps its per-tile boundary rows."""
     if b <= 0 or seg <= 0 or b % seg:
         return None
     if seg >= max_tb:
@@ -118,21 +157,248 @@ def pick_fused_tile(b: int, seg: int, max_tb: int = 256) -> int | None:
     return None
 
 
+def _fd_complex_chunk_fused(
+    spectra, hist, fed,
+    idx_old,   # (B, 4) old-aligned rows; the NEW rows when not with_xfade
+    w_old,
+    idx_last,  # (1, 4) the chunk's final new row (unused when not with_xfade)
+    w_last,
+    xfade,     # (unused when not with_xfade)
+    u_hi, u_lo, inv_frac, dsel=None,
+    *, config: EngineConfig, num_blocks: int, n_dist: int | None = None,
+    with_xfade: bool = True,
+):
+    """Gather-form fused chunk: blend the old-aligned rows (the new rows
+    without the crossfade) and run the gather-form step, which derives the
+    new rows as the next old row and the last new row."""
+    fpb = config.frames_per_buffer
+    full = torch.cat([hist, fed])
+    new_hist = full[num_blocks * fpb :]
+    cat = cat_table(spectra)
+    g_rows = blend_cat(cat, idx_old, w_old)
+    if with_xfade:
+        g_last = blend_cat(cat, idx_last, w_last)
+        xf = xfade.to(torch.float32)[:, None]
+    else:
+        g_last, xf = None, None
+    y = _apply_maybe_full_fuse(
+        full, u_hi, u_lo, inv_frac, g_rows, g_last, xf, config,
+        dsel=dsel, n_dist=n_dist, with_xfade=with_xfade,
+    )
+    return y.reshape(num_blocks, 2, fpb).permute(0, 2, 1), new_hist
+
+
+def _fd_complex_chunk_onehot(
+    spectra, hist, fed,
+    uniq_ids,   # (U_pad,) unique filter ids (plan.compact_filter_ids)
+    ridx,       # (B, 4) OLD-aligned rows remapped into the table
+    w_old,      # (B, 4)
+    ridx_last,  # (1, 4)
+    w_last,     # (1, 4)
+    xfade, u_hi, u_lo, inv_frac, dsel=None,
+    *, config: EngineConfig, num_blocks: int, n_dist: int | None = None,
+):
+    """One-hot compact-table chunk for one stream (row 3's step)."""
+    fpb = config.frames_per_buffer
+    full = torch.cat([hist, fed])
+    new_hist = full[num_blocks * fpb :]
+    table = cat_table(spectra)[uniq_ids.long()]
+    y = fused_step.fused_step_stream_onehot_xfade(
+        full, u_hi[:, None], u_lo[:, None], inv_frac[:, None],
+        table, ridx, w_old, ridx_last, w_last, xfade.to(torch.float32)[:, None],
+        pad_len=config.pad_len, bins=config.num_bins, fpb=fpb,
+        dsel=None if dsel is None else dsel[:, None], n_dist=n_dist,
+    )
+    return y.reshape(num_blocks, 2, fpb).permute(0, 2, 1), new_hist
+
+
+def _fd_complex_chunk_onehot_grouped(
+    spectra, hist, fed,
+    uniq_ids,  # (G*U_pad,) stacked per-group unique filter ids
+    ridx,      # (B, 4) OLD-aligned rows remapped per group
+    w_old,     # (B, 4)
+    rbnd,      # (n_tiles, 4) per-tile boundary rows, per group
+    wbnd,      # (n_tiles, 4)
+    xfade, u_hi, u_lo, inv_frac, dsel=None,
+    *, config: EngineConfig, num_blocks: int, tb: int, group_tiles: int, u_pad: int,
+    n_dist: int | None = None,
+):
+    """Grouped one-hot chunk for wide movers (row 4's step): the chunk's
+    tiles blend against per-group compact tables, one launch per chunk."""
+    fpb = config.frames_per_buffer
+    full = torch.cat([hist, fed])
+    new_hist = full[num_blocks * fpb :]
+    tables = cat_table(spectra)[uniq_ids.long()]  # (G*U_pad, 4*bins)
+    y = fused_step.fused_step_stream_onehot_grouped_xfade(
+        full, u_hi[:, None], u_lo[:, None], inv_frac[:, None],
+        tables, ridx, w_old, rbnd, wbnd, xfade.to(torch.float32)[:, None],
+        pad_len=config.pad_len, bins=config.num_bins, fpb=fpb, tb=tb,
+        group_tiles=group_tiles, u_pad=u_pad,
+        dsel=None if dsel is None else dsel[:, None], n_dist=n_dist,
+    )
+    return y.reshape(num_blocks, 2, fpb).permute(0, 2, 1), new_hist
+
+
+def _apply_maybe_full_fuse(
+    full, u_hi, u_lo, inv_frac, g_old, g_last, xf, config, dsel=None,
+    n_dist: int | None = None, with_xfade: bool = True,
+):
+    """Run the gather-form fused step (forward DFT and distance in the
+    kernel).  The JAX package's other branch, for a history that is not a
+    whole number of blocks, is the apply-only kernel (row 7), not ported."""
+    if config.history_len % config.frames_per_buffer:
+        raise ValueError(
+            "history_len % frames_per_buffer != 0 needs the apply-only kernel "
+            "(kernel row 7, ROADMAP queue 2 item 3), not ported yet; use fused=False"
+        )
+    return fused_step.fused_step_stream_xfade(
+        full, u_hi[:, None], u_lo[:, None], inv_frac[:, None], g_old, g_last, xf,
+        pad_len=config.pad_len, bins=config.num_bins, fpb=config.frames_per_buffer,
+        dsel=None if dsel is None else dsel[:, None], n_dist=n_dist, with_xfade=with_xfade,
+    )
+
+
+def _apply_xfade_amortization(chunk_xfs: list[bool]) -> list[bool]:
+    """The JAX package's policy for electing the no-crossfade form: only
+    when at least two chunks would use it (a lone crossfade-free chunk
+    rides the crossfade form; a render with no crossfade always does).  It
+    paid for a second TPU compile; the port keeps it so it runs the same
+    form per chunk."""
+    if any(chunk_xfs) and 0 < chunk_xfs.count(False) < 2:
+        return [True] * len(chunk_xfs)
+    return chunk_xfs
+
+
+def _sparse_bucket(max_ncf: int, rows: int) -> int | None:
+    """Static cf-row bucket for the sparse-crossfade side-pass, or None
+    when the crossfades are too dense for it (bucket > rows/8)."""
+    if max_ncf <= 0:
+        return None
+    bucket = max(8, 1 << int(np.ceil(np.log2(max_ncf))))
+    return bucket if bucket <= rows // 8 else None
+
+
+def _pad_cf_indices(xfade_rows: np.ndarray, bucket: int) -> np.ndarray:
+    """Crossfading-row ids padded to ``bucket`` by repeating the last real
+    id (duplicates scatter identical values; an all-hold chunk pads with
+    id 0, masked by its False xfade flag)."""
+    cfi = np.flatnonzero(xfade_rows)
+    if len(cfi) == 0:
+        return np.zeros(bucket, np.int64)
+    if len(cfi) < bucket:
+        cfi = np.concatenate([cfi, np.repeat(cfi[-1:], bucket - len(cfi))])
+    return cfi
+
+
+def _sparse_xfade_fix(
+    y, subs_all, cf_idx, g_old_cf, xfade, u_hi, u_lo, inv_frac,
+    *, config: EngineConfig, nb_seg: int,
+):
+    """Fix up the few crossfading rows of a no-crossfade step's output.
+
+    ``y`` (S*nb_seg, 2*fpb) holds the new-side tails of every row; the
+    ``cf_idx`` rows (a small static bucket, padded by repeating a real id)
+    are re-blended with an old-side tail computed here in plain torch: the
+    forward DFT of just those rows in the sliding sub-block form (the
+    association of ops/fft.rfft_sliding_split and the step's forward), the
+    distance ramp, the old-filter apply and tail IDFT, and the crossfade,
+    masked by each row's own xfade flag so padded ids rewrite their own
+    values.  subs_all: (S*(nb_seg + q - 1), fpb) sub-block sample rows."""
+    fpb = config.frames_per_buffer
+    bins = config.num_bins
+    n = config.pad_len
+    q = n // fpb
+    dev = y.device
+    s_ids = cf_idx // nb_seg
+    base = cf_idx + s_ids * (q - 1)
+    win = base[:, None] + torch.arange(q, device=dev)[None, :]    # (ncf, q)
+    subs = subs_all[win]                                           # (ncf, q, fpb)
+    cr, ci = fft_ops.on_device(fft_ops._subblock_dft_matrices, n, fpb, device=dev)
+    ncf = cf_idx.shape[0]
+    flat = subs.reshape(ncf * q, fpb)
+    pr = (flat @ cr).reshape(ncf, q, bins)
+    pi = (flat @ ci).reshape(ncf, q, bins)
+    twr, twi = fft_ops.on_device(fft_ops._sliding_twiddles, n, fpb, device=dev)
+    xr, xi = pr[:, 0], pi[:, 0]
+    for m in range(1, q):
+        a, b = twr[m][None, :], twi[m][None, :]
+        xr = xr + (a * pr[:, m] - b * pi[:, m])
+        xi = xi + (a * pi[:, m] + b * pr[:, m])
+    dr, di = distance_factors_split(u_hi[cf_idx], u_lo[cf_idx], inv_frac[cf_idx], bins)
+    xdr, xdi = cmul(xr, xi, dr, di)
+    grl, gil, grr, gir = split_planes(g_old_cf, bins)
+    qs = [cmul(xdr, xdi, grl, gil), cmul(xdr, xdi, grr, gir)]
+    qr = torch.stack([qq[0] for qq in qs])                         # (2, ncf, bins)
+    qi = torch.stack([qq[1] for qq in qs])
+    y_old = fft_ops.irfft_tail_split(qr, qi, n, fpb)               # (2, ncf, fpb)
+    fn = xfade_ramp(fpb, dev)
+    y_new_cf = y[cf_idx]                                           # (ncf, 2*fpb)
+    mask = xfade[cf_idx][:, None]
+    cols = []
+    for c in range(2):
+        yn = y_new_cf[:, c * fpb : (c + 1) * fpb]
+        mixed = y_old[c] * (1.0 - fn) + yn * fn
+        cols.append(torch.where(mask, mixed, yn))
+    y = y.clone()
+    y[cf_idx] = torch.cat(cols, dim=1)
+    return y
+
+
+def _fd_complex_chunk_dedup_fused(
+    spectra, hist, fed,
+    uniq_idx,  # (U, 4)
+    uniq_w,    # (U, 4)
+    inv_old,   # (B,) unique-row id of each block's OLD filters (NEW when not with_xfade)
+    inv_last,  # (1,) unique-row id of the chunk's final new row (unused when not with_xfade)
+    xfade,     # (unused when not with_xfade, except sparse mode)
+    u_hi, u_lo, inv_frac, dsel=None,
+    cf_idx=None,  # (n_cf,) crossfading row ids (sparse)
+    cf_old=None,  # (n_cf,) their OLD unique-row ids
+    *, config: EngineConfig, num_blocks: int, n_dist: int | None = None,
+    with_xfade: bool = True, n_cf: int | None = None,
+):
+    """Dedup + fused composition: blend only the unique rows, broadcast
+    with one row gather, and run the gather-form step (row 5).
+
+    ``with_xfade=False``: the chunk has no crossfading block; ``inv_old``
+    carries the new-row ids and the step computes the new side only.
+    ``n_cf`` (sparse crossfades): the chunk crossfades on at most n_cf rows;
+    the no-crossfade step runs for all rows, then ``_sparse_xfade_fix``
+    re-blends the ``cf_idx`` rows."""
+    fpb = config.frames_per_buffer
+    sparse = n_cf is not None
+    assert not (sparse and with_xfade), "sparse mode implies the no-crossfade step"
+    assert not (sparse and n_dist is not None), "the sparse side-pass keeps per-row ramps"
+    full = torch.cat([hist, fed])
+    new_hist = full[num_blocks * fpb :]
+    cat = cat_table(spectra)
+    g_u = blend_cat(cat, uniq_idx, uniq_w)
+    g_rows = g_u[inv_old.long()]
+    if with_xfade:
+        g_last = g_u[inv_last.long()]
+        xf = xfade.to(torch.float32)[:, None]
+    else:
+        g_last, xf = None, None
+    y = _apply_maybe_full_fuse(
+        full, u_hi, u_lo, inv_frac, g_rows, g_last, xf, config,
+        dsel=dsel, n_dist=n_dist, with_xfade=with_xfade,
+    )
+    if sparse:
+        # blend only the n_cf old rows the side-pass needs (the same values
+        # as taking them from a full blend: per-row op order is unchanged)
+        old = cf_old.long()
+        g_old_cf = blend_cat(cat, uniq_idx[old], uniq_w[old])
+        y = _sparse_xfade_fix(
+            y, full.reshape(-1, fpb), cf_idx.long(), g_old_cf, xfade, u_hi, u_lo, inv_frac,
+            config=config, nb_seg=num_blocks,
+        )
+    return y.reshape(num_blocks, 2, fpb).permute(0, 2, 1), new_hist
+
+
 def cat_table(spectra) -> torch.Tensor:
     """Combined-plane filter table (num_hrtf, 4*bins) = [rL | iL | rR | iR]."""
     hr, hi = spectra
     return torch.cat([hr[:, 0, :], hi[:, 0, :], hr[:, 1, :], hi[:, 1, :]], dim=1)
-
-
-def blend_cat(table_cat: torch.Tensor, indices: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """Weighted 4-row gather on the combined table -> (rows, 4*bins), summed
-    in bracket order (the CUDA step blends in the same order)."""
-    w = weights.to(torch.float32)
-    idx = indices.long()
-    acc = w[:, 0:1] * table_cat[idx[:, 0]]
-    for j in range(1, idx.shape[1]):
-        acc = acc + w[:, j : j + 1] * table_cat[idx[:, j]]
-    return acc
 
 
 def split_planes(cat: torch.Tensor, bins: int):
@@ -174,3 +440,291 @@ def apply_filters_core(
     else:
         out = y
     return out.permute(1, 2, 0)
+
+
+def plan_onehot_chunking(plan: RenderPlan, b_total: int, cb: int, tb: int):
+    """Render-wide one-hot geometry, as the JAX package plans it:
+    (group_blocks, u_pad bucket | None).
+
+    One U_pad bucket for every chunk of the render, and, when a chunk's
+    unique-filter set exceeds MAX_ONEHOT_U, groups of ``group_blocks``
+    blocks each with its own compact table (group == cb: the ungrouped
+    form).  ``group_blocks`` is a multiple of the tile ``tb`` dividing
+    ``cb``.  u_pad None when even tb-sized groups exceed the gate (the
+    renderer then takes the gather form)."""
+
+    def bucket(group: int) -> int:
+        max_u = 1
+        for start in range(0, b_total, group):
+            stop = min(start + group, b_total)
+            # each group's table also holds its boundary row (the next
+            # group's first old row), which compact_filter_ids takes in
+            # through idx_last
+            bnd = plan.idx_old[stop : stop + 1] if stop < b_total else plan.idx_new[-1:]
+            ids = np.unique(
+                np.concatenate([plan.idx_old[start:stop].reshape(-1), bnd.reshape(-1)])
+            )
+            max_u = max(max_u, len(ids))
+        return max(8, 1 << int(np.ceil(np.log2(max_u))))
+
+    group = cb
+    while True:
+        u_pad = bucket(group)
+        if u_pad <= fused_step.MAX_ONEHOT_U:
+            return group, u_pad
+        nxt = group // 2
+        # groups stay whole multiples of the tile and divide the chunk
+        if nxt < tb or nxt % tb or cb % nxt:
+            return cb, None
+        group = nxt
+
+
+class Renderer:
+    """Offline single-source renderer: one mono signal along per-block
+    positions -> (B*fpb, 2) float32, chunk by chunk.
+
+    ``device``: where the chunks run; CUDA runs the hand-written steps, the
+    CPU their plain twins.  ``fused=True`` takes the JAX package's fused
+    dispatch (dedup+fused, one-hot, grouped one-hot, gather-fused, with its
+    no-crossfade and sparse-crossfade forms); ``fused=False`` its unfused
+    arms (the dedup chunk and the plain chunk).  ``dedup`` and
+    ``sparse_xfade`` are the JAX package's switches.  After each render,
+    ``dispatch`` lists each chunk's (arm, with_xfade, sparse bucket).
+
+    Not ported (each raises, naming its ROADMAP item): process types other
+    than FD_COMPLEX, a device mesh, ``pipeline_fetch``, and ``fused=True``
+    with a history that is not a whole number of blocks.  The JAX
+    package's fallback ladder is not carried over: a failed build or
+    launch raises.
+    """
+
+    def __init__(
+        self,
+        db: HRTFDatabase,
+        *,
+        device,
+        config: EngineConfig | None = None,
+        chunk_blocks: int = 2048,
+        dedup: bool = True,
+        fused: bool = True,
+        sparse_xfade: bool = True,
+        mesh=None,
+        pipeline_fetch: bool = False,
+    ):
+        self.db = db
+        self.config = config or db.config
+        if chunk_blocks < 1:
+            raise ValueError(f"chunk_blocks ({chunk_blocks}) must be positive")
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh (the JAX Renderer's block-axis sharding) is not ported: "
+                "ROADMAP queue 1 item 9 (parallel/mesh.py -> torch.distributed)"
+            )
+        if pipeline_fetch:
+            raise NotImplementedError(
+                "pipeline_fetch is not ported: ROADMAP queue 1 item 4 (a side CUDA "
+                "stream with pinned host buffers)"
+            )
+        if fused and self.config.history_len % self.config.frames_per_buffer:
+            raise ValueError(
+                "fused=True with history_len % frames_per_buffer != 0 needs the "
+                "apply-only kernel (kernel row 7, ROADMAP queue 2 item 3), not ported yet; "
+                "use fused=False"
+            )
+        self.device = torch.device(device)
+        self.chunk_blocks = chunk_blocks
+        self.dedup = dedup
+        self.fused = fused
+        self.sparse_xfade = sparse_xfade
+        self.dispatch: list[tuple[str, bool, int | None]] = []
+        self._spectra = spectra_from_numpy(db.spectra, self.device)
+
+    def render(
+        self,
+        signal: np.ndarray,
+        positions: Sequence | np.ndarray,
+        ptype: ProcessType = ProcessType.TPU_FD_COMPLEX,
+        initial_old: tuple[float, float] | None = (0.0, 0.0),
+    ) -> np.ndarray:
+        """Render mono ``signal`` along per-block ``positions`` -> (B*fpb, 2)."""
+        plan = make_plan(np.asarray(positions), self.config, initial_old)
+        return self.render_plan(signal, plan, ptype)
+
+    def render_plan(
+        self, signal: np.ndarray, plan: RenderPlan,
+        ptype: ProcessType = ProcessType.TPU_FD_COMPLEX,
+    ) -> np.ndarray:
+        """Render a prepared plan chunk by chunk.
+
+        FD_COMPLEX dispatch, in the JAX package's order: dedup+fused when
+        positions repeat, one-hot (grouped when wide) for movers, then
+        gather-fused, then the unfused chunk."""
+        if ptype not in _FD_COMPLEX:
+            raise NotImplementedError(
+                f"process type {ProcessType(ptype).name} is not ported: ROADMAP queue 1 "
+                "item 5 (the FD basic and time-domain chunks)"
+            )
+        cfg = self.config
+        if plan.num_blocks > 1 and not (
+            np.array_equal(plan.idx_old[1:], plan.idx_new[:-1])
+            and np.array_equal(plan.w_old[1:], plan.w_new[:-1])
+        ):
+            # the steps derive the old filter set from the previous block's
+            # new set; make_plan guarantees this
+            raise ValueError(
+                "RenderPlan old-position arrays must equal the previous "
+                "block's new arrays (build plans with make_plan)"
+            )
+        fpb = cfg.frames_per_buffer
+        b_total = plan.num_blocks
+        cb = min(self.chunk_blocks, b_total) if b_total else self.chunk_blocks
+        aligned = cfg.history_len % fpb == 0
+        fed_all = fed_stream(signal, b_total, cfg)
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        hist = torch.zeros(cfg.history_len, dtype=torch.float32, device=self.device)
+        out = np.empty((b_total * fpb, 2), dtype=np.float32)
+        with_xfade = bool(plan.xfade.any())
+        self.dispatch = []
+
+        def pad(a, nb):
+            """A chunk's per-block rows, the final chunk padded with its last row."""
+            if nb == cb:
+                return put(a)
+            return put(np.concatenate([a, np.repeat(a[-1:], cb - nb, axis=0)]))
+
+        # compact distance for the one-hot arms only; the gather arms keep
+        # per-row ramps, as the JAX dispatch does
+        dist = dedup_distance(plan.u_hi, plan.u_lo, plan.inv_frac)
+        nd = None if dist is None else dist[4]
+
+        def row_dist(sl, nb):
+            return (pad(plan.u_hi[sl], nb), pad(plan.u_lo[sl], nb), pad(plan.inv_frac[sl], nb))
+
+        # dedup: the unique blend rows of each chunk's extended (cb+1) rows,
+        # one bucket per render; declined when positions do not repeat
+        dedup_chunks = None
+        if self.dedup and b_total:
+            dedup_chunks, max_u = [], 1
+            for start in range(0, b_total, cb):
+                sl = slice(start, min(start + cb, b_total))
+                ext_idx = np.concatenate([plan.idx_old[start : start + 1], plan.idx_new[sl]])
+                ext_w = np.concatenate([plan.w_old[start : start + 1], plan.w_new[sl]])
+                if ext_idx.shape[0] < cb + 1:  # final partial chunk
+                    reps = cb + 1 - ext_idx.shape[0]
+                    ext_idx = np.concatenate([ext_idx, np.repeat(ext_idx[-1:], reps, axis=0)])
+                    ext_w = np.concatenate([ext_w, np.repeat(ext_w[-1:], reps, axis=0)])
+                uniq_idx, uniq_w, inv = dedup_rows(ext_idx, ext_w)
+                max_u = max(max_u, uniq_idx.shape[0])
+                dedup_chunks.append((uniq_idx, uniq_w, inv))
+            u_pad = max(8, 1 << int(np.ceil(np.log2(max_u))))
+            if u_pad * 2 > cb:
+                dedup_chunks = None
+
+        # sparse crossfades: one no-crossfade step + side-pass for every
+        # chunk when every chunk's crossfade count fits a small bucket
+        sparse_ncf = None
+        if dedup_chunks is not None and self.fused and self.sparse_xfade and aligned and b_total:
+            max_ncf = max(int(plan.xfade[start : min(start + cb, b_total)].sum())
+                          for start in range(0, b_total, cb))
+            sparse_ncf = _sparse_bucket(max_ncf, cb)
+
+        chunk_xfs = _apply_xfade_amortization([
+            bool(plan.xfade[start : min(start + cb, b_total)].any())
+            for start in range(0, b_total, cb)
+        ])
+
+        # one-hot geometry: one table bucket per render, per-group tables
+        # for wide movers
+        tb = pick_fused_tile(cb, cb) if self.fused else None
+        onehot_u_pad, onehot_group = None, None
+        if tb is not None and with_xfade and dedup_chunks is None and b_total and aligned:
+            onehot_group, onehot_u_pad = plan_onehot_chunking(plan, b_total, cb, tb)
+
+        kw = dict(config=cfg, num_blocks=cb)
+        for start in range(0, b_total, cb):
+            stop = min(start + cb, b_total)
+            nb = stop - start
+            sl = slice(start, stop)
+            fed_np = fed_all[start * fpb : stop * fpb]
+            if nb < cb:
+                fed_np = np.concatenate([fed_np, np.zeros((cb - nb) * fpb, np.float32)])
+            fed = put(fed_np)
+            cxf = chunk_xfs[start // cb]
+            last_i = plan.idx_new[stop - 1 : stop]
+            last_w = plan.w_new[stop - 1 : stop]
+
+            def with_last(a, nxt):
+                """Old-aligned rows; a padded final chunk continues with the
+                final real block's NEW row, which the step reads as block
+                nb-1's new filter."""
+                return a if nb == cb else np.concatenate([a, np.repeat(nxt, cb - nb, axis=0)])
+
+            if onehot_u_pad is not None:
+                io_np = with_last(plan.idx_old[sl], last_i)
+                wo_np = with_last(plan.w_old[sl], last_w)
+                if dist is None:
+                    tail = (pad(plan.xfade[sl], nb), *row_dist(sl, nb), None)
+                else:  # the (8,) triples and each block's selector
+                    tail = (pad(plan.xfade[sl], nb), *(put(a) for a in dist[:3]),
+                            pad(dist[3][sl], nb))
+                if onehot_group < cb:
+                    uniq_ids, ridx, rbnd = compact_filter_ids_grouped(
+                        io_np, last_i, onehot_group, tb, onehot_u_pad)
+                    wbnd = np.concatenate([wo_np[tb::tb], last_w])
+                    y, hist_f = _fd_complex_chunk_onehot_grouped(
+                        self._spectra, hist, fed, put(uniq_ids), put(ridx), put(wo_np),
+                        put(rbnd), put(wbnd), *tail, **kw, tb=tb,
+                        group_tiles=onehot_group // tb, u_pad=onehot_u_pad, n_dist=nd)
+                    arm = ("onehot_grouped", True, None)
+                else:
+                    uniq_ids, ridx, ridx_last, _ = compact_filter_ids(
+                        io_np, last_i, u_pad=onehot_u_pad)
+                    y, hist_f = _fd_complex_chunk_onehot(
+                        self._spectra, hist, fed, put(uniq_ids), put(ridx), put(wo_np),
+                        put(ridx_last), put(last_w), *tail, **kw, n_dist=nd)
+                    arm = ("onehot", True, None)
+            elif dedup_chunks is None and tb is not None:
+                rows_i = plan.idx_old[sl] if cxf else plan.idx_new[sl]
+                rows_w = plan.w_old[sl] if cxf else plan.w_new[sl]
+                y, hist_f = _fd_complex_chunk_fused(
+                    self._spectra, hist, fed, put(with_last(rows_i, last_i)),
+                    put(with_last(rows_w, last_w)), put(last_i), put(last_w), pad(plan.xfade[sl], nb), *row_dist(sl, nb),
+                    **kw, with_xfade=cxf)
+                arm = ("gather_fused", cxf, None)
+            elif dedup_chunks is not None:
+                uniq_idx, uniq_w, inv = dedup_chunks[start // cb]
+                if uniq_idx.shape[0] < u_pad:  # pad to the render's bucket
+                    reps = u_pad - uniq_idx.shape[0]
+                    uniq_idx = np.concatenate([uniq_idx, np.repeat(uniq_idx[-1:], reps, axis=0)])
+                    uniq_w = np.concatenate([uniq_w, np.repeat(uniq_w[-1:], reps, axis=0)])
+                if tb is not None:
+                    dxf = cxf and sparse_ncf is None
+                    cf = {}
+                    if sparse_ncf is not None:
+                        cfi = _pad_cf_indices(plan.xfade[sl], sparse_ncf)
+                        cf = dict(cf_idx=put(cfi), cf_old=put(inv[:cb][cfi]))
+                    y, hist_f = _fd_complex_chunk_dedup_fused(
+                        self._spectra, hist, fed, put(uniq_idx), put(uniq_w),
+                        # old-aligned rows for the crossfade form, the NEW
+                        # rows for the no-crossfade one
+                        put(inv[:cb] if dxf else inv[1 : cb + 1]), put(inv[cb : cb + 1]),
+                        pad(plan.xfade[sl], nb), *row_dist(sl, nb), **cf, **kw,
+                        with_xfade=dxf, n_cf=sparse_ncf)
+                    arm = ("dedup_fused", dxf, sparse_ncf)
+                else:
+                    y, hist_f = _fd_complex_chunk_dedup(
+                        self._spectra, hist, fed, put(uniq_idx), put(uniq_w),
+                        put(inv if cxf else inv[1:]), pad(plan.xfade[sl], nb),
+                        *row_dist(sl, nb), **kw, with_xfade=cxf)
+                    arm = ("dedup", cxf, None)
+            else:
+                y, hist_f = _fd_complex_chunk(
+                    self._spectra, hist, fed,
+                    *(pad(getattr(plan, a)[sl], nb)
+                      for a in ("idx_new", "w_new", "idx_old", "w_old", "xfade")),
+                    *row_dist(sl, nb), **kw, with_xfade=cxf)
+                arm = ("plain", cxf, None)
+            out[start * fpb : stop * fpb] = y.reshape(cb * fpb, 2)[: nb * fpb].cpu().numpy()
+            hist = hist_f
+            self.dispatch.append(arm)
+        return out

@@ -1,19 +1,35 @@
-"""The batched fused render step: CUDA kernel, its plain-PyTorch twin, and
-the wrapper that picks one by where the operands lie.
+"""The fused render steps: CUDA kernels, their plain-PyTorch twins, and the
+wrappers that pick one by where the operands lie.
 
-Replaces the TPU kernel ``_onehot_kernel`` (jefferson_tpu/pallas/
-fused_step.py:347) as called by ``fused_step_onehot_xfade`` (:721) with one
-shared compact table (``group_tiles=None``).  Per row r = s*nb + b it
-computes the sliding sub-block forward DFT, the distance planes (per row,
-or selected from <= 8 unique triples), the 4-bracket filter blend of the
-old row, the new row as the next old row of the same source (the last
-block of a source takes ``ridx_last``), the per-ear tail IDFT for both, and
-the crossfade where ``xf > 0``.  Output: (S*nb, 2*fpb) = [L fpb | R fpb].
+Counterparts of ``jefferson_tpu/pallas/fused_step.py``, with the JAX
+wrappers' names and array layouts (the TPU-only arguments tile, interpret,
+lane512, tail_tree, single_blend, mstack_tail and fwd512 are gone):
 
-The arrays keep the JAX wrapper's layout; the TPU-only arguments (tile,
-interpret, lane512, tail_tree, single_blend, mstack_tail, fwd512) are gone.
-The kernel source is ``csrc/fused_step_onehot.cu``; its header says what
-bounds it on the H100 and how its design answers that.
+==========================================  ====  =============================
+wrapper (JAX wrapper line)                  row   CUDA source
+==========================================  ====  =============================
+fused_step_onehot_xfade (:721)              1     csrc/fused_step_onehot.cu
+fused_step_stream_onehot_xfade (:517)       3     csrc/fused_step_onehot.cu
+fused_step_stream_onehot_grouped_xfade      4     csrc/fused_step_onehot.cu
+(:615)
+fused_step_stream_xfade (:971), both        5     csrc/fused_step_gather.cu
+``with_xfade`` forms
+==========================================  ====  =============================
+
+Rows 1, 3 and 4 replace the TPU body ``_onehot_kernel`` (:347), row 5 the
+body ``_kernel`` (:868).  Per output row r they compute the sliding
+sub-block forward DFT, the distance planes (per row, or selected from <= 8
+unique triples), the old and new filter rows (blended from a compact table
+in rows 1, 3 and 4; arriving pre-blended in row 5), the per-ear tail IDFT
+of each, and the crossfade where ``xf > 0``.  Output: (rows, 2*fpb) =
+[L fpb | R fpb].  The CUDA sources' headers say what bounds each kernel on
+the H100 and how its design answers that.
+
+Operands on the CPU run the plain twin (``*_reference``); operands on a
+CUDA device run the kernel, or the wrapper raises (no fallback).  The
+kernels are built for fpb 128, pad_len 1024 and 513 bins.  Both keep the
+TPU kernels' answer for ids outside the table (they add nothing) and for
+selectors outside 1..n_dist-1 (triple 0), so no check syncs the device.
 """
 
 from __future__ import annotations
@@ -23,91 +39,299 @@ import functools
 
 import torch
 
-from ..engine.renderer import blend_cat
 from ..ops import fft as fft_ops
 from ..ops.filters import cmul, distance_factors_split, xfade_ramp
 from . import build
 
-# Compact-table bucket above which the JAX package leaves the shared
-# one-hot form (a TPU VMEM gate, batch._plan_batch_onehot).  The CUDA step
-# reads the table through L2 and has no such limit; the batched renderer
-# keeps the gate so it takes the one-hot form exactly where the JAX
-# package does.
+# Compact-table bucket above which the JAX package leaves the one-hot form
+# (a TPU VMEM gate: renderer.plan_onehot_chunking, batch._plan_batch_onehot).
+# The CUDA step reads its table through L2 and has no such limit; the
+# renderers keep the gate so they take the one-hot form exactly where the
+# JAX package does.
 MAX_ONEHOT_U = 256
 
 # Most unique (u_hi, u_lo, inv_frac) triples of the compact-distance form;
 # its triple operand has 8 rows.
 MAX_DIST_UNIQ = 8
 
-# Launches of the CUDA kernel since the count was last set to 0.
-launches: int = 0
+# Launches of each CUDA kernel since its count was last set to 0, keyed by
+# wrapper (the no-crossfade form of row 5 counts on its own).
+NO_XFADE = "fused_step_stream_xfade/no_xfade"
+launches: dict[str, int] = dict.fromkeys((
+    "fused_step_onehot_xfade", "fused_step_stream_onehot_xfade",
+    "fused_step_stream_onehot_grouped_xfade", "fused_step_stream_xfade", NO_XFADE,
+), 0)
 
-_FPB, _PAD, _BINS = 128, 1024, 513  # the geometry the CUDA kernel is built for
+_FPB, _PAD, _BINS = 128, 1024, 513  # the geometry the CUDA kernels are built for
 
 
-def _in_table(idx, w, u: int):
-    """An id outside the table matches no one-hot column of the TPU blend,
-    so it contributes nothing: weight 0 on row 0."""
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for name in launches:
+        launches[name] = 0
+
+
+# ---- plain-PyTorch twins, in the JAX package's op order ---------------------
+
+def blend_cat(table, indices, weights):
+    """Weighted 4-row gather on a combined table -> (rows, 4*bins), summed in
+    bracket order, as the CUDA step blends (the renderer's ``blend_cat``)."""
+    w = weights.to(torch.float32)
+    idx = indices.long()
+    acc = w[:, 0:1] * table[idx[:, 0]]
+    for j in range(1, idx.shape[1]):
+        acc = acc + w[:, j : j + 1] * table[idx[:, j]]
+    return acc
+
+
+def _in_table(idx, w, u: int, base=0):
+    """An id outside the table (its group's ``u`` rows) matches no one-hot
+    column of the TPU blend, so it contributes nothing: weight 0 on row 0.
+    ``base``: each row's group offset into a stacked table."""
     ok = (idx >= 0) & (idx < u)
-    return torch.where(ok, idx, 0), torch.where(ok, w, 0.0)
+    return torch.where(ok, idx + base, 0), torch.where(ok, w, 0.0)
 
 
-def fused_step_onehot_xfade_reference(
-    streams, uh, ul, fr, table, ridx, w, ridx_last, w_last, xf,
-    *, nb: int, pad_len: int, bins: int, fpb: int, dsel=None, n_dist=None,
-):
-    """Plain-PyTorch twin of the CUDA step: the same function, in the JAX
-    package's op order, on any device (see fused_step_onehot_xfade)."""
-    s = streams.shape[0]
-    b = s * nb
+def _forward_reference(streams, nb, uh, ul, fr, dsel, n_dist, *, pad_len, bins, fpb):
+    """XD = X * D for the S*nb rows of S streams: the sliding forward DFT
+    times the distance planes (per row, or each row's selected triple)."""
+    rows = streams.shape[0] * nb
     xr, xi = fft_ops.rfft_sliding_split_batched(streams, nb, fpb, pad_len)
-    xr, xi = xr.reshape(b, bins), xi.reshape(b, bins)
+    xr, xi = xr.reshape(rows, bins), xi.reshape(rows, bins)
     dr, di = distance_factors_split(uh[:, 0], ul[:, 0], fr[:, 0], bins)
     if n_dist is not None:  # each row takes the planes of its own triple
         sel = dsel[:, 0].long()
         # a selector outside 1..n_dist-1 takes triple 0, as on the TPU
         sel = torch.where((sel > 0) & (sel < n_dist), sel, 0)
         dr, di = dr[sel], di[sel]
-    xdr, xdi = cmul(xr, xi, dr, di)
-    u = table.shape[0]
-    g_old = blend_cat(table, *_in_table(ridx, w, u))             # (B, 4*bins)
-    g_last = blend_cat(table, *_in_table(ridx_last, w_last, u))  # (S, 4*bins)
-    g_new = torch.cat([g_old.reshape(s, nb, -1)[:, 1:], g_last[:, None]], dim=1)
-    g_new = g_new.reshape(b, -1)
-    fn = xfade_ramp(fpb, streams.device)
-    on = xf > 0
-    a = torch.where(on, 1.0 - fn, 0.0)
-    bw = torch.where(on, fn, 1.0)
+    return cmul(xr, xi, dr, di)
+
+
+def _tails_reference(xdr, xdi, g_old, g_new, xf, *, pad_len, bins, fpb):
+    """Per-ear tail IDFTs of XD * G and the crossfade -> (rows, 2*fpb);
+    ``g_old=None`` computes the new side only (the no-crossfade form)."""
 
     def tail(g, ear):
         gr = g[:, 2 * ear * bins : (2 * ear + 1) * bins]
         gi = g[:, (2 * ear + 1) * bins : (2 * ear + 2) * bins]
         return fft_ops.irfft_tail_split(*cmul(xdr, xdi, gr, gi), pad_len, fpb)
 
-    return torch.cat([tail(g_old, e) * a + tail(g_new, e) * bw for e in range(2)], dim=1)
+    if g_old is None:
+        return torch.cat([tail(g_new, e) for e in range(2)], dim=1)
+    fn = xfade_ramp(fpb, xdr.device)
+    on = xf > 0
+    a = torch.where(on, 1.0 - fn, 0.0)
+    b = torch.where(on, fn, 1.0)
+    return torch.cat([tail(g_old, e) * a + tail(g_new, e) * b for e in range(2)], dim=1)
+
+
+def _onehot_reference(streams, nb, uh, ul, fr, table, ridx, w, bnd_idx, bnd_w, xf, *,
+                      seg, group_rows, u_rows, pad_len, bins, fpb, dsel, n_dist):
+    """The one-hot step over S streams of nb blocks: old rows blend from
+    the table group of their row; the new row of r is old row r+1 inside a
+    segment of ``seg`` rows and the blend of bnd[r // seg] at its end."""
+    xdr, xdi = _forward_reference(streams, nb, uh, ul, fr, dsel, n_dist,
+                                  pad_len=pad_len, bins=bins, fpb=fpb)
+    rows = ridx.shape[0]
+    n_seg = rows // seg
+    dev = ridx.device
+    base = (torch.arange(rows, device=dev) // group_rows * u_rows)[:, None]
+    g_old = blend_cat(table, *_in_table(ridx, w, u_rows, base))
+    bbase = (torch.arange(n_seg, device=dev) * seg // group_rows * u_rows)[:, None]
+    g_bnd = blend_cat(table, *_in_table(bnd_idx, bnd_w, u_rows, bbase))
+    g_new = torch.cat([g_old.reshape(n_seg, seg, -1)[:, 1:], g_bnd[:, None]], dim=1)
+    return _tails_reference(xdr, xdi, g_old, g_new.reshape(rows, -1), xf,
+                            pad_len=pad_len, bins=bins, fpb=fpb)
+
+
+def fused_step_onehot_xfade_reference(
+    streams, uh, ul, fr, table, ridx, w, ridx_last, w_last, xf,
+    *, nb: int, pad_len: int, bins: int, fpb: int, dsel=None, n_dist=None,
+):
+    """Plain-PyTorch twin of row 1 (see fused_step_onehot_xfade)."""
+    return _onehot_reference(
+        streams, nb, uh, ul, fr, table, ridx, w, ridx_last, w_last, xf,
+        seg=nb, group_rows=ridx.shape[0], u_rows=table.shape[0],
+        pad_len=pad_len, bins=bins, fpb=fpb, dsel=dsel, n_dist=n_dist,
+    )
+
+
+def fused_step_stream_onehot_xfade_reference(
+    stream, uh, ul, fr, table, ridx, w, ridx_last, w_last, xf,
+    *, pad_len: int, bins: int, fpb: int, dsel=None, n_dist=None,
+):
+    """Plain-PyTorch twin of row 3 (see fused_step_stream_onehot_xfade)."""
+    b = ridx.shape[0]
+    return _onehot_reference(
+        stream[None], b, uh, ul, fr, table, ridx, w, ridx_last, w_last, xf,
+        seg=b, group_rows=b, u_rows=table.shape[0],
+        pad_len=pad_len, bins=bins, fpb=fpb, dsel=dsel, n_dist=n_dist,
+    )
+
+
+def fused_step_stream_onehot_grouped_xfade_reference(
+    stream, uh, ul, fr, tables, ridx, w, rbnd, wbnd, xf,
+    *, pad_len: int, bins: int, fpb: int, tb: int, group_tiles: int, u_pad: int,
+    dsel=None, n_dist=None,
+):
+    """Plain-PyTorch twin of row 4 (see fused_step_stream_onehot_grouped_xfade)."""
+    return _onehot_reference(
+        stream[None], ridx.shape[0], uh, ul, fr, tables, ridx, w, rbnd, wbnd, xf,
+        seg=tb, group_rows=tb * group_tiles, u_rows=u_pad,
+        pad_len=pad_len, bins=bins, fpb=fpb, dsel=dsel, n_dist=n_dist,
+    )
+
+
+def _gather_reference(streams, nb, uh, ul, fr, g_rows, g_last, xf, *, with_xfade,
+                      pad_len, bins, fpb, dsel, n_dist):
+    """The gather-form step over S streams of nb blocks: the new row of r
+    is g_rows[r+1] inside a source and g_last[s] at its last row; without
+    the crossfade g_rows are the new rows and only their side is computed."""
+    xdr, xdi = _forward_reference(streams, nb, uh, ul, fr, dsel, n_dist,
+                                  pad_len=pad_len, bins=bins, fpb=fpb)
+    kw = dict(pad_len=pad_len, bins=bins, fpb=fpb)
+    if not with_xfade:
+        return _tails_reference(xdr, xdi, None, g_rows, None, **kw)
+    s = streams.shape[0]
+    g_new = torch.cat([g_rows.reshape(s, nb, -1)[:, 1:], g_last[:, None]], dim=1)
+    return _tails_reference(xdr, xdi, g_rows, g_new.reshape(s * nb, -1), xf, **kw)
+
+
+def fused_step_stream_xfade_reference(
+    stream, uh, ul, fr, g_old, g_last, xf,
+    *, pad_len: int, bins: int, fpb: int, dsel=None, n_dist=None, with_xfade: bool = True,
+):
+    """Plain-PyTorch twin of row 5 (see fused_step_stream_xfade)."""
+    return _gather_reference(
+        stream[None], g_old.shape[0], uh, ul, fr, g_old, g_last, xf, with_xfade=with_xfade,
+        pad_len=pad_len, bins=bins, fpb=fpb, dsel=dsel, n_dist=n_dist,
+    )
+
+
+# ---- the CUDA side -----------------------------------------------------------
+
+_ptr, _int = ctypes.c_void_p, ctypes.c_int
+_DIST_ARGS = [_ptr, _ptr, _ptr, _ptr, _int]           # uh, ul, fr, dsel, n_dist
+_BASES_ARGS = [_ptr] * 6                              # cfr, cfi, twr, twi, icr, ici
 
 
 @functools.cache
-def _kernel():
-    fn = build.load("fused_step_onehot").jt_fused_step_onehot_xfade
-    ptr, num = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [
-        num, ptr, ptr, num, num,      # device, stream, streams, sources, nb
-        ptr, ptr, ptr, ptr, num,      # uh, ul, fr, dsel, n_dist
-        ptr, num, ptr, ptr,           # table, its rows, ridx, w
-        ptr, ptr, ptr,                # ridx_last, w_last, xf
-        ptr, ptr, ptr, ptr, ptr, ptr,  # cfr, cfi, twr, twi, icr, ici
-        ptr, ptr, ptr,                # xdr, xdi scratch, out
-    ]
-    fn.restype = num
+def _entry(lib: str, symbol: str, middle: tuple):
+    fn = getattr(build.load(lib), symbol)
+    fn.argtypes = [_int, _ptr, _ptr, _int, _int,      # device, stream, streams, sources, nb
+                   *_DIST_ARGS, *middle, *_BASES_ARGS,
+                   _ptr, _ptr, _ptr]                  # xdr, xdi scratch, out
+    fn.restype = _int
     return fn
 
 
-def _cuda_error(code: int) -> str:
-    lib = build.load("fused_step_onehot")
-    lib.jt_error_string.argtypes = [ctypes.c_int]
-    lib.jt_error_string.restype = ctypes.c_char_p
-    return lib.jt_error_string(code).decode()
+def _onehot_entry():
+    # table, its rows per group, ridx, w, bnd_idx, bnd_w, seg, group_rows,
+    # blocked_tail, xf
+    return _entry("fused_step_onehot", "jt_fused_step_onehot_xfade",
+                  (_ptr, _int, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _ptr))
+
+
+def _gather_entry():
+    # g_rows, g_last, xf, with_xfade
+    return _entry("fused_step_gather", "jt_fused_step_gather_xfade", (_ptr, _ptr, _ptr, _int))
+
+
+def _cuda_error(lib: str, code: int) -> str:
+    fn = build.load(lib).jt_error_string
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    return fn(code).decode()
+
+
+def _where(operands, pad_len: int, bins: int, fpb: int) -> torch.device:
+    """The one device every operand lies on; raises for mixed devices, a
+    device with no kernel, or (on CUDA) another geometry."""
+    device = operands[0].device
+    if any(t.device != device for t in operands):
+        raise ValueError("all operands must lie on one device")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {device}")
+    if device.type == "cuda" and (fpb, pad_len, bins) != (_FPB, _PAD, _BINS):
+        raise ValueError(f"the CUDA step is built for fpb={_FPB}, pad_len={_PAD}, bins={_BINS}")
+    return device
+
+
+def _check(specs: dict) -> None:
+    for name, (t, shape, dtype) in specs.items():
+        if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: want contiguous {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+
+
+def _distance_specs(uh, ul, fr, dsel, n_dist, rows: int) -> dict:
+    """Shape checks of the distance operands: (rows, 1) per row, or (n, 1)
+    triples with a (rows, 1) selector."""
+    n_trip = rows if dsel is None else uh.shape[0]
+    specs = {a: (t, (n_trip, 1), torch.float32) for a, t in (("uh", uh), ("ul", ul), ("fr", fr))}
+    if dsel is not None:
+        specs["dsel"] = (dsel, (rows, 1), torch.int32)
+        if not 1 <= n_dist <= n_trip:
+            raise ValueError(f"n_dist={n_dist} outside 1..{n_trip}")
+    return specs
+
+
+def _check_streams(streams, nb: int, pad_len: int, fpb: int) -> None:
+    q = pad_len // fpb
+    if streams.shape[-1] != nb * fpb + (q - 1) * fpb:
+        raise ValueError(f"streams {tuple(streams.shape)} do not hold {nb} blocks + history")
+
+
+def _launch(name: str, lib: str, entry, device, streams, n_src, nb, dist, middle,
+            rows: int, pad_len: int, bins: int, fpb: int):
+    """Allocate the scratch and output, launch ``entry`` on the current
+    stream, count the launch, and return the (rows, 2*fpb) output."""
+    cfr, cfi = fft_ops.on_device(fft_ops._subblock_dft_matrices, pad_len, fpb, device=device)
+    twr, twi = fft_ops.on_device(fft_ops._sliding_twiddles, pad_len, fpb, device=device)
+    icr, ici = fft_ops.on_device(fft_ops._idft_tail_matrices, pad_len, fpb, device=device)
+    # The kernel runs after this returns; the scratch planes it still reads
+    # are freed here, which is safe because the caching allocator hands
+    # them out again only in order on this same stream.
+    xdr = torch.empty((rows, bins), dtype=torch.float32, device=device)
+    xdi = torch.empty_like(xdr)
+    out = torch.empty((rows, 2 * fpb), dtype=torch.float32, device=device)
+    ptr = lambda t: t.data_ptr() if isinstance(t, torch.Tensor) else t
+    uh, ul, fr, dsel, n_dist = dist
+    err = entry(
+        device.index, torch.cuda.current_stream(device).cuda_stream,
+        ptr(streams), n_src, nb, ptr(uh), ptr(ul), ptr(fr), ptr(dsel), n_dist or 0,
+        *(ptr(a) for a in middle),
+        ptr(cfr), ptr(cfi), ptr(twr), ptr(twi), ptr(icr), ptr(ici),
+        ptr(xdr), ptr(xdi), ptr(out),
+    )
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({_cuda_error(lib, err)})")
+    launches[name] += 1
+    return out
+
+
+def _onehot_cuda(name, device, streams, nb, uh, ul, fr, dsel, n_dist, table, u_rows, ridx, w,
+                 bnd_idx, bnd_w, seg, group_rows, xf, *, pad_len, bins, fpb):
+    """Rows 1, 3 and 4 on the card.  Rows 3 and 4 sum the tail IDFT by
+    128-bin blocks; row 1 keeps the one chain over K it was measured with."""
+    rows = ridx.shape[0]
+    n_seg = rows // seg
+    specs = {
+        "streams": (streams, tuple(streams.shape), torch.float32),
+        "table": (table, (table.shape[0], 4 * bins), torch.float32),
+        "ridx": (ridx, (rows, 4), torch.int32), "w": (w, (rows, 4), torch.float32),
+        "boundary ids": (bnd_idx, (n_seg, 4), torch.int32),
+        "boundary weights": (bnd_w, (n_seg, 4), torch.float32),
+        "xf": (xf, (rows, 1), torch.float32),
+        **_distance_specs(uh, ul, fr, dsel, n_dist, rows),
+    }
+    _check(specs)
+    if u_rows < 1 or rows < 1:
+        raise ValueError("the step needs a table row and a block")
+    blocked = int(name != "fused_step_onehot_xfade")
+    middle = (table, u_rows, ridx, w, bnd_idx, bnd_w, seg, group_rows, blocked, xf)
+    return _launch(name, "fused_step_onehot", _onehot_entry(), device, streams,
+                   rows // nb, nb, (uh, ul, fr, dsel, n_dist), middle, rows, pad_len, bins, fpb)
 
 
 def fused_step_onehot_xfade(
@@ -123,74 +347,125 @@ def fused_step_onehot_xfade(
     dsel=None,   # (S*nb, 1) int32 triple selector (compact distance)
     n_dist: int | None = None,
 ) -> torch.Tensor:
-    """-> (S*nb, 2*fpb) crossfaded stereo tails.
-
-    Operands on the CPU run the plain twin; operands on a CUDA device run
-    the CUDA kernel, or this raises (no fallback).  The CUDA kernel is
-    built for fpb 128, pad_len 1024 and 513 bins.  Both keep the TPU
-    kernel's answer for ids outside the table (they add nothing) and for
-    selectors outside 1..n_dist-1 (triple 0), so no check syncs the device."""
-    global launches
-    s = streams.shape[0]
-    q = pad_len // fpb
-    if streams.shape[1] != nb * fpb + (q - 1) * fpb:
-        raise ValueError(f"streams {tuple(streams.shape)} do not hold {nb} blocks + history")
+    """Row 1, the batched step with one shared compact table -> (S*nb, 2*fpb).
+    The new row of a source's last block is its ``ridx_last`` row."""
+    _check_streams(streams, nb, pad_len, fpb)
     if (dsel is None) != (n_dist is None):
         raise ValueError("dsel and n_dist go together (compact distance)")
     operands = [streams, uh, ul, fr, table, ridx, w, ridx_last, w_last, xf]
-    if dsel is not None:
-        operands.append(dsel)
-    device = streams.device
-    if any(t.device != device for t in operands):
-        raise ValueError("all operands must lie on one device")
-    kw = dict(nb=nb, pad_len=pad_len, bins=bins, fpb=fpb, dsel=dsel, n_dist=n_dist)
+    device = _where(operands + ([] if dsel is None else [dsel]), pad_len, bins, fpb)
+    kw = dict(pad_len=pad_len, bins=bins, fpb=fpb)
     if device.type == "cpu":
-        return fused_step_onehot_xfade_reference(
-            streams, uh, ul, fr, table, ridx, w, ridx_last, w_last, xf, **kw
-        )
-    if device.type != "cuda":
-        raise ValueError(f"no kernel for device {device}")
-    if (fpb, pad_len, bins) != (_FPB, _PAD, _BINS):
-        raise ValueError(f"the CUDA step is built for fpb={_FPB}, pad_len={_PAD}, bins={_BINS}")
-    b = s * nb
-    n_trip = b if dsel is None else uh.shape[0]
-    shapes = {
-        "uh": (uh, (n_trip, 1), torch.float32), "ul": (ul, (n_trip, 1), torch.float32),
-        "fr": (fr, (n_trip, 1), torch.float32),
-        "table": (table, (table.shape[0], 4 * bins), torch.float32),
-        "ridx": (ridx, (b, 4), torch.int32), "w": (w, (b, 4), torch.float32),
-        "ridx_last": (ridx_last, (s, 4), torch.int32), "w_last": (w_last, (s, 4), torch.float32),
-        "xf": (xf, (b, 1), torch.float32), "streams": (streams, tuple(streams.shape), torch.float32),
-    }
-    if dsel is not None:
-        shapes["dsel"] = (dsel, (b, 1), torch.int32)
-    for name, (t, shape, dtype) in shapes.items():
-        if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name}: want contiguous {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-    if dsel is not None and not 1 <= n_dist <= n_trip:
-        raise ValueError(f"n_dist={n_dist} outside 1..{n_trip}")
-    if table.shape[0] < 1 or b < 1:
-        raise ValueError("the step needs a table row and a block")
+        return fused_step_onehot_xfade_reference(*operands, nb=nb, dsel=dsel, n_dist=n_dist, **kw)
+    if ridx.shape[0] != streams.shape[0] * nb:
+        raise ValueError(f"ridx {tuple(ridx.shape)}: want {streams.shape[0] * nb} rows")
+    return _onehot_cuda("fused_step_onehot_xfade", device, streams, nb, uh, ul, fr, dsel, n_dist,
+                        table, table.shape[0], ridx, w, ridx_last, w_last, nb, ridx.shape[0], xf,
+                        **kw)
 
-    cfr, cfi = fft_ops.on_device(fft_ops._subblock_dft_matrices, pad_len, fpb, device=device)
-    twr, twi = fft_ops.on_device(fft_ops._sliding_twiddles, pad_len, fpb, device=device)
-    icr, ici = fft_ops.on_device(fft_ops._idft_tail_matrices, pad_len, fpb, device=device)
-    # The kernel runs after this returns; the scratch planes it still reads
-    # are freed here, which is safe because the caching allocator hands
-    # them out again only in order on this same stream.
-    xdr = torch.empty((b, bins), dtype=torch.float32, device=device)
-    xdi = torch.empty_like(xdr)
-    out = torch.empty((b, 2 * fpb), dtype=torch.float32, device=device)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    err = _kernel()(
-        device.index, torch.cuda.current_stream(device).cuda_stream,
-        ptr(streams), s, nb, ptr(uh), ptr(ul), ptr(fr), ptr(dsel), n_dist or 0,
-        ptr(table), table.shape[0], ptr(ridx), ptr(w), ptr(ridx_last), ptr(w_last), ptr(xf),
-        ptr(cfr), ptr(cfi), ptr(twr), ptr(twi), ptr(icr), ptr(ici),
-        ptr(xdr), ptr(xdi), ptr(out),
-    )
-    if err:
-        raise RuntimeError(f"fused_step_onehot launch failed: CUDA error {err} ({_cuda_error(err)})")
-    launches += 1
-    return out
+
+def fused_step_stream_onehot_xfade(
+    stream,      # ((q-1)*fpb + B*fpb,) history followed by the fed samples
+    uh, ul, fr,  # (B, 1) distance phase split; (8, 1) triples with dsel
+    table,       # (U_pad, 4*bins) compact filter table
+    ridx,        # (B, 4) int32 OLD-aligned rows, remapped into table
+    w,           # (B, 4)
+    ridx_last,   # (1, 4) int32 the final new row, remapped
+    w_last,      # (1, 4)
+    xf,          # (B, 1) float32 crossfade mask
+    *, pad_len: int, bins: int, fpb: int,
+    dsel=None,   # (B, 1) int32 triple selector (compact distance)
+    n_dist: int | None = None,
+) -> torch.Tensor:
+    """Row 3, one stream and one compact table -> (B, 2*fpb).  The new row
+    of block b is old row b+1; the last block's is ``ridx_last``."""
+    b = ridx.shape[0]
+    _check_streams(stream, b, pad_len, fpb)
+    if (dsel is None) != (n_dist is None):
+        raise ValueError("dsel and n_dist go together (compact distance)")
+    operands = [stream, uh, ul, fr, table, ridx, w, ridx_last, w_last, xf]
+    device = _where(operands + ([] if dsel is None else [dsel]), pad_len, bins, fpb)
+    kw = dict(pad_len=pad_len, bins=bins, fpb=fpb)
+    if device.type == "cpu":
+        return fused_step_stream_onehot_xfade_reference(*operands, dsel=dsel, n_dist=n_dist, **kw)
+    return _onehot_cuda("fused_step_stream_onehot_xfade", device, stream, b, uh, ul, fr, dsel,
+                        n_dist, table, table.shape[0], ridx, w, ridx_last, w_last, b, b, xf, **kw)
+
+
+def fused_step_stream_onehot_grouped_xfade(
+    stream,      # ((q-1)*fpb + B*fpb,)
+    uh, ul, fr,  # (B, 1); (8, 1) triples with dsel
+    tables,      # (G*U_pad, 4*bins) stacked per-group compact tables
+    ridx,        # (B, 4) int32 OLD-aligned rows, remapped per group
+    w,           # (B, 4)
+    rbnd,        # (B/tb, 4) int32 per-tile boundary rows, remapped per group
+    wbnd,        # (B/tb, 4)
+    xf,          # (B, 1)
+    *, pad_len: int, bins: int, fpb: int, tb: int, group_tiles: int, u_pad: int,
+    dsel=None, n_dist: int | None = None,
+) -> torch.Tensor:
+    """Row 4, one stream whose tiles of ``tb`` blocks blend against per-group
+    tables -> (B, 2*fpb): tile i reads rows [g*u_pad, (g+1)*u_pad) of
+    ``tables`` with g = i // group_tiles.  The new row of block b is old row
+    b+1 inside a tile and the tile's ``rbnd`` row at its end."""
+    b = ridx.shape[0]
+    _check_streams(stream, b, pad_len, fpb)
+    if (dsel is None) != (n_dist is None):
+        raise ValueError("dsel and n_dist go together (compact distance)")
+    if tb < 1 or group_tiles < 1 or b % tb or (b // tb) % group_tiles:
+        raise ValueError(f"{b} blocks do not split into groups of {group_tiles} tiles of {tb}")
+    if tables.shape[0] != (b // tb // group_tiles) * u_pad:
+        raise ValueError(f"tables {tuple(tables.shape)}: want "
+                         f"{b // tb // group_tiles} groups of {u_pad} rows")
+    operands = [stream, uh, ul, fr, tables, ridx, w, rbnd, wbnd, xf]
+    device = _where(operands + ([] if dsel is None else [dsel]), pad_len, bins, fpb)
+    kw = dict(pad_len=pad_len, bins=bins, fpb=fpb)
+    if device.type == "cpu":
+        return fused_step_stream_onehot_grouped_xfade_reference(
+            *operands, tb=tb, group_tiles=group_tiles, u_pad=u_pad, dsel=dsel, n_dist=n_dist, **kw)
+    return _onehot_cuda("fused_step_stream_onehot_grouped_xfade", device, stream, b, uh, ul, fr,
+                        dsel, n_dist, tables, u_pad, ridx, w, rbnd, wbnd, tb, tb * group_tiles,
+                        xf, **kw)
+
+
+def fused_step_stream_xfade(
+    stream,      # ((q-1)*fpb + B*fpb,)
+    uh, ul, fr,  # (B, 1); (8, 1) triples with dsel
+    g_old,       # (B, 4*bins) old-filter blend rows; the NEW rows when not with_xfade
+    g_last,      # (1, 4*bins) the final new-filter row (None when not with_xfade)
+    xf,          # (B, 1) float32 crossfade mask (None when not with_xfade)
+    *, pad_len: int, bins: int, fpb: int,
+    dsel=None, n_dist: int | None = None, with_xfade: bool = True,
+) -> torch.Tensor:
+    """Row 5, the gather form over one stream -> (B, 2*fpb).  The new row of
+    block b is g_old[b+1]; the last block's is ``g_last``.
+    ``with_xfade=False``: ``g_old`` carries the NEW rows, g_last and xf are
+    ignored, and only the new-side tails are computed (counted apart)."""
+    b = g_old.shape[0]
+    _check_streams(stream, b, pad_len, fpb)
+    if (dsel is None) != (n_dist is None):
+        raise ValueError("dsel and n_dist go together (compact distance)")
+    if with_xfade and (g_last is None or xf is None):
+        raise ValueError("the crossfade form needs g_last and xf")
+    operands = [stream, uh, ul, fr, g_old] + ([g_last, xf] if with_xfade else [])
+    device = _where(operands + ([] if dsel is None else [dsel]), pad_len, bins, fpb)
+    kw = dict(pad_len=pad_len, bins=bins, fpb=fpb)
+    if device.type == "cpu":
+        return fused_step_stream_xfade_reference(
+            stream, uh, ul, fr, g_old, g_last, xf, dsel=dsel, n_dist=n_dist,
+            with_xfade=with_xfade, **kw)
+    specs = {
+        "stream": (stream, tuple(stream.shape), torch.float32),
+        "g_old": (g_old, (b, 4 * bins), torch.float32),
+        **_distance_specs(uh, ul, fr, dsel, n_dist, b),
+    }
+    if with_xfade:
+        specs["g_last"] = (g_last, (1, 4 * bins), torch.float32)
+        specs["xf"] = (xf, (b, 1), torch.float32)
+    _check(specs)
+    if b < 1:
+        raise ValueError("the step needs a block")
+    name = "fused_step_stream_xfade" if with_xfade else NO_XFADE
+    middle = (g_old, g_last if with_xfade else None, xf if with_xfade else None, int(with_xfade))
+    return _launch(name, "fused_step_gather", _gather_entry(), device, stream, 1, b,
+                   (uh, ul, fr, dsel, n_dist), middle, b, pad_len, bins, fpb)

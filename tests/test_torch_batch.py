@@ -56,7 +56,7 @@ def _oracle_ok(out, signals, positions, db):
 
 
 def test_fused_render_matches_jax_and_oracle(db, scene, jax_fused):
-    before = tfs.launches
+    before = dict(tfs.launches)
     got = BatchRenderer(db, device="cpu", chunk_blocks=CB).render(*scene)
     assert tfs.launches == before
     assert got.shape == jax_fused.shape == (S, BLOCKS * db.config.frames_per_buffer, 2)

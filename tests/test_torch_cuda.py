@@ -35,10 +35,10 @@ def _operands(db, radius_step, s=4, nb=16):
 @pytest.mark.parametrize("radius_step", [0.0, 0.05])
 def test_kernel_matches_twin(card_db, radius_step):
     args, kw = _operands(card_db, radius_step)
-    before = tfs.launches
+    before = tfs.launches["fused_step_onehot_xfade"]
     got = tfs.fused_step_onehot_xfade(*args, **kw)
     torch.cuda.synchronize()
-    assert tfs.launches == before + 1
+    assert tfs.launches["fused_step_onehot_xfade"] == before + 1
     want = tfs.fused_step_onehot_xfade_reference(*args, **kw)
     assert got.shape == want.shape == (64, 256)
     assert float((got - want).abs().max()) <= TOL
@@ -71,9 +71,9 @@ def test_kernel_matches_twin_on_ids_outside_the_table(card_db):
 
 def test_render_on_the_card_matches_the_cpu_twin(card_db):
     signals, positions = bench.moving_scene(3, 37, DEFAULT_CONFIG)
-    before = tfs.launches
+    before = tfs.launches["fused_step_onehot_xfade"]
     got = BatchRenderer(card_db, device="cuda", chunk_blocks=16).render(signals, positions)
-    assert tfs.launches == before + 3
+    assert tfs.launches["fused_step_onehot_xfade"] == before + 3
     want = BatchRenderer(card_db, device="cpu", chunk_blocks=16).render(signals, positions)
     assert np.abs(got - want).max() <= TOL
 
@@ -90,3 +90,94 @@ def test_kernel_refuses_operands_it_does_not_take(card_db):
         tfs.fused_step_onehot_xfade(*bad, **kw)
     with pytest.raises(ValueError, match="built for fpb=128"):
         tfs.fused_step_onehot_xfade(*args, **{**kw, "bins": 257})
+
+
+# ---- the single-stream steps (kernel rows 3, 4 and 5) -----------------------
+
+_GROUPING = {8: (8, 1), 264: (8, 3), 2048: (256, 2)}  # B -> (tb, group_tiles)
+
+
+def _stream(db, form, b, **kw):
+    tb, gt = _GROUPING[b]
+    return bench.stream_step(db, form, b, torch.device("cuda", 0), tb=tb, group_tiles=gt, **kw)
+
+
+@pytest.mark.parametrize("b", [8, 264, 2048])
+@pytest.mark.parametrize("form", bench.STREAM_FORMS)
+@pytest.mark.parametrize("radius_step", [0.0, 0.01])
+def test_stream_kernels_match_twins(card_db, form, b, radius_step):
+    fn, args, kw = _stream(card_db, form, b, radius_step=radius_step, xf_every=5)
+    name = tfs.NO_XFADE if form == "gather_noxf" else fn.__name__
+    before = tfs.launches[name]
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfs.launches[name] == before + 1
+    want = getattr(tfs, fn.__name__ + "_reference")(*args, **kw)
+    assert got.shape == want.shape == (b, 256)
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("form", ["onehot", "grouped"])
+def test_stream_kernels_on_ids_outside_the_table(card_db, form):
+    fn, args, kw = _stream(card_db, form, 264, trajectory="orbit")
+    args = list(args)
+    u = kw.get("u_pad", args[4].shape[0])
+    args[5] = args[5].clone()
+    args[7] = args[7].clone()
+    args[5][3, 1], args[5][100, 0], args[7][-1, 2], args[7][0, 3] = u + 2, -4, u, -1
+    kw = {**kw, "dsel": kw["dsel"].clone()}
+    kw["dsel"][9, 0] = 7
+    got = fn(*args, **kw)
+    want = getattr(tfs, fn.__name__ + "_reference")(*args, **kw)
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("b", [8, 264, 2048])
+def test_gather_forms_bit_equal_without_crossfade(card_db, b):
+    fn, args, kw = _stream(card_db, "gather", b, trajectory="hold", seed=4)
+    _, args_n, kw_n = _stream(card_db, "gather_noxf", b, trajectory="hold", seed=4)
+    assert not bool(args[-1].any())
+    assert torch.equal(fn(*args, **kw), fn(*args_n, **kw_n))
+
+
+def test_stream_kernels_refuse_operands_they_do_not_take(card_db):
+    fn, args, kw = _stream(card_db, "gather", 264)
+    bad = list(args)
+    bad[4] = args[4][:, :2000]
+    with pytest.raises(ValueError, match="g_old: want contiguous"):
+        fn(*bad, **kw)
+    fn, args, kw = _stream(card_db, "grouped", 264)
+    bad = list(args)
+    bad[7] = args[7][:-1]
+    with pytest.raises(ValueError, match="boundary ids: want"):
+        fn(*bad, **kw)
+    fn, args, kw = _stream(card_db, "onehot", 264)
+    with pytest.raises(ValueError, match="xf: want"):
+        fn(*args[:-1], args[-1].double(), **kw)
+
+
+@pytest.mark.parametrize("case", ["sparse", "hold", "mover", "grouped", "gather"])
+def test_renderer_on_the_card_matches_the_cpu_twins(card_db, case, monkeypatch):
+    from jefferson_tpu_torch.engine.renderer import Renderer
+
+    b, cb, opts = 600, 256, {}
+    if case in ("sparse", "hold"):
+        pos = bench.sweep_positions(3.0, 5.0)[:b]
+        opts = {"sparse_xfade": case == "sparse"}
+    elif case == "grouped":
+        b, cb = 1024, 1024
+        monkeypatch.setattr(tfs, "MAX_ONEHOT_U", 128)
+        pos = bench.mover_positions(b)
+    else:
+        pos = bench.orbit(0, b)
+        if case == "gather":
+            monkeypatch.setattr(tfs, "MAX_ONEHOT_U", 4)
+    sig = np.random.default_rng(0).standard_normal(b * 128).astype(np.float32) * 0.2
+    card = Renderer(card_db, device="cuda", chunk_blocks=cb, **opts)
+    tfs.reset_launches()
+    got = card.render(sig, pos)
+    assert sum(tfs.launches.values()) == len(card.dispatch)
+    cpu = Renderer(card_db, device="cpu", chunk_blocks=cb, **opts)
+    want = cpu.render(sig, pos)
+    assert card.dispatch == cpu.dispatch
+    assert np.abs(got - want).max() <= TOL

@@ -187,3 +187,70 @@ def test_unaligned_geometry_plan_copies_stay_equal():
     cfg = EngineConfig(frames_per_buffer=96, hrtf_len=256)
     pos = _positions("orbit", 9, cfg)
     _assert_plans_equal(tplan.make_plan(pos, cfg), jplan.make_plan(pos, cfg))
+
+
+def _mover(blocks: int):
+    """The sweep gate's mover, ``jefferson_tpu.bench.sweep.mover_positions``."""
+    from jefferson_tpu.bench.sweep import mover_positions
+
+    return mover_positions(blocks)
+
+
+@pytest.mark.parametrize("b,group,tb,u_pad", [
+    (64, 32, 16, 64), (64, 64, 16, 128), (96, 32, 8, 64), (48, 16, 16, 32),
+])
+def test_compact_filter_ids_grouped_is_bit_equal(b, group, tb, u_pad):
+    p = jplan.make_plan(_mover(b))
+    got = tplan.compact_filter_ids_grouped(p.idx_old, p.idx_new[-1:], group, tb, u_pad)
+    want = jplan.compact_filter_ids_grouped(p.idx_old, p.idx_new[-1:], group, tb, u_pad)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    with pytest.raises(ValueError, match="exceed the bucket"):
+        tplan.compact_filter_ids_grouped(p.idx_old, p.idx_new[-1:], group, tb, 8)
+
+
+def test_bench_mover_positions_is_the_sweep_gates():
+    from jefferson_tpu_torch import bench
+
+    np.testing.assert_array_equal(bench.mover_positions(3000), _mover(3000))
+
+
+@pytest.mark.parametrize("kind,blocks,cb,tb", [
+    ("mover", 512, 512, 256), ("mover", 1024, 1024, 256), ("mover", 96, 32, 32),
+    ("orbit", 200, 64, 64), ("scattered", 128, 128, 128),
+])
+@pytest.mark.parametrize("max_u", [256, 64])
+def test_plan_onehot_chunking_is_equal(kind, blocks, cb, tb, max_u, monkeypatch):
+    import jefferson_tpu.pallas.fused_step as jfs
+
+    from jefferson_tpu_torch.kernels import fused_step as tfs
+
+    monkeypatch.setattr(jfs, "MAX_ONEHOT_U", max_u)
+    monkeypatch.setattr(tfs, "MAX_ONEHOT_U", max_u)
+    pos = _mover(blocks) if kind == "mover" else _positions(kind, blocks)
+    p = tplan.make_plan(pos)
+    assert (trenderer.plan_onehot_chunking(p, blocks, cb, tb)
+            == jrenderer.plan_onehot_chunking(p, blocks, cb, tb))
+
+
+@pytest.mark.parametrize("max_ncf,rows", [(0, 256), (1, 64), (2, 64), (9, 256), (9, 64), (40, 2048)])
+def test_sparse_bucket_is_equal(max_ncf, rows):
+    assert trenderer._sparse_bucket(max_ncf, rows) == jrenderer._sparse_bucket(max_ncf, rows)
+
+
+@pytest.mark.parametrize("flags", [
+    [True], [False], [True, False], [True, False, False], [False, True, False, True], [],
+])
+def test_xfade_amortization_is_equal(flags):
+    assert (trenderer._apply_xfade_amortization(list(flags))
+            == jrenderer._apply_xfade_amortization(list(flags)))
+
+
+@pytest.mark.parametrize("rows", [[], [3], [0, 5, 9], list(range(10))])
+def test_pad_cf_indices_is_equal(rows):
+    xf = np.zeros(16, bool)
+    xf[rows] = True
+    got, want = trenderer._pad_cf_indices(xf, 8), jrenderer._pad_cf_indices(xf, 8)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
