@@ -6,7 +6,9 @@
 Phases, one line each or more; any failure exits non-zero without a result
 line:
   1. env     torch/CUDA versions and the card (nvidia-smi name, power limit);
-             fails when torch.cuda.is_available() is false.
+             fails when torch.cuda.is_available() is false.  The oracle
+             renders of the scene path start here, in worker processes, and
+             are collected in phase 4.
   2. build   nvcc builds csrc/fused_step_onehot.cu and csrc/fused_step_gather.cu
              for sm_90a, both at once.
   3. kernel  every CUDA step against its plain-PyTorch twin, max|diff| <= 5e-7:
@@ -16,8 +18,14 @@ line:
              single-stream steps at B = 2048 blocks, compact and per-row
              distance: one-hot (row 3), grouped one-hot with 4 groups of 512
              blocks and 256-block tiles (row 4), and the gather form (row 5)
-             with and without the crossfade; and row 5's two forms bit-equal
-             on a crossfade-free chunk.
+             with and without the crossfade; row 5's two forms bit-equal on a
+             crossfade-free chunk.  The scene steps at the scene path's
+             shapes, compact and per-row distance: the grouped batched
+             one-hot step (row 2) at 16 x 256 with the group plan of
+             bench.scene_mover_positions, the batched gather step (row 6) at
+             16 x 256 in both forms, the apply-only step (row 7) at 16 x 512,
+             segments of 512, in both forms; rows 6 and 7 each bit-equal
+             across their forms on a crossfade-free chunk.
   4. path    each main path with the launch counts set to 0 before and read
              after.  The batched path: four bench steps (256 x 64, history
              carried) through batched_chunk_fn_fused, the first against
@@ -27,13 +35,17 @@ line:
              on the reference's sweep scenario (3, 5) (12,556 blocks) with and
              without the sparse crossfade side-pass, the sweep gate's mover
              (12,556 blocks), a circular orbit (0.4 s, 5 degrees) and a
-             rising helix (12,556 blocks each), each against render_oracle: max|diff| <= 1e-6, RMS <
-             1e-4, the margin against the sweep's 2e-7 beside the JAX
-             package's; each takes the JAX dispatch's arm on every chunk, and
-             rows 1, 3, 4 and both forms of row 5 launched.
+             rising helix (12,556 blocks each).  The scene path:
+             BatchRenderer(device="cuda") on 16 sources x 12,544 blocks (the
+             JAX package's scene gate) of six scenes, each on one arm of the
+             JAX dispatch (rows 2, 6 and 7, every form).  Each render against
+             render_oracle: max|diff| <= 1e-6, RMS < 1e-4, the margin against
+             the sweep's 2e-7 beside the JAX package's; each takes the JAX
+             dispatch's arm on every chunk; every kernel launched.
   5. bench   the bench step (blocks/s); each step's kernel and twin times in
-             turns (twin, kernel, kernel, twin); each render's wall time and
-             the device time by kernel of two of them; beside the card.
+             turns (twin, kernel, kernel, twin) beside its bound; each
+             render's wall time (the scenes' host planning apart) and the
+             device time by kernel of four of them; beside the card.
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -52,19 +64,23 @@ RENDER_S, RENDER_B = 16, 512
 STREAM_B = 2048      # rows of a single-stream step: the Renderer's chunk
 GROUP_TB, GROUP_TILES = 256, 2   # row 4: 4 groups of 512 blocks at B = 2048
 SIGNAL_SAMPLES = 131072          # the sweep CLI's default noise input
+SCENE_S, SCENE_B = 16, 12544     # the JAX scene gate: 16 sources x 49 chunks of 256
+ORACLE_WORKERS = 6
 
+GATHER = "jefferson_tpu_torch/csrc/fused_step_gather.cu"
+ONEHOT = "jefferson_tpu_torch/csrc/fused_step_onehot.cu"
 # kernel -> (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
-    "fused_step_onehot_xfade": (
-        "jefferson_tpu_torch/csrc/fused_step_onehot.cu", "jefferson_tpu/pallas/fused_step.py:840"),
-    "fused_step_stream_onehot_xfade": (
-        "jefferson_tpu_torch/csrc/fused_step_onehot.cu", "jefferson_tpu/pallas/fused_step.py:582"),
-    "fused_step_stream_onehot_grouped_xfade": (
-        "jefferson_tpu_torch/csrc/fused_step_onehot.cu", "jefferson_tpu/pallas/fused_step.py:687"),
-    "fused_step_stream_xfade": (
-        "jefferson_tpu_torch/csrc/fused_step_gather.cu", "jefferson_tpu/pallas/fused_step.py:1035"),
-    "fused_step_stream_xfade/no_xfade": (
-        "jefferson_tpu_torch/csrc/fused_step_gather.cu", "jefferson_tpu/pallas/fused_step.py:1035"),
+    "fused_step_onehot_xfade": (ONEHOT, "jefferson_tpu/pallas/fused_step.py:840"),
+    "fused_step_onehot_xfade/grouped": (ONEHOT, "jefferson_tpu/pallas/fused_step.py:840"),
+    "fused_step_stream_onehot_xfade": (ONEHOT, "jefferson_tpu/pallas/fused_step.py:582"),
+    "fused_step_stream_onehot_grouped_xfade": (ONEHOT, "jefferson_tpu/pallas/fused_step.py:687"),
+    "fused_step_stream_xfade": (GATHER, "jefferson_tpu/pallas/fused_step.py:1035"),
+    "fused_step_stream_xfade/no_xfade": (GATHER, "jefferson_tpu/pallas/fused_step.py:1035"),
+    "fused_step_xfade": (GATHER, "jefferson_tpu/pallas/fused_step.py:1140"),
+    "fused_step_xfade/no_xfade": (GATHER, "jefferson_tpu/pallas/fused_step.py:1140"),
+    "fused_apply_xfade": (GATHER, "jefferson_tpu/pallas/fused_apply.py:207"),
+    "fused_apply_xfade/no_xfade": (GATHER, "jefferson_tpu/pallas/fused_apply.py:207"),
 }
 # single-stream form (bench.stream_step) -> kernel name
 FORMS = {
@@ -73,8 +89,17 @@ FORMS = {
     "gather": "fused_step_stream_xfade",
     "gather_noxf": "fused_step_stream_xfade/no_xfade",
 }
+# scene step form (bench.scene_step) -> (kernel name, sources, blocks)
+SCENE_FORMS = {
+    "grouped": ("fused_step_onehot_xfade/grouped", SCENE_S, 256),
+    "gather": ("fused_step_xfade", SCENE_S, 256),
+    "gather_noxf": ("fused_step_xfade/no_xfade", SCENE_S, 256),
+    "apply": ("fused_apply_xfade", SCENE_S, 512),
+    "apply_noxf": ("fused_apply_xfade/no_xfade", SCENE_S, 512),
+}
 # the JAX package's full-scale margins (ROADMAP.md, the gate-margin ladder)
-JAX_MARGIN = {"sweep": 0.596, "sweep_no_sparse": 0.596, "mover": 0.745}
+JAX_MARGIN = {"sweep": 0.596, "sweep_no_sparse": 0.596, "mover": 0.745,
+              "scene_hold": 0.745, "scene_movers": 0.298}
 
 
 def say(phase: str, msg: str) -> None:
@@ -86,21 +111,25 @@ def fail(phase: str, msg: str) -> int:
     return 1
 
 
-def oracle_diff(got, signal, positions, db):
-    """(max|diff|, rms) of a rendered (n, 2) source against render_oracle."""
+def diff(got, want):
+    """(max|diff|, rms) of a render against its oracle render."""
     import numpy as np
 
-    from jefferson_tpu.oracle.reference import render_oracle
-
-    want = render_oracle(signal, db, [tuple(p) for p in positions], db.config)
     d = np.abs(np.asarray(got, np.float64) - want)
     return float(d.max()), float(np.sqrt(np.mean(d**2)))
+
+
+def oracle_diff(got, signal, positions, db):
+    """(max|diff|, rms) of a rendered (n, 2) source against render_oracle."""
+    from jefferson_tpu_torch.oracle.reference import render_oracle
+
+    return diff(got, render_oracle(signal, db, [tuple(p) for p in positions], db.config))
 
 
 def renders(bench):
     """The single-source path's scenarios: name -> (positions, Renderer
     options, the arm the JAX dispatch takes on every chunk)."""
-    from jefferson_tpu.trajectory.trajectory import CircularOrbit
+    from jefferson_tpu_torch.trajectory.trajectory import CircularOrbit
 
     sweep = bench.sweep_positions(3.0, 5.0)
     n = len(sweep)
@@ -116,6 +145,60 @@ def renders(bench):
     }
 
 
+def scene_positions(bench):
+    """The scene path's position sets (S, B, 3) and the sources each is
+    held to the oracle on: every source of the JAX package's two scene
+    gates, four of the wide scene."""
+    return {
+        "scene_hold": (bench.scene_hold_positions(SCENE_S, SCENE_B), range(SCENE_S)),
+        "scene_movers": (bench.scene_mover_positions(SCENE_S, SCENE_B), range(SCENE_S)),
+        "wide": (bench.wide_positions(SCENE_S, SCENE_B), (0, 5, 10, 15)),
+    }
+
+
+def scenes():
+    """The scene path: name -> (position set, chunk_blocks, BatchRenderer
+    options, the arm the JAX dispatch takes on every chunk, the kernel it
+    launches)."""
+    return {
+        "scene_hold": ("scene_hold", 256, {}, ("dedup_fused", False, 32),
+                       "fused_step_xfade/no_xfade"),
+        "scene_hold_no_sparse": ("scene_hold", 256, {"sparse_xfade": False},
+                                 ("dedup_fused", True, None), "fused_step_xfade"),
+        "scene_movers": ("scene_movers", 256, {}, ("onehot_grouped", True, None),
+                         "fused_step_onehot_xfade/grouped"),
+        "wide": ("wide", 256, {}, ("gather_fused", True, None), "fused_step_xfade"),
+        "scene_hold_512": ("scene_hold", 512, {}, ("dedup_fused", False, 64),
+                           "fused_apply_xfade/no_xfade"),
+        "scene_movers_512": ("scene_movers", 512, {}, ("dedup_fused", True, None),
+                             "fused_apply_xfade"),
+    }
+
+
+_worker_db = None
+
+
+def _oracle_init():
+    global _worker_db
+    from jefferson_tpu_torch.hrtf.kemar import synthetic_database
+
+    _worker_db = synthetic_database()
+
+
+def _oracle_job(signal, positions):
+    from jefferson_tpu_torch.oracle.reference import render_oracle
+
+    return render_oracle(signal, _worker_db, [tuple(p) for p in positions], _worker_db.config,
+                         initial_old=(0.0, 0.0))
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors among ``tensors`` (each read or written once)."""
+    import torch
+
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+
+
 def main() -> int:
     import torch
 
@@ -124,13 +207,27 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("env", "torch.cuda.is_available() is false: no CUDA device")
 
-    import numpy as np
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
 
-    from jefferson_tpu import DEFAULT_CONFIG, synthetic_database
+    pool = ProcessPoolExecutor(ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=_oracle_init)
+    try:
+        return run(pool)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run(pool) -> int:
+    import numpy as np
+    import torch
+
     from jefferson_tpu_torch import bench
+    from jefferson_tpu_torch.config import DEFAULT_CONFIG
     from jefferson_tpu_torch.engine.batch import BatchRenderer
     from jefferson_tpu_torch.engine.renderer import Renderer
-    from jefferson_tpu_torch.kernels import build, fused_step
+    from jefferson_tpu_torch.hrtf.kemar import synthetic_database
+    from jefferson_tpu_torch.kernels import build, fused_apply, fused_step
 
     smi = bench.card()
     say("env", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
@@ -140,6 +237,13 @@ def main() -> int:
     cfg = DEFAULT_CONFIG
     fpb = cfg.frames_per_buffer
     db = synthetic_database(cfg)
+
+    # the scene path's oracle renders, one per (position set, source), run
+    # in the workers while the card works
+    noise = (np.random.default_rng(0).standard_normal(SIGNAL_SAMPLES) * 0.2).astype(np.float32)
+    scene_sigs = bench.scene_signals(noise, SCENE_S, SCENE_B, fpb)
+    oracles = {name: {i: pool.submit(_oracle_job, scene_sigs[i], pos[i]) for i in srcs}
+               for name, (pos, srcs) in scene_positions(bench).items()}
 
     # ---- build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -152,6 +256,8 @@ def main() -> int:
 
     # ---- kernels against their twins ----------------------------------------
     errs = {name: 0.0 for name in KERNELS}
+    twin = lambda fn: getattr(fused_apply if fn is fused_apply.fused_apply_xfade else fused_step,
+                              fn.__name__ + "_reference")
     for what, radius_step in (("compact distance", 0.0), ("per-row distance", 0.01)):
         wl = bench.build_workload(db, S, NB, device, radius_step=radius_step)
         if (wl.n_dist is None) != (radius_step > 0):
@@ -180,7 +286,7 @@ def main() -> int:
                                              group_tiles=GROUP_TILES, xf_every=7, **variant)
             got = fn(*args, **kw)
             torch.cuda.synchronize()
-            want = getattr(fused_step, fn.__name__ + "_reference")(*args, **kw)
+            want = twin(fn)(*args, **kw)
             err = float((got - want).abs().max())
             dist = "compact" if "n_dist" in kw else "per-row"
             extra = f", {STREAM_B // (GROUP_TB * GROUP_TILES)} groups of U={kw['u_pad']}" \
@@ -201,6 +307,38 @@ def main() -> int:
                   f"to with_xfade=True: {bit_equal}")
     if not bit_equal:
         return fail("kernel", "row 5's two forms differ on a crossfade-free chunk")
+
+    for form, (name, s_, nb_) in SCENE_FORMS.items():
+        # rows 2 and 6 take compact distance at |coordinates| = 1 and per-row
+        # distance at the scenes' radii; row 7 takes its planes per row
+        variants = [{}] if form.startswith("apply") else [{}, {"unit_radius": True}]
+        for variant in variants:
+            fn, args, kw = bench.scene_step(db, form, s_, nb_, device, xf_every=7, **variant)
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+            want = twin(fn)(*args, **kw)
+            err = float((got - want).abs().max())
+            dist = "compact" if "n_dist" in kw else "per-row"
+            extra = (f", groups of {kw['group_tiles'] * kw['tb'] // nb_} sources, tiles of "
+                     f"{kw['tb']} rows, U={args[4].shape[0] * kw['tb'] * kw['group_tiles'] // (s_ * nb_)}"
+                     if form == "grouped" else "")
+            say("kernel", f"{name}, {s_}x{nb_}, {dist} distance{extra}: max|kernel - twin| = "
+                          f"{err:.3e} (limit {KERNEL_TOL:.0e})")
+            if not (err <= KERNEL_TOL and got.shape == (s_ * nb_, 2 * fpb)
+                    and bool(torch.isfinite(got).all())):
+                return fail("kernel", f"{name}: kernel disagrees with its twin")
+            errs[name] = max(errs[name], err)
+    for form, row in (("gather", 6), ("apply", 7)):
+        _, s_, nb_ = SCENE_FORMS[form]
+        fn, args, kw = bench.scene_step(db, form, s_, nb_, device, trajectory="still", seed=3)
+        _, args_n, kw_n = bench.scene_step(db, form + "_noxf", s_, nb_, device,
+                                           trajectory="still", seed=3)
+        xf = args[6] if form == "gather" else args[4]
+        bit_equal = bool(not xf.any()) and torch.equal(fn(*args, **kw), fn(*args_n, **kw_n))
+        say("kernel", f"row {row} on a crossfade-free chunk of {s_}x{nb_}: with_xfade=False "
+                      f"bit-equal to with_xfade=True: {bit_equal}")
+        if not bit_equal:
+            return fail("kernel", f"row {row}'s two forms differ on a crossfade-free chunk")
 
     # ---- the batched main path, counted ------------------------------------
     wl = bench.build_workload(db, S, NB, device)
@@ -243,7 +381,7 @@ def main() -> int:
         return fail("path", "the port disagrees with the oracle")
 
     # ---- the single-source main path, counted ------------------------------
-    signal = (np.random.default_rng(0).standard_normal(SIGNAL_SAMPLES) * 0.2).astype(np.float32)
+    signal = noise
     scenarios = renders(bench)
     outs, walls, logs = {}, {}, {}
     fused_step.reset_launches()
@@ -255,47 +393,89 @@ def main() -> int:
         logs[name] = r.dispatch
     single = dict(fused_step.launches)
 
+    def margin_line(name, d_max, d_rms):
+        jax = JAX_MARGIN.get(name)
+        return (f"vs render_oracle max|diff| {d_max:.3e} (limit {ORACLE_TOL:.0e}), rms {d_rms:.3e} "
+                f"(limit {ORACLE_RMS:.0e}); margin against {SWEEP_EPS:.0e} {d_max / SWEEP_EPS:.3f} "
+                f"(JAX package: {'none recorded' if jax is None else jax})")
+
     for name, (pos, _, arm) in scenarios.items():
         got, log = outs[name], logs[name]
         if got.shape != (len(pos) * fpb, 2) or not np.isfinite(got).all():
             return fail("path", f"{name}: output {got.shape} not finite / not (B*fpb, 2)")
         d_max, d_rms = oracle_diff(got, signal, pos, db)
-        jax = JAX_MARGIN.get(name)
         say("path", f"Renderer {name}, {len(pos)} blocks, {len(log)} chunks as {sorted(set(log))} "
-                    f"in {walls[name]:.2f} s (host planning included): vs render_oracle max|diff| "
-                    f"{d_max:.3e} (limit {ORACLE_TOL:.0e}), rms {d_rms:.3e} (limit "
-                    f"{ORACLE_RMS:.0e}); margin against {SWEEP_EPS:.0e} {d_max / SWEEP_EPS:.3f} "
-                    f"(JAX package: {'none recorded' if jax is None else jax})")
+                    f"in {walls[name]:.2f} s (host planning included): "
+                    f"{margin_line(name, d_max, d_rms)}")
         if not (d_max <= ORACLE_TOL and d_rms < ORACLE_RMS):
             return fail("path", f"{name}: the port disagrees with the oracle")
         if set(log) != {arm}:
             return fail("path", f"{name}: dispatch {sorted(set(log))}, the JAX dispatch takes {arm}")
     say("path", f"single-source launches: {single}")
-    if single["fused_step_onehot_xfade"] or not all(single[FORMS[f]] for f in FORMS):
+    if (single["fused_step_onehot_xfade"]
+            or not all(single[FORMS[f]] for f in FORMS)):
         return fail("path", f"the single-source path did not launch every step: {single}")
     if not any(sparse for _, _, sparse in logs["sweep"]):
         return fail("path", "the sparse side-pass did not run")
+    del outs
+
+    # ---- the scene path, counted -------------------------------------------
+    sets = scene_positions(bench)
+    scene_log, scene_walls = {}, {}
+    fused_step.reset_launches()
+    for name, (pset, cb, opts, arm, kernel) in scenes().items():
+        pos, srcs = sets[pset]
+        r = BatchRenderer(db, device=device, chunk_blocks=cb, **opts)
+        before = dict(fused_step.launches)
+        t0 = time.perf_counter()
+        got = r.render(scene_sigs, pos)
+        torch.cuda.synchronize()
+        scene_walls[name] = (time.perf_counter() - t0, r.timings)
+        launched = {k: v - before[k] for k, v in fused_step.launches.items() if v != before[k]}
+        scene_log[name] = r.dispatch
+        if got.shape != (SCENE_S, SCENE_B * fpb, 2) or not np.isfinite(got).all():
+            return fail("path", f"{name}: output {got.shape} not finite / not (S, B*fpb, 2)")
+        d = [diff(got[i], oracles[pset][i].result()) for i in srcs]
+        d_max, d_rms = max(x[0] for x in d), max(x[1] for x in d)
+        which = "every source" if len(srcs) == SCENE_S else f"sources {', '.join(map(str, srcs))}"
+        say("path", f"BatchRenderer {name}, {SCENE_S}x{SCENE_B}, chunks of {cb}: {len(r.dispatch)} "
+                    f"chunks as {sorted(set(r.dispatch))}, launches {launched}, in "
+                    f"{scene_walls[name][0]:.2f} s; {which} {margin_line(name, d_max, d_rms)}")
+        if not (d_max <= ORACLE_TOL and d_rms < ORACLE_RMS):
+            return fail("path", f"{name}: the port disagrees with the oracle")
+        if set(r.dispatch) != {arm}:
+            return fail("path", f"{name}: dispatch {sorted(set(r.dispatch))}, the JAX dispatch "
+                                f"takes {arm}")
+        if launched != {kernel: len(r.dispatch)}:
+            return fail("path", f"{name}: launched {launched}, want {kernel} once per chunk")
+        del got
+    scene_launches = dict(fused_step.launches)
+    say("path", f"scene launches: {scene_launches}")
 
     # ---- timings -----------------------------------------------------------
     step_ms = bench.time_steps_ms(wl)
     bps = S * NB / (step_ms * 1e-3)
     say("bench", f"{S}x{NB} step {step_ms:.4f} ms = {bps:,.0f} blocks/s  [{bench.card()}]")
-    times = {}
-    ops = {"fused_step_onehot_xfade": (
-        fused_step.fused_step_onehot_xfade, fused_step.fused_step_onehot_xfade_reference,
-        *bench.step_operands(wl, cfg))}
+    # kernel -> (wrapper, args, kwargs, sources, blocks): the main path's shapes
+    ops = {"fused_step_onehot_xfade": (fused_step.fused_step_onehot_xfade,
+                                       *bench.step_operands(wl, cfg), S, NB)}
     for form, name in FORMS.items():
         fn, args, kw = bench.stream_step(db, form, STREAM_B, device, tb=GROUP_TB,
                                          group_tiles=GROUP_TILES)
-        ops[name] = (fn, getattr(fused_step, fn.__name__ + "_reference"), args, kw)
-    for name, (fn, twin, args, kw) in ops.items():
+        ops[name] = (fn, args, kw, 1, STREAM_B)
+    for form, (name, s_, nb_) in SCENE_FORMS.items():
+        ops[name] = (*bench.scene_step(db, form, s_, nb_, device), s_, nb_)
+    times, bounds = {}, {}
+    for name, (fn, args, kw, s_, nb_) in ops.items():
         k = lambda: fn(*args, **kw)
-        p = lambda: twin(*args, **kw)
+        p = lambda: twin(fn)(*args, **kw)
         plain_a, kernel_a, kernel_b, plain_b = (bench.time_ms(f) for f in (p, k, k, p))
         times[name] = ((kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2)
-        shape = f"{S}x{NB}" if name == "fused_step_onehot_xfade" else f"B={STREAM_B}"
-        say("bench", f"{name} ({shape}): kernel {kernel_a:.4f}/{kernel_b:.4f} ms, twin "
-                     f"{plain_a:.4f}/{plain_b:.4f} ms  [{bench.card()}]")
+        bounds[name] = bench.bound_ms(bench.step_flops(name, s_, nb_),
+                                      nbytes(*args, *kw.values(), k()))
+        say("bench", f"{name} ({s_}x{nb_}): kernel {kernel_a:.4f}/{kernel_b:.4f} ms, twin "
+                     f"{plain_a:.4f}/{plain_b:.4f} ms, bound {bounds[name][0]:.4f} ms "
+                     f"({bounds[name][1]})  [{bench.card()}]")
     for name, (pos, opts, _) in scenarios.items():
         r = Renderer(db, device=device, **opts)
         t0 = time.perf_counter()
@@ -305,14 +485,25 @@ def main() -> int:
                      f"({len(pos) / wall:,.0f} blocks/s, host planning and transfers included)  "
                      f"[{bench.card()}]")
         if name in ("sweep", "mover"):
-            rows = bench.device_profile(lambda: r.render(signal, pos))
-            busy = sum(row[1] for row in rows)
-            say("bench", f"Renderer {name} under torch.profiler: device busy {busy:.3f} ms "
-                         f"of {wall * 1e3:.1f} ms wall; by kernel:")
-            for kernel, ms, calls in rows[:12]:
-                say("bench", f"  {ms:9.4f} ms  x{calls:g}  {kernel[:100]}")
+            profile(bench, f"Renderer {name}", lambda: r.render(signal, pos), wall)
+    for name, (pset, cb, opts, _, _) in scenes().items():
+        pos, _ = sets[pset]
+        r = BatchRenderer(db, device=device, chunk_blocks=cb, **opts)
+        t0 = time.perf_counter()
+        r.render(scene_sigs, pos)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        blocks = SCENE_S * SCENE_B
+        say("bench", f"BatchRenderer {name}: {wall:.3f} s wall for {SCENE_S}x{SCENE_B} blocks "
+                     f"({blocks / wall:,.0f} blocks/s): host planning {r.timings['planning_s']:.3f} s, "
+                     f"chunk loop {r.timings['chunks_s']:.3f} s (operands, launches, output "
+                     f"copies and assembly); first run {scene_walls[name][0]:.3f} s  "
+                     f"[{bench.card()}]")
+        if name in ("scene_hold", "scene_movers"):
+            profile(bench, f"BatchRenderer {name}", lambda: r.render(scene_sigs, pos), wall)
 
-    launches = {**single, "fused_step_onehot_xfade": row1}
+    launches = {**single, **{k: v for k, v in scene_launches.items() if v},
+                "fused_step_onehot_xfade": row1}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -322,6 +513,9 @@ def main() -> int:
         "max_abs_err": errs[name],
         "ms": times[name][0],
         "plain_ms": times[name][1],
+        "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1],
+        "library_ms": None,  # no single PyTorch call computes a fused step
     } for name, (source, replaces) in KERNELS.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -329,6 +523,17 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def profile(bench, what: str, fn, wall: float) -> None:
+    """One call of ``fn`` under torch.profiler: device busy time against the
+    wall time of an unprofiled call, and the largest kernels."""
+    rows = bench.device_profile(fn)
+    busy = sum(row[1] for row in rows)
+    say("bench", f"{what} under torch.profiler: device busy {busy:.3f} ms of {wall * 1e3:.1f} ms "
+                 f"wall (idle share {1 - busy / (wall * 1e3):.3f}); by kernel:")
+    for kernel, ms, calls in rows[:12]:
+        say("bench", f"  {ms:9.4f} ms  x{calls:g}  {kernel[:100]}")
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
 """PyTorch / CUDA port of jefferson_tpu for one NVIDIA H100.
 
 The JAX package ``jefferson_tpu`` stays the reference; this package mirrors
-its module names (``ops``, ``engine``, ``kernels`` for ``pallas``) so each
-counterpart is easy to find.  It imports ``torch`` and never ``jax``; the
-host modules that import no jax (config, hrtf.kemar, trajectory, io,
-native, oracle, testing) are reused from ``jefferson_tpu`` as they are.
+its module names (``config``, ``hrtf``, ``trajectory``, ``oracle``, ``ops``,
+``engine``, and ``kernels`` for ``pallas``) so each counterpart is easy to
+find.  It imports ``torch`` and never ``jax``, and nothing of
+``jefferson_tpu``: it keeps its own copies of the host code it uses, each
+pinned to its original by a test.
 
 Every public entry point takes an explicit ``device=``: nothing probes for
 a device and nothing falls back to another.  The engine is float32 end to

@@ -32,16 +32,22 @@ import sys
 import numpy as np
 import torch
 
-from jefferson_tpu import DEFAULT_CONFIG, synthetic_database
-from jefferson_tpu.oracle.reference import render_oracle
-from jefferson_tpu.trajectory.trajectory import AzimuthSweep, CircularOrbit
-
+from .config import DEFAULT_CONFIG
 from .convert import spectra_from_numpy
-from .engine.batch import batched_chunk_fn_fused, onehot_step_operands
-from .engine.plan import compact_filter_ids, compact_filter_ids_grouped, make_plan
-from .engine.renderer import cat_table, dedup_distance
-from .kernels import fused_step
+from .engine.batch import (
+    _group_bucket, _plan_batch_onehot, batched_chunk_fn_fused, group_tile, onehot_step_operands,
+)
+from .engine.plan import (
+    compact_filter_ids, compact_filter_ids_grouped, compact_filter_ids_grouped_sources, make_plan,
+)
+from .engine.renderer import cat_table, dedup_distance, pick_fused_tile
+from .hrtf.kemar import synthetic_database
+from .kernels import fused_apply, fused_step
 from .kernels.fused_step import blend_cat
+from .ops import fft as fft_ops
+from .ops.filters import cmul, distance_factors_split
+from .oracle.reference import render_oracle
+from .trajectory.trajectory import AzimuthSweep, CircularOrbit
 
 BASELINE_BLOCKS_PER_S = 3333.3
 SOURCES, BLOCKS = 256, 64  # the JAX bench.py workload: sources x blocks per step
@@ -127,7 +133,8 @@ def build_workload(db, n_sources: int, nb: int, device, seed: int = 0,
         spectra=spectra_from_numpy(db.spectra, device),
         hists=torch.zeros((n_sources, cfg.history_len), dtype=torch.float32, device=device),
         feds=put(feds), chunk=chunk, dsel=dsel,
-        step=batched_chunk_fn_fused(cfg, nb, n_dist=nd),
+        step=batched_chunk_fn_fused(cfg, nb, pick_fused_tile(n_sources * nb, nb), onehot=True,
+                                    n_dist=nd),
     )
 
 
@@ -142,9 +149,9 @@ def sweep_positions(start_azi: float, ele: float) -> np.ndarray:
 
 def mover_positions(num_blocks: int, ele_period: int = 997) -> np.ndarray:
     """The sweep gate's mover (a copy of ``jefferson_tpu.bench.sweep.
-    mover_positions``, whose module imports jax): azimuth 1.3 degrees per
-    block, elevation over the whole grid, r = 0.5 -> more unique filters
-    per 2048-block chunk than one compact table takes."""
+    mover_positions``): azimuth 1.3 degrees per block, elevation over the
+    whole grid, r = 0.5 -> more unique filters per 2048-block chunk than one
+    compact table takes."""
     i = np.arange(num_blocks)
     azi = (i * 1.3) % 360.0
     ele = 25.0 + 65.0 * np.sin(i * (2.0 * np.pi / ele_period))
@@ -161,6 +168,61 @@ def helix_positions(num_blocks: int, period_s: float = 0.4, rise_deg: float = 0.
     turn = period_s * cfg.sample_rate / cfg.frames_per_buffer  # blocks per turn
     return np.stack([(i * 360.0 / turn) % 360.0, -10.0 + rise_deg * i / turn,
                      np.full(num_blocks, 1.0)], axis=1)
+
+
+def scene_hold_positions(num_sources: int, num_blocks: int,
+                         blocks_per_step: int = 172) -> np.ndarray:
+    """(S, B, 3) scene whose sources each hold a position for
+    ``blocks_per_step`` blocks (the reference's benchmark cadence) at
+    staggered azimuths, elevations and radii: the shape that sends the JAX
+    BatchRenderer to its dedup+fused arm (a copy of
+    ``jefferson_tpu.bench.sweep.scene_hold_positions``)."""
+    step = np.arange(num_blocks) // blocks_per_step
+    eles = [0.0, 10.0, -20.0, 40.0]
+    pos = np.empty((num_sources, num_blocks, 3), np.float64)
+    for s in range(num_sources):
+        pos[s, :, 0] = (s * (360.0 / num_sources) + 5.0 * step) % 360.0
+        pos[s, :, 1] = eles[s % len(eles)]
+        pos[s, :, 2] = 0.5 + 0.1 * (s % 3)
+    return pos
+
+
+def scene_mover_positions(num_sources: int, num_blocks: int) -> np.ndarray:
+    """(S, B, 3) wide-mover scene: every source moves every block in its own
+    elevation band, so the scene's unique filters exceed one compact table
+    while each source's fit: the shape that sends the JAX BatchRenderer to
+    its grouped one-hot arm (a copy of
+    ``jefferson_tpu.bench.sweep.scene_mover_positions``)."""
+    i = np.arange(num_blocks)
+    pos = np.empty((num_sources, num_blocks, 3), np.float64)
+    for s in range(num_sources):
+        speed = 2.1 + 0.13 * (s % 7)  # degrees per block: a crossfade every block
+        pos[s, :, 0] = (s * (360.0 / num_sources) + speed * i) % 360.0
+        pos[s, :, 1] = -30.0 + (s % 8) * 15.0
+        pos[s, :, 2] = 1.0
+    return pos
+
+
+def wide_positions(num_sources: int, num_blocks: int, seed: int = 11) -> np.ndarray:
+    """(S, B, 3) sources each at a new uniform random position every block
+    (azimuth 0-360, elevation -40-90 degrees, r = 1; the JAX package's
+    tests/test_batch_parallel.py:629-642): no position repeats and no group
+    of sources fits one compact table, so the JAX BatchRenderer takes the
+    gather step."""
+    rng = np.random.default_rng(seed)
+    return np.stack([
+        np.stack([rng.uniform(0, 360, num_blocks), rng.uniform(-40, 90, num_blocks),
+                  np.full(num_blocks, 1.0)], axis=1)
+        for _ in range(num_sources)
+    ]).astype(np.float32)
+
+
+def scene_signals(signal: np.ndarray, num_sources: int, num_blocks: int, fpb: int = 128):
+    """(S, n) per-source streams as the JAX scene gate builds them: rotated
+    copies of one signal (``jefferson_tpu.bench.sweep.run_scene_gate``)."""
+    n = max(len(signal), num_blocks * fpb)
+    base = np.resize(np.asarray(signal, np.float32), n)
+    return np.stack([np.roll(base, -(s * 7919 * fpb) % n) for s in range(num_sources)])
 
 
 STREAM_FORMS = ("onehot", "grouped", "gather", "gather_noxf")
@@ -242,6 +304,143 @@ def stream_step(db, form: str, b: int, device, *, seed: int = 0, radius_step: fl
         raise ValueError(f"form {form!r} not in {STREAM_FORMS}")
     args = (put(stream), *d_args, *args, None if xf is None else put(xf))
     return fn, args, kw
+
+
+SCENE_FORMS = ("grouped", "gather", "gather_noxf", "apply", "apply_noxf")
+
+
+def scene_step(db, form: str, s: int, nb: int, device, *, seed: int = 0,
+               radius_step: float = 0.0, unit_radius: bool = False,
+               trajectory: str | None = None, xf_every: int = 0,
+               group_sources: int | None = None):
+    """One batched step of S sources x nb blocks, its operands made from
+    ``seed`` -> (wrapper, args, kwargs): ``wrapper(*args, **kwargs)`` runs
+    the step and the wrapper's ``_reference`` twin takes the same operands.
+
+    ``form``: "grouped" (row 2, the group plan and tile the batched dispatch
+    picks for these positions; with ``group_sources``, groups of that many
+    sources in tiles of one source, at any shape), "gather" and
+    "gather_noxf" (row 6 with and
+    without the crossfade), "apply" and "apply_noxf" (row 7, segments of nb
+    rows, its forward planes and distance in plain torch).
+    ``trajectory``: "movers" (``scene_mover_positions``, the default for
+    "grouped"), "hold" (``scene_hold_positions``, the default otherwise), or
+    "still" (the hold scene with no step and no crossfade: then a form and
+    its "_noxf" form on one seed are the no-crossfade contract's pair).
+    The step takes compact distance where the scene's (u_hi, u_lo,
+    inv_frac) triples are few, else per-row distance; the scenes' radii
+    give the per-row form, ``unit_radius`` the compact one (each source's
+    radius divided by the planner's elevation factor sqrt(1 + sin² ele),
+    so every block sits at |coordinates| = 1).  ``radius_step`` > 0 moves
+    the radius every block and takes the per-row form at any size.
+    ``xf_every`` > 0 turns the crossfade off on every that-many-th row."""
+    cfg = db.config
+    fpb = cfg.frames_per_buffer
+    rng = np.random.default_rng(seed)
+    trajectory = trajectory or ("movers" if form == "grouped" else "hold")
+    if trajectory == "movers":
+        pos = scene_mover_positions(s, nb)
+    elif trajectory in ("hold", "still"):
+        pos = scene_hold_positions(s, nb, blocks_per_step=nb if trajectory == "still" else 172)
+    else:
+        raise ValueError(f"trajectory {trajectory!r} not in ('movers', 'hold', 'still')")
+    if unit_radius:
+        ele = np.deg2rad(np.round(pos[:, :, 1]))
+        pos[:, :, 2] = 1.0 / np.sqrt(1.0 + np.sin(ele) ** 2)
+    if radius_step:
+        pos[:, :, 2] += radius_step * np.arange(nb)
+    plans = [make_plan(p, cfg, initial_old=None if trajectory == "still" else (0.0, 0.0))
+             for p in pos]
+    cat_rows = lambda a: np.concatenate([getattr(p, a) for p in plans])
+    last = lambda a: np.stack([getattr(p, a)[-1] for p in plans])
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    streams = put((rng.standard_normal((s, cfg.history_len + nb * fpb)) * 0.2).astype(np.float32))
+    xf = cat_rows("xfade").astype(np.float32)[:, None]
+    if xf_every:
+        xf[::xf_every] = 0.0
+    xf = put(xf)
+    dist = None if radius_step else dedup_distance(cat_rows("u_hi"), cat_rows("u_lo"),
+                                                   cat_rows("inv_frac"))
+    if dist is None:
+        d_args = tuple(put(cat_rows(a)[:, None]) for a in ("u_hi", "u_lo", "inv_frac"))
+        kw = {}
+    else:
+        d_args = tuple(put(a[:, None]) for a in dist[:3])
+        kw = dict(dsel=put(dist[3][:, None]), n_dist=dist[4])
+    cat = cat_table(spectra_from_numpy(db.spectra, device))
+    blend = lambda i, w: blend_cat(cat, put(i), put(w))
+    if form == "grouped":
+        io = np.stack([p.idx_old for p in plans])
+        if group_sources is None:
+            plan = _plan_batch_onehot(plans, nb, nb, s)
+            tb = None if plan is None or plan[0] != "grouped" else group_tile(s, nb, plan[1])
+            if tb is None:
+                raise ValueError(f"{trajectory} at {s} x {nb} has no grouped one-hot plan: {plan}")
+        else:
+            plan = ("grouped", group_sources, _group_bucket(io, last("idx_new"), group_sources))
+            tb = nb
+        uniq, ridx, rlast = compact_filter_ids_grouped_sources(io, last("idx_new"), *plan[1:])
+        args = (streams, *d_args, cat[put(uniq).long()], put(ridx.reshape(-1, 4)),
+                put(cat_rows("w_old")), put(rlast), put(last("w_new")), xf)
+        kw.update(nb=nb, tb=tb, group_tiles=plan[1] * nb // tb)
+        fn = fused_step.fused_step_onehot_xfade
+    elif form in ("gather", "gather_noxf"):
+        noxf = form == "gather_noxf"
+        g = blend(cat_rows("idx_new"), cat_rows("w_new")) if noxf else \
+            blend(cat_rows("idx_old"), cat_rows("w_old"))
+        args = (streams, *d_args, g, None if noxf else blend(last("idx_new"), last("w_new")),
+                None if noxf else xf)
+        kw.update(nb=nb, with_xfade=not noxf)
+        fn = fused_step.fused_step_xfade
+    elif form in ("apply", "apply_noxf"):
+        noxf = form == "apply_noxf"
+        xr, xi = fft_ops.rfft_sliding_split_batched(streams, nb, fpb, cfg.pad_len)
+        dr, di = distance_factors_split(*(put(cat_rows(a)) for a in ("u_hi", "u_lo", "inv_frac")),
+                                        cfg.num_bins)
+        xdr, xdi = cmul(xr.reshape(s * nb, -1), xi.reshape(s * nb, -1), dr, di)
+        g = blend(cat_rows("idx_new"), cat_rows("w_new")) if noxf else \
+            blend(cat_rows("idx_old"), cat_rows("w_old"))
+        icr, ici = fft_ops.on_device(fft_ops._idft_tail_matrices, cfg.pad_len, fpb, device=device)
+        args = (xdr, xdi, g, None if noxf else blend(last("idx_new"), last("w_new")),
+                None if noxf else xf, icr, ici)
+        return fused_apply.fused_apply_xfade, args, dict(seg=nb, bins=cfg.num_bins, fpb=fpb,
+                                                         with_xfade=not noxf)
+    else:
+        raise ValueError(f"form {form!r} not in {SCENE_FORMS}")
+    kw.update(pad_len=cfg.pad_len, bins=cfg.num_bins, fpb=fpb)
+    return fn, args, kw
+
+
+# The card's peaks for the bound of a step: fp32 outside the tensor cores
+# and HBM bandwidth, from NVIDIA's H100 SXM data sheet (at a 700 W limit).
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+
+def step_flops(kernel: str, sources: int, nb: int, fpb: int = 128, bins: int = 513,
+               q: int = 8) -> float:
+    """The fp32 operations a step needs for S sources x nb blocks, counted
+    from the code: the sliding forward (one 128-sample DFT per sub-block,
+    the twiddle sum and the distance multiply per row), the one-hot blend
+    (4 brackets x 4 planes per side), and per side and ear the filter
+    multiply and the 513 x 128 tail IDFT.  Row 7 has no forward, rows 5-7
+    no blend; the no-crossfade forms compute one side."""
+    rows = sources * nb
+    sides = 1 if kernel.endswith("/no_xfade") else 2
+    flops = sides * 2 * rows * (6 * bins + 4 * bins * fpb)  # tails
+    if not kernel.startswith("fused_apply"):
+        flops += sources * (nb + q - 1) * 4 * fpb * bins + rows * bins * (8 * (q - 1) + 6)
+    if "onehot" in kernel:
+        flops += sides * rows * 4 * bins * 4 * 2
+    return float(flops)
+
+
+def bound_ms(flops: float, nbytes: int) -> tuple[float, str]:
+    """The least time the card could take: the larger of the operations
+    over the fp32 peak and the bytes (each input read once, each output
+    written once) over HBM bandwidth -> (ms, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
 def run_step(wl: Workload, hists=None):

@@ -1,14 +1,27 @@
 """Carry the JAX package's state across to the port.
 
-Both functions take NumPy arrays or anything ``np.asarray`` reads (a
+Each function takes NumPy arrays or anything ``np.asarray`` reads (a
 ``jax.Array`` too), so a render can start from the JAX package's filter
-spectra and resume from overlap-save histories it produced.
+database and resume from overlap-save histories it produced.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .config import EngineConfig
+from .hrtf.kemar import HRTFDatabase
+
+
+def database_from_numpy(spectra, hrirs, config_fields: dict, source: str = "converted") -> HRTFDatabase:
+    """The port's ``HRTFDatabase`` and ``EngineConfig`` from a database's
+    arrays (``db.spectra`` complex64, ``db.hrirs`` float32) and its
+    config's fields (``dataclasses.asdict(db.config)``)."""
+    return HRTFDatabase(
+        hrirs=np.asarray(hrirs, np.float32), spectra=np.asarray(spectra, np.complex64),
+        config=EngineConfig(**config_fields), source=source,
+    )
 
 
 def spectra_from_numpy(spectra, device) -> tuple[torch.Tensor, torch.Tensor]:

@@ -3,16 +3,22 @@
 // and crossfade.
 //
 // Replaces the TPU kernel _kernel (jefferson_tpu/pallas/fused_step.py:868)
-// as fused_step_stream_xfade (:971) calls it, one stream (row 5), in both
-// of its forms; fused_step_xfade (:1064, row 6) is the same kernel over S
-// sources, and this entry already takes S.  The filter rows arrive blended
-// (the caller's gather of a deduplicated blend, or a plain blend):
+// in both of its forms, as fused_step_stream_xfade (:971) calls it over one
+// stream (row 5) and fused_step_xfade (:1064) over S sources (row 6): one
+// entry, jt_fused_step_gather_xfade, with the source count as an argument.
+// The filter rows arrive blended (the caller's gather of a deduplicated
+// blend, or a plain blend):
 //
 //   XD[r]    = launch A (fused_forward.cuh)
 //   G_old[r] = g_rows[r]
 //   G_new[r] = g_rows[r+1] inside a source, g_last[r / nb] at its last row
 //   y_side   = tail128(IDFT(XD * G_side)) per ear
 //   out[r]   = y_old * (1 - n/127) + y_new * n/127   where xf[r] > 0, else y_new
+//
+// jt_fused_apply_xfade replaces the apply-only TPU kernel _kernel
+// (jefferson_tpu/pallas/fused_apply.py:59) of fused_apply_xfade (:133, row
+// 7): launch B alone, on XD planes the caller computed, with the segment
+// length in place of nb (the TPU kernel's roll patched at segment ends).
 //
 // with_xfade = 0 (the no-crossfade form): g_rows carries the NEW rows, and
 // only the new side is computed (half the operand rows and tail work).
@@ -180,5 +186,23 @@ extern "C" int jt_fused_step_gather_xfade(
     return with_xfade
                ? launch_gather_tail<2>(s, xdr, xdi, rows, nb, g_rows, g_last, xf, icr, ici, out)
                : launch_gather_tail<1>(s, xdr, xdi, rows, nb, g_rows, g_last, xf, icr, ici, out);
+  });
+}
+
+// The apply-only step (row 7): launch B on the caller's XD planes (xdr,
+// xdi: rows x 513), with segments of seg rows (the new row of r is
+// g_rows[r+1] inside a segment, g_last[r / seg] at its end; g_last is
+// rows/seg x 2052).  with_xfade = 0: g_rows carries the NEW rows and
+// g_last, xf may be null.  Launches on ``stream`` of ``device`` without
+// synchronising and returns the first CUDA error.
+extern "C" int jt_fused_apply_xfade(
+    int device, void* stream, const float* xdr, const float* xdi, int rows, int seg,
+    const float* g_rows, const float* g_last, const float* xf, int with_xfade,
+    const float* icr, const float* ici, float* out) {
+  return on_device(device, [&]() {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return with_xfade
+               ? launch_gather_tail<2>(s, xdr, xdi, rows, seg, g_rows, g_last, xf, icr, ici, out)
+               : launch_gather_tail<1>(s, xdr, xdi, rows, seg, g_rows, g_last, xf, icr, ici, out);
   });
 }

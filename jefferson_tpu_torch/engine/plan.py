@@ -1,10 +1,9 @@
 """Host-side render plan: per-block positions -> gather indices and weights.
 
 NumPy copy of the parts of ``jefferson_tpu/engine/plan.py`` that the
-port's renderers use.  The original imports jax through
-``ops/filters.py``, so the port keeps this jax-free copy (using the local
-``distance_phase_split``); ``tests/test_torch_plan.py`` pins every function
-bit-for-bit to its JAX-package counterpart.
+port's renderers use, over the port's own copies of the host modules;
+``tests/test_torch_plan.py`` pins every function bit-for-bit to its
+JAX-package counterpart.
 """
 
 from __future__ import annotations
@@ -13,12 +12,11 @@ import dataclasses
 
 import numpy as np
 
-from jefferson_tpu.config import DEFAULT_CONFIG, EngineConfig
-from jefferson_tpu.hrtf.kemar import pick_hrtf, round_half_away
-from jefferson_tpu.trajectory.interpolation import interpolation_calculations
-from jefferson_tpu.trajectory.spatial import radius_from_cartesian, spherical_to_cartesian
-
+from ..config import DEFAULT_CONFIG, EngineConfig
+from ..hrtf.kemar import pick_hrtf, round_half_away
 from ..ops.filters import distance_phase_split
+from ..trajectory.interpolation import interpolation_calculations
+from ..trajectory.spatial import radius_from_cartesian, spherical_to_cartesian
 
 _F32 = np.float32
 
@@ -216,6 +214,35 @@ def compact_filter_ids_grouped(
     return np.concatenate(tables), ridx, rbnd
 
 
+def compact_filter_ids_grouped_sources(
+    idx_old: np.ndarray, idx_last: np.ndarray, group_sources: int, u_pad: int
+):
+    """Per-source-group compact tables for the batched one-hot step (wide
+    scenes): groups of ``group_sources`` consecutive sources share a table
+    of ``u_pad`` rows.  Each source's boundary row is its own final new row,
+    so no boundary crosses a group.
+
+    idx_old: (S, nb, 4); idx_last: (S, 4).  Returns (uniq_ids (G*u_pad,),
+    ridx (S, nb, 4), rlast (S, 4)), ids remapped into their group's table.
+    """
+    idx_old = np.asarray(idx_old, np.int32)
+    idx_last = np.asarray(idx_last, np.int32)
+    s = idx_old.shape[0]
+    if s % group_sources:
+        raise ValueError(f"{s} sources do not split into groups of {group_sources}")
+    tables = []
+    ridx = np.empty_like(idx_old)
+    rlast = np.empty_like(idx_last)
+    for g, start in enumerate(range(0, s, group_sources)):
+        stop = start + group_sources
+        ids = np.concatenate([idx_old[start:stop].reshape(-1), idx_last[start:stop].reshape(-1)])
+        table, lut = _compact_table(ids, u_pad, f"group {g}")
+        tables.append(table)
+        ridx[start:stop] = lut[idx_old[start:stop]]
+        rlast[start:stop] = lut[idx_last[start:stop]]
+    return np.concatenate(tables), ridx, rlast
+
+
 def fed_stream(signal: np.ndarray, num_blocks: int, config: EngineConfig = DEFAULT_CONFIG) -> np.ndarray:
     """The sample stream the engine consumes: the input repeated (wrapping
     playhead, reference: Jefferson/src/Audio.cu:121-139) and truncated to
@@ -228,6 +255,4 @@ def fed_stream(signal: np.ndarray, num_blocks: int, config: EngineConfig = DEFAU
     total = num_blocks * config.frames_per_buffer
     if len(signal) >= total:
         return signal[:total]
-    from jefferson_tpu.native import fed_stream as _native_fed
-
-    return _native_fed(signal, num_blocks, config.frames_per_buffer)
+    return np.tile(signal, -(-total // len(signal)))[:total]

@@ -20,11 +20,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from jefferson_tpu.config import EngineConfig, ProcessType
-from jefferson_tpu.hrtf.kemar import HRTFDatabase
-
+from ..config import EngineConfig, ProcessType
 from ..convert import spectra_from_numpy
+from ..hrtf.kemar import HRTFDatabase
 from ..kernels import fused_step
+from ..kernels.fused_apply import fused_apply_xfade
 from ..kernels.fused_step import blend_cat
 from ..ops import fft as fft_ops
 from ..ops.filters import cmul, distance_factors_split, xfade_ramp
@@ -182,7 +182,7 @@ def _fd_complex_chunk_fused(
     else:
         g_last, xf = None, None
     y = _apply_maybe_full_fuse(
-        full, u_hi, u_lo, inv_frac, g_rows, g_last, xf, config,
+        full, u_hi, u_lo, inv_frac, g_rows, g_last, xf, config, num_blocks,
         dsel=dsel, n_dist=n_dist, with_xfade=with_xfade,
     )
     return y.reshape(num_blocks, 2, fpb).permute(0, 2, 1), new_hist
@@ -240,17 +240,22 @@ def _fd_complex_chunk_onehot_grouped(
 
 
 def _apply_maybe_full_fuse(
-    full, u_hi, u_lo, inv_frac, g_old, g_last, xf, config, dsel=None,
+    full, u_hi, u_lo, inv_frac, g_old, g_last, xf, config, num_blocks, dsel=None,
     n_dist: int | None = None, with_xfade: bool = True,
 ):
-    """Run the gather-form fused step (forward DFT and distance in the
-    kernel).  The JAX package's other branch, for a history that is not a
-    whole number of blocks, is the apply-only kernel (row 7), not ported."""
-    if config.history_len % config.frames_per_buffer:
-        raise ValueError(
-            "history_len % frames_per_buffer != 0 needs the apply-only kernel "
-            "(kernel row 7, ROADMAP queue 2 item 3), not ported yet; use fused=False"
-        )
+    """Run the gather-form fused step: forward DFT and distance in the
+    kernel (row 5) when the history is a whole number of blocks, else the
+    forward and distance in plain torch and the apply-only step (row 7)."""
+    fpb = config.frames_per_buffer
+    if config.history_len % fpb:
+        if n_dist is not None:
+            raise ValueError("compact distance needs the aligned geometry")
+        xr, xi = _forward_split(full, num_blocks, config)
+        xdr, xdi = cmul(xr, xi, *distance_factors_split(u_hi, u_lo, inv_frac, config.num_bins))
+        icr, ici = fft_ops.on_device(fft_ops._idft_tail_matrices, config.pad_len, fpb,
+                                     device=full.device)
+        return fused_apply_xfade(xdr, xdi, g_old, g_last, xf, icr, ici, seg=num_blocks,
+                                 bins=config.num_bins, fpb=fpb, with_xfade=with_xfade)
     return fused_step.fused_step_stream_xfade(
         full, u_hi[:, None], u_lo[:, None], inv_frac[:, None], g_old, g_last, xf,
         pad_len=config.pad_len, bins=config.num_bins, fpb=config.frames_per_buffer,
@@ -292,7 +297,7 @@ def _pad_cf_indices(xfade_rows: np.ndarray, bucket: int) -> np.ndarray:
 
 def _sparse_xfade_fix(
     y, subs_all, cf_idx, g_old_cf, xfade, u_hi, u_lo, inv_frac,
-    *, config: EngineConfig, nb_seg: int,
+    *, config: EngineConfig, nb_seg: int, xr_cf=None, xi_cf=None,
 ):
     """Fix up the few crossfading rows of a no-crossfade step's output.
 
@@ -303,27 +308,34 @@ def _sparse_xfade_fix(
     association of ops/fft.rfft_sliding_split and the step's forward), the
     distance ramp, the old-filter apply and tail IDFT, and the crossfade,
     masked by each row's own xfade flag so padded ids rewrite their own
-    values.  subs_all: (S*(nb_seg + q - 1), fpb) sub-block sample rows."""
+    values.  subs_all: (S*(nb_seg + q - 1), fpb) sub-block sample rows.
+    Where the caller already holds every row's forward planes (the
+    apply-only branch), it passes their ``cf_idx`` rows as ``xr_cf`` and
+    ``xi_cf``, and they are not recomputed (the same values: one
+    association)."""
     fpb = config.frames_per_buffer
     bins = config.num_bins
     n = config.pad_len
     q = n // fpb
     dev = y.device
-    s_ids = cf_idx // nb_seg
-    base = cf_idx + s_ids * (q - 1)
-    win = base[:, None] + torch.arange(q, device=dev)[None, :]    # (ncf, q)
-    subs = subs_all[win]                                           # (ncf, q, fpb)
-    cr, ci = fft_ops.on_device(fft_ops._subblock_dft_matrices, n, fpb, device=dev)
-    ncf = cf_idx.shape[0]
-    flat = subs.reshape(ncf * q, fpb)
-    pr = (flat @ cr).reshape(ncf, q, bins)
-    pi = (flat @ ci).reshape(ncf, q, bins)
-    twr, twi = fft_ops.on_device(fft_ops._sliding_twiddles, n, fpb, device=dev)
-    xr, xi = pr[:, 0], pi[:, 0]
-    for m in range(1, q):
-        a, b = twr[m][None, :], twi[m][None, :]
-        xr = xr + (a * pr[:, m] - b * pi[:, m])
-        xi = xi + (a * pi[:, m] + b * pr[:, m])
+    if xr_cf is not None:
+        xr, xi = xr_cf, xi_cf
+    else:
+        s_ids = cf_idx // nb_seg
+        base = cf_idx + s_ids * (q - 1)
+        win = base[:, None] + torch.arange(q, device=dev)[None, :]    # (ncf, q)
+        subs = subs_all[win]                                           # (ncf, q, fpb)
+        cr, ci = fft_ops.on_device(fft_ops._subblock_dft_matrices, n, fpb, device=dev)
+        ncf = cf_idx.shape[0]
+        flat = subs.reshape(ncf * q, fpb)
+        pr = (flat @ cr).reshape(ncf, q, bins)
+        pi = (flat @ ci).reshape(ncf, q, bins)
+        twr, twi = fft_ops.on_device(fft_ops._sliding_twiddles, n, fpb, device=dev)
+        xr, xi = pr[:, 0], pi[:, 0]
+        for m in range(1, q):
+            a, b = twr[m][None, :], twi[m][None, :]
+            xr = xr + (a * pr[:, m] - b * pi[:, m])
+            xi = xi + (a * pi[:, m] + b * pr[:, m])
     dr, di = distance_factors_split(u_hi[cf_idx], u_lo[cf_idx], inv_frac[cf_idx], bins)
     xdr, xdi = cmul(xr, xi, dr, di)
     grl, gil, grr, gir = split_planes(g_old_cf, bins)
@@ -380,7 +392,7 @@ def _fd_complex_chunk_dedup_fused(
     else:
         g_last, xf = None, None
     y = _apply_maybe_full_fuse(
-        full, u_hi, u_lo, inv_frac, g_rows, g_last, xf, config,
+        full, u_hi, u_lo, inv_frac, g_rows, g_last, xf, config, num_blocks,
         dsel=dsel, n_dist=n_dist, with_xfade=with_xfade,
     )
     if sparse:
@@ -479,6 +491,17 @@ def plan_onehot_chunking(plan: RenderPlan, b_total: int, cb: int, tb: int):
         group = nxt
 
 
+def check_card_geometry(config: EngineConfig) -> None:
+    """Raise unless the CUDA steps are built for ``config``'s geometry."""
+    cfg = (config.frames_per_buffer, config.pad_len, config.num_bins)
+    if cfg != (fused_step._FPB, fused_step._PAD, fused_step._BINS):
+        raise ValueError(
+            f"fused=True on a CUDA device: the kernels are built for fpb 128, pad 1024 "
+            f"(513 bins), not fpb {cfg[0]}, pad {cfg[1]}: ROADMAP queue 1 item 11, kernels "
+            "for geometries other than fpb 128 / pad 1024; use fused=False or the CPU"
+        )
+
+
 class Renderer:
     """Offline single-source renderer: one mono signal along per-block
     positions -> (B*fpb, 2) float32, chunk by chunk.
@@ -491,11 +514,13 @@ class Renderer:
     ``sparse_xfade`` are the JAX package's switches.  After each render,
     ``dispatch`` lists each chunk's (arm, with_xfade, sparse bucket).
 
-    Not ported (each raises, naming its ROADMAP item): process types other
-    than FD_COMPLEX, a device mesh, ``pipeline_fetch``, and ``fused=True``
-    with a history that is not a whole number of blocks.  The JAX
-    package's fallback ladder is not carried over: a failed build or
-    launch raises.
+    A history that is not a whole number of blocks takes the apply-only
+    step (row 7) where the JAX package does; its twin runs on the CPU, and
+    ``fused=True`` on a CUDA device refuses any geometry but the one the
+    kernels are built for (fpb 128, pad 1024).  Not ported (each raises,
+    naming its ROADMAP item): process types other than FD_COMPLEX, a device
+    mesh and ``pipeline_fetch``.  The JAX package's fallback ladder is not
+    carried over: a failed build or launch raises.
     """
 
     def __init__(
@@ -525,13 +550,9 @@ class Renderer:
                 "pipeline_fetch is not ported: ROADMAP queue 1 item 4 (a side CUDA "
                 "stream with pinned host buffers)"
             )
-        if fused and self.config.history_len % self.config.frames_per_buffer:
-            raise ValueError(
-                "fused=True with history_len % frames_per_buffer != 0 needs the "
-                "apply-only kernel (kernel row 7, ROADMAP queue 2 item 3), not ported yet; "
-                "use fused=False"
-            )
         self.device = torch.device(device)
+        if fused and self.device.type == "cuda":
+            check_card_geometry(self.config)
         self.chunk_blocks = chunk_blocks
         self.dedup = dedup
         self.fused = fused

@@ -8,19 +8,23 @@ lane512, tail_tree, single_blend, mstack_tail and fwd512 are gone):
 ==========================================  ====  =============================
 wrapper (JAX wrapper line)                  row   CUDA source
 ==========================================  ====  =============================
-fused_step_onehot_xfade (:721)              1     csrc/fused_step_onehot.cu
+fused_step_onehot_xfade (:721), one         1     csrc/fused_step_onehot.cu
+shared table
+fused_step_onehot_xfade with group_tiles    2     csrc/fused_step_onehot.cu
 fused_step_stream_onehot_xfade (:517)       3     csrc/fused_step_onehot.cu
 fused_step_stream_onehot_grouped_xfade      4     csrc/fused_step_onehot.cu
 (:615)
 fused_step_stream_xfade (:971), both        5     csrc/fused_step_gather.cu
 ``with_xfade`` forms
+fused_step_xfade (:1064), both forms        6     csrc/fused_step_gather.cu
 ==========================================  ====  =============================
 
-Rows 1, 3 and 4 replace the TPU body ``_onehot_kernel`` (:347), row 5 the
-body ``_kernel`` (:868).  Per output row r they compute the sliding
+Rows 1-4 replace the TPU body ``_onehot_kernel`` (:347), rows 5 and 6 the
+body ``_kernel`` (:868); row 7, the apply-only step, is in
+``kernels/fused_apply.py``.  Per output row r they compute the sliding
 sub-block forward DFT, the distance planes (per row, or selected from <= 8
 unique triples), the old and new filter rows (blended from a compact table
-in rows 1, 3 and 4; arriving pre-blended in row 5), the per-ear tail IDFT
+in rows 1-4; arriving pre-blended in rows 5 and 6), the per-ear tail IDFT
 of each, and the crossfade where ``xf > 0``.  Output: (rows, 2*fpb) =
 [L fpb | R fpb].  The CUDA sources' headers say what bounds each kernel on
 the H100 and how its design answers that.
@@ -55,11 +59,16 @@ MAX_ONEHOT_U = 256
 MAX_DIST_UNIQ = 8
 
 # Launches of each CUDA kernel since its count was last set to 0, keyed by
-# wrapper (the no-crossfade form of row 5 counts on its own).
+# wrapper; a wrapper's second form counts on its own ("/grouped" for row 2,
+# "/no_xfade" for the no-crossfade forms of rows 5, 6 and 7; row 7's
+# wrapper is kernels/fused_apply.fused_apply_xfade).
 NO_XFADE = "fused_step_stream_xfade/no_xfade"
+GROUPED = "fused_step_onehot_xfade/grouped"
 launches: dict[str, int] = dict.fromkeys((
-    "fused_step_onehot_xfade", "fused_step_stream_onehot_xfade",
+    "fused_step_onehot_xfade", GROUPED, "fused_step_stream_onehot_xfade",
     "fused_step_stream_onehot_grouped_xfade", "fused_step_stream_xfade", NO_XFADE,
+    "fused_step_xfade", "fused_step_xfade/no_xfade",
+    "fused_apply_xfade", "fused_apply_xfade/no_xfade",
 ), 0)
 
 _FPB, _PAD, _BINS = 128, 1024, 513  # the geometry the CUDA kernels are built for
@@ -107,14 +116,18 @@ def _forward_reference(streams, nb, uh, ul, fr, dsel, n_dist, *, pad_len, bins, 
     return cmul(xr, xi, dr, di)
 
 
-def _tails_reference(xdr, xdi, g_old, g_new, xf, *, pad_len, bins, fpb):
+def _tails_reference(xdr, xdi, g_old, g_new, xf, *, pad_len, bins, fpb, bases=None):
     """Per-ear tail IDFTs of XD * G and the crossfade -> (rows, 2*fpb);
-    ``g_old=None`` computes the new side only (the no-crossfade form)."""
+    ``g_old=None`` computes the new side only (the no-crossfade form).
+    ``bases``: the (bins, fpb) tail-IDFT planes, default those of pad_len."""
+    icr, ici = bases or fft_ops.on_device(fft_ops._idft_tail_matrices, pad_len, fpb,
+                                          device=xdr.device)
 
     def tail(g, ear):
         gr = g[:, 2 * ear * bins : (2 * ear + 1) * bins]
         gi = g[:, (2 * ear + 1) * bins : (2 * ear + 2) * bins]
-        return fft_ops.irfft_tail_split(*cmul(xdr, xdi, gr, gi), pad_len, fpb)
+        qr, qi = cmul(xdr, xdi, gr, gi)
+        return qr @ icr + qi @ ici
 
     if g_old is None:
         return torch.cat([tail(g_new, e) for e in range(2)], dim=1)
@@ -144,14 +157,31 @@ def _onehot_reference(streams, nb, uh, ul, fr, table, ridx, w, bnd_idx, bnd_w, x
                             pad_len=pad_len, bins=bins, fpb=fpb)
 
 
+def _table_groups(rows: int, nb: int, table_rows: int, tb, group_tiles) -> tuple[int, int]:
+    """(group_rows, u_rows) of the batched one-hot step: one shared table,
+    or groups of ``group_tiles`` tiles of ``tb`` rows, each with its own
+    slice of ``table_rows // n_groups`` table rows."""
+    if group_tiles is None:
+        return rows, table_rows
+    if tb is None or tb < 1 or tb % nb or rows % tb or (rows // tb) % group_tiles:
+        raise ValueError(f"{rows} rows do not split into groups of {group_tiles} tiles of "
+                         f"{tb} rows that own whole sources of {nb} blocks")
+    n_groups = rows // tb // group_tiles
+    if table_rows % n_groups:
+        raise ValueError(f"table of {table_rows} rows does not split into {n_groups} groups")
+    return tb * group_tiles, table_rows // n_groups
+
+
 def fused_step_onehot_xfade_reference(
     streams, uh, ul, fr, table, ridx, w, ridx_last, w_last, xf,
-    *, nb: int, pad_len: int, bins: int, fpb: int, dsel=None, n_dist=None,
+    *, nb: int, pad_len: int, bins: int, fpb: int, tb: int | None = None,
+    group_tiles: int | None = None, dsel=None, n_dist=None,
 ):
-    """Plain-PyTorch twin of row 1 (see fused_step_onehot_xfade)."""
+    """Plain-PyTorch twin of rows 1 and 2 (see fused_step_onehot_xfade)."""
+    group_rows, u_rows = _table_groups(ridx.shape[0], nb, table.shape[0], tb, group_tiles)
     return _onehot_reference(
         streams, nb, uh, ul, fr, table, ridx, w, ridx_last, w_last, xf,
-        seg=nb, group_rows=ridx.shape[0], u_rows=table.shape[0],
+        seg=nb, group_rows=group_rows, u_rows=u_rows,
         pad_len=pad_len, bins=bins, fpb=fpb, dsel=dsel, n_dist=n_dist,
     )
 
@@ -204,6 +234,18 @@ def fused_step_stream_xfade_reference(
     """Plain-PyTorch twin of row 5 (see fused_step_stream_xfade)."""
     return _gather_reference(
         stream[None], g_old.shape[0], uh, ul, fr, g_old, g_last, xf, with_xfade=with_xfade,
+        pad_len=pad_len, bins=bins, fpb=fpb, dsel=dsel, n_dist=n_dist,
+    )
+
+
+def fused_step_xfade_reference(
+    streams, uh, ul, fr, g_old, g_last, xf,
+    *, nb: int, pad_len: int, bins: int, fpb: int, dsel=None, n_dist=None,
+    with_xfade: bool = True,
+):
+    """Plain-PyTorch twin of row 6 (see fused_step_xfade)."""
+    return _gather_reference(
+        streams, nb, uh, ul, fr, g_old, g_last, xf, with_xfade=with_xfade,
         pad_len=pad_len, bins=bins, fpb=fpb, dsel=dsel, n_dist=n_dist,
     )
 
@@ -312,8 +354,8 @@ def _launch(name: str, lib: str, entry, device, streams, n_src, nb, dist, middle
 
 def _onehot_cuda(name, device, streams, nb, uh, ul, fr, dsel, n_dist, table, u_rows, ridx, w,
                  bnd_idx, bnd_w, seg, group_rows, xf, *, pad_len, bins, fpb):
-    """Rows 1, 3 and 4 on the card.  Rows 3 and 4 sum the tail IDFT by
-    128-bin blocks; row 1 keeps the one chain over K it was measured with."""
+    """Rows 1-4 on the card.  Rows 2-4 sum the tail IDFT by 128-bin blocks;
+    row 1 keeps the one chain over K it was measured with."""
     rows = ridx.shape[0]
     n_seg = rows // seg
     specs = {
@@ -337,31 +379,43 @@ def _onehot_cuda(name, device, streams, nb, uh, ul, fr, dsel, n_dist, table, u_r
 def fused_step_onehot_xfade(
     streams,     # (S, (q-1)*fpb + nb*fpb) history followed by the fed samples
     uh, ul, fr,  # (S*nb, 1) distance phase split; (8, 1) triples with dsel
-    table,       # (U_pad, 4*bins) compact filter table [rL | iL | rR | iR]
-    ridx,        # (S*nb, 4) int32 old-row filter ids, remapped into table
+    table,       # (U_pad, 4*bins) compact filter table [rL | iL | rR | iR];
+                 # (G*U_pad, 4*bins) stacked per-group tables with group_tiles
+    ridx,        # (S*nb, 4) int32 old-row filter ids, remapped into table (its group)
     w,           # (S*nb, 4) float32 bracket weights
     ridx_last,   # (S, 4) int32 per-source final new rows
     w_last,      # (S, 4)
     xf,          # (S*nb, 1) float32 crossfade mask (> 0: crossfade)
     *, nb: int, pad_len: int, bins: int, fpb: int,
+    tb: int | None = None,           # rows per tile (with group_tiles)
+    group_tiles: int | None = None,  # tiles per table group (row 2)
     dsel=None,   # (S*nb, 1) int32 triple selector (compact distance)
     n_dist: int | None = None,
 ) -> torch.Tensor:
-    """Row 1, the batched step with one shared compact table -> (S*nb, 2*fpb).
-    The new row of a source's last block is its ``ridx_last`` row."""
+    """The batched one-hot step -> (S*nb, 2*fpb).  The new row of a source's
+    last block is its ``ridx_last`` row.
+
+    Row 1 (``group_tiles=None``): one shared compact table.  Row 2: every
+    ``group_tiles`` consecutive tiles of ``tb`` rows (tiles own whole
+    sources, tb % nb == 0) blend against their own slice of ``table``, row
+    r reading rows [g*U, (g+1)*U) with g = r // (tb*group_tiles) and U =
+    table rows / groups; counted as ``fused_step_onehot_xfade/grouped``."""
     _check_streams(streams, nb, pad_len, fpb)
     if (dsel is None) != (n_dist is None):
         raise ValueError("dsel and n_dist go together (compact distance)")
+    rows = streams.shape[0] * nb
+    group_rows, u_rows = _table_groups(rows, nb, table.shape[0], tb, group_tiles)
     operands = [streams, uh, ul, fr, table, ridx, w, ridx_last, w_last, xf]
     device = _where(operands + ([] if dsel is None else [dsel]), pad_len, bins, fpb)
     kw = dict(pad_len=pad_len, bins=bins, fpb=fpb)
     if device.type == "cpu":
-        return fused_step_onehot_xfade_reference(*operands, nb=nb, dsel=dsel, n_dist=n_dist, **kw)
-    if ridx.shape[0] != streams.shape[0] * nb:
-        raise ValueError(f"ridx {tuple(ridx.shape)}: want {streams.shape[0] * nb} rows")
-    return _onehot_cuda("fused_step_onehot_xfade", device, streams, nb, uh, ul, fr, dsel, n_dist,
-                        table, table.shape[0], ridx, w, ridx_last, w_last, nb, ridx.shape[0], xf,
-                        **kw)
+        return fused_step_onehot_xfade_reference(*operands, nb=nb, tb=tb, group_tiles=group_tiles,
+                                                 dsel=dsel, n_dist=n_dist, **kw)
+    if ridx.shape[0] != rows:
+        raise ValueError(f"ridx {tuple(ridx.shape)}: want {rows} rows")
+    name = "fused_step_onehot_xfade" if group_tiles is None else GROUPED
+    return _onehot_cuda(name, device, streams, nb, uh, ul, fr, dsel, n_dist, table, u_rows,
+                        ridx, w, ridx_last, w_last, nb, group_rows, xf, **kw)
 
 
 def fused_step_stream_onehot_xfade(
@@ -442,30 +496,70 @@ def fused_step_stream_xfade(
     ``with_xfade=False``: ``g_old`` carries the NEW rows, g_last and xf are
     ignored, and only the new-side tails are computed (counted apart)."""
     b = g_old.shape[0]
-    _check_streams(stream, b, pad_len, fpb)
+    device = _gather_device(stream, b, uh, ul, fr, g_old, g_last, xf, dsel, n_dist, with_xfade,
+                            pad_len=pad_len, bins=bins, fpb=fpb)
+    if device.type == "cpu":
+        return fused_step_stream_xfade_reference(
+            stream, uh, ul, fr, g_old, g_last, xf, dsel=dsel, n_dist=n_dist,
+            with_xfade=with_xfade, pad_len=pad_len, bins=bins, fpb=fpb)
+    name = "fused_step_stream_xfade" if with_xfade else NO_XFADE
+    return _gather_cuda(name, device, stream, 1, b, uh, ul, fr, g_old, g_last, xf, dsel, n_dist,
+                        with_xfade, pad_len=pad_len, bins=bins, fpb=fpb)
+
+
+def fused_step_xfade(
+    streams,     # (S, (q-1)*fpb + nb*fpb) history followed by the fed samples
+    uh, ul, fr,  # (S*nb, 1) distance phase split; (8, 1) triples with dsel
+    g_old,       # (S*nb, 4*bins) old-filter blend rows; the NEW rows when not with_xfade
+    g_last,      # (S, 4*bins) per-source final new rows (None when not with_xfade)
+    xf,          # (S*nb, 1) float32 crossfade mask (None when not with_xfade)
+    *, nb: int, pad_len: int, bins: int, fpb: int,
+    dsel=None, n_dist: int | None = None, with_xfade: bool = True,
+) -> torch.Tensor:
+    """Row 6, the gather form over S sources of nb blocks -> (S*nb, 2*fpb).
+    The new row of block b of source s is g_old[s*nb + b + 1] inside the
+    source and ``g_last[s]`` at its last block.  ``with_xfade=False``:
+    ``g_old`` carries the NEW rows, g_last and xf are ignored, and only the
+    new-side tails are computed (counted as ``fused_step_xfade/no_xfade``)."""
+    s = streams.shape[0]
+    device = _gather_device(streams, nb, uh, ul, fr, g_old, g_last, xf, dsel, n_dist, with_xfade,
+                            pad_len=pad_len, bins=bins, fpb=fpb)
+    kw = dict(pad_len=pad_len, bins=bins, fpb=fpb)
+    if device.type == "cpu":
+        return fused_step_xfade_reference(streams, uh, ul, fr, g_old, g_last, xf, nb=nb, dsel=dsel,
+                                          n_dist=n_dist, with_xfade=with_xfade, **kw)
+    name = "fused_step_xfade" if with_xfade else "fused_step_xfade/no_xfade"
+    return _gather_cuda(name, device, streams, s, nb, uh, ul, fr, g_old, g_last, xf, dsel, n_dist,
+                        with_xfade, **kw)
+
+
+def _gather_device(streams, nb, uh, ul, fr, g_old, g_last, xf, dsel, n_dist, with_xfade,
+                   *, pad_len, bins, fpb) -> torch.device:
+    """Checks shared by rows 5 and 6; the device their operands lie on."""
+    _check_streams(streams, nb, pad_len, fpb)
     if (dsel is None) != (n_dist is None):
         raise ValueError("dsel and n_dist go together (compact distance)")
     if with_xfade and (g_last is None or xf is None):
         raise ValueError("the crossfade form needs g_last and xf")
-    operands = [stream, uh, ul, fr, g_old] + ([g_last, xf] if with_xfade else [])
-    device = _where(operands + ([] if dsel is None else [dsel]), pad_len, bins, fpb)
-    kw = dict(pad_len=pad_len, bins=bins, fpb=fpb)
-    if device.type == "cpu":
-        return fused_step_stream_xfade_reference(
-            stream, uh, ul, fr, g_old, g_last, xf, dsel=dsel, n_dist=n_dist,
-            with_xfade=with_xfade, **kw)
+    operands = [streams, uh, ul, fr, g_old] + ([g_last, xf] if with_xfade else [])
+    return _where(operands + ([] if dsel is None else [dsel]), pad_len, bins, fpb)
+
+
+def _gather_cuda(name, device, streams, n_src, nb, uh, ul, fr, g_old, g_last, xf, dsel, n_dist,
+                 with_xfade, *, pad_len, bins, fpb):
+    """Rows 5 and 6 on the card: ``n_src`` streams of ``nb`` blocks."""
+    rows = n_src * nb
     specs = {
-        "stream": (stream, tuple(stream.shape), torch.float32),
-        "g_old": (g_old, (b, 4 * bins), torch.float32),
-        **_distance_specs(uh, ul, fr, dsel, n_dist, b),
+        "streams": (streams, tuple(streams.shape), torch.float32),
+        "g_old": (g_old, (rows, 4 * bins), torch.float32),
+        **_distance_specs(uh, ul, fr, dsel, n_dist, rows),
     }
     if with_xfade:
-        specs["g_last"] = (g_last, (1, 4 * bins), torch.float32)
-        specs["xf"] = (xf, (b, 1), torch.float32)
+        specs["g_last"] = (g_last, (n_src, 4 * bins), torch.float32)
+        specs["xf"] = (xf, (rows, 1), torch.float32)
     _check(specs)
-    if b < 1:
+    if rows < 1:
         raise ValueError("the step needs a block")
-    name = "fused_step_stream_xfade" if with_xfade else NO_XFADE
     middle = (g_old, g_last if with_xfade else None, xf if with_xfade else None, int(with_xfade))
-    return _launch(name, "fused_step_gather", _gather_entry(), device, stream, 1, b,
-                   (uh, ul, fr, dsel, n_dist), middle, b, pad_len, bins, fpb)
+    return _launch(name, "fused_step_gather", _gather_entry(), device, streams, n_src, nb,
+                   (uh, ul, fr, dsel, n_dist), middle, rows, pad_len, bins, fpb)

@@ -1,9 +1,10 @@
 """Frequency-domain filter ops on float32 planes: distance factor, complex
 multiply, crossfade.  Counterpart of ``jefferson_tpu/ops/filters.py``.
 
-``distance_phase_split`` is host NumPy, copied from the JAX module (which
-imports jax and so cannot be reused); ``tests/test_torch_ops.py`` pins it
-bit-for-bit to the original.  The device ops keep the JAX op order, which
+``distance_phase_split`` is host NumPy, copied from the JAX module's NumPy
+branch (its native extension computes the same values,
+tests/test_native.py); ``tests/test_torch_ops.py`` pins it bit-for-bit to
+the original.  The device ops keep the JAX op order, which
 is the contract the CUDA kernel's distance planes follow too.
 """
 
@@ -32,12 +33,6 @@ def distance_phase_split(fsvs: float, radii: np.ndarray, num_bins: int):
     ``radii`` are the *scaled* radii (|coords|/distance_scale) in float32.
     """
     r = np.asarray(radii, dtype=np.float32)
-    from jefferson_tpu.native import HAVE_NATIVE
-
-    if HAVE_NATIVE and r.ndim == 1:  # bit-exact C++ port (tests/test_native.py)
-        from jefferson_tpu.native import distance_phase_split as native_dps
-
-        return native_dps(float(fsvs), r, num_bins)
     fsvs32 = np.float32(fsvs)
     u = np.float64(fsvs32) * r.astype(np.float64) / np.float64(num_bins)
     u_hi = np.float32(u)

@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from jefferson_tpu import DEFAULT_CONFIG, synthetic_database
 from jefferson_tpu_torch import bench
+from jefferson_tpu_torch.config import DEFAULT_CONFIG
 from jefferson_tpu_torch.engine.batch import BatchRenderer
+from jefferson_tpu_torch.hrtf.kemar import synthetic_database
+from jefferson_tpu_torch.kernels import fused_apply as tfa
 from jefferson_tpu_torch.kernels import fused_step as tfs
 
 pytestmark = pytest.mark.cuda
@@ -178,6 +180,109 @@ def test_renderer_on_the_card_matches_the_cpu_twins(card_db, case, monkeypatch):
     got = card.render(sig, pos)
     assert sum(tfs.launches.values()) == len(card.dispatch)
     cpu = Renderer(card_db, device="cpu", chunk_blocks=cb, **opts)
+    want = cpu.render(sig, pos)
+    assert card.dispatch == cpu.dispatch
+    assert np.abs(got - want).max() <= TOL
+
+
+# ---- the batched scene steps (kernel rows 2, 6 and 7) -----------------------
+
+# rows -> (sources, blocks per source) for rows 2 and 6; row 7 takes the
+# same rows as segments
+_SCENE_SHAPES = {8: (1, 8), 264: (4, 66), 4096: (16, 256)}
+# the two distance forms: each block at its own radius, or |coordinates| = 1
+_DISTANCE = {"per_row": {"radius_step": 0.01}, "compact": {"unit_radius": True}}
+
+
+def _scene(db, form, rows, **kw):
+    s, nb = _SCENE_SHAPES[rows]
+    return bench.scene_step(db, form, s, nb, torch.device("cuda", 0), **kw)
+
+
+def _twin(fn):
+    return getattr(tfa if fn is tfa.fused_apply_xfade else tfs, fn.__name__ + "_reference")
+
+
+@pytest.mark.parametrize("rows", [8, 264, 4096])
+@pytest.mark.parametrize("form", bench.SCENE_FORMS)
+@pytest.mark.parametrize("dist", list(_DISTANCE))
+def test_scene_kernels_match_twins(card_db, form, rows, dist):
+    # at 4,096 rows the dispatch's own group plan; below, one source per group
+    groups = {"group_sources": 1} if form == "grouped" and rows < 4096 else {}
+    fn, args, kw = _scene(card_db, form, rows, xf_every=5, **_DISTANCE[dist], **groups)
+    assert ("n_dist" in kw) == (dist == "compact" and not form.startswith("apply"))
+    name = {"grouped": tfs.GROUPED, "gather": "fused_step_xfade",
+            "gather_noxf": "fused_step_xfade/no_xfade", "apply": "fused_apply_xfade",
+            "apply_noxf": tfa.NO_XFADE}[form]
+    before = tfs.launches[name]
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfs.launches[name] == before + 1
+    want = _twin(fn)(*args, **kw)
+    assert got.shape == want.shape == (rows, 256)
+    assert float((got - want).abs().max()) <= TOL
+
+
+def test_grouped_kernel_on_ids_outside_a_groups_table(card_db):
+    fn, args, kw = _scene(card_db, "grouped", 264, unit_radius=True, group_sources=1)
+    args = list(args)
+    u = args[4].shape[0] // 4  # four groups of one source
+    args[5], args[7] = args[5].clone(), args[7].clone()
+    args[5][3, 1], args[5][100, 0], args[7][-1, 2], args[7][0, 3] = u, -4, 3 * u, -1
+    kw = {**kw, "dsel": kw["dsel"].clone()}
+    kw["dsel"][9, 0] = 7
+    got = fn(*args, **kw)
+    want = _twin(fn)(*args, **kw)
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("rows", [8, 264, 4096])
+@pytest.mark.parametrize("form", ["gather", "apply"])
+def test_scene_forms_bit_equal_without_crossfade(card_db, form, rows):
+    fn, args, kw = _scene(card_db, form, rows, trajectory="still", seed=4)
+    _, args_n, kw_n = _scene(card_db, form + "_noxf", rows, trajectory="still", seed=4)
+    assert not bool((args[6] if form == "gather" else args[4]).any())
+    assert torch.equal(fn(*args, **kw), fn(*args_n, **kw_n))
+
+
+def test_scene_kernels_refuse_operands_they_do_not_take(card_db):
+    fn, args, kw = _scene(card_db, "apply", 264)
+    bad = list(args)
+    bad[0] = args[0][:, :500]
+    with pytest.raises(ValueError, match="xdr: want contiguous"):
+        fn(*bad, **kw)
+    with pytest.raises(ValueError, match="built for fpb=128"):
+        fn(*args, **{**kw, "fpb": 96})
+    fn, args, kw = _scene(card_db, "gather", 264)
+    with pytest.raises(ValueError, match="g_last: want"):
+        fn(*args[:5], args[5][:-1], args[6], **kw)
+
+
+# (positions, chunk_blocks, options) of a small render per scene arm
+_SCENE_RENDERS = {
+    "dedup_fused_sparse": (lambda: bench.scene_hold_positions(4, 600, 100), 256, {}),
+    "dedup_fused": (lambda: bench.scene_hold_positions(4, 600, 100), 256,
+                    {"sparse_xfade": False}),
+    "onehot_grouped": (lambda: bench.scene_mover_positions(16, 300), 256, {}),
+    "gather_fused": (lambda: bench.wide_positions(4, 300), 256, {}),
+    "apply_only_sparse": (lambda: bench.scene_hold_positions(4, 600, 100), 512, {}),
+    "apply_only_dedup": (lambda: bench.scene_hold_positions(4, 600, 100), 512,
+                         {"sparse_xfade": False}),
+    "apply_only_gather": (lambda: bench.wide_positions(2, 600), 512, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(_SCENE_RENDERS))
+def test_scene_render_on_the_card_matches_the_cpu_twins(card_db, case):
+    positions, cb, opts = _SCENE_RENDERS[case]
+    pos = positions()
+    noise = np.random.default_rng(0).standard_normal(131072).astype(np.float32) * 0.2
+    sig = bench.scene_signals(noise, pos.shape[0], pos.shape[1])
+    card = BatchRenderer(card_db, device="cuda", chunk_blocks=cb, **opts)
+    tfs.reset_launches()
+    got = card.render(sig, pos)
+    assert sum(tfs.launches.values()) == len(card.dispatch)
+    cpu = BatchRenderer(card_db, device="cpu", chunk_blocks=cb, **opts)
     want = cpu.render(sig, pos)
     assert card.dispatch == cpu.dispatch
     assert np.abs(got - want).max() <= TOL

@@ -90,7 +90,7 @@ def test_twin_matches_pallas_onehot_and_xla_chain(db, config, compact, xf_every)
 
     td, tsel, tnd = _dist_args(c, compact, s, nb, _t)
     before = dict(tfs.launches)
-    y, h = tbatch.batched_chunk_fn_fused(config, nb, n_dist=tnd)(
+    y, h = tbatch.batched_chunk_fn_fused(config, nb, tb, onehot=True, n_dist=tnd)(
         spectra_from_numpy(db.spectra, "cpu"), _t(c["hists"]), _t(c["feds"]), _t(c["uniq"]),
         _t(c["ridx"]), _t(c["w_old"]), _t(c["rlast"]), _t(c["w_last"]), _t(c["xfade"]), *td,
         dsel=tsel,

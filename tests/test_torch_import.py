@@ -1,10 +1,12 @@
-"""The port imports without jax or triton, turns TF32 off, and its chip
-smoke test refuses to run without a CUDA device.
+"""The port imports without jax, triton or anything of the JAX package,
+turns TF32 off, and its chip smoke test imports nothing of the JAX package
+and refuses to run without a CUDA device.
 
 Each check runs in a fresh interpreter: tests/conftest.py imports jax into
 this one.
 """
 
+import ast
 import json
 import os
 import shutil
@@ -18,14 +20,21 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_MODULES = [
     "jefferson_tpu_torch",
     "jefferson_tpu_torch.bench",
+    "jefferson_tpu_torch.config",
     "jefferson_tpu_torch.convert",
     "jefferson_tpu_torch.engine.batch",
     "jefferson_tpu_torch.engine.plan",
     "jefferson_tpu_torch.engine.renderer",
+    "jefferson_tpu_torch.hrtf.kemar",
     "jefferson_tpu_torch.kernels.build",
+    "jefferson_tpu_torch.kernels.fused_apply",
     "jefferson_tpu_torch.kernels.fused_step",
     "jefferson_tpu_torch.ops.fft",
     "jefferson_tpu_torch.ops.filters",
+    "jefferson_tpu_torch.oracle.reference",
+    "jefferson_tpu_torch.trajectory.interpolation",
+    "jefferson_tpu_torch.trajectory.spatial",
+    "jefferson_tpu_torch.trajectory.trajectory",
 ]
 
 
@@ -37,11 +46,10 @@ def _python(code: str, cwd=ROOT, timeout=120):
 
 def test_every_port_module_lists_in_the_test():
     found = {
-        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
-        for p in (ROOT / "jefferson_tpu_torch").rglob("*.py")
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in (ROOT / "jefferson_tpu_torch").rglob("*.py") if p.name != "__init__.py"
     }
-    found = {m for m in found if not m.endswith(("engine", "ops", "kernels"))}
-    assert found == set(PORT_MODULES)
+    assert found | {"jefferson_tpu_torch"} == set(PORT_MODULES)
 
 
 def test_port_imports_without_jax_or_triton():
@@ -51,15 +59,31 @@ def test_port_imports_without_jax_or_triton():
         "import torch\n"
         "print(json.dumps({'jax': sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')),\n"
         "  'triton': 'triton' in sys.modules,\n"
-        "  'jax_plan': 'jefferson_tpu.engine.plan' in sys.modules,\n"
+        "  'jax_package': sorted(k for k in sys.modules\n"
+        "                        if k == 'jefferson_tpu' or k.startswith('jefferson_tpu.')),\n"
         "  'tf32': [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32],\n"
         "  'precision': torch.get_float32_matmul_precision()}))\n"
     )
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr
     got = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert got == {"jax": [], "triton": False, "jax_plan": False,
+    assert got == {"jax": [], "triton": False, "jax_package": [],
                    "tf32": [False, False], "precision": "highest"}
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    """chip_smoke.py imports only the port, torch, numpy and the standard
+    library, at any depth of the file."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    top = {n.split(".")[0] for n in names}
+    assert "jefferson_tpu_torch" in top
+    assert top <= {"jefferson_tpu_torch", "torch", "numpy"} | set(sys.stdlib_module_names), top
 
 
 def _smoke(cwd):

@@ -150,37 +150,90 @@ def test_group_bucket_is_equal(group):
 
 @pytest.mark.parametrize("kind,s,blocks,cb", [
     ("orbit", 4, 48, 16), ("orbit", 3, 40, 32), ("scattered", 8, 32, 16), ("scattered", 2, 64, 64),
+    ("movers", 8, 32, 16), ("movers", 4, 48, 24),
 ])
-@pytest.mark.parametrize("max_u", [256, 16])
+@pytest.mark.parametrize("max_u", [256, 32, 16])
 def test_plan_batch_onehot_shared_branch_is_equal(kind, s, blocks, cb, max_u, monkeypatch):
-    """The port returns the JAX planner's ('shared', u_pad) verbatim, and
-    None wherever the JAX planner leaves the shared form."""
+    """The port's render-wide one-hot plan is the JAX planner's: ('shared',
+    u_pad), ('grouped', group sources, u_pad) or None."""
     import jefferson_tpu.pallas.fused_step as jfs
 
     from jefferson_tpu_torch.kernels import fused_step as tfs
 
     monkeypatch.setattr(jfs, "MAX_ONEHOT_U", max_u)
     monkeypatch.setattr(tfs, "MAX_ONEHOT_U", max_u)
-    plans = [tplan.make_plan(_positions(kind, blocks, i=i)) for i in range(s)]
-    got = tbatch._plan_batch_onehot(plans, blocks, cb)
-    want = jbatch._plan_batch_onehot(plans, blocks, cb, s)
-    if want is not None and want[0] == "shared":
-        assert got == want
+    if kind == "movers":
+        from jefferson_tpu_torch.bench import scene_mover_positions
+
+        pos = scene_mover_positions(s, blocks)
+        plans = [tplan.make_plan(p) for p in pos]
     else:
-        assert got is None
+        plans = [tplan.make_plan(_positions(kind, blocks, i=i)) for i in range(s)]
+    for s_local in {s, s // 2}:
+        got = tbatch._plan_batch_onehot(plans, blocks, cb, s_local)
+        assert got == jbatch._plan_batch_onehot(plans, blocks, cb, s_local)
+        io = np.stack([p.idx_old[:cb] for p in plans])
+        il = np.stack([p.idx_new[cb - 1] for p in plans])
+        assert (tbatch._plan_source_groups(io, il, s_local, 1)
+                == jbatch._plan_source_groups(io, il, s_local, 1))
 
 
 def test_hold_scene_test_matches_the_jax_dedup_decision():
-    """``_is_hold_scene`` is the JAX BatchRenderer's dedup test (batch.py
-    render, 'u_pad * 2 > s * (cb + 1)' declines)."""
+    """``_plan_dedup`` takes the JAX BatchRenderer's dedup decision (batch.py
+    render: 'u_pad * 2 > s * (cb + 1)' declines), with its chunks."""
     cfg = DEFAULT_CONFIG
     static = [tplan.make_plan(_positions("static", 32, i=i)) for i in range(4)]
     movers = [tplan.make_plan(CircularOrbit(period_s=0.4 + 0.01 * i, ele=1 + 2 * i, r=1.0)
                               .sample(32, cfg)) for i in range(4)]
-    assert tbatch._is_hold_scene(static, 32, 16)
-    assert not tbatch._is_hold_scene(movers, 32, 16)
+    chunks, u_pad = tbatch._plan_dedup(static, 32, 16)
+    assert u_pad == 8 and len(chunks) == 2
+    for start, (uniq_idx, uniq_w, inv) in zip((0, 16), chunks):
+        assert inv.shape == (4, 17)
+        ext = np.concatenate([np.stack([p.idx_old[start : start + 1] for p in static]),
+                              np.stack([p.idx_new[start : start + 16] for p in static])], axis=1)
+        np.testing.assert_array_equal(uniq_idx[inv], ext)
+    assert tbatch._plan_dedup(movers, 32, 16) is None
     # a single chunk padded far past its blocks holds its last position
-    assert tbatch._is_hold_scene([tbatch.pad_plan(p, 224) for p in movers], 256, 256)
+    assert tbatch._plan_dedup([tbatch.pad_plan(p, 224) for p in movers], 256, 256) is not None
+
+
+def test_compact_filter_ids_grouped_sources_is_bit_equal():
+    from jefferson_tpu_torch.bench import scene_mover_positions
+
+    plans = [jplan.make_plan(p) for p in scene_mover_positions(8, 24)]
+    io = np.stack([p.idx_old for p in plans])
+    il = np.stack([p.idx_new[-1] for p in plans])
+    for group, u_pad in ((2, 64), (4, 128), (8, 256)):
+        got = tplan.compact_filter_ids_grouped_sources(io, il, group, u_pad)
+        want = jplan.compact_filter_ids_grouped_sources(io, il, group, u_pad)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+    with pytest.raises(ValueError, match="exceed the bucket"):
+        tplan.compact_filter_ids_grouped_sources(io, il, 2, 8)
+    with pytest.raises(ValueError, match="groups of 3"):
+        tplan.compact_filter_ids_grouped_sources(io, il, 3, 64)
+
+
+def test_scene_builders_are_the_sweep_gates():
+    """The bench's scenes are ``jefferson_tpu.bench.sweep``'s, and the
+    signals are the scene gate's rotated copies."""
+    from jefferson_tpu.bench import sweep
+
+    from jefferson_tpu_torch import bench
+
+    np.testing.assert_array_equal(bench.scene_hold_positions(16, 700),
+                                  sweep.scene_hold_positions(16, 700))
+    np.testing.assert_array_equal(bench.scene_hold_positions(5, 90, 20),
+                                  sweep.scene_hold_positions(5, 90, 20))
+    np.testing.assert_array_equal(bench.scene_mover_positions(16, 700),
+                                  sweep.scene_mover_positions(16, 700))
+    sig = np.random.default_rng(0).standard_normal(3000).astype(np.float32)
+    got = bench.scene_signals(sig, 3, 40)
+    n = 40 * 128
+    base = np.resize(sig, n)
+    np.testing.assert_array_equal(got, np.stack([np.roll(base, -(s * 7919 * 128) % n)
+                                                 for s in range(3)]))
 
 
 def test_unaligned_geometry_plan_copies_stay_equal():

@@ -8,6 +8,8 @@ chunk.  The JAX arms are read off its program caches: every chunk looks
 its program up once, so a recording cache logs the arm chunk by chunk.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from jefferson_tpu.oracle.reference import render_oracle
 from jefferson_tpu.pallas import fused_step as jfs
 from jefferson_tpu.trajectory.trajectory import AzimuthSweep, CircularOrbit
 from jefferson_tpu_torch import bench
+from jefferson_tpu_torch.convert import database_from_numpy
 from jefferson_tpu_torch.engine.plan import make_plan
 from jefferson_tpu_torch.engine.renderer import Renderer
 from jefferson_tpu_torch.kernels import fused_step as tfs
@@ -26,6 +29,12 @@ torch.set_num_threads(1)
 
 TOL_JAX = 5e-7
 TOL_ORACLE = 1e-6
+
+@pytest.fixture(scope="module")
+def tdb(db):
+    """The port's database, carried across from the JAX fixture."""
+    return database_from_numpy(db.spectra, db.hrirs, dataclasses.asdict(db.config))
+
 
 # JAX program cache -> (arm, with_xfade, sparse bucket) from its key
 _CACHES = {
@@ -103,7 +112,7 @@ CASES = {
 
 
 @pytest.mark.parametrize("name", list(CASES))
-def test_renderer_matches_jax_and_oracle(db, config, name, monkeypatch):
+def test_renderer_matches_jax_and_oracle(db, tdb, config, name, monkeypatch):
     pos, cb, opts, initial_old, max_u, arms = CASES[name]
     if max_u is not None:
         monkeypatch.setattr(jfs, "MAX_ONEHOT_U", max_u)
@@ -112,7 +121,7 @@ def test_renderer_matches_jax_and_oracle(db, config, name, monkeypatch):
     sig = (rng.standard_normal(len(pos) * config.frames_per_buffer) * 0.2).astype(np.float32)
     jax_opts = {"fused": True, **opts}
     want, jax_arms = _jax_render(db, sig, pos, initial_old, chunk_blocks=cb, **jax_opts)
-    r = Renderer(db, device="cpu", chunk_blocks=cb, **opts)
+    r = Renderer(tdb, device="cpu", chunk_blocks=cb, **opts)
     before = dict(tfs.launches)
     got = r.render(sig, pos, initial_old=initial_old)
     assert tfs.launches == before  # CPU tensors run the twins
@@ -123,10 +132,10 @@ def test_renderer_matches_jax_and_oracle(db, config, name, monkeypatch):
     assert np.abs(got - oracle).max() <= TOL_ORACLE
 
 
-def test_render_plan_and_dispatch_reset(db, config):
+def test_render_plan_and_dispatch_reset(tdb, config):
     """render_plan takes a prepared plan; each render replaces the log."""
     sig = np.random.default_rng(0).standard_normal(40 * 128).astype(np.float32) * 0.2
-    r = Renderer(db, device="cpu", chunk_blocks=16)
+    r = Renderer(tdb, device="cpu", chunk_blocks=16)
     a = r.render_plan(sig, make_plan(_hold(40), config))
     assert len(r.dispatch) == 3
     b = r.render(sig, _hold(40))
@@ -134,42 +143,59 @@ def test_render_plan_and_dispatch_reset(db, config):
     np.testing.assert_array_equal(a, b)
 
 
-def test_renderer_raises_where_the_port_stops(db, config):
+def test_renderer_raises_where_the_port_stops(tdb, config):
     sig = np.zeros(4096, np.float32)
-    r = Renderer(db, device="cpu")
+    r = Renderer(tdb, device="cpu")
     with pytest.raises(NotImplementedError, match="TPU_TD.*queue 1 item 5"):
         r.render(sig, _hold(8), ptype=ProcessType.TPU_TD)
     with pytest.raises(NotImplementedError, match="TPU_FD_BASIC"):
         r.render(sig, _hold(8), ptype=ProcessType.TPU_FD_BASIC)
     with pytest.raises(NotImplementedError, match="mesh.*queue 1 item 9"):
-        Renderer(db, device="cpu", mesh=object())
+        Renderer(tdb, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="pipeline_fetch.*queue 1 item 4"):
-        Renderer(db, device="cpu", pipeline_fetch=True)
+        Renderer(tdb, device="cpu", pipeline_fetch=True)
     with pytest.raises(ValueError, match="positive"):
-        Renderer(db, device="cpu", chunk_blocks=0)
+        Renderer(tdb, device="cpu", chunk_blocks=0)
     plan = make_plan(_orbit(8), config)
     plan.idx_old[3, 0] += 1
     with pytest.raises(ValueError, match="previous block's new arrays"):
         r.render_plan(sig, plan)
 
 
-def test_unaligned_history_needs_the_unfused_arms():
-    """fused=True with history_len % fpb != 0 needs kernel row 7; the
-    unfused arms render it as the JAX package's fused=False does."""
+@pytest.mark.parametrize("case", ["gather", "dedup", "unfused"])
+def test_unaligned_history_needs_the_unfused_arms(case):
+    """A history that is not a whole number of blocks (fpb 96, 256 taps):
+    the fused arms take the apply-only step (row 7, its twin here), as the
+    JAX package's fused arms take its apply-only kernel; the unfused arm
+    renders as the JAX package's fused=False does.  On a CUDA device the
+    fused renderer refuses the geometry its kernels are not built for."""
     cfg = EngineConfig(frames_per_buffer=96, hrtf_len=256)
     db96 = synthetic_database(cfg, n_taps=256, seed=9)
-    with pytest.raises(ValueError, match="row 7"):
-        Renderer(db96, device="cpu")
+    tdb96 = database_from_numpy(db96.spectra, db96.hrirs, dataclasses.asdict(cfg))
+    with pytest.raises(ValueError, match="fpb 128 / pad 1024"):
+        Renderer(tdb96, device="cuda")
     sig = np.random.default_rng(1).standard_normal(3000).astype(np.float32) * 0.3
-    pos = CircularOrbit(period_s=0.3, ele=5, r=1.0).sample(24, cfg)
-    r = Renderer(db96, device="cpu", chunk_blocks=8, fused=False)
+    cb = 16 if case == "dedup" else 8  # the dedup takes chunks of 16 hold blocks
+    if case == "dedup":
+        pos = np.tile([40.0, 10.0, 1.0], (48, 1))
+        opts, arms = {}, [("dedup_fused", True, None)] + [("dedup_fused", False, None)] * 2
+    else:
+        pos = CircularOrbit(period_s=0.3, ele=5, r=1.0).sample(24, cfg)
+        opts = {"fused": False} if case == "unfused" else {}
+        arms = [("plain" if case == "unfused" else "gather_fused", True, None)] * 3
+    r = Renderer(tdb96, device="cpu", chunk_blocks=cb, **opts)
+    before = dict(tfs.launches)
     got = r.render(sig, pos)
-    want = JaxRenderer(db96, chunk_blocks=8, fused=False).render(sig, pos)
-    assert r.dispatch == [("plain", True, None)] * 3
+    assert tfs.launches == before
+    want, jax_arms = _jax_render(db96, sig, pos, (0.0, 0.0), chunk_blocks=cb,
+                                 **{"fused": True, **opts})
+    assert r.dispatch == jax_arms == arms
     assert np.abs(got - want).max() <= TOL_JAX
+    oracle = render_oracle(sig, db96, [tuple(p) for p in pos], cfg)
+    assert np.abs(got - oracle).max() <= TOL_ORACLE
 
 
-def test_full_size_dispatch_matches_jax(db, config, monkeypatch):
+def test_full_size_dispatch_matches_jax(db, tdb, config, monkeypatch):
     """The arms ``chip_smoke.py`` holds the card's single-source path to,
     at full size (12,556 blocks in chunks of 2048): both renderers plan
     every chunk with their chunk programs stubbed out, and take the same
@@ -203,7 +229,7 @@ def test_full_size_dispatch_matches_jax(db, config, monkeypatch):
         for cache, arm_of in _CACHES.items():
             setattr(r, cache, _Recorder(arm_of, jax_arms))
         r.render(sig, pos)
-        port = Renderer(db, device="cpu", **opts)
+        port = Renderer(tdb, device="cpu", **opts)
         port.render(sig, pos)
         assert len(pos) == 12556 and len(port.dispatch) == 7, name
         assert port.dispatch == jax_arms == [arm] * 7, name

@@ -7,6 +7,8 @@ Tolerance: 5e-7 max-abs on the (B, 256) outputs, the JAX package's own
 fused-vs-unfused gate (tests/test_batch_parallel.py:834).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,12 +16,19 @@ import torch
 
 from jefferson_tpu.pallas import fused_step as jfs
 from jefferson_tpu_torch import bench
+from jefferson_tpu_torch.convert import database_from_numpy
 from jefferson_tpu_torch.kernels import build
 from jefferson_tpu_torch.kernels import fused_step as tfs
 
 torch.set_num_threads(1)
 
 TOL = 5e-7
+
+
+@pytest.fixture(scope="module")
+def tdb(db):
+    """The port's database, carried across from the JAX fixture."""
+    return database_from_numpy(db.spectra, db.hrirs, dataclasses.asdict(db.config))
 
 
 def _j(a):
@@ -41,8 +50,8 @@ def _run(fn, args, kw):
 
 
 @pytest.mark.parametrize("radius_step,xf_every", [(0.0, 0), (0.0, 3), (0.05, 0), (0.05, 2)])
-def test_stream_onehot_twin_matches_pallas(db, radius_step, xf_every):
-    fn, args, kw = bench.stream_step(db, "onehot", 64, "cpu", radius_step=radius_step,
+def test_stream_onehot_twin_matches_pallas(tdb, radius_step, xf_every):
+    fn, args, kw = bench.stream_step(tdb, "onehot", 64, "cpu", radius_step=radius_step,
                                      xf_every=xf_every, seed=1)
     assert ("n_dist" in kw) == (radius_step == 0.0)
     got = _run(fn, args, kw)
@@ -51,8 +60,8 @@ def test_stream_onehot_twin_matches_pallas(db, radius_step, xf_every):
 
 
 @pytest.mark.parametrize("trajectory", ["mover", "orbit"])
-def test_stream_onehot_grouped_twin_matches_pallas(db, trajectory):
-    fn, args, kw = bench.stream_step(db, "grouped", 64, "cpu", trajectory=trajectory,
+def test_stream_onehot_grouped_twin_matches_pallas(tdb, trajectory):
+    fn, args, kw = bench.stream_step(tdb, "grouped", 64, "cpu", trajectory=trajectory,
                                      tb=16, group_tiles=2, seed=2)
     assert ("n_dist" in kw) == (trajectory == "orbit")
     assert args[4].shape[0] == 2 * kw["u_pad"]  # two groups of 32 blocks
@@ -62,19 +71,19 @@ def test_stream_onehot_grouped_twin_matches_pallas(db, trajectory):
 
 @pytest.mark.parametrize("form", ["gather", "gather_noxf"])
 @pytest.mark.parametrize("radius_step", [0.0, 0.05])
-def test_stream_gather_twin_matches_pallas(db, form, radius_step):
-    fn, args, kw = bench.stream_step(db, form, 32, "cpu", radius_step=radius_step, seed=3)
+def test_stream_gather_twin_matches_pallas(tdb, form, radius_step):
+    fn, args, kw = bench.stream_step(tdb, form, 32, "cpu", radius_step=radius_step, seed=3)
     got = _run(fn, args, kw)
     assert got.shape == (32, 256)
     assert np.abs(got - _pallas(fn, args, kw, tb=8)).max() <= TOL
 
 
-def test_stream_gather_forms_bit_equal_without_crossfade(db):
+def test_stream_gather_forms_bit_equal_without_crossfade(tdb):
     """On a crossfade-free plan the no-crossfade form gives the crossfade
     form's bits (out = y_old*0 + y_new*1), the JAX package's contract
     (tests/test_noxfade.py:84-111)."""
-    fn, args, kw = bench.stream_step(db, "gather", 32, "cpu", trajectory="hold", seed=4)
-    _, args_n, kw_n = bench.stream_step(db, "gather_noxf", 32, "cpu", trajectory="hold", seed=4)
+    fn, args, kw = bench.stream_step(tdb, "gather", 32, "cpu", trajectory="hold", seed=4)
+    _, args_n, kw_n = bench.stream_step(tdb, "gather_noxf", 32, "cpu", trajectory="hold", seed=4)
     assert not args[-1].any()  # no crossfade anywhere
     with_xf = fn(*args, **kw)
     without = fn(*args_n, **kw_n)
@@ -83,11 +92,11 @@ def test_stream_gather_forms_bit_equal_without_crossfade(db):
 
 
 @pytest.mark.parametrize("form", ["onehot", "grouped"])
-def test_ids_outside_the_table_match_the_tpu_kernel(db, form):
+def test_ids_outside_the_table_match_the_tpu_kernel(tdb, form):
     """An id outside the (group's) table matches no one-hot column and a
     selector outside 1..n_dist-1 takes triple 0: the twins give the Pallas
     kernel's answer for both."""
-    fn, args, kw = bench.stream_step(db, form, 64, "cpu", trajectory="orbit", tb=16,
+    fn, args, kw = bench.stream_step(tdb, form, 64, "cpu", trajectory="orbit", tb=16,
                                      group_tiles=2, seed=5)
     args = list(args)
     u = kw.get("u_pad", args[4].shape[0])
@@ -103,8 +112,8 @@ def test_ids_outside_the_table_match_the_tpu_kernel(db, form):
     assert np.abs(got - _pallas(fn, args, kw, tb=16)).max() <= TOL
 
 
-def test_wrappers_check_operands(db):
-    fn, args, kw = bench.stream_step(db, "onehot", 16, "cpu")
+def test_wrappers_check_operands(tdb):
+    fn, args, kw = bench.stream_step(tdb, "onehot", 16, "cpu")
     with pytest.raises(ValueError, match="history"):
         fn(args[0][1:], *args[1:], **kw)
     with pytest.raises(ValueError, match="go together"):
@@ -115,22 +124,22 @@ def test_wrappers_check_operands(db):
     with pytest.raises(ValueError, match="no kernel for device"):
         fn(*meta, **{**kw, "dsel": kw["dsel"].to("meta")})
 
-    fn, args, kw = bench.stream_step(db, "grouped", 32, "cpu", tb=8, group_tiles=2)
+    fn, args, kw = bench.stream_step(tdb, "grouped", 32, "cpu", tb=8, group_tiles=2)
     with pytest.raises(ValueError, match="do not split"):
         fn(*args, **{**kw, "group_tiles": 3})
     with pytest.raises(ValueError, match="groups of"):
         fn(*args, **{**kw, "u_pad": kw["u_pad"] * 2})
 
-    fn, args, kw = bench.stream_step(db, "gather", 16, "cpu")
+    fn, args, kw = bench.stream_step(tdb, "gather", 16, "cpu")
     with pytest.raises(ValueError, match="needs g_last and xf"):
         fn(*args[:5], None, args[6], **kw)
-    _, noxf, kw_n = bench.stream_step(db, "gather_noxf", 16, "cpu")
+    _, noxf, kw_n = bench.stream_step(tdb, "gather_noxf", 16, "cpu")
     assert noxf[5] is None and noxf[6] is None  # the no-crossfade form takes neither
 
 
-def test_stream_step_builder_rejects_unknown_forms(db):
+def test_stream_step_builder_rejects_unknown_forms(tdb):
     with pytest.raises(ValueError, match="not in"):
-        bench.stream_step(db, "apply", 16, "cpu")
+        bench.stream_step(tdb, "apply", 16, "cpu")
 
 
 def test_build_hashes_the_headers_a_source_includes(tmp_path, monkeypatch):
@@ -157,4 +166,4 @@ def test_the_shipped_sources_share_the_forward_header():
 def test_launch_counts_reset():
     tfs.launches["fused_step_stream_xfade"] += 3
     tfs.reset_launches()
-    assert set(tfs.launches.values()) == {0} and len(tfs.launches) == 5
+    assert set(tfs.launches.values()) == {0} and len(tfs.launches) == 10
