@@ -9,8 +9,8 @@ line:
              fails when torch.cuda.is_available() is false.  The oracle
              renders of the scene path start here, in worker processes, and
              are collected in phase 4.
-  2. build   nvcc builds csrc/fused_step_onehot.cu and csrc/fused_step_gather.cu
-             for sm_90a, both at once.
+  2. build   nvcc builds csrc/fused_step_onehot.cu (rows 1-4 and 8) and
+             csrc/fused_step_gather.cu (rows 5-7) for sm_90a, both at once.
   3. kernel  every CUDA step against its plain-PyTorch twin, max|diff| <= 5e-7:
              the batched one-hot step (row 1) at the bench shape (256 sources
              x 64 blocks), compact and per-row distance, with the carried
@@ -25,7 +25,14 @@ line:
              bench.scene_mover_positions, the batched gather step (row 6) at
              16 x 256 in both forms, the apply-only step (row 7) at 16 x 512,
              segments of 512, in both forms; rows 6 and 7 each bit-equal
-             across their forms on a crossfade-free chunk.
+             across their forms on a crossfade-free chunk.  Row 8 (the
+             full-table blend-apply-tail step) at the live stream's 1 row and
+             render_scan's 12,556 rows, brackets over all 710 filters, the
+             crossfade on all rows but every 7th, with and without duplicate
+             brackets; its forward form (launch A at nb = 1 and 12,556, one
+             stream) with the XD planes against _forward_reference (relative
+             to their peak, 1e-6); the no-crossfade use (new brackets on both
+             sides, xf = 0) bit-equal to the crossfade form on a held block.
   4. path    each main path with the launch counts set to 0 before and read
              after.  The batched path: four bench steps (256 x 64, history
              carried) through batched_chunk_fn_fused, the first against
@@ -38,14 +45,25 @@ line:
              rising helix (12,556 blocks each).  The scene path:
              BatchRenderer(device="cuda") on 16 sources x 12,544 blocks (the
              JAX package's scene gate) of six scenes, each on one arm of the
-             JAX dispatch (rows 2, 6 and 7, every form).  Each render against
+             JAX dispatch (rows 2, 6 and 7, every form).  The live path (row
+             8): render_scan(device="cuda") on the sweep and the mover (12,556
+             blocks, one launch each), and StreamingSpatializer(device="cuda")
+             driven by AudioPlayout.run_offline: one source along the helix
+             for 3,445 blocks (10 s), moved every block; the crossfade-every-
+             block worst case (200 blocks of 3-degree steps at 10 degrees,
+             tests/test_live_deadline_strict.py's loop); eight sources on one
+             shared table in one callback for 1,000 blocks; row 8 counted
+             once per block and source (plus two per source for prime) and
+             once per scan.  Each render and every live source against
              render_oracle: max|diff| <= 1e-6, RMS < 1e-4, the margin against
-             the sweep's 2e-7 beside the JAX package's; each takes the JAX
-             dispatch's arm on every chunk; every kernel launched.
+             the sweep's 2e-7 beside the JAX package's; each render takes the
+             JAX dispatch's arm on every chunk; every kernel launched; each
+             live run's BlockStats against the 2.902 ms block deadline.
   5. bench   the bench step (blocks/s); each step's kernel and twin times in
-             turns (twin, kernel, kernel, twin) beside its bound; each
-             render's wall time (the scenes' host planning apart) and the
-             device time by kernel of four of them; beside the card.
+             turns (twin, kernel, kernel, twin) beside its bound (row 8 at
+             both its shapes); each render's wall time (the scenes' host
+             planning apart), render_scan's, and the device time by kernel
+             of four renders and of 200 live blocks; beside the card.
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -66,6 +84,12 @@ GROUP_TB, GROUP_TILES = 256, 2   # row 4: 4 groups of 512 blocks at B = 2048
 SIGNAL_SAMPLES = 131072          # the sweep CLI's default noise input
 SCENE_S, SCENE_B = 16, 12544     # the JAX scene gate: 16 sources x 49 chunks of 256
 ORACLE_WORKERS = 6
+SCAN_B = 12556                   # render_scan's rows: the reference sweep
+LIVE_BLOCKS = 3445               # 10 s of 128-sample blocks at 44.1 kHz
+WORST_BLOCKS = 200               # tests/test_live_deadline_strict.py
+CHOIR_S, CHOIR_B = 8, 1000       # sources sharing one table in one callback
+FWD_REL = 1e-6                   # launch A vs its twin, relative to the XD peak
+SPATIALIZER = "fused_spatializer_apply"
 
 GATHER = "jefferson_tpu_torch/csrc/fused_step_gather.cu"
 ONEHOT = "jefferson_tpu_torch/csrc/fused_step_onehot.cu"
@@ -81,6 +105,7 @@ KERNELS = {
     "fused_step_xfade/no_xfade": (GATHER, "jefferson_tpu/pallas/fused_step.py:1140"),
     "fused_apply_xfade": (GATHER, "jefferson_tpu/pallas/fused_apply.py:207"),
     "fused_apply_xfade/no_xfade": (GATHER, "jefferson_tpu/pallas/fused_apply.py:207"),
+    SPATIALIZER: (ONEHOT, "jefferson_tpu/pallas/fused_spatializer.py:126"),
 }
 # single-stream form (bench.stream_step) -> kernel name
 FORMS = {
@@ -99,7 +124,8 @@ SCENE_FORMS = {
 }
 # the JAX package's full-scale margins (ROADMAP.md, the gate-margin ladder)
 JAX_MARGIN = {"sweep": 0.596, "sweep_no_sparse": 0.596, "mover": 0.745,
-              "scene_hold": 0.745, "scene_movers": 0.298}
+              "scene_hold": 0.745, "scene_movers": 0.298, "render_scan sweep": 0.596,
+              "render_scan mover": 0.745}
 
 
 def say(phase: str, msg: str) -> None:
@@ -192,6 +218,51 @@ def _oracle_job(signal, positions):
                          initial_old=(0.0, 0.0))
 
 
+def live_runs(bench, noise, fpb):
+    """The live path's runs: name -> (positions (S, B, 3), signals (S, n)),
+    each source's playback buffer wrapping as the reference's playhead."""
+    import numpy as np
+
+    worst = np.stack([(np.arange(WORST_BLOCKS) * 3.0) % 360.0, np.full(WORST_BLOCKS, 10.0),
+                      np.ones(WORST_BLOCKS)], axis=1)
+    return {
+        "helix": (bench.helix_positions(LIVE_BLOCKS)[None], noise[None]),
+        "worst": (worst[None], noise[None]),
+        "choir": (bench.scene_mover_positions(CHOIR_S, CHOIR_B),
+                  bench.scene_signals(noise, CHOIR_S, CHOIR_B, fpb)),
+    }
+
+
+def drive_live(db, device, positions, signals):
+    """One StreamingSpatializer(device) per source, moved to its position
+    before every block, all mixed in one AudioPlayout callback run on the
+    fake device -> (BlockStats, per-source outputs (S, B*fpb, 2), the
+    spatializers)."""
+    import numpy as np
+
+    from jefferson_tpu_torch.engine.stream import StreamingSpatializer
+    from jefferson_tpu_torch.rt.playout import AudioPlayout
+
+    spats, sources, records = [], [], []
+    for pos, sig in zip(positions, signals):
+        sp = StreamingSpatializer(db, device=device)
+        sp.buf = sig
+        rec = []
+
+        def source(sp=sp, pos=pos, rec=rec):
+            azi, ele, r = pos[len(rec)]
+            sp.set_position(azi=azi, ele=ele, r=r)
+            rec.append(sp.process_next())
+            return rec[-1]
+
+        source.prime = sp.prime
+        spats.append(sp)
+        sources.append(source)
+        records.append(rec)
+    stats = AudioPlayout(sources, db.config).run_offline(positions.shape[1])
+    return stats, np.stack([np.concatenate(rec) for rec in records]), spats
+
+
 def nbytes(*tensors) -> int:
     """Bytes of the tensors among ``tensors`` (each read or written once)."""
     import torch
@@ -226,8 +297,9 @@ def run(pool) -> int:
     from jefferson_tpu_torch.config import DEFAULT_CONFIG
     from jefferson_tpu_torch.engine.batch import BatchRenderer
     from jefferson_tpu_torch.engine.renderer import Renderer
+    from jefferson_tpu_torch.engine.stream import StreamingSpatializer, render_scan
     from jefferson_tpu_torch.hrtf.kemar import synthetic_database
-    from jefferson_tpu_torch.kernels import build, fused_apply, fused_step
+    from jefferson_tpu_torch.kernels import build, fused_spatializer, fused_step
 
     smi = bench.card()
     say("env", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
@@ -238,9 +310,17 @@ def run(pool) -> int:
     fpb = cfg.frames_per_buffer
     db = synthetic_database(cfg)
 
-    # the scene path's oracle renders, one per (position set, source), run
-    # in the workers while the card works
+    # the oracle renders of the single-source and live paths, then the
+    # scene path's, one per (position set, source), run in the workers
+    # while the card works
     noise = (np.random.default_rng(0).standard_normal(SIGNAL_SAMPLES) * 0.2).astype(np.float32)
+    scenarios = renders(bench)
+    single_oracles = {name: pool.submit(_oracle_job, noise, scenarios[name][0])
+                      for name in ("sweep", "mover", "orbit", "helix")}
+    oracle_of = lambda name: single_oracles["sweep" if name.startswith("sweep") else name]
+    live = live_runs(bench, noise, fpb)
+    live_oracles = {name: [pool.submit(_oracle_job, sigs[i], pos[i]) for i in range(len(pos))]
+                    for name, (pos, sigs) in live.items()}
     scene_sigs = bench.scene_signals(noise, SCENE_S, SCENE_B, fpb)
     oracles = {name: {i: pool.submit(_oracle_job, scene_sigs[i], pos[i]) for i in srcs}
                for name, (pos, srcs) in scene_positions(bench).items()}
@@ -256,8 +336,7 @@ def run(pool) -> int:
 
     # ---- kernels against their twins ----------------------------------------
     errs = {name: 0.0 for name in KERNELS}
-    twin = lambda fn: getattr(fused_apply if fn is fused_apply.fused_apply_xfade else fused_step,
-                              fn.__name__ + "_reference")
+    twin = lambda fn: getattr(sys.modules[fn.__module__], fn.__name__ + "_reference")
     for what, radius_step in (("compact distance", 0.0), ("per-row distance", 0.01)):
         wl = bench.build_workload(db, S, NB, device, radius_step=radius_step)
         if (wl.n_dist is None) != (radius_step > 0):
@@ -340,6 +419,47 @@ def run(pool) -> int:
         if not bit_equal:
             return fail("kernel", f"row {row}'s two forms differ on a crossfade-free chunk")
 
+    # row 8 at the live stream's shape and render_scan's, the apply-only and
+    # the forward form (launch A over one stream, then row 8)
+    geo = dict(pad_len=cfg.pad_len, bins=cfg.num_bins, fpb=fpb)
+    for rows in (1, SCAN_B):
+        for dup in (False, True):
+            table, fwd, br, xf = bench.spatializer_step(db, rows, device, duplicate=dup)
+            scratch = tuple(torch.empty((rows, cfg.num_bins), device=device) for _ in range(2))
+            got_f = fused_spatializer.fused_forward_apply(table, *fwd, *br, xf, scratch=scratch,
+                                                          **geo)
+            xd = fused_step._forward_reference(fwd[0][None], rows, *fwd[1:], None, None, **geo)
+            got = fused_spatializer.fused_apply(table, *xd, *br, xf, bins=cfg.num_bins, fpb=fpb)
+            torch.cuda.synchronize()
+            want = fused_spatializer.fused_apply_reference(table, *xd, *br, xf, bins=cfg.num_bins,
+                                                           fpb=fpb)
+            want_f = fused_spatializer.fused_forward_apply_reference(table, *fwd, *br, xf, **geo)
+            err = float((got - want).abs().max())
+            err_f = float((got_f - want_f).abs().max())
+            peak = max(float(a.abs().max()) for a in xd)
+            fwd_rel = max(float((a - b).abs().max()) for a, b in zip(scratch, xd)) / peak
+            finite = all(bool(torch.isfinite(y).all()) for y in (got, got_f))
+            say("kernel", f"{SPATIALIZER}, {rows} row(s), {'duplicate' if dup else 'random'} "
+                          f"brackets over {db.num_hrtf} filters: max|kernel - twin| = {err:.3e}, "
+                          f"forward form {err_f:.3e} (limit {KERNEL_TOL:.0e}); launch A at "
+                          f"nb = {rows}: max|XD - twin| / peak {peak:.2f} = {fwd_rel:.3e} "
+                          f"(limit {FWD_REL:.0e})")
+            if not (max(err, err_f) <= KERNEL_TOL and fwd_rel <= FWD_REL and finite
+                    and got.shape == got_f.shape == (rows, 2 * fpb)):
+                return fail("kernel", f"{SPATIALIZER}: kernel disagrees with its twin")
+            errs[SPATIALIZER] = max(errs[SPATIALIZER], err, err_f)
+    table, fwd, br, xf = bench.spatializer_step(db, 1, device, seed=3)
+    xd = fused_step._forward_reference(fwd[0][None], 1, *fwd[1:], None, None, **geo)
+    held = torch.zeros_like(xf)
+    y_xf = fused_spatializer.fused_apply(table, *xd, *br, held, bins=cfg.num_bins, fpb=fpb)
+    y_noxf = fused_spatializer.fused_apply(table, *xd, br[2], br[3], br[2], br[3], held,
+                                           bins=cfg.num_bins, fpb=fpb)
+    bit_equal = torch.equal(y_xf, y_noxf)
+    say("kernel", f"row 8 on a held block: the no-crossfade use (new brackets on both sides) "
+                  f"bit-equal to the crossfade form: {bit_equal}")
+    if not bit_equal:
+        return fail("kernel", "row 8's no-crossfade use differs on a held block")
+
     # ---- the batched main path, counted ------------------------------------
     wl = bench.build_workload(db, S, NB, device)
     signals, positions = bench.moving_scene(RENDER_S, RENDER_B, cfg)
@@ -382,7 +502,6 @@ def run(pool) -> int:
 
     # ---- the single-source main path, counted ------------------------------
     signal = noise
-    scenarios = renders(bench)
     outs, walls, logs = {}, {}, {}
     fused_step.reset_launches()
     for name, (pos, opts, _) in scenarios.items():
@@ -403,7 +522,7 @@ def run(pool) -> int:
         got, log = outs[name], logs[name]
         if got.shape != (len(pos) * fpb, 2) or not np.isfinite(got).all():
             return fail("path", f"{name}: output {got.shape} not finite / not (B*fpb, 2)")
-        d_max, d_rms = oracle_diff(got, signal, pos, db)
+        d_max, d_rms = diff(got, oracle_of(name).result())
         say("path", f"Renderer {name}, {len(pos)} blocks, {len(log)} chunks as {sorted(set(log))} "
                     f"in {walls[name]:.2f} s (host planning included): "
                     f"{margin_line(name, d_max, d_rms)}")
@@ -452,6 +571,49 @@ def run(pool) -> int:
     scene_launches = dict(fused_step.launches)
     say("path", f"scene launches: {scene_launches}")
 
+    # ---- the live path, counted ---------------------------------------------
+    fused_step.reset_launches()
+    scan_walls = {}
+    for name in ("sweep", "mover"):
+        pos = scenarios[name][0]
+        t0 = time.perf_counter()
+        got = render_scan(signal, db, pos, cfg, device=device)
+        scan_walls[name] = time.perf_counter() - t0
+        if got.shape != (len(pos) * fpb, 2) or not np.isfinite(got).all():
+            return fail("path", f"render_scan {name}: output {got.shape} not finite / not (B*fpb, 2)")
+        d_max, d_rms = diff(got, oracle_of(name).result())
+        say("path", f"render_scan {name}, {len(pos)} blocks in {scan_walls[name]:.3f} s (host "
+                    f"planning included): {margin_line('render_scan ' + name, d_max, d_rms)}")
+        if not (d_max <= ORACLE_TOL and d_rms < ORACLE_RMS):
+            return fail("path", f"render_scan {name}: the port disagrees with the oracle")
+    scan_launches = {k: v for k, v in fused_step.launches.items() if v}
+    if scan_launches != {SPATIALIZER: 2}:
+        return fail("path", f"render_scan launched {scan_launches}, want {SPATIALIZER} once per scan")
+    live_launches = 0
+    for name, (pos, sigs) in live.items():
+        fused_step.reset_launches()
+        stats, got, spats = drive_live(db, device, pos, sigs)
+        launched = {k: v for k, v in fused_step.launches.items() if v}
+        n_src, n_blk = pos.shape[:2]
+        live_launches += launched.get(SPATIALIZER, 0)
+        d = [diff(got[i], live_oracles[name][i].result()) for i in range(n_src)]
+        d_max, d_rms = max(x[0] for x in d), max(x[1] for x in d)
+        ms = np.asarray(stats.compute_ms)
+        shared = all(sp._table is spats[0]._table for sp in spats)
+        say("path", f"live {name}: {n_src} source(s) x {n_blk} blocks, "
+                    f"{sum(sp.crossfades for sp in spats)} crossfades, one shared table: {shared}, "
+                    f"launches {launched} (prime: 2 per source); every source vs render_oracle "
+                    f"max|diff| {d_max:.3e} (limit {ORACLE_TOL:.0e}), rms {d_rms:.3e}; "
+                    f"{stats.summary()}; median {np.median(ms):.4f} ms, p90 "
+                    f"{np.percentile(ms, 90):.4f} ms  [{bench.card()}]")
+        if got.shape != (n_src, n_blk * fpb, 2) or not np.isfinite(got).all():
+            return fail("path", f"live {name}: output {got.shape} not finite")
+        if not (d_max <= ORACLE_TOL and d_rms < ORACLE_RMS):
+            return fail("path", f"live {name}: the port disagrees with the oracle")
+        if launched != {SPATIALIZER: n_src * n_blk + 2 * n_src} or not shared:
+            return fail("path", f"live {name}: launched {launched}, want {SPATIALIZER} once per "
+                                f"block and source and twice per prime, on one shared table")
+
     # ---- timings -----------------------------------------------------------
     step_ms = bench.time_steps_ms(wl)
     bps = S * NB / (step_ms * 1e-3)
@@ -465,14 +627,26 @@ def run(pool) -> int:
         ops[name] = (fn, args, kw, 1, STREAM_B)
     for form, (name, s_, nb_) in SCENE_FORMS.items():
         ops[name] = (*bench.scene_step(db, form, s_, nb_, device), s_, nb_)
+    # row 8 on the caller's XD planes; the live shape stands in the kernels line
+    for rows in (SCAN_B, 1):
+        table, fwd, br, xf = bench.spatializer_step(db, rows, device)
+        xd = fused_step._forward_reference(fwd[0][None], rows, *fwd[1:], None, None, **geo)
+        ops[SPATIALIZER] = (fused_spatializer.fused_apply, (table, *xd, *br, xf),
+                            dict(bins=cfg.num_bins, fpb=fpb), 1, rows)
+        if rows == SCAN_B:
+            ops[f"{SPATIALIZER} at {SCAN_B} rows"] = ops.pop(SPATIALIZER)
     times, bounds = {}, {}
     for name, (fn, args, kw, s_, nb_) in ops.items():
         k = lambda: fn(*args, **kw)
         p = lambda: twin(fn)(*args, **kw)
         plain_a, kernel_a, kernel_b, plain_b = (bench.time_ms(f) for f in (p, k, k, p))
         times[name] = ((kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2)
-        bounds[name] = bench.bound_ms(bench.step_flops(name, s_, nb_),
-                                      nbytes(*args, *kw.values(), k()))
+        moved = nbytes(*args, *kw.values(), k())
+        if fn is fused_spatializer.fused_apply:
+            # of the full table, the function reads the rows its brackets name
+            table, ids = args[0], torch.cat([args[3], args[5]]).unique()
+            moved += (ids.numel() - table.shape[0]) * table.shape[1] * table.element_size()
+        bounds[name] = bench.bound_ms(bench.step_flops(name.split(" at ")[0], s_, nb_), moved)
         say("bench", f"{name} ({s_}x{nb_}): kernel {kernel_a:.4f}/{kernel_b:.4f} ms, twin "
                      f"{plain_a:.4f}/{plain_b:.4f} ms, bound {bounds[name][0]:.4f} ms "
                      f"({bounds[name][1]})  [{bench.card()}]")
@@ -501,9 +675,43 @@ def run(pool) -> int:
                      f"[{bench.card()}]")
         if name in ("scene_hold", "scene_movers"):
             profile(bench, f"BatchRenderer {name}", lambda: r.render(scene_sigs, pos), wall)
+    pos = scenarios["sweep"][0]
+    t0 = time.perf_counter()
+    render_scan(signal, db, pos, cfg, device=device)
+    wall = time.perf_counter() - t0
+    say("bench", f"render_scan sweep: {wall:.3f} s wall for {len(pos)} blocks "
+                 f"({len(pos) / wall:,.0f} blocks/s, host planning and transfers included); "
+                 f"first run {scan_walls['sweep']:.3f} s  [{bench.card()}]")
+    profile(bench, "render_scan sweep", lambda: render_scan(signal, db, pos, cfg, device=device),
+            wall)
+    sp = StreamingSpatializer(db, device=device)
+    sp.prime()
+    blk = noise[:fpb]
+
+    def live_blocks():
+        for i in range(WORST_BLOCKS):
+            sp.set_position(azi=(i * 3) % 360, ele=10, r=1.0)
+            sp.process_block(blk)
+
+    live_blocks()  # every position set up once: the memos hit from here on
+    t0 = time.perf_counter()
+    live_blocks()
+    wall = time.perf_counter() - t0
+    say("bench", f"{WORST_BLOCKS} live blocks, a 3-degree move every block, positions set up: "
+                 f"{wall * 1e3:.1f} ms wall ({wall * 1e3 / WORST_BLOCKS:.4f} ms per block)  "
+                 f"[{bench.card()}]")
+    profile(bench, f"{WORST_BLOCKS} live blocks", live_blocks, wall)
+    t0 = time.perf_counter()
+    for i in range(WORST_BLOCKS):  # a new position each time: both memos miss
+        sp.set_position(azi=i, ele=20, r=1.0 + 0.001 * i)
+        sp._interp(sp.ele, sp.azi)
+        sp._distance_current()
+    say("bench", f"host set-up of a new live position (interpolation, distance split and their "
+                 f"uploads): {(time.perf_counter() - t0) * 1e3 / WORST_BLOCKS:.4f} ms  "
+                 f"[{bench.card()}]")
 
     launches = {**single, **{k: v for k, v in scene_launches.items() if v},
-                "fused_step_onehot_xfade": row1}
+                "fused_step_onehot_xfade": row1, SPATIALIZER: 2 + live_launches}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -42,10 +42,10 @@ from .engine.plan import (
 )
 from .engine.renderer import cat_table, dedup_distance, pick_fused_tile
 from .hrtf.kemar import synthetic_database
-from .kernels import fused_apply, fused_step
+from .kernels import fused_apply, fused_spatializer, fused_step
 from .kernels.fused_step import blend_cat
 from .ops import fft as fft_ops
-from .ops.filters import cmul, distance_factors_split
+from .ops.filters import cmul, distance_factors_split, distance_phase_split
 from .oracle.reference import render_oracle
 from .trajectory.trajectory import AzimuthSweep, CircularOrbit
 
@@ -411,6 +411,37 @@ def scene_step(db, form: str, s: int, nb: int, device, *, seed: int = 0,
     return fn, args, kw
 
 
+def spatializer_step(db, rows: int, device, *, seed: int = 0, xf_every: int = 7,
+                     duplicate: bool = False):
+    """Row 8's operands at ``rows`` rows, made from ``seed`` on ``device``
+    -> (table, (stream, uh, ul, fr), (idx_old, w_old, idx_new, w_new), xf):
+    the full table; one stream of 0.2-std noise and a radius per row in
+    0.3-2.0 (the forward form's operands); brackets drawn over the whole
+    table with random weights, or with ``duplicate`` one id four times at
+    weights 1, 0, 0, 0 on both sides (a grid position's brackets); the
+    crossfade on every row but every ``xf_every``-th."""
+    cfg = db.config
+    rng = np.random.default_rng(seed)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    stream = (rng.standard_normal(cfg.history_len + rows * cfg.frames_per_buffer) * 0.2)
+    radii = rng.uniform(0.3, 2.0, rows).astype(np.float32) / np.float32(cfg.distance_scale)
+    dist = distance_phase_split(cfg.fsvs, radii, cfg.num_bins)
+    if duplicate:
+        idx = np.tile(rng.integers(0, db.num_hrtf, (rows, 1)), (1, 4))
+        w = np.tile(np.array([[1.0, 0.0, 0.0, 0.0]]), (rows, 1))
+        brackets = (idx, w, idx, w)
+    else:
+        brackets = tuple(f((rows, 4)) for f in (lambda s: rng.integers(0, db.num_hrtf, s),
+                                                rng.random) * 2)
+    xf = np.ones((rows, 1), np.float32)
+    xf[::xf_every] = 0.0
+    return (fused_spatializer.kernel_planes(db, device),
+            (put(stream.astype(np.float32)), *(put(a[:, None]) for a in dist)),
+            tuple(put(a.astype(np.int32 if i % 2 == 0 else np.float32))
+                  for i, a in enumerate(brackets)),
+            put(xf))
+
+
 # The card's peaks for the bound of a step: fp32 outside the tensor cores
 # and HBM bandwidth, from NVIDIA's H100 SXM data sheet (at a 700 W limit).
 PEAK_FP32_FLOPS = 67e12
@@ -423,14 +454,16 @@ def step_flops(kernel: str, sources: int, nb: int, fpb: int = 128, bins: int = 5
     from the code: the sliding forward (one 128-sample DFT per sub-block,
     the twiddle sum and the distance multiply per row), the one-hot blend
     (4 brackets x 4 planes per side), and per side and ear the filter
-    multiply and the 513 x 128 tail IDFT.  Row 7 has no forward, rows 5-7
-    no blend; the no-crossfade forms compute one side."""
+    multiply and the 513 x 128 tail IDFT.  Rows 7 and 8 (as timed, on the
+    caller's XD planes) have no forward, rows 5-7 no blend, and row 8 blends
+    both sides from the full table; the no-crossfade forms compute one
+    side."""
     rows = sources * nb
     sides = 1 if kernel.endswith("/no_xfade") else 2
     flops = sides * 2 * rows * (6 * bins + 4 * bins * fpb)  # tails
-    if not kernel.startswith("fused_apply"):
+    if not kernel.startswith(("fused_apply", "fused_spatializer")):
         flops += sources * (nb + q - 1) * 4 * fpb * bins + rows * bins * (8 * (q - 1) + 6)
-    if "onehot" in kernel:
+    if "onehot" in kernel or kernel.startswith("fused_spatializer"):
         flops += sides * rows * 4 * bins * 4 * 2
     return float(flops)
 

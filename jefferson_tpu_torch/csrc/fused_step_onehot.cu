@@ -8,14 +8,17 @@
 //   row 3  fused_step_stream_onehot_xfade (:517), one stream;
 //   row 4  fused_step_stream_onehot_grouped_xfade (:615), one stream whose
 //          tiles blend against per-group tables.
+// and, through jt_fused_spatializer_apply at the end of this file, the
+// full-table kernel of pallas/fused_spatializer.py (row 8).
 // They differ only in where a row's new filter comes from and which table
 // rows it reads, so one launch B serves all three through two numbers:
 //   seg         rows per boundary segment: the new row of r is old row r+1
 //               inside a segment; the last row of a segment takes boundary
 //               row r / seg (row 1: seg = nb with the per-source ridx_last;
-//               row 3: seg = B with ridx_last; row 4: seg = tb with rbnd);
-//   group_rows  table rows are offset by (r / group_rows) * u_rows (rows 1
-//               and 3: one group; row 4: group_tiles * tb).
+//               row 3: seg = B with ridx_last; row 4: seg = tb with rbnd;
+//               row 8: seg = 1, so bnd holds every row's new brackets);
+//   group_rows  table rows are offset by (r / group_rows) * u_rows (rows 1,
+//               3 and 8: one group; row 4: group_tiles * tb).
 // Per output row r:
 //
 //   XD[r]    = launch A (fused_forward.cuh)
@@ -209,6 +212,42 @@ extern "C" int jt_fused_step_onehot_xfade(
     const int rows = num_sources * nb;
     kernel<<<(rows + B_R - 1) / B_R, B_THREADS, B_SMEM, s>>>(
         xdr, xdi, rows, table, u_rows, ridx, w, bnd_idx, bnd_w, seg, group_rows, xf,
+        icr, ici, out);
+    return cudaGetLastError();
+  });
+}
+
+// Row 8, the full-table blend-apply-tail step (jefferson_tpu/pallas/
+// fused_spatializer.py _kernel :46 of fused_apply :102): launch B with
+// seg = 1, so every row's old side blends idx_old[r] and its new side
+// idx_new[r], both against the whole table (table_rows rows, one group), the
+// blocked tail, and the crossfade where xf[r] > 0.  With streams null, xdr
+// and xdi are the caller's XD planes (rows x 513); else launch A first
+// writes them from one stream of rows blocks (streams: (rows + 7) x 128
+// samples, history first) with per-row distance uh/ul/fr (rows each).  The
+// live block step runs it at one row, the scan render at every row of a
+// chunk.  Launches on ``stream`` of ``device`` without synchronising and
+// returns the first CUDA error.
+extern "C" int jt_fused_spatializer_apply(
+    int device, void* stream, int rows,
+    const float* streams, const float* uh, const float* ul, const float* fr,
+    const float* cfr, const float* cfi, const float* twr, const float* twi,
+    float* xdr, float* xdi,
+    const float* table, int table_rows, const int* idx_old, const float* w_old,
+    const int* idx_new, const float* w_new, const float* xf,
+    const float* icr, const float* ici, float* out) {
+  return on_device(device, [&]() {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaSuccess;
+    if (streams)
+      err = launch_forward_distance(s, streams, 1, rows, uh, ul, fr, nullptr, 0,
+                                    cfr, cfi, twr, twi, xdr, xdi);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(blend_tail_xfade<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)B_SMEM);
+    if (err != cudaSuccess) return err;
+    blend_tail_xfade<true><<<(rows + B_R - 1) / B_R, B_THREADS, B_SMEM, s>>>(
+        xdr, xdi, rows, table, table_rows, idx_old, w_old, idx_new, w_new, 1, rows, xf,
         icr, ici, out);
     return cudaGetLastError();
   });

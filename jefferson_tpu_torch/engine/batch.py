@@ -32,7 +32,7 @@ from .plan import (
 from .renderer import (
     _apply_xfade_amortization, _fd_complex_chunk, _pad_cf_indices, _sparse_bucket,
     _sparse_xfade_fix, apply_filters_core, blend_cat, blend_channels, cat_table,
-    check_card_geometry, dedup_distance, pick_fused_tile, split_planes,
+    check_card_geometry, dedup_distance, pick_fused_tile, resolve_device, split_planes,
 )
 
 
@@ -449,7 +449,8 @@ class BatchRenderer:
     no-crossfade and sparse forms), "onehot_shared" (row 1),
     "onehot_grouped" (row 2), "gather_fused" (rows 6 and 7), and with
     ``fused=False`` or no fused tile "dedup" and "plain" (the JAX package's
-    XLA arms, here plain torch).  ``device="cpu"`` runs the kernels' twins.
+    XLA arms, here plain torch).  It runs on the card unless the caller
+    asks for the CPU: ``device="cpu"`` runs the kernels' twins.
     ``dedup`` and ``sparse_xfade`` are the JAX package's switches; a history
     that is not a whole number of blocks takes the unfused chain, as there.
     ``timings`` holds the last render's host seconds: ``planning_s`` (plans,
@@ -463,7 +464,7 @@ class BatchRenderer:
     raises.
     """
 
-    def __init__(self, db: HRTFDatabase, *, device, chunk_blocks: int | None = None,
+    def __init__(self, db: HRTFDatabase, *, device="cuda", chunk_blocks: int | None = None,
                  mix: bool = False, dedup: bool = True, fused: bool = True,
                  sparse_xfade: bool = True, mesh=None, pipeline_fetch: bool = False):
         if mesh is not None:
@@ -480,14 +481,14 @@ class BatchRenderer:
             raise ValueError(f"chunk_blocks ({chunk_blocks}) must be positive")
         self.db = db
         self.config = db.config
-        self.device = torch.device(device)
         aligned = self.config.history_len % self.config.frames_per_buffer == 0
         self.chunk_blocks = chunk_blocks
         self.mix = mix
         self.dedup = dedup and aligned
         self.fused = fused and aligned
-        if self.fused and self.device.type == "cuda":
+        if self.fused and torch.device(device).type == "cuda":
             check_card_geometry(self.config)
+        self.device = resolve_device(device)
         self.sparse_xfade = sparse_xfade
         self.dispatch: list[tuple[str, bool, int | None]] = []
         self.timings: dict[str, float] = {}

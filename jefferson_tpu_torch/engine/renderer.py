@@ -491,23 +491,38 @@ def plan_onehot_chunking(plan: RenderPlan, b_total: int, cb: int, tb: int):
         group = nxt
 
 
-def check_card_geometry(config: EngineConfig) -> None:
+def check_card_geometry(config: EngineConfig, what: str = "fused=True",
+                        remedy: str = "use fused=False or the CPU") -> None:
     """Raise unless the CUDA steps are built for ``config``'s geometry."""
     cfg = (config.frames_per_buffer, config.pad_len, config.num_bins)
     if cfg != (fused_step._FPB, fused_step._PAD, fused_step._BINS):
         raise ValueError(
-            f"fused=True on a CUDA device: the kernels are built for fpb 128, pad 1024 "
+            f"{what} on a CUDA device: the kernels are built for fpb 128, pad 1024 "
             f"(513 bins), not fpb {cfg[0]}, pad {cfg[1]}: ROADMAP queue 1 item 11, kernels "
-            "for geometries other than fpb 128 / pad 1024; use fused=False or the CPU"
+            f"for geometries other than fpb 128 / pad 1024; {remedy}"
         )
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device with its index; a CUDA device without a
+    card raises, for nothing falls back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device}: torch.cuda.is_available() is false; "
+                               "pass device='cpu' to run the kernels' plain twins")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 class Renderer:
     """Offline single-source renderer: one mono signal along per-block
     positions -> (B*fpb, 2) float32, chunk by chunk.
 
-    ``device``: where the chunks run; CUDA runs the hand-written steps, the
-    CPU their plain twins.  ``fused=True`` takes the JAX package's fused
+    ``device``: where the chunks run, the card unless the caller asks for
+    the CPU; CUDA runs the hand-written steps, the CPU their plain twins
+    (a CUDA device without a card raises).  ``fused=True`` takes the JAX package's fused
     dispatch (dedup+fused, one-hot, grouped one-hot, gather-fused, with its
     no-crossfade and sparse-crossfade forms); ``fused=False`` its unfused
     arms (the dedup chunk and the plain chunk).  ``dedup`` and
@@ -527,7 +542,7 @@ class Renderer:
         self,
         db: HRTFDatabase,
         *,
-        device,
+        device="cuda",
         config: EngineConfig | None = None,
         chunk_blocks: int = 2048,
         dedup: bool = True,
@@ -550,9 +565,9 @@ class Renderer:
                 "pipeline_fetch is not ported: ROADMAP queue 1 item 4 (a side CUDA "
                 "stream with pinned host buffers)"
             )
-        self.device = torch.device(device)
-        if fused and self.device.type == "cuda":
+        if fused and torch.device(device).type == "cuda":
             check_card_geometry(self.config)
+        self.device = resolve_device(device)
         self.chunk_blocks = chunk_blocks
         self.dedup = dedup
         self.fused = fused

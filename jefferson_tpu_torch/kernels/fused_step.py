@@ -61,14 +61,16 @@ MAX_DIST_UNIQ = 8
 # Launches of each CUDA kernel since its count was last set to 0, keyed by
 # wrapper; a wrapper's second form counts on its own ("/grouped" for row 2,
 # "/no_xfade" for the no-crossfade forms of rows 5, 6 and 7; row 7's
-# wrapper is kernels/fused_apply.fused_apply_xfade).
+# wrapper is kernels/fused_apply.fused_apply_xfade, row 8's
+# kernels/fused_spatializer.fused_apply and .fused_forward_apply).
 NO_XFADE = "fused_step_stream_xfade/no_xfade"
 GROUPED = "fused_step_onehot_xfade/grouped"
+SPATIALIZER = "fused_spatializer_apply"
 launches: dict[str, int] = dict.fromkeys((
     "fused_step_onehot_xfade", GROUPED, "fused_step_stream_onehot_xfade",
     "fused_step_stream_onehot_grouped_xfade", "fused_step_stream_xfade", NO_XFADE,
     "fused_step_xfade", "fused_step_xfade/no_xfade",
-    "fused_apply_xfade", "fused_apply_xfade/no_xfade",
+    "fused_apply_xfade", "fused_apply_xfade/no_xfade", SPATIALIZER,
 ), 0)
 
 _FPB, _PAD, _BINS = 128, 1024, 513  # the geometry the CUDA kernels are built for

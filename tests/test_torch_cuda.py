@@ -6,6 +6,8 @@ This file imports no jax, so a machine without jax runs it on its own:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -13,9 +15,12 @@ import torch
 from jefferson_tpu_torch import bench
 from jefferson_tpu_torch.config import DEFAULT_CONFIG
 from jefferson_tpu_torch.engine.batch import BatchRenderer
+from jefferson_tpu_torch.engine.stream import StreamingSpatializer, render_scan
 from jefferson_tpu_torch.hrtf.kemar import synthetic_database
 from jefferson_tpu_torch.kernels import fused_apply as tfa
+from jefferson_tpu_torch.kernels import fused_spatializer as tsp
 from jefferson_tpu_torch.kernels import fused_step as tfs
+from jefferson_tpu_torch.oracle.reference import render_oracle
 
 pytestmark = pytest.mark.cuda
 
@@ -286,3 +291,102 @@ def test_scene_render_on_the_card_matches_the_cpu_twins(card_db, case):
     want = cpu.render(sig, pos)
     assert card.dispatch == cpu.dispatch
     assert np.abs(got - want).max() <= TOL
+
+
+# ---- kernel row 8 and the live path ------------------------------------------
+
+def _spatializer(db, rows, **kw):
+    table, fwd, br, xf = bench.spatializer_step(db, rows, torch.device("cuda", 0), **kw)
+    geo = dict(pad_len=1024, bins=513, fpb=128)
+    xdr, xdi = tfs._forward_reference(fwd[0][None], rows, *fwd[1:], None, None, **geo)
+    return table, fwd, br, xf, (xdr, xdi), geo
+
+
+@pytest.mark.parametrize("rows", [1, 4096])
+@pytest.mark.parametrize("duplicate", [False, True])
+def test_spatializer_kernel_matches_twin(card_db, rows, duplicate):
+    table, fwd, br, xf, xd, geo = _spatializer(card_db, rows, duplicate=duplicate)
+    before = tfs.launches[tfs.SPATIALIZER]
+    got = tsp.fused_apply(table, *xd, *br, xf, bins=513, fpb=128)
+    scratch = (torch.empty_like(xd[0]), torch.empty_like(xd[1]))
+    got_f = tsp.fused_forward_apply(table, *fwd, *br, xf, scratch=scratch, **geo)
+    torch.cuda.synchronize()
+    assert tfs.launches[tfs.SPATIALIZER] == before + 2
+    want = tsp.fused_apply_reference(table, *xd, *br, xf, bins=513, fpb=128)
+    assert got.shape == want.shape == (rows, 256)
+    assert float((got - want).abs().max()) <= TOL
+    want_f = tsp.fused_forward_apply_reference(table, *fwd, *br, xf, **geo)
+    assert float((got_f - want_f).abs().max()) <= TOL
+    peak = max(float(xd[0].abs().max()), float(xd[1].abs().max()))
+    for mine, twin in zip(scratch, xd):  # launch A at nb = rows, one stream
+        assert float((mine - twin).abs().max()) <= 1e-6 * peak
+
+
+def test_spatializer_no_crossfade_use_is_bit_equal(card_db):
+    table, _, br, xf, xd, _ = _spatializer(card_db, 264, seed=3)
+    held = torch.zeros_like(xf)
+    y_xf = tsp.fused_apply(table, *xd, *br, held, bins=513, fpb=128)
+    y_noxf = tsp.fused_apply(table, *xd, br[2], br[3], br[2], br[3], held, bins=513, fpb=128)
+    assert torch.equal(y_xf, y_noxf)
+
+
+def test_spatializer_kernel_on_ids_outside_the_table(card_db):
+    table, _, br, xf, xd, _ = _spatializer(card_db, 40)
+    idx_o, idx_n = br[0].clone(), br[2].clone()
+    idx_o[3, 1], idx_o[17, 0], idx_n[5, 2], idx_n[39, 3] = 710, -1, 900, -7
+    args = (table, *xd, idx_o, br[1], idx_n, br[3], xf)
+    got = tsp.fused_apply(*args, bins=513, fpb=128)
+    want = tsp.fused_apply_reference(*args, bins=513, fpb=128)
+    assert float((got - want).abs().max()) <= TOL
+
+
+def test_render_scan_on_the_card_matches_the_cpu_twins_and_oracle(card_db):
+    pos = bench.mover_positions(700)
+    sig = np.random.default_rng(0).standard_normal(40000).astype(np.float32) * 0.2
+    tfs.reset_launches()
+    got = render_scan(sig, card_db, pos, device="cuda", chunk_blocks=256)
+    assert tfs.launches[tfs.SPATIALIZER] == 3
+    want = render_scan(sig, card_db, pos, device="cpu", chunk_blocks=256)
+    assert np.abs(got - want).max() <= TOL
+    oracle = render_oracle(sig, card_db, [tuple(p) for p in pos], card_db.config)
+    assert np.abs(got - oracle).max() <= 1e-6
+
+
+def test_live_stream_on_the_card_matches_the_oracle(card_db):
+    pos = bench.helix_positions(300)
+    pos[::4] = pos[1::4]  # some held blocks: the no-crossfade step
+    sig = np.random.default_rng(1).standard_normal(20000).astype(np.float32) * 0.2
+    sp = StreamingSpatializer(card_db, device="cuda")
+    sp.buf = sig
+    sp.prime()
+    tfs.reset_launches()
+    outs = []
+    for azi, ele, r in pos:
+        sp.set_position(azi=azi, ele=ele, r=r)
+        outs.append(sp.process_next())
+    assert tfs.launches[tfs.SPATIALIZER] == len(pos)
+    assert sum(tfs.launches.values()) == len(pos)
+    assert 0 < sp.crossfades < len(pos)
+    oracle = render_oracle(sig, card_db, [tuple(p) for p in pos], card_db.config)
+    assert np.abs(np.concatenate(outs) - oracle).max() <= 1e-6
+
+
+def test_live_block_deadline_strict(card_db):
+    """tests/test_live_deadline_strict.py's gate on the card: 200 blocks that
+    crossfade every block, median under the 2.902 ms budget and p90 under
+    twice it."""
+    cfg = DEFAULT_CONFIG
+    spat = StreamingSpatializer(card_db, cfg, device="cuda")
+    blk = (np.random.default_rng(0).standard_normal(cfg.frames_per_buffer) * 0.2).astype(np.float32)
+    spat.prime()
+    spat.set_position(azi=3, ele=10, r=1.0)
+    spat.process_block(blk)
+    times = np.empty(200)
+    for i in range(200):
+        spat.set_position(azi=(i * 3) % 360, ele=10, r=1.0)  # crossfade every block
+        t0 = time.perf_counter()
+        spat.process_block(blk)
+        times[i] = time.perf_counter() - t0
+    ms, budget = times * 1e3, 1e3 * cfg.block_duration
+    assert np.percentile(ms, 50) < budget, ms
+    assert np.percentile(ms, 90) < 2 * budget, ms

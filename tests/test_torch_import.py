@@ -25,13 +25,18 @@ PORT_MODULES = [
     "jefferson_tpu_torch.engine.batch",
     "jefferson_tpu_torch.engine.plan",
     "jefferson_tpu_torch.engine.renderer",
+    "jefferson_tpu_torch.engine.stream",
     "jefferson_tpu_torch.hrtf.kemar",
+    "jefferson_tpu_torch.io.wavio",
     "jefferson_tpu_torch.kernels.build",
     "jefferson_tpu_torch.kernels.fused_apply",
+    "jefferson_tpu_torch.kernels.fused_spatializer",
     "jefferson_tpu_torch.kernels.fused_step",
     "jefferson_tpu_torch.ops.fft",
     "jefferson_tpu_torch.ops.filters",
     "jefferson_tpu_torch.oracle.reference",
+    "jefferson_tpu_torch.rt.control",
+    "jefferson_tpu_torch.rt.playout",
     "jefferson_tpu_torch.trajectory.interpolation",
     "jefferson_tpu_torch.trajectory.spatial",
     "jefferson_tpu_torch.trajectory.trajectory",

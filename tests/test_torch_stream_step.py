@@ -166,4 +166,4 @@ def test_the_shipped_sources_share_the_forward_header():
 def test_launch_counts_reset():
     tfs.launches["fused_step_stream_xfade"] += 3
     tfs.reset_launches()
-    assert set(tfs.launches.values()) == {0} and len(tfs.launches) == 10
+    assert set(tfs.launches.values()) == {0} and len(tfs.launches) == 11
