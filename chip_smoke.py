@@ -7,10 +7,11 @@ Phases, one line each or more; any failure exits non-zero without a result
 line:
   1. env     torch/CUDA versions and the card (nvidia-smi name, power limit);
              fails when torch.cuda.is_available() is false.  The oracle
-             renders of the scene path start here, in worker processes, and
-             are collected in phase 4.
-  2. build   nvcc builds csrc/fused_step_onehot.cu (rows 1-4 and 8) and
-             csrc/fused_step_gather.cu (rows 5-7) for sm_90a, both at once.
+             renders of the error budget and the paths start here, in worker
+             processes, and are collected in phases 4 and 5.
+  2. build   nvcc builds csrc/fused_step_onehot.cu (rows 1-4 and 8),
+             csrc/fused_step_gather.cu (rows 5-7), csrc/assoc_probe.cu (rows
+             9-11) and csrc/dma_blend.cu (row 12) for sm_90a, all at once.
   3. kernel  every CUDA step against its plain-PyTorch twin, max|diff| <= 5e-7:
              the batched one-hot step (row 1) at the bench shape (256 sources
              x 64 blocks), compact and per-row distance, with the carried
@@ -59,9 +60,26 @@ line:
              the sweep's 2e-7 beside the JAX package's; each render takes the
              JAX dispatch's arm on every chunk; every kernel launched; each
              live run's BlockStats against the 2.902 ms block deadline.
-  5. bench   the bench step (blocks/s); each step's kernel and twin times in
+  5. probes  the probe scripts (jefferson_tpu_torch.scripts), the launch
+             counts set to 0 just before: the association probe's stages
+             A-D, the blend shootout and the error budget on the worst sweep
+             scenario (its oracle from the worker pool); their answers on
+             lines of their own.  Each kernel call is held to its twin on the
+             same operands through the numbers the scripts return: the
+             complex product (row 9) elementwise within 2^-22 of its plane's
+             two |products| (|xr gr| + |xi gi| for qr; one FMA contraction),
+             the tail matmul (row 10) at K = 513 and 512 and its K-chunk tree
+             (row 11) at 2, 4 and 8 chunks within 2e-6 of the output peak
+             (fp32 sums in other orders), the double-buffered row-gather
+             blend (row 12) at 8,448 rows bit-equal to its twin and to the
+             torch xla16 gathers; each budget configuration within 1e-6 of
+             render_oracle, the apply-only configuration on row 7 alone.
+  6. bench   the bench step (blocks/s); each step's kernel and twin times in
              turns (twin, kernel, kernel, twin) beside its bound (row 8 at
-             both its shapes); each render's wall time (the scenes' host
+             both its shapes), rows 9-12 also beside one PyTorch call of the
+             same function and with their device time alone (torch.profiler:
+             at these sizes a call's events time the host's launch path); each
+             render's wall time (the scenes' host
              planning apart), render_scan's, and the device time by kernel
              of four renders and of 200 live blocks; beside the card.
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
@@ -91,8 +109,14 @@ CHOIR_S, CHOIR_B = 8, 1000       # sources sharing one table in one callback
 FWD_REL = 1e-6                   # launch A vs its twin, relative to the XD peak
 SPATIALIZER = "fused_spatializer_apply"
 
+PROD_ULP = 2.0**-22  # row 9 vs twin, of the plane's two |products|: one FMA contraction
+MM_REL = 2e-6        # rows 10-11 vs twin, of the output peak: fp32 sums in other orders
+BLEND_ROWS, BLEND_TB = 8448, 256  # row 12: 256 sources x 33 rows, the TPU tile
+
 GATHER = "jefferson_tpu_torch/csrc/fused_step_gather.cu"
 ONEHOT = "jefferson_tpu_torch/csrc/fused_step_onehot.cu"
+ASSOC = "jefferson_tpu_torch/csrc/assoc_probe.cu"
+DMA = "jefferson_tpu_torch/csrc/dma_blend.cu"
 # kernel -> (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "fused_step_onehot_xfade": (ONEHOT, "jefferson_tpu/pallas/fused_step.py:840"),
@@ -106,7 +130,15 @@ KERNELS = {
     "fused_apply_xfade": (GATHER, "jefferson_tpu/pallas/fused_apply.py:207"),
     "fused_apply_xfade/no_xfade": (GATHER, "jefferson_tpu/pallas/fused_apply.py:207"),
     SPATIALIZER: (ONEHOT, "jefferson_tpu/pallas/fused_spatializer.py:126"),
+    "prod": (ASSOC, "scripts/apply_assoc_probe.py:69"),
+    "mm": (ASSOC, "scripts/apply_assoc_probe.py:97"),
+    "mm_tree": (ASSOC, "scripts/apply_assoc_probe.py:145"),
+    "dma_blend": (DMA, "scripts/bench_blend_variants.py:98"),
 }
+PROBES = ("prod", "mm", "mm_tree", "dma_blend")
+# probe kernel -> its CUDA function, as torch.profiler names it
+PROBE_SYMBOL = {"prod": "prod_kernel", "mm": "mm_tree_kernel", "mm_tree": "mm_tree_kernel",
+                "dma_blend": "dma_blend_kernel"}
 # single-stream form (bench.stream_step) -> kernel name
 FORMS = {
     "onehot": "fused_step_stream_onehot_xfade",
@@ -270,6 +302,110 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
 
 
+def probe_scripts(device, errs, db, noise, budget_pos, budget_oracle):
+    """The probe scripts on the card, counted: the association probe, the
+    blend shootout and the error budget, each kernel held to its twin
+    through the numbers the scripts return; fills ``errs`` -> the launch
+    counts, or None on a failure."""
+    from jefferson_tpu_torch.kernels import fused_step
+    from jefferson_tpu_torch.scripts import apply_assoc_probe, bench_blend_variants, error_budget
+
+    assoc = apply_assoc_probe.run(device)
+    say("probes", f"association probe: {json.dumps(assoc)}")
+    blend = bench_blend_variants.run(device, BLEND_ROWS, BLEND_TB)
+    say("probes", f"blend shootout: {json.dumps(blend)}")
+    t0 = time.perf_counter()
+    want = budget_oracle.result()
+    waited = time.perf_counter() - t0
+    budget = error_budget.run(db, noise, budget_pos, want, device)
+    say("probes", f"error budget ({len(budget_pos)} blocks, oracle waited {waited:.1f} s): "
+                  f"{json.dumps(budget)}")
+    launches = dict(fused_step.launches)
+    say("probes", f"probe launches: { {k: v for k, v in launches.items() if v} }")
+
+    problems = []
+    twins = assoc["twins"]
+    errs["prod"] = twins["prod"]["max_abs"]
+    say("probes", f"prod (row 9): max|kernel - twin| = {errs['prod']:.3e}, worst "
+                  f"{twins['prod']['of_scale']:.3e} of its plane's |product| + |product| "
+                  f"(limit 2^-22 = {PROD_ULP:.3e})")
+    if not twins["prod"]["of_scale"] <= PROD_ULP:
+        problems.append("prod: kernel disagrees with its twin")
+    for name in ("mm", "mm_tree"):
+        for t in twins[name]:
+            errs[name] = max(errs[name], t["max_abs"])
+            say("probes", f"{name} (row {10 if name == 'mm' else 11}), K={t['k']}"
+                          f"{', chunks %d' % t['chunks'] if 'chunks' in t else ''}: max|kernel - "
+                          f"twin| = {t['max_abs']:.3e} of peak {t['peak']:.3f} (limit "
+                          f"{MM_REL:.0e} x peak)")
+            if not (t["max_abs"] <= MM_REL * t["peak"] and t["finite"]):
+                problems.append(f"{name} at K={t['k']}: kernel disagrees with its twin")
+    errs["dma_blend"] = blend["kernel_vs_twin"]["max_abs"]
+    say("probes", f"dma_blend (row 12), {BLEND_ROWS} rows, tb {BLEND_TB}: bit-equal to its twin "
+                  f"{blend['kernel_vs_twin']['bit_identical']}, every variant bit-equal to xla16 "
+                  f"{all(v['bit_identical_to_xla16'] for v in blend['variants'].values())}")
+    if not blend["kernel_vs_twin"]["bit_identical"]:
+        problems.append("dma_blend: kernel is not its twin bit for bit")
+    if not all(launches[name] for name in PROBES):
+        problems.append(f"a probe kernel was not launched: {launches}")
+    if not all(v["bit_identical_to_xla16"] for v in blend["variants"].values()):
+        problems.append("a blend variant differs from xla16")
+    for name in ("unfused", "apply_kernel", "fused"):
+        if not budget[name]["max_abs"] <= ORACLE_TOL:
+            problems.append(f"error budget {name}: {budget[name]['max_abs']:.3e} from the oracle "
+                            f"(limit {ORACLE_TOL:.0e})")
+    row7 = {"fused_apply_xfade", "fused_apply_xfade/no_xfade"}
+    if (budget["unfused"]["launches"] or not budget["apply_kernel"]["launches"]
+            or set(budget["apply_kernel"]["launches"]) - row7):
+        problems.append(f"error budget launches: unfused {budget['unfused']['launches']}, "
+                        f"apply_kernel {budget['apply_kernel']['launches']} (want row 7 only)")
+    if problems:
+        fail("probes", "; ".join(problems))
+        return None
+    return launches
+
+
+def probe_timed(device):
+    """Rows 9-12 at the probe scripts' shapes, for the timings: {kernel:
+    (wrapper, args, kwargs, fp32 operations, least bytes or None to count
+    the operands, one PyTorch call of the same function)}."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from jefferson_tpu_torch.kernels import assoc_probe, dma_blend
+    from jefferson_tpu_torch.scripts import apply_assoc_probe, bench_blend_variants
+
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    xr, xi, gr, gi, icr, ici = map(put, apply_assoc_probe.inputs())
+    qr, qi = assoc_probe.prod_reference(xr, xi, gr, gi)
+    k5 = apply_assoc_probe.BINS - 1  # stage D's K = 512
+    qr5, qi5 = qr[:, :k5].contiguous(), qi[:, :k5].contiguous()
+    icr5, ici5 = icr[:k5], ici[:k5]
+    xc, gc = torch.complex(xr, xi), torch.complex(gr, gi)
+    q_cat, b_cat = torch.cat([qr, qi], 1), torch.cat([icr, ici], 0)
+    q5_cat, b5_cat = torch.cat([qr5, qi5], 1), torch.cat([icr5, ici5], 0)
+    m, k, n = qr.shape[0], qr.shape[1], icr.shape[1]
+
+    _, table_pad = bench_blend_variants.tables()
+    c_pad = table_pad.shape[1]
+    idx_np, w_np = bench_blend_variants.workload(BLEND_ROWS)
+    table_flat, idx, w = put(table_pad.reshape(-1)), put(idx_np), put(w_np)
+    table2d, idx_long = table_flat.view(-1, c_pad), idx.long()
+    return {
+        "prod": (assoc_probe.prod, (xr, xi, gr, gi), {}, 6.0 * xr.numel(), None,
+                 lambda: torch.mul(xc, gc)),
+        "mm": (assoc_probe.mm, (qr, qi, icr, ici), {}, 4.0 * m * k * n + m * n, None,
+               lambda: torch.matmul(q_cat, b_cat)),
+        "mm_tree": (assoc_probe.mm_tree, (qr5, qi5, icr5, ici5), {"chunks": 8},
+                    4.0 * m * k5 * n + 15.0 * m * n, None, lambda: torch.matmul(q5_cat, b5_cat)),
+        "dma_blend": (dma_blend.dma_blend, (table_flat, idx, w, c_pad), {"tb": BLEND_TB},
+                      *bench_blend_variants.work(idx_np, c_pad),
+                      lambda: F.embedding_bag(idx_long, table2d, per_sample_weights=w,
+                                              mode="sum")),
+    }
+
+
 def main() -> int:
     import torch
 
@@ -300,6 +436,7 @@ def run(pool) -> int:
     from jefferson_tpu_torch.engine.stream import StreamingSpatializer, render_scan
     from jefferson_tpu_torch.hrtf.kemar import synthetic_database
     from jefferson_tpu_torch.kernels import build, fused_spatializer, fused_step
+    from jefferson_tpu_torch.scripts import error_budget
 
     smi = bench.card()
     say("env", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
@@ -314,6 +451,8 @@ def run(pool) -> int:
     # scene path's, one per (position set, source), run in the workers
     # while the card works
     noise = (np.random.default_rng(0).standard_normal(SIGNAL_SAMPLES) * 0.2).astype(np.float32)
+    budget_pos = error_budget.scenario(config=cfg)
+    budget_oracle = pool.submit(_oracle_job, noise, budget_pos)
     scenarios = renders(bench)
     single_oracles = {name: pool.submit(_oracle_job, noise, scenarios[name][0])
                       for name in ("sweep", "mover", "orbit", "helix")}
@@ -327,7 +466,7 @@ def run(pool) -> int:
 
     # ---- build -------------------------------------------------------------
     t0 = time.perf_counter()
-    libs = build.build_all(["fused_step_onehot", "fused_step_gather"])
+    libs = build.build_all(["fused_step_onehot", "fused_step_gather", "assoc_probe", "dma_blend"])
     say("build", f"{', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s")
     for lib in libs:
         ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
@@ -614,6 +753,12 @@ def run(pool) -> int:
             return fail("path", f"live {name}: launched {launched}, want {SPATIALIZER} once per "
                                 f"block and source and twice per prime, on one shared table")
 
+    # ---- the probes: the scripts, counted, each kernel against its twin ----
+    fused_step.reset_launches()
+    probe_launches = probe_scripts(device, errs, db, noise, budget_pos, budget_oracle)
+    if probe_launches is None:
+        return 1
+
     # ---- timings -----------------------------------------------------------
     step_ms = bench.time_steps_ms(wl)
     bps = S * NB / (step_ms * 1e-3)
@@ -650,6 +795,25 @@ def run(pool) -> int:
         say("bench", f"{name} ({s_}x{nb_}): kernel {kernel_a:.4f}/{kernel_b:.4f} ms, twin "
                      f"{plain_a:.4f}/{plain_b:.4f} ms, bound {bounds[name][0]:.4f} ms "
                      f"({bounds[name][1]})  [{bench.card()}]")
+    for name, (fn, args, kw, flops, moved, lib) in probe_timed(device).items():
+        k = lambda: fn(*args, **kw)
+        p = lambda: twin(fn)(*args, **kw)
+        plain_a, kernel_a, kernel_b, plain_b = (bench.time_ms(f) for f in (p, k, k, p))
+        lib_ms = bench.time_ms(lib)
+        times[name] = ((kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2, lib_ms)
+        if moved is None:
+            out = k()
+            moved = nbytes(*args, *(out if isinstance(out, tuple) else (out,)))
+        bounds[name] = bench.bound_ms(flops, moved)
+        # the kernel alone on the device: at these sizes a call's events time
+        # the host's launch path
+        device_ms = sum(ms for kernel, ms, _ in bench.device_profile(k, calls=20)
+                        if PROBE_SYMBOL[name] in kernel)
+        say("bench", f"{name} ({', '.join('x'.join(map(str, a.shape)) for a in args[:2])}): kernel "
+                     f"{kernel_a:.4f}/{kernel_b:.4f} ms (device time alone {device_ms:.4f} ms, "
+                     f"torch.profiler), twin {plain_a:.4f}/{plain_b:.4f} ms, library "
+                     f"{lib_ms:.4f} ms, bound {bounds[name][0]:.5f} ms ({bounds[name][1]})"
+                     f"  [{bench.card()}]")
     for name, (pos, opts, _) in scenarios.items():
         r = Renderer(db, device=device, **opts)
         t0 = time.perf_counter()
@@ -711,7 +875,8 @@ def run(pool) -> int:
                  f"[{bench.card()}]")
 
     launches = {**single, **{k: v for k, v in scene_launches.items() if v},
-                "fused_step_onehot_xfade": row1, SPATIALIZER: 2 + live_launches}
+                "fused_step_onehot_xfade": row1, SPATIALIZER: 2 + live_launches,
+                **{name: probe_launches[name] for name in PROBES}}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -723,7 +888,8 @@ def run(pool) -> int:
         "plain_ms": times[name][1],
         "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1],
-        "library_ms": None,  # no single PyTorch call computes a fused step
+        # no single PyTorch call computes a fused step (rows 1-8)
+        "library_ms": times[name][2] if name in PROBES else None,
     } for name, (source, replaces) in KERNELS.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

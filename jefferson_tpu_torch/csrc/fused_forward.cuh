@@ -27,6 +27,8 @@
 
 #include <cuda_runtime.h>
 
+#include "entry.cuh"
+
 namespace {
 
 constexpr int FPB = 128;        // samples per block = sub-block length
@@ -232,22 +234,4 @@ __device__ __forceinline__ void fold_tail_block(float (&acc)[8][8], float (&part
     }
 }
 
-// Run fn() with ``device`` current, then restore the caller's device; the
-// first CUDA error wins.
-template <typename Fn>
-inline int on_device(int device, Fn fn) {
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return err;
-  err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  err = fn();
-  const cudaError_t restore = cudaSetDevice(prev);
-  return err != cudaSuccess ? err : restore;
-}
-
 }  // namespace
-
-extern "C" const char* jt_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

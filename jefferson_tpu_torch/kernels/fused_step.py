@@ -62,7 +62,9 @@ MAX_DIST_UNIQ = 8
 # wrapper; a wrapper's second form counts on its own ("/grouped" for row 2,
 # "/no_xfade" for the no-crossfade forms of rows 5, 6 and 7; row 7's
 # wrapper is kernels/fused_apply.fused_apply_xfade, row 8's
-# kernels/fused_spatializer.fused_apply and .fused_forward_apply).
+# kernels/fused_spatializer.fused_apply and .fused_forward_apply, rows
+# 9-11's kernels/assoc_probe.prod, .mm and .mm_tree, row 12's
+# kernels/dma_blend.dma_blend).
 NO_XFADE = "fused_step_stream_xfade/no_xfade"
 GROUPED = "fused_step_onehot_xfade/grouped"
 SPATIALIZER = "fused_spatializer_apply"
@@ -71,6 +73,7 @@ launches: dict[str, int] = dict.fromkeys((
     "fused_step_stream_onehot_grouped_xfade", "fused_step_stream_xfade", NO_XFADE,
     "fused_step_xfade", "fused_step_xfade/no_xfade",
     "fused_apply_xfade", "fused_apply_xfade/no_xfade", SPATIALIZER,
+    "prod", "mm", "mm_tree", "dma_blend",
 ), 0)
 
 _FPB, _PAD, _BINS = 128, 1024, 513  # the geometry the CUDA kernels are built for
@@ -288,14 +291,20 @@ def _cuda_error(lib: str, code: int) -> str:
     return fn(code).decode()
 
 
-def _where(operands, pad_len: int, bins: int, fpb: int) -> torch.device:
-    """The one device every operand lies on; raises for mixed devices, a
-    device with no kernel, or (on CUDA) another geometry."""
+def _one_device(operands) -> torch.device:
+    """The one device every operand lies on; raises for mixed devices or a
+    device with no kernel (neither the CPU's twin nor a CUDA kernel)."""
     device = operands[0].device
     if any(t.device != device for t in operands):
         raise ValueError("all operands must lie on one device")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {device}")
+    return device
+
+
+def _where(operands, pad_len: int, bins: int, fpb: int) -> torch.device:
+    """``_one_device``, which on CUDA must also be the kernels' geometry."""
+    device = _one_device(operands)
     if device.type == "cuda" and (fpb, pad_len, bins) != (_FPB, _PAD, _BINS):
         raise ValueError(f"the CUDA step is built for fpb={_FPB}, pad_len={_PAD}, bins={_BINS}")
     return device

@@ -1,0 +1,232 @@
+"""Error budget of the sweep gate's worst-case margin, on the card.
+
+The counterpart of ``scripts/error_budget.py``: it renders the worst sweep
+scenario (azi3_ele0: ``AzimuthSweep(3, 0, r=0.5, 5-degree steps, 172
+blocks x 73 positions)``) through configurations that each move one stage
+into a hand kernel, every one against the same float32 NumPy oracle, and
+splits the margin against the sweep's 2e-7 among them:
+
+  unfused      - ``Renderer(fused=False)``: the plain torch chain, every
+                 stage in eager torch and cuBLAS.
+  apply_kernel - the forward DFT and the distance ramp in plain torch, the
+                 apply, tail IDFT and crossfade in the apply-only kernel
+                 (row 7), by patching ``renderer._apply_maybe_full_fuse``
+                 and ``renderer.dedup_distance`` for one render; the patch
+                 is undone even when the render raises.
+  fused        - production: the dedup+fused dispatch, forward and
+                 distance in the kernel too (row 5).
+
+plus the blend micro A/B the configurations do not isolate: the one-hot
+blend as one ``torch.matmul`` against ``blend_cat``'s gather, on the
+scenario's first 2,048 old rows.  ``lane512`` and ``tail_tree`` are TPU
+layouts the port does not have; the result names them as absent, with the
+reason.  Each configuration reports its worst sample (block, in-block
+sample, channel, crossfade state), the margin beside two of the JAX
+package's: ``scripts/error_budget.py --cpu`` on these same inputs (XLA and
+the Pallas interpreter on the CPU), and its ladder on a TPU with the real
+KEMAR set and the Castanets recording; and on a card the kernels it
+launched.
+
+    python -m jefferson_tpu_torch.scripts.error_budget [--device cuda]
+        [--blocks 172] [--steps 72]
+
+The signal is 0.2-std noise from seed 0 (131,072 samples); the result
+names the Castanets recording as absent, with the reason.  Prints one line
+per configuration and the JSON; ``main`` returns it as a dict.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..config import DEFAULT_CONFIG
+from ..convert import spectra_from_numpy
+from ..engine import renderer as R
+from ..engine.plan import compact_filter_ids, make_plan
+from ..hrtf.kemar import synthetic_database
+from ..kernels import fused_step
+from ..kernels.fused_apply import fused_apply_xfade
+from ..ops import fft as fft_ops
+from ..ops.filters import cmul, distance_factors_split
+from ..oracle.reference import render_oracle
+from ..testing import precision_check
+from ..trajectory.trajectory import AzimuthSweep
+
+SWEEP_EPS = 2e-7
+# The JAX package's ladder on the same scenario (its PERF.md, round 5: real
+# compact KEMAR set, Castanets, TPU v5e); tail_tree took it back to 0.745.
+JAX_MARGIN = {"unfused": 0.745, "apply_kernel": 0.894, "fused": 0.894, "lane512": 0.894,
+              "tail_tree": 0.745}
+# ``scripts/error_budget.py --cpu`` on this script's inputs (the synthetic
+# set, the noise, azi3_ele0 at 172 x 72): its "xla" configuration is the
+# unfused chain, the others run its Pallas kernels in interpret mode.
+JAX_CPU_MARGIN = {"unfused": 0.7451, "apply_kernel": 0.7451, "fused": 0.7451,
+                  "lane512": 0.7451, "tail_tree": 0.5215}
+SIGNAL = {"used": "0.2-std noise from seed 0, 131,072 samples",
+          "castanets": "absent: the JAX ladder's Castanets recording is not in the repository"}
+ABSENT = {
+    "lane512": "a TPU lane layout (K = 512 tails and a VPU Nyquist term) the port does not "
+               "have: it computes the same function in the plain 513-bin layout "
+               "(ROADMAP.md, queue 1)",
+    "tail_tree": "a TPU MXU accumulation (the tail cut by 128-bin blocks into a pairwise "
+                 "tree) the port does not have as a switch: its fused steps always sum "
+                 "the tail by 128-bin blocks (csrc/fused_forward.cuh, the blocked tail)",
+}
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def scenario(blocks: int = 172, steps: int = 72, config=DEFAULT_CONFIG) -> np.ndarray:
+    """The worst sweep scenario's per-block positions (azi3_ele0)."""
+    traj = AzimuthSweep(start_azi=3.0, ele=0.0, r=0.5, step_deg=5.0,
+                        blocks_per_step=blocks, num_steps=steps)
+    return traj.sample(traj.total_blocks, config)
+
+
+def noise(samples: int = 131072) -> np.ndarray:
+    """The sweep CLI's default input: 0.2-std noise from seed 0."""
+    return (np.random.default_rng(0).standard_normal(samples) * 0.2).astype(np.float32)
+
+
+def _apply_only(full, u_hi, u_lo, inv_frac, g_old, g_last, xf, config, num_blocks, dsel=None,
+                n_dist=None, with_xfade=True):
+    """``renderer._apply_maybe_full_fuse`` with the forward DFT and the
+    distance ramp in plain torch and the apply-only step (row 7) after
+    them: the branch the renderer takes for unaligned histories."""
+    if n_dist is not None:
+        raise ValueError("the apply-only configuration keeps per-row distance ramps")
+    fpb = config.frames_per_buffer
+    xr, xi = R._forward_split(full, num_blocks, config)
+    xdr, xdi = cmul(xr, xi, *distance_factors_split(u_hi, u_lo, inv_frac, config.num_bins))
+    icr, ici = fft_ops.on_device(fft_ops._idft_tail_matrices, config.pad_len, fpb,
+                                 device=full.device)
+    return fused_apply_xfade(xdr, xdi, g_old, g_last, xf, icr, ici, seg=num_blocks,
+                             bins=config.num_bins, fpb=fpb, with_xfade=with_xfade)
+
+
+@contextlib.contextmanager
+def apply_kernel_patch():
+    """Route the renderer's fused arms through ``_apply_only`` and turn the
+    compact distance off, for the ``with`` block only."""
+    orig_apply, orig_dd = R._apply_maybe_full_fuse, R.dedup_distance
+    try:
+        R._apply_maybe_full_fuse = _apply_only
+        R.dedup_distance = lambda *a, **k: None
+        yield
+    finally:
+        R._apply_maybe_full_fuse = orig_apply
+        R.dedup_distance = orig_dd
+
+
+def blend_micro_ab(db, plan, device) -> dict:
+    """One-hot blend (one ``torch.matmul`` of the one-hot weights by the
+    compact table) against ``blend_cat``'s gather, on the scenario's first
+    2,048 old rows."""
+    nbs = min(2048, plan.num_blocks)
+    io = plan.idx_old[:nbs][None]
+    il = plan.idx_new[nbs - 1 : nbs]
+    uniq_ids, ridx, _, u_pad = compact_filter_ids(io, il[None])
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    cat = R.cat_table(spectra_from_numpy(db.spectra, device))
+    table = cat[put(uniq_ids).long()]
+    g_gather = fused_step.blend_cat(cat, put(plan.idx_old[:nbs]), put(plan.w_old[:nbs]))
+    onehot = np.zeros((nbs, u_pad), np.float32)
+    for k in range(4):
+        np.add.at(onehot, (np.arange(nbs), ridx[0, :, k]), plan.w_old[:nbs, k])
+    g_onehot = torch.matmul(put(onehot), table)
+    diff = float((g_gather - g_onehot).abs().max())
+    peak = float(g_gather.abs().max())
+    log(f"[blend] one-hot matmul vs gather: max|diff| {diff:.3e} (peak {peak:.3f})")
+    return {"max_abs": diff, "table_peak": peak, "u_pad": int(u_pad),
+            "note": "one-hot torch.matmul blend vs blend_cat gather, same rows"}
+
+
+def run(db, signal, positions, want, device) -> dict:
+    """Every configuration on ``device`` against the oracle render ``want``
+    -> the budget as a dict."""
+    config = db.config
+    fpb = config.frames_per_buffer
+    plan = make_plan(positions, config, (0.0, 0.0))
+
+    def anatomy(rep):
+        blk, rem = divmod(rep.max_index, 2 * fpb)
+        sample, chan = divmod(rem, 2)
+        return {
+            "max_abs": rep.max_abs_diff,
+            "margin": round(rep.max_abs_diff / SWEEP_EPS, 4),
+            "block": int(blk),
+            "in_block_sample": int(sample),
+            "channel": int(chan),
+            "xfade_at_block": bool(plan.xfade[blk]) if blk < len(plan.xfade) else None,
+            "rms": rep.rms,
+        }
+
+    results = {}
+
+    def run_config(name, make_renderer):
+        t0 = time.time()
+        before = dict(fused_step.launches)
+        r = make_renderer()
+        got = r.render(signal, positions, initial_old=(0.0, 0.0))
+        rep = precision_check(got, want, eps=SWEEP_EPS)
+        res = results[name] = anatomy(rep)
+        d = np.abs(got.astype(np.float64) - want)
+        res["n_above_1e7"] = int((d > 1.0e-7).sum())
+        res["n_above_1p5e7"] = int((d > 1.5e-7).sum())
+        res["jax_margin"] = JAX_MARGIN[name]
+        res["jax_cpu_margin"] = JAX_CPU_MARGIN[name]
+        res["dispatch"] = sorted({"/".join(map(str, arm)) for arm in r.dispatch})
+        res["launches"] = {k: v - before[k] for k, v in fused_step.launches.items()
+                           if v != before[k]}
+        log(f"[{name}] {rep}  ({time.time() - t0:.1f} s)  margin {res['margin']} "
+            f"(JAX package: {res['jax_cpu_margin']} on the CPU, {res['jax_margin']} on a TPU), >1e-7: {res['n_above_1e7']}, "
+            f">1.5e-7: {res['n_above_1p5e7']}, launches {res['launches']}")
+
+    run_config("unfused", lambda: R.Renderer(db, device=device, fused=False))
+    with apply_kernel_patch():
+        run_config("apply_kernel", lambda: R.Renderer(db, device=device))
+    run_config("fused", lambda: R.Renderer(db, device=device))
+    for name, why in ABSENT.items():
+        results[name] = {"absent": why, "jax_margin": JAX_MARGIN[name],
+                         "jax_cpu_margin": JAX_CPU_MARGIN[name]}
+    results["signal"] = SIGNAL
+    results["blend_micro_ab"] = blend_micro_ab(db, plan, device)
+    return results
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
+    ap.add_argument("--blocks", type=int, default=172, help="blocks per sweep position")
+    ap.add_argument("--steps", type=int, default=72, help="azimuth steps (positions - 1)")
+    ap.add_argument("--hrtf-dir", default=None, help="a compact KEMAR directory (not ported)")
+    args = ap.parse_args(argv)
+    if args.hrtf_dir is not None:
+        raise NotImplementedError(
+            "--hrtf-dir needs the CLI's HRTF loader, which is not ported: ROADMAP queue 1 "
+            "item 8 (cli/main.py); the budget runs on the synthetic database")
+    device = R.resolve_device(args.device)
+    db = synthetic_database(DEFAULT_CONFIG)
+    signal = noise()
+    positions = scenario(args.blocks, args.steps, db.config)
+    log(f"worst scenario azi3_ele0: {len(positions)} blocks on {device}")
+    t0 = time.time()
+    want = render_oracle(signal, db, [tuple(p) for p in positions], db.config,
+                         initial_old=(0.0, 0.0))
+    log(f"oracle: {time.time() - t0:.0f} s")
+    results = run(db, signal, positions, want, device)
+    print(json.dumps(results))
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -6,6 +6,7 @@ This file imports no jax, so a machine without jax runs it on its own:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import ctypes
 import time
 
 import numpy as np
@@ -17,14 +18,20 @@ from jefferson_tpu_torch.config import DEFAULT_CONFIG
 from jefferson_tpu_torch.engine.batch import BatchRenderer
 from jefferson_tpu_torch.engine.stream import StreamingSpatializer, render_scan
 from jefferson_tpu_torch.hrtf.kemar import synthetic_database
+from jefferson_tpu_torch.kernels import assoc_probe as tap
+from jefferson_tpu_torch.kernels import build as tbuild
+from jefferson_tpu_torch.kernels import dma_blend as tdb
 from jefferson_tpu_torch.kernels import fused_apply as tfa
 from jefferson_tpu_torch.kernels import fused_spatializer as tsp
 from jefferson_tpu_torch.kernels import fused_step as tfs
 from jefferson_tpu_torch.oracle.reference import render_oracle
+from jefferson_tpu_torch.scripts import apply_assoc_probe as sap
+from jefferson_tpu_torch.scripts import bench_blend_variants as sbb
 
 pytestmark = pytest.mark.cuda
 
 TOL = 5e-7  # kernel vs twin: fp32 DFT sums in another order
+MM_REL = 2e-6  # rows 10-11 vs twin, of the output peak: fp32 sums in other orders
 
 
 @pytest.fixture(scope="module")
@@ -390,3 +397,184 @@ def test_live_block_deadline_strict(card_db):
     ms, budget = times * 1e3, 1e3 * cfg.block_duration
     assert np.percentile(ms, 50) < budget, ms
     assert np.percentile(ms, 90) < 2 * budget, ms
+
+
+# ---- the probe kernels (rows 9-12) ---------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _planes(card, rows, k, seed=0):
+    """(xr, xi, gr, gi, icr, ici) on the card: the probe's magnitudes at
+    ``rows`` x ``k``, the tail basis cut to k rows."""
+    rng = np.random.default_rng(seed)
+    dec = np.exp(-np.arange(k) / 200.0)
+    x = [rng.standard_normal((rows, k)) * 8 for _ in range(2)]
+    g = [rng.standard_normal((rows, k)) * dec for _ in range(2)]
+    icr, ici = (b[:k] for b in sap.inputs()[4:])
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(card)
+    return tuple(map(put, (*x, *g, icr, ici)))
+
+
+@pytest.mark.parametrize("rows,k", [(256, 513), (8, 513), (264, 512)])
+def test_prod_kernel_matches_twin(card, rows, k):
+    xr, xi, gr, gi, _, _ = _planes(card, rows, k)
+    before = tfs.launches["prod"]
+    got = tap.prod(xr, xi, gr, gi)
+    torch.cuda.synchronize()
+    assert tfs.launches["prod"] == before + 1
+    want = tap.prod_reference(xr, xi, gr, gi)
+    scales = ((xr * gr).abs() + (xi * gi).abs(), (xr * gi).abs() + (xi * gr).abs())
+    for g, w, sc in zip(got, want, scales):
+        assert bool(((g - w).abs() <= 2.0**-22 * sc).all())
+
+
+@pytest.mark.parametrize("rows", [8, 256, 264])
+@pytest.mark.parametrize("k", [512, 513])
+def test_mm_kernel_matches_twin(card, rows, k):
+    xr, xi, gr, gi, icr, ici = _planes(card, rows, k)
+    qr, qi = tap.prod_reference(xr, xi, gr, gi)
+    before = tfs.launches["mm"]
+    got = tap.mm(qr, qi, icr, ici)
+    torch.cuda.synchronize()
+    assert tfs.launches["mm"] == before + 1
+    want = tap.mm_reference(qr, qi, icr, ici)
+    assert got.shape == (rows, 128)
+    assert float((got - want).abs().max()) <= MM_REL * float(want.abs().max())
+
+
+@pytest.mark.parametrize("rows", [8, 264])
+@pytest.mark.parametrize("k,chunks", [(512, 2), (512, 4), (512, 8), (513, 3)])
+def test_mm_tree_kernel_matches_twin(card, rows, k, chunks):
+    """K = 513 in 3 chunks carries the tree's odd part."""
+    xr, xi, gr, gi, icr, ici = _planes(card, rows, k)
+    qr, qi = tap.prod_reference(xr, xi, gr, gi)
+    before = tfs.launches["mm_tree"]
+    got = tap.mm_tree(qr, qi, icr, ici, chunks)
+    torch.cuda.synchronize()
+    assert tfs.launches["mm_tree"] == before + 1
+    want = tap.mm_tree_reference(qr, qi, icr, ici, chunks)
+    assert float((got - want).abs().max()) <= MM_REL * float(want.abs().max())
+
+
+def test_mm_tree_of_one_chunk_is_mm_on_the_card(card):
+    xr, xi, gr, gi, icr, ici = _planes(card, 264, 513)
+    qr, qi = tap.prod_reference(xr, xi, gr, gi)
+    assert torch.equal(tap.mm_tree(qr, qi, icr, ici, 1), tap.mm(qr, qi, icr, ici))
+
+
+def test_probe_kernels_refuse_chunks_on_the_card(card):
+    xr, xi, gr, gi, icr, ici = _planes(card, 8, 513)
+    with pytest.raises(ValueError, match="does not divide"):
+        tap.mm_tree(xr, xi, icr, ici, 2)
+    with pytest.raises(ValueError, match="gi: want contiguous"):
+        tap.prod(xr, xi, gr, gi.double())
+
+
+def test_mm_raises_when_k_passes_the_ctas_shared_memory(card):
+    """K = 8,192 asks 256 KB of shared memory, past a CTA's 227 KB: the
+    entry's CUDA error raises, nothing is counted, and the refusal does not
+    leak into the next launch's check."""
+    q = torch.ones((8, 8192), device=card)
+    basis = torch.ones((8192, 128), device=card)
+    before = tfs.launches["mm"]
+    with pytest.raises(RuntimeError, match="mm launch failed"):
+        tap.mm(q, q, basis, basis)
+    assert tfs.launches["mm"] == before
+    xr, xi, gr, gi, icr, ici = _planes(card, 8, 513)
+    tap.prod(xr, xi, gr, gi)
+    tap.mm(xr, xi, icr, ici)
+    assert tfs.launches["mm"] == before + 1
+
+
+def test_assoc_probe_names_the_cards_contraction(card):
+    """Stage A: each plane of the kernel is one FMA form on every element."""
+    res = sap.run(card)
+    for counts in res["A"]["kernel_equals"].values():
+        assert max(counts.values()) == sap.B * sap.BINS
+    assert res["A"]["err_kernel"] <= res["A"]["err_torch"]
+
+
+def _blend(card, r, c_pad=2176, seed=5):
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((710, c_pad)).astype(np.float32)
+    idx = rng.integers(0, 710, (r, 4)).astype(np.int32)
+    w = rng.random((r, 4)).astype(np.float32)
+    put = lambda a: torch.from_numpy(a).to(card)
+    return put(table.reshape(-1)), put(idx), put(w), c_pad
+
+
+@pytest.mark.parametrize("r,tb", [(8448, 256), (12, 4), (264, 8), (1, 1)])
+def test_dma_blend_kernel_is_its_twin(card, r, tb):
+    """Row counts off the kernel's 8-row tile, and the script's shape."""
+    flat, idx, w, c_pad = _blend(card, r)
+    before = tfs.launches["dma_blend"]
+    got = tdb.dma_blend(flat, idx, w, c_pad, tb=tb)
+    torch.cuda.synchronize()
+    assert tfs.launches["dma_blend"] == before + 1
+    assert torch.equal(got, tdb.dma_blend_reference(flat, idx, w, c_pad, tb=tb))
+
+
+@pytest.mark.parametrize("c_pad", [128, 1024, 4096])
+def test_dma_blend_kernel_at_other_widths(card, c_pad):
+    flat, idx, w, c_pad = _blend(card, 40, c_pad)
+    got = tdb.dma_blend(flat, idx, w, c_pad, tb=8)
+    assert torch.equal(got, tdb.dma_blend_reference(flat, idx, w, c_pad, tb=8))
+
+
+def test_dma_blend_kernel_on_ids_outside_the_table(card):
+    flat, idx, w, c_pad = _blend(card, 24)
+    idx = idx.clone()
+    idx[3, 1], idx[5, 0], idx[17, 3] = 712, -4, 710
+    got = tdb.dma_blend(flat, idx, w, c_pad, tb=8)
+    assert torch.equal(got, tdb.dma_blend_reference(flat, idx, w, c_pad, tb=8))
+    ok = w.clone()
+    ok[3, 1], ok[5, 0], ok[17, 3] = 0.0, 0.0, 0.0
+    fixed = torch.where(ok > 0, idx, 0)
+    assert torch.equal(got, tdb.dma_blend_reference(flat, fixed, ok, c_pad, tb=8))
+
+
+def test_dma_blend_kernel_matches_the_torch_gathers(card):
+    idx, w = sbb.workload(264)
+    table, table_pad = sbb.tables()
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)
+    got = tdb.dma_blend(put(table_pad.reshape(-1)), put(idx), put(w), table_pad.shape[1], tb=8)
+    planes = tuple(put(table[:, j * 513 : (j + 1) * 513]) for j in range(4))
+    assert torch.equal(got[:, : table.shape[1]], sbb.xla16(planes, put(idx), put(w)))
+
+
+def test_dma_blend_asks_for_more_than_48_kb_and_launches(card):
+    lib = tbuild.load("dma_blend")
+    lib.jt_dma_blend_smem_bytes.argtypes = []
+    lib.jt_dma_blend_smem_bytes.restype = ctypes.c_longlong
+    assert lib.jt_dma_blend_smem_bytes() > 48 * 1024
+    flat, idx, w, c_pad = _blend(card, 64)
+    got = tdb.dma_blend(flat, idx, w, c_pad, tb=8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tdb.dma_blend_reference(flat, idx, w, c_pad, tb=8))
+
+
+def test_dma_blend_launch_errors_are_reported(card):
+    """A launch the card refuses returns its error code; the wrapper raises
+    on any."""
+    flat, idx, w, c_pad = _blend(card, 8)
+    out = torch.empty((8, c_pad), device=card)
+    err = tdb._entry()(card.index, torch.cuda.current_stream(card).cuda_stream, flat.data_ptr(),
+                       710, c_pad, idx.data_ptr(), w.data_ptr(), out.data_ptr(), 0)
+    assert err != 0
+    assert "invalid configuration" in tfs._cuda_error("dma_blend", err)
+
+
+def test_dma_blend_refuses_a_misaligned_table(card):
+    flat, idx, w, c_pad = _blend(card, 8)
+    shifted = torch.empty(flat.numel() + 1, device=card)[1:]
+    shifted.copy_(flat)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tdb.dma_blend(shifted, idx, w, c_pad, tb=8)
+    with pytest.raises(ValueError, match="needs a row"):
+        tdb.dma_blend(flat, idx[:0], w[:0], c_pad, tb=8)

@@ -28,7 +28,9 @@ PORT_MODULES = [
     "jefferson_tpu_torch.engine.stream",
     "jefferson_tpu_torch.hrtf.kemar",
     "jefferson_tpu_torch.io.wavio",
+    "jefferson_tpu_torch.kernels.assoc_probe",
     "jefferson_tpu_torch.kernels.build",
+    "jefferson_tpu_torch.kernels.dma_blend",
     "jefferson_tpu_torch.kernels.fused_apply",
     "jefferson_tpu_torch.kernels.fused_spatializer",
     "jefferson_tpu_torch.kernels.fused_step",
@@ -37,6 +39,10 @@ PORT_MODULES = [
     "jefferson_tpu_torch.oracle.reference",
     "jefferson_tpu_torch.rt.control",
     "jefferson_tpu_torch.rt.playout",
+    "jefferson_tpu_torch.scripts.apply_assoc_probe",
+    "jefferson_tpu_torch.scripts.bench_blend_variants",
+    "jefferson_tpu_torch.scripts.error_budget",
+    "jefferson_tpu_torch.testing",
     "jefferson_tpu_torch.trajectory.interpolation",
     "jefferson_tpu_torch.trajectory.spatial",
     "jefferson_tpu_torch.trajectory.trajectory",

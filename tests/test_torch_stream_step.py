@@ -160,10 +160,13 @@ def test_build_hashes_the_headers_a_source_includes(tmp_path, monkeypatch):
 
 def test_the_shipped_sources_share_the_forward_header():
     for name in ("fused_step_onehot", "fused_step_gather"):
-        assert [p.name for p in build.sources(name)] == [f"{name}.cu", "fused_forward.cuh"]
+        assert [p.name for p in build.sources(name)] == [f"{name}.cu", "fused_forward.cuh",
+                                                         "entry.cuh"]
+    for name in ("assoc_probe", "dma_blend"):
+        assert [p.name for p in build.sources(name)] == [f"{name}.cu", "entry.cuh"]
 
 
 def test_launch_counts_reset():
     tfs.launches["fused_step_stream_xfade"] += 3
     tfs.reset_launches()
-    assert set(tfs.launches.values()) == {0} and len(tfs.launches) == 11
+    assert set(tfs.launches.values()) == {0} and len(tfs.launches) == 15
