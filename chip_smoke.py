@@ -32,8 +32,12 @@ line:
              crossfade on all rows but every 7th, with and without duplicate
              brackets; its forward form (launch A at nb = 1 and 12,556, one
              stream) with the XD planes against _forward_reference (relative
-             to their peak, 1e-6); the no-crossfade use (new brackets on both
-             sides, xf = 0) bit-equal to the crossfade form on a held block.
+             to their peak, 1e-6).  Row 8's two forms on the same operands at
+             1, 2, 7 and SMALL_ROWS rows, random and duplicate brackets, ids
+             outside the table: the cluster form bit-equal to launch B, with
+             the crossfade and with the new brackets on both sides at xf = 0
+             (a held block's use), which equals any old brackets at xf = 0;
+             each within 5e-7 of its twin.
   4. path    each main path with the launch counts set to 0 before and read
              after.  The batched path: four bench steps (256 x 64, history
              carried) through batched_chunk_fn_fused, the first against
@@ -53,9 +57,11 @@ line:
              for 3,445 blocks (10 s), moved every block; the crossfade-every-
              block worst case (200 blocks of 3-degree steps at 10 degrees,
              tests/test_live_deadline_strict.py's loop); eight sources on one
-             shared table in one callback for 1,000 blocks; row 8 counted
-             once per block and source (plus two per source for prime) and
-             once per scan.  Each render and every live source against
+             shared table in one callback for 1,000 blocks; one source on the
+             sweep (a 5-degree move every 172 blocks: most blocks hold) for
+             3,445 blocks; row 8 counted once per block and source (plus two
+             per source for prime) and once per scan, every live block on
+             the cluster form, the scans on launch B.  Each render and every live source against
              render_oracle: max|diff| <= 1e-6, RMS < 1e-4, the margin against
              the sweep's 2e-7 beside the JAX package's; each render takes the
              JAX dispatch's arm on every chunk; every kernel launched; each
@@ -73,15 +79,22 @@ line:
              (fp32 sums in other orders), the double-buffered row-gather
              blend (row 12) at 8,448 rows bit-equal to its twin and to the
              torch xla16 gathers; each budget configuration within 1e-6 of
-             render_oracle, the apply-only configuration on row 7 alone.
+             render_oracle, the apply-only configuration on row 7 alone, the
+             unfused chain and its two stage swaps (the tail summed by
+             128-bin blocks; the forward on the CPU) on no kernel.
   6. bench   the bench step (blocks/s); each step's kernel and twin times in
              turns (twin, kernel, kernel, twin) beside its bound (row 8 at
-             both its shapes), rows 9-12 also beside one PyTorch call of the
-             same function and with their device time alone (torch.profiler:
-             at these sizes a call's events time the host's launch path); each
-             render's wall time (the scenes' host
-             planning apart), render_scan's, and the device time by kernel
-             of four renders and of 200 live blocks; beside the card.
+             both its shapes), rows 8-12 also with their
+             device time alone (torch.profiler: at these sizes a call's
+             events time the host's launch path), rows 9-12 beside one
+             PyTorch call of the same function (its events and its device
+             time alone), row 9's host path apart; row 8's two forms at 1 to
+             1,024 rows (the crossover that sets SMALL_ROWS); the sparse
+             side-pass at a scene_hold chunk's shape (device time, kernels
+             per call, bound); each render's wall time (the scenes' host
+             planning apart), render_scan's, and the device time by kernel of
+             four renders and of 200 live blocks, moving and held; the
+             unfused chain's warm render with each tail; beside the card.
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -108,6 +121,9 @@ WORST_BLOCKS = 200               # tests/test_live_deadline_strict.py
 CHOIR_S, CHOIR_B = 8, 1000       # sources sharing one table in one callback
 FWD_REL = 1e-6                   # launch A vs its twin, relative to the XD peak
 SPATIALIZER = "fused_spatializer_apply"
+FORM_ROWS = (1, 2, 7)            # row 8's forms held bit-equal here, and at SMALL_ROWS
+CROSSOVER_ROWS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+SIDE_S, SIDE_NB, SIDE_CF = 16, 256, 32  # the side-pass at a scene_hold chunk: its bucket
 
 PROD_ULP = 2.0**-22  # row 9 vs twin, of the plane's two |products|: one FMA contraction
 MM_REL = 2e-6        # rows 10-11 vs twin, of the output peak: fp32 sums in other orders
@@ -137,7 +153,7 @@ KERNELS = {
 }
 PROBES = ("prod", "mm", "mm_tree", "dma_blend")
 # probe kernel -> its CUDA function, as torch.profiler names it
-PROBE_SYMBOL = {"prod": "prod_kernel", "mm": "mm_tree_kernel", "mm_tree": "mm_tree_kernel",
+PROBE_SYMBOL = {"prod": "prod_kernel", "mm": "mm_kernel", "mm_tree": "mm_kernel",
                 "dma_blend": "dma_blend_kernel"}
 # single-stream form (bench.stream_step) -> kernel name
 FORMS = {
@@ -262,6 +278,7 @@ def live_runs(bench, noise, fpb):
         "worst": (worst[None], noise[None]),
         "choir": (bench.scene_mover_positions(CHOIR_S, CHOIR_B),
                   bench.scene_signals(noise, CHOIR_S, CHOIR_B, fpb)),
+        "hold": (bench.sweep_positions(3.0, 0.0)[:LIVE_BLOCKS][None], noise[None]),
     }
 
 
@@ -300,6 +317,55 @@ def nbytes(*tensors) -> int:
     import torch
 
     return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+
+
+def row8_forms(bench, db, device, geo, errs) -> bool:
+    """Row 8's two forms on the same operands: the cluster form bit-equal
+    to launch B with the crossfade and with the new brackets on both sides
+    at xf = 0 (the held block's use), which equals any old brackets at
+    xf = 0; each within KERNEL_TOL of its twin; fills ``errs`` -> False on
+    a failure."""
+    import torch
+
+    from jefferson_tpu_torch.kernels import fused_spatializer as fsp
+    from jefferson_tpu_torch.kernels import fused_step
+
+    kw = dict(bins=geo["bins"], fpb=geo["fpb"])
+    forms = (fsp.CLUSTER, fsp.LAUNCH_B)
+    for rows in (*FORM_ROWS, fsp.SMALL_ROWS):
+        for dup in (False, True):
+            table, fwd, br, xf = bench.spatializer_step(db, rows, device, duplicate=dup,
+                                                        seed=rows)
+            if rows > 1:  # ids outside the table on both sides
+                br = tuple(t.clone() for t in br)
+                br[0][0, 1], br[2][rows - 1, 3], br[2][rows // 2, 0] = db.num_hrtf, -1, 9000
+            xd = fused_step._forward_reference(fwd[0][None], rows, *fwd[1:], None, None, **geo)
+            off = torch.zeros_like(xf)
+            held_br = (br[2], br[3], br[2], br[3])
+            # the wrapper's private seam names the form; fused_apply picks it by rows
+            form = lambda f, brackets, mask: fsp._cuda(device, rows, table, brackets, mask, *xd,
+                                                       None, form=f, **geo)
+            two = {f: form(f, br, xf) for f in forms}
+            held = {f: form(f, held_br, off) for f in forms}
+            old_xf0 = form(fsp.CLUSTER, br, off)
+            torch.cuda.synchronize()
+            err = max(float((two[fsp.CLUSTER] - fsp.fused_apply_reference(
+                          table, *xd, *br, xf, **kw)).abs().max()),
+                      float((held[fsp.CLUSTER] - fsp.fused_apply_reference(
+                          table, *xd, *held_br, off, **kw)).abs().max()))
+            same = torch.equal(two[fsp.CLUSTER], two[fsp.LAUNCH_B])
+            same_h = torch.equal(held[fsp.CLUSTER], held[fsp.LAUNCH_B])
+            held_ok = torch.equal(held[fsp.CLUSTER], old_xf0)
+            say("kernel", f"row 8 forms, {rows} row(s), {'duplicate' if dup else 'random'} "
+                          f"brackets{', ids outside the table' if rows > 1 else ''}: cluster = "
+                          f"launch B bit for bit: crossfade {same}, held block {same_h}; any old "
+                          f"brackets at xf = 0 the same bits: {held_ok}; max|cluster - twin| "
+                          f"{err:.3e} (limit {KERNEL_TOL:.0e})")
+            if not (same and same_h and held_ok and err <= KERNEL_TOL):
+                fail("kernel", f"row 8's forms disagree at {rows} rows")
+                return False
+            errs[SPATIALIZER] = max(errs[SPATIALIZER], err)
+    return True
 
 
 def probe_scripts(device, errs, db, noise, budget_pos, budget_oracle):
@@ -350,15 +416,22 @@ def probe_scripts(device, errs, db, noise, budget_pos, budget_oracle):
         problems.append(f"a probe kernel was not launched: {launches}")
     if not all(v["bit_identical_to_xla16"] for v in blend["variants"].values()):
         problems.append("a blend variant differs from xla16")
-    for name in ("unfused", "apply_kernel", "fused"):
+    configs = ("unfused", *error_budget.SWAPS, "apply_kernel", "fused")
+    for name in configs:
         if not budget[name]["max_abs"] <= ORACLE_TOL:
             problems.append(f"error budget {name}: {budget[name]['max_abs']:.3e} from the oracle "
                             f"(limit {ORACLE_TOL:.0e})")
     row7 = {"fused_apply_xfade", "fused_apply_xfade/no_xfade"}
-    if (budget["unfused"]["launches"] or not budget["apply_kernel"]["launches"]
+    unfused = {name: budget[name]["launches"] for name in ("unfused", *error_budget.SWAPS)}
+    if (any(unfused.values()) or not budget["apply_kernel"]["launches"]
             or set(budget["apply_kernel"]["launches"]) - row7):
-        problems.append(f"error budget launches: unfused {budget['unfused']['launches']}, "
-                        f"apply_kernel {budget['apply_kernel']['launches']} (want row 7 only)")
+        problems.append(f"error budget launches: unfused {unfused}, apply_kernel "
+                        f"{budget['apply_kernel']['launches']} (want row 7 only)")
+    say("probes", "error budget margins: " + ", ".join(
+        f"{name} {budget[name]['margin']} (block {budget[name]['block']})" for name in configs))
+    say("probes", "unfused render of the budget's scenario, warm: " + ", ".join(
+        f"{name} {budget[name]['render_ms']:.3f} ms" for name in configs
+        if "render_ms" in budget[name]))
     if problems:
         fail("probes", "; ".join(problems))
         return None
@@ -587,17 +660,8 @@ def run(pool) -> int:
                     and got.shape == got_f.shape == (rows, 2 * fpb)):
                 return fail("kernel", f"{SPATIALIZER}: kernel disagrees with its twin")
             errs[SPATIALIZER] = max(errs[SPATIALIZER], err, err_f)
-    table, fwd, br, xf = bench.spatializer_step(db, 1, device, seed=3)
-    xd = fused_step._forward_reference(fwd[0][None], 1, *fwd[1:], None, None, **geo)
-    held = torch.zeros_like(xf)
-    y_xf = fused_spatializer.fused_apply(table, *xd, *br, held, bins=cfg.num_bins, fpb=fpb)
-    y_noxf = fused_spatializer.fused_apply(table, *xd, br[2], br[3], br[2], br[3], held,
-                                           bins=cfg.num_bins, fpb=fpb)
-    bit_equal = torch.equal(y_xf, y_noxf)
-    say("kernel", f"row 8 on a held block: the no-crossfade use (new brackets on both sides) "
-                  f"bit-equal to the crossfade form: {bit_equal}")
-    if not bit_equal:
-        return fail("kernel", "row 8's no-crossfade use differs on a held block")
+    if not row8_forms(bench, db, device, geo, errs):
+        return 1
 
     # ---- the batched main path, counted ------------------------------------
     wl = bench.build_workload(db, S, NB, device)
@@ -726,22 +790,27 @@ def run(pool) -> int:
         if not (d_max <= ORACLE_TOL and d_rms < ORACLE_RMS):
             return fail("path", f"render_scan {name}: the port disagrees with the oracle")
     scan_launches = {k: v for k, v in fused_step.launches.items() if v}
-    if scan_launches != {SPATIALIZER: 2}:
-        return fail("path", f"render_scan launched {scan_launches}, want {SPATIALIZER} once per scan")
+    scan_forms = {k: v for k, v in fused_step.spatializer_forms.items() if v}
+    if scan_launches != {SPATIALIZER: 2} or scan_forms != {"launch_b": 2}:
+        return fail("path", f"render_scan launched {scan_launches} as {scan_forms}, want "
+                            f"{SPATIALIZER} once per scan on launch B")
     live_launches = 0
     for name, (pos, sigs) in live.items():
         fused_step.reset_launches()
         stats, got, spats = drive_live(db, device, pos, sigs)
         launched = {k: v for k, v in fused_step.launches.items() if v}
+        forms = dict(fused_step.spatializer_forms)
         n_src, n_blk = pos.shape[:2]
-        live_launches += launched.get(SPATIALIZER, 0)
+        crossfades = sum(sp.crossfades for sp in spats)
+        live_launches += forms["cluster"]
         d = [diff(got[i], live_oracles[name][i].result()) for i in range(n_src)]
         d_max, d_rms = max(x[0] for x in d), max(x[1] for x in d)
         ms = np.asarray(stats.compute_ms)
         shared = all(sp._table is spats[0]._table for sp in spats)
         say("path", f"live {name}: {n_src} source(s) x {n_blk} blocks, "
-                    f"{sum(sp.crossfades for sp in spats)} crossfades, one shared table: {shared}, "
-                    f"launches {launched} (prime: 2 per source); every source vs render_oracle "
+                    f"{crossfades} crossfades, one shared table: {shared}, "
+                    f"launches {launched} (prime: 2 per source), row 8 by form "
+                    f"{ {k: v for k, v in forms.items() if v} }; every source vs render_oracle "
                     f"max|diff| {d_max:.3e} (limit {ORACLE_TOL:.0e}), rms {d_rms:.3e}; "
                     f"{stats.summary()}; median {np.median(ms):.4f} ms, p90 "
                     f"{np.percentile(ms, 90):.4f} ms  [{bench.card()}]")
@@ -752,6 +821,9 @@ def run(pool) -> int:
         if launched != {SPATIALIZER: n_src * n_blk + 2 * n_src} or not shared:
             return fail("path", f"live {name}: launched {launched}, want {SPATIALIZER} once per "
                                 f"block and source and twice per prime, on one shared table")
+        if forms != {"cluster": n_src * n_blk + 2 * n_src, "launch_b": 0}:
+            return fail("path", f"live {name}: row 8 by form {forms}, want every live block "
+                                f"on the cluster form")
 
     # ---- the probes: the scripts, counted, each kernel against its twin ----
     fused_step.reset_launches()
@@ -772,14 +844,15 @@ def run(pool) -> int:
         ops[name] = (fn, args, kw, 1, STREAM_B)
     for form, (name, s_, nb_) in SCENE_FORMS.items():
         ops[name] = (*bench.scene_step(db, form, s_, nb_, device), s_, nb_)
-    # row 8 on the caller's XD planes; the live shape stands in the kernels line
+    # row 8 on the caller's XD planes: render_scan's shape (launch B), then
+    # the live shape (the cluster form), which stands in the kernels line
+    kw8 = dict(bins=cfg.num_bins, fpb=fpb)
     for rows in (SCAN_B, 1):
         table, fwd, br, xf = bench.spatializer_step(db, rows, device)
         xd = fused_step._forward_reference(fwd[0][None], rows, *fwd[1:], None, None, **geo)
-        ops[SPATIALIZER] = (fused_spatializer.fused_apply, (table, *xd, *br, xf),
-                            dict(bins=cfg.num_bins, fpb=fpb), 1, rows)
-        if rows == SCAN_B:
-            ops[f"{SPATIALIZER} at {SCAN_B} rows"] = ops.pop(SPATIALIZER)
+        at = "" if rows == 1 else f" at {SCAN_B} rows"
+        ops[SPATIALIZER + at] = (fused_spatializer.fused_apply, (table, *xd, *br, xf), kw8, 1,
+                                 rows)
     times, bounds = {}, {}
     for name, (fn, args, kw, s_, nb_) in ops.items():
         k = lambda: fn(*args, **kw)
@@ -787,19 +860,25 @@ def run(pool) -> int:
         plain_a, kernel_a, kernel_b, plain_b = (bench.time_ms(f) for f in (p, k, k, p))
         times[name] = ((kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2)
         moved = nbytes(*args, *kw.values(), k())
-        if fn is fused_spatializer.fused_apply:
+        alone = ""
+        if name.startswith(SPATIALIZER):
             # of the full table, the function reads the rows its brackets name
-            table, ids = args[0], torch.cat([args[3], args[5]]).unique()
+            table = args[0]
+            ids = torch.cat([a for a in args if a.dtype == torch.int32]).unique()
             moved += (ids.numel() - table.shape[0]) * table.shape[1] * table.element_size()
+            ms = sum(row[1] for row in bench.device_profile(k, calls=20))
+            alone = f" (device time alone {ms:.4f} ms, torch.profiler)"
         bounds[name] = bench.bound_ms(bench.step_flops(name.split(" at ")[0], s_, nb_), moved)
-        say("bench", f"{name} ({s_}x{nb_}): kernel {kernel_a:.4f}/{kernel_b:.4f} ms, twin "
-                     f"{plain_a:.4f}/{plain_b:.4f} ms, bound {bounds[name][0]:.4f} ms "
+        say("bench", f"{name} ({s_}x{nb_}): kernel {kernel_a:.4f}/{kernel_b:.4f} ms{alone}, twin "
+                     f"{plain_a:.4f}/{plain_b:.4f} ms, bound {bounds[name][0]:.6f} ms "
                      f"({bounds[name][1]})  [{bench.card()}]")
+    row8_crossover(bench, db, device, geo)
     for name, (fn, args, kw, flops, moved, lib) in probe_timed(device).items():
         k = lambda: fn(*args, **kw)
         p = lambda: twin(fn)(*args, **kw)
         plain_a, kernel_a, kernel_b, plain_b = (bench.time_ms(f) for f in (p, k, k, p))
         lib_ms = bench.time_ms(lib)
+        lib_alone = sum(row[1] for row in bench.device_profile(lib, calls=20))
         times[name] = ((kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2, lib_ms)
         if moved is None:
             out = k()
@@ -812,8 +891,10 @@ def run(pool) -> int:
         say("bench", f"{name} ({', '.join('x'.join(map(str, a.shape)) for a in args[:2])}): kernel "
                      f"{kernel_a:.4f}/{kernel_b:.4f} ms (device time alone {device_ms:.4f} ms, "
                      f"torch.profiler), twin {plain_a:.4f}/{plain_b:.4f} ms, library "
-                     f"{lib_ms:.4f} ms, bound {bounds[name][0]:.5f} ms ({bounds[name][1]})"
-                     f"  [{bench.card()}]")
+                     f"{lib_ms:.4f} ms (device time alone {lib_alone:.4f} ms), bound "
+                     f"{bounds[name][0]:.5f} ms ({bounds[name][1]})  [{bench.card()}]")
+        if name == "prod":
+            prod_host_path(bench, device, args)
     for name, (pos, opts, _) in scenarios.items():
         r = Renderer(db, device=device, **opts)
         t0 = time.perf_counter()
@@ -865,6 +946,20 @@ def run(pool) -> int:
                  f"{wall * 1e3:.1f} ms wall ({wall * 1e3 / WORST_BLOCKS:.4f} ms per block)  "
                  f"[{bench.card()}]")
     profile(bench, f"{WORST_BLOCKS} live blocks", live_blocks, wall)
+
+    def held_blocks():  # one move onto the position, then held blocks
+        sp.set_position(azi=40, ele=10, r=1.0)
+        for _ in range(WORST_BLOCKS):
+            sp.process_block(blk)
+
+    held_blocks()
+    t0 = time.perf_counter()
+    held_blocks()
+    wall = time.perf_counter() - t0
+    say("bench", f"{WORST_BLOCKS} live blocks held at one position (the no-crossfade step; the "
+                 f"first crossfades onto it), memos hit: {wall * 1e3:.1f} ms wall "
+                 f"({wall * 1e3 / WORST_BLOCKS:.4f} ms per block)  [{bench.card()}]")
+    profile(bench, f"{WORST_BLOCKS} held live blocks", held_blocks, wall)
     t0 = time.perf_counter()
     for i in range(WORST_BLOCKS):  # a new position each time: both memos miss
         sp.set_position(azi=i, ele=20, r=1.0 + 0.001 * i)
@@ -873,6 +968,11 @@ def run(pool) -> int:
     say("bench", f"host set-up of a new live position (interpolation, distance split and their "
                  f"uploads): {(time.perf_counter() - t0) * 1e3 / WORST_BLOCKS:.4f} ms  "
                  f"[{bench.card()}]")
+
+    sparse_calls = sum(1 for log in (logs["sweep"], scene_log["scene_hold"],
+                                     scene_log["scene_hold_512"])
+                       for _, _, bucket in log if bucket is not None)
+    sidepass_bench(bench, db, device, cfg, sparse_calls)
 
     launches = {**single, **{k: v for k, v in scene_launches.items() if v},
                 "fused_step_onehot_xfade": row1, SPATIALIZER: 2 + live_launches,
@@ -897,6 +997,105 @@ def run(pool) -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def row8_crossover(bench, db, device, geo) -> None:
+    """Row 8's two forms on the same operands at CROSSOVER_ROWS rows: CUDA
+    events per call and device time alone; the crossover sets SMALL_ROWS."""
+    from jefferson_tpu_torch.kernels import fused_spatializer as fsp
+    from jefferson_tpu_torch.kernels import fused_step
+
+    last_cluster = 0
+    for rows in CROSSOVER_ROWS:
+        table, fwd, br, xf = bench.spatializer_step(db, rows, device)
+        xd = fused_step._forward_reference(fwd[0][None], rows, *fwd[1:], None, None, **geo)
+        got = {}
+        for form in (fsp.CLUSTER, fsp.LAUNCH_B):
+            # the wrapper's private seam names the form; fused_apply picks it by rows
+            call = lambda: fsp._cuda(device, rows, table, br, xf, *xd, None, form=form, **geo)
+            got[form] = (bench.time_ms(call),
+                         sum(row[1] for row in bench.device_profile(call, calls=10)))
+        if got[fsp.CLUSTER][1] < got[fsp.LAUNCH_B][1]:
+            last_cluster = rows
+        say("bench", f"row 8 forms at {rows} rows: cluster {got[fsp.CLUSTER][0]:.4f} ms "
+                     f"(device time alone {got[fsp.CLUSTER][1]:.4f}), launch B "
+                     f"{got[fsp.LAUNCH_B][0]:.4f} ms (device time alone "
+                     f"{got[fsp.LAUNCH_B][1]:.4f})  [{bench.card()}]")
+    say("bench", f"row 8: the cluster form takes less device time up to {last_cluster} rows of "
+                 f"{CROSSOVER_ROWS}; SMALL_ROWS = {fsp.SMALL_ROWS}")
+
+
+def prod_host_path(bench, device, args) -> None:
+    """Row 9's call on the host clock: the wrapper, and its ctypes entry
+    alone on preallocated outputs, per call, queued without a sync."""
+    import torch
+
+    from jefferson_tpu_torch.kernels import assoc_probe
+
+    out = [torch.empty_like(args[0]) for _ in range(2)]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    lib, ptrs = assoc_probe._lib(), [t.data_ptr() for t in (*args, *out)]
+    raw = lambda: lib.jt_prod(device.index, stream, *ptrs, args[0].numel())
+    wrapper = lambda: assoc_probe.prod(*args)
+    host = {}
+    for what, fn in (("wrapper", wrapper), ("entry", raw), ("wrapper", wrapper),
+                     ("entry", raw)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        host.setdefault(what, []).append((time.perf_counter() - t0) * 1e3 / 200)
+        torch.cuda.synchronize()
+    say("bench", f"prod (row 9) host path per call, 200 calls queued: wrapper "
+                 f"{min(host['wrapper']):.4f} ms, its ctypes entry alone "
+                 f"{min(host['entry']):.4f} ms  [{bench.card()}]")
+
+
+def sidepass_bench(bench, db, device, cfg, calls: int) -> None:
+    """The sparse side-pass (engine/renderer._sparse_xfade_fix, plain torch)
+    at a scene_hold chunk's shape: SIDE_S x SIDE_NB rows, SIDE_CF
+    crossfading rows; its device time, kernels per call and bound, and its
+    calls on the counted main path."""
+    import numpy as np
+    import torch
+
+    from jefferson_tpu_torch.convert import spectra_from_numpy
+    from jefferson_tpu_torch.engine.renderer import _sparse_xfade_fix, blend_cat, cat_table
+    from jefferson_tpu_torch.ops.filters import distance_phase_split
+
+    rng = np.random.default_rng(8)
+    fpb, bins, q = cfg.frames_per_buffer, cfg.num_bins, cfg.pad_len // cfg.frames_per_buffer
+    rows, ncf = SIDE_S * SIDE_NB, SIDE_CF
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    y = put((rng.standard_normal((rows, 2 * fpb)) * 0.1).astype(np.float32))
+    subs = put((rng.standard_normal((SIDE_S * (SIDE_NB + q - 1), fpb)) * 0.2).astype(np.float32))
+    cf = np.sort(rng.choice(rows, ncf, replace=False))
+    xfade = np.zeros(rows, bool)
+    xfade[cf] = True
+    radii = rng.uniform(0.3, 2.0, rows).astype(np.float32) / np.float32(cfg.distance_scale)
+    dist = [put(a) for a in distance_phase_split(cfg.fsvs, radii, bins)]
+    g_old = blend_cat(cat_table(spectra_from_numpy(db.spectra, device)),
+                      put(rng.integers(0, db.num_hrtf, (ncf, 4)).astype(np.int32)),
+                      put(rng.random((ncf, 4)).astype(np.float32)))
+    cf_t, xf_t = put(cf), put(xfade)
+    call = lambda: _sparse_xfade_fix(y, subs, cf_t, g_old, xf_t, *dist, config=cfg,
+                                     nb_seg=SIDE_NB)
+    ev = bench.time_ms(call)
+    prof = bench.device_profile(call, calls=10)
+    alone, kernels = sum(row[1] for row in prof), sum(row[2] for row in prof)
+    # the work of its ncf rows: sub-block DFTs, twiddle sum, distance ramp and
+    # multiply, two ears' filter multiply and 513 x 128 tail, crossfade; it
+    # reads their sub-blocks, old filters, ramps and new-side outputs and
+    # writes their outputs
+    flops = ncf * (q * fpb * bins * 4 + (q - 1) * bins * 8 + bins * 14
+                   + 2 * (bins * 6 + bins * fpb * 4) + 2 * fpb * 3)
+    moved = 4 * ncf * (q * fpb + 4 * bins + 3 + 2 * 2 * fpb) + ncf * (8 + 1)
+    bound = bench.bound_ms(flops, moved)
+    say("bench", f"sparse side-pass at {SIDE_S}x{SIDE_NB} rows, {ncf} crossfading: {ev:.4f} ms "
+                 f"per call (device time alone {alone:.4f} ms), {kernels:g} kernels per call, "
+                 f"bound {bound[0]:.5f} ms ({bound[1]}); {calls} calls on the counted path "
+                 f"(sweep, scene_hold, scene_hold_512) = {calls * kernels:g} launches  "
+                 f"[{bench.card()}]")
 
 
 def profile(bench, what: str, fn, wall: float) -> None:

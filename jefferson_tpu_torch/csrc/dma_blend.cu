@@ -35,6 +35,7 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
 #include "entry.cuh"
 
 namespace {
@@ -44,20 +45,6 @@ constexpr int DB_CS = 1024;                   // columns per CTA
 constexpr int DB_THREADS = DB_CS / 4;         // one float4 column each
 constexpr int DB_BRACKETS = 4;
 constexpr size_t DB_SMEM = 2 * DB_TR * DB_CS * sizeof(float);   // two slots: 64 KB
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
 
 __global__ void __launch_bounds__(DB_THREADS)
 dma_blend_kernel(const float* __restrict__ table, int h, int c_pad,

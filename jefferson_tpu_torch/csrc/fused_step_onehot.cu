@@ -48,8 +48,17 @@
 //
 // Numerics: the blend, complex multiplies and crossfade round each product
 // on its own (__fmul_rn/__fadd_rn); only the tail dot products use fmaf.
+//
+// Row 8 at few rows (the live block step: one row) has its own launch, the
+// cluster form (spatializer_cluster, below): launch B there builds a
+// 128-row operand of which 4 rows are real and walks all of K on one SM.
 
+#include <cooperative_groups.h>
+
+#include "cp_async.cuh"
 #include "fused_forward.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -178,6 +187,161 @@ blend_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
   }
 }
 
+// ---- row 8 at few rows: one cluster of five CTAs per output row ----------
+//
+// The blocked tail is five independent chains per output, one per 128-bin
+// block, folded in order at the end; launch B walks them one after another
+// on one SM.  Here CTA b of a row's cluster (b = 0..4) takes bins
+// 128b .. 128b+127 (block 4: bin 512 alone):
+//   - it stages its 128 rows of the tail basis (icr, ici: 64 KB a plane) in
+//     shared memory with cp.async, four groups of 32 bins all in flight at
+//     once, behind the blend;
+//   - it blends its bins' q for every (side, ear) into shared memory in
+//     launch B's exact op order (the same q bits);
+//   - each thread owns one (side, t) and both ears: two fp32 chains that
+//     start at 0 and run acc = fmaf(qr, br, acc); acc = fmaf(qi, bi, acc)
+//     over the block's bins in ascending k, tail_chunk_fma's order;
+//   - ranks 1-4 store their block partials into rank 0's shared memory
+//     (distributed shared memory); after cluster.sync() rank 0 forms
+//     ((((0 + p0) + p1) + p2) + p3) + p4, fold_tail_block's order, and runs
+//     launch B's crossfade epilogue.
+// So the result is launch B's bit for bit (side 0 old, side 1 new).
+// What bounds it: each CTA's 128-step chain (about 1,000 cycles) and the
+// launch; the basis (128 KB a CTA) comes from L2.
+constexpr int C_BLOCKS = 5;                     // 128-bin tail blocks per row
+constexpr int C_GROUP = 32;                     // bins per cp.async group
+constexpr int C_GROUPS = T_BLOCK / C_GROUP;     // 4
+constexpr int C_THREADS = 2 * FPB;              // one (side, t) per thread, both ears
+constexpr int C_BASIS = 2 * T_BLOCK * FPB;      // [plane][bin][t]
+constexpr int C_Q = 2 * 2 * 2 * T_BLOCK;        // [side][ear][re, im][bin]
+constexpr int C_FOLD = (C_BLOCKS - 1) * 2 * 2 * FPB;  // [rank-1][side][ear][t]
+constexpr size_t C_SMEM = sizeof(float) * (C_BASIS + C_Q + C_FOLD);
+static_assert(T_BLOCK == FPB, "one blend thread per (side, bin) of a block");
+
+__global__ void __cluster_dims__(C_BLOCKS, 1, 1) __launch_bounds__(C_THREADS)
+spatializer_cluster(const float* __restrict__ xdr, const float* __restrict__ xdi,
+                    const float* __restrict__ table, int table_rows,
+                    const int* __restrict__ idx_old, const float* __restrict__ w_old,
+                    const int* __restrict__ idx_new, const float* __restrict__ w_new,
+                    const float* __restrict__ xf, const float* __restrict__ icr,
+                    const float* __restrict__ ici, float* __restrict__ out) {
+  extern __shared__ float smem[];          // 16-byte aligned: cp.async targets
+  float* sbr = smem;                       // [T_BLOCK][FPB]
+  float* sbi = sbr + T_BLOCK * FPB;
+  float* sq = sbi + T_BLOCK * FPB;         // [side][ear][re, im][T_BLOCK]
+  float* sfold = sq + C_Q;                 // rank 0's: the other ranks' partials
+  __shared__ int sid[2][4];
+  __shared__ float swt[2][4];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = blockIdx.x % C_BLOCKS;     // this CTA's rank and tail block
+  const int r = blockIdx.x / C_BLOCKS;
+  const int tid = threadIdx.x;
+  const int k0 = b * T_BLOCK;
+  const int nk = min(T_BLOCK, BINS - k0);  // 128, or 1 for block 4
+
+  // Tell the cluster this CTA runs (its shared memory exists); the matching
+  // wait comes before the partials are stored into rank 0.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  for (int g = 0; g < C_GROUPS; ++g) {     // rows [32g, 32g+32) of the block
+    const int n4 = max(min(C_GROUP, nk - g * C_GROUP), 0) * (FPB / 4);
+    for (int i = tid; i < 2 * n4; i += C_THREADS) {
+      const int plane = i / n4, j = i % n4, row = g * C_GROUP + j / (FPB / 4);
+      const int col = 4 * (j % (FPB / 4));
+      cp_async16((plane ? sbi : sbr) + row * FPB + col,
+                 (plane ? ici : icr) + (size_t)(k0 + row) * FPB + col);
+    }
+    cp_async_commit();
+  }
+
+  if (tid < 8) {
+    // an id outside the table adds nothing: weight 0 on row 0 (launch B's rule)
+    const int side = tid / 4, j = tid % 4;
+    const int id = (side ? idx_new : idx_old)[r * 4 + j];
+    const float wt = (side ? w_new : w_old)[r * 4 + j];
+    const bool in_table = id >= 0 && id < table_rows;
+    sid[side][j] = in_table ? id : 0;
+    swt[side][j] = in_table ? wt : 0.f;
+  }
+  __syncthreads();
+
+  const int side = tid / FPB;
+  {
+    // q of (side, bin kk) for both ears, launch B's op order
+    const int kk = tid % T_BLOCK;
+    float q[2][2] = {};                    // [ear][re, im]
+    if (kk < nk) {
+      const int k = k0 + kk;
+      const float xr = xdr[(size_t)r * BINS + k], xi = xdi[(size_t)r * BINS + k];
+      float g[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* trow = table + (size_t)sid[side][j] * C4 + k;
+        const float wj = swt[side][j];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const float v = __fmul_rn(wj, trow[p * BINS]);
+          g[p] = j == 0 ? v : __fadd_rn(g[p], v);
+        }
+      }
+#pragma unroll
+      for (int ear = 0; ear < 2; ++ear)
+        cmul_rn(xr, xi, g[2 * ear], g[2 * ear + 1], &q[ear][0], &q[ear][1]);
+    }
+#pragma unroll
+    for (int ear = 0; ear < 2; ++ear)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) sq[((side * 2 + ear) * 2 + c) * T_BLOCK + kk] = q[ear][c];
+  }
+
+  const int t = tid % FPB;
+  const float* q0 = sq + (side * 2 + 0) * 2 * T_BLOCK;   // ear 0: [re, im][bin]
+  const float* q1 = sq + (side * 2 + 1) * 2 * T_BLOCK;
+  float acc[2] = {0.f, 0.f};
+  for (int g = 0; g < C_GROUPS; ++g) {
+    cp_async_wait_n(C_GROUPS - 1 - g); // this thread's rows of group g landed
+    __syncthreads();                       // everyone's, and q
+    const int hi = min((g + 1) * C_GROUP, nk);
+#pragma unroll 8
+    for (int kk = g * C_GROUP; kk < hi; ++kk) {
+      const float br = sbr[kk * FPB + t], bi = sbi[kk * FPB + t];
+      acc[0] = fmaf(q0[kk], br, acc[0]);
+      acc[0] = fmaf(q0[T_BLOCK + kk], bi, acc[0]);
+      acc[1] = fmaf(q1[kk], br, acc[1]);
+      acc[1] = fmaf(q1[T_BLOCK + kk], bi, acc[1]);
+    }
+  }
+
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");   // every rank runs
+  if (b > 0) {
+    float* dst = cluster.map_shared_rank(sfold, 0);
+#pragma unroll
+    for (int ear = 0; ear < 2; ++ear) dst[(((b - 1) * 2 + side) * 2 + ear) * FPB + t] = acc[ear];
+  }
+  cluster.sync();                          // the partials are in rank 0
+  if (b > 0) return;
+
+  // crossfade epilogue, launch B's: out[r] = [L 128 | R 128]; sq is free now
+  float* ys = sq;                          // [side][ear][t]
+#pragma unroll
+  for (int ear = 0; ear < 2; ++ear) {
+    float y = __fadd_rn(0.f, acc[ear]);
+#pragma unroll
+    for (int rank = 1; rank < C_BLOCKS; ++rank)
+      y = __fadd_rn(y, sfold[(((rank - 1) * 2 + side) * 2 + ear) * FPB + t]);
+    ys[(side * 2 + ear) * FPB + t] = y;
+  }
+  __syncthreads();
+  const int col = tid, ear = col / FPB, tt = col % FPB;
+  const float y_old = ys[ear * FPB + tt], y_new = ys[(2 + ear) * FPB + tt];
+  const float fn = (float)tt / (float)(FPB - 1);
+  const bool on = xf[r] > 0.f;
+  const float a = on ? __fsub_rn(1.f, fn) : 0.f;
+  const float bn = on ? fn : 1.f;
+  out[(size_t)r * 2 * FPB + col] = __fadd_rn(__fmul_rn(y_old, a), __fmul_rn(y_new, bn));
+}
+
 }  // namespace
 
 // One fused step.  Launch A runs the forward over num_sources streams of
@@ -218,18 +382,19 @@ extern "C" int jt_fused_step_onehot_xfade(
 }
 
 // Row 8, the full-table blend-apply-tail step (jefferson_tpu/pallas/
-// fused_spatializer.py _kernel :46 of fused_apply :102): launch B with
-// seg = 1, so every row's old side blends idx_old[r] and its new side
-// idx_new[r], both against the whole table (table_rows rows, one group), the
-// blocked tail, and the crossfade where xf[r] > 0.  With streams null, xdr
-// and xdi are the caller's XD planes (rows x 513); else launch A first
-// writes them from one stream of rows blocks (streams: (rows + 7) x 128
-// samples, history first) with per-row distance uh/ul/fr (rows each).  The
-// live block step runs it at one row, the scan render at every row of a
-// chunk.  Launches on ``stream`` of ``device`` without synchronising and
-// returns the first CUDA error.
+// fused_spatializer.py _kernel :46 of fused_apply :102): every row's old
+// side blends idx_old[r] and its new side idx_new[r], both against the whole
+// table (table_rows rows), the blocked tail, and the crossfade where
+// xf[r] > 0.  ``cluster`` picks the form: 0 launch B with seg = 1 (one
+// group), any other the cluster form (spatializer_cluster).  With streams
+// null, xdr and xdi are the caller's XD planes (rows x 513); else launch A
+// first writes them from one stream of rows blocks (streams: (rows + 7) x
+// 128 samples, history first) with per-row distance uh/ul/fr (rows each).
+// The live block step runs the cluster form at one row, the scan render
+// launch B at every row of a chunk.  Launches on ``stream`` of ``device``
+// without synchronising and returns the first CUDA error.
 extern "C" int jt_fused_spatializer_apply(
-    int device, void* stream, int rows,
+    int device, void* stream, int rows, int cluster,
     const float* streams, const float* uh, const float* ul, const float* fr,
     const float* cfr, const float* cfi, const float* twr, const float* twi,
     float* xdr, float* xdi,
@@ -242,9 +407,17 @@ extern "C" int jt_fused_spatializer_apply(
     if (streams)
       err = launch_forward_distance(s, streams, 1, rows, uh, ul, fr, nullptr, 0,
                                     cfr, cfi, twr, twi, xdr, xdi);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(blend_tail_xfade<true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)B_SMEM);
+    if (err != cudaSuccess) return err;
+    if (cluster) {
+      err = cudaFuncSetAttribute(spatializer_cluster,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C_SMEM);
+      if (err != cudaSuccess) return err;
+      spatializer_cluster<<<C_BLOCKS * rows, C_THREADS, C_SMEM, s>>>(
+          xdr, xdi, table, table_rows, idx_old, w_old, idx_new, w_new, xf, icr, ici, out);
+      return cudaGetLastError();
+    }
+    err = cudaFuncSetAttribute(blend_tail_xfade<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)B_SMEM);
     if (err != cudaSuccess) return err;
     blend_tail_xfade<true><<<(rows + B_R - 1) / B_R, B_THREADS, B_SMEM, s>>>(
         xdr, xdi, rows, table, table_rows, idx_old, w_old, idx_new, w_new, 1, rows, xf,

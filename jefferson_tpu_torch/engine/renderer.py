@@ -444,7 +444,7 @@ def apply_filters_core(
     qs = (q_set(g_old) if with_xfade else []) + q_set(g_new)
     qr = torch.stack([q[0] for q in qs])  # (2 or 4, B, bins)
     qi = torch.stack([q[1] for q in qs])
-    y = fft_ops.irfft_tail_split(qr, qi, config.pad_len, fpb)  # (2|4, B, fpb)
+    y = fft_ops.irfft_tail(qr, qi, config.pad_len, fpb)  # (2|4, B, fpb)
     if with_xfade:
         fn = xfade_ramp(fpb, y.device)
         mixed = y[:2] * (1.0 - fn) + y[2:] * fn

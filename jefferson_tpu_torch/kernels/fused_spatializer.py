@@ -17,20 +17,32 @@ epilogue, as in rows 1-7.  ``fused_forward_apply`` runs launch A first, on
 one stream of blocks: the live block step and the scan render of
 ``engine/stream``.
 
-On the card it is the one-hot launch B (``csrc/fused_step_onehot.cu``,
-entry ``jt_fused_spatializer_apply``) with segments of one row, so each
-row's new side reads its own new brackets, and the whole table as one
-group.  What bounds it on the H100: the tail IDFT's fp32 FMAs (two sides x
-two ears x 513 x 128 per row) on the CUDA cores; the table stays in the
-50 MB L2 and a row reads only its eight bracket rows from it.
+On the card it runs in one of two forms, chosen by the row count (the
+choice of shape, not a fallback: each raises on a build or launch error),
+both in ``csrc/fused_step_onehot.cu`` behind the entry
+``jt_fused_spatializer_apply``:
+
+* the cluster form (``rows <= SMALL_ROWS``: the live block step's one row):
+  one thread-block cluster of five CTAs per row, one per 128-bin block of
+  the tail, the block partials folded in rank 0 through distributed shared
+  memory;
+* launch B (above it: ``render_scan``'s chunks): the one-hot step with
+  segments of one row, each row's new side reading its own new brackets,
+  and the whole table as one group; one CTA per 32 rows.
+
+Both keep the blocked tail's order, so they agree bit for bit.  What bounds
+row 8 on the H100: at many rows the tail IDFT's fp32 FMAs (two sides x two
+ears x 513 x 128 per row) on the CUDA cores; at one row the launch and one
+128-step chain.  The table stays in the 50 MB L2 and a row reads only its
+eight bracket rows from it.
 
 Where the two versions differ in rounding only: the TPU kernel's one-hot
 product adds duplicate brackets' weights before multiplying by the table
 row, the gather multiplies each bracket and sums; the TPU form needs
 B % tb == 0, this takes any B >= 1.  An id outside the table matches no
-one-hot column on the TPU and adds nothing; the kernel and the twin give it
-weight 0 on row 0.  Operands on the CPU run the twin; on a CUDA device the
-kernel runs or the wrapper raises.
+one-hot column on the TPU and adds nothing; the kernels and the twin give
+it weight 0 on row 0.  Operands on the CPU run the twin; on a CUDA device
+the kernel runs or the wrapper raises.
 """
 
 from __future__ import annotations
@@ -45,8 +57,22 @@ from ..ops import fft as fft_ops
 from . import build
 from .fused_step import (
     SPATIALIZER, _check, _check_streams, _cuda_error, _forward_reference, _in_table,
-    _tails_reference, _where, blend_cat, launches,
+    _tails_reference, _where, blend_cat, launches, spatializer_forms,
 )
+
+# Rows up to which row 8 takes the cluster form, and above which launch B:
+# on an H100 (700 W) the cluster form took less device time at every count
+# of 1-512 rows and launch B at 1,024 (the cluster form grows about 0.36 us
+# a row, launch B holds 0.22 ms to a few thousand rows; chip_smoke.py, phase
+# bench; PERF.md, the kernel table).  The live block step runs 1 row,
+# render_scan chunks of up to 16,384.
+SMALL_ROWS = 512
+CLUSTER, LAUNCH_B = "cluster", "launch_b"
+
+
+def pick_form(rows: int) -> str:
+    """Row 8's form on the card for ``rows`` rows."""
+    return CLUSTER if rows <= SMALL_ROWS else LAUNCH_B
 
 
 def kernel_planes(db, device) -> torch.Tensor:
@@ -80,7 +106,7 @@ def fused_forward_apply_reference(table, stream, uh, ul, fr, idx_old, w_old, idx
 def _entry():
     fn = build.load("fused_step_onehot").jt_fused_spatializer_apply
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, p, i,              # device, stream, rows
+    fn.argtypes = [i, p, i, i,           # device, stream, rows, cluster form
                    p, p, p, p,           # streams, uh, ul, fr
                    p, p, p, p, p, p,     # cfr, cfi, twr, twi, xdr, xdi
                    p, i, p, p, p, p, p,  # table, its rows, idx_old, w_old, idx_new, w_new, xf
@@ -89,9 +115,14 @@ def _entry():
     return fn
 
 
-def _cuda(device, rows: int, table, brackets, xf, xdr, xdi, forward, *, pad_len, bins, fpb):
-    """Row 8 on the card; ``forward`` = (stream, uh, ul, fr) runs launch A
-    into xdr/xdi first, None reads them."""
+def _cuda(device, rows: int, table, brackets, xf, xdr, xdi, forward, *, pad_len, bins, fpb,
+          form=None):
+    """Row 8 on the card in ``form`` (None: ``pick_form(rows)``; the card
+    tests name a form to hold the two against each other); ``forward`` =
+    (stream, uh, ul, fr) runs launch A into xdr/xdi first, None reads them."""
+    form = pick_form(rows) if form is None else form
+    if form not in (CLUSTER, LAUNCH_B):
+        raise ValueError(f"form {form!r}: want {CLUSTER!r} or {LAUNCH_B!r}")
     idx_old, w_old, idx_new, w_new = brackets
     specs = {
         "table": (table, (table.shape[0], 4 * bins), torch.float32),
@@ -116,14 +147,15 @@ def _cuda(device, rows: int, table, brackets, xf, xdr, xdi, forward, *, pad_len,
     icr, ici = fft_ops.on_device(fft_ops._idft_tail_matrices, pad_len, fpb, device=device)
     out = torch.empty((rows, 2 * fpb), dtype=torch.float32, device=device)
     err = _entry()(
-        device.index, torch.cuda.current_stream(device).cuda_stream, rows, *fwd,
-        ptr(xdr), ptr(xdi), ptr(table), table.shape[0], *(ptr(t) for t in brackets), ptr(xf),
-        ptr(icr), ptr(ici), ptr(out),
+        device.index, torch.cuda.current_stream(device).cuda_stream, rows, int(form == CLUSTER),
+        *fwd, ptr(xdr), ptr(xdi), ptr(table), table.shape[0], *(ptr(t) for t in brackets),
+        ptr(xf), ptr(icr), ptr(ici), ptr(out),
     )
     if err:
         raise RuntimeError(f"{SPATIALIZER} launch failed: CUDA error {err} "
                            f"({_cuda_error('fused_step_onehot', err)})")
     launches[SPATIALIZER] += 1
+    spatializer_forms[form] += 1
     return out
 
 

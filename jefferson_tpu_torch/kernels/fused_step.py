@@ -76,13 +76,18 @@ launches: dict[str, int] = dict.fromkeys((
     "prod", "mm", "mm_tree", "dma_blend",
 ), 0)
 
+# Row 8's launches by form, within its one count above: the cluster form
+# (few rows) or launch B.
+spatializer_forms: dict[str, int] = dict.fromkeys(("cluster", "launch_b"), 0)
+
 _FPB, _PAD, _BINS = 128, 1024, 513  # the geometry the CUDA kernels are built for
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
-    for name in launches:
-        launches[name] = 0
+    """Set every kernel's launch count, and row 8's by form, to 0."""
+    for counts in (launches, spatializer_forms):
+        for name in counts:
+            counts[name] = 0
 
 
 # ---- plain-PyTorch twins, in the JAX package's op order ---------------------

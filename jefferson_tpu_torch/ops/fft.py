@@ -136,3 +136,31 @@ def irfft_tail_split(re: torch.Tensor, im: torch.Tensor, n: int, tail: int) -> t
     """Inverse of rfft_split, returning only the last ``tail`` samples."""
     cr, ci = on_device(_idft_tail_matrices, n, tail, device=re.device)
     return re @ cr + im @ ci
+
+
+@functools.lru_cache(maxsize=8)
+def _idft_tail_blocks(n: int, tail: int, block: int):
+    """The tail basis by ``block``-bin blocks: per block its bins' rows of
+    cr over those of ci, (2*len, tail)."""
+    cr, ci = _idft_tail_matrices(n, tail)
+    return tuple(np.concatenate([cr[k0:k0 + block], ci[k0:k0 + block]])
+                 for k0 in range(0, cr.shape[0], block))
+
+
+def irfft_tail(re: torch.Tensor, im: torch.Tensor, n: int, tail: int,
+               block: int = 128) -> torch.Tensor:
+    """The unfused chain's tail IDFT: ``irfft_tail_split``'s function summed
+    by ``block``-bin blocks, per block one product of [re | im] by [cr ; ci]
+    over its bins and the blocks added in ascending order, the association
+    the fused kernels keep (their blocked tail).  On an H100 one product
+    over all 513 bins read margin 1.0058 of the sweep gate on the worst
+    scenario, the blocked sum 0.5588 (PERF.md; ROADMAP.md, queue 3)."""
+    bases = on_device(_idft_tail_blocks, n, tail, block, device=re.device)
+    x = torch.cat([p[..., k0:k0 + block] for k0 in range(0, re.shape[-1], block)
+                   for p in (re, im)], -1)  # [re_0 | im_0 | re_1 | im_1 | ...]
+    y, off = None, 0
+    for basis in bases:
+        part = x[..., off:off + basis.shape[0]] @ basis
+        off += basis.shape[0]
+        y = part if y is None else y + part
+    return y

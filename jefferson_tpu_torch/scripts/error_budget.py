@@ -16,6 +16,17 @@ splits the margin against the sweep's 2e-7 among them:
   fused        - production: the dedup+fused dispatch, forward and
                  distance in the kernel too (row 5).
 
+and the unfused chain with one stage swapped at a time, the reading that
+found which of its stages read over the CPU's margin on a card:
+
+  unfused/tail_one_product - the tail IDFT as one product per plane over
+                 all 513 bins (``ops/fft.irfft_tail_split``), where the
+                 unfused chain's tail (``ops/fft.irfft_tail``) sums five
+                 128-bin block products in order, the association the
+                 kernels keep;
+  unfused/forward_cpu - the sliding forward (``ops/fft.rfft_sliding_split``)
+                 computed on the CPU and copied to the device.
+
 plus the blend micro A/B the configurations do not isolate: the one-hot
 blend as one ``torch.matmul`` against ``blend_cat``'s gather, on the
 scenario's first 2,048 old rows.  ``lane512`` and ``tail_tree`` are TPU
@@ -25,7 +36,9 @@ sample, channel, crossfade state), the margin beside two of the JAX
 package's: ``scripts/error_budget.py --cpu`` on these same inputs (XLA and
 the Pallas interpreter on the CPU), and its ladder on a TPU with the real
 KEMAR set and the Castanets recording; and on a card the kernels it
-launched.
+launched.  ``unfused`` and ``unfused/tail_one_product`` also report
+``render_ms``: a second render of the scenario, timed from one device
+synchronise to the next.
 
     python -m jefferson_tpu_torch.scripts.error_budget [--device cuda]
         [--blocks 172] [--steps 72]
@@ -97,6 +110,25 @@ def noise(samples: int = 131072) -> np.ndarray:
     return (np.random.default_rng(0).standard_normal(samples) * 0.2).astype(np.float32)
 
 
+def _forward_on_cpu(stream, num_blocks, sub, n, _forward=fft_ops.rfft_sliding_split):
+    """The sliding forward computed on the CPU, its planes copied back."""
+    return tuple(a.to(stream.device) for a in _forward(stream.cpu(), num_blocks, sub, n))
+
+
+@contextlib.contextmanager
+def patched(module, **attrs):
+    """Set ``module``'s attributes for the ``with`` block only, restored
+    even when it raises."""
+    saved = {name: getattr(module, name) for name in attrs}
+    try:
+        for name, value in attrs.items():
+            setattr(module, name, value)
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(module, name, value)
+
+
 def _apply_only(full, u_hi, u_lo, inv_frac, g_old, g_last, xf, config, num_blocks, dsel=None,
                 n_dist=None, with_xfade=True):
     """``renderer._apply_maybe_full_fuse`` with the forward DFT and the
@@ -113,18 +145,17 @@ def _apply_only(full, u_hi, u_lo, inv_frac, g_old, g_last, xf, config, num_block
                              bins=config.num_bins, fpb=fpb, with_xfade=with_xfade)
 
 
-@contextlib.contextmanager
 def apply_kernel_patch():
     """Route the renderer's fused arms through ``_apply_only`` and turn the
     compact distance off, for the ``with`` block only."""
-    orig_apply, orig_dd = R._apply_maybe_full_fuse, R.dedup_distance
-    try:
-        R._apply_maybe_full_fuse = _apply_only
-        R.dedup_distance = lambda *a, **k: None
-        yield
-    finally:
-        R._apply_maybe_full_fuse = orig_apply
-        R.dedup_distance = orig_dd
+    return patched(R, _apply_maybe_full_fuse=_apply_only, dedup_distance=lambda *a, **k: None)
+
+
+# the unfused chain's stage swaps: configuration -> the ops/fft function it replaces
+SWAPS = {
+    "unfused/tail_one_product": {"irfft_tail": fft_ops.irfft_tail_split},
+    "unfused/forward_cpu": {"rfft_sliding_split": _forward_on_cpu},
+}
 
 
 def blend_micro_ab(db, plan, device) -> dict:
@@ -172,26 +203,43 @@ def run(db, signal, positions, want, device) -> dict:
 
     results = {}
 
-    def run_config(name, make_renderer):
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def run_config(name, make_renderer, timed=False):
         t0 = time.time()
         before = dict(fused_step.launches)
         r = make_renderer()
         got = r.render(signal, positions, initial_old=(0.0, 0.0))
+        if timed:  # a second, warm render: the first paid for the bases' uploads
+            sync()
+            t1 = time.perf_counter()
+            r.render(signal, positions, initial_old=(0.0, 0.0))
+            sync()
+            render_ms = (time.perf_counter() - t1) * 1e3
         rep = precision_check(got, want, eps=SWEEP_EPS)
         res = results[name] = anatomy(rep)
         d = np.abs(got.astype(np.float64) - want)
         res["n_above_1e7"] = int((d > 1.0e-7).sum())
         res["n_above_1p5e7"] = int((d > 1.5e-7).sum())
-        res["jax_margin"] = JAX_MARGIN[name]
-        res["jax_cpu_margin"] = JAX_CPU_MARGIN[name]
+        res["jax_margin"] = JAX_MARGIN[name.split("/")[0]]
+        res["jax_cpu_margin"] = JAX_CPU_MARGIN[name.split("/")[0]]
         res["dispatch"] = sorted({"/".join(map(str, arm)) for arm in r.dispatch})
         res["launches"] = {k: v - before[k] for k, v in fused_step.launches.items()
                            if v != before[k]}
+        if timed:
+            res["render_ms"] = render_ms
         log(f"[{name}] {rep}  ({time.time() - t0:.1f} s)  margin {res['margin']} "
             f"(JAX package: {res['jax_cpu_margin']} on the CPU, {res['jax_margin']} on a TPU), >1e-7: {res['n_above_1e7']}, "
-            f">1.5e-7: {res['n_above_1p5e7']}, launches {res['launches']}")
+            f">1.5e-7: {res['n_above_1p5e7']}, launches {res['launches']}"
+            + (f", warm render {render_ms:.1f} ms" if timed else ""))
 
-    run_config("unfused", lambda: R.Renderer(db, device=device, fused=False))
+    run_config("unfused", lambda: R.Renderer(db, device=device, fused=False), timed=True)
+    for name, swap in SWAPS.items():
+        with patched(fft_ops, **swap):
+            run_config(name, lambda: R.Renderer(db, device=device, fused=False),
+                       timed="irfft_tail" in swap)
     with apply_kernel_patch():
         run_config("apply_kernel", lambda: R.Renderer(db, device=device))
     run_config("fused", lambda: R.Renderer(db, device=device))

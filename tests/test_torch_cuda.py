@@ -197,6 +197,30 @@ def test_renderer_on_the_card_matches_the_cpu_twins(card_db, case, monkeypatch):
     assert np.abs(got - want).max() <= TOL
 
 
+def test_unfused_renderer_on_the_card_takes_the_blocked_tail(card_db):
+    """fused=False on the card: no kernel, the tail IDFT summed by 128-bin
+    blocks (ops/fft.irfft_tail) as on the CPU; within TOL of the CPU's
+    render and 1e-6 of the oracle."""
+    from jefferson_tpu_torch.engine.renderer import Renderer
+    from jefferson_tpu_torch.ops import fft as tops
+
+    pos = bench.sweep_positions(3.0, 0.0)[:400]
+    sig = np.random.default_rng(0).standard_normal(400 * 128).astype(np.float32) * 0.2
+    tfs.reset_launches()
+    got = Renderer(card_db, device="cuda", fused=False).render(sig, pos)
+    assert sum(tfs.launches.values()) == 0
+    want = Renderer(card_db, device="cpu", fused=False).render(sig, pos)
+    assert np.abs(got - want).max() <= TOL
+    oracle = render_oracle(sig, card_db, [tuple(p) for p in pos], card_db.config)
+    assert np.abs(got - oracle).max() <= 1e-6
+    rng = np.random.default_rng(4)
+    re, im = (torch.from_numpy(rng.standard_normal((2, 64, 513)).astype(np.float32)).cuda()
+              for _ in range(2))
+    got = tops.irfft_tail(re, im, 1024, 128)
+    want = tops.irfft_tail_split(re, im, 1024, 128)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
 # ---- the batched scene steps (kernel rows 2, 6 and 7) -----------------------
 
 # rows -> (sources, blocks per source) for rows 2 and 6; row 7 takes the
@@ -337,6 +361,56 @@ def test_spatializer_no_crossfade_use_is_bit_equal(card_db):
     assert torch.equal(y_xf, y_noxf)
 
 
+def _spatializer_form(form, table, xd, br, xf):
+    """Row 8 in a named form, through the wrapper's private seam."""
+    return tsp._cuda(xd[0].device, xd[0].shape[0], table, br, xf, *xd, None, pad_len=1024,
+                     bins=513, fpb=128, form=form)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 7, tsp.SMALL_ROWS, 200])
+@pytest.mark.parametrize("duplicate", [False, True])
+def test_spatializer_cluster_form_is_launch_b_bit_for_bit(card_db, rows, duplicate):
+    """The two forms on the same operands: the cluster form keeps launch B's
+    blocked order, so the bits agree, also with the new brackets on both
+    sides and xf = 0 (the held block's use)."""
+    table, fwd, br, xf, xd, geo = _spatializer(card_db, rows, duplicate=duplicate)
+    if rows > 1:  # ids outside the table in both sides
+        br = tuple(t.clone() for t in br)
+        br[0][0, 1], br[2][rows - 1, 3], br[2][rows // 2, 0] = 710, -1, 9000
+    tfs.reset_launches()
+    ys = {form: _spatializer_form(form, table, xd, br, xf) for form in (tsp.CLUSTER, tsp.LAUNCH_B)}
+    no_xf = (br[2], br[3], br[2], br[3])
+    off = torch.zeros_like(xf)
+    held = {form: _spatializer_form(form, table, xd, no_xf, off)
+            for form in (tsp.CLUSTER, tsp.LAUNCH_B)}
+    torch.cuda.synchronize()
+    assert tfs.launches[tfs.SPATIALIZER] == 4
+    assert tfs.spatializer_forms == {"cluster": 2, "launch_b": 2}
+    assert torch.equal(ys[tsp.CLUSTER], ys[tsp.LAUNCH_B])
+    assert torch.equal(held[tsp.CLUSTER], held[tsp.LAUNCH_B])
+    kw = dict(bins=513, fpb=128)
+    want = tsp.fused_apply_reference(table, *xd, *br, xf, **kw)
+    assert float((ys[tsp.CLUSTER] - want).abs().max()) <= TOL
+    want_held = tsp.fused_apply_reference(table, *xd, *no_xf, off, **kw)
+    assert float((held[tsp.CLUSTER] - want_held).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("rows", [1, 9])
+def test_spatializer_forward_form_agrees_with_launch_b(card_db, rows):
+    """Launch A then the picked form (the cluster form at these rows), and
+    launch B on the XD planes it wrote: the same bits."""
+    table, fwd, br, xf, _, geo = _spatializer(card_db, rows, seed=2)
+    scratch = tuple(torch.empty((rows, 513), device="cuda") for _ in range(2))
+    tfs.reset_launches()
+    got = tsp.fused_forward_apply(table, *fwd, *br, xf, scratch=scratch, **geo)
+    again = _spatializer_form(tsp.LAUNCH_B, table, scratch, br, xf)
+    torch.cuda.synchronize()
+    assert tfs.spatializer_forms == {"cluster": 1, "launch_b": 1}
+    assert torch.equal(got, again)
+    want = tsp.fused_forward_apply_reference(table, *fwd, *br, xf, **geo)
+    assert float((got - want).abs().max()) <= TOL
+
+
 def test_spatializer_kernel_on_ids_outside_the_table(card_db):
     table, _, br, xf, xd, _ = _spatializer(card_db, 40)
     idx_o, idx_n = br[0].clone(), br[2].clone()
@@ -374,6 +448,8 @@ def test_live_stream_on_the_card_matches_the_oracle(card_db):
     assert tfs.launches[tfs.SPATIALIZER] == len(pos)
     assert sum(tfs.launches.values()) == len(pos)
     assert 0 < sp.crossfades < len(pos)
+    # one row: every block, moving or held, takes the cluster form
+    assert tfs.spatializer_forms == {"cluster": len(pos), "launch_b": 0}
     oracle = render_oracle(sig, card_db, [tuple(p) for p in pos], card_db.config)
     assert np.abs(np.concatenate(outs) - oracle).max() <= 1e-6
 
@@ -476,20 +552,53 @@ def test_probe_kernels_refuse_chunks_on_the_card(card):
         tap.prod(xr, xi, gr, gi.double())
 
 
-def test_mm_raises_when_k_passes_the_ctas_shared_memory(card):
-    """K = 8,192 asks 256 KB of shared memory, past a CTA's 227 KB: the
-    entry's CUDA error raises, nothing is counted, and the refusal does not
-    leak into the next launch's check."""
-    q = torch.ones((8, 8192), device=card)
-    basis = torch.ones((8192, 128), device=card)
-    before = tfs.launches["mm"]
-    with pytest.raises(RuntimeError, match="mm launch failed"):
-        tap.mm(q, q, basis, basis)
-    assert tfs.launches["mm"] == before
+@pytest.mark.parametrize("chunks", [1, 8, 16])
+def test_mm_tree_at_k_past_a_ctas_shared_memory(card, chunks):
+    """K = 8,192: all of q's K no longer sits in a CTA (256 KB at 4 rows);
+    the kernel tiles K through shared memory.  Small integers over 64 keep
+    every product and partial sum exact in fp32 (|sum| <= 2^17 at steps of
+    2^-6: 23 bits), so every order of the sums gives the same bits: the kernel equals
+    its twin and the float64 product exactly."""
+    rng = np.random.default_rng(9)
+    put = lambda a: torch.from_numpy(a.astype(np.float32)).to(card)
+    qr, qi = (put(rng.integers(-8, 9, (24, 8192))) for _ in range(2))
+    icr, ici = (put(rng.integers(-64, 65, (8192, 128)) / 64) for _ in range(2))
+    got = tap.mm(qr, qi, icr, ici) if chunks == 1 else tap.mm_tree(qr, qi, icr, ici, chunks)
+    want = (tap.mm_reference(qr, qi, icr, ici) if chunks == 1
+            else tap.mm_tree_reference(qr, qi, icr, ici, chunks))
+    exact = (qr.double() @ icr.double() + qi.double() @ ici.double()).float()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, exact)
+
+
+def test_a_refused_mm_launch_does_not_leak_into_the_next(card):
+    """An empty grid is refused: the entry returns the CUDA error, nothing
+    is counted, and the refusal is not the next launch's error."""
     xr, xi, gr, gi, icr, ici = _planes(card, 8, 513)
+    y = torch.empty((8, 128), device=card)
+    err = tap._lib().jt_mm_tree(card.index, torch.cuda.current_stream(card).cuda_stream,
+                                xr.data_ptr(), xi.data_ptr(), icr.data_ptr(), ici.data_ptr(),
+                                y.data_ptr(), 0, 513, 128, 1)
+    assert err != 0
+    assert "invalid" in tfs._cuda_error("assoc_probe", err)
+    before = tfs.launches["mm"]
     tap.prod(xr, xi, gr, gi)
-    tap.mm(xr, xi, icr, ici)
+    got = tap.mm(xr, xi, icr, ici)
+    torch.cuda.synchronize()
     assert tfs.launches["mm"] == before + 1
+    want = tap.mm_reference(xr, xi, icr, ici)
+    assert float((got - want).abs().max()) <= MM_REL * float(want.abs().max())
+
+
+def test_mm_tree_takes_a_basis_off_the_16_byte_pieces(card):
+    """N = 126 (rows of 504 bytes): the basis is staged 4 bytes at a time."""
+    xr, xi, gr, gi, icr, ici = _planes(card, 10, 512)
+    qr, qi = tap.prod_reference(xr, xi, gr, gi)
+    icr, ici = icr[:, :126].contiguous(), ici[:, :126].contiguous()
+    got = tap.mm_tree(qr, qi, icr, ici, 4)
+    want = tap.mm_tree_reference(qr, qi, icr, ici, 4)
+    assert got.shape == (10, 126)
+    assert float((got - want).abs().max()) <= MM_REL * float(want.abs().max())
 
 
 def test_assoc_probe_names_the_cards_contraction(card):

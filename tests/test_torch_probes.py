@@ -37,6 +37,7 @@ from jefferson_tpu_torch.kernels import assoc_probe as tap
 from jefferson_tpu_torch.kernels import dma_blend as tdb
 from jefferson_tpu_torch.kernels import fused_apply as tfa
 from jefferson_tpu_torch.kernels import fused_step as tfs
+from jefferson_tpu_torch.ops import fft as tops
 from jefferson_tpu_torch.oracle.reference import render_oracle
 from jefferson_tpu_torch.scripts import apply_assoc_probe as sap
 from jefferson_tpu_torch.scripts import bench_blend_variants as sbb
@@ -415,3 +416,35 @@ def test_error_budget_restores_the_renderer_when_a_render_raises(budget_case, mo
     with pytest.raises(RuntimeError, match="apply failed"):
         seb.run(*budget_case, torch.device("cpu"))
     assert (trenderer._apply_maybe_full_fuse, trenderer.dedup_distance) == orig
+
+
+def test_error_budget_swaps_one_stage_of_the_unfused_chain(budget_case):
+    """The swaps run the unfused chain within the oracle gate and the
+    swapped functions are restored.  On the CPU the forward swap changes no
+    bit (the forward runs there anyway); the one-product tail may round
+    otherwise than the blocked one.  The tail's two forms report a warm
+    render's time."""
+    res = seb.run(*budget_case, torch.device("cpu"))
+    for name in seb.SWAPS:
+        assert res[name]["max_abs"] <= 1e-6
+        assert res[name]["dispatch"] == res["unfused"]["dispatch"]
+        assert res[name]["jax_cpu_margin"] == seb.JAX_CPU_MARGIN["unfused"]
+    assert res["unfused/forward_cpu"]["max_abs"] == res["unfused"]["max_abs"]
+    assert {name for name in res if "render_ms" in res[name]} == {
+        "unfused", "unfused/tail_one_product"}
+    assert tops.irfft_tail is not tops.irfft_tail_split
+    assert tops.rfft_sliding_split is not seb._forward_on_cpu
+
+
+@pytest.mark.parametrize("rows,bins", [(3, 513), (5, 130), (2, 100)])
+def test_blocked_tail_is_the_tail_idft_by_blocks(rows, bins):
+    """Five (or fewer) K-block products added in order: the tail IDFT's
+    function, summed in another order (fp32, within 1e-6 of its peak)."""
+    rng = np.random.default_rng(3)
+    re, im = (torch.from_numpy(rng.standard_normal((2, rows, bins)).astype(np.float32))
+              for _ in range(2))
+    n = 2 * (bins - 1)
+    got = tops.irfft_tail(re, im, n, 128)
+    want = tops.irfft_tail_split(re, im, n, 128)
+    assert got.shape == want.shape == (2, rows, 128)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())

@@ -166,6 +166,7 @@ def test_scene_wrappers_check_operands(tdb, small_tables):
 @pytest.mark.parametrize("kernel,want", [
     ("fused_step_onehot_xfade", 1.3974e6), ("fused_step_xfade", 1.3646e6),
     ("fused_step_xfade/no_xfade", 0.8331e6), ("fused_apply_xfade", 1.0629e6),
+    ("fused_spatializer_apply", 1.0958e6),
 ])
 def test_step_flops_per_row(kernel, want):
     """The bound's operation count per row at 16 x 256 (forward about 0.30

@@ -197,3 +197,72 @@ def test_wrappers_refuse_mixed_and_unknown_devices(tdb, config):
         tsp.fused_apply(*meta, bins=bins, fpb=fpb)
     with pytest.raises(ValueError, match="one device"):
         tsp.fused_apply(*meta[:1], *args[1:], bins=bins, fpb=fpb)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 32])
+@pytest.mark.parametrize("name", ["random", "duplicate_brackets"])
+def test_the_no_crossfade_use_is_the_new_side_alone(tdb, config, rows, name):
+    """With xf = 0 the output is the new side's tails alone, bit for bit,
+    whatever the old brackets are: the held block's contract."""
+    xr, xi, idxo, wo, idxn, wn, _, uh, ul, fr = (a[:rows] for a in _case(config, name))
+    bins, fpb = config.num_bins, config.frames_per_buffer
+    t = torch.from_numpy
+    xd = _xd_torch(xr, xi, uh, ul, fr, bins)
+    table = tsp.kernel_planes(tdb, "cpu")
+    g_new = tfs.blend_cat(table, *tfs._in_table(t(idxn), t(wn), table.shape[0]))
+    new_side = tfs._tails_reference(*xd, None, g_new, None, pad_len=2 * (bins - 1), bins=bins,
+                                    fpb=fpb)
+    before = dict(tfs.launches)
+    off = np.zeros(rows, bool)
+    for old in ((idxo, wo), (idxn, wn)):
+        got = _twin(tdb, *xd, *old, idxn, wn, off, bins, fpb)
+        assert got.shape == (rows, 2 * fpb)
+        assert torch.equal(got, new_side)
+    assert tfs.launches == before
+
+
+def test_forward_form_without_crossfade_is_the_forward_then_the_new_side(tdb, config):
+    rng = np.random.default_rng(6)
+    rows, bins, fpb = 5, config.num_bins, config.frames_per_buffer
+    t = torch.from_numpy
+    stream = t((rng.standard_normal(config.history_len + rows * fpb) * 0.2).astype(np.float32))
+    uh, ul, fr = (t(a[:, None]) for a in distance_phase_split(
+        config.fsvs, rng.uniform(0.1, 0.5, rows).astype(np.float32), bins))
+    idx = t(rng.integers(0, 710, (rows, 4)).astype(np.int32))
+    w = t(rng.random((rows, 4)).astype(np.float32))
+    table = tsp.kernel_planes(tdb, "cpu")
+    kw = dict(pad_len=config.pad_len, bins=bins, fpb=fpb)
+    got = tsp.fused_forward_apply(table, stream, uh, ul, fr, idx, w, idx, w,
+                                  torch.zeros((rows, 1)), **kw)
+    xdr, xdi = tfs._forward_reference(stream[None], rows, uh, ul, fr, None, None, **kw)
+    g_new = tfs.blend_cat(table, idx, w)
+    assert torch.equal(got, tfs._tails_reference(xdr, xdi, None, g_new, None, **kw))
+
+
+def test_the_card_form_is_chosen_by_rows():
+    """The live step's one row takes the cluster form, render_scan's chunks
+    launch B; SMALL_ROWS is the last row count on the cluster form."""
+    from jefferson_tpu_torch.engine.stream import SCAN_CHUNK
+
+    assert tsp.pick_form(1) == tsp.CLUSTER
+    assert tsp.pick_form(tsp.SMALL_ROWS) == tsp.CLUSTER
+    assert tsp.pick_form(tsp.SMALL_ROWS + 1) == tsp.LAUNCH_B
+    assert tsp.pick_form(SCAN_CHUNK) == tsp.LAUNCH_B
+    assert tsp.pick_form(12556) == tsp.LAUNCH_B
+
+
+def test_reset_sets_row_8s_form_counts_to_0():
+    """Row 8's launches by form: the two forms, both set to 0 with the
+    launch counts."""
+    assert set(tfs.spatializer_forms) == {tsp.CLUSTER, tsp.LAUNCH_B}
+    tfs.spatializer_forms[tsp.CLUSTER] += 2
+    tfs.reset_launches()
+    assert set(tfs.spatializer_forms.values()) == {0}
+
+
+def test_the_card_entry_refuses_an_unknown_form():
+    """The wrapper's private seam takes only the two forms, before it reads
+    any operand."""
+    with pytest.raises(ValueError, match="want 'cluster' or 'launch_b'"):
+        tsp._cuda(torch.device("cpu"), 1, None, None, None, None, None, None, pad_len=1024,
+                  bins=513, fpb=128, form="held")

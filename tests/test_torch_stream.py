@@ -116,6 +116,30 @@ def test_streaming_matches_the_jax_stream_block_by_block(db, tdb, tconfig, casta
     assert port.crossfades == jax.crossfades == 22
 
 
+def test_held_blocks_take_the_no_crossfade_step(db, tdb, tconfig, castanets, monkeypatch):
+    """Held blocks go through the no-crossfade step, moving blocks through
+    the crossfade step, and the stream still matches the JAX
+    StreamingSpatializer block by block."""
+    held = []
+    step_noxf = tstream._block_step_noxf
+    monkeypatch.setattr(tstream, "_block_step_noxf",
+                        lambda *a, **k: held.append(1) or step_noxf(*a, **k))
+    port, jax = _spat(tdb, tconfig), jstream.StreamingSpatializer(db, db.config)
+    for sp in (port, jax):
+        sp.buf = castanets
+    azis = [0, 0, 0, 30, 30, 35, 35, 35, 35, 200, 201, 201]
+    worst = 0.0
+    for azi in azis:
+        for sp in (port, jax):
+            sp.set_position(azi=azi, ele=5, r=0.7)
+        got, want = port.process_next(), jax.process_next()
+        worst = max(worst, float(np.abs(got - want).max()))
+    # the first block moves from the start position (0, 0)
+    assert port.crossfades == jax.crossfades == 5
+    assert len(held) == len(azis) - 5
+    assert worst <= TOL_JAX
+
+
 def test_no_crossfade_step_is_bit_equal_on_held_blocks(tdb, tconfig):
     """The no-crossfade step equals the crossfade form with xf = 0 bit for
     bit, whatever the old brackets, history carried the same."""

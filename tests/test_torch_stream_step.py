@@ -159,11 +159,15 @@ def test_build_hashes_the_headers_a_source_includes(tmp_path, monkeypatch):
 
 
 def test_the_shipped_sources_share_the_forward_header():
-    for name in ("fused_step_onehot", "fused_step_gather"):
-        assert [p.name for p in build.sources(name)] == [f"{name}.cu", "fused_forward.cuh",
-                                                         "entry.cuh"]
-    for name in ("assoc_probe", "dma_blend"):
-        assert [p.name for p in build.sources(name)] == [f"{name}.cu", "entry.cuh"]
+    headers = {
+        "fused_step_onehot": ["cp_async.cuh", "fused_forward.cuh", "entry.cuh"],
+        "fused_step_gather": ["fused_forward.cuh", "entry.cuh"],
+        "assoc_probe": ["entry.cuh"],
+        "dma_blend": ["cp_async.cuh", "entry.cuh"],
+    }
+    assert sorted(headers) == sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    for name, want in headers.items():
+        assert [p.name for p in build.sources(name)] == [f"{name}.cu", *want]
 
 
 def test_launch_counts_reset():
