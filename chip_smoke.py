@@ -37,9 +37,17 @@ line:
              outside the table: the cluster form bit-equal to launch B, with
              the crossfade and with the new brackets on both sides at xf = 0
              (a held block's use), which equals any old brackets at xf = 0;
-             each within 5e-7 of its twin.
+             each within 5e-7 of its twin.  Launch B's split form (a cluster
+             of four CTAs per tile) against its one-CTA form on the same operands,
+             torch.equal, and within 5e-7 of the twin: rows 2 and 6 (both
+             forms) at 1 x 8, 4 x 66 (segment and group ends inside tiles)
+             and 16 x 256, compact and per-row distance, row 2 also with ids
+             outside a group's table; rows 3-5 at 2048, row 7 at 16 x 512,
+             row 8 at 12,556 rows (random and duplicate brackets).
   4. path    each main path with the launch counts set to 0 before and read
-             after.  The batched path: four bench steps (256 x 64, history
+             after; rows 2-8 on the form their wrappers pick (the split form
+             above row 8's cluster form), the scene path's rows 6 and 2
+             counted on it.  The batched path: four bench steps (256 x 64, history
              carried) through batched_chunk_fn_fused, the first against
              render_oracle, and BatchRenderer(device="cuda").render of 16
              moving sources x 512 blocks, every source against render_oracle.
@@ -83,18 +91,21 @@ line:
              unfused chain and its two stage swaps (the tail summed by
              128-bin blocks; the forward on the CPU) on no kernel.
   6. bench   the bench step (blocks/s); each step's kernel and twin times in
-             turns (twin, kernel, kernel, twin) beside its bound (row 8 at
-             both its shapes), rows 8-12 also with their
-             device time alone (torch.profiler: at these sizes a call's
-             events time the host's launch path), rows 9-12 beside one
-             PyTorch call of the same function (its events and its device
-             time alone), row 9's host path apart; row 8's two forms at 1 to
-             1,024 rows (the crossover that sets SMALL_ROWS); the sparse
-             side-pass at a scene_hold chunk's shape (device time, kernels
-             per call, bound); each render's wall time (the scenes' host
-             planning apart), render_scan's, and the device time by kernel of
-             four renders and of 200 live blocks, moving and held; the
-             unfused chain's warm render with each tail; beside the card.
+             turns (twin, forms, forms reversed, twin) beside its bound (row 8
+             at both its shapes), rows 1-8 in each form of launch B with
+             their device time alone, launch A and launch B apart
+             (torch.profiler: at small sizes a call's events time the host's
+             launch path); row 8's three forms at 1 to 1,024 rows (the
+             crossover that sets SMALL_ROWS); launch B's two forms at 8-16,384
+             rows (the crossover that sets fused_step.SPLIT_FROM and row 8's
+             MANY_ROWS_FORM); rows 9-12 with their device time alone, beside
+             one PyTorch call of the same function (its events and its device
+             time alone), row 9's host path apart; the sparse side-pass at a
+             scene_hold chunk's shape (device time, kernels per call, bound);
+             each render's wall time (the scenes' host planning apart),
+             render_scan's, and the device time by kernel of four renders and
+             of 200 live blocks, moving and held; the unfused chain's warm
+             render with each tail; beside the card.
 Then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -365,6 +376,91 @@ def row8_forms(bench, db, device, geo, errs) -> bool:
                 fail("kernel", f"row 8's forms disagree at {rows} rows")
                 return False
             errs[SPATIALIZER] = max(errs[SPATIALIZER], err)
+    return True
+
+
+def split_cases(bench, db, device):
+    """Launch B's split form's cases: (what, kernel, wrapper, args, kwargs)
+    of rows 2 and 6 at 8, 264 (4 x 66: segment and group ends inside
+    32-row tiles) and 16 x 256 rows, compact and per-row distance, row 2
+    also on ids outside a group's table; rows 3-5 at STREAM_B and row 7 at
+    16 x 512."""
+    from jefferson_tpu_torch.kernels import fused_step
+
+    cases = []
+    for s_, nb_ in ((1, 8), (4, 66), (SCENE_S, 256)):
+        for form in ("grouped", "gather", "gather_noxf"):
+            name = SCENE_FORMS[form][0]
+            for variant in ({"radius_step": 0.01}, {"unit_radius": True}):
+                groups = {"group_sources": 1} if form == "grouped" and s_ < SCENE_S else {}
+                fn, args, kw = bench.scene_step(db, form, s_, nb_, device, xf_every=7,
+                                                **variant, **groups)
+                dist = "compact" if "n_dist" in kw else "per-row"
+                cases.append((f"{s_}x{nb_}, {dist} distance", name, fn, args, kw))
+                if form == "grouped" and s_ == 4:
+                    args = list(args)
+                    u = args[4].shape[0] // 4  # four groups of one source
+                    args[5], args[7] = args[5].clone(), args[7].clone()
+                    args[5][3, 1], args[5][65, 2], args[5][100, 0] = u, u, -4
+                    args[7][-1, 2], args[7][0, 3] = 3 * u, -1
+                    cases.append((f"{s_}x{nb_}, {dist} distance, ids outside a group's table",
+                                  name, fn, tuple(args), kw))
+    for form, name in FORMS.items():
+        fn, args, kw = bench.stream_step(db, form, STREAM_B, device, tb=GROUP_TB,
+                                         group_tiles=GROUP_TILES, xf_every=7)
+        cases.append((f"1x{STREAM_B}", name, fn, args, kw))
+    for form in ("apply", "apply_noxf"):
+        name, s_, nb_ = SCENE_FORMS[form]
+        fn, args, kw = bench.scene_step(db, form, s_, nb_, device, xf_every=7)
+        cases.append((f"{s_}x{nb_}", name, fn, args, kw))
+    assert {c[1] for c in cases} == set(fused_step.split_launches)
+    return cases
+
+
+def split_forms(bench, db, device, geo, errs) -> bool:
+    """Launch B's split form against its one-CTA form on the same operands,
+    through the wrappers' private seams: bit-equal (torch.equal) and within
+    KERNEL_TOL of the twin, at split_cases' shapes and row 8's 12,556 rows
+    (random and duplicate brackets, ids outside the table); fills ``errs``
+    -> False on a failure."""
+    import torch
+
+    from jefferson_tpu_torch.kernels import fused_spatializer as fsp
+    from jefferson_tpu_torch.kernels import fused_step
+
+    twin = lambda fn: getattr(sys.modules[fn.__module__], fn.__name__ + "_reference")
+    forms = (fused_step.LAUNCH_B, fused_step.SPLIT)
+    for what, name, fn, args, kw in split_cases(bench, db, device):
+        ys = {f: fused_step._cuda(fn, *args, form=f, **kw) for f in forms}
+        torch.cuda.synchronize()
+        same = torch.equal(ys[fused_step.SPLIT], ys[fused_step.LAUNCH_B])
+        err = float((ys[fused_step.SPLIT] - twin(fn)(*args, **kw)).abs().max())
+        say("kernel", f"{name} split form, {what}: bit-equal to launch B {same}; max|split - "
+                      f"twin| {err:.3e} (limit {KERNEL_TOL:.0e})")
+        if not (same and err <= KERNEL_TOL):
+            fail("kernel", f"{name}: the split form disagrees at {what}")
+            return False
+        errs[name] = max(errs[name], err)
+    kw8 = dict(bins=geo["bins"], fpb=geo["fpb"])
+    for dup in (False, True):
+        table, fwd, br, xf = bench.spatializer_step(db, SCAN_B, device, duplicate=dup, seed=5)
+        br = tuple(t.clone() for t in br)
+        br[0][0, 1], br[2][SCAN_B - 1, 3], br[2][SCAN_B // 2, 0] = db.num_hrtf, -1, 9000
+        xd = fused_step._forward_reference(fwd[0][None], SCAN_B, *fwd[1:], None, None, **geo)
+        ys = {f: fsp._cuda(device, SCAN_B, table, br, xf, *xd, None, form=f, **geo)
+              for f in forms}
+        torch.cuda.synchronize()
+        same = torch.equal(ys[fsp.SPLIT], ys[fsp.LAUNCH_B])
+        err = float((ys[fsp.SPLIT] - fsp.fused_apply_reference(table, *xd, *br, xf, **kw8))
+                    .abs().max())
+        say("kernel", f"{SPATIALIZER} split form, {SCAN_B} rows, "
+                      f"{'duplicate' if dup else 'random'} brackets, ids outside the table: "
+                      f"bit-equal to launch B {same}; max|split - twin| {err:.3e} "
+                      f"(limit {KERNEL_TOL:.0e})")
+        if not (same and err <= KERNEL_TOL):
+            fail("kernel", f"{SPATIALIZER}: the split form disagrees at {SCAN_B} rows")
+            return False
+        errs[SPATIALIZER] = max(errs[SPATIALIZER], err)
     return True
 
 
@@ -662,6 +758,8 @@ def run(pool) -> int:
             errs[SPATIALIZER] = max(errs[SPATIALIZER], err, err_f)
     if not row8_forms(bench, db, device, geo, errs):
         return 1
+    if not split_forms(bench, db, device, geo, errs):
+        return 1
 
     # ---- the batched main path, counted ------------------------------------
     wl = bench.build_workload(db, S, NB, device)
@@ -733,7 +831,8 @@ def run(pool) -> int:
             return fail("path", f"{name}: the port disagrees with the oracle")
         if set(log) != {arm}:
             return fail("path", f"{name}: dispatch {sorted(set(log))}, the JAX dispatch takes {arm}")
-    say("path", f"single-source launches: {single}")
+    say("path", f"single-source launches: {single}, on the split form "
+                f"{ {k: v for k, v in fused_step.split_launches.items() if v} }")
     if (single["fused_step_onehot_xfade"]
             or not all(single[FORMS[f]] for f in FORMS)):
         return fail("path", f"the single-source path did not launch every step: {single}")
@@ -749,11 +848,14 @@ def run(pool) -> int:
         pos, srcs = sets[pset]
         r = BatchRenderer(db, device=device, chunk_blocks=cb, **opts)
         before = dict(fused_step.launches)
+        split_before = dict(fused_step.split_launches)
         t0 = time.perf_counter()
         got = r.render(scene_sigs, pos)
         torch.cuda.synchronize()
         scene_walls[name] = (time.perf_counter() - t0, r.timings)
         launched = {k: v - before[k] for k, v in fused_step.launches.items() if v != before[k]}
+        split = fused_step.split_launches[kernel] - split_before[kernel]
+        form = fused_step.pick_form(kernel, SCENE_S * cb)
         scene_log[name] = r.dispatch
         if got.shape != (SCENE_S, SCENE_B * fpb, 2) or not np.isfinite(got).all():
             return fail("path", f"{name}: output {got.shape} not finite / not (S, B*fpb, 2)")
@@ -761,7 +863,8 @@ def run(pool) -> int:
         d_max, d_rms = max(x[0] for x in d), max(x[1] for x in d)
         which = "every source" if len(srcs) == SCENE_S else f"sources {', '.join(map(str, srcs))}"
         say("path", f"BatchRenderer {name}, {SCENE_S}x{SCENE_B}, chunks of {cb}: {len(r.dispatch)} "
-                    f"chunks as {sorted(set(r.dispatch))}, launches {launched}, in "
+                    f"chunks as {sorted(set(r.dispatch))}, launches {launched}, {split} on "
+                    f"the split form, in "
                     f"{scene_walls[name][0]:.2f} s; {which} {margin_line(name, d_max, d_rms)}")
         if not (d_max <= ORACLE_TOL and d_rms < ORACLE_RMS):
             return fail("path", f"{name}: the port disagrees with the oracle")
@@ -770,9 +873,16 @@ def run(pool) -> int:
                                 f"takes {arm}")
         if launched != {kernel: len(r.dispatch)}:
             return fail("path", f"{name}: launched {launched}, want {kernel} once per chunk")
+        if split != (len(r.dispatch) if form == fused_step.SPLIT else 0):
+            return fail("path", f"{name}: {split} of {len(r.dispatch)} launches on the split "
+                                f"form, want every launch on {form}")
         del got
     scene_launches = dict(fused_step.launches)
-    say("path", f"scene launches: {scene_launches}")
+    say("path", f"scene launches: {scene_launches}, on the split form "
+                f"{ {k: v for k, v in fused_step.split_launches.items() if v} }")
+    for kernel in ("fused_step_xfade", "fused_step_xfade/no_xfade", fused_step.GROUPED):
+        if fused_step.split_launches[kernel] != scene_launches[kernel] or not scene_launches[kernel]:
+            return fail("path", f"{kernel}: the scene path did not run it on the split form")
 
     # ---- the live path, counted ---------------------------------------------
     fused_step.reset_launches()
@@ -791,9 +901,10 @@ def run(pool) -> int:
             return fail("path", f"render_scan {name}: the port disagrees with the oracle")
     scan_launches = {k: v for k, v in fused_step.launches.items() if v}
     scan_forms = {k: v for k, v in fused_step.spatializer_forms.items() if v}
-    if scan_launches != {SPATIALIZER: 2} or scan_forms != {"launch_b": 2}:
+    scan_form = fused_spatializer.MANY_ROWS_FORM
+    if scan_launches != {SPATIALIZER: 2} or scan_forms != {scan_form: 2}:
         return fail("path", f"render_scan launched {scan_launches} as {scan_forms}, want "
-                            f"{SPATIALIZER} once per scan on launch B")
+                            f"{SPATIALIZER} once per scan on {scan_form}")
     live_launches = 0
     for name, (pos, sigs) in live.items():
         fused_step.reset_launches()
@@ -821,7 +932,7 @@ def run(pool) -> int:
         if launched != {SPATIALIZER: n_src * n_blk + 2 * n_src} or not shared:
             return fail("path", f"live {name}: launched {launched}, want {SPATIALIZER} once per "
                                 f"block and source and twice per prime, on one shared table")
-        if forms != {"cluster": n_src * n_blk + 2 * n_src, "launch_b": 0}:
+        if forms != {"cluster": n_src * n_blk + 2 * n_src, "launch_b": 0, "split": 0}:
             return fail("path", f"live {name}: row 8 by form {forms}, want every live block "
                                 f"on the cluster form")
 
@@ -853,26 +964,35 @@ def run(pool) -> int:
         at = "" if rows == 1 else f" at {SCAN_B} rows"
         ops[SPATIALIZER + at] = (fused_spatializer.fused_apply, (table, *xd, *br, xf), kw8, 1,
                                  rows)
-    times, bounds = {}, {}
+    times, bounds, forms_of = {}, {}, {}
     for name, (fn, args, kw, s_, nb_) in ops.items():
-        k = lambda: fn(*args, **kw)
+        # the main path's form first, then the other: events in turns (twin,
+        # forms, forms reversed, twin), then each form's device time alone
+        calls = form_calls(name, fn, args, kw, s_ * nb_, device, geo)
         p = lambda: twin(fn)(*args, **kw)
-        plain_a, kernel_a, kernel_b, plain_b = (bench.time_ms(f) for f in (p, k, k, p))
-        times[name] = ((kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2)
-        moved = nbytes(*args, *kw.values(), k())
-        alone = ""
+        plain_a = bench.time_ms(p)
+        ev = {f: [bench.time_ms(c)] for f, c in calls.items()}
+        for f, c in reversed(calls.items()):
+            ev[f].append(bench.time_ms(c))
+        plain_b = bench.time_ms(p)
+        forms_of[name] = picked = next(iter(calls))
+        times[name] = (sum(ev[picked]) / 2, (plain_a + plain_b) / 2)
+        moved = nbytes(*args, *kw.values(), calls[picked]())
         if name.startswith(SPATIALIZER):
             # of the full table, the function reads the rows its brackets name
             table = args[0]
             ids = torch.cat([a for a in args if a.dtype == torch.int32]).unique()
             moved += (ids.numel() - table.shape[0]) * table.shape[1] * table.element_size()
-            ms = sum(row[1] for row in bench.device_profile(k, calls=20))
-            alone = f" (device time alone {ms:.4f} ms, torch.profiler)"
         bounds[name] = bench.bound_ms(bench.step_flops(name.split(" at ")[0], s_, nb_), moved)
-        say("bench", f"{name} ({s_}x{nb_}): kernel {kernel_a:.4f}/{kernel_b:.4f} ms{alone}, twin "
-                     f"{plain_a:.4f}/{plain_b:.4f} ms, bound {bounds[name][0]:.6f} ms "
-                     f"({bounds[name][1]})  [{bench.card()}]")
+        for f, c in calls.items():
+            a_ms, b_ms = launches_apart(bench.device_profile(c, calls=20))
+            say("bench", f"{name} ({s_}x{nb_}), {f}{' (main path)' if f == picked else ''}: "
+                         f"kernel {ev[f][0]:.4f}/{ev[f][1]:.4f} ms (device time alone "
+                         f"{a_ms + b_ms:.4f} ms: launch A {a_ms:.4f}, launch B {b_ms:.4f}; "
+                         f"torch.profiler), twin {plain_a:.4f}/{plain_b:.4f} ms, bound "
+                         f"{bounds[name][0]:.6f} ms ({bounds[name][1]})  [{bench.card()}]")
     row8_crossover(bench, db, device, geo)
+    split_crossover(bench, db, device)
     for name, (fn, args, kw, flops, moved, lib) in probe_timed(device).items():
         k = lambda: fn(*args, **kw)
         p = lambda: twin(fn)(*args, **kw)
@@ -988,6 +1108,8 @@ def run(pool) -> int:
         "plain_ms": times[name][1],
         "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1],
+        # launch B's form on the main path (rows 1-8); rows 9-12 have one
+        "form": forms_of.get(name),
         # no single PyTorch call computes a fused step (rows 1-8)
         "library_ms": times[name][2] if name in PROBES else None,
     } for name, (source, replaces) in KERNELS.items()]}))
@@ -999,9 +1121,90 @@ def run(pool) -> int:
     return 0
 
 
+def form_calls(name, fn, args, kw, rows: int, device, geo) -> dict:
+    """The step ``name`` on its operands in each form it has on the card,
+    the one its wrapper picks at ``rows`` rows first: {form: call}."""
+    from jefferson_tpu_torch.kernels import fused_spatializer as fsp
+    from jefferson_tpu_torch.kernels import fused_step
+
+    if name == SPATIALIZER:  # the live shape: the cluster form only
+        return {fsp.pick_form(rows): lambda: fn(*args, **kw)}
+    if name.startswith(SPATIALIZER):
+        table, xdr, xdi, *br, xf = args
+        call = lambda f: lambda: fsp._cuda(device, rows, table, tuple(br), xf, xdr, xdi, None,
+                                           form=f, **geo)
+        picked = fsp.pick_form(rows)
+    elif name in fused_step.split_launches:
+        call = lambda f: lambda: fused_step._cuda(fn, *args, form=f, **kw)
+        picked = fused_step.pick_form(name, rows)
+    else:  # row 1: one chain over K, launch B only
+        return {fused_step.LAUNCH_B: lambda: fn(*args, **kw)}
+    other = fused_step.SPLIT if picked == fused_step.LAUNCH_B else fused_step.LAUNCH_B
+    return {picked: call(picked), other: call(other)}
+
+
+def launches_apart(rows) -> tuple[float, float]:
+    """(launch A, launch B) ms of a step's device_profile rows."""
+    a = sum(ms for kernel, ms, _ in rows if "forward_distance" in kernel)
+    return a, sum(ms for _, ms, _ in rows) - a
+
+
+CROSS_ROWS = (8, 64, 512, 4096, 16384)    # rows 2-7's crossover, and row 8's above 512
+CROSS_ROWS_8 = (1024, 4096, SCAN_B, 16384)
+
+
+def split_crossover(bench, db, device) -> None:
+    """Launch B's two forms on the same operands, device time alone, at
+    CROSS_ROWS rows for each step of rows 2-7 and CROSS_ROWS_8 for row 8:
+    the crossover that sets fused_step.SPLIT_FROM and row 8's
+    MANY_ROWS_FORM."""
+    from jefferson_tpu_torch.kernels import fused_spatializer as fsp
+    from jefferson_tpu_torch.kernels import fused_step
+
+    geo = dict(pad_len=1024, bins=513, fpb=128)
+    scene_of = {name: form for form, (name, _, _) in SCENE_FORMS.items()}
+    stream_of = {name: form for form, name in FORMS.items()}
+    forms = (fused_step.LAUNCH_B, fused_step.SPLIT)
+    alone = lambda call: sum(row[1] for row in bench.device_profile(call, calls=10))
+    for name in [*fused_step.split_launches, SPATIALIZER]:
+        took = {}
+        for rows in (CROSS_ROWS_8 if name == SPATIALIZER else CROSS_ROWS):
+            if name == SPATIALIZER:
+                table, fwd, br, xf = bench.spatializer_step(db, rows, device)
+                xd = fused_step._forward_reference(fwd[0][None], rows, *fwd[1:], None, None,
+                                                   **geo)
+                call = lambda f: fsp._cuda(device, rows, table, br, xf, *xd, None, form=f, **geo)
+            else:
+                if name in scene_of:
+                    s_ = max(1, rows // 256)
+                    form = scene_of[name]
+                    groups = {"group_sources": 1 if s_ < 4 else 4} if form == "grouped" else {}
+                    fn, args, kw = bench.scene_step(db, form, s_, rows // s_, device, **groups)
+                else:
+                    tb = min(GROUP_TB, rows)
+                    gt = GROUP_TILES if rows >= GROUP_TB * GROUP_TILES else 1
+                    fn, args, kw = bench.stream_step(db, stream_of[name], rows, device, tb=tb,
+                                                     group_tiles=gt)
+                call = lambda f: fused_step._cuda(fn, *args, form=f, **kw)
+            took[rows] = {f: alone(lambda: call(f)) for f in forms}
+        split_from = None
+        for rows in sorted(took, reverse=True):
+            if took[rows][fused_step.SPLIT] >= took[rows][fused_step.LAUNCH_B]:
+                break
+            split_from = rows
+        picked = (f"SPLIT_FROM = {fused_step.SPLIT_FROM}" if name != SPATIALIZER
+                  else f"MANY_ROWS_FORM = {fsp.MANY_ROWS_FORM!r}")
+        say("bench", f"{name} crossover, device time alone (launch B / split form) at "
+                     + ", ".join(f"{r}: {t[fused_step.LAUNCH_B]:.4f} / {t[fused_step.SPLIT]:.4f}"
+                                 for r, t in took.items())
+                     + f" ms; the split form takes less from {split_from} of these rows on "
+                       f"({picked})  [{bench.card()}]")
+
+
 def row8_crossover(bench, db, device, geo) -> None:
-    """Row 8's two forms on the same operands at CROSSOVER_ROWS rows: CUDA
-    events per call and device time alone; the crossover sets SMALL_ROWS."""
+    """Row 8's three forms on the same operands at CROSSOVER_ROWS rows: CUDA
+    events per call and device time alone; where the cluster form stops
+    taking less than MANY_ROWS_FORM sets SMALL_ROWS."""
     from jefferson_tpu_torch.kernels import fused_spatializer as fsp
     from jefferson_tpu_torch.kernels import fused_step
 
@@ -1010,19 +1213,18 @@ def row8_crossover(bench, db, device, geo) -> None:
         table, fwd, br, xf = bench.spatializer_step(db, rows, device)
         xd = fused_step._forward_reference(fwd[0][None], rows, *fwd[1:], None, None, **geo)
         got = {}
-        for form in (fsp.CLUSTER, fsp.LAUNCH_B):
+        for form in (fsp.CLUSTER, fsp.LAUNCH_B, fsp.SPLIT):
             # the wrapper's private seam names the form; fused_apply picks it by rows
             call = lambda: fsp._cuda(device, rows, table, br, xf, *xd, None, form=form, **geo)
             got[form] = (bench.time_ms(call),
                          sum(row[1] for row in bench.device_profile(call, calls=10)))
-        if got[fsp.CLUSTER][1] < got[fsp.LAUNCH_B][1]:
+        if got[fsp.CLUSTER][1] < got[fsp.MANY_ROWS_FORM][1]:
             last_cluster = rows
-        say("bench", f"row 8 forms at {rows} rows: cluster {got[fsp.CLUSTER][0]:.4f} ms "
-                     f"(device time alone {got[fsp.CLUSTER][1]:.4f}), launch B "
-                     f"{got[fsp.LAUNCH_B][0]:.4f} ms (device time alone "
-                     f"{got[fsp.LAUNCH_B][1]:.4f})  [{bench.card()}]")
-    say("bench", f"row 8: the cluster form takes less device time up to {last_cluster} rows of "
-                 f"{CROSSOVER_ROWS}; SMALL_ROWS = {fsp.SMALL_ROWS}")
+        say("bench", f"row 8 forms at {rows} rows: " + ", ".join(
+            f"{form} {ev:.4f} ms (device time alone {alone:.4f})"
+            for form, (ev, alone) in got.items()) + f"  [{bench.card()}]")
+    say("bench", f"row 8: the cluster form takes less device time than {fsp.MANY_ROWS_FORM} up "
+                 f"to {last_cluster} rows of {CROSSOVER_ROWS}; SMALL_ROWS = {fsp.SMALL_ROWS}")
 
 
 def prod_host_path(bench, device, args) -> None:

@@ -312,7 +312,7 @@ SCENE_FORMS = ("grouped", "gather", "gather_noxf", "apply", "apply_noxf")
 def scene_step(db, form: str, s: int, nb: int, device, *, seed: int = 0,
                radius_step: float = 0.0, unit_radius: bool = False,
                trajectory: str | None = None, xf_every: int = 0,
-               group_sources: int | None = None):
+               group_sources: int | None = None, duplicate: bool = False):
     """One batched step of S sources x nb blocks, its operands made from
     ``seed`` -> (wrapper, args, kwargs): ``wrapper(*args, **kwargs)`` runs
     the step and the wrapper's ``_reference`` twin takes the same operands.
@@ -333,7 +333,9 @@ def scene_step(db, form: str, s: int, nb: int, device, *, seed: int = 0,
     radius divided by the planner's elevation factor sqrt(1 + sin² ele),
     so every block sits at |coordinates| = 1).  ``radius_step`` > 0 moves
     the radius every block and takes the per-row form at any size.
-    ``xf_every`` > 0 turns the crossfade off on every that-many-th row."""
+    ``xf_every`` > 0 turns the crossfade off on every that-many-th row.
+    ``duplicate``: each block's brackets are its first id four times at
+    weights 1, 0, 0, 0 (a grid position's brackets)."""
     cfg = db.config
     fpb = cfg.frames_per_buffer
     rng = np.random.default_rng(seed)
@@ -351,6 +353,12 @@ def scene_step(db, form: str, s: int, nb: int, device, *, seed: int = 0,
         pos[:, :, 2] += radius_step * np.arange(nb)
     plans = [make_plan(p, cfg, initial_old=None if trajectory == "still" else (0.0, 0.0))
              for p in pos]
+    if duplicate:
+        for p in plans:
+            for ids, ws in (("idx_old", "w_old"), ("idx_new", "w_new")):
+                setattr(p, ids, np.repeat(getattr(p, ids)[:, :1], 4, axis=1))
+                setattr(p, ws, np.zeros_like(getattr(p, ws)))
+                getattr(p, ws)[:, 0] = 1.0
     cat_rows = lambda a: np.concatenate([getattr(p, a) for p in plans])
     last = lambda a: np.stack([getattr(p, a)[-1] for p in plans])
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)

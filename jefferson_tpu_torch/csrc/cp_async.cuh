@@ -1,6 +1,7 @@
 // Asynchronous global-to-shared copies (cp.async, sm_80 and up), shared by
 // the kernels that stage their operands in shared memory this way:
-// dma_blend.cu and the few-row form of row 8 in fused_step_onehot.cu.
+// dma_blend.cu, the few-row form of row 8 in fused_step_onehot.cu and
+// launch B's split form in fused_forward.cuh.
 //
 // A thread's copies join a group at cp_async_commit(); cp_async_wait<N>()
 // returns once at most N of the thread's groups are still in flight.  Each

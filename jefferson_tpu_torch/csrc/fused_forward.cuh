@@ -25,8 +25,10 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
 #include "entry.cuh"
 
 namespace {
@@ -233,5 +235,361 @@ __device__ __forceinline__ void fold_tail_block(float (&acc)[8][8], float (&part
       part[i][j] = 0.f;
     }
 }
+
+// ---- launch B's split form: one cluster of four CTAs per tile -------------
+//
+// The blocked tail is five independent chains per output, one per 128-bin
+// block, folded in order: ((((0 + p0) + p1) + p2) + p3) + p4.  Launch B
+// walks them one after another in one CTA; here rank b of a tile's cluster
+// walks bins 128b .. 128b+127 alone, so a CTA holds one 8 x 8 accumulator
+// tile (launch B holds two) and a tile takes four CTAs, two of them to an
+// SM.  Per tile:
+//   - its filter rows are staged once a chunk: old rows r0 .. r0+R (the new
+//     side of row r inside a segment is old row r+1) and each segment end's
+//     boundary row, pre-blended (rows 5-7) or blended here with launch B's
+//     4-bracket code (rows 2-4, 8), so every G keeps its bits;
+//   - the q chunk (32 bins) lies bin-major with a padded stride, so a
+//     thread's 8 operand rows are two float4 loads, and each thread owns 4
+//     consecutive output columns per float4 of the basis; each output still
+//     sums fmaf(qr, br) then fmaf(qi, bi) over ascending k from 0, as
+//     tail_chunk_fma does;
+//   - the next chunk's basis is in flight (cp.async) while this chunk's q is
+//     built and multiplied;
+//   - each rank stores its block partial in its own shared memory; after
+//     cluster.sync() rank b folds rows b*R/4 .. of the tile over distributed
+//     shared memory in rank order, adds p4 (bin 512, launch B's chain
+//     fmaf(qi, bi, fmaf(qr, br, 0))), runs launch B's epilogue and writes
+//     its rows.
+// So the result is launch B's bit for bit.  Reusing staged row r+1 as row
+// r's new side needs group ends on segment ends (the wrapper checks).
+// What bounds it: at 4,096 rows it runs at about 2.7x its FMA time on the
+// card; an 8 x 8 tile costs as many shared-memory wavefronts as FMA
+// cycles, and a CTA's staging waits on L2.  Larger tiles measured slower
+// (8 x 16 a thread, as producer and consumer warps at one CTA an SM, or at
+// 128 threads and two CTAs an SM: PERF.md, the kernel table).
+namespace cg = cooperative_groups;
+
+constexpr int S_RANKS = 4;                      // tail blocks 0-3, one per rank
+constexpr int S_M = 128;                        // operand rows (side, ear, row)
+constexpr int S_THREADS = 256;                  // 16 x 16 threads, 8 x 8 outputs each
+constexpr int S_CHUNKS = T_BLOCK / T_KC;        // 32-bin chunks a rank walks
+constexpr int S_QLD = S_M + 4;                  // padded bin stride of a q chunk
+constexpr int S_BASIS = 2 * T_KC * FPB;         // one chunk of both basis planes
+constexpr size_t S_SMEM = sizeof(float) * (2 * S_BASIS + 2 * T_KC * S_QLD);
+static_assert(S_M * FPB <= 2 * S_BASIS, "the block partial must fit in the basis buffers");
+static_assert(S_RANKS * T_BLOCK == BINS - 1, "rank blocks cover bins 0-511, bin 512 is p4");
+
+template <int SIDES>
+struct SplitShape {
+  static constexpr int R = S_M / (2 * SIDES);            // rows a tile: 32, 64 without xfade
+  static constexpr int ENT = SIDES == 2 ? 2 * R + 1 : R;  // staged filter rows, at most
+  static constexpr int FOLD = R / S_RANKS;               // rows each rank folds
+  static_assert(SIDES == 1 || R == 32, "one warp lays out a crossfading tile's rows");
+};
+
+// A tile's filter rows arriving pre-blended (rows 5-7): old row r is
+// g_rows[r], a segment's boundary row g_last[r / seg].
+struct RowsPreBlended {
+  const float* g_rows;
+  const float* g_last;
+  struct Entry {
+    const float* g;
+  };
+  __device__ Entry old_row(int r) const { return {g_rows + (size_t)r * C4}; }
+  __device__ Entry boundary(int r, int seg) const { return {g_last + (size_t)(r / seg) * C4}; }
+  __device__ void filter(const Entry& e, int k, float (&g)[4]) const {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) g[p] = e.g[p * BINS + k];
+  }
+};
+
+// A tile's filter rows blended from a compact table (rows 2-4, 8): launch
+// B's brackets, group offsets and rule for ids outside the group's table.
+struct RowsBlended {
+  const float* table;
+  int u_rows;
+  const int* ridx;
+  const float* w;
+  const int* bnd_idx;
+  const float* bnd_w;
+  int group_rows;
+  struct Entry {
+    int id[4];
+    float w[4];
+  };
+  __device__ Entry make(const int* ids, const float* ws, int r) const {
+    Entry e;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int id = ids[j];
+      const bool in_table = id >= 0 && id < u_rows;
+      e.id[j] = in_table ? (r / group_rows) * u_rows + id : 0;
+      e.w[j] = in_table ? ws[j] : 0.f;
+    }
+    return e;
+  }
+  __device__ Entry old_row(int r) const { return make(ridx + r * 4, w + r * 4, r); }
+  __device__ Entry boundary(int r, int seg) const {
+    return make(bnd_idx + (r / seg) * 4, bnd_w + (r / seg) * 4, r);
+  }
+  __device__ void filter(const Entry& e, int k, float (&g)[4]) const {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* trow = table + (size_t)e.id[j] * C4 + k;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const float v = __fmul_rn(e.w[j], trow[p * BINS]);
+        g[p] = j == 0 ? v : __fadd_rn(g[p], v);
+      }
+    }
+  }
+};
+
+// acc[i][j] += the chunk's bins of qr*br + qi*bi for operand row ty*8+i and
+// output column 4tx+j (j < 4) or 64+4tx+j-4, bins ascending, each output's
+// real then imaginary term: tail_chunk_fma's order per output.
+__device__ __forceinline__ void split_chunk_fma(float (&acc)[8][8], const float* qr,
+                                                const float* qi, const float* br,
+                                                const float* bi, int tx, int ty) {
+#pragma unroll 2
+  for (int kk = 0; kk < T_KC; ++kk) {
+#pragma unroll
+    for (int plane = 0; plane < 2; ++plane) {
+      const float* q = (plane ? qi : qr) + kk * S_QLD + ty * 8;
+      const float* v = (plane ? bi : br) + kk * FPB + tx * 4;
+      const float4 a0 = *reinterpret_cast<const float4*>(q);
+      const float4 a1 = *reinterpret_cast<const float4*>(q + 4);
+      const float4 v0 = *reinterpret_cast<const float4*>(v);
+      const float4 v1 = *reinterpret_cast<const float4*>(v + 64);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+}
+
+// One item of a q chunk: an entry's filter at one bin and the XD of the
+// rows it serves, loaded; then its products stored.
+struct QItem {
+  int kk, u[2];
+  float g[4], x[2][2];
+};
+
+template <int SIDES, class Rows>
+__global__ void __cluster_dims__(S_RANKS, 1, 1) __launch_bounds__(S_THREADS, 2)
+split_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi, int rows,
+                 int seg, Rows src, const float* __restrict__ xf,
+                 const float* __restrict__ icr, const float* __restrict__ ici,
+                 float* __restrict__ out) {
+  using Shape = SplitShape<SIDES>;
+  constexpr int R = Shape::R, ENT = Shape::ENT, FOLD = Shape::FOLD;
+  extern __shared__ __align__(16) float smem[];
+  float* basis = smem;                       // [buffer][plane][T_KC][FPB]
+  float* qr = smem + 2 * S_BASIS;            // [T_KC][S_QLD], m = (side*2 + ear)*R + row
+  float* qi = qr + T_KC * S_QLD;
+  float* part = smem;                        // [S_M][FPB] after the main loop
+  __shared__ typename Rows::Entry ent[ENT];  // the tile's staged filter rows
+  __shared__ int user[ENT][2];               // the row whose side 0 / 1 it is, or -1
+  __shared__ int new_ent[R];                 // each row's new-side entry
+  __shared__ int n_ent;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = (int)cluster.block_rank();   // this CTA's tail block
+  const int r0 = (int)(blockIdx.x / S_RANKS) * R;
+  const int tid = threadIdx.x;
+  const int kb = b * T_BLOCK;
+
+  auto stage_basis = [&](int c) {            // one commit group per chunk
+    float* dst = basis + (c & 1) * S_BASIS;
+    const size_t at = (size_t)(kb + c * T_KC) * FPB;
+    for (int i = tid; i < S_BASIS / 4; i += S_THREADS) {
+      const int plane = i / (S_BASIS / 8), j = 4 * (i % (S_BASIS / 8));
+      cp_async16(dst + plane * T_KC * FPB + j, (plane ? ici : icr) + at + j);
+    }
+    cp_async_commit();
+  };
+  stage_basis(0);
+
+  for (int i = tid; i < ENT; i += S_THREADS) user[i][0] = user[i][1] = -1;
+  for (int i = tid; i < 2 * T_KC * S_QLD; i += S_THREADS) qr[i] = 0.f;  // rows past the end
+  __syncthreads();
+  if constexpr (SIDES == 1) {
+    // g_rows carries the new rows: row i's one side is old row i
+    for (int i = tid; i < R; i += S_THREADS)
+      if (r0 + i < rows) {
+        ent[i] = src.old_row(r0 + i);
+        user[i][0] = i;
+        new_ent[i] = i;
+      }
+    if (tid == 0) n_ent = R;
+  } else if (tid < R) {  // warp 0, one lane per row
+    const int i = tid, r = r0 + i;
+    const bool live = r < rows;
+    const bool inside = live && r % seg + 1 < seg;  // the new side is old row r+1
+    const unsigned ends = __ballot_sync(~0u, live && !inside);
+    if (live) {
+      ent[i] = src.old_row(r);
+      user[i][0] = i;
+    }
+    if (inside) {
+      user[i + 1][1] = i;
+      new_ent[i] = i + 1;
+      if (i + 1 == R) ent[R] = src.old_row(r + 1);
+    } else if (live) {
+      const int e = R + 1 + __popc(ends & ((1u << i) - 1));
+      ent[e] = src.boundary(r, seg);
+      user[e][1] = i;
+      new_ent[i] = e;
+    }
+    if (i == 0) n_ent = R + 1 + __popc(ends);
+  }
+  __syncthreads();
+
+  // q of a chunk: a warp takes 4 entries x 8 bins (32-byte pieces of each
+  // filter plane); each entry's G multiplies the XD of the rows it serves.
+  // Two items' loads are in flight before either's products are stored.
+  auto load = [&](int it, int k0, QItem& q) {
+    const int lane = it % 32, wi = it / 32, e = (wi / 4) * 4 + lane / 8;
+    q.kk = (wi % 4) * 8 + lane % 8;
+    q.u[0] = q.u[1] = -1;
+    if (e >= n_ent) return;
+    q.u[0] = user[e][0];
+    q.u[1] = user[e][1];
+    if (q.u[0] < 0 && q.u[1] < 0) return;
+    const int k = k0 + q.kk;
+    src.filter(ent[e], k, q.g);
+#pragma unroll
+    for (int side = 0; side < SIDES; ++side)
+      if (q.u[side] >= 0) {
+        const size_t x = (size_t)(r0 + q.u[side]) * BINS + k;
+        q.x[side][0] = xdr[x];
+        q.x[side][1] = xdi[x];
+      }
+  };
+  auto store = [&](const QItem& q) {
+#pragma unroll
+    for (int side = 0; side < SIDES; ++side)
+      if (q.u[side] >= 0)
+#pragma unroll
+        for (int ear = 0; ear < 2; ++ear) {
+          const int m = q.kk * S_QLD + (side * 2 + ear) * R + q.u[side];
+          cmul_rn(q.x[side][0], q.x[side][1], q.g[2 * ear], q.g[2 * ear + 1], &qr[m], &qi[m]);
+        }
+  };
+  auto stage_q = [&](int c) {
+    const int k0 = kb + c * T_KC;
+    const int items = (n_ent + 3) / 4 * 4 * T_KC;
+    for (int it = tid; it < items; it += 2 * S_THREADS) {
+      QItem q0, q1;
+      load(it, k0, q0);
+      q1.u[0] = q1.u[1] = -1;
+      if (it + S_THREADS < items) load(it + S_THREADS, k0, q1);
+      store(q0);
+      store(q1);
+    }
+  };
+
+  const int tx = tid % 16, ty = tid / 16;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int c = 0; c < S_CHUNKS; ++c) {
+    if (c + 1 < S_CHUNKS) stage_basis(c + 1);  // its buffer's readers passed the last barrier
+    stage_q(c);
+    if (c + 1 < S_CHUNKS)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    const float* br = basis + (c & 1) * S_BASIS;
+    split_chunk_fma(acc, qr, qi, br, br + T_KC * FPB, tx, ty);
+    __syncthreads();
+  }
+
+  // this rank's block partial into its own shared memory
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* row = part + (ty * 8 + i) * FPB + tx * 4;
+    *reinterpret_cast<float4*>(row) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(row + 64) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+  // bin 512 of the rows this rank folds: q (launch B's code) and the basis row
+  float* q4r = qr;                           // [(side*2 + ear)*FOLD + row]
+  float* q4i = q4r + SIDES * 2 * FOLD;
+  float* b4r = q4i + SIDES * 2 * FOLD;       // [FPB]
+  float* b4i = b4r + FPB;
+  if (tid < SIDES * FOLD) {
+    const int side = tid / FOLD, lr = tid % FOLD, row = b * FOLD + lr, r = r0 + row;
+    if (r < rows) {
+      float g[4];
+      src.filter(ent[side ? new_ent[row] : row], BINS - 1, g);
+      const size_t x = (size_t)r * BINS + BINS - 1;
+#pragma unroll
+      for (int ear = 0; ear < 2; ++ear) {
+        const int m = (side * 2 + ear) * FOLD + lr;
+        cmul_rn(xdr[x], xdi[x], g[2 * ear], g[2 * ear + 1], &q4r[m], &q4i[m]);
+      }
+    }
+  }
+  for (int t = tid; t < FPB; t += S_THREADS) {
+    b4r[t] = icr[(size_t)(BINS - 1) * FPB + t];
+    b4i[t] = ici[(size_t)(BINS - 1) * FPB + t];
+  }
+  cluster.sync();                            // every rank's partial stored
+
+  const float* parts[S_RANKS];
+#pragma unroll
+  for (int q = 0; q < S_RANKS; ++q) parts[q] = cluster.map_shared_rank(part, q);
+  for (int i = tid; i < FOLD * 2 * FPB; i += S_THREADS) {
+    const int lr = i / (2 * FPB), col = i % (2 * FPB), row = b * FOLD + lr, r = r0 + row;
+    if (r >= rows) break;
+    const int ear = col / FPB, t = col % FPB;
+    float y[SIDES];
+#pragma unroll
+    for (int side = 0; side < SIDES; ++side) {
+      const int m = (side * 2 + ear) * R + row;
+      float v = 0.f;
+#pragma unroll
+      for (int q = 0; q < S_RANKS; ++q) v = __fadd_rn(v, parts[q][m * FPB + t]);
+      const int m4 = (side * 2 + ear) * FOLD + lr;
+      y[side] = __fadd_rn(v, fmaf(q4i[m4], b4i[t], fmaf(q4r[m4], b4r[t], 0.f)));
+    }
+    float v = y[SIDES - 1];
+    if (SIDES == 2) {                        // launch B's crossfade epilogue
+      const float fn = (float)t / (float)(FPB - 1);
+      const bool on = xf[r] > 0.f;
+      const float a = on ? __fsub_rn(1.f, fn) : 0.f;
+      const float bn = on ? fn : 1.f;
+      v = __fadd_rn(__fmul_rn(y[0], a), __fmul_rn(y[SIDES - 1], bn));
+    }
+    out[(size_t)r * 2 * FPB + col] = v;
+  }
+  cluster.sync();                            // keep this partial until every rank read it
+}
+
+// Launch B's split form over ``rows`` rows in segments of ``seg``; a
+// refused launch (shared memory, registers, cluster occupancy) returns its
+// error.
+template <int SIDES, class Rows>
+cudaError_t launch_split_tail(cudaStream_t s, const float* xdr, const float* xdi, int rows,
+                              int seg, const Rows& src, const float* xf, const float* icr,
+                              const float* ici, float* out) {
+  auto kernel = split_tail_xfade<SIDES, Rows>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S_SMEM);
+  if (err != cudaSuccess) return err;
+  const int tiles = (rows + SplitShape<SIDES>::R - 1) / SplitShape<SIDES>::R;
+  kernel<<<tiles * S_RANKS, S_THREADS, S_SMEM, s>>>(xdr, xdi, rows, seg, src, xf, icr, ici, out);
+  return cudaGetLastError();
+}
+
+// The forms of launch B an entry takes: one CTA per 32-row tile, or the
+// split form above.
+enum TailForm { FORM_LAUNCH_B = 0, FORM_SPLIT = 1 };
 
 }  // namespace

@@ -33,7 +33,9 @@
 // (side, ear) products form a 128-row (crossfade) or 64-row (no-crossfade)
 // operand, K tiled in 32-bin chunks through shared memory, 8 x 8 register
 // tiles summed by 128-bin blocks (the blocked tail, fused_forward.cuh), the
-// crossfade as the epilogue.
+// crossfade as the epilogue.  Every entry also takes launch B's split form
+// (fused_forward.cuh: four CTAs a tile, one per 128-bin block, each filter
+// row staged once), which gives the same bits.
 
 #include "fused_forward.cuh"
 
@@ -148,10 +150,14 @@ gather_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
 }
 
 template <int SIDES>
-cudaError_t launch_gather_tail(cudaStream_t s, const float* xdr, const float* xdi,
+cudaError_t launch_gather_tail(cudaStream_t s, int form, const float* xdr, const float* xdi,
                                int rows, int nb, const float* g_rows, const float* g_last,
                                const float* xf, const float* icr, const float* ici,
                                float* out) {
+  if (form == FORM_SPLIT)
+    return launch_split_tail<SIDES>(s, xdr, xdi, rows, nb, RowsPreBlended{g_rows, g_last}, xf,
+                                    icr, ici, out);
+  if (form != FORM_LAUNCH_B) return cudaErrorInvalidValue;
   using Shape = GatherShape<SIDES>;
   cudaError_t err = cudaFuncSetAttribute(
       gather_tail_xfade<SIDES>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Shape::SMEM);
@@ -168,24 +174,28 @@ cudaError_t launch_gather_tail(cudaStream_t s, const float* xdr, const float* xd
 // rows = num_sources * nb); launch B writes out (rows x 256).  g_rows is
 // (rows x 2052); with_xfade != 0 also reads g_last (num_sources x 2052)
 // and xf (rows), else both may be null.  dsel as in the one-hot step.
-// Launches on ``stream`` of ``device`` without synchronising, leaves the
+// form: launch B as FORM_LAUNCH_B (one CTA per 32 rows) or FORM_SPLIT (a
+// cluster of four CTAs per tile, fused_forward.cuh), the same bits; any
+// other is refused (cudaErrorInvalidValue).  Launches on ``stream`` of ``device`` without synchronising, leaves the
 // caller's current device as it was, and returns the first CUDA error.
 extern "C" int jt_fused_step_gather_xfade(
     int device, void* stream, const float* streams, int num_sources, int nb,
     const float* uh, const float* ul, const float* fr, const int* dsel, int n_dist,
-    const float* g_rows, const float* g_last, const float* xf, int with_xfade,
+    const float* g_rows, const float* g_last, const float* xf, int with_xfade, int form,
     const float* cfr, const float* cfi, const float* twr, const float* twi,
     const float* icr, const float* ici,
     float* xdr, float* xdi, float* out) {
   return on_device(device, [&]() {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (form != FORM_LAUNCH_B && form != FORM_SPLIT) return cudaErrorInvalidValue;
     cudaError_t err = launch_forward_distance(s, streams, num_sources, nb, uh, ul, fr,
                                               dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi);
     if (err != cudaSuccess) return err;
     const int rows = num_sources * nb;
-    return with_xfade
-               ? launch_gather_tail<2>(s, xdr, xdi, rows, nb, g_rows, g_last, xf, icr, ici, out)
-               : launch_gather_tail<1>(s, xdr, xdi, rows, nb, g_rows, g_last, xf, icr, ici, out);
+    return with_xfade ? launch_gather_tail<2>(s, form, xdr, xdi, rows, nb, g_rows, g_last, xf,
+                                              icr, ici, out)
+                      : launch_gather_tail<1>(s, form, xdr, xdi, rows, nb, g_rows, g_last, xf,
+                                              icr, ici, out);
   });
 }
 
@@ -197,12 +207,13 @@ extern "C" int jt_fused_step_gather_xfade(
 // synchronising and returns the first CUDA error.
 extern "C" int jt_fused_apply_xfade(
     int device, void* stream, const float* xdr, const float* xdi, int rows, int seg,
-    const float* g_rows, const float* g_last, const float* xf, int with_xfade,
+    const float* g_rows, const float* g_last, const float* xf, int with_xfade, int form,
     const float* icr, const float* ici, float* out) {
   return on_device(device, [&]() {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return with_xfade
-               ? launch_gather_tail<2>(s, xdr, xdi, rows, seg, g_rows, g_last, xf, icr, ici, out)
-               : launch_gather_tail<1>(s, xdr, xdi, rows, seg, g_rows, g_last, xf, icr, ici, out);
+    return with_xfade ? launch_gather_tail<2>(s, form, xdr, xdi, rows, seg, g_rows, g_last, xf,
+                                              icr, ici, out)
+                      : launch_gather_tail<1>(s, form, xdr, xdi, rows, seg, g_rows, g_last, xf,
+                                              icr, ici, out);
   });
 }

@@ -49,16 +49,15 @@
 // Numerics: the blend, complex multiplies and crossfade round each product
 // on its own (__fmul_rn/__fadd_rn); only the tail dot products use fmaf.
 //
+// Rows 2-4 and 8 also take launch B's split form (fused_forward.cuh: a
+// cluster of four CTAs per tile, one per 128-bin block, each table row
+// blended once a tile), with the same bits; row 1 cannot (one chain).
+//
 // Row 8 at few rows (the live block step: one row) has its own launch, the
 // cluster form (spatializer_cluster, below): launch B there builds a
 // 128-row operand of which 4 rows are real and walks all of K on one SM.
 
-#include <cooperative_groups.h>
-
-#include "cp_async.cuh"
 #include "fused_forward.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -351,29 +350,39 @@ spatializer_cluster(const float* __restrict__ xdr, const float* __restrict__ xdi
 // distance (uh/ul/fr then have one entry per row), else it selects each
 // row's triple among the first n_dist.  table holds u_rows rows per group
 // of group_rows output rows; bnd_idx/bnd_w hold one row per seg output
-// rows; blocked_tail != 0 sums the tail by 128-bin blocks.  Launches on
-// ``stream`` of ``device`` without synchronising, leaves the caller's
-// current device as it was, and returns the first CUDA error (0 when both
-// launches went).
+// rows; blocked_tail != 0 sums the tail by 128-bin blocks.  form: the
+// blocked tail's launch B as FORM_LAUNCH_B (one CTA per 32 rows) or
+// FORM_SPLIT (a cluster of four CTAs per tile, fused_forward.cuh: the same
+// bits; it needs group_rows % seg == 0); one chain over K only as
+// FORM_LAUNCH_B; anything else is refused (cudaErrorInvalidValue).
+// Launches on ``stream`` of ``device`` without synchronising, leaves the
+// caller's current device as it was, and returns the first CUDA error (0
+// when both launches went).
 extern "C" int jt_fused_step_onehot_xfade(
     int device, void* stream, const float* streams, int num_sources, int nb,
     const float* uh, const float* ul, const float* fr, const int* dsel, int n_dist,
     const float* table, int u_rows, const int* ridx, const float* w,
     const int* bnd_idx, const float* bnd_w, int seg, int group_rows, int blocked_tail,
-    const float* xf,
+    int form, const float* xf,
     const float* cfr, const float* cfi, const float* twr, const float* twi,
     const float* icr, const float* ici,
     float* xdr, float* xdi, float* out) {
   return on_device(device, [&]() {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (!(form == FORM_LAUNCH_B || (form == FORM_SPLIT && blocked_tail && group_rows % seg == 0)))
+      return cudaErrorInvalidValue;
     cudaError_t err = launch_forward_distance(s, streams, num_sources, nb, uh, ul, fr,
                                               dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi);
-    auto kernel = blocked_tail ? blend_tail_xfade<true> : blend_tail_xfade<false>;
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)B_SMEM);
     if (err != cudaSuccess) return err;
     const int rows = num_sources * nb;
+    if (form == FORM_SPLIT)
+      return launch_split_tail<2>(
+          s, xdr, xdi, rows, seg,
+          RowsBlended{table, u_rows, ridx, w, bnd_idx, bnd_w, group_rows}, xf, icr, ici, out);
+    auto kernel = blocked_tail ? blend_tail_xfade<true> : blend_tail_xfade<false>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)B_SMEM);
+    if (err != cudaSuccess) return err;
     kernel<<<(rows + B_R - 1) / B_R, B_THREADS, B_SMEM, s>>>(
         xdr, xdi, rows, table, u_rows, ridx, w, bnd_idx, bnd_w, seg, group_rows, xf,
         icr, ici, out);
@@ -385,16 +394,18 @@ extern "C" int jt_fused_step_onehot_xfade(
 // fused_spatializer.py _kernel :46 of fused_apply :102): every row's old
 // side blends idx_old[r] and its new side idx_new[r], both against the whole
 // table (table_rows rows), the blocked tail, and the crossfade where
-// xf[r] > 0.  ``cluster`` picks the form: 0 launch B with seg = 1 (one
-// group), any other the cluster form (spatializer_cluster).  With streams
-// null, xdr and xdi are the caller's XD planes (rows x 513); else launch A
-// first writes them from one stream of rows blocks (streams: (rows + 7) x
-// 128 samples, history first) with per-row distance uh/ul/fr (rows each).
-// The live block step runs the cluster form at one row, the scan render
-// launch B at every row of a chunk.  Launches on ``stream`` of ``device``
-// without synchronising and returns the first CUDA error.
+// xf[r] > 0.  ``form`` picks launch B's form: 0 launch B with seg = 1 (one
+// group), 1 the cluster form (spatializer_cluster), 2 the split form
+// (fused_forward.cuh) with seg = 1; anything else is refused.  With
+// streams null, xdr and xdi are the caller's XD planes (rows x 513); else
+// launch A first writes them from one stream of rows blocks (streams:
+// (rows + 7) x 128 samples, history first) with per-row distance uh/ul/fr
+// (rows each).  The live block step runs the cluster form at one row, the
+// scan render another form at every row of a chunk.  Launches on
+// ``stream`` of ``device`` without synchronising and returns the first
+// CUDA error.
 extern "C" int jt_fused_spatializer_apply(
-    int device, void* stream, int rows, int cluster,
+    int device, void* stream, int rows, int form,
     const float* streams, const float* uh, const float* ul, const float* fr,
     const float* cfr, const float* cfi, const float* twr, const float* twi,
     float* xdr, float* xdi,
@@ -403,12 +414,13 @@ extern "C" int jt_fused_spatializer_apply(
     const float* icr, const float* ici, float* out) {
   return on_device(device, [&]() {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (form < 0 || form > 2) return cudaErrorInvalidValue;
     cudaError_t err = cudaSuccess;
     if (streams)
       err = launch_forward_distance(s, streams, 1, rows, uh, ul, fr, nullptr, 0,
                                     cfr, cfi, twr, twi, xdr, xdi);
     if (err != cudaSuccess) return err;
-    if (cluster) {
+    if (form == 1) {
       err = cudaFuncSetAttribute(spatializer_cluster,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C_SMEM);
       if (err != cudaSuccess) return err;
@@ -416,6 +428,11 @@ extern "C" int jt_fused_spatializer_apply(
           xdr, xdi, table, table_rows, idx_old, w_old, idx_new, w_new, xf, icr, ici, out);
       return cudaGetLastError();
     }
+    if (form == 2)
+      return launch_split_tail<2>(
+          s, xdr, xdi, rows, 1,
+          RowsBlended{table, table_rows, idx_old, w_old, idx_new, w_new, rows}, xf, icr, ici,
+          out);
     err = cudaFuncSetAttribute(blend_tail_xfade<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)B_SMEM);
     if (err != cudaSuccess) return err;
@@ -425,3 +442,4 @@ extern "C" int jt_fused_spatializer_apply(
     return cudaGetLastError();
   });
 }
+

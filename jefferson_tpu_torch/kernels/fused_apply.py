@@ -12,7 +12,8 @@ XD * G for both and the crossfade where ``xf > 0``.  ``with_xfade=False``:
 
 On the card it is launch B of the gather step (``csrc/fused_step_gather.cu``,
 ``jt_fused_apply_xfade``) run on the caller's planes with the segment length
-in place of the block count, so rows 5-7 share one tail loop.  The TPU
+in place of the block count, so rows 5-7 share one tail loop, in either of
+launch B's forms (``fused_step.pick_form``).  The TPU
 kernel's tile rule (seg | tb or tb | seg) does not apply; the wrapper needs
 only whole segments.  Operands on the CPU run the twin; on a CUDA device
 the kernel runs or the wrapper raises.
@@ -26,7 +27,9 @@ import functools
 import torch
 
 from . import build
-from .fused_step import _BINS, _FPB, _check, _cuda_error, _tails_reference, launches
+from .fused_step import (
+    _BINS, _FORM_CODE, _FPB, SPLIT, _check, _count, _cuda_error, _form, _tails_reference,
+)
 
 NO_XFADE = "fused_apply_xfade/no_xfade"
 
@@ -46,8 +49,8 @@ def fused_apply_xfade_reference(xdr, xdi, g_old, g_last, xf, icr, ici, *, seg: i
 def _entry():
     fn = build.load("fused_step_gather").jt_fused_apply_xfade
     p, i = ctypes.c_void_p, ctypes.c_int
-    # device, stream, xdr, xdi, rows, seg, g_rows, g_last, xf, with_xfade, icr, ici, out
-    fn.argtypes = [i, p, p, p, i, i, p, p, p, i, p, p, p]
+    # device, stream, xdr, xdi, rows, seg, g_rows, g_last, xf, with_xfade, form, icr, ici, out
+    fn.argtypes = [i, p, p, p, i, i, p, p, p, i, i, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -89,17 +92,21 @@ def fused_apply_xfade(
     _check(specs)
     if b < 1:
         raise ValueError("the step needs a block")
+    name = "fused_apply_xfade" if with_xfade else NO_XFADE
+    form = _form(name, b)
+    if form == SPLIT and (icr.data_ptr() % 16 or ici.data_ptr() % 16):
+        raise ValueError("the split form copies the tail basis in 16-byte pieces: "
+                         "icr and ici must start on a 16-byte boundary")
     out = torch.empty((b, 2 * fpb), dtype=torch.float32, device=device)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = _entry()(
         device.index, torch.cuda.current_stream(device).cuda_stream,
         ptr(xdr), ptr(xdi), b, seg, ptr(g_old),
         ptr(g_last) if with_xfade else None, ptr(xf) if with_xfade else None, int(with_xfade),
-        ptr(icr), ptr(ici), ptr(out),
+        _FORM_CODE[form], ptr(icr), ptr(ici), ptr(out),
     )
-    name = "fused_apply_xfade" if with_xfade else NO_XFADE
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({_cuda_error('fused_step_gather', err)})")
-    launches[name] += 1
+    _count(name, form)
     return out

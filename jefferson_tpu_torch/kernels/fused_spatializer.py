@@ -17,20 +17,22 @@ epilogue, as in rows 1-7.  ``fused_forward_apply`` runs launch A first, on
 one stream of blocks: the live block step and the scan render of
 ``engine/stream``.
 
-On the card it runs in one of two forms, chosen by the row count (the
+On the card it runs in one of three forms, chosen by the row count (the
 choice of shape, not a fallback: each raises on a build or launch error),
-both in ``csrc/fused_step_onehot.cu`` behind the entry
-``jt_fused_spatializer_apply``:
+all behind the entry ``jt_fused_spatializer_apply`` of
+``csrc/fused_step_onehot.cu``:
 
 * the cluster form (``rows <= SMALL_ROWS``: the live block step's one row):
   one thread-block cluster of five CTAs per row, one per 128-bin block of
   the tail, the block partials folded in rank 0 through distributed shared
   memory;
-* launch B (above it: ``render_scan``'s chunks): the one-hot step with
-  segments of one row, each row's new side reading its own new brackets,
-  and the whole table as one group; one CTA per 32 rows.
+* launch B (above it: ``render_scan``'s chunks, ``MANY_ROWS_FORM``): the
+  one-hot step with segments of one row, each row's new side reading its
+  own new brackets, and the whole table as one group; one CTA per 32 rows;
+* or launch B's split form there: one cluster of four CTAs per 32 rows,
+  one per 128-bin block (``csrc/fused_forward.cuh``).
 
-Both keep the blocked tail's order, so they agree bit for bit.  What bounds
+All keep the blocked tail's order, so they agree bit for bit.  What bounds
 row 8 on the H100: at many rows the tail IDFT's fp32 FMAs (two sides x two
 ears x 513 x 128 per row) on the CUDA cores; at one row the launch and one
 128-step chain.  The table stays in the 50 MB L2 and a row reads only its
@@ -56,23 +58,28 @@ import torch
 from ..ops import fft as fft_ops
 from . import build
 from .fused_step import (
-    SPATIALIZER, _check, _check_streams, _cuda_error, _forward_reference, _in_table,
-    _tails_reference, _where, blend_cat, launches, spatializer_forms,
+    LAUNCH_B, SPATIALIZER, SPLIT, _check, _check_streams, _cuda_error, _forward_reference,
+    _in_table, _tails_reference, _where, blend_cat, launches, spatializer_forms,
 )
 
-# Rows up to which row 8 takes the cluster form, and above which launch B:
-# on an H100 (700 W) the cluster form took less device time at every count
-# of 1-512 rows and launch B at 1,024 (the cluster form grows about 0.36 us
-# a row, launch B holds 0.22 ms to a few thousand rows; chip_smoke.py, phase
-# bench; PERF.md, the kernel table).  The live block step runs 1 row,
-# render_scan chunks of up to 16,384.
-SMALL_ROWS = 512
-CLUSTER, LAUNCH_B = "cluster", "launch_b"
+# Rows up to which row 8 takes the cluster form, and above which
+# MANY_ROWS_FORM: on an H100 (700 W) the cluster form took less device time
+# than the split form at every count of 1-128 rows and the split form at
+# 256-1,024 (the cluster form grows about 0.36 us a row, the split form
+# holds about 0.06 ms to 512 rows; chip_smoke.py, phase bench; PERF.md,
+# the kernel table).  The live block step runs 1 row, render_scan chunks of up to 16,384.
+SMALL_ROWS = 128
+CLUSTER = "cluster"
+# The form above SMALL_ROWS: launch B, or its split form (a cluster of four
+# CTAs per 32-row tile, csrc/fused_forward.cuh), the one that took less
+# device time alone at render_scan's 12,556 rows (chip_smoke.py, phase bench).
+MANY_ROWS_FORM = SPLIT
+_FORM_CODE = {LAUNCH_B: 0, CLUSTER: 1, SPLIT: 2}
 
 
 def pick_form(rows: int) -> str:
     """Row 8's form on the card for ``rows`` rows."""
-    return CLUSTER if rows <= SMALL_ROWS else LAUNCH_B
+    return CLUSTER if rows <= SMALL_ROWS else MANY_ROWS_FORM
 
 
 def kernel_planes(db, device) -> torch.Tensor:
@@ -106,7 +113,7 @@ def fused_forward_apply_reference(table, stream, uh, ul, fr, idx_old, w_old, idx
 def _entry():
     fn = build.load("fused_step_onehot").jt_fused_spatializer_apply
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, p, i, i,           # device, stream, rows, cluster form
+    fn.argtypes = [i, p, i, i,           # device, stream, rows, form
                    p, p, p, p,           # streams, uh, ul, fr
                    p, p, p, p, p, p,     # cfr, cfi, twr, twi, xdr, xdi
                    p, i, p, p, p, p, p,  # table, its rows, idx_old, w_old, idx_new, w_new, xf
@@ -121,8 +128,8 @@ def _cuda(device, rows: int, table, brackets, xf, xdr, xdi, forward, *, pad_len,
     tests name a form to hold the two against each other); ``forward`` =
     (stream, uh, ul, fr) runs launch A into xdr/xdi first, None reads them."""
     form = pick_form(rows) if form is None else form
-    if form not in (CLUSTER, LAUNCH_B):
-        raise ValueError(f"form {form!r}: want {CLUSTER!r} or {LAUNCH_B!r}")
+    if form not in _FORM_CODE:
+        raise ValueError(f"form {form!r}: want {CLUSTER!r}, {LAUNCH_B!r} or {SPLIT!r}")
     idx_old, w_old, idx_new, w_new = brackets
     specs = {
         "table": (table, (table.shape[0], 4 * bins), torch.float32),
@@ -147,7 +154,7 @@ def _cuda(device, rows: int, table, brackets, xf, xdr, xdi, forward, *, pad_len,
     icr, ici = fft_ops.on_device(fft_ops._idft_tail_matrices, pad_len, fpb, device=device)
     out = torch.empty((rows, 2 * fpb), dtype=torch.float32, device=device)
     err = _entry()(
-        device.index, torch.cuda.current_stream(device).cuda_stream, rows, int(form == CLUSTER),
+        device.index, torch.cuda.current_stream(device).cuda_stream, rows, _FORM_CODE[form],
         *fwd, ptr(xdr), ptr(xdi), ptr(table), table.shape[0], *(ptr(t) for t in brackets),
         ptr(xf), ptr(icr), ptr(ici), ptr(out),
     )

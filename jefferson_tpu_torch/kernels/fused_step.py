@@ -30,7 +30,11 @@ of each, and the crossfade where ``xf > 0``.  Output: (rows, 2*fpb) =
 the H100 and how its design answers that.
 
 Operands on the CPU run the plain twin (``*_reference``); operands on a
-CUDA device run the kernel, or the wrapper raises (no fallback).  The
+CUDA device run the kernel, or the wrapper raises (no fallback).  On the
+card, launch B of rows 2-7 has two forms with the same bits, chosen by
+``pick_form`` (the choice of shape, not a fallback): one CTA per 32
+rows, or the split form, a cluster of four CTAs per tile
+(``csrc/fused_forward.cuh``).  The
 kernels are built for fpb 128, pad_len 1024 and 513 bins.  Both keep the
 TPU kernels' answer for ids outside the table (they add nothing) and for
 selectors outside 1..n_dist-1 (triple 0), so no check syncs the device.
@@ -38,6 +42,7 @@ selectors outside 1..n_dist-1 (triple 0), so no check syncs the device.
 
 from __future__ import annotations
 
+import contextvars
 import ctypes
 import functools
 
@@ -76,18 +81,77 @@ launches: dict[str, int] = dict.fromkeys((
     "prod", "mm", "mm_tree", "dma_blend",
 ), 0)
 
+# Launch B's forms on the card: one CTA per 32-row tile, or the split
+# form, a cluster of four CTAs per tile, one per 128-bin block of the
+# blocked tail, folded in launch B's order (csrc/fused_forward.cuh): the
+# same bits.  Row 1 sums one chain over K and has launch B only.  Row 8
+# also has its few-row cluster form (kernels/fused_spatializer).
+LAUNCH_B, SPLIT = "launch_b", "split"
+_FORM_CODE = {LAUNCH_B: 0, SPLIT: 1}
+
 # Row 8's launches by form, within its one count above: the cluster form
-# (few rows) or launch B.
-spatializer_forms: dict[str, int] = dict.fromkeys(("cluster", "launch_b"), 0)
+# (few rows), launch B or the split form.
+spatializer_forms: dict[str, int] = dict.fromkeys(("cluster", LAUNCH_B, SPLIT), 0)
+
+# The launches of rows 2-7 that took the split form, within each kernel's
+# count above.
+split_launches: dict[str, int] = dict.fromkeys((
+    GROUPED, "fused_step_stream_onehot_xfade", "fused_step_stream_onehot_grouped_xfade",
+    "fused_step_stream_xfade", NO_XFADE, "fused_step_xfade", "fused_step_xfade/no_xfade",
+    "fused_apply_xfade", "fused_apply_xfade/no_xfade",
+), 0)
+
+# Rows from which rows 2-7 take the split form on the card: on an H100
+# (700 W) it took less device time alone than launch B for each of them at
+# every count of 8-16,384 rows (chip_smoke.py's crossover, phase bench;
+# PERF.md, the kernel table).
+SPLIT_FROM = 1
+
+# The form a card test or chip_smoke.py names through ``_cuda``; None: pick.
+_named_form: contextvars.ContextVar[str | None] = contextvars.ContextVar("form", default=None)
 
 _FPB, _PAD, _BINS = 128, 1024, 513  # the geometry the CUDA kernels are built for
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count, and row 8's by form, to 0."""
-    for counts in (launches, spatializer_forms):
+    """Set every kernel's launch count, and the counts by form, to 0."""
+    for counts in (launches, spatializer_forms, split_launches):
         for name in counts:
             counts[name] = 0
+
+
+def pick_form(name: str, rows: int) -> str:
+    """Launch B's form on the card for kernel ``name`` (rows 1-7) at ``rows``
+    rows."""
+    return SPLIT if name in split_launches and rows >= SPLIT_FROM else LAUNCH_B
+
+
+def _cuda(fn, *args, form: str, **kwargs):
+    """``fn(*args, **kwargs)``, a wrapper of rows 2-7, with launch B in
+    ``form`` on the card (the card tests and chip_smoke.py hold the forms
+    against each other this way; the wrappers pick by ``pick_form``)."""
+    if form not in _FORM_CODE:
+        raise ValueError(f"form {form!r}: want {LAUNCH_B!r} or {SPLIT!r}")
+    token = _named_form.set(form)
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        _named_form.reset(token)
+
+
+def _form(name: str, rows: int) -> str:
+    """The form this launch of ``name`` takes: the one named through
+    ``_cuda``, else ``pick_form``; row 1 has launch B only."""
+    form = _named_form.get() or pick_form(name, rows)
+    if form == SPLIT and name not in split_launches:
+        raise ValueError(f"{name} sums one chain over K: launch B only")
+    return form
+
+
+def _count(name: str, form: str) -> None:
+    launches[name] += 1
+    if form == SPLIT:
+        split_launches[name] += 1
 
 
 # ---- plain-PyTorch twins, in the JAX package's op order ---------------------
@@ -279,14 +343,15 @@ def _entry(lib: str, symbol: str, middle: tuple):
 
 def _onehot_entry():
     # table, its rows per group, ridx, w, bnd_idx, bnd_w, seg, group_rows,
-    # blocked_tail, xf
+    # blocked_tail, form, xf
     return _entry("fused_step_onehot", "jt_fused_step_onehot_xfade",
-                  (_ptr, _int, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _ptr))
+                  (_ptr, _int, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr))
 
 
 def _gather_entry():
-    # g_rows, g_last, xf, with_xfade
-    return _entry("fused_step_gather", "jt_fused_step_gather_xfade", (_ptr, _ptr, _ptr, _int))
+    # g_rows, g_last, xf, with_xfade, form
+    return _entry("fused_step_gather", "jt_fused_step_gather_xfade",
+                  (_ptr, _ptr, _ptr, _int, _int))
 
 
 def _cuda_error(lib: str, code: int) -> str:
@@ -340,10 +405,11 @@ def _check_streams(streams, nb: int, pad_len: int, fpb: int) -> None:
         raise ValueError(f"streams {tuple(streams.shape)} do not hold {nb} blocks + history")
 
 
-def _launch(name: str, lib: str, entry, device, streams, n_src, nb, dist, middle,
+def _launch(name: str, form: str, lib: str, entry, device, streams, n_src, nb, dist, middle,
             rows: int, pad_len: int, bins: int, fpb: int):
     """Allocate the scratch and output, launch ``entry`` on the current
-    stream, count the launch, and return the (rows, 2*fpb) output."""
+    stream with launch B in ``form``, count the launch, and return the
+    (rows, 2*fpb) output."""
     cfr, cfi = fft_ops.on_device(fft_ops._subblock_dft_matrices, pad_len, fpb, device=device)
     twr, twi = fft_ops.on_device(fft_ops._sliding_twiddles, pad_len, fpb, device=device)
     icr, ici = fft_ops.on_device(fft_ops._idft_tail_matrices, pad_len, fpb, device=device)
@@ -364,14 +430,15 @@ def _launch(name: str, lib: str, entry, device, streams, n_src, nb, dist, middle
     )
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({_cuda_error(lib, err)})")
-    launches[name] += 1
+    _count(name, form)
     return out
 
 
 def _onehot_cuda(name, device, streams, nb, uh, ul, fr, dsel, n_dist, table, u_rows, ridx, w,
                  bnd_idx, bnd_w, seg, group_rows, xf, *, pad_len, bins, fpb):
-    """Rows 1-4 on the card.  Rows 2-4 sum the tail IDFT by 128-bin blocks;
-    row 1 keeps the one chain over K it was measured with."""
+    """Rows 1-4 on the card.  Rows 2-4 sum the tail IDFT by 128-bin blocks,
+    in either form of launch B; row 1 keeps the one chain over K it was
+    measured with, on launch B."""
     rows = ridx.shape[0]
     n_seg = rows // seg
     specs = {
@@ -386,9 +453,16 @@ def _onehot_cuda(name, device, streams, nb, uh, ul, fr, dsel, n_dist, table, u_r
     _check(specs)
     if u_rows < 1 or rows < 1:
         raise ValueError("the step needs a table row and a block")
+    form = _form(name, rows)
+    if form == SPLIT and group_rows % seg:
+        # the split form serves row r's new side from staged row r+1 of the
+        # same segment, blended against row r+1's group: group ends must
+        # fall on segment ends
+        raise ValueError(f"groups of {group_rows} rows end inside segments of {seg}")
     blocked = int(name != "fused_step_onehot_xfade")
-    middle = (table, u_rows, ridx, w, bnd_idx, bnd_w, seg, group_rows, blocked, xf)
-    return _launch(name, "fused_step_onehot", _onehot_entry(), device, streams,
+    middle = (table, u_rows, ridx, w, bnd_idx, bnd_w, seg, group_rows, blocked,
+              _FORM_CODE[form], xf)
+    return _launch(name, form, "fused_step_onehot", _onehot_entry(), device, streams,
                    rows // nb, nb, (uh, ul, fr, dsel, n_dist), middle, rows, pad_len, bins, fpb)
 
 
@@ -576,6 +650,8 @@ def _gather_cuda(name, device, streams, n_src, nb, uh, ul, fr, g_old, g_last, xf
     _check(specs)
     if rows < 1:
         raise ValueError("the step needs a block")
-    middle = (g_old, g_last if with_xfade else None, xf if with_xfade else None, int(with_xfade))
-    return _launch(name, "fused_step_gather", _gather_entry(), device, streams, n_src, nb,
+    form = _form(name, rows)
+    middle = (g_old, g_last if with_xfade else None, xf if with_xfade else None, int(with_xfade),
+              _FORM_CODE[form])
+    return _launch(name, form, "fused_step_gather", _gather_entry(), device, streams, n_src, nb,
                    (uh, ul, fr, dsel, n_dist), middle, rows, pad_len, bins, fpb)

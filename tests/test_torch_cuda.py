@@ -324,6 +324,80 @@ def test_scene_render_on_the_card_matches_the_cpu_twins(card_db, case):
     assert np.abs(got - want).max() <= TOL
 
 
+# ---- launch B's split form (rows 2-8) ----------------------------------------
+
+_SPLIT_SCENE = {"gather": "fused_step_xfade", "gather_noxf": "fused_step_xfade/no_xfade",
+                "grouped": tfs.GROUPED}
+_SPLIT_GROUPS = {8: 1, 264: 1, 4096: 4}  # row 2's sources per group: ends inside tiles at 264
+
+
+def _both_forms(fn, args, kw):
+    """The step on the same operands in each of launch B's forms, through
+    the wrappers' private seam."""
+    return {form: tfs._cuda(fn, *args, form=form, **kw) for form in (tfs.LAUNCH_B, tfs.SPLIT)}
+
+
+def _split_agrees(fn, args, kw, name):
+    tfs.reset_launches()
+    ys = _both_forms(fn, args, kw)
+    torch.cuda.synchronize()
+    assert tfs.launches[name] == 2 and tfs.split_launches[name] == 1
+    assert torch.equal(ys[tfs.SPLIT], ys[tfs.LAUNCH_B])
+    assert float((ys[tfs.SPLIT] - _twin(fn)(*args, **kw)).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("rows", [8, 264, 4096])
+@pytest.mark.parametrize("form", list(_SPLIT_SCENE))
+@pytest.mark.parametrize("duplicate", [False, True])
+def test_split_form_is_launch_b_bit_for_bit(card_db, form, rows, duplicate):
+    """Rows 6 (both forms) and 2: at 264 rows (4 x 66) segment ends, and row
+    2's group ends, fall inside 32-row tiles."""
+    groups = {"group_sources": _SPLIT_GROUPS[rows]} if form == "grouped" else {}
+    fn, args, kw = _scene(card_db, form, rows, xf_every=5, duplicate=duplicate, **groups)
+    _split_agrees(fn, args, kw, _SPLIT_SCENE[form])
+
+
+@pytest.mark.parametrize("dist", list(_DISTANCE))
+def test_split_form_on_ids_outside_a_groups_table(card_db, dist):
+    fn, args, kw = _scene(card_db, "grouped", 264, group_sources=1, **_DISTANCE[dist])
+    args = list(args)
+    u = args[4].shape[0] // 4  # four groups of one source
+    args[5], args[7] = args[5].clone(), args[7].clone()
+    args[5][3, 1], args[5][100, 0], args[5][65, 2], args[7][-1, 2], args[7][0, 3] = u, -4, u, 3 * u, -1
+    _split_agrees(fn, args, kw, tfs.GROUPED)
+
+
+@pytest.mark.parametrize("b", [8, 264, 2048])
+@pytest.mark.parametrize("form", bench.STREAM_FORMS)
+def test_split_form_of_the_stream_steps_is_launch_b_bit_for_bit(card_db, form, b):
+    fn, args, kw = _stream(card_db, form, b, radius_step=0.01, xf_every=5)
+    _split_agrees(fn, args, kw, tfs.NO_XFADE if form == "gather_noxf" else fn.__name__)
+
+
+@pytest.mark.parametrize("rows", [8, 264, 4096])
+@pytest.mark.parametrize("form", ["apply", "apply_noxf"])
+def test_split_form_of_the_apply_step_is_launch_b_bit_for_bit(card_db, form, rows):
+    fn, args, kw = _scene(card_db, form, rows, xf_every=5)
+    _split_agrees(fn, args, kw, tfa.NO_XFADE if form == "apply_noxf" else "fused_apply_xfade")
+
+
+def test_row_1_has_launch_b_only(card_db):
+    args, kw = _operands(card_db, 0.0)
+    with pytest.raises(ValueError, match="launch B only"):
+        tfs._cuda(tfs.fused_step_onehot_xfade, *args, form=tfs.SPLIT, **kw)
+
+
+def test_a_refused_split_launch_raises(card_db, monkeypatch):
+    """The entry refuses a form it does not know and returns the error; the
+    wrapper raises, and nothing falls back to launch B or the twin."""
+    fn, args, kw = _scene(card_db, "gather", 264)
+    monkeypatch.setitem(tfs._FORM_CODE, tfs.SPLIT, 7)
+    tfs.reset_launches()
+    with pytest.raises(RuntimeError, match="fused_step_xfade launch failed: CUDA error"):
+        tfs._cuda(fn, *args, form=tfs.SPLIT, **kw)
+    assert sum(tfs.launches.values()) == 0
+
+
 # ---- kernel row 8 and the live path ------------------------------------------
 
 def _spatializer(db, rows, **kw):
@@ -385,7 +459,7 @@ def test_spatializer_cluster_form_is_launch_b_bit_for_bit(card_db, rows, duplica
             for form in (tsp.CLUSTER, tsp.LAUNCH_B)}
     torch.cuda.synchronize()
     assert tfs.launches[tfs.SPATIALIZER] == 4
-    assert tfs.spatializer_forms == {"cluster": 2, "launch_b": 2}
+    assert tfs.spatializer_forms == {"cluster": 2, "launch_b": 2, "split": 0}
     assert torch.equal(ys[tsp.CLUSTER], ys[tsp.LAUNCH_B])
     assert torch.equal(held[tsp.CLUSTER], held[tsp.LAUNCH_B])
     kw = dict(bins=513, fpb=128)
@@ -393,6 +467,27 @@ def test_spatializer_cluster_form_is_launch_b_bit_for_bit(card_db, rows, duplica
     assert float((ys[tsp.CLUSTER] - want).abs().max()) <= TOL
     want_held = tsp.fused_apply_reference(table, *xd, *no_xf, off, **kw)
     assert float((held[tsp.CLUSTER] - want_held).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("rows", [1, 7, 264, 4096])
+@pytest.mark.parametrize("duplicate", [False, True])
+def test_spatializer_split_form_is_launch_b_bit_for_bit(card_db, rows, duplicate):
+    """Row 8's split form (segments of one row: every new side a boundary
+    row) against launch B, with the crossfade and at xf = 0."""
+    table, fwd, br, xf, xd, geo = _spatializer(card_db, rows, duplicate=duplicate)
+    if rows > 1:
+        br = tuple(t.clone() for t in br)
+        br[0][0, 1], br[2][rows - 1, 3], br[2][rows // 2, 0] = 710, -1, 9000
+    tfs.reset_launches()
+    ys = {form: _spatializer_form(form, table, xd, br, xf) for form in (tsp.SPLIT, tsp.LAUNCH_B)}
+    off = torch.zeros_like(xf)
+    held = {form: _spatializer_form(form, table, xd, br, off) for form in (tsp.SPLIT, tsp.LAUNCH_B)}
+    torch.cuda.synchronize()
+    assert tfs.spatializer_forms == {"cluster": 0, "launch_b": 2, "split": 2}
+    assert torch.equal(ys[tsp.SPLIT], ys[tsp.LAUNCH_B])
+    assert torch.equal(held[tsp.SPLIT], held[tsp.LAUNCH_B])
+    want = tsp.fused_apply_reference(table, *xd, *br, xf, bins=513, fpb=128)
+    assert float((ys[tsp.SPLIT] - want).abs().max()) <= TOL
 
 
 @pytest.mark.parametrize("rows", [1, 9])
@@ -405,7 +500,7 @@ def test_spatializer_forward_form_agrees_with_launch_b(card_db, rows):
     got = tsp.fused_forward_apply(table, *fwd, *br, xf, scratch=scratch, **geo)
     again = _spatializer_form(tsp.LAUNCH_B, table, scratch, br, xf)
     torch.cuda.synchronize()
-    assert tfs.spatializer_forms == {"cluster": 1, "launch_b": 1}
+    assert tfs.spatializer_forms == {"cluster": 1, "launch_b": 1, "split": 0}
     assert torch.equal(got, again)
     want = tsp.fused_forward_apply_reference(table, *fwd, *br, xf, **geo)
     assert float((got - want).abs().max()) <= TOL
@@ -449,7 +544,7 @@ def test_live_stream_on_the_card_matches_the_oracle(card_db):
     assert sum(tfs.launches.values()) == len(pos)
     assert 0 < sp.crossfades < len(pos)
     # one row: every block, moving or held, takes the cluster form
-    assert tfs.spatializer_forms == {"cluster": len(pos), "launch_b": 0}
+    assert tfs.spatializer_forms == {"cluster": len(pos), "launch_b": 0, "split": 0}
     oracle = render_oracle(sig, card_db, [tuple(p) for p in pos], card_db.config)
     assert np.abs(np.concatenate(outs) - oracle).max() <= 1e-6
 

@@ -175,3 +175,47 @@ def test_step_flops_per_row(kernel, want):
     ms, by = bench.bound_ms(bench.step_flops(kernel, 16, 256), 40e6)
     assert by == "operations" and ms == pytest.approx(want * 4096 / 67e9, rel=1e-3)
     assert bench.bound_ms(1e6, 10**9)[1] == "bytes"
+
+
+# ---- launch B's two forms on the card: the choice and the private seam ---------
+
+@pytest.mark.parametrize("name", [tfs.GROUPED, "fused_step_xfade", "fused_step_xfade/no_xfade"])
+def test_rows_6_and_2_take_the_split_form_by_rows(name):
+    """The scene path's steps take the split form from SPLIT_FROM rows on,
+    its 16 x 256 = 4,096 rows included."""
+    assert tfs.pick_form(name, tfs.SPLIT_FROM) == tfs.SPLIT
+    assert tfs.pick_form(name, 4096) == tfs.SPLIT == tfs.pick_form(name, 16384)
+    if tfs.SPLIT_FROM > 1:
+        assert tfs.pick_form(name, tfs.SPLIT_FROM - 1) == tfs.LAUNCH_B
+
+
+def test_row_1_takes_launch_b_at_every_row_count():
+    for rows in (1, 4096, 16384):
+        assert tfs.pick_form("fused_step_onehot_xfade", rows) == tfs.LAUNCH_B
+
+
+def test_the_private_seam_refuses_an_unknown_form(tdb):
+    fn, args, kw = bench.scene_step(tdb, "gather", 2, 8, torch.device("cpu"))
+    with pytest.raises(ValueError, match="want 'launch_b' or 'split'"):
+        tfs._cuda(fn, *args, form="cluster", **kw)
+
+
+def test_the_private_seam_names_the_form_for_its_call_only(tdb):
+    """Inside ``_cuda`` a launch takes the named form, row 1 refuses the
+    split one; after it the wrappers pick again.  On the CPU the twin runs."""
+    name = "fused_step_xfade"
+    assert tfs._cuda(lambda: tfs._form(name, 4096), form=tfs.LAUNCH_B) == tfs.LAUNCH_B
+    assert tfs._form(name, 4096) == tfs.pick_form(name, 4096)
+    with pytest.raises(ValueError, match="launch B only"):
+        tfs._cuda(lambda: tfs._form("fused_step_onehot_xfade", 64), form=tfs.SPLIT)
+    assert tfs._named_form.get() is None
+    fn, args, kw = bench.scene_step(tdb, "gather", 2, 8, torch.device("cpu"))
+    assert torch.equal(tfs._cuda(fn, *args, form=tfs.SPLIT, **kw), fn(*args, **kw))
+
+
+def test_reset_sets_the_split_counts_to_0():
+    tfs.split_launches[tfs.GROUPED] += 3
+    tfs.reset_launches()
+    assert set(tfs.split_launches.values()) == {0}
+    assert "fused_step_onehot_xfade" not in tfs.split_launches
+

@@ -241,28 +241,30 @@ def test_forward_form_without_crossfade_is_the_forward_then_the_new_side(tdb, co
 
 def test_the_card_form_is_chosen_by_rows():
     """The live step's one row takes the cluster form, render_scan's chunks
-    launch B; SMALL_ROWS is the last row count on the cluster form."""
+    launch B's split form; SMALL_ROWS is the last row count on the cluster
+    form."""
     from jefferson_tpu_torch.engine.stream import SCAN_CHUNK
 
     assert tsp.pick_form(1) == tsp.CLUSTER
     assert tsp.pick_form(tsp.SMALL_ROWS) == tsp.CLUSTER
-    assert tsp.pick_form(tsp.SMALL_ROWS + 1) == tsp.LAUNCH_B
-    assert tsp.pick_form(SCAN_CHUNK) == tsp.LAUNCH_B
-    assert tsp.pick_form(12556) == tsp.LAUNCH_B
+    assert tsp.MANY_ROWS_FORM == tsp.SPLIT
+    assert tsp.pick_form(tsp.SMALL_ROWS + 1) == tsp.SPLIT
+    assert tsp.pick_form(SCAN_CHUNK) == tsp.SPLIT
+    assert tsp.pick_form(12556) == tsp.SPLIT
 
 
 def test_reset_sets_row_8s_form_counts_to_0():
-    """Row 8's launches by form: the two forms, both set to 0 with the
+    """Row 8's launches by form: the three forms, all set to 0 with the
     launch counts."""
-    assert set(tfs.spatializer_forms) == {tsp.CLUSTER, tsp.LAUNCH_B}
+    assert set(tfs.spatializer_forms) == {tsp.CLUSTER, tsp.LAUNCH_B, tsp.SPLIT}
     tfs.spatializer_forms[tsp.CLUSTER] += 2
     tfs.reset_launches()
     assert set(tfs.spatializer_forms.values()) == {0}
 
 
 def test_the_card_entry_refuses_an_unknown_form():
-    """The wrapper's private seam takes only the two forms, before it reads
-    any operand."""
-    with pytest.raises(ValueError, match="want 'cluster' or 'launch_b'"):
+    """The wrapper's private seam takes only the three forms, before it
+    reads any operand."""
+    with pytest.raises(ValueError, match="want 'cluster', 'launch_b' or 'split'"):
         tsp._cuda(torch.device("cpu"), 1, None, None, None, None, None, None, pad_len=1024,
                   bins=513, fpb=128, form="held")

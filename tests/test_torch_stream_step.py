@@ -160,8 +160,8 @@ def test_build_hashes_the_headers_a_source_includes(tmp_path, monkeypatch):
 
 def test_the_shipped_sources_share_the_forward_header():
     headers = {
-        "fused_step_onehot": ["cp_async.cuh", "fused_forward.cuh", "entry.cuh"],
-        "fused_step_gather": ["fused_forward.cuh", "entry.cuh"],
+        "fused_step_onehot": ["fused_forward.cuh", "cp_async.cuh", "entry.cuh"],
+        "fused_step_gather": ["fused_forward.cuh", "cp_async.cuh", "entry.cuh"],
         "assoc_probe": ["entry.cuh"],
         "dma_blend": ["cp_async.cuh", "entry.cuh"],
     }
