@@ -43,7 +43,15 @@ line:
              forms) at 1 x 8, 4 x 66 (segment and group ends inside tiles)
              and 16 x 256, compact and per-row distance, row 2 also with ids
              outside a group's table; rows 3-5 at 2048, row 7 at 16 x 512,
-             row 8 at 12,556 rows (random and duplicate brackets).
+             row 8 at 12,556 rows (random and duplicate brackets).  Launch
+             A's forms on the same operands, torch.equal in both XD planes:
+             the product form (and the few-block form up to FEW_NB blocks)
+             against the tile form, at the main path's shapes (256 x 64
+             with one triple, 16 x 256 per row and with 8 triples, 1 x
+             2048, 1 x 12,556, the live block's 1 x 1), ragged counts (1 x
+             2-9, 33, 65; 4 x 66; 3 x 9) and 1-8 triples with selectors
+             outside 1..n_dist-1 (4 x 66, 2 x 3), the product form within
+             1e-6 of the twin's peak.
   4. path    each main path with the launch counts set to 0 before and read
              after; rows 2-8 on the form their wrappers pick (the split form
              above row 8's cluster form), the scene path's rows 6 and 2
@@ -73,7 +81,10 @@ line:
              render_oracle: max|diff| <= 1e-6, RMS < 1e-4, the margin against
              the sweep's 2e-7 beside the JAX package's; each render takes the
              JAX dispatch's arm on every chunk; every kernel launched; each
-             live run's BlockStats against the 2.902 ms block deadline.
+             live run's BlockStats against the 2.902 ms block deadline;
+             launch A counted by form on every path (one launch a launch of
+             rows 1-6 and of row 8's forward form, none on the tile form,
+             every live block on the few-block form).
   5. probes  the probe scripts (jefferson_tpu_torch.scripts), the launch
              counts set to 0 just before: the association probe's stages
              A-D, the blend shootout and the error budget on the worst sweep
@@ -100,13 +111,19 @@ line:
              rows (the crossover that sets fused_step.SPLIT_FROM and row 8's
              MANY_ROWS_FORM); rows 9-12 with their device time alone, beside
              one PyTorch call of the same function (its events and its device
-             time alone), row 9's host path apart; the sparse side-pass at a
+             time alone), row 9's host path split into Python, ctypes and
+             the entry beside torch.mul's, and row 9's events against
+             torch.mul's; launch A's forms at the main path's shapes,
+             device time alone and events in turns (tile, picked, picked,
+             tile) beside the bound, and every form at 1 source x 1-32
+             blocks (the crossover that sets FEW_NB); the sparse side-pass at a
              scene_hold chunk's shape (device time, kernels per call, bound);
              each render's wall time (the scenes' host planning apart),
              render_scan's, and the device time by kernel of four renders and
              of 200 live blocks, moving and held; the unfused chain's warm
              render with each tail; beside the card.
-Then a {"kernels": [...]} line, the nvidia-smi line, and last
+Then a {"kernels": [...]} line (rows 1-12, and launch A at the scene step's
+16 x 256), the nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -140,6 +157,18 @@ PROD_ULP = 2.0**-22  # row 9 vs twin, of the plane's two |products|: one FMA con
 MM_REL = 2e-6        # rows 10-11 vs twin, of the output peak: fp32 sums in other orders
 BLEND_ROWS, BLEND_TB = 8448, 256  # row 12: 256 sources x 33 rows, the TPU tile
 
+# launch A's bit-equality cases (sources, blocks, n_dist or None for per-row
+# distance): the main path's shapes (the bench step, the scene steps, rows
+# 3-5's chunk, render_scan's rows, the live block), ragged counts, and
+# selectors with 1-8 triples, some outside 1..n_dist-1
+FWD_MAIN = ((256, 64, 1), (16, 256, None), (16, 256, 8), (1, STREAM_B, None),
+            (1, SCAN_B, None), (1, 1, None))
+FWD_CASES = (FWD_MAIN + tuple((1, nb, None) for nb in (*range(2, 10), 33, 65))
+             + ((4, 66, None), (3, 9, None))
+             + tuple((s_, nb, n) for n in range(1, 9) for s_, nb in ((4, 66), (2, 3))))
+FWD_NB = (1, 2, 4, 6, 8, 9, 12, 16, 32)   # launch A's forms at 1 source: sets FEW_NB
+LAUNCH_A = "forward_distance"
+
 GATHER = "jefferson_tpu_torch/csrc/fused_step_gather.cu"
 ONEHOT = "jefferson_tpu_torch/csrc/fused_step_onehot.cu"
 ASSOC = "jefferson_tpu_torch/csrc/assoc_probe.cu"
@@ -161,6 +190,10 @@ KERNELS = {
     "mm": (ASSOC, "scripts/apply_assoc_probe.py:97"),
     "mm_tree": (ASSOC, "scripts/apply_assoc_probe.py:145"),
     "dma_blend": (DMA, "scripts/bench_blend_variants.py:98"),
+    # launch A, run inside rows 1-6 and row 8's forward form: the TPU
+    # kernels' shared in-kernel forward (_forward_planes)
+    LAUNCH_A: ("jefferson_tpu_torch/csrc/fused_forward.cuh",
+               "jefferson_tpu/pallas/fused_step.py:273"),
 }
 PROBES = ("prod", "mm", "mm_tree", "dma_blend")
 # probe kernel -> its CUDA function, as torch.profiler names it
@@ -323,6 +356,19 @@ def drive_live(db, device, positions, signals):
     return stats, np.stack([np.concatenate(rec) for rec in records]), spats
 
 
+def launch_a_fault(where: str, launched: dict, forms: dict) -> str | None:
+    """Launch A's launches on a counted path against its steps': one a
+    launch of rows 1-6 and of row 8's forward form (every row-8 launch of
+    the live and scan paths), none on the tile form; the fault, or None."""
+    from jefferson_tpu_torch.kernels import fused_step as fs
+
+    want = sum(v for k, v in launched.items()
+               if not k.startswith("fused_apply") and k not in PROBES)
+    if sum(forms.values()) != want or forms[fs.FWD_TILE] or not want:
+        return f"{where}: launch A by form {forms}, want {want} launches off the tile form"
+    return None
+
+
 def nbytes(*tensors) -> int:
     """Bytes of the tensors among ``tensors`` (each read or written once)."""
     import torch
@@ -462,6 +508,85 @@ def split_forms(bench, db, device, geo, errs) -> bool:
             return False
         errs[SPATIALIZER] = max(errs[SPATIALIZER], err)
     return True
+
+
+def forward_forms(bench, device, geo, errs) -> bool:
+    """Launch A's forms on the same operands at FWD_CASES: the product form
+    (and the few-block form up to FEW_NB blocks) bit-equal (torch.equal)
+    to the tile form in both XD planes, and within FWD_REL of the twin's
+    peak; fills ``errs`` -> False on a failure."""
+    import torch
+
+    from jefferson_tpu_torch.kernels import fused_step as fs
+
+    for s_, nb, n_dist in FWD_CASES:
+        ops = bench.forward_operands(s_, nb, device, seed=s_ * 1000 + nb, n_dist=n_dist)
+        forms = [fs.FWD_TILE, fs.FWD_PRODUCT] + ([fs.FWD_FEW] if nb <= fs.FEW_NB else [])
+        xd = {f: fs._forward_cuda(*ops, form=f, **geo) for f in forms}
+        want = fs._forward_reference(*ops, **geo)
+        torch.cuda.synchronize()
+        same = {f: all(torch.equal(a, b) for a, b in zip(xd[f], xd[fs.FWD_TILE]))
+                for f in forms[1:]}
+        peak = max(float(a.abs().max()) for a in want)
+        err = max(float((a - b).abs().max()) for a, b in zip(xd[fs.FWD_PRODUCT], want))
+        finite = all(bool(torch.isfinite(a).all()) for a in xd[fs.FWD_PRODUCT])
+        dist = ("per-row distance" if n_dist is None
+                else f"{n_dist} triples, selectors -2..{n_dist + 1}")
+        say("kernel", f"launch A, {s_}x{nb}, {dist}: "
+                      f"bit-equal to the tile form: {same}; max|XD - twin| {err:.3e} of peak "
+                      f"{peak:.2f} (limit {FWD_REL:.0e} x peak); picked "
+                      f"{fs.forward_form(nb)}")
+        if not (all(same.values()) and err <= FWD_REL * peak and finite):
+            fail("kernel", f"launch A's forms disagree at {s_}x{nb}, n_dist {n_dist}")
+            return False
+        errs[LAUNCH_A] = max(errs[LAUNCH_A], err)
+    return True
+
+
+def forward_bench(bench, device, geo, times, bounds) -> None:
+    """Launch A's forms at FWD_MAIN, device time alone (torch.profiler) and
+    CUDA events, in turns (tile, picked, picked, tile), beside the bound;
+    then every form at 1 source x FWD_NB blocks (the crossover that sets
+    FEW_NB).  The scene step's 16 x 256 per-row shape fills ``times`` and
+    ``bounds`` for the kernels line."""
+    from jefferson_tpu_torch.kernels import fused_step as fs
+
+    alone = lambda call: sum(ms for kernel, ms, _ in bench.device_profile(call, calls=20)
+                             if LAUNCH_A in kernel)
+    for s_, nb, n_dist in FWD_MAIN:
+        ops = bench.forward_operands(s_, nb, device, seed=7, n_dist=n_dist)
+        picked = fs.forward_form(nb)
+        call = lambda f: lambda: fs._forward_cuda(*ops, form=f, **geo)
+        order = (fs.FWD_TILE, picked, picked, fs.FWD_TILE)
+        ev = {}
+        for f in order:
+            ev.setdefault(f, []).append(bench.time_ms(call(f)))
+        dev = {f: alone(call(f)) for f in (picked, fs.FWD_TILE)}
+        plain = bench.time_ms(lambda: fs._forward_reference(*ops, **geo))
+        bound = bench.bound_ms(bench.forward_flops(s_, nb),
+                               bench.forward_bytes(s_, nb, n_dist=n_dist))
+        dist = "per-row distance" if n_dist is None else f"{n_dist} triple(s)"
+        say("bench", f"launch A {s_}x{nb}, {dist}: "
+                     f"{picked} (main path) {dev[picked]:.4f} ms device time alone (events "
+                     f"{ev[picked][0]:.4f}/{ev[picked][1]:.4f}), tile form {dev[fs.FWD_TILE]:.4f} "
+                     f"(events {ev[fs.FWD_TILE][0]:.4f}/{ev[fs.FWD_TILE][1]:.4f}); twin "
+                     f"{plain:.4f} "
+                     f"ms; bound {bound[0]:.5f} ms ({bound[1]})  [{bench.card()}]")
+        if (s_, nb, n_dist) == (SCENE_S, 256, None):
+            times[LAUNCH_A] = (sum(ev[picked]) / 2, plain)
+            bounds[LAUNCH_A] = bound
+    took = {}
+    for nb in FWD_NB:
+        ops = bench.forward_operands(1, nb, device, seed=nb)
+        forms = [fs.FWD_TILE, fs.FWD_PRODUCT] + ([fs.FWD_FEW] if nb <= fs.FEW_NB else [])
+        took[nb] = {f: alone(lambda: fs._forward_cuda(*ops, form=f, **geo)) for f in forms}
+    few_to = max((nb for nb, t in took.items()
+                  if fs.FWD_FEW in t and t[fs.FWD_FEW] < t[fs.FWD_PRODUCT]), default=0)
+    say("bench", "launch A at 1 source, device time alone (tile / product / few) at "
+                 + ", ".join(f"{nb}: " + " / ".join(f"{t[f]:.4f}" for f in t)
+                             for nb, t in took.items())
+                 + f" ms; the few-block form takes less than the product form up to {few_to} "
+                   f"blocks (FEW_NB = {fs.FEW_NB})  [{bench.card()}]")
 
 
 def probe_scripts(device, errs, db, noise, budget_pos, budget_oracle):
@@ -760,6 +885,8 @@ def run(pool) -> int:
         return 1
     if not split_forms(bench, db, device, geo, errs):
         return 1
+    if not forward_forms(bench, device, geo, errs):
+        return 1
 
     # ---- the batched main path, counted ------------------------------------
     wl = bench.build_workload(db, S, NB, device)
@@ -777,10 +904,13 @@ def run(pool) -> int:
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     batched = dict(fused_step.launches)
+    fwd_forms = {"batched": dict(fused_step.forward_launches)}
 
     row1 = batched["fused_step_onehot_xfade"]
     if row1 < 4 + RENDER_B // 256 or sum(batched.values()) != row1:
         return fail("path", f"the batched path launched {batched}")
+    if fault := launch_a_fault("the batched path", batched, fwd_forms["batched"]):
+        return fail("path", fault)
     finite = bool(torch.isfinite(first).all()) and bool(torch.isfinite(out).all())
     if first.shape != (S, NB, fpb, 2) or not finite:
         return fail("path", f"bench step output {tuple(first.shape)} not finite / not (S, nb, fpb, 2)")
@@ -812,6 +942,9 @@ def run(pool) -> int:
         walls[name] = time.perf_counter() - t0
         logs[name] = r.dispatch
     single = dict(fused_step.launches)
+    fwd_forms["single"] = dict(fused_step.forward_launches)
+    if fault := launch_a_fault("the single-source path", single, fwd_forms["single"]):
+        return fail("path", fault)
 
     def margin_line(name, d_max, d_rms):
         jax = JAX_MARGIN.get(name)
@@ -878,6 +1011,9 @@ def run(pool) -> int:
                                 f"form, want every launch on {form}")
         del got
     scene_launches = dict(fused_step.launches)
+    fwd_forms["scene"] = dict(fused_step.forward_launches)
+    if fault := launch_a_fault("the scene path", scene_launches, fwd_forms["scene"]):
+        return fail("path", fault)
     say("path", f"scene launches: {scene_launches}, on the split form "
                 f"{ {k: v for k, v in fused_step.split_launches.items() if v} }")
     for kernel in ("fused_step_xfade", "fused_step_xfade/no_xfade", fused_step.GROUPED):
@@ -901,6 +1037,9 @@ def run(pool) -> int:
             return fail("path", f"render_scan {name}: the port disagrees with the oracle")
     scan_launches = {k: v for k, v in fused_step.launches.items() if v}
     scan_forms = {k: v for k, v in fused_step.spatializer_forms.items() if v}
+    fwd_forms["scan"] = dict(fused_step.forward_launches)
+    if fault := launch_a_fault("render_scan", scan_launches, fwd_forms["scan"]):
+        return fail("path", fault)
     scan_form = fused_spatializer.MANY_ROWS_FORM
     if scan_launches != {SPATIALIZER: 2} or scan_forms != {scan_form: 2}:
         return fail("path", f"render_scan launched {scan_launches} as {scan_forms}, want "
@@ -911,6 +1050,12 @@ def run(pool) -> int:
         stats, got, spats = drive_live(db, device, pos, sigs)
         launched = {k: v for k, v in fused_step.launches.items() if v}
         forms = dict(fused_step.spatializer_forms)
+        fwd_forms[f"live {name}"] = fwd = dict(fused_step.forward_launches)
+        if fwd[fused_step.FWD_FEW] != sum(fwd.values()):
+            return fail("path", f"live {name}: launch A by form {fwd}, want every block on the "
+                                f"few-block form")
+        if fault := launch_a_fault(f"live {name}", launched, fwd):
+            return fail("path", fault)
         n_src, n_blk = pos.shape[:2]
         crossfades = sum(sp.crossfades for sp in spats)
         live_launches += forms["cluster"]
@@ -921,7 +1066,8 @@ def run(pool) -> int:
         say("path", f"live {name}: {n_src} source(s) x {n_blk} blocks, "
                     f"{crossfades} crossfades, one shared table: {shared}, "
                     f"launches {launched} (prime: 2 per source), row 8 by form "
-                    f"{ {k: v for k, v in forms.items() if v} }; every source vs render_oracle "
+                    f"{ {k: v for k, v in forms.items() if v} }, launch A by form "
+                    f"{ {k: v for k, v in fwd.items() if v} }; every source vs render_oracle "
                     f"max|diff| {d_max:.3e} (limit {ORACLE_TOL:.0e}), rms {d_rms:.3e}; "
                     f"{stats.summary()}; median {np.median(ms):.4f} ms, p90 "
                     f"{np.percentile(ms, 90):.4f} ms  [{bench.card()}]")
@@ -993,6 +1139,7 @@ def run(pool) -> int:
                          f"{bounds[name][0]:.6f} ms ({bounds[name][1]})  [{bench.card()}]")
     row8_crossover(bench, db, device, geo)
     split_crossover(bench, db, device)
+    forward_bench(bench, device, geo, times, bounds)
     for name, (fn, args, kw, flops, moved, lib) in probe_timed(device).items():
         k = lambda: fn(*args, **kw)
         p = lambda: twin(fn)(*args, **kw)
@@ -1014,7 +1161,10 @@ def run(pool) -> int:
                      f"{lib_ms:.4f} ms (device time alone {lib_alone:.4f} ms), bound "
                      f"{bounds[name][0]:.5f} ms ({bounds[name][1]})  [{bench.card()}]")
         if name == "prod":
-            prod_host_path(bench, device, args)
+            prod_host_path(bench, device, args, lib)
+            card_ms = (kernel_a + kernel_b) / 2
+            say("bench", f"prod (row 9) card ms {card_ms:.4f} against torch.mul's {lib_ms:.4f} "
+                         f"in this run: at or under it {card_ms <= lib_ms}  [{bench.card()}]")
     for name, (pos, opts, _) in scenarios.items():
         r = Renderer(db, device=device, **opts)
         t0 = time.perf_counter()
@@ -1096,7 +1246,9 @@ def run(pool) -> int:
 
     launches = {**single, **{k: v for k, v in scene_launches.items() if v},
                 "fused_step_onehot_xfade": row1, SPATIALIZER: 2 + live_launches,
-                **{name: probe_launches[name] for name in PROBES}}
+                **{name: probe_launches[name] for name in PROBES},
+                LAUNCH_A: sum(sum(f.values()) for f in fwd_forms.values())}
+    say("path", f"launch A on the counted paths by form: {fwd_forms}")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -1108,8 +1260,9 @@ def run(pool) -> int:
         "plain_ms": times[name][1],
         "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1],
-        # launch B's form on the main path (rows 1-8); rows 9-12 have one
-        "form": forms_of.get(name),
+        # launch B's form on the main path (rows 1-8), launch A's at 16 x 256;
+        # rows 9-12 have one
+        "form": forms_of.get(name, fused_step.forward_form(256) if name == LAUNCH_A else None),
         # no single PyTorch call computes a fused step (rows 1-8)
         "library_ms": times[name][2] if name in PROBES else None,
     } for name, (source, replaces) in KERNELS.items()]}))
@@ -1227,9 +1380,13 @@ def row8_crossover(bench, db, device, geo) -> None:
                  f"to {last_cluster} rows of {CROSSOVER_ROWS}; SMALL_ROWS = {fsp.SMALL_ROWS}")
 
 
-def prod_host_path(bench, device, args) -> None:
-    """Row 9's call on the host clock: the wrapper, and its ctypes entry
-    alone on preallocated outputs, per call, queued without a sync."""
+def prod_host_path(bench, device, args, lib_call) -> None:
+    """Row 9's call on the host clock, per call, 200 calls queued without a
+    sync: the wrapper; its ctypes entry alone on preallocated outputs; the
+    same ctypes call with nothing to launch (n = 0: the argument
+    conversions and the call); and ``lib_call``, one torch.mul of the same
+    function.  Split: Python = wrapper - entry, ctypes = the empty call,
+    the entry's launch path = entry - empty call."""
     import torch
 
     from jefferson_tpu_torch.kernels import assoc_probe
@@ -1237,20 +1394,25 @@ def prod_host_path(bench, device, args) -> None:
     out = [torch.empty_like(args[0]) for _ in range(2)]
     stream = torch.cuda.current_stream(device).cuda_stream
     lib, ptrs = assoc_probe._lib(), [t.data_ptr() for t in (*args, *out)]
-    raw = lambda: lib.jt_prod(device.index, stream, *ptrs, args[0].numel())
-    wrapper = lambda: assoc_probe.prod(*args)
+    calls = {
+        "wrapper": lambda: assoc_probe.prod(*args),
+        "entry": lambda: lib.jt_prod(device.index, stream, *ptrs, args[0].numel()),
+        "empty": lambda: lib.jt_prod(device.index, stream, *ptrs, 0),
+        "torch.mul": lib_call,
+    }
     host = {}
-    for what, fn in (("wrapper", wrapper), ("entry", raw), ("wrapper", wrapper),
-                     ("entry", raw)):
+    for what in (*calls, *reversed(calls)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(200):
-            fn()
+            calls[what]()
         host.setdefault(what, []).append((time.perf_counter() - t0) * 1e3 / 200)
         torch.cuda.synchronize()
-    say("bench", f"prod (row 9) host path per call, 200 calls queued: wrapper "
-                 f"{min(host['wrapper']):.4f} ms, its ctypes entry alone "
-                 f"{min(host['entry']):.4f} ms  [{bench.card()}]")
+    h = {what: min(t) for what, t in host.items()}
+    say("bench", f"prod (row 9) host path per call, 200 calls queued: wrapper {h['wrapper']:.4f} "
+                 f"ms = Python {h['wrapper'] - h['entry']:.4f} + ctypes {h['empty']:.4f} + the "
+                 f"entry's launch path {h['entry'] - h['empty']:.4f}; torch.mul "
+                 f"{h['torch.mul']:.4f} ms  [{bench.card()}]")
 
 
 def sidepass_bench(bench, db, device, cfg, calls: int) -> None:

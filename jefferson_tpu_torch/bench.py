@@ -450,10 +450,48 @@ def spatializer_step(db, rows: int, device, *, seed: int = 0, xf_every: int = 7,
             put(xf))
 
 
+def forward_operands(sources: int, nb: int, device, *, seed: int = 0, n_dist: int | None = None,
+                     config=DEFAULT_CONFIG):
+    """Launch A's operands for S sources x nb blocks, made from ``seed`` on
+    ``device`` -> (streams, nb, uh, ul, fr, dsel, n_dist), the argument
+    order of kernels/fused_step._forward_reference: 0.2-std noise, the
+    phase split of a radius in 0.3-2.0 per row, or with ``n_dist`` one per
+    triple of 8 and a selector a row drawn from -2 .. n_dist + 1, so some
+    fall outside 1..n_dist-1 (triple 0)."""
+    rng = np.random.default_rng(seed)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    fpb = config.frames_per_buffer
+    streams = rng.standard_normal((sources, config.history_len + nb * fpb)) * 0.2
+    n_trip = sources * nb if n_dist is None else 8
+    radii = rng.uniform(0.3, 2.0, n_trip).astype(np.float32) / np.float32(config.distance_scale)
+    dist = distance_phase_split(config.fsvs, radii, config.num_bins)
+    dsel = None if n_dist is None else \
+        put(rng.integers(-2, n_dist + 2, (sources * nb, 1)).astype(np.int32))
+    return (put(streams.astype(np.float32)), nb, *(put(a[:, None]) for a in dist), dsel, n_dist)
+
+
 # The card's peaks for the bound of a step: fp32 outside the tensor cores
 # and HBM bandwidth, from NVIDIA's H100 SXM data sheet (at a 700 W limit).
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+
+
+def forward_flops(sources: int, nb: int, fpb: int = 128, bins: int = 513, q: int = 8) -> float:
+    """The fp32 operations of launch A for S sources x nb blocks: one
+    128-sample DFT per sub-block (nb + q - 1 a source, re and im), and per
+    row and bin the twiddle sum and the distance multiply."""
+    return float(sources * (nb + q - 1) * 4 * fpb * bins + sources * nb * bins * (8 * (q - 1) + 6))
+
+
+def forward_bytes(sources: int, nb: int, fpb: int = 128, bins: int = 513, q: int = 8,
+                  n_dist: int | None = None) -> int:
+    """The bytes launch A must move: its streams, DFT basis, twiddles and
+    distance operands (per row, or n_dist triples and a selector a row)
+    read once, its XD planes written once."""
+    rows = sources * nb
+    dist = 3 * rows * 4 if n_dist is None else 3 * n_dist * 4 + rows * 4
+    return 4 * (sources * (nb + q - 1) * fpb + 2 * fpb * bins + 2 * q * bins
+                + 2 * rows * bins) + dist
 
 
 def step_flops(kernel: str, sources: int, nb: int, fpb: int = 128, bins: int = 513,
@@ -470,7 +508,7 @@ def step_flops(kernel: str, sources: int, nb: int, fpb: int = 128, bins: int = 5
     sides = 1 if kernel.endswith("/no_xfade") else 2
     flops = sides * 2 * rows * (6 * bins + 4 * bins * fpb)  # tails
     if not kernel.startswith(("fused_apply", "fused_spatializer")):
-        flops += sources * (nb + q - 1) * 4 * fpb * bins + rows * bins * (8 * (q - 1) + 6)
+        flops += forward_flops(sources, nb, fpb, bins, q)
     if "onehot" in kernel or kernel.startswith("fused_spatializer"):
         flops += sides * rows * 4 * bins * 4 * 2
     return float(flops)

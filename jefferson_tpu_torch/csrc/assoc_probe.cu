@@ -288,10 +288,12 @@ cudaError_t launch_mm(cudaStream_t stream, const float* qr, const float* qi, con
 
 }  // namespace
 
-// Row 9 on n elements of four planes.  Launches on ``stream`` of ``device``
-// without synchronising and returns the first CUDA error.
+// Row 9 on n elements of four planes (n < 1: nothing to launch).  Launches
+// on ``stream`` of ``device`` without synchronising and returns the first
+// CUDA error.
 extern "C" int jt_prod(int device, void* stream, const float* xr, const float* xi,
                        const float* gr, const float* gi, float* qr, float* qi, long long n) {
+  if (n < 1) return cudaSuccess;
   return on_device(device, [&]() {
     const long long blocks = (n + PROD_THREADS - 1) / PROD_THREADS;
     prod_kernel<<<(unsigned)blocks, PROD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(

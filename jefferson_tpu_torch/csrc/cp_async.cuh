@@ -1,7 +1,8 @@
 // Asynchronous global-to-shared copies (cp.async, sm_80 and up), shared by
 // the kernels that stage their operands in shared memory this way:
-// dma_blend.cu, the few-row form of row 8 in fused_step_onehot.cu and
-// launch B's split form in fused_forward.cuh.
+// dma_blend.cu, the few-row form of row 8 in fused_step_onehot.cu, and
+// launch A's tiled-product form and launch B's split form in
+// fused_forward.cuh.
 //
 // A thread's copies join a group at cp_async_commit(); cp_async_wait<N>()
 // returns once at most N of the thread's groups are still in flight.  Each
@@ -16,6 +17,12 @@ namespace {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// 4 bytes; both addresses 4-byte aligned (through L1: .cg takes 16 only).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

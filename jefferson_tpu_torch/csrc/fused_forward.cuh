@@ -2,7 +2,7 @@
 // fused_step_gather.cu): launch A, the in-kernel forward DFT and distance
 // cue, and the tail-IDFT inner loop of launch B.
 //
-// Launch A (forward_distance) replaces the TPU kernels' shared forward,
+// Launch A (launch_forward_distance) replaces the TPU kernels' shared forward,
 // jefferson_tpu/pallas/fused_step.py _forward_planes (:273) with
 // _select_distance (:163) and _distance_planes (:259).  Per output row
 // r = s*nb + b (source s, block b) it computes
@@ -10,11 +10,14 @@
 //   X[r]  = sum_{m<8} tw[m] * P[s, b+m],  P = 128-sample sub-block DFTs
 //   XD[r] = X[r] * D(u_hi, u_lo, inv_frac)
 //
-// One CTA per (32 blocks, 64 bins, source): the sub-block samples and a
-// (128 x 64) slice of the DFT basis sit in shared memory, the twiddle sum
-// and the distance multiply run on the CTA's P tile, and XD goes to a
-// scratch buffer (rows x 513 x 2 floats) that launch B reads.  Every form
-// runs this one launch, so the forward is bit-identical between them.
+// XD goes to a scratch buffer (rows x 513 x 2 floats) that launch B reads.
+// Launch A has three forms with the same bits (launch_forward_form): the
+// tile form (forward_distance: one CTA per (32 blocks, 64 bins, source),
+// the sub-block samples and a (128 x 64) slice of the DFT basis in shared
+// memory, the twiddle sum and the distance multiply on the CTA's P tile),
+// kept to hold the others against; the product form, which the render
+// steps take; and the few-block form, which they take at nb <= FEW_NB
+// blocks a source (the live step).  Every launch B form reads the same XD.
 //
 // Numerics: every product whose rounding the JAX op order fixes (twiddle
 // sum, distance planes with the 12-bit phase split, complex multiplies) is
@@ -24,6 +27,8 @@
 // library functions: build without fast math.
 
 #pragma once
+
+#include <atomic>
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -159,19 +164,481 @@ forward_distance(const float* __restrict__ streams, int nb,
   }
 }
 
-// Launch A over num_sources streams of nb blocks each (rows = num_sources*nb).
+// cudaFuncSetAttribute for a kernel's dynamic shared memory, once per
+// process and device: ``done`` is the kernel's mask of devices already set
+// (a runtime call on every launch is host time on the live block's path).
+template <typename Kernel>
+inline cudaError_t allow_smem_once(Kernel kernel, size_t bytes,
+                                   std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+std::atomic<unsigned long long> tile_smem_set{0};
+
+// ---- launch A's product form and few-block form ---------------------------
+//
+// The forward is a product P = subs @ basis ((S*(nb+7)) x 128 by 128 x 513,
+// re and im) followed per output by a twiddle sum over 8 rows of P and the
+// distance multiply.  Sub-block j of source s is flat row g = s*(nb+7) + j
+// of the contiguous streams array (samples g*128 ..), so the product runs
+// over every source's rows at once; output row s*nb + j reads P rows g ..
+// g+7.  Both forms keep the tile form's bits: each P[g, k] is one fmaf
+// chain over the 128 samples in ascending order from 0, and the twiddle
+// sum, distance plane and complex multiply are the same code on the same
+// values.
+//
+// Product form (forward_distance_product).  What held the tile form back
+// (PERF.md, launch A): 12 shared-memory loads for 20 FFMAs in its DFT loop,
+// each sub-block's DFT computed 1.25x over, a ninth bin tile holding bin
+// 512 alone, and precise cosf/sinf for every row and bin.  Here a CTA
+// multiplies G_ROWS = 64 consecutive flat rows by a 64-bin slice (8
+// slices; the last also carries bin 512, so no CTA works on one bin), K in
+// four 32-sample chunks, two chunks in flight by cp.async.  A thread holds
+// a 4-row x 4-bin tile of both planes (rows rg + 16i, so a warp's float4
+// row loads fall in distinct banks): per sample 3 shared-memory wavefronts
+// a warp for 32 FFMAs, 80 registers, three CTAs an SM.  The tile's P then
+// lies in shared memory, and each thread runs down one bin column over a
+// quarter of the tile's outputs, reading one new P row an output.  The
+// G_OUT = 57 output starts whose 8 rows lie in the tile are its own, so
+// tiles step by 57 rows and each P row is computed 1.12x over.  128-row
+// tiles (8 x 4 a thread, two CTAs an SM) took 3-6% less at 256 x 64 and up
+// to 1.3x longer at the other shapes: they leave the last wave of a grid
+// nearly empty (PERF.md, launch A).
+// With a triple selector (n_dist <= D_UNIQ) the distance planes are
+// computed once a CTA per (triple, bin), while the first chunks are in
+// flight, and selected per row, as the JAX package's _select_distance does
+// (the same function of triple and bin, so the same bits); without one,
+// per row.
+constexpr int D_UNIQ = 8;                     // fused_step.MAX_DIST_UNIQ
+constexpr int G_ROWS = 64;                    // flat sub-block rows a tile
+constexpr int G_RT = G_ROWS / 16;             // rows a thread
+constexpr int G_OUT = G_ROWS - Q + 1;         // output starts a tile
+constexpr int G_KT = 64;                      // bins a slice
+constexpr int G_SLICES = (BINS - 1) / G_KT;   // 8; the last also bin 512
+constexpr int G_KC = 32;                      // samples a K chunk
+constexpr int G_CHUNKS = FPB / G_KC;
+constexpr int G_THREADS = 256;                // 16 row groups x 16 bin groups
+constexpr int G_AS = G_KC + 4;                // padded row stride of an A chunk
+constexpr int G_BS = 2 * G_KT;                // a B chunk row: 64 re | 64 im
+constexpr int G_STAGE = G_ROWS * G_AS + G_KC * G_BS + 2 * G_KC;   // A, B, bin 512's B
+constexpr int G_PS = G_KT + 4;                // P row stride: the slice, then bin 512
+constexpr int G_PLANE = G_ROWS * G_PS;
+constexpr int G_DS = G_KT + 1;                // distance table row: the slice, bin 512
+constexpr int G_RUN = (G_OUT + 3) / 4;        // outputs a thread's run (4 runs a column)
+constexpr int G_BUF = 2 * G_STAGE > 2 * G_PLANE ? 2 * G_STAGE : 2 * G_PLANE;
+constexpr size_t G_SMEM = sizeof(float) * (G_BUF + 2 * D_UNIQ * G_DS);
+static_assert(G_SLICES * G_KT == BINS - 1, "slices cover bins 0-511");
+static_assert(G_STAGE % 4 == 0 && G_PLANE % 4 == 0 && G_BUF % 4 == 0, "float4 alignment");
+
+std::atomic<unsigned long long> product_smem_set[2];   // by VEC
+
+// The twiddle sum of an output from the 8 P values w[0..7] of its window.
+__device__ __forceinline__ void twiddle_sum(const float (&wr)[Q], const float (&wi)[Q],
+                                            const float (&tr)[Q], const float (&ti)[Q],
+                                            float* xr_out, float* xi_out) {
+  float xr = wr[0], xi = wi[0];
+#pragma unroll
+  for (int m = 1; m < Q; ++m) {
+    xr = __fadd_rn(xr, __fsub_rn(__fmul_rn(tr[m], wr[m]), __fmul_rn(ti[m], wi[m])));
+    xi = __fadd_rn(xi, __fadd_rn(__fmul_rn(tr[m], wi[m]), __fmul_rn(ti[m], wr[m])));
+  }
+  *xr_out = xr;
+  *xi_out = xi;
+}
+
+// A row's triple: itself, or its selector where one is given (outside
+// 1..n_dist-1: triple 0, as on the TPU).
+__device__ __forceinline__ int triple_of(int row, const int* __restrict__ dsel, int n_dist) {
+  if (!dsel) return row;
+  const int t = dsel[row];
+  return t > 0 && t < n_dist ? t : 0;
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// A tile's outputs from its P planes [row][G_PS]: the output starts g0 ..
+// g0 + G_OUT - 1 that are blocks of a source.  Thread t runs down bin
+// column t % 64 over a quarter of them, its window of 8 P rows sliding one
+// row an output (four outputs in flight a thread measured no faster); in
+// the last slice, bin 512 takes one output a thread.
+__device__ __forceinline__ void tile_outputs(
+    const float* pr, const float* pi, const float* dtab, bool table, bool nyq, int t, int g0,
+    int total, int nb, int k0, const float* __restrict__ uh, const float* __restrict__ ul,
+    const float* __restrict__ fr, const int* __restrict__ dsel, int n_dist,
+    const float* __restrict__ twr, const float* __restrict__ twi,
+    float* __restrict__ xdr, float* __restrict__ xdi) {
+  const int L = nb + Q - 1;
+  const int n_out = min(G_OUT, total - (Q - 1) - g0);
+  const float* dti = dtab + D_UNIQ * G_DS;
+  const int col = t & (G_KT - 1);
+  const int o0 = (t / G_KT) * G_RUN, o1 = min(o0 + G_RUN, n_out);
+  const int k = k0 + col;
+  if (o0 < o1) {
+    float tr[Q], ti[Q], wr[Q], wi[Q];
+#pragma unroll
+    for (int m = 1; m < Q; ++m) {
+      tr[m] = twr[m * BINS + k];
+      ti[m] = twi[m * BINS + k];
+    }
+#pragma unroll
+    for (int m = 0; m < Q - 1; ++m) {
+      wr[m] = pr[(o0 + m) * G_PS + col];
+      wi[m] = pi[(o0 + m) * G_PS + col];
+    }
+    const int g = g0 + o0;
+    int s = g / L, j = g - s * L;   // output o's source and block
+    const float kf = (float)k;
+    for (int o = o0; o < o1; ++o) {
+      wr[Q - 1] = pr[(o + Q - 1) * G_PS + col];
+      wi[Q - 1] = pi[(o + Q - 1) * G_PS + col];
+      if (j < nb) {
+        float xr, xi, dr, di;
+        twiddle_sum(wr, wi, tr, ti, &xr, &xi);
+        const int row = s * nb + j;
+        const int d = triple_of(row, dsel, n_dist);
+        if (table) {
+          dr = dtab[d * G_DS + col];
+          di = dti[d * G_DS + col];
+        } else {
+          distance_plane(uh[d], ul[d], fr[d], kf, &dr, &di);
+        }
+        cmul_rn(xr, xi, dr, di, &xdr[(size_t)row * BINS + k], &xdi[(size_t)row * BINS + k]);
+      }
+#pragma unroll
+      for (int m = 0; m < Q - 1; ++m) {
+        wr[m] = wr[m + 1];
+        wi[m] = wi[m + 1];
+      }
+      if (++j == L) {
+        j = 0;
+        ++s;
+      }
+    }
+  }
+  if (nyq && t < n_out) {
+    const int g = g0 + t, s = g / L, j = g - s * L;
+    if (j < nb) {
+      float tr[Q], ti[Q], wr[Q], wi[Q], xr, xi, dr, di;
+#pragma unroll
+      for (int m = 0; m < Q; ++m) {
+        tr[m] = twr[m * BINS + BINS - 1];
+        ti[m] = twi[m * BINS + BINS - 1];
+        wr[m] = pr[(t + m) * G_PS + G_KT];
+        wi[m] = pi[(t + m) * G_PS + G_KT];
+      }
+      twiddle_sum(wr, wi, tr, ti, &xr, &xi);
+      const int row = s * nb + j;
+      const int d = triple_of(row, dsel, n_dist);
+      if (table) {
+        dr = dtab[d * G_DS + G_KT];
+        di = dti[d * G_DS + G_KT];
+      } else {
+        distance_plane(uh[d], ul[d], fr[d], (float)(BINS - 1), &dr, &di);
+      }
+      cmul_rn(xr, xi, dr, di, &xdr[(size_t)row * BINS + BINS - 1],
+              &xdi[(size_t)row * BINS + BINS - 1]);
+    }
+  }
+}
+
+template <bool VEC>  // VEC: streams 16-byte aligned, its rows copied 16 bytes at a time
+__global__ void __launch_bounds__(G_THREADS, 3)
+forward_distance_product(const float* __restrict__ streams, int num_sources, int nb,
+                         const float* __restrict__ uh, const float* __restrict__ ul,
+                         const float* __restrict__ fr, const int* __restrict__ dsel,
+                         int n_dist,
+                         const float* __restrict__ cfr, const float* __restrict__ cfi,
+                         const float* __restrict__ twr, const float* __restrict__ twi,
+                         float* __restrict__ xdr, float* __restrict__ xdi) {
+  extern __shared__ __align__(16) float smem[];
+  float* dtab = smem + G_BUF;                 // [plane][triple][G_DS]
+  const int tid = threadIdx.x;
+  const int total = num_sources * (nb + Q - 1);   // flat sub-block rows
+  const int g0 = blockIdx.x * G_OUT;
+  const int k0 = blockIdx.y * G_KT;
+  const bool nyq = blockIdx.y == G_SLICES - 1;
+
+  auto load_chunk = [&](int c) {
+    float* as = smem + (c & 1) * G_STAGE;
+    float* bs = as + G_ROWS * G_AS;
+    float* bn = bs + G_KC * G_BS;
+    const int n0 = c * G_KC;
+    if (VEC) {
+      for (int i = tid; i < G_ROWS * G_KC / 4; i += G_THREADS) {
+        const int r = i / (G_KC / 4), q4 = 4 * (i % (G_KC / 4));
+        float* dst = as + r * G_AS + q4;
+        if (g0 + r < total)
+          cp_async16(dst, streams + (size_t)(g0 + r) * FPB + n0 + q4);
+        else
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    } else {
+      for (int i = tid; i < G_ROWS * G_KC; i += G_THREADS) {
+        const int r = i / G_KC, n = i % G_KC;
+        if (g0 + r < total)
+          cp_async4(as + r * G_AS + n, streams + (size_t)(g0 + r) * FPB + n0 + n);
+        else
+          as[r * G_AS + n] = 0.f;
+      }
+    }
+    for (int i = tid; i < G_KC * G_KT; i += G_THREADS) {
+      const int n = i / G_KT, kk = i % G_KT;
+      const size_t src = (size_t)(n0 + n) * BINS + k0 + kk;
+      cp_async4(bs + n * G_BS + kk, cfr + src);
+      cp_async4(bs + n * G_BS + G_KT + kk, cfi + src);
+    }
+    if (nyq && tid < 2 * G_KC)  // bn[2n + plane]: bin 512 of sample n0 + n
+      cp_async4(bn + tid, ((tid & 1) ? cfi : cfr) + (size_t)(n0 + (tid >> 1)) * BINS + BINS - 1);
+    cp_async_commit();
+  };
+
+  load_chunk(0);
+  load_chunk(1);
+  const bool table = dsel != nullptr && n_dist <= D_UNIQ;
+  if (table) {
+    for (int i = tid; i < n_dist * G_DS; i += G_THREADS) {
+      const int t = i / G_DS, c = i % G_DS;
+      if (c < G_KT || nyq)
+        distance_plane(uh[t], ul[t], fr[t], (float)(c < G_KT ? k0 + c : BINS - 1),
+                       &dtab[t * G_DS + c], &dtab[(D_UNIQ + t) * G_DS + c]);
+    }
+  }
+
+  const int lane = tid & 31, warp = tid >> 5;
+  const int rg = (warp >> 1) * 4 + (lane >> 3);   // rows rg + 16i
+  const int bg = (warp & 1) * 8 + (lane & 7);     // bins 4bg .. 4bg+3 of the slice
+  const bool nyq_row = nyq && tid < G_ROWS;       // bin 512 of row tid
+  float accr[G_RT][4], acci[G_RT][4];
+#pragma unroll
+  for (int i = 0; i < G_RT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) accr[i][j] = acci[i][j] = 0.f;
+  float nr = 0.f, ni = 0.f;
+
+  for (int c = 0; c < G_CHUNKS; ++c) {
+    if (c + 1 < G_CHUNKS) cp_async_wait<1>(); else cp_async_wait<0>();
+    __syncthreads();
+    const float* as = smem + (c & 1) * G_STAGE;
+    const float* bs = as + G_ROWS * G_AS;
+    const float* bn = bs + G_KC * G_BS;
+#pragma unroll 2
+    for (int k4 = 0; k4 < G_KC / 4; ++k4) {
+      float4 a[G_RT];
+#pragma unroll
+      for (int i = 0; i < G_RT; ++i)
+        a[i] = *reinterpret_cast<const float4*>(as + (rg + 16 * i) * G_AS + 4 * k4);
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq) {
+        const float4 br = *reinterpret_cast<const float4*>(bs + (4 * k4 + kq) * G_BS + 4 * bg);
+        const float4 bi =
+            *reinterpret_cast<const float4*>(bs + (4 * k4 + kq) * G_BS + G_KT + 4 * bg);
+#pragma unroll
+        for (int i = 0; i < G_RT; ++i) {
+          const float x = lane4(a[i], kq);
+          accr[i][0] = fmaf(x, br.x, accr[i][0]);
+          accr[i][1] = fmaf(x, br.y, accr[i][1]);
+          accr[i][2] = fmaf(x, br.z, accr[i][2]);
+          accr[i][3] = fmaf(x, br.w, accr[i][3]);
+          acci[i][0] = fmaf(x, bi.x, acci[i][0]);
+          acci[i][1] = fmaf(x, bi.y, acci[i][1]);
+          acci[i][2] = fmaf(x, bi.z, acci[i][2]);
+          acci[i][3] = fmaf(x, bi.w, acci[i][3]);
+        }
+      }
+    }
+    if (nyq_row) {  // bin 512's chains over the chunk
+      for (int k4 = 0; k4 < G_KC / 4; ++k4) {
+        const float4 x = *reinterpret_cast<const float4*>(as + tid * G_AS + 4 * k4);
+        const float4 b01 = *reinterpret_cast<const float4*>(bn + 8 * k4);
+        const float4 b23 = *reinterpret_cast<const float4*>(bn + 8 * k4 + 4);
+        nr = fmaf(x.x, b01.x, nr);
+        ni = fmaf(x.x, b01.y, ni);
+        nr = fmaf(x.y, b01.z, nr);
+        ni = fmaf(x.y, b01.w, ni);
+        nr = fmaf(x.z, b23.x, nr);
+        ni = fmaf(x.z, b23.y, ni);
+        nr = fmaf(x.w, b23.z, nr);
+        ni = fmaf(x.w, b23.w, ni);
+      }
+    }
+    __syncthreads();
+    if (c + 2 < G_CHUNKS) load_chunk(c + 2);
+  }
+
+  // the tile's P over the stages: [plane][row][G_PS]
+  float* pr = smem;
+  float* pi = smem + G_PLANE;
+#pragma unroll
+  for (int i = 0; i < G_RT; ++i) {
+    *reinterpret_cast<float4*>(pr + (rg + 16 * i) * G_PS + 4 * bg) =
+        make_float4(accr[i][0], accr[i][1], accr[i][2], accr[i][3]);
+    *reinterpret_cast<float4*>(pi + (rg + 16 * i) * G_PS + 4 * bg) =
+        make_float4(acci[i][0], acci[i][1], acci[i][2], acci[i][3]);
+  }
+  if (nyq_row) {
+    pr[tid * G_PS + G_KT] = nr;
+    pi[tid * G_PS + G_KT] = ni;
+  }
+  __syncthreads();
+  tile_outputs(pr, pi, dtab, table, nyq, tid, g0, total, nb, k0, uh, ul, fr, dsel, n_dist, twr,
+               twi, xdr, xdi);
+}
+
+// Few-block form (forward_distance_few), for nb <= FEW_NB blocks a source:
+// the live step's one block.  Its 8-16 sub-block rows leave the product
+// form's 64-row tile almost empty, behind 8 CTAs that each stage 64 KB of
+// the basis.  Here a thread owns one (bin, plane) pair and carries the
+// chains of all R >= nb + 7 rows of its source, so a source spreads over
+// 33 CTAs of one warp.  The CTA's 32 basis columns (16 KB) and the
+// source's samples arrive by cp.async all at once, so the loads wait on L2
+// once, not once a sample; then the samples broadcast from shared memory.
+// Neighbouring lanes hold the re and im chains of one bin and swap them
+// with one shuffle a row before the twiddle sum.  At one block the loads
+// are most of its time: 64-thread CTAs (32 KB each) took 0.0080 ms, one
+// warp 0.0064, and the sample loop unrolled 16 deep rather than 4 0.0073
+// (PERF.md, launch A).
+constexpr int F_THREADS = 32;
+constexpr int FEW_NB = 9;                     // most blocks a source: nb + 7 <= 16
+
+template <int R>  // sub-block rows a thread carries, R >= nb + 7
+__global__ void __launch_bounds__(F_THREADS)
+forward_distance_few(const float* __restrict__ streams, int nb,
+                     const float* __restrict__ uh, const float* __restrict__ ul,
+                     const float* __restrict__ fr, const int* __restrict__ dsel, int n_dist,
+                     const float* __restrict__ cfr, const float* __restrict__ cfi,
+                     const float* __restrict__ twr, const float* __restrict__ twi,
+                     float* __restrict__ xdr, float* __restrict__ xdi) {
+  __shared__ __align__(16) float xs[FPB * R];   // [sample][row]
+  __shared__ float bs[FPB * F_THREADS];          // [sample][thread]: its basis column
+  const int tid = threadIdx.x, s = blockIdx.y, L = nb + Q - 1;
+  const int u = blockIdx.x * F_THREADS + tid;    // (bin, plane) pair
+  const int k = min(u >> 1, BINS - 1);           // lanes past bin 512 repeat it, store nothing
+  const int plane = u & 1;
+  for (int i = tid; i < FPB * F_THREADS; i += F_THREADS) {
+    const int n = i / F_THREADS, c = i % F_THREADS;
+    const int kc = min((blockIdx.x * F_THREADS + c) >> 1, BINS - 1);
+    cp_async4(&bs[i], ((c & 1) ? cfi : cfr) + (size_t)n * BINS + kc);
+  }
+  const float* src = streams + (size_t)s * L * FPB;
+  for (int i = tid; i < FPB * R; i += F_THREADS) {
+    const int r = i / FPB, n = i % FPB;
+    if (r < L) cp_async4(&xs[n * R + r], src + i);
+    else xs[n * R + r] = 0.f;
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  float acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.f;
+#pragma unroll 16
+  for (int n = 0; n < FPB; ++n) {
+    const float b = bs[n * F_THREADS + tid];
+#pragma unroll
+    for (int r4 = 0; r4 < R / 4; ++r4) {
+      const float4 x = *reinterpret_cast<const float4*>(xs + n * R + 4 * r4);
+      acc[4 * r4 + 0] = fmaf(x.x, b, acc[4 * r4 + 0]);
+      acc[4 * r4 + 1] = fmaf(x.y, b, acc[4 * r4 + 1]);
+      acc[4 * r4 + 2] = fmaf(x.z, b, acc[4 * r4 + 2]);
+      acc[4 * r4 + 3] = fmaf(x.w, b, acc[4 * r4 + 3]);
+    }
+  }
+  float pr[R], pi[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float other = __shfl_xor_sync(0xffffffffu, acc[r], 1);
+    pr[r] = plane ? other : acc[r];
+    pi[r] = plane ? acc[r] : other;
+  }
+  if (u >= 2 * BINS) return;
+  float tr[Q], ti[Q];
+#pragma unroll
+  for (int m = 1; m < Q; ++m) {
+    tr[m] = twr[m * BINS + k];
+    ti[m] = twi[m * BINS + k];
+  }
+  const float kf = (float)k;
+#pragma unroll
+  for (int b = 0; b + Q <= R; ++b) {
+    if (b < nb) {
+      float wr[Q], wi[Q], xr, xi, dr, di, re, im;
+#pragma unroll
+      for (int m = 0; m < Q; ++m) {
+        wr[m] = pr[b + m];
+        wi[m] = pi[b + m];
+      }
+      twiddle_sum(wr, wi, tr, ti, &xr, &xi);
+      const int row = s * nb + b;
+      const int t = triple_of(row, dsel, n_dist);
+      distance_plane(uh[t], ul[t], fr[t], kf, &dr, &di);
+      cmul_rn(xr, xi, dr, di, &re, &im);
+      if (plane) xdi[(size_t)row * BINS + k] = im;
+      else xdr[(size_t)row * BINS + k] = re;
+    }
+  }
+}
+
+// Launch A's forms.  FWD_TILE: forward_distance, one CTA per 32 blocks x
+// 64 bins of a source, kept as the comparison form; FWD_PRODUCT and
+// FWD_FEW as above.  All three give the same bits.
+enum ForwardForm { FWD_TILE = 0, FWD_PRODUCT = 1, FWD_FEW = 2 };
+
+// The form the render steps take at nb blocks a source (kernels/fused_step
+// .forward_form mirrors it).
+inline int forward_form(int nb) { return nb <= FEW_NB ? FWD_FEW : FWD_PRODUCT; }
+
+// Launch A in ``form`` over num_sources streams of nb blocks each (rows =
+// num_sources*nb); anything else, or FWD_FEW above FEW_NB blocks, is
+// refused (cudaErrorInvalidValue).
+inline cudaError_t launch_forward_form(
+    int form, cudaStream_t stream, const float* streams, int num_sources, int nb,
+    const float* uh, const float* ul, const float* fr, const int* dsel, int n_dist,
+    const float* cfr, const float* cfi, const float* twr, const float* twi,
+    float* xdr, float* xdi) {
+  cudaError_t err = cudaSuccess;
+  if (form == FWD_TILE) {
+    err = allow_smem_once(forward_distance, A_SMEM, tile_smem_set);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((nb + A_BT - 1) / A_BT, (BINS + A_KT - 1) / A_KT, num_sources);
+    forward_distance<<<grid, A_THREADS, A_SMEM, stream>>>(
+        streams, nb, uh, ul, fr, dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi);
+  } else if (form == FWD_PRODUCT) {
+    const bool vec = reinterpret_cast<size_t>(streams) % 16 == 0;
+    auto kernel = vec ? forward_distance_product<true> : forward_distance_product<false>;
+    err = allow_smem_once(kernel, G_SMEM, product_smem_set[vec]);
+    if (err != cudaSuccess) return err;
+    const int total = num_sources * (nb + Q - 1);
+    const dim3 grid((total - (Q - 1) + G_OUT - 1) / G_OUT, G_SLICES);
+    kernel<<<grid, G_THREADS, G_SMEM, stream>>>(streams, num_sources, nb, uh, ul, fr, dsel,
+                                                n_dist, cfr, cfi, twr, twi, xdr, xdi);
+  } else if (form == FWD_FEW && nb <= FEW_NB) {
+    auto kernel = nb + Q - 1 <= 8 ? forward_distance_few<8> : forward_distance_few<16>;
+    const dim3 grid((2 * BINS + F_THREADS - 1) / F_THREADS, num_sources);
+    kernel<<<grid, F_THREADS, 0, stream>>>(streams, nb, uh, ul, fr, dsel, n_dist, cfr, cfi,
+                                           twr, twi, xdr, xdi);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// Launch A as the render steps take it: forward_form(nb).
 inline cudaError_t launch_forward_distance(
     cudaStream_t stream, const float* streams, int num_sources, int nb,
     const float* uh, const float* ul, const float* fr, const int* dsel, int n_dist,
     const float* cfr, const float* cfi, const float* twr, const float* twi,
     float* xdr, float* xdi) {
-  cudaError_t err = cudaFuncSetAttribute(
-      forward_distance, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)A_SMEM);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((nb + A_BT - 1) / A_BT, (BINS + A_KT - 1) / A_KT, num_sources);
-  forward_distance<<<grid, A_THREADS, A_SMEM, stream>>>(
-      streams, nb, uh, ul, fr, dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi);
-  return cudaGetLastError();
+  return launch_forward_form(forward_form(nb), stream, streams, num_sources, nb, uh, ul, fr,
+                             dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi);
 }
 
 // Stage the (T_KC x FPB) tail-basis chunk that starts at bin k0.

@@ -36,7 +36,8 @@
 // (TF32 tensor-core products would break the 1e-6 oracle gate), so the
 // step is FMA-bound; the tail IDFT is 3/4 of the work.  Design, kept simple
 // for a first port: two launches.
-//   A (forward_distance, fused_forward.cuh): XD to a scratch buffer.
+//   A (launch_forward_distance, fused_forward.cuh: the product form, or the
+//     few-block form at nb <= FEW_NB blocks a source): XD to a scratch buffer.
 //   B (blend_tail_xfade): one CTA per 32 rows.  The four (side, ear)
 //     products form a 128-row operand against the (513 x 128) tail basis,
 //     tiled along K = 513 in 32-bin chunks through shared memory, with an
@@ -387,6 +388,24 @@ extern "C" int jt_fused_step_onehot_xfade(
         xdr, xdi, rows, table, u_rows, ridx, w, bnd_idx, bnd_w, seg, group_rows, xf,
         icr, ici, out);
     return cudaGetLastError();
+  });
+}
+
+// Launch A alone in ``form`` (FWD_TILE, FWD_PRODUCT or FWD_FEW of
+// fused_forward.cuh; anything else is refused): the XD
+// planes (xdr, xdi: rows x 513, rows = num_sources * nb) of num_sources
+// streams of nb blocks, with per-row distance or, with dsel, each row's
+// triple among the first n_dist.  The card tests and chip_smoke.py hold
+// the forms against each other through it.  Launches on ``stream`` of
+// ``device`` without synchronising and returns the first CUDA error.
+extern "C" int jt_forward_distance(
+    int device, void* stream, int form, const float* streams, int num_sources, int nb,
+    const float* uh, const float* ul, const float* fr, const int* dsel, int n_dist,
+    const float* cfr, const float* cfi, const float* twr, const float* twi,
+    float* xdr, float* xdi) {
+  return on_device(device, [&]() {
+    return launch_forward_form(form, static_cast<cudaStream_t>(stream), streams, num_sources,
+                               nb, uh, ul, fr, dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi);
   });
 }
 

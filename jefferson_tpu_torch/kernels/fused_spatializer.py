@@ -14,8 +14,8 @@ with T the whole filter table [rL | iL | rR | iR] (710 x 2052 floats,
 5.8 MB) -> (rows, 2*fpb) = [L fpb | R fpb].  The TPU kernel returns the four
 tails and its wrapper crossfades them; here the crossfade is the kernel's
 epilogue, as in rows 1-7.  ``fused_forward_apply`` runs launch A first, on
-one stream of blocks: the live block step and the scan render of
-``engine/stream``.
+one stream of blocks (its few-block form at the live block step's one row,
+its product form for the scan render of ``engine/stream``).
 
 On the card it runs in one of three forms, chosen by the row count (the
 choice of shape, not a fallback: each raises on a build or launch error),
@@ -59,7 +59,8 @@ from ..ops import fft as fft_ops
 from . import build
 from .fused_step import (
     LAUNCH_B, SPATIALIZER, SPLIT, _check, _check_streams, _cuda_error, _forward_reference,
-    _in_table, _tails_reference, _where, blend_cat, launches, spatializer_forms,
+    _in_table, _tails_reference, _where, blend_cat, forward_form, forward_launches, launches,
+    spatializer_forms,
 )
 
 # Rows up to which row 8 takes the cluster form, and above which
@@ -163,6 +164,8 @@ def _cuda(device, rows: int, table, brackets, xf, xdr, xdi, forward, *, pad_len,
                            f"({_cuda_error('fused_step_onehot', err)})")
     launches[SPATIALIZER] += 1
     spatializer_forms[form] += 1
+    if forward is not None:
+        forward_launches[forward_form(rows)] += 1
     return out
 
 

@@ -34,10 +34,13 @@ CUDA device run the kernel, or the wrapper raises (no fallback).  On the
 card, launch B of rows 2-7 has two forms with the same bits, chosen by
 ``pick_form`` (the choice of shape, not a fallback): one CTA per 32
 rows, or the split form, a cluster of four CTAs per tile
-(``csrc/fused_forward.cuh``).  The
-kernels are built for fpb 128, pad_len 1024 and 513 bins.  Both keep the
-TPU kernels' answer for ids outside the table (they add nothing) and for
-selectors outside 1..n_dist-1 (triple 0), so no check syncs the device.
+(``csrc/fused_forward.cuh``).  Launch A, the forward every step of rows
+1-6 runs first, takes its product form, or its few-block form up to
+``FEW_NB`` blocks a source (``forward_form``); its tile form is kept to
+hold them against (``_forward_cuda``).  The kernels are built for fpb
+128, pad_len 1024 and 513 bins.  Both keep the TPU kernels' answer for
+ids outside the table (they add nothing) and for selectors outside
+1..n_dist-1 (triple 0), so no check syncs the device.
 """
 
 from __future__ import annotations
@@ -107,6 +110,24 @@ split_launches: dict[str, int] = dict.fromkeys((
 # PERF.md, the kernel table).
 SPLIT_FROM = 1
 
+# Launch A's forms on the card, the same bits (csrc/fused_forward.cuh): the
+# tile form (one CTA per 32 blocks x 64 bins of a source), kept to hold the
+# others against; the product form (64 flat sub-block rows x 64 bins a
+# CTA); and the few-block form (a thread per bin and plane, every row of
+# its source), which the steps take up to FEW_NB blocks a source.
+FWD_TILE, FWD_PRODUCT, FWD_FEW = "tile", "product", "few"
+_FWD_CODE = {FWD_TILE: 0, FWD_PRODUCT: 1, FWD_FEW: 2}
+
+# Most blocks a source at which the steps take launch A's few-block form
+# (csrc/fused_forward.cuh FEW_NB; its kernel carries nb + 7 <= 16 rows a
+# thread): on an H100 (700 W) it took less device time alone than the
+# product form at every count of 1-9 blocks (chip_smoke.py, phase bench).
+FEW_NB = 9
+
+# Launch A's launches by form: one per launch of rows 1-6, of row 8's
+# forward form and of ``_forward_cuda``.
+forward_launches: dict[str, int] = dict.fromkeys(_FWD_CODE, 0)
+
 # The form a card test or chip_smoke.py names through ``_cuda``; None: pick.
 _named_form: contextvars.ContextVar[str | None] = contextvars.ContextVar("form", default=None)
 
@@ -115,7 +136,7 @@ _FPB, _PAD, _BINS = 128, 1024, 513  # the geometry the CUDA kernels are built fo
 
 def reset_launches() -> None:
     """Set every kernel's launch count, and the counts by form, to 0."""
-    for counts in (launches, spatializer_forms, split_launches):
+    for counts in (launches, spatializer_forms, split_launches, forward_launches):
         for name in counts:
             counts[name] = 0
 
@@ -124,6 +145,12 @@ def pick_form(name: str, rows: int) -> str:
     """Launch B's form on the card for kernel ``name`` (rows 1-7) at ``rows``
     rows."""
     return SPLIT if name in split_launches and rows >= SPLIT_FROM else LAUNCH_B
+
+
+def forward_form(nb: int) -> str:
+    """Launch A's form on the card at ``nb`` blocks a source (the steps'
+    choice, csrc/fused_forward.cuh forward_form)."""
+    return FWD_FEW if nb <= FEW_NB else FWD_PRODUCT
 
 
 def _cuda(fn, *args, form: str, **kwargs):
@@ -431,7 +458,54 @@ def _launch(name: str, form: str, lib: str, entry, device, streams, n_src, nb, d
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({_cuda_error(lib, err)})")
     _count(name, form)
+    forward_launches[forward_form(nb)] += 1
     return out
+
+
+@functools.cache
+def _forward_entry():
+    fn = build.load("fused_step_onehot").jt_forward_distance
+    fn.argtypes = [_int, _ptr, _int, _ptr, _int, _int,  # device, stream, form, streams, S, nb
+                   *_DIST_ARGS, *_BASES_ARGS[:4], _ptr, _ptr]  # ..., cfr..twi, xdr, xdi
+    fn.restype = _int
+    return fn
+
+
+def _forward_cuda(streams, nb: int, uh, ul, fr, dsel, n_dist, *, form: str, pad_len: int,
+                  bins: int, fpb: int):
+    """Launch A alone on the card in ``form`` -> the (S*nb, bins) XD planes
+    (xdr, xdi) of S streams, ``_forward_reference``'s function: the card
+    tests and chip_smoke.py hold the forms against each other this way;
+    counted in ``forward_launches``."""
+    if form not in _FWD_CODE:
+        raise ValueError(f"form {form!r}: want one of {sorted(_FWD_CODE)}")
+    if form == FWD_FEW and nb > FEW_NB:
+        raise ValueError(f"the few-block form takes at most {FEW_NB} blocks a source, not {nb}")
+    _check_streams(streams, nb, pad_len, fpb)
+    if (dsel is None) != (n_dist is None):
+        raise ValueError("dsel and n_dist go together (compact distance)")
+    device = _where([streams, uh, ul, fr] + ([] if dsel is None else [dsel]), pad_len, bins, fpb)
+    if device.type != "cuda":
+        raise ValueError(f"launch A's forms run on the card, not on {device}")
+    rows = streams.shape[0] * nb
+    _check({"streams": (streams, tuple(streams.shape), torch.float32),
+            **_distance_specs(uh, ul, fr, dsel, n_dist, rows)})
+    if rows < 1:
+        raise ValueError("launch A needs a block")
+    cfr, cfi = fft_ops.on_device(fft_ops._subblock_dft_matrices, pad_len, fpb, device=device)
+    twr, twi = fft_ops.on_device(fft_ops._sliding_twiddles, pad_len, fpb, device=device)
+    xdr = torch.empty((rows, bins), dtype=torch.float32, device=device)
+    xdi = torch.empty_like(xdr)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = _forward_entry()(
+        device.index, torch.cuda.current_stream(device).cuda_stream, _FWD_CODE[form],
+        ptr(streams), streams.shape[0], nb, ptr(uh), ptr(ul), ptr(fr), ptr(dsel), n_dist or 0,
+        ptr(cfr), ptr(cfi), ptr(twr), ptr(twi), ptr(xdr), ptr(xdi))
+    if err:
+        raise RuntimeError(f"launch A ({form}) failed: CUDA error {err} "
+                           f"({_cuda_error('fused_step_onehot', err)})")
+    forward_launches[form] += 1
+    return xdr, xdi
 
 
 def _onehot_cuda(name, device, streams, nb, uh, ul, fr, dsel, n_dist, table, u_rows, ridx, w,

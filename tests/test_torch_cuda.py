@@ -782,3 +782,70 @@ def test_dma_blend_refuses_a_misaligned_table(card):
         tdb.dma_blend(shifted, idx, w, c_pad, tb=8)
     with pytest.raises(ValueError, match="needs a row"):
         tdb.dma_blend(flat, idx[:0], w[:0], c_pad, tb=8)
+
+
+# ---- launch A's forms and row 9's call path ------------------------------------
+
+_GEO = dict(pad_len=1024, bins=513, fpb=128)
+# (sources, blocks, n_dist or None for per-row distance): the main path's
+# shapes, ragged counts, and 1-8 triples with selectors outside 1..n_dist-1
+_FWD_CASES = [
+    (256, 64, 1), (16, 256, None), (16, 256, 8), (1, 2048, None), (1, 12556, None),
+    (1, 1, None), *((1, nb, None) for nb in (2, 3, 4, 5, 6, 7, 8, 9, 33, 65)), (4, 66, None),
+    (3, 9, None), *((s, nb, n) for n in range(1, 9) for s, nb in ((4, 66), (2, 3))),
+]
+
+
+@pytest.mark.parametrize("sources,nb,n_dist", _FWD_CASES)
+def test_launch_a_forms_are_the_tile_form_bit_for_bit(card, sources, nb, n_dist):
+    ops = bench.forward_operands(sources, nb, card, seed=sources * 1000 + nb, n_dist=n_dist)
+    forms = [tfs.FWD_TILE, tfs.FWD_PRODUCT] + ([tfs.FWD_FEW] if nb <= tfs.FEW_NB else [])
+    tfs.reset_launches()
+    xd = {f: tfs._forward_cuda(*ops, form=f, **_GEO) for f in forms}
+    torch.cuda.synchronize()
+    assert tfs.forward_launches == {f: int(f in forms) for f in tfs.forward_launches}
+    for f in forms[1:]:
+        assert torch.equal(xd[f][0], xd[tfs.FWD_TILE][0]), f
+        assert torch.equal(xd[f][1], xd[tfs.FWD_TILE][1]), f
+    want = tfs._forward_reference(*ops, **_GEO)
+    peak = max(float(a.abs().max()) for a in want)
+    for got, w in zip(xd[tfs.FWD_PRODUCT], want):
+        assert float((got - w).abs().max()) <= 1e-6 * peak
+
+
+def test_a_refused_few_block_launch_raises(card):
+    ops = bench.forward_operands(1, tfs.FEW_NB + 1, card, seed=0)
+    xd = [torch.empty((tfs.FEW_NB + 1, 513), device=card) for _ in range(2)]
+    bases = [t.data_ptr() for t in (
+        tfs.fft_ops.on_device(tfs.fft_ops._subblock_dft_matrices, 1024, 128, device=card)
+        + tfs.fft_ops.on_device(tfs.fft_ops._sliding_twiddles, 1024, 128, device=card))]
+    err = tfs._forward_entry()(
+        card.index, torch.cuda.current_stream(card).cuda_stream, tfs._FWD_CODE[tfs.FWD_FEW],
+        ops[0].data_ptr(), 1, tfs.FEW_NB + 1, *(t.data_ptr() for t in ops[2:5]), None, 0,
+        *bases, *(t.data_ptr() for t in xd))
+    assert err != 0
+
+
+@pytest.mark.parametrize("nb", [1, 9, 10, 64])
+def test_the_steps_take_launch_a_by_blocks(card_db, nb):
+    fn, args, kw = bench.scene_step(card_db, "gather", 2, nb, torch.device("cuda", 0))
+    tfs.reset_launches()
+    fn(*args, **kw)
+    torch.cuda.synchronize()
+    want = tfs.FWD_FEW if nb <= tfs.FEW_NB else tfs.FWD_PRODUCT
+    assert tfs.forward_launches == {f: int(f == want) for f in tfs.forward_launches}
+
+
+def test_prod_wrapper_is_the_kernel_and_refuses_mixed_devices(card):
+    xr, xi, gr, gi, _, _ = _planes(card, 256, 513, seed=5)
+    got = tap.prod(xr, xi, gr, gi)
+    out = [torch.empty_like(xr) for _ in range(2)]
+    err = tap._lib().jt_prod(card.index, torch.cuda.current_stream(card).cuda_stream,
+                             *(t.data_ptr() for t in (xr, xi, gr, gi, *out)), xr.numel())
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(got[0], out[0]) and torch.equal(got[1], out[1])
+    with pytest.raises(ValueError, match="one device"):
+        tap.prod(xr, xi, gr, gi.cpu())
+    with pytest.raises(ValueError, match="gi: want contiguous"):
+        tap.prod(xr, xi, gr, gi.double())
