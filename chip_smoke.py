@@ -51,7 +51,16 @@ line:
              2048, 1 x 12,556, the live block's 1 x 1), ragged counts (1 x
              2-9, 33, 65; 4 x 66; 3 x 9) and 1-8 triples with selectors
              outside 1..n_dist-1 (4 x 66, 2 x 3), the product form within
-             1e-6 of the twin's peak.
+             1e-6 of the twin's peak.  Row 1's staged form of launch B
+             torch.equal to its one-CTA form at 256 x 64 (compact and per-row
+             distance), 3 x 9, 4 x 66, 1 x 1, 7 x 40, with ids outside the
+             table and with random ids over 700 rows, each within 5e-7 of
+             the twin.  Row 12's dedup form torch.equal to its
+             double-buffered form and to the twin at 8,448 x 2,176, at the
+             render path's c = 2,052 (8,448, 4,096, 2,048 rows) and ragged
+             row counts, and with ids outside the table; blend_rows (rows
+             5-7's pre-blend) torch.equal to blend_cat on the render path's
+             table.
   4. path    each main path with the launch counts set to 0 before and read
              after; rows 2-8 on the form their wrappers pick (the split form
              above row 8's cluster form), the scene path's rows 6 and 2
@@ -77,7 +86,10 @@ line:
              sweep (a 5-degree move every 172 blocks: most blocks hold) for
              3,445 blocks; row 8 counted once per block and source (plus two
              per source for prime) and once per scan, every live block on
-             the cluster form, the scans on launch B.  Each render and every live source against
+             the cluster form, the scans on launch B; row 1 counted by form
+             (the bench steps on the staged form from STAGED_FROM rows), row 12
+             under rows 5-7's pre-blend on every gather-form chunk (none under
+             row 2).  Each render and every live source against
              render_oracle: max|diff| <= 1e-6, RMS < 1e-4, the margin against
              the sweep's 2e-7 beside the JAX package's; each render takes the
              JAX dispatch's arm on every chunk; every kernel launched; each
@@ -95,13 +107,17 @@ line:
              two |products| (|xr gr| + |xi gi| for qr; one FMA contraction),
              the tail matmul (row 10) at K = 513 and 512 and its K-chunk tree
              (row 11) at 2, 4 and 8 chunks within 2e-6 of the output peak
-             (fp32 sums in other orders), the double-buffered row-gather
-             blend (row 12) at 8,448 rows bit-equal to its twin and to the
+             (fp32 sums in other orders), the row-gather blend (row 12, in
+             the dedup form) at 8,448 rows bit-equal to its twin and to the
              torch xla16 gathers; each budget configuration within 1e-6 of
-             render_oracle, the apply-only configuration on row 7 alone, the
+             render_oracle, the apply-only configuration on row 7 and its
+             pre-blend alone, the
              unfused chain and its two stage swaps (the tail summed by
-             128-bin blocks; the forward on the CPU) on no kernel.
-  6. bench   the bench step (blocks/s); each step's kernel and twin times in
+             128-bin blocks; the forward on the CPU) on no kernel.  Row 12 runs
+             there under the pre-blend of the budget's gather configurations.
+  6. bench   the bench step (blocks/s), and again with row 1's launch B in
+             each form, STEP_PAIRS pairs in turns, beside each form's
+             quartile spread; each step's kernel and twin times in
              turns (twin, forms, forms reversed, twin) beside its bound (row 8
              at both its shapes), rows 1-8 in each form of launch B with
              their device time alone, launch A and launch B apart
@@ -116,7 +132,15 @@ line:
              torch.mul's; launch A's forms at the main path's shapes,
              device time alone and events in turns (tile, picked, picked,
              tile) beside the bound, and every form at 1 source x 1-32
-             blocks (the crossover that sets FEW_NB); the sparse side-pass at a
+             blocks (the crossover that sets FEW_NB); row 1's launch B in both
+             forms at 1,024-32,768 rows (the crossover that sets STAGED_FROM);
+             row 12's two forms at 16-8,448 rows and c = 2,052 and 2,176,
+             device time alone beside the bound and the table bytes each
+             reads through L2 (whether the dedup form, the wrappers' only
+             pick, takes less at every count), and
+             blend_rows against blend_cat; the scene renders that pre-blend,
+             device busy with the pre-blend through row 12 and through
+             blend_cat, in turns; the sparse side-pass at a
              scene_hold chunk's shape (device time, kernels per call, bound);
              each render's wall time (the scenes' host planning apart),
              render_scan's, and the device time by kernel of four renders and
@@ -198,7 +222,7 @@ KERNELS = {
 PROBES = ("prod", "mm", "mm_tree", "dma_blend")
 # probe kernel -> its CUDA function, as torch.profiler names it
 PROBE_SYMBOL = {"prod": "prod_kernel", "mm": "mm_kernel", "mm_tree": "mm_kernel",
-                "dma_blend": "dma_blend_kernel"}
+                "dma_blend": "dma_blend"}   # either form: dma_blend_dedup, dma_blend_kernel
 # single-stream form (bench.stream_step) -> kernel name
 FORMS = {
     "onehot": "fused_step_stream_onehot_xfade",
@@ -589,6 +613,295 @@ def forward_bench(bench, device, geo, times, bounds) -> None:
                    f"blocks (FEW_NB = {fs.FEW_NB})  [{bench.card()}]")
 
 
+# row 1's bit-equality cases (sources, blocks, radius step): the bench
+# shape, compact and per-row distance, and ragged counts
+ROW1_CASES = ((256, 64, 0.0), (256, 64, 0.01), (3, 9, 0.0), (4, 66, 0.0), (4, 66, 0.01),
+              (1, 1, 0.0), (7, 40, 0.01))
+
+
+def row1_forms(bench, db, device, errs) -> bool:
+    """Row 1's two forms of launch B on the same operands: the staged form
+    torch.equal to launch B at ROW1_CASES (the bench shape with compact and
+    per-row distance, ragged counts whose tiles cross a source end), with
+    ids outside the table, and with random ids over a 700-row table (more
+    distinct rows a tile than the form stages); each within 5e-7 of the
+    twin."""
+    import numpy as np
+    import torch
+
+    from jefferson_tpu_torch.kernels import fused_step as fs
+
+    def cases():
+        for s_, nb, rs in ROW1_CASES:
+            wl = bench.build_workload(db, s_, nb, device, radius_step=rs)
+            yield f"{s_}x{nb}, {'per-row' if rs else 'compact'} distance", bench.step_operands(wl)
+        args, kw = bench.step_operands(bench.build_workload(db, 4, 16, device))
+        args = list(args)
+        u = args[4].shape[0]
+        args[5] = args[5].clone()
+        args[5][3, 1], args[5][17, 0], args[5][40, 2] = u + 2, -4, u
+        yield "4x16, ids outside the table", (args, kw)
+        args, kw = bench.step_operands(bench.build_workload(db, 4, 66, device))
+        args = list(args)
+        rng = np.random.default_rng(3)
+        put = lambda a: torch.from_numpy(a).to(device)
+        args[4] = put(rng.standard_normal((700, args[4].shape[1])).astype(np.float32))
+        args[5] = put(rng.integers(-3, 703, args[5].shape).astype(np.int32))
+        args[7] = put(rng.integers(0, 700, args[7].shape).astype(np.int32))
+        yield "4x66, random ids over 700 rows (and outside)", (args, kw)
+
+    name = "fused_step_onehot_xfade"
+    for what, (args, kw) in cases():
+        one = fs._cuda(fs.fused_step_onehot_xfade, *args, form=fs.LAUNCH_B, **kw)
+        staged = fs._cuda(fs.fused_step_onehot_xfade, *args, form=fs.STAGED, **kw)
+        torch.cuda.synchronize()
+        err = float((staged - fs.fused_step_onehot_xfade_reference(*args, **kw)).abs().max())
+        equal = torch.equal(one, staged)
+        say("kernel", f"row 1's staged form, {what}: torch.equal to launch B {equal}; "
+                      f"max|staged - twin| = {err:.3e} (limit {KERNEL_TOL:.0e})")
+        if not (equal and err <= KERNEL_TOL and bool(torch.isfinite(staged).all())):
+            fail("kernel", f"row 1's staged form, {what}: not launch B's bits")
+            return False
+        errs[name] = max(errs[name], err)
+    return True
+
+
+# row 12's bit-equality cases: (rows, width) at the probe's 8,448 x 2,176,
+# the render path's c = 2,052, and ragged row counts
+BLEND_CASES = ((BLEND_ROWS, 2176), (BLEND_ROWS, 2052), (4096, 2052), (2048, 2052),
+               (8447, 2176), (264, 2052), (33, 2176), (12, 2052), (1, 2052))
+
+
+def blend_forms(bench, db, device, errs) -> bool:
+    """Row 12's two forms on the same operands: the dedup form torch.equal
+    to the double-buffered form and to the twin at BLEND_CASES (the
+    shootout's ids) and with random ids over the whole table, some outside
+    it; ``blend_rows`` (rows 5-7's pre-blend) torch.equal to ``blend_cat``
+    on the render path's combined table."""
+    import numpy as np
+    import torch
+
+    from jefferson_tpu_torch.convert import spectra_from_numpy
+    from jefferson_tpu_torch.engine.renderer import cat_table
+    from jefferson_tpu_torch.kernels import dma_blend
+    from jefferson_tpu_torch.kernels import fused_step as fs
+    from jefferson_tpu_torch.scripts import bench_blend_variants as bbv
+
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    table, table_pad = bbv.tables()
+    idx, w = bbv.workload(BLEND_ROWS)
+    rng = np.random.default_rng(5)
+    cases = [(f"{r}x{c}", (table_pad if c == 2176 else table), idx[:r], w[:r])
+             for r, c in BLEND_CASES]
+    for c in (2176, 2052):
+        ids = rng.integers(0, 710, (264, 4)).astype(np.int32)
+        ids[3, 1], ids[5, 0], ids[17, 3] = 712, -4, 710
+        cases.append((f"264x{c}, random ids, some outside",
+                      rng.standard_normal((710, c)).astype(np.float32), ids,
+                      rng.random((264, 4)).astype(np.float32)))
+    for what, tab, ids, ws in cases:
+        flat, i_d, w_d, c = put(tab.reshape(-1)), put(ids), put(ws), tab.shape[1]
+        double = dma_blend._cuda(flat, i_d, w_d, c, form=fs.DOUBLE)
+        dedup = dma_blend._cuda(flat, i_d, w_d, c, form=fs.DEDUP)
+        torch.cuda.synchronize()
+        twin = dma_blend.dma_blend_reference(flat, i_d, w_d, c)
+        ok = torch.equal(dedup, double) and torch.equal(dedup, twin)
+        say("kernel", f"dma_blend (row 12), {what}: the dedup form torch.equal to the "
+                      f"double-buffered form and to the twin: {ok}")
+        if not ok:
+            fail("kernel", f"dma_blend, {what}: the dedup form is not the double form's bits")
+            return False
+    cat = cat_table(spectra_from_numpy(db.spectra, device))
+    for r in (1, 16, 2048, 4096):
+        ids, ws = put(idx[:r]), put(w[:r])
+        got, want = dma_blend.blend_rows(cat, ids, ws), fs.blend_cat(cat, ids, ws)
+        ok = torch.equal(got, want)
+        say("kernel", f"blend_rows ({r} x {cat.shape[1]}, the render path's table): torch.equal "
+                      f"to blend_cat: {ok}")
+        if not ok:
+            fail("kernel", "blend_rows is not blend_cat's bits")
+            return False
+    return True
+
+
+ROW1_CROSS = (16, 64, 128, 192, 256, 512)   # sources of 64 blocks: 1,024 to 32,768 rows
+
+
+def row1_crossover(bench, db, device) -> None:
+    """Row 1's launch B in its two forms, device time alone, at ROW1_CROSS
+    sources of 64 blocks, in turns: the crossover that sets
+    fused_step.STAGED_FROM."""
+    from jefferson_tpu_torch.kernels import fused_step as fs
+
+    took = {}
+    for s_ in ROW1_CROSS:
+        args, kw = bench.step_operands(bench.build_workload(db, s_, bench.BLOCKS, device))
+        if s_ == bench.SOURCES:
+            # launch B's own least time at the bench shape: the step's
+            # operations but launch A's; its XD planes, table and brackets
+            # read, its output written
+            rows = s_ * bench.BLOCKS
+            flops = (bench.step_flops("fused_step_onehot_xfade", s_, bench.BLOCKS)
+                     - bench.forward_flops(s_, bench.BLOCKS))
+            moved = rows * 513 * 8 + rows * 256 * 4 + nbytes(*args[4:])
+            b_ms, b_by = bench.bound_ms(flops, moved)
+            say("bench", f"row 1's launch B alone at {s_}x{bench.BLOCKS}: bound {b_ms:.4f} ms "
+                         f"({b_by}: {flops / 1e9:.2f} GFLOP at 67 TFLOP/s)  [{bench.card()}]")
+        t = {}
+        for form in (fs.LAUNCH_B, fs.STAGED, fs.STAGED, fs.LAUNCH_B):
+            rows = bench.device_profile(
+                lambda: fs._cuda(fs.fused_step_onehot_xfade, *args, form=form, **kw), calls=10)
+            t.setdefault(form, []).append(launches_apart(rows)[1])
+        took[s_ * bench.BLOCKS] = {f: sum(v) / 2 for f, v in t.items()}
+    staged_from = None
+    for rows in sorted(took, reverse=True):
+        if took[rows][fs.STAGED] >= took[rows][fs.LAUNCH_B]:
+            break
+        staged_from = rows
+    say("bench", "row 1's launch B alone (one-CTA form / staged form), device time, at "
+                 + ", ".join(f"{r} rows: {t[fs.LAUNCH_B]:.4f} / {t[fs.STAGED]:.4f}"
+                             for r, t in took.items())
+                 + f" ms; the staged form takes less from {staged_from} of these rows on "
+                   f"(STAGED_FROM = {fs.STAGED_FROM})  [{bench.card()}]")
+
+
+STEP_PAIRS = 12
+
+
+def step_forms(bench, wl) -> None:
+    """The bench step with row 1's launch B in each form, STEP_PAIRS pairs in
+    turns (one-CTA, staged, then staged, one-CTA, ...), each a
+    bench.time_steps_ms: the step's gain from the staged form beside the
+    spread of each form's own step time in this run."""
+    import numpy as np
+
+    from jefferson_tpu_torch.kernels import fused_step as fs
+
+    t = {fs.LAUNCH_B: [], fs.STAGED: []}
+    for i in range(STEP_PAIRS):
+        for form in (fs.LAUNCH_B, fs.STAGED)[:: 1 if i % 2 == 0 else -1]:
+            t[form].append(fs._cuda(bench.time_steps_ms, wl, form=form))
+    one, staged = np.array(t[fs.LAUNCH_B]), np.array(t[fs.STAGED])
+    gain, wins = one - staged, int((one > staged).sum())
+    q = lambda a: np.percentile(a, [25, 50, 75])
+    span = lambda a: ("median {1:.4f}, quartiles {0:.4f}-{2:.4f}".format(*q(a))
+                      + f", min {a.min():.4f}, max {a.max():.4f}")
+    # a gain stands when the staged step wins nine pairs in ten and the
+    # medians differ by more than the one-CTA step's own quartile spread
+    spread = q(one)[2] - q(one)[0]
+    stands = wins >= 0.9 * STEP_PAIRS and np.median(one) - np.median(staged) > spread
+    say("bench", f"{bench.SOURCES}x{bench.BLOCKS} step by row 1's form, {STEP_PAIRS} pairs in "
+                 f"turns: one-CTA {span(one)} ms; staged {span(staged)} ms; one-CTA - staged "
+                 f"a pair {span(gain)} ms; the staged step faster in {wins} of {STEP_PAIRS}: "
+                 f"the gain {'stands' if stands else 'is unresolved'}  [{bench.card()}]")
+
+
+def dedup_l2_bytes(idx, c: int) -> int:
+    """Table bytes the dedup form reads through L2: each tile reads each
+    distinct id it names once (the double-buffered form reads a row for
+    every (row, bracket))."""
+    import numpy as np
+
+    from jefferson_tpu_torch.kernels.dma_blend import DEDUP_ROWS
+
+    tiles = range(0, len(idx), DEDUP_ROWS)
+    return sum(len(np.unique(idx[r0:r0 + DEDUP_ROWS])) for r0 in tiles) * c * 4
+
+
+def blend_bench(bench, device) -> None:
+    """Row 12's two forms, device time alone in turns (double, dedup, dedup,
+    double), beside the bound and the table bytes each reads through L2, at
+    the probe's 8,448 x 2,176 and the render path's widths and rows; then
+    blend_rows against blend_cat (events: the host path included) at the
+    render shapes: whether the dedup form, which the wrappers take at every
+    row count, takes less device time at every count measured."""
+    import numpy as np
+    import torch
+
+    from jefferson_tpu_torch.kernels import dma_blend
+    from jefferson_tpu_torch.kernels import fused_step as fs
+    from jefferson_tpu_torch.scripts import bench_blend_variants as bbv
+
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    table, table_pad = bbv.tables()
+    idx_all, w_all = bbv.workload(BLEND_ROWS)
+    took = {}
+    for r, c in ((BLEND_ROWS, 2176), (BLEND_ROWS, 2052), (4096, 2052), (2048, 2052),
+                 (264, 2052), (16, 2052)):
+        tab = table_pad if c == 2176 else table
+        flat, idx, w = put(tab.reshape(-1)), put(idx_all[:r]), put(w_all[:r])
+        t = {}
+        for form in (fs.DOUBLE, fs.DEDUP, fs.DEDUP, fs.DOUBLE):
+            rows = bench.device_profile(lambda: dma_blend._cuda(flat, idx, w, c, form=form), 20)
+            t.setdefault(form, []).append(sum(ms for k, ms, _ in rows if "dma_blend" in k))
+        t = {f: sum(v) / 2 for f, v in t.items()}
+        took[(r, c)] = t
+        bound = bench.bound_ms(*bbv.work(idx_all[:r], c))
+        l2 = {fs.DOUBLE: idx_all[:r].size * c * 4, fs.DEDUP: dedup_l2_bytes(idx_all[:r], c)}
+        widths = sorted({w for _, w in dma_blend.dedup_slices(c)}, reverse=True)
+        say("bench", f"dma_blend (row 12) {r}x{c} (dedup slices of {widths} floats), "
+                     f"device time alone: double-buffered "
+                     f"{t[fs.DOUBLE]:.4f} ms, dedup {t[fs.DEDUP]:.4f} ms; bound {bound[0]:.4f} "
+                     f"ms ({bound[1]}: output and named rows at 3.35 TB/s); table bytes through "
+                     f"L2 {l2[fs.DOUBLE] / 1e6:.1f} MB / {l2[fs.DEDUP] / 1e6:.1f} MB  "
+                     f"[{bench.card()}]")
+    slower = [f"{r}x{c}" for (r, c), t in took.items() if t[fs.DEDUP] >= t[fs.DOUBLE]]
+    say("bench", f"dma_blend: the dedup form (the wrappers' form at every row count) takes "
+                 f"less device time than the double-buffered form at "
+                 f"{'every shape measured' if not slower else 'all but ' + ', '.join(slower)}  "
+                 f"[{bench.card()}]")
+    cat = put(table)   # a combined table as cat_table lays it out, (710, 2,052)
+    for r in (2048, 4096, 33):
+        idx, w = put(idx_all[:r]), put(w_all[:r])
+        rows_ms = bench.time_ms(lambda: dma_blend.blend_rows(cat, idx, w))
+        cat_ms = bench.time_ms(lambda: fs.blend_cat(cat, idx, w))
+        alone = {n: sum(ms for _, ms, _ in bench.device_profile(f, calls=20))
+                 for n, f in (("rows", lambda: dma_blend.blend_rows(cat, idx, w)),
+                              ("cat", lambda: fs.blend_cat(cat, idx, w)))}
+        say("bench", f"blend_rows {r}x{cat.shape[1]}: {rows_ms:.4f} ms (device time alone "
+                     f"{alone['rows']:.4f}), blend_cat {cat_ms:.4f} ms (device time alone "
+                     f"{alone['cat']:.4f})  [{bench.card()}]")
+
+
+def blend_wiring(bench, db, device, sets, scene_sigs) -> None:
+    """The scene renders that pre-blend (rows 6 and 7; scene_movers runs row
+    2, which blends in its own launch) under torch.profiler, with rows 5-7's
+    pre-blend through blend_rows (row 12) and, for the comparison, through
+    blend_cat's torch gathers, in turns: device busy time each, and the
+    largest kernels of the blend_cat run."""
+    from jefferson_tpu_torch.engine import batch, renderer
+    from jefferson_tpu_torch.engine.batch import BatchRenderer
+    from jefferson_tpu_torch.kernels import fused_step as fs
+
+    wired = renderer.blend_rows
+
+    def use(fn):
+        renderer.blend_rows = batch.blend_rows = fn
+
+    try:
+        for name in ("scene_hold", "scene_movers", "wide", "scene_movers_512"):
+            pset, cb, opts, _, _ = scenes()[name]
+            pos, _ = sets[pset]
+            r = BatchRenderer(db, device=device, chunk_blocks=cb, **opts)
+            busy, prof = {}, {}
+            for label, fn in (("blend_rows", wired), ("blend_cat", fs.blend_cat),
+                              ("blend_cat", fs.blend_cat), ("blend_rows", wired)):
+                use(fn)
+                rows = bench.device_profile(lambda: r.render(scene_sigs, pos))
+                busy.setdefault(label, []).append(sum(row[1] for row in rows))
+                prof[label] = rows
+            blend_ms = sum(ms for k, ms, _ in prof["blend_rows"] if "dma_blend" in k)
+            say("bench", f"BatchRenderer {name} ({SCENE_S}x{SCENE_B}, chunks of {cb}) device busy: "
+                         f"pre-blend by blend_rows (row 12) {min(busy['blend_rows']):.3f} ms "
+                         f"(dma_blend {blend_ms:.3f} ms), by blend_cat "
+                         f"{min(busy['blend_cat']):.3f} ms; blend_cat run's largest kernels: "
+                         + "; ".join(f"{ms:.3f} ms x{n:g} {k[:60]}"
+                                     for k, ms, n in prof["blend_cat"][:6])
+                         + f"  [{bench.card()}]")
+    finally:
+        use(wired)
+
+
 def probe_scripts(device, errs, db, noise, budget_pos, budget_oracle):
     """The probe scripts on the card, counted: the association probe, the
     blend shootout and the error budget, each kernel held to its twin
@@ -642,12 +955,14 @@ def probe_scripts(device, errs, db, noise, budget_pos, budget_oracle):
         if not budget[name]["max_abs"] <= ORACLE_TOL:
             problems.append(f"error budget {name}: {budget[name]['max_abs']:.3e} from the oracle "
                             f"(limit {ORACLE_TOL:.0e})")
+    # the apply-only configuration runs row 7 on rows pre-blended by row 12
     row7 = {"fused_apply_xfade", "fused_apply_xfade/no_xfade"}
     unfused = {name: budget[name]["launches"] for name in ("unfused", *error_budget.SWAPS)}
-    if (any(unfused.values()) or not budget["apply_kernel"]["launches"]
-            or set(budget["apply_kernel"]["launches"]) - row7):
+    applied = set(budget["apply_kernel"]["launches"])
+    if any(unfused.values()) or not applied & row7 or applied - row7 - {"dma_blend"}:
         problems.append(f"error budget launches: unfused {unfused}, apply_kernel "
-                        f"{budget['apply_kernel']['launches']} (want row 7 only)")
+                        f"{budget['apply_kernel']['launches']} (want row 7 and its pre-blend, "
+                        f"row 12, only)")
     say("probes", "error budget margins: " + ", ".join(
         f"{name} {budget[name]['margin']} (block {budget[name]['block']})" for name in configs))
     say("probes", "unfused render of the budget's scenario, warm: " + ", ".join(
@@ -729,7 +1044,7 @@ def run(pool) -> int:
     from jefferson_tpu_torch.engine.renderer import Renderer
     from jefferson_tpu_torch.engine.stream import StreamingSpatializer, render_scan
     from jefferson_tpu_torch.hrtf.kemar import synthetic_database
-    from jefferson_tpu_torch.kernels import build, fused_spatializer, fused_step
+    from jefferson_tpu_torch.kernels import build, dma_blend, fused_spatializer, fused_step
     from jefferson_tpu_torch.scripts import error_budget
 
     smi = bench.card()
@@ -887,6 +1202,10 @@ def run(pool) -> int:
         return 1
     if not forward_forms(bench, device, geo, errs):
         return 1
+    if not row1_forms(bench, db, device, errs):
+        return 1
+    if not blend_forms(bench, db, device, errs):
+        return 1
 
     # ---- the batched main path, counted ------------------------------------
     wl = bench.build_workload(db, S, NB, device)
@@ -905,10 +1224,19 @@ def run(pool) -> int:
     render_s = time.perf_counter() - t0
     batched = dict(fused_step.launches)
     fwd_forms = {"batched": dict(fused_step.forward_launches)}
+    row1_by_form = dict(fused_step.row1_forms)
 
     row1 = batched["fused_step_onehot_xfade"]
     if row1 < 4 + RENDER_B // 256 or sum(batched.values()) != row1:
         return fail("path", f"the batched path launched {batched}")
+    # the four bench steps (S x NB rows) and the render's chunks (RENDER_S x
+    # 256 rows) each on the form pick_form names at their rows
+    want_staged = 4 * (S * NB >= fused_step.STAGED_FROM) + (row1 - 4) * (
+        RENDER_S * 256 >= fused_step.STAGED_FROM)
+    say("path", f"row 1 by form on the batched path: {row1_by_form} (STAGED_FROM = "
+                f"{fused_step.STAGED_FROM} rows)")
+    if row1_by_form != {fused_step.LAUNCH_B: row1 - want_staged, fused_step.STAGED: want_staged}:
+        return fail("path", f"row 1 by form {row1_by_form}, want {want_staged} staged launches")
     if fault := launch_a_fault("the batched path", batched, fwd_forms["batched"]):
         return fail("path", fault)
     finite = bool(torch.isfinite(first).all()) and bool(torch.isfinite(out).all())
@@ -969,6 +1297,15 @@ def run(pool) -> int:
     if (single["fused_step_onehot_xfade"]
             or not all(single[FORMS[f]] for f in FORMS)):
         return fail("path", f"the single-source path did not launch every step: {single}")
+    # rows 5's pre-blend (blend_rows) goes through row 12 on every gather-form chunk
+    gather_chunks = sum(1 for log in logs.values() for arm, _, _ in log
+                        if arm in ("dedup_fused", "gather_fused"))
+    say("path", f"row 12 (dma_blend) under row 5's pre-blend: {single['dma_blend']} launches on "
+                f"{gather_chunks} gather-form chunks, by form "
+                f"{ {k: v for k, v in fused_step.blend_forms.items() if v} }")
+    if single["dma_blend"] < gather_chunks or not gather_chunks:
+        return fail("path", f"row 5's pre-blend launched dma_blend {single['dma_blend']} times "
+                            f"on {gather_chunks} gather-form chunks")
     if not any(sparse for _, _, sparse in logs["sweep"]):
         return fail("path", "the sparse side-pass did not run")
     del outs
@@ -1004,8 +1341,14 @@ def run(pool) -> int:
         if set(r.dispatch) != {arm}:
             return fail("path", f"{name}: dispatch {sorted(set(r.dispatch))}, the JAX dispatch "
                                 f"takes {arm}")
+        blends = launched.pop("dma_blend", 0)
         if launched != {kernel: len(r.dispatch)}:
             return fail("path", f"{name}: launched {launched}, want {kernel} once per chunk")
+        # rows 6 and 7 take their filter rows from blend_rows (row 12), row 2
+        # blends in its own launch B
+        if (blends < len(r.dispatch)) if kernel != fused_step.GROUPED else blends:
+            return fail("path", f"{name}: {blends} dma_blend launches on {len(r.dispatch)} "
+                                f"chunks of {kernel}")
         if split != (len(r.dispatch) if form == fused_step.SPLIT else 0):
             return fail("path", f"{name}: {split} of {len(r.dispatch)} launches on the split "
                                 f"form, want every launch on {form}")
@@ -1015,7 +1358,8 @@ def run(pool) -> int:
     if fault := launch_a_fault("the scene path", scene_launches, fwd_forms["scene"]):
         return fail("path", fault)
     say("path", f"scene launches: {scene_launches}, on the split form "
-                f"{ {k: v for k, v in fused_step.split_launches.items() if v} }")
+                f"{ {k: v for k, v in fused_step.split_launches.items() if v} }, row 12 by form "
+                f"{ {k: v for k, v in fused_step.blend_forms.items() if v} }")
     for kernel in ("fused_step_xfade", "fused_step_xfade/no_xfade", fused_step.GROUPED):
         if fused_step.split_launches[kernel] != scene_launches[kernel] or not scene_launches[kernel]:
             return fail("path", f"{kernel}: the scene path did not run it on the split form")
@@ -1092,6 +1436,7 @@ def run(pool) -> int:
     step_ms = bench.time_steps_ms(wl)
     bps = S * NB / (step_ms * 1e-3)
     say("bench", f"{S}x{NB} step {step_ms:.4f} ms = {bps:,.0f} blocks/s  [{bench.card()}]")
+    step_forms(bench, wl)
     # kernel -> (wrapper, args, kwargs, sources, blocks): the main path's shapes
     ops = {"fused_step_onehot_xfade": (fused_step.fused_step_onehot_xfade,
                                        *bench.step_operands(wl, cfg), S, NB)}
@@ -1139,6 +1484,7 @@ def run(pool) -> int:
                          f"{bounds[name][0]:.6f} ms ({bounds[name][1]})  [{bench.card()}]")
     row8_crossover(bench, db, device, geo)
     split_crossover(bench, db, device)
+    row1_crossover(bench, db, device)
     forward_bench(bench, device, geo, times, bounds)
     for name, (fn, args, kw, flops, moved, lib) in probe_timed(device).items():
         k = lambda: fn(*args, **kw)
@@ -1239,6 +1585,9 @@ def run(pool) -> int:
                  f"uploads): {(time.perf_counter() - t0) * 1e3 / WORST_BLOCKS:.4f} ms  "
                  f"[{bench.card()}]")
 
+    blend_bench(bench, device)
+    blend_wiring(bench, db, device, sets, scene_sigs)
+
     sparse_calls = sum(1 for log in (logs["sweep"], scene_log["scene_hold"],
                                      scene_log["scene_hold_512"])
                        for _, _, bucket in log if bucket is not None)
@@ -1248,6 +1597,8 @@ def run(pool) -> int:
                 "fused_step_onehot_xfade": row1, SPATIALIZER: 2 + live_launches,
                 **{name: probe_launches[name] for name in PROBES},
                 LAUNCH_A: sum(sum(f.values()) for f in fwd_forms.values())}
+    # row 12 runs on the render paths (rows 5-7's pre-blend) and in the probes
+    launches["dma_blend"] += single["dma_blend"] + scene_launches["dma_blend"]
     say("path", f"launch A on the counted paths by form: {fwd_forms}")
     print(json.dumps({"kernels": [{
         "name": name,
@@ -1260,9 +1611,11 @@ def run(pool) -> int:
         "plain_ms": times[name][1],
         "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1],
-        # launch B's form on the main path (rows 1-8), launch A's at 16 x 256;
-        # rows 9-12 have one
-        "form": forms_of.get(name, fused_step.forward_form(256) if name == LAUNCH_A else None),
+        # launch B's form on the main path (rows 1-8), launch A's at 16 x 256,
+        # row 12's at the probe's rows; rows 9-11 have one
+        "form": forms_of.get(name, fused_step.forward_form(256) if name == LAUNCH_A
+                             else fused_step.DEDUP if name == "dma_blend"
+                             else None),
         # no single PyTorch call computes a fused step (rows 1-8)
         "library_ms": times[name][2] if name in PROBES else None,
     } for name, (source, replaces) in KERNELS.items()]}))
@@ -1287,12 +1640,11 @@ def form_calls(name, fn, args, kw, rows: int, device, geo) -> dict:
         call = lambda f: lambda: fsp._cuda(device, rows, table, tuple(br), xf, xdr, xdi, None,
                                            form=f, **geo)
         picked = fsp.pick_form(rows)
-    elif name in fused_step.split_launches:
+    else:  # rows 2-7: launch B and the split form; row 1: launch B and the staged form
         call = lambda f: lambda: fused_step._cuda(fn, *args, form=f, **kw)
         picked = fused_step.pick_form(name, rows)
-    else:  # row 1: one chain over K, launch B only
-        return {fused_step.LAUNCH_B: lambda: fn(*args, **kw)}
-    other = fused_step.SPLIT if picked == fused_step.LAUNCH_B else fused_step.LAUNCH_B
+    second = fused_step.SPLIT if name in fused_step.split_launches else fused_step.STAGED
+    other = second if picked == fused_step.LAUNCH_B else fused_step.LAUNCH_B
     return {picked: call(picked), other: call(other)}
 
 

@@ -1,7 +1,10 @@
 // What every library of the port shares at its C interface: running a
-// launch on the caller's device, and the text of a CUDA error code.
+// launch on the caller's device, raising a kernel's shared-memory limit
+// once, and the text of a CUDA error code.
 
 #pragma once
+
+#include <atomic>
 
 #include <cuda_runtime.h>
 
@@ -25,6 +28,22 @@ inline int on_device(int device, Fn fn) {
   if (err != cudaSuccess) cudaGetLastError();
   const cudaError_t restore = prev != device ? cudaSetDevice(prev) : cudaSuccess;
   return err != cudaSuccess ? err : restore;
+}
+
+// cudaFuncSetAttribute for a kernel's dynamic shared memory, once per
+// process and device: ``done`` is the kernel's mask of devices already set
+// (a runtime call on every launch is host time on the live block's path).
+template <typename Kernel>
+inline cudaError_t allow_smem_once(Kernel kernel, size_t bytes,
+                                   std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
 }
 
 }  // namespace

@@ -164,22 +164,6 @@ forward_distance(const float* __restrict__ streams, int nb,
   }
 }
 
-// cudaFuncSetAttribute for a kernel's dynamic shared memory, once per
-// process and device: ``done`` is the kernel's mask of devices already set
-// (a runtime call on every launch is host time on the live block's path).
-template <typename Kernel>
-inline cudaError_t allow_smem_once(Kernel kernel, size_t bytes,
-                                   std::atomic<unsigned long long>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
-  return err;
-}
-
 std::atomic<unsigned long long> tile_smem_set{0};
 
 // ---- launch A's product form and few-block form ---------------------------
@@ -1055,8 +1039,9 @@ cudaError_t launch_split_tail(cudaStream_t s, const float* xdr, const float* xdi
   return cudaGetLastError();
 }
 
-// The forms of launch B an entry takes: one CTA per 32-row tile, or the
-// split form above.
-enum TailForm { FORM_LAUNCH_B = 0, FORM_SPLIT = 1 };
+// The forms of launch B an entry takes: one CTA per 32-row tile, the split
+// form above, or row 1's staged form (fused_step_onehot.cu: one chain over
+// K, the blend staged and overlapped with the chains).
+enum TailForm { FORM_LAUNCH_B = 0, FORM_SPLIT = 1, FORM_STAGED = 2 };
 
 }  // namespace

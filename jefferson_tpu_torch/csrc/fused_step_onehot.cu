@@ -45,14 +45,17 @@
 //     3 and 4 sum the tail by 128-bin blocks (the blocked tail,
 //     fused_forward.cuh); row 1 keeps one chain over K, as it was first
 //     measured (the blocked form's extra registers would halve its
-//     occupancy at 512 CTAs).
+//     occupancy at 512 CTAs), in this form or, from STAGED_FROM rows
+//     (kernels/fused_step.py), in the staged form (blend_tail_staged,
+//     below): the same bits.
 //
 // Numerics: the blend, complex multiplies and crossfade round each product
 // on its own (__fmul_rn/__fadd_rn); only the tail dot products use fmaf.
 //
 // Rows 2-4 and 8 also take launch B's split form (fused_forward.cuh: a
 // cluster of four CTAs per tile, one per 128-bin block, each table row
-// blended once a tile), with the same bits; row 1 cannot (one chain).
+// blended once a tile), with the same bits; row 1 cannot (one chain), and
+// takes the staged form instead.
 //
 // Row 8 at few rows (the live block step: one row) has its own launch, the
 // cluster form (spatializer_cluster, below): launch B there builds a
@@ -69,6 +72,8 @@ constexpr size_t B_SMEM = sizeof(float) * (2 * B_M * T_QS + 2 * T_KC * FPB);
 static_assert(B_M * FPB <= 2 * B_M * T_QS + 2 * T_KC * FPB,
               "epilogue tile must fit in the main-loop shared memory");
 static_assert(B_THREADS == 2 * B_R * 4, "one thread per (side, row, bracket)");
+
+std::atomic<unsigned long long> launch_b_smem_set[2];   // by BLOCKED
 
 template <bool BLOCKED>
 __global__ void __launch_bounds__(B_THREADS)
@@ -184,6 +189,339 @@ blend_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
     const float a = on ? __fsub_rn(1.f, fn) : 0.f;
     const float b = on ? fn : 1.f;
     out[(size_t)r * 2 * FPB + col] = __fadd_rn(__fmul_rn(y_old, a), __fmul_rn(y_new, b));
+  }
+}
+
+// ---- row 1's launch B, the staged form ---------------------------------------
+//
+// Row 1 sums each output's tail as one fmaf chain over K, so it cannot take
+// the split form.  Where launch B (above) spends its time at 256 x 64
+// (PERF.md, row 1): its FMA loop alone 0.47 of its 0.61 ms, the q-build
+// alone 0.18, the epilogue 0.02.  The q-build gathers, for every (row,
+// side, bin), the row's four bracket rows through L2 (side 1 of row r is
+// side 0 of row r+1 inside a segment), with no FMA running meanwhile; the
+// 8 x 8 FMA loop reads a shared-memory value for every four FMAs.  Here a
+// CTA of 256 threads owns a 32-row tile in two warpgroups that never meet
+// again after the set-up, two CTAs an SM (86 KB of shared memory each):
+//   - the tile's filter rows are its entries, each blended once: old rows
+//     r0 .. r0+31, then row r0+32 or the segment ends' boundary rows (the
+//     split form's staging); their bracket ids are deduplicated through a
+//     hash table in shared memory into D distinct table rows (the bench
+//     step: 14 on average, at most 38);
+//   - the producer warpgroup (80 registers a thread after setmaxnreg)
+//     stages, per 8-bin chunk, the D rows' four plane windows (16-byte
+//     cp.async; P_DCAP rows at most, else the blend reads the table through
+//     L2), the tile's XD (4-byte cp.async) and the chunk of the tail basis,
+//     and blends every entry at every bin of the chunk into q in launch B's
+//     exact op order (__fmul_rn, __fadd_rn in bracket order, cmul_rn per
+//     user row and ear), a quarter-warp an entry and a lane a bin, up to
+//     three chunks ahead in a ring of four;
+//   - the consumer warpgroup (176 registers) runs the chains, each thread a
+//     16 x 8 register tile whose operands are six 16-byte shared-memory
+//     loads a bin and plane, each output fmaf(qr, br) then fmaf(qi, bi) over
+//     k = 0 .. 512 ascending from 0 (bin 512 a chunk of its own, not bins of
+//     zeros), then launch B's crossfade epilogue; named barriers pass the
+//     ring's stages between the roles.
+// So every output is launch B's bit for bit: the same q values in the same
+// chain.  What bounds it: the shared-memory pipe, which both roles share.
+// Alone, with q and the basis fixed, a 16 x 8 chain loop ran at 74% of the
+// FMA rate (8 x 16 with scalar q loads 62-65%, no loads at all 86%); in
+// the form the consumers alone take 0.40 ms at 256 x 64 and the blend and
+// copies add about 0.19 whatever the ring's depth (PERF.md, row 1).
+constexpr int P_R = 32;                         // output rows a tile
+constexpr int P_M = 4 * P_R;                    // (side, ear, row) operand rows
+constexpr int P_KC = 8;                         // bins a chunk
+constexpr int P_STAGES = 4;                     // q and basis chunks in the ring
+constexpr int P_CONS = 128;                     // consumers: 8 x 16, 16 x 8 outputs each
+constexpr int P_PROD = 128;                     // producers: a quarter-warp an entry, a lane a bin
+constexpr int P_PROD_REGS = 80;                 // registers a thread after setmaxnreg
+constexpr int P_CONS_REGS = 176;
+constexpr int P_THREADS = P_CONS + P_PROD;
+constexpr int P_ENT = 2 * P_R + 1;              // filter rows a tile blends, at most
+constexpr int P_DCAP = 40;                      // distinct table rows staged, at most
+constexpr int P_WIN = 12;                       // a staged plane window: bins k0-p .. k0-p+11
+constexpr int P_CHUNKS = (BINS - 1) / P_KC + 1; // 64 of 8 bins, then bin 512 alone
+constexpr int P_QS = P_KC + 1;                  // padded row stride of an XD chunk
+constexpr int P_QLD = P_M + 4;                  // padded bin stride of a q chunk
+constexpr int P_RD = 4 * P_WIN + 4;             // a distinct row's windows, padded: 20 banks
+                                                // apart from the next row's
+constexpr int P_HASH = 256;
+constexpr int P_QBUF = 2 * P_KC * P_QLD;        // [plane][kk][m]
+constexpr int P_BBUF = 2 * P_KC * FPB;          // [plane][kk][t]
+constexpr int P_RBUF = P_DCAP * P_RD;           // [distinct row][plane][window]
+constexpr int P_XBUF = 2 * P_R * P_QS;          // [plane][row][kk]
+constexpr size_t P_SMEM =
+    sizeof(float) * (P_STAGES * (P_QBUF + P_BBUF) + 2 * (P_RBUF + P_XBUF));
+constexpr int P_QUARTERS = P_PROD / P_KC;       // entries blended at once
+// named barriers: 0 is __syncthreads; ring stage s is full at 1 + s and
+// free at 1 + P_STAGES + s; the producers' own, then the consumers'
+constexpr int BAR_FULL = 1, BAR_FREE = 1 + P_STAGES, BAR_PROD = 1 + 2 * P_STAGES,
+              BAR_CONS = 2 + 2 * P_STAGES;
+static_assert(BAR_CONS < 16, "16 named barriers");
+static_assert(P_CONS == 128 && P_PROD == 128, "one warpgroup a role (setmaxnreg)");
+static_assert(P_PROD * P_PROD_REGS + P_CONS * P_CONS_REGS <= 65536 / 2, "two CTAs an SM");
+static_assert(P_M * FPB <= P_STAGES * (P_QBUF + P_BBUF), "the epilogue tile fits the ring");
+static_assert(P_QBUF % 4 == 0 && P_BBUF % 4 == 0 && P_RBUF % 4 == 0, "16-byte cp.async targets");
+static_assert(P_ENT * 4 <= 2 * P_THREADS, "two brackets of an entry a thread at most");
+static_assert(P_CONS * 16 * 8 == P_M * FPB, "consumer tiles cover the operand");
+static_assert(P_WIN % 4 == 0 && P_WIN >= P_KC + 3, "a plane window covers its bins");
+static_assert(P_RD % 4 == 0 && P_QLD % 4 == 0, "16-byte windows and q rows");
+static_assert(P_ENT * 4 <= 2 * P_HASH, "the hash table stays half empty at most");
+
+std::atomic<unsigned long long> staged_smem_set{0};
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// acc[i][j] += the chunk's first nk bins of qr*br + qi*bi for operand row
+// ty*16+i and output column 4tx + j (j < 4) or 64 + 4tx + j-4: bins
+// ascending, each output's real then imaginary term, tail_chunk_fma's
+// order per output.  q is [kk][P_QLD] and the basis [kk][FPB]: six float4
+// loads a bin and plane.
+__device__ __forceinline__ void staged_chunk_fma(float (&acc)[16][8], const float* qr,
+                                                 const float* qi, const float* br,
+                                                 const float* bi, int tx, int ty, int nk) {
+#pragma unroll 1
+  for (int kk = 0; kk < nk; ++kk) {
+#pragma unroll
+    for (int plane = 0; plane < 2; ++plane) {
+      const float* q = (plane ? qi : qr) + kk * P_QLD + ty * 16;
+      const float* v = (plane ? bi : br) + kk * FPB + tx * 4;
+      float a[16], b[8];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float4 f = *reinterpret_cast<const float4*>(q + 4 * g);
+        a[4 * g] = f.x;
+        a[4 * g + 1] = f.y;
+        a[4 * g + 2] = f.z;
+        a[4 * g + 3] = f.w;
+      }
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+        const float4 f = *reinterpret_cast<const float4*>(v + 64 * g);
+        b[4 * g] = f.x;
+        b[4 * g + 1] = f.y;
+        b[4 * g + 2] = f.z;
+        b[4 * g + 3] = f.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(P_THREADS, 2)
+blend_tail_staged(const float* __restrict__ xdr, const float* __restrict__ xdi, int rows,
+                  int seg, RowsBlended src, const float* __restrict__ xf,
+                  const float* __restrict__ icr, const float* __restrict__ ici,
+                  float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  float* qbuf = smem;                           // [stage][P_QBUF]
+  float* bbuf = qbuf + P_STAGES * P_QBUF;       // [stage][P_BBUF]
+  float* rbuf = bbuf + P_STAGES * P_BBUF;       // [buffer][P_RBUF]
+  float* xbuf = rbuf + 2 * P_RBUF;              // [buffer][P_XBUF]
+  float* y = smem;                              // [P_M][FPB] after the main loop
+  __shared__ RowsBlended::Entry ent[P_ENT];     // the tile's filter rows
+  __shared__ int ent_d[P_ENT][4];               // each bracket's distinct row
+  __shared__ int user[P_ENT][2];                // the row whose side 0 / 1 it is, or -1
+  __shared__ int hkey[P_HASH], hrow[P_HASH];    // table id -> distinct row
+  __shared__ int distinct[P_ENT * 4];           // distinct row -> table id
+  __shared__ int n_ent, n_distinct;
+
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * P_R;
+
+  for (int i = tid; i < P_ENT; i += P_THREADS) user[i][0] = user[i][1] = -1;
+  for (int i = tid; i < P_HASH; i += P_THREADS) hkey[i] = -1;
+  for (int i = tid; i < P_STAGES * P_QBUF; i += P_THREADS) qbuf[i] = 0.f;   // rows past the end
+  if (tid == 0) n_distinct = 0;
+  __syncthreads();
+  if (tid < P_R) {  // warp 0, one lane per row: the split form's entries
+    const int i = tid, r = r0 + i;
+    const bool live = r < rows;
+    const bool inside = live && r % seg + 1 < seg;   // the new side is old row r+1
+    const unsigned ends = __ballot_sync(~0u, live && !inside);
+    if (live) {
+      ent[i] = src.old_row(r);
+      user[i][0] = i;
+    }
+    if (inside) {
+      user[i + 1][1] = i;
+      if (i + 1 == P_R) ent[P_R] = src.old_row(r + 1);
+    } else if (live) {
+      const int e = P_R + 1 + __popc(ends & ((1u << i) - 1));
+      ent[e] = src.boundary(r, seg);
+      user[e][1] = i;
+    }
+    if (i == 0) n_ent = P_R + 1 + __popc(ends);
+  }
+  __syncthreads();
+  const int ne = n_ent;
+  // each thread inserts the ids of (entry, bracket) tid and tid + P_THREADS
+  int hs[2] = {0, 0};
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int e = (tid + t * P_THREADS) / 4, j = (tid + t * P_THREADS) % 4;
+    if (e >= ne || (user[e][0] < 0 && user[e][1] < 0)) continue;
+    const int id = ent[e].id[j];
+    int h = (int)(((unsigned)id * 2654435761u) >> 24) & (P_HASH - 1);
+    for (;;) {
+      const int prev = atomicCAS(&hkey[h], -1, id);
+      if (prev == -1) {                         // first of its id
+        const int d = atomicAdd(&n_distinct, 1);
+        hrow[h] = d;
+        distinct[d] = id;
+        break;
+      }
+      if (prev == id) break;
+      h = (h + 1) & (P_HASH - 1);
+    }
+    hs[t] = h;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int e = (tid + t * P_THREADS) / 4, j = (tid + t * P_THREADS) % 4;
+    if (e < ne) ent_d[e][j] = (user[e][0] < 0 && user[e][1] < 0) ? 0 : hrow[hs[t]];
+  }
+  __syncthreads();
+  const int nd = n_distinct;
+  const bool staged = nd <= P_DCAP;
+
+  // Two warpgroups in two roles that never meet again: the producers give
+  // up registers the consumers' 16 x 8 tiles take.
+  if (tid >= P_CONS) {
+    // ---- producers: a quarter-warp an entry or XD row, a lane a bin ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(P_PROD_REGS));
+    const int p = tid - P_CONS, lane = p % 32, quarter = p / P_KC, kk = p % P_KC;
+    auto issue_rows = [&](int c) {              // chunk c's table windows and XD
+      const int k0 = c * P_KC, nk = min(P_KC, BINS - k0);
+      const int n4 = nk == P_KC ? P_WIN / 4 : 1;   // bin 512: bins 512-p .. 515-p
+      float* rb = rbuf + (c & 1) * P_RBUF;
+      if (staged)
+        for (int i = p; i < nd * 4 * n4; i += P_PROD) {
+          const int j = i / n4, q4 = i - j * n4, d = j / 4, pl = j % 4;
+          // plane pl starts at pl*BINS = pl*(BINS-1) + pl: its window starts
+          // pl floats early, on a 16-byte boundary
+          cp_async16(rb + d * P_RD + pl * P_WIN + 4 * q4,
+                     src.table + (size_t)distinct[d] * C4 + pl * (BINS - 1) + k0 + 4 * q4);
+        }
+      float* xb = xbuf + (c & 1) * P_XBUF;
+      if (kk < nk)
+        for (int j = quarter; j < 2 * P_R; j += P_QUARTERS) {   // (plane, row)
+          const int pl = j / P_R, r = r0 + j % P_R;
+          if (r < rows)
+            cp_async4(xb + j * P_QS + kk, (pl ? xdi : xdr) + (size_t)r * BINS + k0 + kk);
+        }
+      cp_async_commit();
+    };
+    auto issue_basis = [&](int c) {             // a warp a (plane, bin) row of 128
+      const int k0 = c * P_KC, nk = min(P_KC, BINS - k0);
+      float* bb = bbuf + (c % P_STAGES) * P_BBUF;
+      for (int j = p / 32; j < 2 * nk; j += P_PROD / 32) {
+        const int pl = j % 2, b = j / 2;
+        cp_async16(bb + (pl * P_KC + b) * FPB + 4 * lane,
+                   (pl ? ici : icr) + (size_t)(k0 + b) * FPB + 4 * lane);
+      }
+      cp_async_commit();
+    };
+    issue_rows(0);
+    for (int c = 0; c < P_CHUNKS; ++c) {
+      bar_sync(BAR_PROD, P_PROD);               // every producer is past chunk c-1's blend
+      if (c >= P_STAGES)                        // the consumers are past chunk c - P_STAGES
+        bar_sync(BAR_FREE + c % P_STAGES, P_THREADS);
+      issue_basis(c);
+      if (c + 1 < P_CHUNKS)
+        issue_rows(c + 1);
+      else
+        cp_async_commit();
+      cp_async_wait<2>();                       // chunk c's table windows and XD
+      bar_sync(BAR_PROD, P_PROD);
+      const int k0 = c * P_KC, nk = min(P_KC, BINS - k0);
+      const float* rb = rbuf + (c & 1) * P_RBUF;
+      const float* xb = xbuf + (c & 1) * P_XBUF;
+      float* qr = qbuf + (c % P_STAGES) * P_QBUF;
+      float* qi = qr + P_KC * P_QLD;
+      if (kk < nk)
+        for (int e = quarter; e < ne; e += P_QUARTERS) {
+          const int u0 = user[e][0], u1 = user[e][1];
+          if (u0 < 0 && u1 < 0) continue;
+          float g[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float wj = ent[e].w[j];
+            // staged: plane pl's bin kk at pl*P_WIN + pl + kk of the row's windows
+            const float* trow = staged ? rb + ent_d[e][j] * P_RD + kk
+                                       : src.table + (size_t)ent[e].id[j] * C4 + k0 + kk;
+            const int stride = staged ? P_WIN + 1 : BINS;
+#pragma unroll
+            for (int pl = 0; pl < 4; ++pl) {
+              const float v = __fmul_rn(wj, trow[pl * stride]);
+              g[pl] = j == 0 ? v : __fadd_rn(g[pl], v);
+            }
+          }
+#pragma unroll
+          for (int side = 0; side < 2; ++side) {
+            const int u = side ? u1 : u0;
+            if (u < 0) continue;
+            const float xr = xb[u * P_QS + kk], xi = xb[(P_R + u) * P_QS + kk];
+#pragma unroll
+            for (int ear = 0; ear < 2; ++ear) {
+              const int m = kk * P_QLD + (side * 2 + ear) * P_R + u;
+              cmul_rn(xr, xi, g[2 * ear], g[2 * ear + 1], &qr[m], &qi[m]);
+            }
+          }
+        }
+      cp_async_wait<1>();                       // chunk c's basis
+      __syncwarp();                             // the warp's lanes reconverge
+      bar_arrive(BAR_FULL + c % P_STAGES, P_THREADS);
+    }
+  } else {
+    // ---- consumers ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(P_CONS_REGS));
+    const int tx = tid % 16, ty = tid / 16;
+    float acc[16][8];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < P_CHUNKS; ++c) {
+      bar_sync(BAR_FULL + c % P_STAGES, P_THREADS);
+      const float* qr = qbuf + (c % P_STAGES) * P_QBUF;
+      const float* br = bbuf + (c % P_STAGES) * P_BBUF;
+      staged_chunk_fma(acc, qr, qr + P_KC * P_QLD, br, br + P_KC * FPB, tx, ty,
+                       min(P_KC, BINS - c * P_KC));
+      if (c + P_STAGES < P_CHUNKS) bar_arrive(BAR_FREE + c % P_STAGES, P_THREADS);
+    }
+    bar_sync(BAR_CONS, P_CONS);                 // every consumer is done with the buffers
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int g = 0; g < 2; ++g)
+        *reinterpret_cast<float4*>(y + (ty * 16 + i) * FPB + tx * 4 + 64 * g) =
+            make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2], acc[i][4 * g + 3]);
+    bar_sync(BAR_CONS, P_CONS);                 // the tile's tails are in y
+
+    // crossfade epilogue, launch B's: out[r] = [L 128 | R 128]
+    for (int i = tid; i < P_R * 2 * FPB; i += P_CONS) {
+      const int row = i / (2 * FPB), col = i % (2 * FPB), r = r0 + row;
+      if (r >= rows) break;
+      const int ear = col / FPB, t = col % FPB;
+      const float y_old = y[(ear * P_R + row) * FPB + t];
+      const float y_new = y[((2 + ear) * P_R + row) * FPB + t];
+      const float fn = (float)t / (float)(FPB - 1);
+      const bool on = xf[r] > 0.f;
+      const float a = on ? __fsub_rn(1.f, fn) : 0.f;
+      const float b = on ? fn : 1.f;
+      out[(size_t)r * 2 * FPB + col] = __fadd_rn(__fmul_rn(y_old, a), __fmul_rn(y_new, b));
+    }
   }
 }
 
@@ -354,8 +692,9 @@ spatializer_cluster(const float* __restrict__ xdr, const float* __restrict__ xdi
 // rows; blocked_tail != 0 sums the tail by 128-bin blocks.  form: the
 // blocked tail's launch B as FORM_LAUNCH_B (one CTA per 32 rows) or
 // FORM_SPLIT (a cluster of four CTAs per tile, fused_forward.cuh: the same
-// bits; it needs group_rows % seg == 0); one chain over K only as
-// FORM_LAUNCH_B; anything else is refused (cudaErrorInvalidValue).
+// bits; it needs group_rows % seg == 0); one chain over K as FORM_LAUNCH_B
+// or FORM_STAGED (blend_tail_staged: the same bits; it needs group_rows %
+// seg == 0); anything else is refused (cudaErrorInvalidValue).
 // Launches on ``stream`` of ``device`` without synchronising, leaves the
 // caller's current device as it was, and returns the first CUDA error (0
 // when both launches went).
@@ -370,19 +709,25 @@ extern "C" int jt_fused_step_onehot_xfade(
     float* xdr, float* xdi, float* out) {
   return on_device(device, [&]() {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (!(form == FORM_LAUNCH_B || (form == FORM_SPLIT && blocked_tail && group_rows % seg == 0)))
+    if (!(form == FORM_LAUNCH_B || (form == FORM_SPLIT && blocked_tail && group_rows % seg == 0) ||
+          (form == FORM_STAGED && !blocked_tail && group_rows % seg == 0)))
       return cudaErrorInvalidValue;
     cudaError_t err = launch_forward_distance(s, streams, num_sources, nb, uh, ul, fr,
                                               dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi);
     if (err != cudaSuccess) return err;
     const int rows = num_sources * nb;
+    const RowsBlended src{table, u_rows, ridx, w, bnd_idx, bnd_w, group_rows};
+    if (form == FORM_STAGED) {
+      err = allow_smem_once(blend_tail_staged, P_SMEM, staged_smem_set);
+      if (err != cudaSuccess) return err;
+      blend_tail_staged<<<(rows + P_R - 1) / P_R, P_THREADS, P_SMEM, s>>>(
+          xdr, xdi, rows, seg, src, xf, icr, ici, out);
+      return cudaGetLastError();
+    }
     if (form == FORM_SPLIT)
-      return launch_split_tail<2>(
-          s, xdr, xdi, rows, seg,
-          RowsBlended{table, u_rows, ridx, w, bnd_idx, bnd_w, group_rows}, xf, icr, ici, out);
+      return launch_split_tail<2>(s, xdr, xdi, rows, seg, src, xf, icr, ici, out);
     auto kernel = blocked_tail ? blend_tail_xfade<true> : blend_tail_xfade<false>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)B_SMEM);
+    err = allow_smem_once(kernel, B_SMEM, launch_b_smem_set[blocked_tail ? 1 : 0]);
     if (err != cudaSuccess) return err;
     kernel<<<(rows + B_R - 1) / B_R, B_THREADS, B_SMEM, s>>>(
         xdr, xdi, rows, table, u_rows, ridx, w, bnd_idx, bnd_w, seg, group_rows, xf,

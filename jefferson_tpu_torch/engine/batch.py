@@ -22,6 +22,7 @@ from ..config import EngineConfig
 from ..convert import spectra_from_numpy
 from ..hrtf.kemar import HRTFDatabase
 from ..kernels import fused_step
+from ..kernels.dma_blend import blend_rows
 from ..kernels.fused_apply import fused_apply_xfade
 from ..ops import fft as fft_ops
 from ..ops.filters import cmul, distance_factors_split
@@ -212,8 +213,8 @@ def batched_chunk_fn_fused(config: EngineConfig, num_blocks: int, tb: int, oneho
         flat = lambda a: a.reshape((s * nb,) + a.shape[2:])
         col = lambda a: flat(a)[:, None].contiguous()
         cat = cat_table(spectra)
-        g_old = blend_cat(cat, flat(idx_old), flat(w_old))
-        g_last = blend_cat(cat, idx_last, w_last)
+        g_old = blend_rows(cat, flat(idx_old), flat(w_old))
+        g_last = blend_rows(cat, idx_last, w_last)
         xf = flat(xfade).to(torch.float32)[:, None]
         if tb % nb == 0:
             y = fused_step.fused_step_xfade(
@@ -262,7 +263,7 @@ def batched_chunk_fn_dedup_fused(config: EngineConfig, num_blocks: int, tb: int,
         flat = lambda a: a.reshape((s * nb,) + a.shape[2:])
         col = lambda a: flat(a)[:, None].contiguous()
         cat = cat_table(spectra)
-        g_u = blend_cat(cat, uniq_idx, uniq_w)                 # (U, 4*bins)
+        g_u = blend_rows(cat, uniq_idx, uniq_w)                # (U, 4*bins)
         g_rows = g_u[inv_old.reshape(-1).long()]               # (S*nb, 4*bins)
         if with_xfade:
             g_last = g_u[inv_last.long()]                      # (S, 4*bins)
@@ -281,7 +282,7 @@ def batched_chunk_fn_dedup_fused(config: EngineConfig, num_blocks: int, tb: int,
             # blend only the n_cf old rows the side-pass needs
             old = cf_old.long()
             cf = cf_idx.long()
-            g_old_cf = blend_cat(cat, uniq_idx[old], uniq_w[old])
+            g_old_cf = blend_rows(cat, uniq_idx[old], uniq_w[old])
             y = _sparse_xfade_fix(
                 y, streams.reshape(-1, fpb), cf, g_old_cf, flat(xfade), flat(u_hi),
                 flat(u_lo), flat(inv_frac), config=config, nb_seg=nb,

@@ -25,6 +25,7 @@ from ..convert import spectra_from_numpy
 from ..hrtf.kemar import HRTFDatabase
 from ..kernels import fused_step
 from ..kernels.fused_apply import fused_apply_xfade
+from ..kernels.dma_blend import blend_rows
 from ..kernels.fused_step import blend_cat
 from ..ops import fft as fft_ops
 from ..ops.filters import cmul, distance_factors_split, xfade_ramp
@@ -175,9 +176,9 @@ def _fd_complex_chunk_fused(
     full = torch.cat([hist, fed])
     new_hist = full[num_blocks * fpb :]
     cat = cat_table(spectra)
-    g_rows = blend_cat(cat, idx_old, w_old)
+    g_rows = blend_rows(cat, idx_old, w_old)
     if with_xfade:
-        g_last = blend_cat(cat, idx_last, w_last)
+        g_last = blend_rows(cat, idx_last, w_last)
         xf = xfade.to(torch.float32)[:, None]
     else:
         g_last, xf = None, None
@@ -384,7 +385,7 @@ def _fd_complex_chunk_dedup_fused(
     full = torch.cat([hist, fed])
     new_hist = full[num_blocks * fpb :]
     cat = cat_table(spectra)
-    g_u = blend_cat(cat, uniq_idx, uniq_w)
+    g_u = blend_rows(cat, uniq_idx, uniq_w)
     g_rows = g_u[inv_old.long()]
     if with_xfade:
         g_last = g_u[inv_last.long()]
@@ -399,7 +400,7 @@ def _fd_complex_chunk_dedup_fused(
         # blend only the n_cf old rows the side-pass needs (the same values
         # as taking them from a full blend: per-row op order is unchanged)
         old = cf_old.long()
-        g_old_cf = blend_cat(cat, uniq_idx[old], uniq_w[old])
+        g_old_cf = blend_rows(cat, uniq_idx[old], uniq_w[old])
         y = _sparse_xfade_fix(
             y, full.reshape(-1, fpb), cf_idx.long(), g_old_cf, xfade, u_hi, u_lo, inv_frac,
             config=config, nb_seg=num_blocks,

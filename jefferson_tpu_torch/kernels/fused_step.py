@@ -87,10 +87,14 @@ launches: dict[str, int] = dict.fromkeys((
 # Launch B's forms on the card: one CTA per 32-row tile, or the split
 # form, a cluster of four CTAs per tile, one per 128-bin block of the
 # blocked tail, folded in launch B's order (csrc/fused_forward.cuh): the
-# same bits.  Row 1 sums one chain over K and has launch B only.  Row 8
-# also has its few-row cluster form (kernels/fused_spatializer).
-LAUNCH_B, SPLIT = "launch_b", "split"
-_FORM_CODE = {LAUNCH_B: 0, SPLIT: 1}
+# same bits.  Row 1 sums one chain over K: launch B, or its staged form
+# (csrc/fused_step_onehot.cu: each filter row blended once a tile from its
+# distinct table rows staged in shared memory, by producer warps while
+# consumer warps run the chains), the same bits.  Row 8 also has its
+# few-row cluster form (kernels/fused_spatializer).
+LAUNCH_B, SPLIT, STAGED = "launch_b", "split", "staged"
+_FORM_CODE = {LAUNCH_B: 0, SPLIT: 1, STAGED: 2}
+ROW1 = "fused_step_onehot_xfade"
 
 # Row 8's launches by form, within its one count above: the cluster form
 # (few rows), launch B or the split form.
@@ -110,6 +114,15 @@ split_launches: dict[str, int] = dict.fromkeys((
 # PERF.md, the kernel table).
 SPLIT_FROM = 1
 
+# Rows from which row 1 takes launch B's staged form on the card: on an
+# H100 (700 W) it took less device time alone than the one-CTA form at
+# 16,384 and 32,768 rows, more at 1,024-12,288 (chip_smoke.py's crossover,
+# phase bench; PERF.md, the kernel table).
+STAGED_FROM = 16384
+
+# Row 1's launches by form, within its count above.
+row1_forms: dict[str, int] = dict.fromkeys((LAUNCH_B, STAGED), 0)
+
 # Launch A's forms on the card, the same bits (csrc/fused_forward.cuh): the
 # tile form (one CTA per 32 blocks x 64 bins of a source), kept to hold the
 # others against; the product form (64 flat sub-block rows x 64 bins a
@@ -128,6 +141,14 @@ FEW_NB = 9
 # forward form and of ``_forward_cuda``.
 forward_launches: dict[str, int] = dict.fromkeys(_FWD_CODE, 0)
 
+# Row 12's forms on the card, the same bits (csrc/dma_blend.cu): the
+# double-buffered form (8 rows x 1,024 columns a CTA) and the dedup form
+# (32 rows a CTA, each distinct table row staged once a column slice);
+# its launches by form, within its one count ``launches["dma_blend"]``
+# (kernels/dma_blend takes the dedup form).
+DOUBLE, DEDUP = "double", "dedup"
+blend_forms: dict[str, int] = dict.fromkeys((DOUBLE, DEDUP), 0)
+
 # The form a card test or chip_smoke.py names through ``_cuda``; None: pick.
 _named_form: contextvars.ContextVar[str | None] = contextvars.ContextVar("form", default=None)
 
@@ -136,7 +157,8 @@ _FPB, _PAD, _BINS = 128, 1024, 513  # the geometry the CUDA kernels are built fo
 
 def reset_launches() -> None:
     """Set every kernel's launch count, and the counts by form, to 0."""
-    for counts in (launches, spatializer_forms, split_launches, forward_launches):
+    for counts in (launches, spatializer_forms, split_launches, forward_launches, blend_forms,
+                   row1_forms):
         for name in counts:
             counts[name] = 0
 
@@ -144,6 +166,8 @@ def reset_launches() -> None:
 def pick_form(name: str, rows: int) -> str:
     """Launch B's form on the card for kernel ``name`` (rows 1-7) at ``rows``
     rows."""
+    if name == ROW1:
+        return STAGED if rows >= STAGED_FROM else LAUNCH_B
     return SPLIT if name in split_launches and rows >= SPLIT_FROM else LAUNCH_B
 
 
@@ -154,11 +178,11 @@ def forward_form(nb: int) -> str:
 
 
 def _cuda(fn, *args, form: str, **kwargs):
-    """``fn(*args, **kwargs)``, a wrapper of rows 2-7, with launch B in
+    """``fn(*args, **kwargs)``, a wrapper of rows 1-7, with launch B in
     ``form`` on the card (the card tests and chip_smoke.py hold the forms
     against each other this way; the wrappers pick by ``pick_form``)."""
     if form not in _FORM_CODE:
-        raise ValueError(f"form {form!r}: want {LAUNCH_B!r} or {SPLIT!r}")
+        raise ValueError(f"form {form!r}: want 'launch_b' or 'split', or 'staged' for row 1")
     token = _named_form.set(form)
     try:
         return fn(*args, **kwargs)
@@ -168,10 +192,14 @@ def _cuda(fn, *args, form: str, **kwargs):
 
 def _form(name: str, rows: int) -> str:
     """The form this launch of ``name`` takes: the one named through
-    ``_cuda``, else ``pick_form``; row 1 has launch B only."""
+    ``_cuda``, else ``pick_form``; the split form is the blocked tail's,
+    the staged form row 1's."""
     form = _named_form.get() or pick_form(name, rows)
     if form == SPLIT and name not in split_launches:
-        raise ValueError(f"{name} sums one chain over K: launch B only")
+        raise ValueError(f"{name} sums one chain over K: launch B only, in its one-CTA or "
+                         f"staged form")
+    if form == STAGED and name != ROW1:
+        raise ValueError(f"the staged form is row 1's, not {name}'s")
     return form
 
 
@@ -179,6 +207,8 @@ def _count(name: str, form: str) -> None:
     launches[name] += 1
     if form == SPLIT:
         split_launches[name] += 1
+    if name == ROW1:
+        row1_forms[form] += 1
 
 
 # ---- plain-PyTorch twins, in the JAX package's op order ---------------------
@@ -511,8 +541,8 @@ def _forward_cuda(streams, nb: int, uh, ul, fr, dsel, n_dist, *, form: str, pad_
 def _onehot_cuda(name, device, streams, nb, uh, ul, fr, dsel, n_dist, table, u_rows, ridx, w,
                  bnd_idx, bnd_w, seg, group_rows, xf, *, pad_len, bins, fpb):
     """Rows 1-4 on the card.  Rows 2-4 sum the tail IDFT by 128-bin blocks,
-    in either form of launch B; row 1 keeps the one chain over K it was
-    measured with, on launch B."""
+    in launch B or its split form; row 1 keeps the one chain over K it was
+    measured with, in launch B or its staged form."""
     rows = ridx.shape[0]
     n_seg = rows // seg
     specs = {
@@ -528,12 +558,12 @@ def _onehot_cuda(name, device, streams, nb, uh, ul, fr, dsel, n_dist, table, u_r
     if u_rows < 1 or rows < 1:
         raise ValueError("the step needs a table row and a block")
     form = _form(name, rows)
-    if form == SPLIT and group_rows % seg:
-        # the split form serves row r's new side from staged row r+1 of the
-        # same segment, blended against row r+1's group: group ends must
-        # fall on segment ends
+    if form != LAUNCH_B and group_rows % seg:
+        # the split and staged forms serve row r's new side from staged row
+        # r+1 of the same segment, blended against row r+1's group: group
+        # ends must fall on segment ends
         raise ValueError(f"groups of {group_rows} rows end inside segments of {seg}")
-    blocked = int(name != "fused_step_onehot_xfade")
+    blocked = int(name != ROW1)
     middle = (table, u_rows, ridx, w, bnd_idx, bnd_w, seg, group_rows, blocked,
               _FORM_CODE[form], xf)
     return _launch(name, form, "fused_step_onehot", _onehot_entry(), device, streams,

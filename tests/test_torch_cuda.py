@@ -34,6 +34,16 @@ TOL = 5e-7  # kernel vs twin: fp32 DFT sums in another order
 MM_REL = 2e-6  # rows 10-11 vs twin, of the output peak: fp32 sums in other orders
 
 
+def _one_step_a_chunk_and_the_pre_blends(dispatch):
+    """A render's launches: one step a chunk, and row 12 (blend_rows) at
+    least once on each chunk whose step takes pre-blended rows (rows 5-7)."""
+    steps = sum(v for k, v in tfs.launches.items() if k != "dma_blend")
+    pre_blended = sum(1 for arm, _, _ in dispatch if arm in ("dedup_fused", "gather_fused"))
+    assert steps == len(dispatch)
+    assert tfs.launches["dma_blend"] >= pre_blended
+    assert bool(tfs.launches["dma_blend"]) == bool(pre_blended)
+
+
 @pytest.fixture(scope="module")
 def card_db():
     if not torch.cuda.is_available():
@@ -190,7 +200,7 @@ def test_renderer_on_the_card_matches_the_cpu_twins(card_db, case, monkeypatch):
     card = Renderer(card_db, device="cuda", chunk_blocks=cb, **opts)
     tfs.reset_launches()
     got = card.render(sig, pos)
-    assert sum(tfs.launches.values()) == len(card.dispatch)
+    _one_step_a_chunk_and_the_pre_blends(card.dispatch)
     cpu = Renderer(card_db, device="cpu", chunk_blocks=cb, **opts)
     want = cpu.render(sig, pos)
     assert card.dispatch == cpu.dispatch
@@ -317,7 +327,7 @@ def test_scene_render_on_the_card_matches_the_cpu_twins(card_db, case):
     card = BatchRenderer(card_db, device="cuda", chunk_blocks=cb, **opts)
     tfs.reset_launches()
     got = card.render(sig, pos)
-    assert sum(tfs.launches.values()) == len(card.dispatch)
+    _one_step_a_chunk_and_the_pre_blends(card.dispatch)
     cpu = BatchRenderer(card_db, device="cpu", chunk_blocks=cb, **opts)
     want = cpu.render(sig, pos)
     assert card.dispatch == cpu.dispatch
@@ -768,10 +778,12 @@ def test_dma_blend_launch_errors_are_reported(card):
     on any."""
     flat, idx, w, c_pad = _blend(card, 8)
     out = torch.empty((8, c_pad), device=card)
-    err = tdb._entry()(card.index, torch.cuda.current_stream(card).cuda_stream, flat.data_ptr(),
-                       710, c_pad, idx.data_ptr(), w.data_ptr(), out.data_ptr(), 0)
-    assert err != 0
-    assert "invalid configuration" in tfs._cuda_error("dma_blend", err)
+    for form in (tfs.DOUBLE, tfs.DEDUP):
+        err = tdb._form_entry()(card.index, torch.cuda.current_stream(card).cuda_stream,
+                                tdb._FORM_CODE[form], flat.data_ptr(), 710, c_pad,
+                                idx.data_ptr(), w.data_ptr(), out.data_ptr(), 0)
+        assert err != 0
+        assert "invalid configuration" in tfs._cuda_error("dma_blend", err)
 
 
 def test_dma_blend_refuses_a_misaligned_table(card):
@@ -849,3 +861,151 @@ def test_prod_wrapper_is_the_kernel_and_refuses_mixed_devices(card):
         tap.prod(xr, xi, gr, gi.cpu())
     with pytest.raises(ValueError, match="gi: want contiguous"):
         tap.prod(xr, xi, gr, gi.double())
+
+
+# ---- row 1's staged form and row 12's dedup form ------------------------------
+
+@pytest.mark.parametrize("s,nb,radius_step", [
+    (256, 64, 0.0), (256, 64, 0.05), (3, 9, 0.0), (4, 66, 0.0), (4, 66, 0.05), (1, 1, 0.0),
+])
+def test_row_1_staged_form_is_launch_b_bit_for_bit(card_db, s, nb, radius_step):
+    """The bench shape with compact and per-row distance, and ragged counts
+    whose 32-row tiles cross a source's end."""
+    args, kw = _operands(card_db, radius_step, s, nb)
+    one = tfs._cuda(tfs.fused_step_onehot_xfade, *args, form=tfs.LAUNCH_B, **kw)
+    before = tfs.row1_forms[tfs.STAGED]
+    staged = tfs._cuda(tfs.fused_step_onehot_xfade, *args, form=tfs.STAGED, **kw)
+    torch.cuda.synchronize()
+    assert tfs.row1_forms[tfs.STAGED] == before + 1
+    assert torch.equal(one, staged)
+    want = tfs.fused_step_onehot_xfade_reference(*args, **kw)
+    assert float((staged - want).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("case", ["outside", "many_distinct"])
+def test_row_1_staged_form_on_ids_outside_and_many_distinct_rows(card_db, case):
+    """Ids outside the table add nothing; more distinct table rows a tile
+    than the form stages (random ids over 700 rows) read the table through
+    L2: launch B's bits either way."""
+    args, kw = _operands(card_db, 0.0, 4, 66)
+    args = list(args)
+    rng = np.random.default_rng(11)
+    put = lambda a: torch.from_numpy(a).to(args[0].device)
+    if case == "outside":
+        u = args[4].shape[0]
+        args[5] = args[5].clone()
+        args[5][3, 1], args[5][17, 0], args[5][200, 2] = u + 2, -4, u
+        args[7] = args[7].clone()
+        args[7][1, 3] = u + 9
+    else:
+        args[4] = put(rng.standard_normal((700, args[4].shape[1])).astype(np.float32))
+        args[5] = put(rng.integers(0, 700, args[5].shape).astype(np.int32))
+        args[7] = put(rng.integers(0, 700, args[7].shape).astype(np.int32))
+    one = tfs._cuda(tfs.fused_step_onehot_xfade, *args, form=tfs.LAUNCH_B, **kw)
+    staged = tfs._cuda(tfs.fused_step_onehot_xfade, *args, form=tfs.STAGED, **kw)
+    assert torch.equal(one, staged)
+
+
+def test_row_1_takes_its_forms_by_rows(card_db):
+    for s, nb in ((4, 16), (256, 64)):
+        args, kw = _operands(card_db, 0.0, s, nb)
+        form = tfs.pick_form("fused_step_onehot_xfade", s * nb)
+        before = tfs.row1_forms[form]
+        tfs.fused_step_onehot_xfade(*args, **kw)
+        assert tfs.row1_forms[form] == before + 1
+
+
+def test_a_refused_staged_launch_raises(card_db, monkeypatch):
+    """The entry refuses a form it does not know and returns the error; the
+    wrapper raises, and nothing falls back to launch B or the twin."""
+    args, kw = _operands(card_db, 0.0)
+    monkeypatch.setitem(tfs._FORM_CODE, tfs.STAGED, 7)
+    tfs.reset_launches()
+    with pytest.raises(RuntimeError, match="fused_step_onehot_xfade launch failed: CUDA error"):
+        tfs._cuda(tfs.fused_step_onehot_xfade, *args, form=tfs.STAGED, **kw)
+    assert sum(tfs.launches.values()) == 0
+
+
+@pytest.mark.parametrize("r,c_pad", [
+    (8448, 2176), (8448, 2052), (4096, 2052), (8447, 2176), (264, 2052), (33, 2176), (1, 2052),
+])
+def test_dedup_blend_is_the_double_form_and_blend_cat_bit_for_bit(card, r, c_pad):
+    """The probe's shape, the render path's c = 2,052 and ragged row counts,
+    on the shootout's ids."""
+    idx, w = sbb.workload(r)
+    table, table_pad = sbb.tables()
+    tab = table_pad if c_pad == 2176 else table
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)
+    flat, i_d, w_d = put(tab.reshape(-1)), put(idx), put(w)
+    double = tdb._cuda(flat, i_d, w_d, c_pad, form=tfs.DOUBLE)
+    before = tfs.blend_forms[tfs.DEDUP]
+    dedup = tdb._cuda(flat, i_d, w_d, c_pad, form=tfs.DEDUP)
+    torch.cuda.synchronize()
+    assert tfs.blend_forms[tfs.DEDUP] == before + 1
+    assert torch.equal(dedup, double)
+    assert torch.equal(dedup, tfs.blend_cat(flat.view(-1, c_pad), i_d, w_d))
+
+
+@pytest.mark.parametrize("c_pad", [2176, 2052])
+def test_dedup_blend_on_ids_outside_the_table(card, c_pad):
+    flat, idx, w, _ = _blend(card, 264, c_pad)
+    idx = idx.clone()
+    idx[3, 1], idx[5, 0], idx[17, 3], idx[263, 2] = 712, -4, 710, 10**6
+    double = tdb._cuda(flat, idx, w, c_pad, form=tfs.DOUBLE)
+    dedup = tdb._cuda(flat, idx, w, c_pad, form=tfs.DEDUP)
+    assert torch.equal(dedup, double)
+    assert torch.equal(dedup, tdb.dma_blend_reference(flat, idx, w, c_pad, tb=8))
+
+
+@pytest.mark.parametrize("r", [100, 6403, 50693])
+def test_dedup_blend_splits_a_tile_over_every_some_or_one_slice(card, r):
+    """csrc/dma_blend.cu dedup_groups shares a tile's 17 column slices at c
+    = 2,052 among min(17, ceil(1,584 / tiles)) CTAs: 100 rows (4 tiles) all
+    17, 6,403 rows (201 tiles) 8, 50,693 rows (1,585 tiles) 1; each writes
+    every slice once."""
+    flat, idx, w, c_pad = _blend(card, r, 2052)
+    got = tdb._cuda(flat, idx, w, c_pad, form=tfs.DEDUP)
+    assert torch.equal(got, tdb._cuda(flat, idx, w, c_pad, form=tfs.DOUBLE))
+    assert torch.equal(got, tdb.dma_blend_reference(flat, idx, w, c_pad, tb=1))
+
+
+@pytest.mark.parametrize("r", [1, 16, 2048, 4096])
+def test_blend_rows_on_the_card_is_blend_cat(card_db, r):
+    """Rows 5-7's pre-blend on the render path's combined table: row 12,
+    counted, with blend_cat's bits."""
+    from jefferson_tpu_torch.convert import spectra_from_numpy
+    from jefferson_tpu_torch.engine.renderer import cat_table
+
+    dev = torch.device("cuda", 0)
+    cat = cat_table(spectra_from_numpy(card_db.spectra, dev))
+    idx, w = sbb.workload(r)
+    i_d, w_d = torch.from_numpy(idx).to(dev), torch.from_numpy(w).to(dev)
+    before = tfs.launches["dma_blend"]
+    got = tdb.blend_rows(cat, i_d, w_d)
+    torch.cuda.synchronize()
+    assert tfs.launches["dma_blend"] == before + 1
+    assert torch.equal(got, tfs.blend_cat(cat, i_d, w_d))
+    assert torch.equal(tdb.blend_rows(cat, i_d.long(), w_d.double()), got)
+
+
+def test_blend_rows_on_the_card_refuses_what_it_does_not_take(card):
+    flat, idx, w, c_pad = _blend(card, 8, 2052)
+    table = flat.view(-1, c_pad)
+    with pytest.raises(ValueError, match="one device"):
+        tdb.blend_rows(table, idx.cpu(), w)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tdb.blend_rows(table[:, :2050].contiguous(), idx, w)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        shifted = torch.empty(table.numel() + 1, device=card)[1:].view(table.shape)
+        tdb.blend_rows(shifted, idx, w)
+    assert tdb.blend_rows(table, idx[:0], w[:0]).shape == (0, c_pad)
+
+
+def test_a_refused_dedup_launch_raises(card):
+    flat, idx, w, c_pad = _blend(card, 8, 2052)
+    err = tdb._form_entry()(card.index, torch.cuda.current_stream(card).cuda_stream, 1,
+                            flat.data_ptr(), 710, 2050, idx.data_ptr(), w.data_ptr(),
+                            torch.empty((8, 2052), device=card).data_ptr(), 8)
+    assert err != 0
+    with pytest.raises(ValueError, match="want 'double' or 'dedup'"):
+        tdb._cuda(flat, idx, w, c_pad, form="pair")

@@ -190,8 +190,12 @@ def test_rows_6_and_2_take_the_split_form_by_rows(name):
 
 
 def test_row_1_takes_launch_b_at_every_row_count():
+    """Row 1 sums one chain over K, so never the split form: launch B, in
+    its one-CTA form below STAGED_FROM rows and its staged form from there
+    on (the same bits)."""
     for rows in (1, 4096, 16384):
-        assert tfs.pick_form("fused_step_onehot_xfade", rows) == tfs.LAUNCH_B
+        want = tfs.STAGED if rows >= tfs.STAGED_FROM else tfs.LAUNCH_B
+        assert tfs.pick_form("fused_step_onehot_xfade", rows) == want != tfs.SPLIT
 
 
 def test_the_private_seam_refuses_an_unknown_form(tdb):
