@@ -8,11 +8,17 @@ line:
   1. env     torch/CUDA versions and the card (nvidia-smi name, power limit);
              fails when torch.cuda.is_available() is false.  The oracle
              renders of the error budget and the paths start here, in worker
-             processes, and are collected in phases 4 and 5.
+             processes, and are collected in phases 5 and 6; g++ builds the
+             host library (native/native.cpp) before they start, as they
+             plan through it.
   2. build   nvcc builds csrc/fused_step_onehot.cu (rows 1-4 and 8),
              csrc/fused_step_gather.cu (rows 5-7), csrc/assoc_probe.cu (rows
              9-11) and csrc/dma_blend.cu (row 12) for sm_90a, all at once.
-  3. kernel  every CUDA step against its plain-PyTorch twin, max|diff| <= 5e-7:
+  3. plan    make_plan with the host library against its plain NumPy forms
+             (bench.plain_host), every field bit-equal, on every source of the
+             six scenes' three position sets and on the five single-source
+             trajectories, each way timed in turns.
+  4. kernel  every CUDA step against its plain-PyTorch twin, max|diff| <= 5e-7:
              the batched one-hot step (row 1) at the bench shape (256 sources
              x 64 blocks), compact and per-row distance, with the carried
              overlap-save history bit-equal to the stream's tail; the
@@ -61,7 +67,7 @@ line:
              row counts, and with ids outside the table; blend_rows (rows
              5-7's pre-blend) torch.equal to blend_cat on the render path's
              table.
-  4. path    each main path with the launch counts set to 0 before and read
+  5. path    each main path with the launch counts set to 0 before and read
              after; rows 2-8 on the form their wrappers pick (the split form
              above row 8's cluster form), the scene path's rows 6 and 2
              counted on it.  The batched path: four bench steps (256 x 64, history
@@ -97,7 +103,7 @@ line:
              launch A counted by form on every path (one launch a launch of
              rows 1-6 and of row 8's forward form, none on the tile form,
              every live block on the few-block form).
-  5. probes  the probe scripts (jefferson_tpu_torch.scripts), the launch
+  6. probes  the probe scripts (jefferson_tpu_torch.scripts), the launch
              counts set to 0 just before: the association probe's stages
              A-D, the blend shootout and the error budget on the worst sweep
              scenario (its oracle from the worker pool); their answers on
@@ -115,7 +121,7 @@ line:
              unfused chain and its two stage swaps (the tail summed by
              128-bin blocks; the forward on the CPU) on no kernel.  Row 12 runs
              there under the pre-blend of the budget's gather configurations.
-  6. bench   the bench step (blocks/s), and again with row 1's launch B in
+  7. bench   the bench step (blocks/s), and again with row 1's launch B in
              each form, STEP_PAIRS pairs in turns, beside each form's
              quartile spread; each step's kernel and twin times in
              turns (twin, forms, forms reversed, twin) beside its bound (row 8
@@ -142,10 +148,15 @@ line:
              device busy with the pre-blend through row 12 and through
              blend_cat, in turns; the sparse side-pass at a
              scene_hold chunk's shape (device time, kernels per call, bound);
-             each render's wall time (the scenes' host planning apart),
-             render_scan's, and the device time by kernel of four renders and
-             of 200 live blocks, moving and held; the unfused chain's warm
-             render with each tail; beside the card.
+             each render's wall time (the scenes' host planning apart) with
+             the output fetched synchronously and pipelined (pipeline_fetch),
+             in turns, the outputs torch.equal and the launches the same, the
+             scenes also with the host library's NumPy forms (planning_s each
+             way, in turns), render_scan's, and the device time by kernel of
+             four renders (scene_hold and scene_movers with each fetch) and
+             of 200 live blocks, moving and held; a new live position's host
+             set-up with the host library and with its NumPy forms, in turns;
+             the unfused chain's warm render with each tail; beside the card.
 Then a {"kernels": [...]} line (rows 1-12, and launch A at the scene step's
 16 x 256), the nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -378,6 +389,128 @@ def drive_live(db, device, positions, signals):
         records.append(rec)
     stats = AudioPlayout(sources, db.config).run_offline(positions.shape[1])
     return stats, np.stack([np.concatenate(rec) for rec in records]), spats
+
+
+def plan_phase(bench, cfg, scenarios, sets) -> bool:
+    """make_plan with the host library against make_plan with its plain
+    NumPy forms (bench.plain_host), every field bit-equal, on every source of
+    the six scenes' three position sets and on the five single-source
+    trajectories; each way timed in turns (library, NumPy, NumPy, library)
+    on the host clock."""
+    import dataclasses
+
+    import numpy as np
+
+    from jefferson_tpu_torch.engine.plan import make_plan
+
+    def plans(sources):
+        t0 = time.perf_counter()
+        return [make_plan(p, cfg) for p in sources], (time.perf_counter() - t0) * 1e3
+
+    users = {pset: [n for n, (ps, *_) in scenes().items() if ps == pset] for pset in sets}
+    cases = {f"{pset} (scenes {', '.join(users[pset])})": pos for pset, (pos, _) in sets.items()}
+    cases.update({f"{name} (Renderer)": pos[None] for name, (pos, _, _) in scenarios.items()})
+    for name, sources in cases.items():
+        got, lib_a = plans(sources)
+        with bench.plain_host():
+            want, np_a = plans(sources)
+            _, np_b = plans(sources)
+        _, lib_b = plans(sources)
+        bad = sorted({f.name for g, w in zip(got, want) for f in dataclasses.fields(g)
+                      if not (np.asarray(getattr(g, f.name)).dtype
+                              == np.asarray(getattr(w, f.name)).dtype
+                              and np.array_equal(getattr(g, f.name), getattr(w, f.name)))})
+        say("plan", f"make_plan {name}: {len(sources)} source(s) x {sources.shape[1]} blocks, "
+                    f"host library against the NumPy forms bit-equal in every field: {not bad}; "
+                    f"{lib_a:.1f}/{lib_b:.1f} ms against {np_a:.1f}/{np_b:.1f} ms (host clock, "
+                    f"in turns)  [{bench.card()}]")
+        if bad:
+            fail("plan", f"make_plan {name}: the host library differs from NumPy in {bad}")
+            return False
+    return True
+
+
+def fetch_renders(bench, db, device, scenarios, sets, scene_sigs, signal, scene_walls):
+    """Every render of the single-source and scene paths with the fetch
+    synchronous and pipelined, in turns, the outputs torch.equal and the
+    launches and dispatch the same; the scenes also with the host
+    library's plain NumPy forms (planning_s each way, in turns: library,
+    NumPy, NumPy, library; the fetch synchronous, pipelined, synchronous,
+    pipelined).  Walls, planning_s and chunks_s beside the card; render
+    profiles.  False on a disagreement."""
+    import contextlib
+
+    import torch
+
+    from jefferson_tpu_torch.engine.batch import BatchRenderer
+    from jefferson_tpu_torch.engine.renderer import Renderer
+    from jefferson_tpu_torch.kernels import fused_step
+
+    def same(a, b):
+        return torch.equal(torch.from_numpy(a), torch.from_numpy(b))
+
+    for name, (pos, opts, _) in scenarios.items():
+        rs = {p: Renderer(db, device=device, pipeline_fetch=p, **opts) for p in (False, True)}
+        walls, outs, launched = {False: [], True: []}, {}, {}
+        for p in (False, True, True, False):
+            fused_step.reset_launches()
+            t0 = time.perf_counter()
+            outs[p] = rs[p].render(signal, pos)
+            walls[p].append(time.perf_counter() - t0)
+            launched[p] = dict(fused_step.launches)
+        if not (same(outs[True], outs[False]) and rs[True].dispatch == rs[False].dispatch
+                and launched[True] == launched[False]):
+            fail("bench", f"Renderer {name}: the pipelined fetch differs from the synchronous one")
+            return False
+        wall = walls[False][0]
+        say("bench", f"Renderer {name}: {wall:.3f} s wall for {len(pos)} blocks "
+                     f"({len(pos) / wall:,.0f} blocks/s, host planning and transfers included); "
+                     f"fetch synchronous {walls[False][0]:.3f}/{walls[False][1]:.3f} s, "
+                     f"pipelined {walls[True][0]:.3f}/{walls[True][1]:.3f} s (in turns), "
+                     f"outputs torch.equal  [{bench.card()}]")
+        if name in ("sweep", "mover"):
+            profile(bench, f"Renderer {name}", lambda: rs[False].render(signal, pos), wall)
+    for name, (pset, cb, opts, _, _) in scenes().items():
+        pos, _ = sets[pset]
+        rs = {p: BatchRenderer(db, device=device, chunk_blocks=cb, pipeline_fetch=p, **opts)
+              for p in (False, True)}
+        runs, first, launched = [], None, []
+        for plain, p in ((False, False), (True, True), (True, False), (False, True)):
+            fused_step.reset_launches()
+            with bench.plain_host() if plain else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                out = rs[p].render(scene_sigs, pos)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            runs.append((wall, rs[p].timings["planning_s"], rs[p].timings["chunks_s"]))
+            launched.append((dict(fused_step.launches), rs[p].dispatch))
+            if first is None:
+                first = out
+            elif not same(out, first):
+                fail("bench", f"BatchRenderer {name}: the {'pipelined' if p else 'sync'} fetch"
+                              f"{' with the NumPy forms' if plain else ''} differs from the "
+                              f"synchronous render")
+                return False
+            del out
+        if any(x != launched[0] for x in launched):
+            fail("bench", f"BatchRenderer {name}: launches or dispatch differ between the fetches")
+            return False
+        del first
+        (w1, p1, c1), (w2, p2, c2), (w3, p3, c3), (w4, p4, c4) = runs
+        blocks = SCENE_S * SCENE_B
+        say("bench", f"BatchRenderer {name}: {w1:.3f} s wall for {SCENE_S}x{SCENE_B} blocks "
+                     f"({blocks / w1:,.0f} blocks/s): host planning {p1:.3f} s, chunk loop "
+                     f"{c1:.3f} s (operands, launches, output copies and assembly); first run "
+                     f"{scene_walls[name][0]:.3f} s; planning_s host library {p1:.3f}/{p4:.3f} s "
+                     f"against the NumPy forms {p2:.3f}/{p3:.3f} s (in turns); fetch "
+                     f"synchronous wall {w1:.3f} s, chunks_s {c1:.3f}/{c3:.3f} s, pipelined "
+                     f"wall {w4:.3f} s, chunks_s {c2:.3f}/{c4:.3f} s; the four outputs "
+                     f"torch.equal  [{bench.card()}]")
+        if name in ("scene_hold", "scene_movers"):
+            for p in (False, True):
+                profile(bench, f"BatchRenderer {name} ({'pipelined' if p else 'synchronous'} "
+                               f"fetch)", lambda: rs[p].render(scene_sigs, pos), w4 if p else w1)
+    return True
 
 
 def launch_a_fault(where: str, launched: dict, forms: dict) -> str | None:
@@ -1026,15 +1159,26 @@ def main() -> int:
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
+    from jefferson_tpu_torch import native
+    from jefferson_tpu_torch.kernels import build
+
+    # the host library first: the oracle workers plan through it
+    t0 = time.perf_counter()
+    try:
+        native.library()
+    except RuntimeError as e:
+        return fail("build", str(e))
+    host = (build.library_path("native", native.TOOLCHAIN), time.perf_counter() - t0)
+
     pool = ProcessPoolExecutor(ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"),
                                initializer=_oracle_init)
     try:
-        return run(pool)
+        return run(pool, host)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
 
-def run(pool) -> int:
+def run(pool, host) -> int:
     import numpy as np
     import torch
 
@@ -1042,6 +1186,7 @@ def run(pool) -> int:
     from jefferson_tpu_torch.config import DEFAULT_CONFIG
     from jefferson_tpu_torch.engine.batch import BatchRenderer
     from jefferson_tpu_torch.engine.renderer import Renderer
+    from jefferson_tpu_torch.engine import stream as stream_mod
     from jefferson_tpu_torch.engine.stream import StreamingSpatializer, render_scan
     from jefferson_tpu_torch.hrtf.kemar import synthetic_database
     from jefferson_tpu_torch.kernels import build, dma_blend, fused_spatializer, fused_step
@@ -1070,8 +1215,9 @@ def run(pool) -> int:
     live_oracles = {name: [pool.submit(_oracle_job, sigs[i], pos[i]) for i in range(len(pos))]
                     for name, (pos, sigs) in live.items()}
     scene_sigs = bench.scene_signals(noise, SCENE_S, SCENE_B, fpb)
+    sets = scene_positions(bench)
     oracles = {name: {i: pool.submit(_oracle_job, scene_sigs[i], pos[i]) for i in srcs}
-               for name, (pos, srcs) in scene_positions(bench).items()}
+               for name, (pos, srcs) in sets.items()}
 
     # ---- build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1081,6 +1227,13 @@ def run(pool) -> int:
         ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
                  if "registers" in ln or "Compiling entry" in ln]
         say("build", f"{lib.name} ptxas: {' | '.join(ptxas)}")
+    say("build", f"host library {host[0].name} (g++, native/native.cpp) in {host[1]:.1f} s, "
+                 f"before the oracle workers start: "
+                 f"{host[0].with_suffix('.log').read_text().splitlines()[0]}")
+
+    # ---- the host planner against its NumPy forms --------------------------
+    if not plan_phase(bench, cfg, scenarios, sets):
+        return 1
 
     # ---- kernels against their twins ----------------------------------------
     errs = {name: 0.0 for name in KERNELS}
@@ -1311,7 +1464,6 @@ def run(pool) -> int:
     del outs
 
     # ---- the scene path, counted -------------------------------------------
-    sets = scene_positions(bench)
     scene_log, scene_walls = {}, {}
     fused_step.reset_launches()
     for name, (pset, cb, opts, arm, kernel) in scenes().items():
@@ -1511,31 +1663,8 @@ def run(pool) -> int:
             card_ms = (kernel_a + kernel_b) / 2
             say("bench", f"prod (row 9) card ms {card_ms:.4f} against torch.mul's {lib_ms:.4f} "
                          f"in this run: at or under it {card_ms <= lib_ms}  [{bench.card()}]")
-    for name, (pos, opts, _) in scenarios.items():
-        r = Renderer(db, device=device, **opts)
-        t0 = time.perf_counter()
-        r.render(signal, pos)
-        wall = time.perf_counter() - t0
-        say("bench", f"Renderer {name}: {wall:.3f} s wall for {len(pos)} blocks "
-                     f"({len(pos) / wall:,.0f} blocks/s, host planning and transfers included)  "
-                     f"[{bench.card()}]")
-        if name in ("sweep", "mover"):
-            profile(bench, f"Renderer {name}", lambda: r.render(signal, pos), wall)
-    for name, (pset, cb, opts, _, _) in scenes().items():
-        pos, _ = sets[pset]
-        r = BatchRenderer(db, device=device, chunk_blocks=cb, **opts)
-        t0 = time.perf_counter()
-        r.render(scene_sigs, pos)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        blocks = SCENE_S * SCENE_B
-        say("bench", f"BatchRenderer {name}: {wall:.3f} s wall for {SCENE_S}x{SCENE_B} blocks "
-                     f"({blocks / wall:,.0f} blocks/s): host planning {r.timings['planning_s']:.3f} s, "
-                     f"chunk loop {r.timings['chunks_s']:.3f} s (operands, launches, output "
-                     f"copies and assembly); first run {scene_walls[name][0]:.3f} s  "
-                     f"[{bench.card()}]")
-        if name in ("scene_hold", "scene_movers"):
-            profile(bench, f"BatchRenderer {name}", lambda: r.render(scene_sigs, pos), wall)
+    if not fetch_renders(bench, db, device, scenarios, sets, scene_sigs, signal, scene_walls):
+        return 1
     pos = scenarios["sweep"][0]
     t0 = time.perf_counter()
     render_scan(signal, db, pos, cfg, device=device)
@@ -1576,14 +1705,36 @@ def run(pool) -> int:
                  f"first crossfades onto it), memos hit: {wall * 1e3:.1f} ms wall "
                  f"({wall * 1e3 / WORST_BLOCKS:.4f} ms per block)  [{bench.card()}]")
     profile(bench, f"{WORST_BLOCKS} held live blocks", held_blocks, wall)
-    t0 = time.perf_counter()
-    for i in range(WORST_BLOCKS):  # a new position each time: both memos miss
-        sp.set_position(azi=i, ele=20, r=1.0 + 0.001 * i)
-        sp._interp(sp.ele, sp.azi)
-        sp._distance_current()
+
+    def new_positions():  # a new position each time: both memos miss
+        sp._interp_cache.clear()
+        sp._dist_cache.clear()
+        t0 = time.perf_counter()
+        for i in range(WORST_BLOCKS):
+            sp.set_position(azi=i, ele=20, r=1.0 + 0.001 * i)
+            sp._interp(sp.ele, sp.azi)
+            sp._distance_current()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / WORST_BLOCKS
+
+    def host_calls():  # the set-up's two host-library calls alone, no upload
+        t0 = time.perf_counter()
+        for i in range(WORST_BLOCKS):
+            stream_mod.interpolation_calculations(np.float32(20.0), np.float32(i))
+            stream_mod.distance_phase_split(cfg.fsvs, np.float32([1.0 + 0.001 * i]),
+                                            cfg.num_bins)
+        return (time.perf_counter() - t0) * 1e3 / WORST_BLOCKS
+
+    lib_a, lib_calls_a = new_positions(), host_calls()
+    with bench.plain_host():
+        np_a, np_calls_a = new_positions(), host_calls()
+        np_b, np_calls_b = new_positions(), host_calls()
+    lib_b, lib_calls_b = new_positions(), host_calls()
     say("bench", f"host set-up of a new live position (interpolation, distance split and their "
-                 f"uploads): {(time.perf_counter() - t0) * 1e3 / WORST_BLOCKS:.4f} ms  "
-                 f"[{bench.card()}]")
+                 f"uploads): {lib_a:.4f}/{lib_b:.4f} ms with the host library (its two calls "
+                 f"alone {lib_calls_a:.4f}/{lib_calls_b:.4f} ms), {np_a:.4f}/{np_b:.4f} ms with "
+                 f"its NumPy forms (the calls alone {np_calls_a:.4f}/{np_calls_b:.4f} ms), in "
+                 f"turns  [{bench.card()}]")
 
     blend_bench(bench, device)
     blend_wiring(bench, db, device, sets, scene_sigs)

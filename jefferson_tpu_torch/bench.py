@@ -24,6 +24,7 @@ the device's idle share) go to stderr.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -55,6 +56,35 @@ SOURCES, BLOCKS = 256, 64  # the JAX bench.py workload: sources x blocks per ste
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
+
+
+@contextlib.contextmanager
+def plain_host():
+    """Inside the block, ``make_plan``, the renderers' ``fed_stream`` and
+    the live path's new-position set-up take the plain NumPy forms of the
+    host library's functions (``_pick_hrtf_numpy``,
+    ``_interpolation_calculations_numpy``, ``_distance_phase_split_numpy``,
+    ``_fed_stream_numpy``): for holding the library to them and timing the
+    host path each way.  The library comes back on exit."""
+    from .engine import batch, plan, renderer, stream
+    from .hrtf import kemar
+    from .ops import filters
+    from .trajectory import interpolation
+
+    swaps = [(plan, "pick_hrtf", kemar._pick_hrtf_numpy),
+             *((mod, "interpolation_calculations",
+                interpolation._interpolation_calculations_numpy) for mod in (plan, stream)),
+             *((mod, "distance_phase_split", filters._distance_phase_split_numpy)
+               for mod in (plan, stream)),
+             *((mod, "fed_stream", plan._fed_stream_numpy) for mod in (batch, renderer, stream))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def card() -> str:

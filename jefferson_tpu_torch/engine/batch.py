@@ -31,7 +31,7 @@ from .plan import (
     pad_plan,
 )
 from .renderer import (
-    _apply_xfade_amortization, _fd_complex_chunk, _pad_cf_indices, _sparse_bucket,
+    ChunkFetch, _apply_xfade_amortization, _fd_complex_chunk, _pad_cf_indices, _sparse_bucket,
     _sparse_xfade_fix, apply_filters_core, blend_cat, blend_channels, cat_table,
     check_card_geometry, dedup_distance, pick_fused_tile, resolve_device, split_planes,
 )
@@ -457,12 +457,14 @@ class BatchRenderer:
     ``timings`` holds the last render's host seconds: ``planning_s`` (plans,
     chunk size, dedup, one-hot and sparse planning) and ``chunks_s`` (the
     chunk loop: operands, launches, output copies, and the output's
-    assembly).
+    assembly).  ``pipeline_fetch=True`` fetches each chunk's output one
+    chunk late, after the next chunk is launched (``renderer.ChunkFetch``),
+    bit-identical to the default synchronous fetch.
 
-    Not ported: a device mesh and ``pipeline_fetch`` (each raises, naming
-    its ROADMAP item).  The JAX package's fallback from a failed fused
-    program to the XLA arms is not carried over: a failed build or launch
-    raises.
+    Not ported: a device mesh (it raises, naming its ROADMAP item).  The JAX
+    package's fallback from a failed fused program to the XLA arms, and its
+    redo of a chunk whose deferred fetch failed, are not carried over: a
+    failed build or launch raises, and so does a deferred fetch.
     """
 
     def __init__(self, db: HRTFDatabase, *, device="cuda", chunk_blocks: int | None = None,
@@ -473,11 +475,6 @@ class BatchRenderer:
                 "a device mesh (the JAX BatchRenderer's source sharding) is not ported: "
                 "ROADMAP queue 1 item 9 (parallel/mesh.py -> torch.distributed)"
             )
-        if pipeline_fetch:
-            raise NotImplementedError(
-                "pipeline_fetch is not ported: ROADMAP queue 1 item 4 (a side CUDA "
-                "stream with pinned host buffers)"
-            )
         if chunk_blocks is not None and chunk_blocks < 1:
             raise ValueError(f"chunk_blocks ({chunk_blocks}) must be positive")
         self.db = db
@@ -485,6 +482,7 @@ class BatchRenderer:
         aligned = self.config.history_len % self.config.frames_per_buffer == 0
         self.chunk_blocks = chunk_blocks
         self.mix = mix
+        self.pipeline_fetch = pipeline_fetch
         self.dedup = dedup and aligned
         self.fused = fused and aligned
         if self.fused and torch.device(device).type == "cuda":
@@ -543,7 +541,8 @@ class BatchRenderer:
 
         hists = torch.zeros((s, cfg.history_len), dtype=torch.float32, device=self.device)
         self.dispatch = []
-        outs = []
+        out = np.empty((b_real * fpb, 2) if self.mix else (s, b_real * fpb, 2), np.float32)
+        fetch = ChunkFetch(self.device, self.pipeline_fetch)
         for ci, start in enumerate(range(0, b_total, cb)):
             stop = start + cb
             sl = slice(start, stop)
@@ -617,10 +616,14 @@ class BatchRenderer:
                               self._put(xfade_np), *row_dist)
                 arm = ("plain", cxf, None)
             self.dispatch.append(arm)
-            outs.append((mix_sources(y) if self.mix else y).cpu().numpy())
-        if self.mix:
-            out = np.concatenate(outs, axis=0).reshape(b_total * fpb, 2)[: b_real * fpb]
-        else:
-            out = np.concatenate(outs, axis=1).reshape(s, b_total * fpb, 2)[:, : b_real * fpb]
+
+            def commit(host, start=start):
+                # (S,) cb, fpb, 2 -> the chunk's rows of out, the padding trimmed
+                rows = (min(b_real, start + cb) - start) * fpb
+                dst = out[..., start * fpb : start * fpb + rows, :]
+                dst[...] = host.reshape(*host.shape[:-3], cb * fpb, 2)[..., :rows, :]
+
+            fetch.put(mix_sources(y) if self.mix else y, commit)
+        fetch.finish()
         self.timings = {"planning_s": t1 - t0, "chunks_s": time.perf_counter() - t1}
         return out

@@ -517,6 +517,73 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+class ChunkFetch:
+    """Each chunk's output back to the host, committed in chunk order.
+
+    Synchronous (``pipelined=False``): ``put`` copies a chunk's output to
+    the host and commits it at once.  Pipelined: ``put`` defers the chunk,
+    one deep, and commits the chunk before it, so the host reads chunk i
+    while chunk i+1, already launched, runs.  On a CUDA device chunk i's
+    output goes device-to-host on a side stream, behind an event recorded
+    after chunk i's launches, into one of two pinned host slots; the host
+    reads a slot only after its copy's event completes, and a slot is
+    refilled only after that read.  ``y.record_stream`` keeps the caching
+    allocator from handing chunk i's output to chunk i+1 while the copy
+    reads it.  On the CPU the same loop runs in the same order without a
+    stream.  ``finish`` commits the last chunk.  An error raised at a
+    deferred read propagates.
+    """
+
+    def __init__(self, device: torch.device, pipelined: bool):
+        self.device = device
+        self.pipelined = pipelined
+        self._side = (torch.cuda.Stream(device) if pipelined and device.type == "cuda"
+                      else None)
+        self._slots: list[torch.Tensor] = []
+        self._turn = 0
+        self._pending = None
+
+    def put(self, y: torch.Tensor, commit) -> None:
+        """Hand over one chunk's output ``y``; ``commit(host_array)`` stores
+        it (and copies it: a pinned slot is refilled two chunks later)."""
+        if not self.pipelined:
+            commit(y.cpu().numpy())
+            return
+        read = y.numpy if self._side is None else self._copy(y)
+        self.finish()
+        self._pending = (commit, read)
+
+    def _copy(self, y: torch.Tensor):
+        """Start ``y``'s copy into the next pinned slot; the slot's reader."""
+        # y's own strides: the copy is one memcpy, as .cpu() makes it
+        if not self._slots or (self._slots[0].shape, self._slots[0].stride()) != (
+                y.shape, y.stride()):
+            self._slots = [torch.empty_strided(y.shape, y.stride(), dtype=y.dtype,
+                                               pin_memory=True) for _ in range(2)]
+        slot = self._slots[self._turn]
+        self._turn ^= 1
+        launched, copied = torch.cuda.Event(), torch.cuda.Event()
+        launched.record(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._side):
+            self._side.wait_event(launched)
+            slot.copy_(y, non_blocking=True)
+            copied.record(self._side)
+        y.record_stream(self._side)
+
+        def read():
+            copied.synchronize()
+            return slot.numpy()
+
+        return read
+
+    def finish(self) -> None:
+        """Commit the deferred chunk, if any."""
+        if self._pending is not None:
+            commit, read = self._pending
+            self._pending = None
+            commit(read())
+
+
 class Renderer:
     """Offline single-source renderer: one mono signal along per-block
     positions -> (B*fpb, 2) float32, chunk by chunk.
@@ -529,14 +596,18 @@ class Renderer:
     arms (the dedup chunk and the plain chunk).  ``dedup`` and
     ``sparse_xfade`` are the JAX package's switches.  After each render,
     ``dispatch`` lists each chunk's (arm, with_xfade, sparse bucket).
+    ``pipeline_fetch=True`` fetches each chunk's output one chunk late,
+    after the next chunk is launched (``ChunkFetch``), bit-identical to the
+    default synchronous fetch.
 
     A history that is not a whole number of blocks takes the apply-only
     step (row 7) where the JAX package does; its twin runs on the CPU, and
     ``fused=True`` on a CUDA device refuses any geometry but the one the
     kernels are built for (fpb 128, pad 1024).  Not ported (each raises,
-    naming its ROADMAP item): process types other than FD_COMPLEX, a device
-    mesh and ``pipeline_fetch``.  The JAX package's fallback ladder is not
-    carried over: a failed build or launch raises.
+    naming its ROADMAP item): process types other than FD_COMPLEX and a
+    device mesh.  The JAX package's fallback ladder and its redo of a chunk
+    whose deferred fetch failed are not carried over: a failed build or
+    launch raises, and so does a deferred fetch.
     """
 
     def __init__(
@@ -561,14 +632,10 @@ class Renderer:
                 "a device mesh (the JAX Renderer's block-axis sharding) is not ported: "
                 "ROADMAP queue 1 item 9 (parallel/mesh.py -> torch.distributed)"
             )
-        if pipeline_fetch:
-            raise NotImplementedError(
-                "pipeline_fetch is not ported: ROADMAP queue 1 item 4 (a side CUDA "
-                "stream with pinned host buffers)"
-            )
         if fused and torch.device(device).type == "cuda":
             check_card_geometry(self.config)
         self.device = resolve_device(device)
+        self.pipeline_fetch = pipeline_fetch
         self.chunk_blocks = chunk_blocks
         self.dedup = dedup
         self.fused = fused
@@ -678,6 +745,7 @@ class Renderer:
             onehot_group, onehot_u_pad = plan_onehot_chunking(plan, b_total, cb, tb)
 
         kw = dict(config=cfg, num_blocks=cb)
+        fetch = ChunkFetch(self.device, self.pipeline_fetch)
         for start in range(0, b_total, cb):
             stop = min(start + cb, b_total)
             nb = stop - start
@@ -761,7 +829,11 @@ class Renderer:
                       for a in ("idx_new", "w_new", "idx_old", "w_old", "xfade")),
                     *row_dist(sl, nb), **kw, with_xfade=cxf)
                 arm = ("plain", cxf, None)
-            out[start * fpb : stop * fpb] = y.reshape(cb * fpb, 2)[: nb * fpb].cpu().numpy()
-            hist = hist_f
+            def commit(host, start=start, stop=stop):
+                out[start * fpb : stop * fpb] = host[: (stop - start) * fpb]
+
             self.dispatch.append(arm)
+            fetch.put(y.reshape(cb * fpb, 2), commit)
+            hist = hist_f
+        fetch.finish()
         return out

@@ -1,6 +1,8 @@
-"""Pure-NumPy WAV codec (no libsndfile dependency): a copy of
-``jefferson_tpu/io/wavio.py`` with the NumPy forms in place of its native
-extension (which tests/test_native.py pins to them).
+"""WAV codec (no libsndfile dependency): a copy of
+``jefferson_tpu/io/wavio.py``.  Float32 reads and float32 PCM writes run
+the port's host library (``native/``) where the JAX module runs its native
+extension; ``_read_wav_numpy`` and ``_encode_numpy`` are the plain NumPy
+forms, which ``tests/test_torch_native.py`` pins the library to.
 
 The reference links libsndfile for all file I/O (reference:
 Jefferson/src/cudaPart.cu:21-63 reads, Jefferson/src/Audio.cu:161 writes
@@ -20,6 +22,8 @@ import struct
 from pathlib import Path
 
 import numpy as np
+
+from .. import native
 
 _WAVE_FORMAT_PCM = 0x0001
 _WAVE_FORMAT_IEEE_FLOAT = 0x0003
@@ -86,9 +90,22 @@ def read_wav(path: str | Path, dtype=np.float32) -> tuple[np.ndarray, int]:
     """Read a WAV file -> (samples[frames, channels] in ``dtype``, sample_rate).
 
     PCM data is normalized to [-1, 1) by 1/2^(bits-1), matching libsndfile's
-    ``sf_read_float`` used throughout the reference.
+    ``sf_read_float`` used throughout the reference.  A float32 read decodes
+    in the host library; other dtypes keep the NumPy decoder, whose float64
+    intermediate keeps mantissa bits a float32 decode would lose.
     """
+    return _read(path, dtype, native_float32=True)
+
+
+def _read_wav_numpy(path: str | Path, dtype=np.float32) -> tuple[np.ndarray, int]:
+    """The plain form of ``read_wav``: the NumPy decoder at every dtype."""
+    return _read(path, dtype, native_float32=False)
+
+
+def _read(path, dtype, native_float32: bool):
     data = Path(path).read_bytes()
+    # the header is validated here on every path, so a malformed file fails
+    # the same way in either decoder
     chunks = _parse_chunks(data)
     if b"fmt " not in chunks or b"data" not in chunks:
         raise ValueError(f"{path}: missing fmt/data chunk")
@@ -97,6 +114,8 @@ def read_wav(path: str | Path, dtype=np.float32) -> tuple[np.ndarray, int]:
         raise ValueError(f"{path}: malformed fmt chunk (channels=0)")
     if fmt_tag not in (_WAVE_FORMAT_PCM, _WAVE_FORMAT_IEEE_FLOAT):
         raise ValueError(f"unsupported WAVE format tag 0x{fmt_tag:04x}")
+    if native_float32 and np.dtype(dtype) == np.float32:
+        return native.decode_wav(data)
     dstart, dend = chunks[b"data"]
     raw = data[dstart:dend]
 
@@ -153,6 +172,16 @@ def read_wav_mono(path: str | Path, dtype=np.float32) -> tuple[np.ndarray, int]:
 
 
 def _encode(samples: np.ndarray, bits: int, float_format: bool) -> bytes:
+    x = np.asarray(samples)
+    # the host library quantizes float32 PCM only: float64 data through it
+    # would flip +-1-LSB ties against the float64 quantizer below
+    if not float_format and bits in (16, 24, 32) and x.dtype == np.float32:
+        return native.encode_pcm(x, bits)
+    return _encode_numpy(x, bits, float_format)
+
+
+def _encode_numpy(samples: np.ndarray, bits: int, float_format: bool) -> bytes:
+    """The plain form of ``_encode``, in NumPy."""
     x = np.asarray(samples)
     if x.ndim == 1:
         x = x[:, None]

@@ -1,25 +1,32 @@
-"""Build the port's CUDA sources at first use and load them with ctypes.
+"""Build the port's C++ and CUDA sources at first use and load them with
+ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface; ``nvcc`` compiles it for
-Hopper (``sm_90a``) into ``build/jefferson_tpu_torch/<name>-<hash>.so`` at
-the root of the checkout, where the hash covers the source, every local
-header it includes (``#include "x.cuh"`` from ``csrc/``, followed
-recursively) and the flags, so an edited source or header rebuilds and an
+A ``Toolchain`` says how one kind of source builds: its directory and
+suffix, the compiler and its flags.  ``CUDA`` (the default) is each
+``csrc/<name>.cu``, compiled by ``nvcc`` for Hopper (``sm_90a``); the host
+library ``native/native.cpp`` builds with g++ (``native.TOOLCHAIN``).  Every
+source has a plain C interface and builds into
+``build/jefferson_tpu_torch/<name>-<hash>.so`` at the root of the checkout,
+where the hash covers the source, every local header it includes
+(``#include "x.cuh"`` from its directory, followed recursively), the
+compiler and the flags, so an edited source or header rebuilds and an
 unchanged one loads the cached library.  A build takes seconds because no
-PyTorch header is included.  A failed build raises with the compiler's
-output; nothing falls back.  ``build_all`` starts one nvcc per source at
-once.
+PyTorch or Python header is included.  A failed build raises with the
+compiler's output; nothing falls back.  ``build_all`` starts one compiler
+per source at once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import re
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Callable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "jefferson_tpu_torch"
@@ -33,7 +40,7 @@ NVCC_FLAGS = (
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict = {}
 
 
 def nvcc() -> str:
@@ -47,86 +54,121 @@ def nvcc() -> str:
     return found
 
 
-def sources(name: str) -> list[Path]:
-    """``csrc/<name>.cu`` and the local headers it includes, recursively,
+def which(compiler: str) -> str:
+    """``compiler`` on PATH, or a RuntimeError naming it."""
+    found = shutil.which(compiler)
+    if found is None:
+        raise RuntimeError(f"{compiler} not found (put it on PATH)")
+    return found
+
+
+@dataclasses.dataclass(frozen=True)
+class Toolchain:
+    """How one kind of source builds: ``src_dir/<name><suffix>`` compiled
+    by ``compiler`` (hashed into the library's key; ``locate`` finds its
+    executable) with ``flags``."""
+
+    src_dir: Path
+    suffix: str
+    compiler: str
+    flags: tuple[str, ...]
+    locate: Callable[[str], str] = which
+
+
+def cuda() -> Toolchain:
+    """The CUDA sources' toolchain, read from this module's settings."""
+    return Toolchain(CSRC, ".cu", "nvcc", NVCC_FLAGS, lambda _: nvcc())
+
+
+def sources(name: str, toolchain: Toolchain | None = None) -> list[Path]:
+    """``<name><suffix>`` and the local headers it includes, recursively,
     in the order first met."""
-    found, todo = [], [CSRC / f"{name}.cu"]
+    tc = toolchain or cuda()
+    found, todo = [], [tc.src_dir / f"{name}{tc.suffix}"]
     while todo:
         path = todo.pop(0)
         if path in found:
             continue
         found.append(path)
         for inc in _INCLUDE.findall(path.read_text()):
-            if (CSRC / inc).is_file():
-                todo.append(CSRC / inc)
+            if (tc.src_dir / inc).is_file():
+                todo.append(tc.src_dir / inc)
     return found
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by its sources and flags."""
+def library_path(name: str, toolchain: Toolchain | None = None) -> Path:
+    """Where ``<name><suffix>`` builds to, keyed by its sources, compiler
+    and flags."""
+    tc = toolchain or cuda()
     digest = hashlib.sha256()
-    for path in sources(name):
+    for path in sources(name, tc):
         digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join((tc.compiler, *tc.flags)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
-    """Start nvcc on ``name`` unless its library is built: (out, tmp, cmd,
-    process) or None."""
-    out = library_path(name)
+def _start(name: str, tc: Toolchain):
+    """Start the compiler on ``name`` unless its library is built: (out,
+    tmp, cmd, process) or None."""
+    out = library_path(name, tc)
     if out.exists():
         return None
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [tc.locate(tc.compiler), *tc.flags, "-o", str(tmp), str(tc.src_dir / f"{name}{tc.suffix}")]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return out, tmp, cmd, proc
 
 
-def _finish(name: str, started) -> None:
+def _finish(name: str, tc: Toolchain, started) -> None:
     out, tmp, cmd, proc = started
+    what = f"{tc.src_dir.name}/{name}{tc.suffix}"
     try:
         stdout, stderr = proc.communicate(timeout=600)
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.communicate()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc on csrc/{name}.cu took more than 600 s") from None
+        raise RuntimeError(f"{tc.compiler} on {what} took more than 600 s") from None
     out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + stdout + stderr)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{stderr}")
+        raise RuntimeError(
+            f"{tc.compiler} failed on {what} (exit {proc.returncode}):\n{stdout}{stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
 
 
-def build_all(names) -> list[Path]:
-    """Compile every ``csrc/<name>.cu`` that is not built yet, all nvcc
+def build_all(names, toolchain: Toolchain | None = None) -> list[Path]:
+    """Compile every ``<name><suffix>`` that is not built yet, all compiler
     processes at once; waits for each and raises on the first failure."""
+    tc = toolchain or cuda()
     names = list(names)
     started = {}
     try:
         for name in names:
-            started[name] = _start(name)
+            started[name] = _start(name, tc)
         for name, job in started.items():
             if job is not None:
-                _finish(name, job)
+                _finish(name, tc, job)
     finally:
         for job in started.values():  # a failure leaves no compiler running
             if job is not None and job[3].poll() is None:
                 job[3].kill()
                 job[3].communicate()
-    return [library_path(name) for name in names]
+    return [library_path(name, tc) for name in names]
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    return build_all([name])[0]
+def build(name: str, toolchain: Toolchain | None = None) -> Path:
+    """Compile ``<name><suffix>`` unless its library is already built."""
+    return build_all([name], toolchain)[0]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    lib = _loaded.get(name)
+def load(name: str, toolchain: Toolchain | None = None) -> ctypes.CDLL:
+    """The loaded library of ``<name><suffix>``, built on first use."""
+    # the kernels' wrappers look their library up on every launch: a CUDA
+    # source's name is its key, with no toolchain built for the lookup
+    key = name if toolchain is None else (toolchain, name)
+    lib = _loaded.get(key)
     if lib is None:
-        lib = _loaded[name] = ctypes.CDLL(str(build(name)))
+        lib = _loaded[key] = ctypes.CDLL(str(build(name, toolchain)))
     return lib

@@ -1,10 +1,11 @@
 """Frequency-domain filter ops on float32 planes: distance factor, complex
 multiply, crossfade.  Counterpart of ``jefferson_tpu/ops/filters.py``.
 
-``distance_phase_split`` is host NumPy, copied from the JAX module's NumPy
-branch (its native extension computes the same values,
-tests/test_native.py); ``tests/test_torch_ops.py`` pins it bit-for-bit to
-the original.  The device ops keep the JAX op order, which
+``distance_phase_split`` runs the port's host library for 1-D radii, as
+the JAX module runs its native extension; ``_distance_phase_split_numpy``,
+copied from the JAX module's NumPy branch, is its plain form and takes any
+other shape.  ``tests/test_torch_ops.py`` and ``tests/test_torch_native.py``
+pin both bit-for-bit to the original.  The device ops keep the JAX op order, which
 is the contract the CUDA kernel's distance planes follow too.
 """
 
@@ -14,6 +15,8 @@ import math
 
 import numpy as np
 import torch
+
+from .. import native
 
 _MASK_LOW12 = np.int32(~0xFFF)
 
@@ -32,6 +35,14 @@ def distance_phase_split(fsvs: float, radii: np.ndarray, num_bins: int):
     Returns (u_hi, u_lo, inv_frac) float32 arrays shaped like ``radii``.
     ``radii`` are the *scaled* radii (|coords|/distance_scale) in float32.
     """
+    r = np.asarray(radii, dtype=np.float32)
+    if r.ndim == 1:
+        return native.distance_phase_split(fsvs, r, num_bins)
+    return _distance_phase_split_numpy(fsvs, r, num_bins)
+
+
+def _distance_phase_split_numpy(fsvs: float, radii: np.ndarray, num_bins: int):
+    """The plain form of ``distance_phase_split``, in NumPy, any shape."""
     r = np.asarray(radii, dtype=np.float32)
     fsvs32 = np.float32(fsvs)
     u = np.float64(fsvs32) * r.astype(np.float64) / np.float64(num_bins)

@@ -293,8 +293,6 @@ def test_scene_arm_matches_jax_and_oracle(db, tdb, config, castanets, name, monk
 def test_batch_renderer_refuses_what_is_not_ported(tdb):
     with pytest.raises(NotImplementedError, match="mesh.*queue 1 item 9"):
         BatchRenderer(tdb, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="pipeline_fetch.*queue 1 item 4"):
-        BatchRenderer(tdb, device="cpu", pipeline_fetch=True)
     cfg96 = EngineConfig(frames_per_buffer=64, hrtf_len=512)
     tdb64 = database_from_numpy(tdb.spectra, tdb.hrirs, dataclasses.asdict(cfg96))
     with pytest.raises(ValueError, match="fpb 128 / pad 1024"):

@@ -16,6 +16,7 @@ import torch
 from jefferson_tpu_torch import bench
 from jefferson_tpu_torch.config import DEFAULT_CONFIG
 from jefferson_tpu_torch.engine.batch import BatchRenderer
+from jefferson_tpu_torch.engine.renderer import Renderer
 from jefferson_tpu_torch.engine.stream import StreamingSpatializer, render_scan
 from jefferson_tpu_torch.hrtf.kemar import synthetic_database
 from jefferson_tpu_torch.kernels import assoc_probe as tap
@@ -332,6 +333,49 @@ def test_scene_render_on_the_card_matches_the_cpu_twins(card_db, case):
     want = cpu.render(sig, pos)
     assert card.dispatch == cpu.dispatch
     assert np.abs(got - want).max() <= TOL
+
+
+def _count_side_copies(monkeypatch):
+    """Count the pinned side-stream copies of ChunkFetch."""
+    from jefferson_tpu_torch.engine import renderer as trenderer
+
+    copies, copy = [], trenderer.ChunkFetch._copy
+    monkeypatch.setattr(trenderer.ChunkFetch, "_copy",
+                        lambda self, y: copies.append(y.shape) or copy(self, y))
+    return copies
+
+
+@pytest.mark.parametrize("case", ["scene_hold", "scene_movers", "wide_mix"])
+def test_pipelined_scene_render_equals_synchronous_on_the_card(card_db, case, monkeypatch):
+    """pipeline_fetch=True: each chunk's output on a side stream into pinned
+    slots, read one chunk late, torch.equal to the synchronous render (a
+    padded final chunk included)."""
+    pos = {"scene_hold": lambda: bench.scene_hold_positions(8, 1100, 100),
+           "scene_movers": lambda: bench.scene_mover_positions(16, 700),
+           "wide_mix": lambda: bench.wide_positions(4, 700)}[case]()
+    noise = np.random.default_rng(1).standard_normal(131072).astype(np.float32) * 0.2
+    sig = bench.scene_signals(noise, pos.shape[0], pos.shape[1])
+    mix = case.endswith("mix")
+    sync = BatchRenderer(card_db, device="cuda", chunk_blocks=256, mix=mix)
+    want = sync.render(sig, pos)
+    copies = _count_side_copies(monkeypatch)
+    piped = BatchRenderer(card_db, device="cuda", chunk_blocks=256, mix=mix, pipeline_fetch=True)
+    got = piped.render(sig, pos)
+    assert len(copies) == len(piped.dispatch) == len(sync.dispatch) > 2
+    assert piped.dispatch == sync.dispatch
+    assert torch.equal(torch.from_numpy(got), torch.from_numpy(want))
+
+
+@pytest.mark.parametrize("opts", [{}, {"sparse_xfade": False}, {"fused": False}])
+def test_pipelined_sweep_render_equals_synchronous_on_the_card(card_db, opts, monkeypatch):
+    pos = bench.sweep_positions(3.0, 5.0)[:5000]
+    sig = np.random.default_rng(2).standard_normal(131072).astype(np.float32) * 0.2
+    want = Renderer(card_db, device="cuda", chunk_blocks=2048, **opts).render(sig, pos)
+    copies = _count_side_copies(monkeypatch)
+    r = Renderer(card_db, device="cuda", chunk_blocks=2048, pipeline_fetch=True, **opts)
+    got = r.render(sig, pos)
+    assert len(copies) == len(r.dispatch) == 3
+    assert torch.equal(torch.from_numpy(got), torch.from_numpy(want))
 
 
 # ---- launch B's split form (rows 2-8) ----------------------------------------

@@ -152,8 +152,6 @@ def test_renderer_raises_where_the_port_stops(tdb, config):
         r.render(sig, _hold(8), ptype=ProcessType.TPU_FD_BASIC)
     with pytest.raises(NotImplementedError, match="mesh.*queue 1 item 9"):
         Renderer(tdb, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="pipeline_fetch.*queue 1 item 4"):
-        Renderer(tdb, device="cpu", pipeline_fetch=True)
     with pytest.raises(ValueError, match="positive"):
         Renderer(tdb, device="cpu", chunk_blocks=0)
     plan = make_plan(_orbit(8), config)
