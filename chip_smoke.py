@@ -121,7 +121,29 @@ line:
              unfused chain and its two stage swaps (the tail summed by
              128-bin blocks; the forward on the CPU) on no kernel.  Row 12 runs
              there under the pre-blend of the budget's gather configurations.
-  7. bench   the bench step (blocks/s), and again with row 1's launch B in
+  7. cli     the file-to-file CLI (jefferson_tpu_torch.cli.main.main, in this
+             process, on the card) in a temporary directory, the launch
+             counts set to 0 just before: a seeded 30-s mono input (10,336
+             blocks: five 2048-block chunks and a ragged one), a 48 kHz copy
+             of it, a seeded 2-s IR and a compact KEMAR tree written from
+             synthetic_database (bench.write_compact_tree: 710 filters), read
+             back through --hrtf-dir by every render.  Renders, all --float:
+             -t 0 on an orbit and held, -t 0 --backend fft, -t 1 in both
+             backends, -t 2, -r with --reverb-mode reference on the device
+             and on the host reverb, the 48 kHz input, an events: and a path:
+             trajectory, a --scene of four sources, and -t 3/4/5 on the
+             first 5 s.  Each engine render against render_oracle on the same
+             database (from the worker pool): 1e-6, 2e-7 for -t 1 fft, 5e-6
+             for TD against the gain-scaled oracle, RMS < 1e-4; the first 5 s
+             of the -t 0/1/2 orbit renders through cli.check against the
+             -t 3/4/5 renders (-t 5 scaled by the source gain), and those
+             bit-equal to the workers' oracles; each -t 0 fft, -t 1 and -t 2
+             render against the same CLI render with --device cpu within
+             1e-6; the device reverb against the host reverb and
+             reverb_oracle within 5e-5.  The -t 0 and --scene renders launch
+             the CUDA steps; the others none.  Each render's launches by
+             kernel, wall time and multiple of real time beside the card.
+  8. bench   the bench step (blocks/s), and again with row 1's launch B in
              each form, STEP_PAIRS pairs in turns, beside each form's
              quartile spread; each step's kernel and twin times in
              turns (twin, forms, forms reversed, twin) beside its bound (row 8
@@ -166,6 +188,7 @@ from __future__ import annotations
 
 import json
 import sys
+import tempfile
 import time
 
 KERNEL_TOL = 5e-7    # CUDA step vs twin: fp32 DFT sums in another order
@@ -249,6 +272,18 @@ SCENE_FORMS = {
     "apply": ("fused_apply_xfade", SCENE_S, 512),
     "apply_noxf": ("fused_apply_xfade/no_xfade", SCENE_S, 512),
 }
+# the cli phase: its input, the oracle renders' cut, and its gates
+CLI_SECONDS, CLI_CUT, CLI_IR_SECONDS = 30, 5.0, 2
+FFT_BASIC_EPS = 2e-7  # -t 1 in the fft backend against the oracle (PARITY.md row 12)
+TD_EPS = 5e-6         # -t 2 against the gain-scaled CPU oracle (tests/test_engine_parity.py)
+CARD_CPU_TOL = 1e-6   # a render on the card against the same CLI render with --device cpu
+REVERB_TOL = 5e-5     # the device reverb against the host reverb and reverb_oracle
+CLI_ORBIT = "orbit:period=4"
+CLI_STATIC = "static:azi=30,ele=10,r=1.5"
+CLI_PATH = "path:-2,0.5,-1:2,-0.3,0.5:20"
+CLI_EVENTS = [[0.0, 0, 0, 0.5], [2.5, 40, 10, 1.0], [7.0, 300, -20, 2.0],
+              [12.0, 120, 50, 0.7], [20.0, 200, 0, 1.2]]
+
 # the JAX package's full-scale margins (ROADMAP.md, the gate-margin ladder)
 JAX_MARGIN = {"sweep": 0.596, "sweep_no_sparse": 0.596, "mover": 0.745,
               "scene_hold": 0.745, "scene_movers": 0.298, "render_scan sweep": 0.596,
@@ -343,6 +378,269 @@ def _oracle_job(signal, positions):
 
     return render_oracle(signal, _worker_db, [tuple(p) for p in positions], _worker_db.config,
                          initial_old=(0.0, 0.0))
+
+
+_cli_dbs = {}
+
+
+def _cli_oracle_job(tree, signal, positions, ptype, td_gain=1.0):
+    """render_oracle on the database in ``tree`` (loaded once a worker)."""
+    from jefferson_tpu_torch.config import ProcessType
+    from jefferson_tpu_torch.hrtf.kemar import load_database
+    from jefferson_tpu_torch.oracle.reference import render_oracle
+
+    if tree not in _cli_dbs:
+        _cli_dbs[tree] = load_database(tree)
+    db = _cli_dbs[tree]
+    return render_oracle(signal, db, [tuple(p) for p in positions], db.config,
+                         ProcessType(ptype), td_gain=td_gain)
+
+
+def cli_inputs(pool, tmp, device):
+    """The cli phase's inputs, written under ``tmp``, its reverbs (the
+    device one on the card), and every render's oracle started in the
+    workers.  Returns (renders, scene oracle, reverbs, files): renders maps
+    a name to (CLI arguments, the oracle's future, its gate, whether the
+    render is also run with --device cpu)."""
+    import json
+    from pathlib import Path
+
+    import numpy as np
+
+    from jefferson_tpu_torch import bench
+    from jefferson_tpu_torch.cli.main import parse_trajectory
+    from jefferson_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from jefferson_tpu_torch.config import ProcessType as P
+    from jefferson_tpu_torch.hrtf.kemar import synthetic_database
+    from jefferson_tpu_torch.io.resample import resample
+    from jefferson_tpu_torch.io.wavio import read_wav_mono, write_wav
+    from jefferson_tpu_torch.reverb.convolution import reverb_oracle, reverb_reference
+
+    tmp = Path(tmp)
+    sr = cfg.sample_rate
+    rng = np.random.default_rng(21)
+    t = np.arange(CLI_SECONDS * sr) / sr
+    sig = (0.1 * rng.standard_normal(len(t)) + 0.2 * np.sin(2 * np.pi * 330 * t)
+           * np.sin(2 * np.pi * 0.25 * t)).astype(np.float32)
+    second = (0.15 * rng.standard_normal(20 * sr)).astype(np.float32)
+    ir_t = np.arange(CLI_IR_SECONDS * sr)
+    ir = (rng.standard_normal(len(ir_t)) * np.exp(-ir_t / (0.4 * sr)) * 0.05).astype(np.float32)
+    ir[0] = 1.0
+    files = {"in": tmp / "in.wav", "in48": tmp / "in48.wav", "in2": tmp / "in2.wav",
+             "ir": tmp / "ir.wav", "events": tmp / "events.json", "scene": tmp / "scene.json",
+             "tree": tmp / "kemar"}
+    for name, x, rate in (("in", sig, sr), ("in48", resample(sig, sr, 48000), 48000),
+                          ("in2", second, sr), ("ir", ir, sr)):
+        write_wav(files[name], x, rate, bits=32, float_format=True)
+    files["events"].write_text(json.dumps(CLI_EVENTS))
+    bench.write_compact_tree(synthetic_database(cfg), files["tree"])
+    tree = str(files["tree"])
+    events = f"events:{files['events']}"
+
+    # the oracles' inputs, read back as the CLI reads them
+    dry = read_wav_mono(files["in"])[0]
+    ir_in = read_wav_mono(files["ir"])[0]
+    wet_device = reverb_reference(dry, ir_in, cfg, backend="device", device=device)
+    wet_host = reverb_reference(dry, ir_in, cfg, backend="host")
+    reverbs = {"device": wet_device, "host": wet_host, "oracle": reverb_oracle(dry, ir_in),
+               "dry": dry, "ir": ir_in}
+    signals = {"in": dry, "in48": resample(read_wav_mono(files["in48"])[0], 48000, sr),
+               "wet_device": wet_device, "wet_host": wet_host}
+
+    def oracle(signal, spec, ptype, td_gain=1.0):
+        x = signals[signal]
+        pos = parse_trajectory(spec).sample(int(np.ceil(len(x) / cfg.frames_per_buffer)), cfg)
+        return pool.submit(_cli_oracle_job, tree, x, pos, int(ptype), td_gain)
+
+    orbit_fd = oracle("in", CLI_ORBIT, P.CPU_FD_COMPLEX)
+    orbit_basic = oracle("in", CLI_ORBIT, P.CPU_FD_BASIC)
+    reverb = ["-r", str(files["ir"]), "--reverb-mode", "reference", "--reverb-backend"]
+    renders = {
+        "t0_orbit": (["-t", "0", "--trajectory", CLI_ORBIT], orbit_fd, ORACLE_TOL, False),
+        "t0_static": (["-t", "0", "--trajectory", CLI_STATIC],
+                      oracle("in", CLI_STATIC, P.CPU_FD_COMPLEX), ORACLE_TOL, False),
+        "t0_fft": (["-t", "0", "--backend", "fft", "--trajectory", CLI_ORBIT], orbit_fd,
+                   ORACLE_TOL, True),
+        "t1": (["-t", "1", "--trajectory", CLI_ORBIT], orbit_basic, ORACLE_TOL, True),
+        "t1_fft": (["-t", "1", "--backend", "fft", "--trajectory", CLI_ORBIT], orbit_basic,
+                   FFT_BASIC_EPS, True),
+        "t2": (["-t", "2", "--trajectory", CLI_ORBIT],
+               oracle("in", CLI_ORBIT, P.CPU_TD, cfg.source_gain), TD_EPS, True),
+        "reverb_device": ([*reverb, "device", "--trajectory", CLI_ORBIT],
+                          oracle("wet_device", CLI_ORBIT, P.CPU_FD_COMPLEX), ORACLE_TOL, False),
+        "reverb_host": ([*reverb, "host", "--trajectory", CLI_ORBIT],
+                        oracle("wet_host", CLI_ORBIT, P.CPU_FD_COMPLEX), ORACLE_TOL, False),
+        "in48": (["-i", str(files["in48"]), "--trajectory", CLI_ORBIT],
+                 oracle("in48", CLI_ORBIT, P.CPU_FD_COMPLEX), ORACLE_TOL, False),
+        "events": (["--trajectory", events], oracle("in", events, P.CPU_FD_COMPLEX),
+                   ORACLE_TOL, False),
+        "path": (["--trajectory", CLI_PATH], oracle("in", CLI_PATH, P.CPU_FD_COMPLEX),
+                 ORACLE_TOL, False),
+    }
+    # the scene: four sources, each scaled by its gain and rendered to the
+    # longest source's blocks, the mix against the sum of their oracles
+    scene = [(files["in"], CLI_ORBIT, 0.5), (files["in48"], CLI_STATIC, 0.4),
+             (files["in2"], CLI_PATH, 0.3), (files["in"], events, 0.25)]
+    files["scene"].write_text(json.dumps({"sources": [
+        {"input": str(f), "trajectory": spec, "gain": g} for f, spec, g in scene]}))
+    sigs = []
+    for f, _, g in scene:
+        x, rate = read_wav_mono(f)
+        sigs.append((resample(x, rate, sr) if rate != sr else x) * np.float32(g))
+    nb = max(int(np.ceil(len(x) / cfg.frames_per_buffer)) for x in sigs)
+    scene_oracles = [pool.submit(_cli_oracle_job, tree, x, parse_trajectory(spec).sample(nb, cfg),
+                                 int(P.CPU_FD_COMPLEX))
+                     for x, (_, spec, _) in zip(sigs, scene)]
+    return renders, (scene_oracles, nb), reverbs, files
+
+
+def cli_phase(bench, inputs, cfg, fwd_forms) -> dict | None:
+    """The cli phase (module docstring, phase 7): every render through
+    cli.main.main on the card, counted, held to its oracle; the launches
+    by kernel, or None on a failure."""
+    import numpy as np
+
+    from jefferson_tpu_torch.cli.check import main as check_main
+    from jefferson_tpu_torch.cli.main import main as cli_main
+    from jefferson_tpu_torch.io.wavio import read_wav, write_wav
+    from jefferson_tpu_torch.kernels import fused_step
+
+    renders, (scene_oracles, scene_nb), reverbs, files = inputs
+    tmp = files["in"].parent
+    fpb, sr = cfg.frames_per_buffer, cfg.sample_rate
+    common = ["--hrtf-dir", str(files["tree"]), "--float", "--quiet"]
+    total: dict[str, int] = {}
+    fused_step.reset_launches()
+
+    def render(name, args, device="cuda"):
+        """One CLI render -> (output, wall seconds, launches by kernel)."""
+        out = tmp / f"{name}_{device}.wav"
+        before = dict(fused_step.launches)
+        t0 = time.perf_counter()
+        rc = cli_main(["-i", str(files["in"]), *args, "-o", str(out), "--device", device,
+                       *common])
+        wall = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in fused_step.launches.items() if v != before[k]}
+        if rc != 0:
+            raise RuntimeError(f"{name}: the CLI returned {rc}")
+        return read_wav(out)[0], wall, launched
+
+    # the reverbs against each other and the oracle, each timed again warm,
+    # in turns (device, host, host, device), the device's output the same
+    # as the one the oracle took
+    from jefferson_tpu_torch.reverb.convolution import reverb_reference
+
+    wet_dev, wet_host = reverbs["device"], reverbs["host"]
+    walls = {"device": [], "host": []}
+    same = True
+    for backend in ("device", "host", "host", "device"):
+        t0 = time.perf_counter()
+        wet = reverb_reference(reverbs["dry"], reverbs["ir"], cfg, backend=backend,
+                               device="cuda")
+        walls[backend].append(time.perf_counter() - t0)
+        same = same and np.array_equal(wet, reverbs[backend])
+    d_dh = float(np.abs(wet_dev - wet_host).max())
+    d_do = float(np.abs(wet_dev - reverbs["oracle"]).max())
+    d_ho = float(np.abs(wet_host - reverbs["oracle"]).max())
+    say("cli", f"reverb_reference of {len(reverbs['dry'])} samples with a {CLI_IR_SECONDS}-s IR "
+               f"({len(reverbs['ir'])} taps): device (the card) "
+               f"{'/'.join(f'{w:.4f}' for w in walls['device'])} s, host "
+               f"{'/'.join(f'{w:.4f}' for w in walls['host'])} s (in turns); each the same "
+               f"output again: {same}; max|device - host| {d_dh:.3e}, |device - reverb_oracle| "
+               f"{d_do:.3e}, |host - reverb_oracle| {d_ho:.3e} (limit {REVERB_TOL:.0e})  "
+               f"[{bench.card()}]")
+    if max(d_dh, d_do, d_ho) > REVERB_TOL or not same:
+        fail("cli", "the device reverb disagrees with the host reverb or reverb_oracle")
+        return None
+
+    outs = {}
+    for name, (args, oracle, gate, on_cpu) in renders.items():
+        got, wall, launched = render(name, args)
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+        want = oracle.result()
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail("cli", f"{name}: output {got.shape}, the oracle's {want.shape}")
+            return None
+        d_max, d_rms = diff(got, want)
+        audio_s = len(got) / sr
+        line = (f"{name} ({' '.join(args)}): {len(got) // fpb} blocks ({audio_s:.2f} s) in "
+                f"{wall:.3f} s = {audio_s / wall:.1f}x real time, launches {launched}; vs "
+                f"render_oracle max|diff| {d_max:.3e} (limit {gate:.0e}), rms {d_rms:.3e}")
+        d_cpu = 0.0
+        if on_cpu:
+            cpu, cpu_wall, _ = render(name, args, device="cpu")
+            d_cpu = float(np.abs(got - cpu).max())
+            line += (f"; vs --device cpu ({cpu_wall:.3f} s) max|diff| {d_cpu:.3e} at block "
+                     f"{int(np.abs(got - cpu).argmax()) // 2 // fpb} (limit {CARD_CPU_TOL:.0e})")
+        say("cli", f"{line}  [{bench.card()}]")
+        if d_cpu > CARD_CPU_TOL:
+            fail("cli", f"{name}: the card's render disagrees with the CPU's")
+            return None
+        if not (d_max <= gate and d_rms < ORACLE_RMS):
+            fail("cli", f"{name}: the render disagrees with the oracle")
+            return None
+        engine = not name.startswith(("t0_fft", "t1", "t2"))
+        if bool(launched) != engine or (engine and not set(launched) - {"dma_blend"}):
+            fail("cli", f"{name}: launched {launched}, want CUDA steps only on -t 0 matmul")
+            return None
+        outs[name] = (got, want)
+
+    # the oracles through the CLI on the first CLI_CUT seconds, bit-equal to
+    # the workers', and the engine renders' heads through cli.check
+    cut = int(np.ceil(CLI_CUT / cfg.block_duration))
+    for ptype, name, scale in (("3", "t0_orbit", 1.0), ("4", "t1", 1.0),
+                               ("5", "t2", cfg.source_gain)):
+        got, wall, launched = render(f"t{ptype}", ["-t", ptype, "--trajectory", CLI_ORBIT,
+                                                   "--blocks", str(cut)])
+        engine, want = outs[name]
+        # -t 5 is the CPU TD oracle (gain 1); the worker's carries the source gain
+        scaled = got if scale == 1.0 else got * np.float32(scale)
+        same = np.array_equal(scaled, want[: cut * fpb])
+        head, ref = tmp / f"{name}_head.wav", tmp / f"t{ptype}_ref.wav"
+        write_wav(head, engine[: cut * fpb], sr, bits=32, float_format=True)
+        write_wav(ref, scaled, sr, bits=32, float_format=True)
+        gate = TD_EPS if ptype == "5" else ORACLE_TOL
+        rc = check_main([str(head), str(ref), "--eps", str(gate)])
+        say("cli", f"-t {ptype}, {cut} blocks in {wall:.3f} s = {cut * fpb / sr / wall:.1f}x "
+                   f"real time, launches {launched}: the worker's oracle "
+                   f"{'x source gain ' if scale != 1.0 else ''}bit-equal: {same}; cli.check of "
+                   f"{name}'s first {cut} blocks against it at {gate:.0e}: rc {rc}  "
+                   f"[{bench.card()}]")
+        if launched or not same or rc != 0:
+            fail("cli", f"-t {ptype}: the oracle render or its check failed")
+            return None
+
+    # the scene
+    out = tmp / "scene.wav"
+    before = dict(fused_step.launches)
+    t0 = time.perf_counter()
+    rc = cli_main(["--scene", str(files["scene"]), "-o", str(out), "--device", "cuda", *common])
+    wall = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in fused_step.launches.items() if v != before[k]}
+    for k, v in launched.items():
+        total[k] = total.get(k, 0) + v
+    got = read_wav(out)[0]
+    want = np.sum([o.result().astype(np.float64) for o in scene_oracles], axis=0)
+    ok = rc == 0 and got.shape == want.shape and np.isfinite(got).all()
+    d_max, d_rms = diff(got, want) if ok else (float("inf"), float("inf"))
+    audio_s = scene_nb * fpb / sr
+    say("cli", f"--scene of 4 sources, {scene_nb} blocks ({audio_s:.2f} s) in {wall:.3f} s = "
+               f"{audio_s / wall:.1f}x real time, launches {launched}; the mix vs the sum of "
+               f"the sources' render_oracle: max|diff| {d_max:.3e} (limit {ORACLE_TOL:.0e}), "
+               f"rms {d_rms:.3e}  [{bench.card()}]")
+    if not (ok and d_max <= ORACLE_TOL and d_rms < ORACLE_RMS):
+        fail("cli", "the scene disagrees with its oracles")
+        return None
+    if not set(launched) - {"dma_blend"}:
+        fail("cli", f"the scene launched {launched}, want the CUDA steps")
+        return None
+    fwd_forms["cli"] = dict(fused_step.forward_launches)
+    if fault := launch_a_fault("the cli phase", total, fwd_forms["cli"]):
+        fail("cli", fault)
+        return None
+    say("cli", f"cli launches: {total}, launch A by form {fwd_forms['cli']}")
+    return total
 
 
 def live_runs(bench, noise, fpb):
@@ -1173,12 +1471,13 @@ def main() -> int:
     pool = ProcessPoolExecutor(ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"),
                                initializer=_oracle_init)
     try:
-        return run(pool, host)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+            return run(pool, host, tmp)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
 
-def run(pool, host) -> int:
+def run(pool, host, tmp) -> int:
     import numpy as np
     import torch
 
@@ -1218,6 +1517,8 @@ def run(pool, host) -> int:
     sets = scene_positions(bench)
     oracles = {name: {i: pool.submit(_oracle_job, scene_sigs[i], pos[i]) for i in srcs}
                for name, (pos, srcs) in sets.items()}
+    # the cli phase's inputs and its oracles (the device reverb on the card)
+    cli_in = cli_inputs(pool, tmp, device)
 
     # ---- build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1584,6 +1885,11 @@ def run(pool, host) -> int:
     if probe_launches is None:
         return 1
 
+    # ---- the file-to-file CLI, counted ---------------------------------------
+    cli_launches = cli_phase(bench, cli_in, cfg, fwd_forms)
+    if cli_launches is None:
+        return 1
+
     # ---- timings -----------------------------------------------------------
     step_ms = bench.time_steps_ms(wl)
     bps = S * NB / (step_ms * 1e-3)
@@ -1750,6 +2056,9 @@ def run(pool, host) -> int:
                 LAUNCH_A: sum(sum(f.values()) for f in fwd_forms.values())}
     # row 12 runs on the render paths (rows 5-7's pre-blend) and in the probes
     launches["dma_blend"] += single["dma_blend"] + scene_launches["dma_blend"]
+    # and the cli phase's renders (launch A's through fwd_forms)
+    for name, n in cli_launches.items():
+        launches[name] += n
     say("path", f"launch A on the counted paths by form: {fwd_forms}")
     print(json.dumps({"kernels": [{
         "name": name,

@@ -14,9 +14,64 @@ device.  The engine is float32 end to
 end and never TF32 — the distance ramp's 12-bit phase split
 (``ops/filters.distance_phase_split``) and the 1e-6 oracle gate need full
 fp32 products, so both TF32 switches are turned off on import.
+
+The top-level names are those of ``jefferson_tpu/__init__.py`` that the
+port has; the renderers, the oracle and the SOFA loader resolve lazily.
 """
 
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+from .config import DEFAULT_CONFIG, EngineConfig, ProcessType  # noqa: E402
+from .hrtf.kemar import (  # noqa: E402
+    HRTFDatabase,
+    load_compact,
+    load_database,
+    load_full,
+    pick_hrtf,
+    synthetic_database,
+)
+from .io.wavio import StreamingWavWriter, read_wav, read_wav_mono, write_wav  # noqa: E402
+from .testing import precision_check, rms_error  # noqa: E402
+
+__version__ = "0.2.0"
+
+_LAZY = {
+    "Renderer": "jefferson_tpu_torch.engine.renderer",
+    "BatchRenderer": "jefferson_tpu_torch.engine.batch",
+    "StreamingSpatializer": "jefferson_tpu_torch.engine.stream",
+    "AudioPlayout": "jefferson_tpu_torch.rt.playout",
+    "render_oracle": "jefferson_tpu_torch.oracle.reference",
+    "load_sofa": "jefferson_tpu_torch.hrtf.sofa",
+}
+
+
+def __getattr__(name):
+    target = _LAZY.get(name)
+    if target is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(target), name)
+
+
+__all__ = [
+    *_LAZY,
+    "DEFAULT_CONFIG",
+    "EngineConfig",
+    "ProcessType",
+    "HRTFDatabase",
+    "load_compact",
+    "load_database",
+    "load_full",
+    "pick_hrtf",
+    "synthetic_database",
+    "StreamingWavWriter",
+    "read_wav",
+    "read_wav_mono",
+    "write_wav",
+    "precision_check",
+    "rms_error",
+]

@@ -42,7 +42,10 @@ from .engine.plan import (
     compact_filter_ids, compact_filter_ids_grouped, compact_filter_ids_grouped_sources, make_plan,
 )
 from .engine.renderer import cat_table, dedup_distance, pick_fused_tile
-from .hrtf.kemar import synthetic_database
+from .hrtf.kemar import (
+    AZIMUTH_GRIDS, AZIMUTH_OFFSET, ELEVATIONS, NUM_ELEV, round_half_away, synthetic_database,
+)
+from .io.wavio import write_wav
 from .kernels import fused_apply, fused_spatializer, fused_step
 from .kernels.fused_step import blend_cat
 from .ops import fft as fft_ops
@@ -256,6 +259,35 @@ def scene_signals(signal: np.ndarray, num_sources: int, num_blocks: int, fpb: in
 
 
 STREAM_FORMS = ("onehot", "grouped", "gather", "gather_noxf")
+
+
+def write_compact_tree(db, root) -> "Path":
+    """``db``'s filters as a compact KEMAR tree under ``root`` (the layout
+    ``hrtf.kemar.load_compact`` reads): one stereo float32 WAV per named
+    azimuth, H{ele}e{azi:03d}a.wav.  A direction at or below 180 degrees
+    writes its own filter; a name only a direction above 180 uses gets
+    that direction's filter with the ears swapped, as the loader mirrors
+    it back.  Returns ``root``."""
+    from pathlib import Path
+
+    root = Path(root)
+    taps = db.hrirs[:, :, : db.config.hrtf_len]
+    for i in range(NUM_ELEV):
+        ele = int(ELEVATIONS[i])
+        (root / f"elev{ele}").mkdir(parents=True, exist_ok=True)
+        written = set()
+        for j, azi in enumerate(AZIMUTH_GRIDS[i]):
+            a = float(azi)
+            swap = a > 180.0
+            name = int(round_half_away(360.0 - a if swap else a))
+            if name in written:
+                continue
+            written.add(name)
+            pair = taps[AZIMUTH_OFFSET[i] + j]
+            write_wav(root / f"elev{ele}" / f"H{ele}e{name:03d}a.wav",
+                      (pair[::-1] if swap else pair).T, db.config.sample_rate,
+                      bits=32, float_format=True)
+    return root
 
 
 def stream_step(db, form: str, b: int, device, *, seed: int = 0, radius_step: float = 0.0,

@@ -439,7 +439,8 @@ class BatchRenderer:
     """Render S concurrent independent source streams on one device.
 
     signals: (S, n) float32 — one mono stream per source; positions:
-    (S, B, 3) per-block (azi, ele, r).  Chunks of ``chunk_blocks`` blocks
+    (S, B, 3) per-block (azi, ele, r); ``config`` the engine geometry,
+    ``db.config`` when None.  Chunks of ``chunk_blocks`` blocks
     (None: the JAX package's automatic size) carry the overlap-save history
     from chunk to chunk; the final chunk is padded and the output trimmed.
 
@@ -467,9 +468,10 @@ class BatchRenderer:
     failed build or launch raises, and so does a deferred fetch.
     """
 
-    def __init__(self, db: HRTFDatabase, *, device="cuda", chunk_blocks: int | None = None,
-                 mix: bool = False, dedup: bool = True, fused: bool = True,
-                 sparse_xfade: bool = True, mesh=None, pipeline_fetch: bool = False):
+    def __init__(self, db: HRTFDatabase, config: EngineConfig | None = None, *, device="cuda",
+                 chunk_blocks: int | None = None, mix: bool = False, dedup: bool = True,
+                 fused: bool = True, sparse_xfade: bool = True, mesh=None,
+                 pipeline_fetch: bool = False):
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh (the JAX BatchRenderer's source sharding) is not ported: "
@@ -478,7 +480,7 @@ class BatchRenderer:
         if chunk_blocks is not None and chunk_blocks < 1:
             raise ValueError(f"chunk_blocks ({chunk_blocks}) must be positive")
         self.db = db
-        self.config = db.config
+        self.config = config or db.config
         aligned = self.config.history_len % self.config.frames_per_buffer == 0
         self.chunk_blocks = chunk_blocks
         self.mix = mix

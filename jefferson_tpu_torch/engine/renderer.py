@@ -1,14 +1,17 @@
 """The single-source renderer, its chunk functions, and the planning helpers
 it shares with the batched renderer.  Counterpart of
-``jefferson_tpu/engine/renderer.py`` (matmul backend, FD_COMPLEX):
+``jefferson_tpu/engine/renderer.py``.  The interpolating FD chunk (-t 0):
 
     sliding sub-block forward DFT -> (B, bins) planes
     -> extended HRTF blend (old set = previous block's new set) per ear
     -> x distance factor, x blended filters -> tail-only inverse DFT
     -> crossfade tails -> (B, fpb, 2)
 
-Every tensor is a float32 (rows, bins) plane; the filter table is the
-combined-plane layout [rL | iL | rR | iR].  The chunk functions keep the
+In the ``matmul`` backend every tensor is a float32 (rows, bins) plane and
+the filter table is the combined-plane layout [rL | iL | rR | iR]; the
+``fft`` backend works on complex64 through ``torch.fft``.  The nearest-HRTF
+FD chunk (-t 1) and the time-domain chunk (-t 2) are plain torch in both
+packages (XLA ops there, no Pallas kernel).  The chunk functions keep the
 JAX package's signatures; the fused ones run the CUDA steps of
 ``kernels/fused_step`` (their plain twins for CPU tensors).
 """
@@ -28,13 +31,20 @@ from ..kernels.fused_apply import fused_apply_xfade
 from ..kernels.dma_blend import blend_rows
 from ..kernels.fused_step import blend_cat
 from ..ops import fft as fft_ops
-from ..ops.filters import cmul, distance_factors_split, xfade_ramp
+from ..ops.filters import (
+    blend_filters, cmul, crossfade_tails, distance_factors, distance_factors_split, xfade_ramp,
+)
 from .plan import (
     RenderPlan, compact_filter_ids, compact_filter_ids_grouped, dedup_rows, fed_stream,
     make_plan,
 )
 
 _FD_COMPLEX = (ProcessType.TPU_FD_COMPLEX, ProcessType.CPU_FD_COMPLEX)
+_FD_BASIC = (ProcessType.TPU_FD_BASIC, ProcessType.CPU_FD_BASIC)
+BACKENDS = ("matmul", "fft")
+# blocks a time-domain product takes at once: its strided window is copied
+# into a (TD_ROWS, fpb, taps) operand, 64 MiB at the default geometry
+TD_ROWS = 256
 
 
 def _segments(full: torch.Tensor, num_blocks: int, config: EngineConfig) -> torch.Tensor:
@@ -55,12 +65,31 @@ def _forward_split(full: torch.Tensor, num_blocks: int, config: EngineConfig):
 
 def _fd_complex_chunk(
     spectra, hist, fed, idx_new, w_new, idx_old, w_old, xfade, u_hi, u_lo, inv_frac,
-    *, config: EngineConfig, num_blocks: int, with_xfade: bool,
+    *, config: EngineConfig, num_blocks: int, with_xfade: bool, backend: str = "matmul",
 ):
-    """One chunk of one source's interpolating FD pipeline (matmul backend).
-    Returns ((B, fpb, 2), new_hist)."""
+    """One chunk of one source's interpolating FD pipeline.
+    Returns ((B, fpb, 2), new_hist).
+
+    ``backend="matmul"``: float32 planes, the DFT as matmuls and the inverse
+    truncated to the output tail; ``spectra`` is the (re, im) planes.
+    ``backend="fft"``: complex64 through ``torch.fft``; ``spectra`` is the
+    (num_hrtf, 2, bins) complex table."""
     full = torch.cat([hist, fed])
     new_hist = full[num_blocks * config.frames_per_buffer :]
+    if backend == "fft":
+        x_spec = fft_ops.rfft(_segments(full, num_blocks, config), config.pad_len)
+        df = distance_factors(u_hi, u_lo, inv_frac, config.num_bins)
+        g_new = blend_filters(spectra, idx_new, w_new) * df[:, None, :]
+        prod_new = x_spec[:, None, :] * g_new
+        if with_xfade:
+            g_old = blend_filters(spectra, idx_old, w_old) * df[:, None, :]
+            prod_old = x_spec[:, None, :] * g_old
+            stacked = torch.cat([prod_old, prod_new], dim=1)
+            y = fft_ops.irfft(stacked, config.pad_len)[..., config.history_len :]
+            out = crossfade_tails(y[:, :2], y[:, 2:], xfade)
+        else:
+            out = fft_ops.irfft(prod_new, config.pad_len)[..., config.history_len :]
+        return out.permute(0, 2, 1), new_hist
     xr, xi = _forward_split(full, num_blocks, config)
     if with_xfade:
         # old filters of block b are new filters of block b-1 by plan
@@ -104,6 +133,69 @@ def _fd_complex_chunk_dedup(
         config=config, with_xfade=with_xfade,
     )
     return out, new_hist
+
+
+def _fd_basic_chunk(spectra, hist, fed, nearest, *, config: EngineConfig, num_blocks: int,
+                    backend: str = "matmul"):
+    """Nearest-HRTF FD chunk (-t 1): no interpolation, distance or crossfade
+    (reference: Jefferson/src/CPUSoundSource.cpp:113-142).  Returns
+    ((B, fpb, 2), new_hist).  The matmul backend sums its tail by 128-bin
+    blocks (``ops/fft.irfft_tail``), as the port's unfused -t 0 chain does."""
+    full = torch.cat([hist, fed])
+    new_hist = full[num_blocks * config.frames_per_buffer :]
+    nearest = nearest.long()
+    if backend == "fft":
+        x_spec = fft_ops.rfft(_segments(full, num_blocks, config), config.pad_len)
+        g = spectra[nearest]  # (B, 2, bins)
+        y = fft_ops.irfft(x_spec[:, None, :] * g, config.pad_len)[..., config.history_len :]
+        return y.permute(0, 2, 1), new_hist
+    hr, hi = spectra
+    xr, xi = _forward_split(full, num_blocks, config)
+    qs = [cmul(xr, xi, hr[:, ch, :][nearest], hi[:, ch, :][nearest]) for ch in (0, 1)]
+    y = fft_ops.irfft_tail(torch.stack([q[0] for q in qs]), torch.stack([q[1] for q in qs]),
+                           config.pad_len, config.frames_per_buffer)  # (2, B, fpb)
+    return y.permute(1, 2, 0), new_hist
+
+
+def _td_chunk(hrirs, hist, fed, nearest, *, config: EngineConfig, num_blocks: int):
+    """Time-domain chunk (-t 2): each block convolved with its nearest HRIR
+    pair, the analogue of the reference's naive kernel (reference:
+    Jefferson/src/kernels.cu:139-148).  Returns ((B, fpb, 2), new_hist).
+
+    The output is scaled by the source gain clamped at 1, the reference's
+    GPU TD semantics (``value * gain``, kernels.cu:146; the clamp
+    GPUSoundSource.cu:418-419); its CPU TD path hardcodes gain 1
+    (CPUSoundSource.cpp:74), and the oracle's ``td_gain`` matches either
+    side (PARITY.md, "TD gain CPU/GPU divergence")."""
+    fpb = config.frames_per_buffer
+    taps = config.hrtf_len
+    full = torch.cat([hist, fed])
+    # each block's window: taps-1 samples of history, then its fpb samples
+    start = config.history_len - (taps - 1)
+    segs = full[start:].unfold(0, taps - 1 + fpb, fpb)[:num_blocks]  # (B, taps-1+fpb)
+    h = hrirs[nearest.long()][:, :, :taps]  # (B, 2, taps)
+    y = _td_direct(segs, h, fpb, taps)
+    gain = min(config.source_gain, 1.0)
+    if gain != 1.0:
+        y = y * torch.tensor(gain, dtype=torch.float32, device=y.device)
+    return y.permute(0, 2, 1), full[num_blocks * fpb :]
+
+
+def _td_direct(segs: torch.Tensor, h: torch.Tensor, fpb: int, taps: int) -> torch.Tensor:
+    """Per-block TD convolution as batched fp32 matmuls over sliding windows.
+
+    segs (B, taps-1+fpb); h (B, 2, taps) -> (B, 2, fpb).  The JAX package's
+    window is win[b, n, k] = segs[b, n+taps-1-k]; here it is the strided
+    view u[b, n, j] = segs[b, n+j] against the reversed taps, so nothing is
+    gathered, and ``TD_ROWS`` blocks at a time bound the copy a product
+    makes of the view."""
+    u = segs.unfold(1, taps, 1)                # (B, fpb, taps)
+    hf = h.flip(-1).transpose(1, 2)            # (B, taps, 2)
+    out = torch.empty((segs.shape[0], 2, fpb), dtype=segs.dtype, device=segs.device)
+    for b0 in range(0, segs.shape[0], TD_ROWS):
+        out[b0 : b0 + TD_ROWS] = torch.matmul(u[b0 : b0 + TD_ROWS],
+                                              hf[b0 : b0 + TD_ROWS]).transpose(1, 2)
+    return out
 
 
 def dedup_distance(u_hi, u_lo, inv_frac, cap: int | None = None):
@@ -586,14 +678,19 @@ class ChunkFetch:
 
 class Renderer:
     """Offline single-source renderer: one mono signal along per-block
-    positions -> (B*fpb, 2) float32, chunk by chunk.
+    positions -> (B*fpb, 2) float32, chunk by chunk, for every process type
+    (the CPU_* types render on the engine, as in the JAX package).
 
-    ``device``: where the chunks run, the card unless the caller asks for
-    the CPU; CUDA runs the hand-written steps, the CPU their plain twins
-    (a CUDA device without a card raises).  ``fused=True`` takes the JAX package's fused
-    dispatch (dedup+fused, one-hot, grouped one-hot, gather-fused, with its
-    no-crossfade and sparse-crossfade forms); ``fused=False`` its unfused
-    arms (the dedup chunk and the plain chunk).  ``dedup`` and
+    ``config``: the engine geometry, ``db.config`` when None.  ``device``:
+    where the chunks run, the card unless the caller asks for the CPU; CUDA
+    runs the hand-written steps, the CPU their plain twins (a CUDA device
+    without a card raises).  ``backend``: "matmul" (float32 planes) or
+    "fft" (complex64 through ``torch.fft``; it turns ``dedup`` and
+    ``fused`` off, as in the JAX package).  ``fused=True`` takes the JAX
+    package's fused dispatch for -t 0 (dedup+fused, one-hot, grouped
+    one-hot, gather-fused, with its no-crossfade and sparse-crossfade
+    forms); ``fused=False`` its unfused arms (the dedup chunk and the plain
+    chunk).  -t 1 and -t 2 run their plain torch chunks.  ``dedup`` and
     ``sparse_xfade`` are the JAX package's switches.  After each render,
     ``dispatch`` lists each chunk's (arm, with_xfade, sparse bucket).
     ``pipeline_fetch=True`` fetches each chunk's output one chunk late,
@@ -603,20 +700,21 @@ class Renderer:
     A history that is not a whole number of blocks takes the apply-only
     step (row 7) where the JAX package does; its twin runs on the CPU, and
     ``fused=True`` on a CUDA device refuses any geometry but the one the
-    kernels are built for (fpb 128, pad 1024).  Not ported (each raises,
-    naming its ROADMAP item): process types other than FD_COMPLEX and a
-    device mesh.  The JAX package's fallback ladder and its redo of a chunk
-    whose deferred fetch failed are not carried over: a failed build or
-    launch raises, and so does a deferred fetch.
+    kernels are built for (fpb 128, pad 1024).  Not ported: a device mesh
+    (it raises, naming its ROADMAP item).  The JAX package's fallback
+    ladder and its redo of a chunk whose deferred fetch failed are not
+    carried over: a failed build or launch raises, and so does a deferred
+    fetch.
     """
 
     def __init__(
         self,
         db: HRTFDatabase,
+        config: EngineConfig | None = None,
         *,
         device="cuda",
-        config: EngineConfig | None = None,
         chunk_blocks: int = 2048,
+        backend: str = "matmul",
         dedup: bool = True,
         fused: bool = True,
         sparse_xfade: bool = True,
@@ -627,21 +725,28 @@ class Renderer:
         self.config = config or db.config
         if chunk_blocks < 1:
             raise ValueError(f"chunk_blocks ({chunk_blocks}) must be positive")
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown fft backend {backend!r}")
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh (the JAX Renderer's block-axis sharding) is not ported: "
                 "ROADMAP queue 1 item 9 (parallel/mesh.py -> torch.distributed)"
             )
-        if fused and torch.device(device).type == "cuda":
+        self.backend = backend
+        self.dedup = dedup and backend != "fft"
+        self.fused = fused and backend != "fft"
+        if self.fused and torch.device(device).type == "cuda":
             check_card_geometry(self.config)
         self.device = resolve_device(device)
         self.pipeline_fetch = pipeline_fetch
         self.chunk_blocks = chunk_blocks
-        self.dedup = dedup
-        self.fused = fused
         self.sparse_xfade = sparse_xfade
         self.dispatch: list[tuple[str, bool, int | None]] = []
-        self._spectra = spectra_from_numpy(db.spectra, self.device)
+        if backend == "fft":
+            self._spectra = torch.from_numpy(np.asarray(db.spectra, np.complex64)).to(self.device)
+        else:
+            self._spectra = spectra_from_numpy(db.spectra, self.device)
+        self._hrirs = torch.from_numpy(np.asarray(db.hrirs, np.float32)).to(self.device)
 
     def render(
         self,
@@ -662,14 +767,12 @@ class Renderer:
 
         FD_COMPLEX dispatch, in the JAX package's order: dedup+fused when
         positions repeat, one-hot (grouped when wide) for movers, then
-        gather-fused, then the unfused chunk."""
-        if ptype not in _FD_COMPLEX:
-            raise NotImplementedError(
-                f"process type {ProcessType(ptype).name} is not ported: ROADMAP queue 1 "
-                "item 5 (the FD basic and time-domain chunks)"
-            )
+        gather-fused, then the unfused chunk.  FD_BASIC and TD take their
+        one chunk each."""
+        ptype = ProcessType(ptype)
+        interp = ptype in _FD_COMPLEX
         cfg = self.config
-        if plan.num_blocks > 1 and not (
+        if interp and plan.num_blocks > 1 and not (
             np.array_equal(plan.idx_old[1:], plan.idx_new[:-1])
             and np.array_equal(plan.w_old[1:], plan.w_new[:-1])
         ):
@@ -707,7 +810,7 @@ class Renderer:
         # dedup: the unique blend rows of each chunk's extended (cb+1) rows,
         # one bucket per render; declined when positions do not repeat
         dedup_chunks = None
-        if self.dedup and b_total:
+        if self.dedup and b_total and interp:
             dedup_chunks, max_u = [], 1
             for start in range(0, b_total, cb):
                 sl = slice(start, min(start + cb, b_total))
@@ -741,7 +844,8 @@ class Renderer:
         # for wide movers
         tb = pick_fused_tile(cb, cb) if self.fused else None
         onehot_u_pad, onehot_group = None, None
-        if tb is not None and with_xfade and dedup_chunks is None and b_total and aligned:
+        if tb is not None and with_xfade and dedup_chunks is None and b_total and aligned \
+                and interp:
             onehot_group, onehot_u_pad = plan_onehot_chunking(plan, b_total, cb, tb)
 
         kw = dict(config=cfg, num_blocks=cb)
@@ -764,7 +868,14 @@ class Renderer:
                 nb-1's new filter."""
                 return a if nb == cb else np.concatenate([a, np.repeat(nxt, cb - nb, axis=0)])
 
-            if onehot_u_pad is not None:
+            if ptype in _FD_BASIC:
+                y, hist_f = _fd_basic_chunk(self._spectra, hist, fed, pad(plan.nearest[sl], nb),
+                                            **kw, backend=self.backend)
+                arm = ("fd_basic", False, None)
+            elif not interp:
+                y, hist_f = _td_chunk(self._hrirs, hist, fed, pad(plan.nearest[sl], nb), **kw)
+                arm = ("td", False, None)
+            elif onehot_u_pad is not None:
                 io_np = with_last(plan.idx_old[sl], last_i)
                 wo_np = with_last(plan.w_old[sl], last_w)
                 if dist is None:
@@ -827,7 +938,7 @@ class Renderer:
                     self._spectra, hist, fed,
                     *(pad(getattr(plan, a)[sl], nb)
                       for a in ("idx_new", "w_new", "idx_old", "w_old", "xfade")),
-                    *row_dist(sl, nb), **kw, with_xfade=cxf)
+                    *row_dist(sl, nb), **kw, with_xfade=cxf, backend=self.backend)
                 arm = ("plain", cxf, None)
             def commit(host, start=start, stop=stop):
                 out[start * fpb : stop * fpb] = host[: (stop - start) * fpb]

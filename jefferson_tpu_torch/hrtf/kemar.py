@@ -8,18 +8,22 @@ Jefferson/src/hrtf_signals.cu:7-11,20-51,119-140).  ``pick_hrtf`` runs the
 port's host library, as the JAX package's runs its native extension;
 ``_pick_hrtf_numpy`` is its plain NumPy form, and
 ``tests/test_torch_hosts.py`` and ``tests/test_torch_native.py`` pin both
-to the original.  The WAV loaders are not copied yet.
+to the original.  The KEMAR WAV tree loaders (full and compact layouts) and
+``load_database`` are copies too, pinned bit for bit by
+``tests/test_torch_hrtf_loaders.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import scipy.fft
 
 from .. import native
 from ..config import DEFAULT_CONFIG, EngineConfig
+from ..io.wavio import read_wav
 
 NUM_ELEV = 14
 ELEVATIONS = np.array(
@@ -140,6 +144,99 @@ class HRTFDatabase:
         hrirs[:, :, :t] = taps.astype(np.float32)
         spectra = scipy.fft.rfft(hrirs, axis=-1).astype(np.complex64)
         return cls(hrirs=hrirs, spectra=spectra, config=config, source=source)
+
+
+def _full_filename(root: Path, ele: int, azi_val: np.float32, ear: str) -> Path:
+    # reference: Jefferson/src/hrtf_signals.cu:124,131 — "%s/elev%d/{L,R}%de%03da.wav"
+    azi_name = int(round_half_away(float(azi_val)))
+    return root / f"elev{ele}" / f"{ear}{ele}e{azi_name:03d}a.wav"
+
+
+def load_full(root: str | Path, config: EngineConfig = DEFAULT_CONFIG) -> HRTFDatabase:
+    """Load the full MIT KEMAR set: 710 x 2 per-ear mono WAVs."""
+    root = Path(root)
+    taps = None
+    j = 0
+    for i in range(NUM_ELEV):
+        ele = int(ELEVATIONS[i])
+        for azi in AZIMUTH_GRIDS[i]:
+            for ch, ear in enumerate("LR"):
+                x, sr = read_wav(_full_filename(root, ele, azi, ear))
+                if sr != config.sample_rate or x.shape[1] != 1:
+                    raise ValueError(f"bad HRIR file {_full_filename(root, ele, azi, ear)}")
+                if taps is None:
+                    taps = np.zeros((NUM_HRTF, 2, x.shape[0]), dtype=np.float32)
+                if x.shape[0] != taps.shape[2]:
+                    raise ValueError(
+                        f"HRIR length mismatch: "
+                        f"{_full_filename(root, ele, azi, ear)} has "
+                        f"{x.shape[0]} taps, first file had {taps.shape[2]}"
+                    )
+                taps[j, ch, : x.shape[0]] = x[:, 0]
+            j += 1
+    return HRTFDatabase.from_hrirs(taps, config, source=f"full:{root}")
+
+
+def load_compact(root: str | Path, config: EngineConfig = DEFAULT_CONFIG) -> HRTFDatabase:
+    """Load the shipped compact KEMAR set (stereo right-hemisphere files).
+
+    Grid azimuths > 180 deg use the mirrored file at (360 - azi) with L/R
+    swapped, as the reference's legacy compact loader documents
+    (reference: Jefferson/src/hrtf_signals.h:7-15).
+    """
+    root = Path(root)
+    taps = None
+    j = 0
+    for i in range(NUM_ELEV):
+        ele = int(ELEVATIONS[i])
+        for azi in AZIMUTH_GRIDS[i]:
+            a = float(azi)
+            swap = a > 180.0
+            a_file = 360.0 - a if swap else a
+            azi_name = int(round_half_away(a_file))
+            path = root / f"elev{ele}" / f"H{ele}e{azi_name:03d}a.wav"
+            x, sr = read_wav(path)
+            if sr != config.sample_rate or x.shape[1] != 2:
+                raise ValueError(f"bad compact HRIR file {path}")
+            if taps is None:
+                taps = np.zeros((NUM_HRTF, 2, x.shape[0]), dtype=np.float32)
+            if x.shape[0] != taps.shape[2]:
+                raise ValueError(
+                    f"HRIR length mismatch: {path} has {x.shape[0]} taps, "
+                    f"first file had {taps.shape[2]}"
+                )
+            if swap:
+                taps[j, 0, : x.shape[0]] = x[:, 1]
+                taps[j, 1, : x.shape[0]] = x[:, 0]
+            else:
+                taps[j, 0, : x.shape[0]] = x[:, 0]
+                taps[j, 1, : x.shape[0]] = x[:, 1]
+            j += 1
+    return HRTFDatabase.from_hrirs(taps, config, source=f"compact:{root}")
+
+
+def load_database(root: str | Path, config: EngineConfig = DEFAULT_CONFIG) -> HRTFDatabase:
+    """Detect the database format: a SOFA file, or a full or compact KEMAR
+    WAV tree under ``root``.
+
+    The SOFA grid mapping defaults to "auto" (nearest for dense sets,
+    delay-aligned 3-nearest interpolation for sparse ones, hrtf/sofa.py);
+    $JEFFERSON_SOFA_MAPPING=nearest|interp3|auto overrides it."""
+    import os
+
+    root = Path(root)
+    if root.is_file() and root.suffix.lower() == ".sofa":
+        from .sofa import load_sofa
+
+        mapping = os.environ.get("JEFFERSON_SOFA_MAPPING", "auto")
+        return load_sofa(root, config, mapping=mapping)
+    if (root / "elev0" / "L0e000a.wav").exists():
+        return load_full(root, config)
+    if (root / "elev0" / "H0e000a.wav").exists():
+        return load_compact(root, config)
+    raise FileNotFoundError(
+        f"no HRTF database (SOFA file or full/compact KEMAR tree) found at {root}"
+    )
 
 
 def synthetic_database(config: EngineConfig = DEFAULT_CONFIG, n_taps: int | None = None,

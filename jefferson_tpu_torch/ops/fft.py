@@ -1,6 +1,9 @@
-"""Split-plane DFT ops as float32 torch matmuls.
+"""DFT ops: complex64 transforms on ``torch.fft`` (the ``fft`` backend) and
+split-plane float32 matmuls (the ``matmul`` backend and the kernels' forms).
 
-Counterpart of ``jefferson_tpu/ops/fft.py`` (matmul backend only).  The
+Counterpart of ``jefferson_tpu/ops/fft.py``.  The JAX module's ``rfft`` and
+``irfft`` are XLA's FFT ops, so their counterparts here are cuFFT's on the
+card (pocketfft on the CPU).  The
 NumPy basis builders below are verbatim copies of the JAX module's: the
 sliding forward and the direct forward stay numerically in lockstep only
 because ``_subblock_dft_matrices`` slices ``_dft_matrices`` (the
@@ -79,6 +82,45 @@ def on_device(builder, *args, device: torch.device):
     """A NumPy basis builder's planes as float32 tensors on ``device``
     (built and copied once per device)."""
     return tuple(torch.from_numpy(m).to(device) for m in builder(*args))
+
+
+def rfft(x: torch.Tensor, n: int | None = None) -> torch.Tensor:
+    """(…, n) real -> (…, n//2+1) complex64, unnormalized."""
+    return torch.fft.rfft(x, n=n, dim=-1)
+
+
+def irfft(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(…, n//2+1) complex -> (…, n) real, with the 1/N.
+
+    Like numpy's and XLA's irfft, it reads only the real part of the DC bin
+    and, for even n, of the Nyquist bin.  cuFFT's C2R does not drop their
+    imaginary parts (a distance factor's phase ramp leaves one on the
+    Nyquist bin: 7.6e-4 off on an H100), so they are zeroed first."""
+    edges = [k for k in ((0, n // 2) if n % 2 == 0 else (0,)) if k < x.shape[-1]]
+    x = x.clone()
+    x[..., edges] = x[..., edges].real.to(x.dtype)
+    return torch.fft.irfft(x, n=n, dim=-1)
+
+
+def rfft_matmul(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(…, n) real -> (…, n//2+1) complex64 via two fp32 matmuls."""
+    cr, ci = on_device(_dft_matrices, n, device=x.device)
+    return torch.complex(x @ cr, x @ ci)
+
+
+def irfft_matmul(spec: torch.Tensor, n: int) -> torch.Tensor:
+    """(…, n//2+1) complex -> (…, n) real via two fp32 matmuls (with the 1/N)."""
+    cr, ci = on_device(_idft_matrices, n, device=spec.device)
+    return spec.real @ cr + spec.imag @ ci
+
+
+def get_backend(name: str):
+    """'fft' -> torch.fft; 'matmul' -> the DFT as fp32 matmuls."""
+    if name == "fft":
+        return rfft, irfft
+    if name == "matmul":
+        return rfft_matmul, irfft_matmul
+    raise ValueError(f"unknown fft backend {name!r}")
 
 
 def rfft_split(x: torch.Tensor, n: int):

@@ -1,5 +1,6 @@
-"""Frequency-domain filter ops on float32 planes: distance factor, complex
-multiply, crossfade.  Counterpart of ``jefferson_tpu/ops/filters.py``.
+"""Frequency-domain filter ops: distance factor, HRTF blend, complex
+multiply, crossfade, on float32 planes and on complex64 (the ``fft``
+backend).  Counterpart of ``jefferson_tpu/ops/filters.py``.
 
 ``distance_phase_split`` runs the port's host library for 1-D radii, as
 the JAX module runs its native extension; ``_distance_phase_split_numpy``,
@@ -72,6 +73,46 @@ def distance_factors_split(u_hi, u_lo, inv_frac, num_bins: int):
     cycles = cycles - torch.floor(cycles)
     arg = (2.0 * math.pi) * cycles
     return torch.cos(arg) * inv_frac[:, None], -torch.sin(arg) * inv_frac[:, None]
+
+
+def distance_factors(u_hi, u_lo, inv_frac, num_bins: int) -> torch.Tensor:
+    """(B,) phase-split params -> (B, num_bins) complex64 distance factors."""
+    return torch.complex(*distance_factors_split(u_hi, u_lo, inv_frac, num_bins))
+
+
+def blend_filters(spectra: torch.Tensor, indices: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+    """Gather and blend the 4 bracketing HRTF pairs of each block.
+
+    spectra (num_hrtf, 2, bins) complex64; indices (B, 4) int; weights
+    (B, 4) float32 -> (B, 2, bins) complex64.  The case logic of the
+    reference's caseOne..caseFour chains (reference:
+    Jefferson/src/GPUSoundSource.cu:118-317) is folded into the weights."""
+    gathered = spectra[indices.long()]  # (B, 4, 2, bins)
+    w = weights.to(torch.float32)
+    return torch.einsum("bk,bkcf->bcf", torch.complex(w, torch.zeros_like(w)), gathered)
+
+
+def blend_filters_split(spec_r: torch.Tensor, spec_i: torch.Tensor,
+                        indices: torch.Tensor, weights: torch.Tensor):
+    """Gather and blend on (num_hrtf, 2, bins) float32 planes -> (B, 2, bins) x2."""
+    w = weights.to(torch.float32)
+    idx = indices.long()
+    gr = torch.einsum("bk,bkcf->bcf", w, spec_r[idx])
+    gi = torch.einsum("bk,bkcf->bcf", w, spec_i[idx])
+    return gr, gi
+
+
+def blend_channel(table: torch.Tensor, indices: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+    """Weighted 4-row gather from one (num_hrtf, bins) channel plane ->
+    (B, bins), one bracket after another in the JAX module's order."""
+    w = weights.to(torch.float32)
+    idx = indices.long()
+    acc = w[:, 0:1] * table[idx[:, 0]]
+    for j in range(1, idx.shape[1]):
+        acc = acc + w[:, j : j + 1] * table[idx[:, j]]
+    return acc
 
 
 def xfade_ramp(frames: int, device) -> torch.Tensor:

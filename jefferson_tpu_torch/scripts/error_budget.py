@@ -63,7 +63,7 @@ from ..config import DEFAULT_CONFIG
 from ..convert import spectra_from_numpy
 from ..engine import renderer as R
 from ..engine.plan import compact_filter_ids, make_plan
-from ..hrtf.kemar import synthetic_database
+from ..hrtf.kemar import load_database, synthetic_database
 from ..kernels import fused_step
 from ..kernels.fused_apply import fused_apply_xfade
 from ..ops import fft as fft_ops
@@ -256,14 +256,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
     ap.add_argument("--blocks", type=int, default=172, help="blocks per sweep position")
     ap.add_argument("--steps", type=int, default=72, help="azimuth steps (positions - 1)")
-    ap.add_argument("--hrtf-dir", default=None, help="a compact KEMAR directory (not ported)")
+    ap.add_argument("--hrtf-dir", default=None,
+                    help="an HRTF database (a full or compact KEMAR tree, or a SOFA file; "
+                         "default: the synthetic set)")
     args = ap.parse_args(argv)
-    if args.hrtf_dir is not None:
-        raise NotImplementedError(
-            "--hrtf-dir needs the CLI's HRTF loader, which is not ported: ROADMAP queue 1 "
-            "item 8 (cli/main.py); the budget runs on the synthetic database")
     device = R.resolve_device(args.device)
-    db = synthetic_database(DEFAULT_CONFIG)
+    db = (synthetic_database(DEFAULT_CONFIG) if args.hrtf_dir is None
+          else load_database(args.hrtf_dir, DEFAULT_CONFIG))
     signal = noise()
     positions = scenario(args.blocks, args.steps, db.config)
     log(f"worst scenario azi3_ele0: {len(positions)} blocks on {device}")

@@ -1,6 +1,7 @@
 """Precision checking for the port's scripts and gates: a copy of
-``jefferson_tpu/testing.py`` ``PrecisionReport`` and ``precision_check``
-(:17-54), pinned to the original by ``tests/test_torch_probes.py``.
+``jefferson_tpu/testing.py`` (``PrecisionReport``, ``precision_check`` and
+``rms_error``), pinned to the original by ``tests/test_torch_probes.py`` and
+``tests/test_torch_trajectory.py``.
 
 ``precisionChecking`` of the reference (Jefferson/src/functions.cpp:41-70):
 the first and the worst absolute mismatch between two buffers against an
@@ -53,3 +54,9 @@ def precision_check(a, b, eps: float = 1e-8) -> PrecisionReport:
         rms=rms,
         eps=eps,
     )
+
+
+def rms_error(a, b) -> float:
+    a = np.asarray(a, dtype=np.float64).ravel()
+    b = np.asarray(b, dtype=np.float64).ravel()
+    return float(np.sqrt(np.mean((a - b) ** 2)))

@@ -1,15 +1,18 @@
 """Per-block source positions: a copy of the trajectory classes of
-``jefferson_tpu/trajectory/trajectory.py`` that the port and its chip smoke
-use.  A trajectory is sampled once per block; the plan applies the
-reference's degree rounding and crossfade-on-change semantics."""
+``jefferson_tpu/trajectory/trajectory.py``, each ``sample()`` pinned bit for
+bit to the original by ``tests/test_torch_trajectory.py``.  A trajectory is
+sampled once per block; the plan applies the reference's degree rounding
+and crossfade-on-change semantics."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Sequence
 
 import numpy as np
 
 from ..config import DEFAULT_CONFIG, EngineConfig
+from .spatial import cartesian_to_spherical
 
 
 class Trajectory:
@@ -47,6 +50,31 @@ class StaticPosition(Trajectory):
 
 
 @dataclasses.dataclass
+class PositionEvents(Trajectory):
+    """Piecewise-constant position changes at given times (the reference's
+    DEBUGMODE-2 scripted sequence as data, reference:
+    Jefferson/src/main.cu:101-148).
+
+    events: sequence of (time_sec, azi, ele, r); a position holds until the
+    next event, and a leading (0.0, ...) event sets the initial position.
+    """
+
+    events: Sequence[tuple[float, float, float, float]]
+
+    def sample(self, num_blocks, config=DEFAULT_CONFIG):
+        ev = sorted(self.events, key=lambda e: e[0])
+        if not ev:
+            raise ValueError("PositionEvents needs at least one event")
+        t = self._times(num_blocks, config)
+        times = np.array([e[0] for e in ev])
+        vals = np.array([[e[1], e[2], e[3]] for e in ev], dtype=np.float64)
+        idx = np.clip(np.searchsorted(times, t, side="right") - 1, 0, len(ev) - 1)
+        out = vals[idx]
+        out[:, 0] = self._wrap_azi(out[:, 0])
+        return out
+
+
+@dataclasses.dataclass
 class CircularOrbit(Trajectory):
     """A source orbiting the listener at constant elevation and radius."""
 
@@ -66,6 +94,54 @@ class CircularOrbit(Trajectory):
         out[:, 1] = self.ele
         out[:, 2] = self.r
         return out
+
+
+def _cartesian_positions(xyz: np.ndarray) -> np.ndarray:
+    """Raw xyz samples -> planner (azi, ele, r) with the cartesian drive's
+    distance semantics.
+
+    The planner rebuilds coordinates through the reference's spherical to
+    cartesian conversion, which has no cos(ele) on the horizontal
+    components, so its distance radius is r*sqrt(1 + sin^2(ele_rounded)),
+    not the true |xyz| that the reference's cartesian update keeps.  A
+    cartesian trajectory is that drive offline, so r is divided by the
+    factor first and the planner's round trip lands on |xyz| (up to
+    float32)."""
+    azi, ele, r = cartesian_to_spherical(xyz)
+    quirk = np.sqrt(1.0 + np.sin(np.deg2rad(ele.astype(np.float64))) ** 2)
+    return np.stack([azi, ele, r / quirk], axis=-1).astype(np.float64)
+
+
+@dataclasses.dataclass
+class LinearPath(Trajectory):
+    """Straight-line cartesian flyby from start_xyz to end_xyz over
+    duration_s, holding the end point afterwards, through the reference's
+    xyz -> spherical conversion and its rounding (reference:
+    Jefferson/src/SoundSource.cu:20-36), with the cartesian drive's radius
+    (``_cartesian_positions``)."""
+
+    start_xyz: tuple[float, float, float]
+    end_xyz: tuple[float, float, float]
+    duration_s: float
+
+    def sample(self, num_blocks, config=DEFAULT_CONFIG):
+        t = self._times(num_blocks, config)
+        a = np.clip(t / max(self.duration_s, 1e-9), 0.0, 1.0)[:, None]
+        xyz = (1 - a) * np.asarray(self.start_xyz) + a * np.asarray(self.end_xyz)
+        return _cartesian_positions(xyz)
+
+
+@dataclasses.dataclass
+class CartesianFunction(Trajectory):
+    """Any xyz(t) callable -> spherical through the reference conversion,
+    with the cartesian drive's radius (``_cartesian_positions``)."""
+
+    fn: Callable[[np.ndarray], np.ndarray]  # (B,) times -> (B, 3) xyz
+
+    def sample(self, num_blocks, config=DEFAULT_CONFIG):
+        t = self._times(num_blocks, config)
+        xyz = np.asarray(self.fn(t), dtype=np.float64)
+        return _cartesian_positions(xyz)
 
 
 @dataclasses.dataclass

@@ -1053,3 +1053,96 @@ def test_a_refused_dedup_launch_raises(card):
     assert err != 0
     with pytest.raises(ValueError, match="want 'double' or 'dedup'"):
         tdb._cuda(flat, idx, w, c_pad, form="pair")
+
+
+# ---- the CLI's path: -t 1 / -t 2, the fft backend, the reverb, the CLI ------
+
+CARD_CPU_TOL = 1e-6  # the card's render vs the CPU port's: fp32 sums in other orders
+
+
+def _noise(n, seed=0):
+    return (np.random.default_rng(seed).standard_normal(n) * 0.2).astype(np.float32)
+
+
+@pytest.mark.parametrize("ptype,backend,gate", [
+    (0, "fft", 1e-6), (1, "matmul", 1e-6), (1, "fft", 2e-7), (2, "matmul", 5e-6),
+])
+def test_process_types_on_the_card_match_the_cpu_and_the_oracle(card_db, ptype, backend, gate):
+    """-t 1, -t 2 and the fft backend on the card against the CPU port at
+    CARD_CPU_TOL and the oracle at the JAX gates (2e-7 for -t 1 fft; TD
+    against the gain-scaled oracle), a ragged last chunk included."""
+    from jefferson_tpu_torch.config import ProcessType as P
+    from jefferson_tpu_torch.trajectory.trajectory import CircularOrbit
+
+    sig = _noise(60_000)
+    pos = CircularOrbit(period_s=0.4, ele=10, r=1.0).sample(300, DEFAULT_CONFIG)
+    card = Renderer(card_db, device="cuda", chunk_blocks=128, backend=backend)
+    got = card.render(sig, pos, P(ptype))
+    want = Renderer(card_db, device="cpu", chunk_blocks=128, backend=backend).render(
+        sig, pos, P(ptype))
+    assert np.abs(got - want).max() <= CARD_CPU_TOL
+    td_gain = DEFAULT_CONFIG.source_gain if ptype == 2 else 1.0
+    oracle = render_oracle(sig, card_db, [tuple(p) for p in pos], DEFAULT_CONFIG,
+                           P(ptype + 3), td_gain=td_gain)
+    assert np.abs(got - oracle).max() <= gate
+    assert len(card.dispatch) == 3
+
+
+def test_device_reverb_on_the_card(card_db):
+    """The device reverb on the card against reverb_oracle and the CPU's
+    device form; the streaming convolver keeps its state on the card."""
+    from jefferson_tpu_torch.reverb.convolution import (
+        StreamingConvolver, convolve_linear, reverb_oracle, reverb_reference,
+    )
+
+    dry, rng = _noise(44_100, 3), np.random.default_rng(4)
+    ir = (rng.standard_normal(20_000) * np.exp(-np.arange(20_000) / 4000) * 0.1).astype(
+        np.float32)
+    got = reverb_reference(dry, ir, backend="device")
+    assert np.abs(got - reverb_oracle(dry, ir)).max() < 5e-5
+    assert np.abs(got - reverb_reference(dry, ir, backend="device", device="cpu")).max() < 5e-6
+    lin = convolve_linear(dry, ir, backend="device")
+    assert np.abs(lin - np.convolve(dry.astype(np.float64), ir)).max() < 5e-5
+    conv = StreamingConvolver(ir, partition=1024)
+    assert conv.device.type == "cuda"
+    outs = [conv.process(dry[i : i + 1024]) for i in range(0, 20 * 1024, 1024)]
+    for name in ("_hr", "_hi", "_ring_r", "_ring_i", "_overlap"):
+        assert getattr(conv, name).is_cuda, name
+    want = np.convolve(dry[: 20 * 1024].astype(np.float64), ir)[: 20 * 1024]
+    assert np.abs(np.concatenate(outs) - want).max() < 5e-5
+
+
+@pytest.mark.parametrize("ptype", range(6))
+def test_cli_render_on_the_card(card_db, tmp_path, ptype):
+    """One short CLI render per process type on the card (the default
+    --device), against the oracle; -t 0 counts the CUDA steps."""
+    from jefferson_tpu_torch.cli.main import main as cli_main
+    from jefferson_tpu_torch.config import ProcessType as P
+    from jefferson_tpu_torch.io.wavio import read_wav, write_wav
+    from jefferson_tpu_torch.trajectory.trajectory import CircularOrbit
+
+    sig = _noise(40_000, 5)
+    write_wav(tmp_path / "in.wav", sig, 44100, bits=32, float_format=True)
+    tfs.reset_launches()
+    assert cli_main(["-i", str(tmp_path / "in.wav"), "-o", str(tmp_path / "out.wav"),
+                     "-t", str(ptype), "--blocks", "200", "--trajectory", "orbit:period=0.5",
+                     "--float", "--quiet"]) == 0
+    got = read_wav(tmp_path / "out.wav")[0]
+    pos = CircularOrbit(period_s=0.5).sample(200, DEFAULT_CONFIG)
+    base = P(ptype % 3 + 3)
+    td_gain = DEFAULT_CONFIG.source_gain if ptype == 2 else 1.0
+    oracle = render_oracle(sig, card_db, [tuple(p) for p in pos], DEFAULT_CONFIG, base,
+                           td_gain=td_gain)
+    assert np.abs(got - oracle).max() <= (5e-6 if ptype == 2 else 1e-6)
+    assert (sum(tfs.launches.values()) > 0) == (ptype == 0)
+
+
+def test_irfft_on_the_card_drops_the_edge_bins_imaginary_parts(card_db):
+    """cuFFT's C2R reads the imaginary parts of the DC and Nyquist bins;
+    ops.fft.irfft zeroes them, so the card's inverse is numpy's."""
+    from jefferson_tpu_torch.ops import fft as fft_ops
+
+    rng = np.random.default_rng(9)
+    x = (rng.standard_normal((64, 513)) + 1j * rng.standard_normal((64, 513))).astype(np.complex64)
+    got = fft_ops.irfft(torch.from_numpy(x).cuda(), 1024).cpu().numpy()
+    assert np.abs(got - np.fft.irfft(x, 1024)).max() <= 1e-6

@@ -20,6 +20,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_MODULES = [
     "jefferson_tpu_torch",
     "jefferson_tpu_torch.bench",
+    "jefferson_tpu_torch.cli.check",
+    "jefferson_tpu_torch.cli.main",
     "jefferson_tpu_torch.config",
     "jefferson_tpu_torch.convert",
     "jefferson_tpu_torch.engine.batch",
@@ -27,6 +29,8 @@ PORT_MODULES = [
     "jefferson_tpu_torch.engine.renderer",
     "jefferson_tpu_torch.engine.stream",
     "jefferson_tpu_torch.hrtf.kemar",
+    "jefferson_tpu_torch.hrtf.sofa",
+    "jefferson_tpu_torch.io.resample",
     "jefferson_tpu_torch.io.wavio",
     "jefferson_tpu_torch.kernels.assoc_probe",
     "jefferson_tpu_torch.kernels.build",
@@ -37,6 +41,7 @@ PORT_MODULES = [
     "jefferson_tpu_torch.ops.fft",
     "jefferson_tpu_torch.ops.filters",
     "jefferson_tpu_torch.oracle.reference",
+    "jefferson_tpu_torch.reverb.convolution",
     "jefferson_tpu_torch.rt.control",
     "jefferson_tpu_torch.rt.playout",
     "jefferson_tpu_torch.scripts.apply_assoc_probe",

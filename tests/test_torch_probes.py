@@ -365,9 +365,28 @@ def test_blend_work_counts_the_named_rows_once():
     assert moved == (2 + 3) * 128 * 4 + 2 * 8 * 4
 
 
-def test_error_budget_refuses_an_hrtf_dir():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        seb.main(["--device", "cpu", "--hrtf-dir", "kemar"])
+def test_error_budget_refuses_an_hrtf_dir(tmp_path):
+    """--hrtf-dir loads through hrtf.kemar.load_database, which refuses a
+    directory that holds no database."""
+    with pytest.raises(FileNotFoundError, match="no HRTF database"):
+        seb.main(["--device", "cpu", "--hrtf-dir", str(tmp_path / "kemar")])
+
+
+def test_error_budget_loads_an_hrtf_dir(tmp_path, monkeypatch):
+    """--hrtf-dir runs the budget on the database in the tree: a compact
+    tree written from the synthetic set loads bit-equal to a direct load."""
+    from jefferson_tpu_torch.bench import write_compact_tree
+    from jefferson_tpu_torch.hrtf.kemar import load_compact
+
+    root = write_compact_tree(synthetic_database(), tmp_path / "compact")
+    seen = {}
+    monkeypatch.setattr(seb, "render_oracle", lambda *a, **k: None)
+    monkeypatch.setattr(seb, "run", lambda db, *a: seen.setdefault("db", db) and {})
+    seb.main(["--device", "cpu", "--hrtf-dir", str(root), "--blocks", "2", "--steps", "1"])
+    want = load_compact(root)
+    np.testing.assert_array_equal(seen["db"].hrirs, want.hrirs)
+    np.testing.assert_array_equal(seen["db"].spectra, want.spectra)
+    assert seen["db"].source == f"compact:{root}"
 
 
 @pytest.fixture(scope="module")

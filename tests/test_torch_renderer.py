@@ -146,10 +146,12 @@ def test_render_plan_and_dispatch_reset(tdb, config):
 def test_renderer_raises_where_the_port_stops(tdb, config):
     sig = np.zeros(4096, np.float32)
     r = Renderer(tdb, device="cpu")
-    with pytest.raises(NotImplementedError, match="TPU_TD.*queue 1 item 5"):
-        r.render(sig, _hold(8), ptype=ProcessType.TPU_TD)
-    with pytest.raises(NotImplementedError, match="TPU_FD_BASIC"):
-        r.render(sig, _hold(8), ptype=ProcessType.TPU_FD_BASIC)
+    # -t 1 and -t 2 are ported (tests/test_torch_process_types.py): they render
+    for ptype, arm in ((ProcessType.TPU_TD, "td"), (ProcessType.TPU_FD_BASIC, "fd_basic")):
+        assert r.render(sig, _hold(8), ptype=ptype).shape == (8 * 128, 2)
+        assert r.dispatch == [(arm, False, None)]
+    with pytest.raises(ValueError, match="unknown fft backend"):
+        Renderer(tdb, device="cpu", backend="dct")
     with pytest.raises(NotImplementedError, match="mesh.*queue 1 item 9"):
         Renderer(tdb, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="positive"):
