@@ -143,7 +143,33 @@ line:
              reverb_oracle within 5e-5.  The -t 0 and --scene renders launch
              the CUDA steps; the others none.  Each render's launches by
              kernel, wall time and multiple of real time beside the card.
-  8. bench   the bench step (blocks/s), and again with row 1's launch B in
+  8. sweep   the sweep gate (jefferson_tpu_torch.bench.sweep) at full scale,
+             the launch counts set to 0 just before: the four reference
+             scenarios (172 x 72) and the mover (12,556 blocks) on one
+             Renderer(device="cuda"), scene_hold and scene_movers (16 x
+             12,544) through BatchRenderer, each held to render_oracle (from
+             the workers, shared with the path phase's) at 2e-7, its margin
+             beside the JAX package's and the card's record, each under 1;
+             then cli.main --selftest-full on the same input.
+  9. surfaces  the CLI with --viz (four artifacts) and --profile-dir on the
+             cli phase's input and tree (the trace names launch A, row 5's
+             launch B and row 12; the CLI's host stages from its spans),
+             --selftest, rt for 3 s (row 8 once a block and twice for the
+             prime), counted in this process; the acceptance script
+             (jefferson_tpu_torch.scripts.acceptance) and the seven examples
+             in processes of their own, started together.
+ 10. soak    scripts/soak_daemon.py --minutes 2 in a process of its own,
+             beside phases 8-9: its RSS and the allocator's memory at the
+             first and last intervals, its errors exactly the deliberate.
+ 11. serve   python -m jefferson_tpu_torch.serve in a process of its own:
+             a 12,556-block render, cold and warm, and a 16-source x 12,544-
+             block scene, each within 1e-6 of render_oracle; four paced
+             10-s sessions moved every 100 ms, alone (each within the strict
+             live gate: median < 2.902 ms, p90 < 5.804 ms) and beside
+             back-to-back renders, their BlockStats; viz.live.watch on one;
+             the daemon's launches by kernel from stats; shutdown, the
+             daemon out within 15 s.
+ 12. bench   the bench step (blocks/s), and again with row 1's launch B in
              each form, STEP_PAIRS pairs in turns, beside each form's
              quartile spread; each step's kernel and twin times in
              turns (twin, forms, forms reversed, twin) beside its bound (row 8
@@ -180,7 +206,8 @@ line:
              set-up with the host library and with its NumPy forms, in turns;
              the unfused chain's warm render with each tail; beside the card.
 Then a {"kernels": [...]} line (rows 1-12, and launch A at the scene step's
-16 x 256), the nvidia-smi line, and last
+16 x 256; launches summed over phases 5-11, the daemon's from its own
+counts), the nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -1446,6 +1473,524 @@ def probe_timed(device):
     }
 
 
+# ---- the surfaces of ROADMAP item 8: the sweep gate, the daemon, the rest -----
+
+# the sweep gate's margins beside the JAX package's (ROADMAP.md, the
+# gate-margin ladder) and the card's record (PRs 6-10: the fused path's
+# azi3_ele0 and the scene gates)
+SWEEP_JAX = {"azi0_ele0": 0.596, "azi3_ele0": 0.745, "azi0_ele5": 0.447, "azi3_ele5": 0.596,
+             "mover": 0.745, "scene_hold": 0.745, "scene_movers": 0.298}
+SWEEP_CARD = {"azi3_ele0": 0.5215, "scene_hold": 0.596, "scene_movers": 0.186}
+LIVE_MEDIAN_MS, LIVE_P90_MS = 2.902, 5.804  # the strict live gate (tests/test_live_deadline_strict.py)
+SERVE_SESSIONS, SERVE_SECONDS, SERVE_MOVE_S = 4, 10.0, 0.1
+SERVE_ORBIT = "orbit:period=4,ele=10,r=1.5"
+SERVE_SCENE_GAIN = 0.25
+SERVE_SCENE = [f"orbit:period={1 + 0.25 * i},ele={-30 + 10 * (i % 8)},r={0.6 + 0.1 * (i % 5)},"
+               f"start={22.5 * i}" for i in range(SCENE_S)]
+SOAK_MINUTES, SOAK_REPORT_S = 2, 30
+DAEMON_EXIT_S = 15
+EXAMPLE_TIMEOUT_S = 300
+
+
+class OraclePool:
+    """render_oracle renders from old = (0, 0) in the worker pool, one
+    future per (signal, positions): a render asked for twice (the sweep gate
+    and the path phase share five scenarios) is made once.  Calling it
+    returns the render, so it serves as the sweep gates' ``oracle``."""
+
+    def __init__(self, pool):
+        self.pool, self.futures = pool, {}
+
+    def submit(self, signal, positions):
+        import hashlib
+
+        import numpy as np
+
+        signal = np.ascontiguousarray(signal, np.float32)
+        positions = np.ascontiguousarray(positions, np.float64)
+        # the positions whole; the signal by its length and every 1021st sample
+        key = (len(signal), hashlib.blake2b(signal[::1021].tobytes() + positions.tobytes())
+               .hexdigest())
+        if key not in self.futures:
+            self.futures[key] = self.pool.submit(_oracle_job, signal, positions)
+        return self.futures[key]
+
+    def __call__(self, signal, positions):
+        return self.submit(signal, positions).result()
+
+
+def serve_inputs(noise, cfg):
+    """The serve phase's render and scene positions, as the daemon samples
+    the request's trajectories."""
+    from jefferson_tpu_torch.cli.main import parse_trajectory
+
+    return (parse_trajectory(SERVE_ORBIT).sample(SCAN_B, cfg),
+            [parse_trajectory(spec).sample(SCENE_B, cfg) for spec in SERVE_SCENE])
+
+
+def soak_start(tmp):
+    """The daemon soak (scripts/soak_daemon.py) for SOAK_MINUTES in a
+    process of its own on the card, beside the sweep and surfaces phases."""
+    import subprocess
+    from pathlib import Path
+
+    log = open(Path(tmp) / "soak.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "jefferson_tpu_torch.scripts.soak_daemon", "--minutes",
+         str(SOAK_MINUTES), "--report-every", str(SOAK_REPORT_S)],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=log, text=True)
+    return proc, log, time.perf_counter()
+
+
+def soak_finish(soak) -> bool:
+    proc, log, t0 = soak
+    try:
+        out, _ = proc.communicate(timeout=SOAK_MINUTES * 60 + 300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        log.close()
+    lines = out.strip().splitlines()
+    res = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {}
+    iv = res.get("intervals") or [{}]
+    say("soak", f"scripts/soak_daemon.py --minutes {SOAK_MINUTES} on the card: rc "
+                f"{proc.returncode}, ok {res.get('ok')}, {time.perf_counter() - t0:.1f} s wall, "
+                f"{res.get('iterations')} iterations ({res.get('render')} renders, "
+                f"{res.get('scene')} scenes, {res.get('stream')} sessions, {res.get('move')} "
+                f"moves), daemon errors {res.get('daemon_errors')} of "
+                f"{res.get('expected_errors')} expected; first interval {iv[0]}, last {iv[-1]}, "
+                f"RSS start/peak/end {res.get('rss_start_mib')}/{res.get('rss_peak_mib')}/"
+                f"{res.get('rss_end_mib')} MiB; failures {res.get('failures')}")
+    if proc.returncode != 0 or not res.get("ok"):
+        fail("soak", "the daemon soak failed")
+        return False
+    return True
+
+
+def sweep_phase(db, device, noise, oracles, tmp, fwd_forms) -> dict | None:
+    """The sweep gate (bench/sweep.py) at full scale on the card, counted:
+    the four reference scenarios (172 x 72) and the mover on one Renderer,
+    the two scene gates at 16 x 12,544 through BatchRenderer, each held to
+    the oracle at 2e-7; then the CLI's --selftest-full.  The launches by
+    kernel, or None on a failure."""
+    from pathlib import Path
+
+    from jefferson_tpu_torch import bench
+    from jefferson_tpu_torch.bench import sweep
+    from jefferson_tpu_torch.cli.main import main as cli_main
+    from jefferson_tpu_torch.engine.renderer import Renderer
+    from jefferson_tpu_torch.io.wavio import write_wav
+    from jefferson_tpu_torch.kernels import fused_step
+
+    fused_step.reset_launches()
+    t0 = time.perf_counter()
+    renderer = Renderer(db, device=device)
+    reports = sweep.run_benchmark_sweep(noise, db, renderer=renderer, oracle=oracles)
+    names = [f"azi{int(a)}_ele{int(e)}" for a, e in sweep.SCENARIOS]
+    reports.append(sweep.run_mover_gate(noise, db, renderer=renderer, oracle=oracles))
+    names.append("mover")
+    for scenario in ("hold", "movers"):
+        reports.append(sweep.run_scene_gate(noise, db, scenario=scenario, device=device,
+                                            oracle=oracles))
+        names.append(f"scene_{scenario}")
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in fused_step.launches.items() if v}
+    fwd_forms["sweep"] = dict(fused_step.forward_launches)
+    for name, rep in zip(names, reports):
+        margin = rep.max_abs_diff / SWEEP_EPS
+        say("sweep", f"{name}: {rep}; margin {margin:.4f} (JAX package {SWEEP_JAX[name]}, the "
+                     f"card's record {SWEEP_CARD.get(name, 'none')})")
+        if not (rep.ok and margin < 1):
+            fail("sweep", f"{name}: margin {margin:.4f}, the gate fails")
+            return None
+    worst = max(r.max_abs_diff for r in reports) / SWEEP_EPS
+    say("sweep", f"7 scenarios in {wall:.1f} s (oracles from the workers), worst margin "
+                 f"{worst:.4f} (MARGIN_WARN {sweep.MARGIN_WARN}), launches {launched}, launch A "
+                 f"by form { {k: v for k, v in fwd_forms['sweep'].items() if v} }  "
+                 f"[{bench.card()}]")
+    if fault := launch_a_fault("the sweep", launched, fwd_forms["sweep"]):
+        fail("sweep", fault)
+        return None
+    # the reference scenarios take row 5 without the crossfade (and the
+    # side-pass), the mover row 4, scene_hold row 6 without it, scene_movers
+    # row 2, and rows 5-6 their pre-blend from row 12
+    for kernel in (fused_step.NO_XFADE, "fused_step_stream_onehot_grouped_xfade",
+                   "fused_step_xfade/no_xfade", fused_step.GROUPED, "dma_blend"):
+        if not launched.get(kernel):
+            fail("sweep", f"the sweep did not launch {kernel}: {launched}")
+            return None
+
+    # the CLI's --selftest-full on the same input, its oracles from the workers
+    src = Path(tmp) / "sweep_in.wav"
+    write_wav(src, noise, 44100, bits=32, float_format=True)
+    before = dict(fused_step.launches)
+    own_oracle = sweep._oracle
+    sweep._oracle = lambda signal, positions, db_, config: oracles(signal, positions)
+    try:
+        t0 = time.perf_counter()
+        rc = cli_main(["-i", str(src), "-o", str(Path(tmp) / "selftest_full.wav"), "--blocks",
+                       "64", "--selftest-full", "--float"])
+        wall = time.perf_counter() - t0
+    except SystemExit as e:
+        fail("sweep", f"--selftest-full: {e}")
+        return None
+    finally:
+        sweep._oracle = own_oracle
+    cli = {k: v - before[k] for k, v in fused_step.launches.items() if v != before[k]}
+    say("sweep", f"cli.main --selftest-full (4 x 12,556 blocks and the mover on the card, then "
+                 f"a 64-block render): rc {rc} in {wall:.1f} s, launches {cli}")
+    if rc != 0:
+        fail("sweep", "--selftest-full did not pass")
+        return None
+    for k, v in cli.items():
+        launched[k] = launched.get(k, 0) + v
+    fwd_forms["sweep"] = dict(fused_step.forward_launches)
+    return launched
+
+
+def serve_phase(cfg, noise, oracles, serve_pos, tmp) -> dict | None:
+    """The render daemon (python -m jefferson_tpu_torch.serve) in a process
+    of its own on the card: a 12,556-block render twice (cold, warm) and a
+    16-source scene held to the oracle; four paced 10-s sessions moved every
+    100 ms, alone (the strict live gate) and beside back-to-back renders;
+    viz.live.watch on one; stats and shutdown.  The daemon's launches by
+    kernel (its own counts, from stats), or None on a failure."""
+    import subprocess
+    import threading
+    from pathlib import Path
+
+    import numpy as np
+
+    from jefferson_tpu_torch import bench
+    from jefferson_tpu_torch.io.wavio import read_wav, write_wav
+    from jefferson_tpu_torch.serve import request
+    from jefferson_tpu_torch.viz.live import watch
+
+    tmp = Path(tmp) / "serve"
+    tmp.mkdir()
+    sock, src = tmp / "jt.sock", tmp / "in.wav"
+    write_wav(src, noise, cfg.sample_rate, bits=32, float_format=True)
+    render_pos, scene_pos = serve_pos
+    render_oracle = oracles.submit(noise, render_pos)
+    gained = noise * np.float32(SERVE_SCENE_GAIN)  # as render_scene_spec scales a source
+    scene_oracles = [oracles.submit(gained, pos) for pos in scene_pos]
+    render_req = {"cmd": "render", "input": str(src), "output": str(tmp / "render.wav"),
+                  "trajectory": SERVE_ORBIT, "blocks": SCAN_B, "float": True, "bits": 32}
+    log = open(tmp / "daemon.log", "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "jefferson_tpu_torch.serve", "--socket",
+                             str(sock)], cwd=Path(__file__).resolve().parent, stdout=log,
+                            stderr=subprocess.STDOUT)
+
+    def counts():
+        return request(sock, {"cmd": "stats"})["launches"]
+
+    def since(before):
+        now = counts()
+        return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
+
+    try:
+        while proc.poll() is None and time.perf_counter() - t0 < 300:
+            try:
+                if request(sock, {"cmd": "ping"}).get("pong"):
+                    break
+            except OSError:
+                time.sleep(0.05)
+        else:
+            fail("serve", f"the daemon did not come up (rc {proc.poll()}): "
+                          f"{(tmp / 'daemon.log').read_text()[-2000:]}")
+            return None
+        rss = [rss_mib(proc.pid)]
+        say("serve", f"daemon up in {time.perf_counter() - t0:.2f} s (a process on the card: "
+                     f"torch import, the libraries built by build_all, the table uploaded, one "
+                     f"live step and one render primed), warm-up launches {counts()}, RSS "
+                     f"{rss[0]:.0f} MiB")
+
+        # the render, cold then warm (the same request twice)
+        before = counts()
+        walls = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            resp = request(sock, render_req)
+            walls.append((time.perf_counter() - t1, resp.get("seconds")))
+            if not resp.get("ok"):
+                fail("serve", f"render: {resp}")
+                return None
+        render_launches = since(before)
+        got = read_wav(tmp / "render.wav")[0]
+        want = render_oracle.result()
+        d_max, d_rms = diff(got, want) if got.shape == want.shape else (float("inf"),) * 2
+        say("serve", f"render {SERVE_ORBIT}, {SCAN_B} blocks: cold {walls[0][0]:.3f} s at the "
+                     f"client ({walls[0][1]} s in the daemon), warm {walls[1][0]:.3f} s "
+                     f"({walls[1][1]} s); vs render_oracle max|diff| {d_max:.3e} (limit "
+                     f"{ORACLE_TOL:.0e}), rms {d_rms:.3e}; launches (both) {render_launches}  "
+                     f"[{bench.card()}]")
+        if not (d_max <= ORACLE_TOL and d_rms < ORACLE_RMS):
+            fail("serve", "the daemon's render disagrees with the oracle")
+            return None
+
+        # the scene
+        scene = {"sources": [{"input": str(src), "trajectory": spec, "gain": SERVE_SCENE_GAIN}
+                             for spec in SERVE_SCENE]}
+        before = counts()
+        t1 = time.perf_counter()
+        resp = request(sock, {"cmd": "scene", "scene": scene, "output": str(tmp / "scene.wav"),
+                              "blocks": SCENE_B, "float": True, "bits": 32})
+        wall = time.perf_counter() - t1
+        scene_launches = since(before)
+        if not resp.get("ok"):
+            fail("serve", f"scene: {resp}")
+            return None
+        got = read_wav(tmp / "scene.wav")[0]
+        want = np.sum([o.result().astype(np.float64) for o in scene_oracles], axis=0)
+        d_max, d_rms = diff(got, want) if got.shape == want.shape else (float("inf"),) * 2
+        say("serve", f"scene of {SCENE_S} orbits x {SCENE_B} blocks (gain {SERVE_SCENE_GAIN}): "
+                     f"{wall:.3f} s at the client ({resp.get('seconds')} s in the daemon); the "
+                     f"mix vs the sum of the sources' render_oracle max|diff| {d_max:.3e} (limit "
+                     f"{ORACLE_TOL:.0e}), rms {d_rms:.3e}; launches {scene_launches}  "
+                     f"[{bench.card()}]")
+        if not (d_max <= ORACLE_TOL and d_rms < ORACLE_RMS):
+            fail("serve", "the daemon's scene disagrees with its oracles")
+            return None
+
+        # four paced sessions, alone and beside back-to-back renders
+        live = {}
+        for label in ("alone", "beside renders"):
+            before = counts()
+            sids = []
+            for i in range(SERVE_SESSIONS):
+                resp = request(sock, {"cmd": "stream_start", "input": str(src),
+                                      "output": str(tmp / f"live{i}.wav"),
+                                      "seconds": SERVE_SECONDS, "paced": True})
+                if not resp.get("ok"):
+                    fail("serve", f"stream_start: {resp}")
+                    return None
+                sids.append(resp["session"])
+            stop, renders, bad = threading.Event(), [0], []
+
+            def render_loop():
+                while not stop.is_set():
+                    r = request(sock, render_req)
+                    renders[0] += 1
+                    if not r.get("ok"):
+                        bad.append(r)
+
+            watched = {}
+
+            def watcher():
+                watched["status"] = watch(sock, tmp / "live.svg", session=sids[0],
+                                          interval_s=0.05)
+
+            bg = threading.Thread(target=render_loop if label != "alone" else watcher)
+            bg.start()
+            moves, k, t1 = 0, 0, time.perf_counter()
+            while time.perf_counter() - t1 < SERVE_SECONDS + 0.5:
+                for sid in sids:
+                    m = request(sock, {"cmd": "move", "session": sid, "azi": (7 * k) % 360,
+                                       "ele": 10, "r": 1.0})
+                    moves += bool(m.get("ok"))
+                k += 1
+                time.sleep(SERVE_MOVE_S)
+            stop.set()
+            bg.join(timeout=600)
+            stats = [request(sock, {"cmd": "stream_stop", "session": sid}) for sid in sids]
+            launched = since(before)
+            live[label] = stats
+            for sid, st in zip(sids, stats):
+                say("serve", f"session {sid} {label}: {st.get('blocks')} blocks, avg "
+                             f"{st.get('avg_ms')} / median {st.get('median_ms')} / p90 "
+                             f"{st.get('p90_ms')} / p99 {st.get('p99_ms')} / max "
+                             f"{st.get('max_ms')} ms, {st.get('misses')} misses of "
+                             f"{st.get('budget_ms')} ms, {st.get('crossfades')} crossfades  "
+                             f"[{bench.card()}]")
+            blocks = sum(st.get("blocks", 0) for st in stats)
+            say("serve", f"{SERVE_SESSIONS} sessions {label}: {moves} moves, {renders[0]} "
+                         f"renders beside them; launches {launched} ({blocks} blocks + 2 a prime "
+                         f"= {blocks + 2 * SERVE_SESSIONS} row-8 launches expected)")
+            if bad or not all(st.get("ok") for st in stats):
+                fail("serve", f"{label}: {bad or stats}")
+                return None
+            # the primes run outside the sessions' turns, so two may race an
+            # increment of the count: between the blocks and every prime
+            if label == "alone" and not (blocks <= launched.get(SPATIALIZER, 0)
+                                         <= blocks + 2 * SERVE_SESSIONS):
+                fail("serve", f"{label}: row 8 launched {launched.get(SPATIALIZER)} times, want "
+                              f"{blocks + 2 * SERVE_SESSIONS}")
+                return None
+            if label == "alone":
+                svg = tmp / "live.svg"
+                status = watched.get("status", {})
+                say("serve", f"viz.live.watch on {sids[0]}: ended at block "
+                             f"{status.get('blocks')}/{status.get('total_blocks')}, "
+                             f"{svg.name} {svg.stat().st_size if svg.exists() else 0} bytes")
+                if not (status.get("ok") and svg.exists() and "listener" in svg.read_text()):
+                    fail("serve", "viz.live.watch wrote no scene")
+                    return None
+                late = [st for st in stats if not (st["median_ms"] < LIVE_MEDIAN_MS
+                                                   and st["p90_ms"] < LIVE_P90_MS)]
+                if late:
+                    fail("serve", f"sessions alone miss the strict live gate (median < "
+                                  f"{LIVE_MEDIAN_MS}, p90 < {LIVE_P90_MS} ms): {late}")
+                    return None
+
+        st = request(sock, {"cmd": "stats"})
+        rss.append(rss_mib(proc.pid))
+        t1 = time.perf_counter()
+        down = request(sock, {"cmd": "shutdown"})
+        rc = proc.wait(timeout=DAEMON_EXIT_S)
+        exit_s = time.perf_counter() - t1
+        say("serve", f"stats {st}; the daemon's RSS {rss[0]:.0f} MiB up, {rss[1]:.0f} MiB "
+                     f"after the phase; shutdown {down}; the daemon exited rc {rc} in "
+                     f"{exit_s:.2f} s (limit {DAEMON_EXIT_S} s)")
+        if rc != 0 or not down.get("ok"):
+            fail("serve", "the daemon did not shut down cleanly")
+            return None
+        return st["launches"]
+    except subprocess.TimeoutExpired:
+        fail("serve", f"the daemon did not exit within {DAEMON_EXIT_S} s")
+        return None
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def surfaces_phase(cfg, files, tmp, fwd_forms) -> dict | None:
+    """The CLI's --viz and --profile-dir (the trace names launch A and rows
+    5 and 12; the CLI's stages timed apart), --selftest, rt for 3 s on the
+    card (these in this process, counted), the acceptance script and the
+    seven examples (processes of their own, at once).  The launches by
+    kernel, or None on a failure."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    import numpy as np
+
+    from jefferson_tpu_torch import bench
+    from jefferson_tpu_torch.cli.main import main as cli_main
+    from jefferson_tpu_torch.kernels import fused_step
+    from jefferson_tpu_torch.rt.__main__ import main as rt_main
+
+    root = Path(__file__).resolve().parent
+    tmp = Path(tmp) / "surfaces"
+    tmp.mkdir()
+    fused_step.reset_launches()
+    # the examples and the acceptance script first: processes of their own
+    procs = {}
+    for ex in sorted((root / "jefferson_tpu_torch" / "examples").glob("*.py")):
+        cwd = tmp / ex.stem
+        cwd.mkdir()
+        procs[ex.name] = (subprocess.Popen([sys.executable, str(ex)], cwd=cwd,
+                                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                           text=True), time.perf_counter())
+    procs["acceptance"] = (subprocess.Popen(
+        [sys.executable, "-m", "jefferson_tpu_torch.scripts.acceptance", str(tmp / "accept"),
+         "--pytest-args", "tests/test_torch_build.py --noconftest -q -p no:cacheprovider"],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+        time.perf_counter())
+
+    # the CLI with --viz and --profile-dir on the cli phase's input and tree
+    out, prof = tmp / "viz.wav", tmp / "prof"
+    t0 = time.perf_counter()
+    rc = cli_main(["-i", str(files["in"]), "-o", str(out), "--trajectory", CLI_ORBIT,
+                   "--hrtf-dir", str(files["tree"]), "--float", "--quiet", "--viz",
+                   "--profile-dir", str(prof)])
+    wall = time.perf_counter() - t0
+    viz_launches = {k: v for k, v in fused_step.launches.items() if v}
+    artifacts = [f"viz.wav{s}" for s in (".scene.svg", ".wave.svg", ".html", ".3d.html")]
+    sizes = {a: (tmp / a).stat().st_size if (tmp / a).exists() else 0 for a in artifacts}
+    traces = list(prof.glob("trace.*.json"))
+    events = json.loads(traces[0].read_text())["traceEvents"] if len(traces) == 1 else []
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    spans: dict[str, float] = {}
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e.get("dur", 0) / 1e3
+    # a kernel event's name is its demangled signature; its identifiers
+    idents = {w for k in kernels for w in re.findall(r"[A-Za-z_]\w*", k)}
+    named = {what: sorted(w for w in idents if w.startswith(sym))
+             for what, sym in (("launch A", "forward_distance"),
+                               ("row 5's launch B", "split_tail_xfade"),
+                               ("row 12", "dma_blend"))}
+    say("surfaces", f"cli.main --viz --profile-dir, -t 0 {CLI_ORBIT} on the cli phase's 30-s "
+                    f"input and compact tree: rc {rc} in {wall:.3f} s, launches {viz_launches}; "
+                    f"artifacts {sizes}; trace {traces[0].name if traces else None} with "
+                    f"{len(kernels)} kernel names, by row {named}")
+    say("surfaces", "the CLI's host stages from the trace (ms): "
+                    + ", ".join(f"{k} {v:.1f}" for k, v in sorted(spans.items(),
+                                                                 key=lambda kv: -kv[1])
+                                if k.startswith(("cli.", "renderer."))) + f"  [{bench.card()}]")
+    if rc != 0 or not all(sizes.values()) or not all(named.values()):
+        fail("surfaces", "the CLI's --viz or --profile-dir wrote too little")
+        return None
+    if not viz_launches.get("fused_step_stream_xfade") or not viz_launches.get("dma_blend"):
+        fail("surfaces", f"the traced render launched {viz_launches}, want rows 5 and 12")
+        return None
+
+    # --selftest (scaled) and rt for 3 s on the card, counted
+    t0 = time.perf_counter()
+    rc = cli_main(["-i", str(files["in"]), "-o", str(tmp / "selftest.wav"), "--blocks", "64",
+                   "--selftest", "--float"])
+    say("surfaces", f"cli.main --selftest (8 x 12 blocks, 4 scenarios, then a 64-block render): "
+                    f"rc {rc} in {time.perf_counter() - t0:.2f} s")
+    if rc != 0:
+        fail("surfaces", "--selftest did not pass")
+        return None
+    before = dict(fused_step.launches)
+    t0 = time.perf_counter()
+    rc = rt_main(["-i", str(files["in"]), "-o", str(tmp / "rt.wav"), "--seconds", "3"])
+    rt_wall = time.perf_counter() - t0
+    rt_launches = {k: v - before[k] for k, v in fused_step.launches.items() if v != before[k]}
+    from jefferson_tpu_torch.io.wavio import read_wav
+
+    y = read_wav(tmp / "rt.wav")[0]
+    n = int(np.ceil(3.0 / cfg.block_duration))
+    say("surfaces", f"rt --seconds 3 on the card (unpaced): rc {rc} in {rt_wall:.2f} s, "
+                    f"launches {rt_launches}, output {y.shape}")
+    if rc != 0 or y.shape != (n * cfg.frames_per_buffer, 2) or not np.isfinite(y).all() \
+            or rt_launches.get(SPATIALIZER) != n + 2:
+        fail("surfaces", f"rt: want {n} blocks and {n + 2} row-8 launches")
+        return None
+
+    # the processes started first
+    failed = []
+    for name, (p, t0) in procs.items():
+        try:
+            text, _ = p.communicate(timeout=EXAMPLE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            text, _ = p.communicate()
+        tail = text.strip().splitlines()[-2:]
+        say("surfaces", f"{name}: rc {p.returncode} in {time.perf_counter() - t0:.1f} s "
+                        f"(started together): {' | '.join(tail)}")
+        if p.returncode != 0:
+            failed.append(name)
+            print(text[-3000:], file=sys.stderr)
+    if failed:
+        fail("surfaces", f"{failed} failed")
+        return None
+    fwd_forms["surfaces"] = dict(fused_step.forward_launches)
+    launched = {k: v for k, v in fused_step.launches.items() if v}
+    if fault := launch_a_fault("the surfaces", launched, fwd_forms["surfaces"]):
+        fail("surfaces", fault)
+        return None
+    return launched
+
+
+def rss_mib(pid: int) -> float:
+    """A process's resident set, MiB (/proc/<pid>/status)."""
+    with open(f"/proc/{pid}/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024.0
+    return float("nan")
+
+
+
+
 def main() -> int:
     import torch
 
@@ -1505,9 +2050,10 @@ def run(pool, host, tmp) -> int:
     # while the card works
     noise = (np.random.default_rng(0).standard_normal(SIGNAL_SAMPLES) * 0.2).astype(np.float32)
     budget_pos = error_budget.scenario(config=cfg)
-    budget_oracle = pool.submit(_oracle_job, noise, budget_pos)
+    oracle_pool = OraclePool(pool)
+    budget_oracle = oracle_pool.submit(noise, budget_pos)
     scenarios = renders(bench)
-    single_oracles = {name: pool.submit(_oracle_job, noise, scenarios[name][0])
+    single_oracles = {name: oracle_pool.submit(noise, scenarios[name][0])
                       for name in ("sweep", "mover", "orbit", "helix")}
     oracle_of = lambda name: single_oracles["sweep" if name.startswith("sweep") else name]
     live = live_runs(bench, noise, fpb)
@@ -1515,10 +2061,20 @@ def run(pool, host, tmp) -> int:
                     for name, (pos, sigs) in live.items()}
     scene_sigs = bench.scene_signals(noise, SCENE_S, SCENE_B, fpb)
     sets = scene_positions(bench)
-    oracles = {name: {i: pool.submit(_oracle_job, scene_sigs[i], pos[i]) for i in srcs}
+    oracles = {name: {i: oracle_pool.submit(scene_sigs[i], pos[i]) for i in srcs}
                for name, (pos, srcs) in sets.items()}
     # the cli phase's inputs and its oracles (the device reverb on the card)
     cli_in = cli_inputs(pool, tmp, device)
+    # the sweep gate's three other reference scenarios (its other four share
+    # the path phase's renders), then the serve phase's render and scene
+    from jefferson_tpu_torch.bench import sweep
+
+    for azi, ele in sweep.SCENARIOS:
+        oracle_pool.submit(noise, sweep.sweep_scenario(azi, ele, config=cfg))
+    serve_pos = serve_inputs(noise, cfg)
+    oracle_pool.submit(noise, serve_pos[0])
+    for pos in serve_pos[1]:
+        oracle_pool.submit(noise * np.float32(SERVE_SCENE_GAIN), pos)
 
     # ---- build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1890,6 +2446,24 @@ def run(pool, host, tmp) -> int:
     if cli_launches is None:
         return 1
 
+    # ---- the sweep gate and the other surfaces, the daemon's soak beside
+    # them, then the daemon, each counted ------------------------------------
+    soak = soak_start(tmp)
+    try:
+        sweep_launches = sweep_phase(db, device, noise, oracle_pool, tmp, fwd_forms)
+        if sweep_launches is None:
+            return 1
+        surface_launches = surfaces_phase(cfg, cli_in[3], tmp, fwd_forms)
+        if surface_launches is None or not soak_finish(soak):
+            return 1
+    finally:
+        if soak[0].poll() is None:
+            soak[0].kill()
+            soak[0].communicate()
+    serve_launches = serve_phase(cfg, noise, oracle_pool, serve_pos, tmp)
+    if serve_launches is None:
+        return 1
+
     # ---- timings -----------------------------------------------------------
     step_ms = bench.time_steps_ms(wl)
     bps = S * NB / (step_ms * 1e-3)
@@ -2056,9 +2630,11 @@ def run(pool, host, tmp) -> int:
                 LAUNCH_A: sum(sum(f.values()) for f in fwd_forms.values())}
     # row 12 runs on the render paths (rows 5-7's pre-blend) and in the probes
     launches["dma_blend"] += single["dma_blend"] + scene_launches["dma_blend"]
-    # and the cli phase's renders (launch A's through fwd_forms)
-    for name, n in cli_launches.items():
-        launches[name] += n
+    # and the cli, sweep, surfaces and serve phases' renders (launch A's
+    # through fwd_forms, but for the daemon's, which counts its own)
+    for counted in (cli_launches, sweep_launches, surface_launches, serve_launches):
+        for name, n in counted.items():
+            launches[name] += n
     say("path", f"launch A on the counted paths by form: {fwd_forms}")
     print(json.dumps({"kernels": [{
         "name": name,

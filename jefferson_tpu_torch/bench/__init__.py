@@ -13,6 +13,8 @@ under 1e-4, else this raises.
 
     python -m jefferson_tpu_torch.bench --device cuda
 
+(``bench/__main__.py``; the sweep gate is ``bench/sweep.py``.)
+
 Prints ONE JSON line to stdout (metric, value, unit, vs_baseline); the
 step, kernel and twin times, the card and its power limit, and the device
 time of each launch per step (torch.profiler over 10 carried steps, with
@@ -33,25 +35,29 @@ import sys
 import numpy as np
 import torch
 
-from .config import DEFAULT_CONFIG
-from .convert import spectra_from_numpy
-from .engine.batch import (
+from ..config import DEFAULT_CONFIG
+from ..convert import spectra_from_numpy
+from ..engine.batch import (
     _group_bucket, _plan_batch_onehot, batched_chunk_fn_fused, group_tile, onehot_step_operands,
 )
-from .engine.plan import (
+from ..engine.plan import (
     compact_filter_ids, compact_filter_ids_grouped, compact_filter_ids_grouped_sources, make_plan,
 )
-from .engine.renderer import cat_table, dedup_distance, pick_fused_tile
-from .hrtf.kemar import (
+from ..engine.renderer import cat_table, dedup_distance, pick_fused_tile
+from ..hrtf.kemar import (
     AZIMUTH_GRIDS, AZIMUTH_OFFSET, ELEVATIONS, NUM_ELEV, round_half_away, synthetic_database,
 )
-from .io.wavio import write_wav
-from .kernels import fused_apply, fused_spatializer, fused_step
-from .kernels.fused_step import blend_cat
-from .ops import fft as fft_ops
-from .ops.filters import cmul, distance_factors_split, distance_phase_split
-from .oracle.reference import render_oracle
-from .trajectory.trajectory import AzimuthSweep, CircularOrbit
+from ..io.wavio import write_wav
+from ..kernels import fused_apply, fused_spatializer, fused_step
+from ..kernels.fused_step import blend_cat
+from ..ops import fft as fft_ops
+from ..ops.filters import cmul, distance_factors_split, distance_phase_split
+from ..oracle.reference import render_oracle
+from ..trajectory.trajectory import CircularOrbit
+from .sweep import (  # noqa: F401  (the bench's names since before bench/ was a package)
+    mover_positions, scene_hold_positions, scene_mover_positions, scene_signals,
+)
+from .sweep import sweep_scenario as sweep_positions  # noqa: F401  (a reference scenario)
 
 BASELINE_BLOCKS_PER_S = 3333.3
 SOURCES, BLOCKS = 256, 64  # the JAX bench.py workload: sources x blocks per step
@@ -69,10 +75,10 @@ def plain_host():
     ``_interpolation_calculations_numpy``, ``_distance_phase_split_numpy``,
     ``_fed_stream_numpy``): for holding the library to them and timing the
     host path each way.  The library comes back on exit."""
-    from .engine import batch, plan, renderer, stream
-    from .hrtf import kemar
-    from .ops import filters
-    from .trajectory import interpolation
+    from ..engine import batch, plan, renderer, stream
+    from ..hrtf import kemar
+    from ..ops import filters
+    from ..trajectory import interpolation
 
     swaps = [(plan, "pick_hrtf", kemar._pick_hrtf_numpy),
              *((mod, "interpolation_calculations",
@@ -171,26 +177,6 @@ def build_workload(db, n_sources: int, nb: int, device, seed: int = 0,
     )
 
 
-def sweep_positions(start_azi: float, ele: float) -> np.ndarray:
-    """The reference's benchmarkTesting scenario (precision_test.cu:2093-2148,
-    ``jefferson_tpu.bench.sweep``): r = 0.5, a 5-degree azimuth step every
-    172 blocks, 72 steps -> (12,556, 3) positions."""
-    traj = AzimuthSweep(start_azi=start_azi, ele=ele, r=0.5, step_deg=5.0,
-                        blocks_per_step=172, num_steps=72)
-    return traj.sample(traj.total_blocks)
-
-
-def mover_positions(num_blocks: int, ele_period: int = 997) -> np.ndarray:
-    """The sweep gate's mover (a copy of ``jefferson_tpu.bench.sweep.
-    mover_positions``): azimuth 1.3 degrees per block, elevation over the
-    whole grid, r = 0.5 -> more unique filters per 2048-block chunk than one
-    compact table takes."""
-    i = np.arange(num_blocks)
-    azi = (i * 1.3) % 360.0
-    ele = 25.0 + 65.0 * np.sin(i * (2.0 * np.pi / ele_period))
-    return np.stack([azi, ele, np.full(num_blocks, 0.5)], axis=1)
-
-
 def helix_positions(num_blocks: int, period_s: float = 0.4, rise_deg: float = 0.5,
                     cfg=DEFAULT_CONFIG) -> np.ndarray:
     """A source circling the listener once per ``period_s`` while rising
@@ -201,39 +187,6 @@ def helix_positions(num_blocks: int, period_s: float = 0.4, rise_deg: float = 0.
     turn = period_s * cfg.sample_rate / cfg.frames_per_buffer  # blocks per turn
     return np.stack([(i * 360.0 / turn) % 360.0, -10.0 + rise_deg * i / turn,
                      np.full(num_blocks, 1.0)], axis=1)
-
-
-def scene_hold_positions(num_sources: int, num_blocks: int,
-                         blocks_per_step: int = 172) -> np.ndarray:
-    """(S, B, 3) scene whose sources each hold a position for
-    ``blocks_per_step`` blocks (the reference's benchmark cadence) at
-    staggered azimuths, elevations and radii: the shape that sends the JAX
-    BatchRenderer to its dedup+fused arm (a copy of
-    ``jefferson_tpu.bench.sweep.scene_hold_positions``)."""
-    step = np.arange(num_blocks) // blocks_per_step
-    eles = [0.0, 10.0, -20.0, 40.0]
-    pos = np.empty((num_sources, num_blocks, 3), np.float64)
-    for s in range(num_sources):
-        pos[s, :, 0] = (s * (360.0 / num_sources) + 5.0 * step) % 360.0
-        pos[s, :, 1] = eles[s % len(eles)]
-        pos[s, :, 2] = 0.5 + 0.1 * (s % 3)
-    return pos
-
-
-def scene_mover_positions(num_sources: int, num_blocks: int) -> np.ndarray:
-    """(S, B, 3) wide-mover scene: every source moves every block in its own
-    elevation band, so the scene's unique filters exceed one compact table
-    while each source's fit: the shape that sends the JAX BatchRenderer to
-    its grouped one-hot arm (a copy of
-    ``jefferson_tpu.bench.sweep.scene_mover_positions``)."""
-    i = np.arange(num_blocks)
-    pos = np.empty((num_sources, num_blocks, 3), np.float64)
-    for s in range(num_sources):
-        speed = 2.1 + 0.13 * (s % 7)  # degrees per block: a crossfade every block
-        pos[s, :, 0] = (s * (360.0 / num_sources) + speed * i) % 360.0
-        pos[s, :, 1] = -30.0 + (s % 8) * 15.0
-        pos[s, :, 2] = 1.0
-    return pos
 
 
 def wide_positions(num_sources: int, num_blocks: int, seed: int = 11) -> np.ndarray:
@@ -248,14 +201,6 @@ def wide_positions(num_sources: int, num_blocks: int, seed: int = 11) -> np.ndar
                   np.full(num_blocks, 1.0)], axis=1)
         for _ in range(num_sources)
     ]).astype(np.float32)
-
-
-def scene_signals(signal: np.ndarray, num_sources: int, num_blocks: int, fpb: int = 128):
-    """(S, n) per-source streams as the JAX scene gate builds them: rotated
-    copies of one signal (``jefferson_tpu.bench.sweep.run_scene_gate``)."""
-    n = max(len(signal), num_blocks * fpb)
-    base = np.resize(np.asarray(signal, np.float32), n)
-    return np.stack([np.roll(base, -(s * 7919 * fpb) % n) for s in range(num_sources)])
 
 
 STREAM_FORMS = ("onehot", "grouped", "gather", "gather_noxf")
@@ -665,7 +610,8 @@ def profile_steps(wl: Workload, steps: int = 10) -> list[tuple[str, float, float
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap = argparse.ArgumentParser(prog="python -m jefferson_tpu_torch.bench",
+                                 description=__doc__.splitlines()[0])
     ap.add_argument("--device", required=True, help="a CUDA device, e.g. cuda or cuda:0")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
@@ -713,7 +659,3 @@ def run(device) -> int:
         "vs_baseline": round(bps / BASELINE_BLOCKS_PER_S, 2),
     }))
     return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

@@ -10,14 +10,18 @@ switches (reverb on/off, HRTF dir, block count) options.
 
 ``--device cuda`` (the default) renders on the card and raises without
 one; ``--device cpu`` runs the same dispatch on the kernels' plain twins.
-Nothing falls back from one to the other.  Four flags of the JAX CLI wait
-for their ROADMAP items and exit naming them: ``--devices`` above 1,
-``--viz``, ``--selftest``/``--selftest-full`` and ``--profile-dir``.
+Nothing falls back from one to the other.  ``--devices`` above 1 waits for
+its ROADMAP item and exits naming it.  ``--profile-dir`` traces the whole
+file-to-file run, each host stage a named span (``cli.read_wav``,
+``cli.reverb``, ``cli.load_hrtf``, ``cli.selftest``, ``cli.render`` with the
+renderer's ``renderer.plan`` and ``renderer.chunks``, ``cli.write``,
+``cli.viz``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -28,9 +32,6 @@ import numpy as np
 # the flags whose modules are not ported yet, and the ROADMAP item of each
 _NOT_PORTED = {
     "--devices": "ROADMAP queue 1 item 9 (parallel/mesh.py -> torch.distributed)",
-    "--viz": "ROADMAP queue 1 item 8 (viz/)",
-    "--selftest/--selftest-full": "ROADMAP queue 1 item 8 (bench/sweep.py)",
-    "--profile-dir": "ROADMAP queue 1 item 8 (utils/profiling.py)",
 }
 
 
@@ -100,19 +101,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="crossfade state before block 0 as 'azi,ele' (reference "
                         "constructor default 0,0) or 'none' to disable")
     p.add_argument("--viz", action="store_true",
-                   help="write scene and waveform views of the render (not ported: "
-                        "ROADMAP queue 1 item 8)")
+                   help="write <output>.scene.svg, <output>.wave.svg, <output>.html and "
+                        "<output>.3d.html (the offline analogue of the reference's GL "
+                        "window)")
     p.add_argument("--profile-dir", default=None,
-                   help="capture a profiler trace of the render into this dir (not "
-                        "ported: ROADMAP queue 1 item 8)")
+                   help="capture a torch.profiler trace of the run (host stages as "
+                        "named spans, the card's kernels) into this dir")
     p.add_argument("--no-resample", action="store_true",
                    help="feed wrong-rate inputs raw (pitch-shifted) like the reference")
     p.add_argument("--selftest", action="store_true",
-                   help="run a scaled engine-vs-oracle sweep gate before rendering "
-                        "(not ported: ROADMAP queue 1 item 8)")
+                   help="run a SCALED engine-vs-oracle smoke gate before rendering (the "
+                        "4 scenarios of the reference's benchmarkTesting, main.cu:88, at "
+                        "8 blocks x 12 steps instead of 172 x 72); aborts on mismatch")
     p.add_argument("--selftest-full", action="store_true",
-                   help="run the reference's full benchmarkTesting workload before "
-                        "rendering (not ported: ROADMAP queue 1 item 8)")
+                   help="run the reference's FULL benchmarkTesting workload (4 scenarios "
+                        "x 73 positions x 172 blocks) and the mover before rendering; "
+                        "python -m jefferson_tpu_torch.bench.sweep runs the scenes too")
     p.add_argument("--quiet", action="store_true")
     return p
 
@@ -380,28 +384,78 @@ def main(argv=None) -> int:
             )
     if args.devices is not None and args.devices > 1:
         raise not_ported("--devices")
-    if args.viz:
-        raise not_ported("--viz")
-    if args.selftest or args.selftest_full:
-        raise not_ported("--selftest/--selftest-full")
-    if args.profile_dir is not None:
-        raise not_ported("--profile-dir")
-    from ..config import DEFAULT_CONFIG, ProcessType
+    from ..config import DEFAULT_CONFIG
     from ..engine.renderer import resolve_device
-    from ..io.wavio import read_wav_mono
+    from ..utils.profiling import trace
 
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"--device {args.device}: {e}")
     config = DEFAULT_CONFIG
-    ptype = ProcessType(args.type)
 
     if args.scene is not None:
         return render_scene(args, config, device)
     if args.input is None:
         raise SystemExit("missing -i/--input (or --scene)")
-    signal, sr = read_wav_mono(args.input)
+    with trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext():
+        return render_file(args, config, device)
+
+
+def selftest(args, signal, db, config, device) -> None:
+    """The engine-vs-oracle sweep gate before the render, with the render's
+    backend on the render's device; raises SystemExit on a mismatch."""
+    from ..bench.sweep import SCENARIOS, run_benchmark_sweep, run_mover_gate
+    from ..engine.renderer import Renderer
+
+    if args.selftest_full:  # the reference's real workload (main.cu:88)
+        renderer = Renderer(db, config, device=device, backend=args.backend)
+        reports = run_benchmark_sweep(signal, db, config, blocks_per_step=172, num_steps=72,
+                                      eps=2e-7, renderer=renderer)
+        # plus the per-block mover (the one-hot kernels' gate)
+        reports.append(run_mover_gate(signal, db, config, eps=2e-7, renderer=renderer))
+    else:
+        reports = run_benchmark_sweep(
+            signal[: 8 * config.frames_per_buffer * 16], db, config, blocks_per_step=8,
+            num_steps=12, eps=2e-7,
+            renderer=Renderer(db, config, device=device, chunk_blocks=104,
+                              backend=args.backend),
+        )
+    names = [f"({sa},{se})" for sa, se in SCENARIOS] + ["mover"]
+    for name, rep in zip(names, reports):
+        if not rep.ok:
+            raise SystemExit(f"selftest FAILED at scenario {name}: {rep}")
+    if not args.quiet:
+        kind = "full benchmarkTesting" if args.selftest_full else "scaled smoke"
+        print(f"selftest passed (engine-vs-oracle sweep gate, {kind})", file=sys.stderr)
+
+
+def write_viz(args, positions, out, config) -> None:
+    """The scene, waveform, 2-D player and 3-D player artifacts of a render."""
+    from ..viz.html import scene_html
+    from ..viz.scene import scene_svg, waveform_svg
+    from ..viz.scene3d import scene3d_html
+
+    scene_svg(positions, f"{args.output}.scene.svg", config=config)
+    waveform_svg(out, f"{args.output}.wave.svg")
+    scene_html(positions, out, f"{args.output}.html", config=config,
+               title=f"jefferson_tpu_torch — {Path(args.output).name}")
+    scene3d_html(positions, out, f"{args.output}.3d.html", config=config,
+                 title=f"jefferson_tpu_torch — {Path(args.output).name} (3-D)")
+    if not args.quiet:
+        print(f"viz: {args.output}.scene.svg, {args.output}.wave.svg, "
+              f"{args.output}.html, {args.output}.3d.html", file=sys.stderr)
+
+
+def render_file(args, config, device) -> int:
+    """The single-source file-to-file render, each host stage a named span."""
+    from ..config import ProcessType
+    from ..io.wavio import read_wav_mono
+    from ..utils.profiling import span
+
+    ptype = ProcessType(args.type)
+    with span("cli.read_wav"):
+        signal, sr = read_wav_mono(args.input)
     if len(signal) == 0:
         raise SystemExit(f"input WAV {args.input!r} is empty")
     if sr != config.sample_rate:
@@ -431,12 +485,13 @@ def main(argv=None) -> int:
         from ..reverb.convolution import convolve_linear, reverb_reference
 
         t0 = time.time()
-        if args.reverb_mode == "reference":
-            signal = reverb_reference(signal, ir, config, backend=args.reverb_backend,
-                                      device=device)
-        else:
-            signal = convolve_linear(signal, ir, config, backend=args.reverb_backend,
-                                     device=device)
+        with span("cli.reverb"):
+            if args.reverb_mode == "reference":
+                signal = reverb_reference(signal, ir, config, backend=args.reverb_backend,
+                                          device=device)
+            else:
+                signal = convolve_linear(signal, ir, config, backend=args.reverb_backend,
+                                         device=device)
         if not args.quiet:
             print(f"reverb ({args.reverb_mode}): {len(ir)}-tap IR in {time.time()-t0:.2f}s",
                   file=sys.stderr)
@@ -469,23 +524,33 @@ def main(argv=None) -> int:
                 f"--initial-old needs exactly 'azi,ele', got {args.initial_old!r}"
             )
 
-    db = load_hrtf(args.hrtf_dir, config, args.quiet)
+    with span("cli.load_hrtf"):
+        db = load_hrtf(args.hrtf_dir, config, args.quiet)
+    if (args.selftest or args.selftest_full) and not ptype.is_oracle:
+        with span("cli.selftest"):
+            selftest(args, signal, db, config, device)
     t0 = time.time()
-    if ptype.is_oracle:
-        from ..oracle.reference import render_oracle
+    with span("cli.render"):
+        if ptype.is_oracle:
+            from ..oracle.reference import render_oracle
 
-        out = render_oracle(signal, db, [tuple(p) for p in positions], config, ptype,
-                            initial_old=initial_old)
-    else:
-        from ..engine.renderer import Renderer
+            out = render_oracle(signal, db, [tuple(p) for p in positions], config, ptype,
+                                initial_old=initial_old)
+        else:
+            from ..engine.renderer import Renderer
 
-        r = Renderer(db, config, device=device,
-                     chunk_blocks=args.chunk_blocks if args.chunk_blocks is not None else 2048,
-                     backend=args.backend, fused=not args.no_fused,
-                     pipeline_fetch=args.pipeline_fetch)
-        out = r.render(signal, positions, ptype, initial_old=initial_old)
+            r = Renderer(db, config, device=device,
+                         chunk_blocks=(args.chunk_blocks if args.chunk_blocks is not None
+                                       else 2048),
+                         backend=args.backend, fused=not args.no_fused,
+                         pipeline_fetch=args.pipeline_fetch)
+            out = r.render(signal, positions, ptype, initial_old=initial_old)
     dt = time.time() - t0
-    _write(args, out, config)
+    with span("cli.write"):
+        _write(args, out, config)
+    if args.viz:
+        with span("cli.viz"):
+            write_viz(args, positions, out, config)
     if not args.quiet:
         audio_s = num_blocks * config.block_duration
         print(

@@ -34,6 +34,7 @@ from ..ops import fft as fft_ops
 from ..ops.filters import (
     blend_filters, cmul, crossfade_tails, distance_factors, distance_factors_split, xfade_ramp,
 )
+from ..utils.profiling import span
 from .plan import (
     RenderPlan, compact_filter_ids, compact_filter_ids_grouped, dedup_rows, fed_stream,
     make_plan,
@@ -755,9 +756,12 @@ class Renderer:
         ptype: ProcessType = ProcessType.TPU_FD_COMPLEX,
         initial_old: tuple[float, float] | None = (0.0, 0.0),
     ) -> np.ndarray:
-        """Render mono ``signal`` along per-block ``positions`` -> (B*fpb, 2)."""
-        plan = make_plan(np.asarray(positions), self.config, initial_old)
-        return self.render_plan(signal, plan, ptype)
+        """Render mono ``signal`` along per-block ``positions`` -> (B*fpb, 2).
+        The plan and the chunks are named spans in a ``utils.profiling.trace``."""
+        with span("renderer.plan"):
+            plan = make_plan(np.asarray(positions), self.config, initial_old)
+        with span("renderer.chunks"):
+            return self.render_plan(signal, plan, ptype)
 
     def render_plan(
         self, signal: np.ndarray, plan: RenderPlan,

@@ -65,10 +65,19 @@ def _stream_device(device, config: EngineConfig) -> torch.device:
     return resolve_device(device)
 
 
+def _published(t: torch.Tensor) -> torch.Tensor:
+    """``t`` once the stream that made it has finished: a tensor shared by
+    sessions that each run on a CUDA stream of their own (the daemon's) is
+    read there with no event to wait on."""
+    if t.device.type == "cuda":
+        torch.cuda.current_stream(t.device).synchronize()
+    return t
+
+
 @functools.lru_cache(maxsize=None)
 def _xf_flag(device: torch.device, on: bool) -> torch.Tensor:
     """The (1, 1) crossfade mask of one block, kept on ``device``."""
-    return torch.full((1, 1), float(on), dtype=torch.float32, device=device)
+    return _published(torch.full((1, 1), float(on), dtype=torch.float32, device=device))
 
 
 def _block_step(table, hist, block, idx_new, w_new, idx_old, w_old, xf, u_hi, u_lo, inv_frac,
@@ -110,7 +119,7 @@ def _device_table(db: HRTFDatabase, device) -> torch.Tensor:
         hit = _TABLE_CACHE.get(key)
         if hit is not None and hit[0]() is db:
             return hit[1]
-        table = kernel_planes(db, device)
+        table = _published(kernel_planes(db, device))
 
         def _drop(_ref, _key=key):
             _TABLE_CACHE.pop(_key, None)

@@ -13,7 +13,10 @@ compiler and the flags, so an edited source or header rebuilds and an
 unchanged one loads the cached library.  A build takes seconds because no
 PyTorch or Python header is included.  A failed build raises with the
 compiler's output; nothing falls back.  ``build_all`` starts one compiler
-per source at once.
+per source at once.  Threads of one process build and load under one lock,
+so two that first use a library at once build it once and load the same
+handle; separate processes each compile into a temporary file of their own
+and replace the library atomically.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Callable
 
@@ -41,6 +45,8 @@ NVCC_FLAGS = (
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict = {}
+# held across the check, the compile and the CDLL: reentrant, as load builds
+_LOCK = threading.RLock()
 
 
 def nvcc() -> str:
@@ -113,7 +119,7 @@ def _start(name: str, tc: Toolchain):
     out = library_path(name, tc)
     if out.exists():
         return None
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [tc.locate(tc.compiler), *tc.flags, "-o", str(tmp), str(tc.src_dir / f"{name}{tc.suffix}")]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -144,17 +150,18 @@ def build_all(names, toolchain: Toolchain | None = None) -> list[Path]:
     tc = toolchain or cuda()
     names = list(names)
     started = {}
-    try:
-        for name in names:
-            started[name] = _start(name, tc)
-        for name, job in started.items():
-            if job is not None:
-                _finish(name, tc, job)
-    finally:
-        for job in started.values():  # a failure leaves no compiler running
-            if job is not None and job[3].poll() is None:
-                job[3].kill()
-                job[3].communicate()
+    with _LOCK:
+        try:
+            for name in names:
+                started[name] = _start(name, tc)
+            for name, job in started.items():
+                if job is not None:
+                    _finish(name, tc, job)
+        finally:
+            for job in started.values():  # a failure leaves no compiler running
+                if job is not None and job[3].poll() is None:
+                    job[3].kill()
+                    job[3].communicate()
     return [library_path(name, tc) for name in names]
 
 
@@ -170,5 +177,8 @@ def load(name: str, toolchain: Toolchain | None = None) -> ctypes.CDLL:
     key = name if toolchain is None else (toolchain, name)
     lib = _loaded.get(key)
     if lib is None:
-        lib = _loaded[key] = ctypes.CDLL(str(build(name, toolchain)))
+        with _LOCK:
+            lib = _loaded.get(key)
+            if lib is None:
+                lib = _loaded[key] = ctypes.CDLL(str(build(name, toolchain)))
     return lib

@@ -1,0 +1,100 @@
+"""The kernel build path under threads: several threads of one process that
+first use a library at once build it once and load one handle.
+
+The host library (``native/native.cpp``) builds with g++, so this runs
+without a card; the CUDA sources take the same path with nvcc.
+"""
+
+import subprocess
+import sys
+import threading
+
+import pytest
+import torch
+
+from jefferson_tpu_torch import native
+from jefferson_tpu_torch.kernels import build
+
+torch.set_num_threads(1)
+
+THREADS = 4
+
+
+@pytest.fixture
+def empty_build_dir(tmp_path, monkeypatch):
+    """An empty BUILD_DIR, no library loaded, and a count of compiler runs."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_loaded", {})
+    runs = []
+    popen = subprocess.Popen
+
+    def counting_popen(cmd, *a, **kw):
+        runs.append(cmd)
+        return popen(cmd, *a, **kw)
+
+    monkeypatch.setattr(build.subprocess, "Popen", counting_popen)
+    return tmp_path / "build", runs
+
+
+def _at_once(fn):
+    """``fn()`` on THREADS threads released together -> (results, errors)."""
+    gate = threading.Barrier(THREADS)
+    results, errors = [None] * THREADS, []
+
+    def run(i):
+        try:
+            gate.wait(timeout=30)
+            results[i] = fn()
+        except Exception as e:  # collected and asserted on below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(THREADS)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    return results, errors
+
+
+def test_threads_that_first_load_a_library_build_it_once(empty_build_dir):
+    build_dir, runs = empty_build_dir
+    libs, errors = _at_once(lambda: build.load("native", native.TOOLCHAIN))
+    assert errors == []
+    assert len(runs) == 1
+    assert all(lib is libs[0] for lib in libs)
+    assert libs[0].jtn_error is not None  # a loaded library of the right source
+    assert sorted(p.suffix for p in build_dir.iterdir()) == [".log", ".so"]
+
+
+def test_threads_that_build_at_once_leave_one_library_and_no_temporary(empty_build_dir):
+    build_dir, runs = empty_build_dir
+    paths, errors = _at_once(lambda: build.build("native", native.TOOLCHAIN))
+    assert errors == []
+    assert len(runs) == 1
+    assert len(set(paths)) == 1 and paths[0].exists()
+    assert not list(build_dir.glob("*.tmp"))
+
+
+def test_temporary_file_is_keyed_by_process_and_thread(empty_build_dir, monkeypatch):
+    """Two threads that each start a compile name two temporary files."""
+    monkeypatch.setattr(build.subprocess, "Popen", lambda cmd, *a, **kw: cmd)
+    names = []
+    alive = threading.Barrier(2)  # both alive at once: a thread id is reused after exit
+
+    def start():
+        alive.wait(timeout=30)
+        names.append(build._start("native", native.TOOLCHAIN)[1].name)
+        alive.wait(timeout=30)
+
+    threads = [threading.Thread(target=start) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert len(set(names)) == 2

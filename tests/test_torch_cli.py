@@ -5,9 +5,11 @@ The cases of tests/test_cli.py that apply to the port run on its CLI; the
 oracle renders (-t 3/4/5) write WAVs bit-equal to the JAX CLI's on the same
 input, and the engine renders (-t 0/1/2, both backends, reverb, scenes)
 match the JAX CLI's float WAVs within 5e-7 and the oracle at the engine
-gates (1e-6; 5e-6 for TD against the gain-scaled oracle).  The flags whose
-modules wait for later ROADMAP items exit naming them, and ``--device
-cuda`` without a card exits instead of rendering on the CPU.
+gates (1e-6; 5e-6 for TD against the gain-scaled oracle).  ``--viz``,
+``--selftest[-full]`` and ``--profile-dir`` render with their artifacts,
+gates and trace; ``--devices`` above 1 waits for its ROADMAP item and exits
+naming it, and ``--device cuda`` without a card exits instead of rendering
+on the CPU.
 """
 
 import json
@@ -223,19 +225,81 @@ def test_device_cpu_flag(tmp_path, wav_in):
 
 @pytest.mark.parametrize("flag,item", [
     (["--devices", "2"], "item 9"),
-    (["--viz"], r"item 8 \(viz/\)"),
-    (["--selftest"], r"item 8 \(bench/sweep.py\)"),
-    (["--selftest-full"], r"item 8 \(bench/sweep.py\)"),
-    (["--profile-dir", "prof"], r"item 8 \(utils/profiling.py\)"),
 ])
 def test_flags_left_for_later_exit_by_name(tmp_path, wav_in, flag, item):
     with pytest.raises(SystemExit, match=f"is not ported: ROADMAP queue 1 {item}"):
         _run(["-i", wav_in, "-o", tmp_path / "o.wav", "--blocks", 4, "--quiet", *flag])
     assert not (tmp_path / "o.wav").exists()
     # one device is the default and renders
-    if flag[0] == "--devices":
-        assert _run(["-i", wav_in, "-o", tmp_path / "o.wav", "--blocks", 4, "--quiet",
-                     "--devices", "1"]) == 0
+    assert _run(["-i", wav_in, "-o", tmp_path / "o.wav", "--blocks", 4, "--quiet",
+                 "--devices", "1"]) == 0
+
+
+@pytest.fixture
+def scaled_sweep(monkeypatch):
+    """The sweep gates as --selftest-full calls them, recorded, then run at
+    8 blocks x 2 steps and a 64-block mover on the twins (the full workload
+    is chip_smoke.py's, on the card)."""
+    from jefferson_tpu_torch.bench import sweep
+
+    seen = {}
+    run_sweep, run_mover = sweep.run_benchmark_sweep, sweep.run_mover_gate
+
+    def scaled(signal, db, config, **kw):
+        seen["sweep"] = dict(kw)
+        return run_sweep(signal, db, config, **{**kw, "blocks_per_step": 8, "num_steps": 2})
+
+    def scaled_mover(signal, db, config, **kw):
+        seen["mover"] = dict(kw)
+        return run_mover(signal, db, config, **{**kw, "num_blocks": 64})
+
+    monkeypatch.setattr(sweep, "run_benchmark_sweep", scaled)
+    monkeypatch.setattr(sweep, "run_mover_gate", scaled_mover)
+    return seen
+
+
+@pytest.mark.parametrize("flag", ["--viz", "--selftest", "--selftest-full", "--profile-dir"])
+def test_surface_flags_work_on_the_cpu(tmp_path, wav_in, flag, scaled_sweep, capsys):
+    """The flags of ROADMAP item 8 render on the CPU: --viz writes its four
+    artifacts, --selftest and --selftest-full pass their gates (the full one
+    asks for the reference's 172 x 72 workload and the 12,556-block mover on
+    one renderer), --profile-dir writes a trace with the CLI's stages."""
+    out = tmp_path / "o.wav"
+    args = [flag, tmp_path / "prof"] if flag == "--profile-dir" else [flag]
+    assert _run(["-i", wav_in, "-o", out, "--blocks", 8, "--chunk-blocks", 8,
+                 "--trajectory", "orbit:period=1", *args]) == 0
+    assert read_wav(out)[0].shape == (8 * 128, 2)
+    err = capsys.readouterr().err
+    if flag == "--viz":
+        for suffix in (".scene.svg", ".wave.svg", ".html", ".3d.html"):
+            assert (tmp_path / f"o.wav{suffix}").stat().st_size > 0, suffix
+        assert "viz:" in err
+    elif flag == "--profile-dir":
+        trace, = (tmp_path / "prof").glob("trace.*.json")
+        spans = {e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+                 if e.get("cat") == "user_annotation"}
+        assert {"cli.read_wav", "cli.load_hrtf", "cli.render", "renderer.plan",
+                "renderer.chunks", "cli.write"} <= spans, spans
+    else:
+        kind = "full benchmarkTesting" if flag == "--selftest-full" else "scaled smoke"
+        assert f"selftest passed (engine-vs-oracle sweep gate, {kind})" in err
+        if flag == "--selftest-full":
+            assert scaled_sweep["sweep"]["blocks_per_step"] == 172
+            assert scaled_sweep["sweep"]["num_steps"] == 72
+            assert "num_blocks" not in scaled_sweep["mover"]  # the 12,556-block default
+            assert scaled_sweep["sweep"]["renderer"] is scaled_sweep["mover"]["renderer"]
+
+
+def test_selftest_failure_exits_naming_the_scenario(tmp_path, wav_in, monkeypatch):
+    from jefferson_tpu_torch.bench import sweep
+    from jefferson_tpu_torch.testing import PrecisionReport
+
+    bad = PrecisionReport(ok=False, max_abs_diff=1.0, max_index=0, first_bad_index=0,
+                          rms=1.0, eps=2e-7)
+    monkeypatch.setattr(sweep, "run_benchmark_sweep", lambda *a, **k: [bad])
+    with pytest.raises(SystemExit, match=r"selftest FAILED at scenario \(0.0,0.0\)"):
+        _run(["-i", wav_in, "-o", tmp_path / "o.wav", "--blocks", 8, "--selftest", "--quiet"])
+    assert not (tmp_path / "o.wav").exists()
 
 
 def test_float_flag_with_default_bits(tmp_path, wav_in):

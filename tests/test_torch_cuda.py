@@ -1146,3 +1146,94 @@ def test_irfft_on_the_card_drops_the_edge_bins_imaginary_parts(card_db):
     x = (rng.standard_normal((64, 513)) + 1j * rng.standard_normal((64, 513))).astype(np.complex64)
     got = fft_ops.irfft(torch.from_numpy(x).cuda(), 1024).cpu().numpy()
     assert np.abs(got - np.fft.irfft(x, 1024)).max() <= 1e-6
+
+
+# ---- the surfaces of ROADMAP item 8 on the card -------------------------------
+
+@pytest.fixture(scope="module")
+def card_daemon(card_db, tmp_path_factory):
+    import threading
+
+    from jefferson_tpu_torch.serve import RenderService, request, serve
+
+    sock = tmp_path_factory.mktemp("card_serve") / "jt.sock"
+    service = RenderService(chunk_blocks=2048)
+    t = threading.Thread(target=serve, args=(sock, service), daemon=True)
+    t.start()
+    for _ in range(400):
+        try:
+            if request(sock, {"cmd": "ping"})["pong"]:
+                break
+        except OSError:
+            time.sleep(0.05)
+    yield sock, service
+    request(sock, {"cmd": "shutdown"})
+    t.join(timeout=15)
+
+
+def test_daemon_render_on_the_card_is_the_renderers(card_db, card_daemon, tmp_path):
+    """The daemon's render equals, bit for bit, an in-process
+    Renderer(device="cuda") render of the same input and trajectory."""
+    from jefferson_tpu_torch.cli.main import parse_trajectory
+    from jefferson_tpu_torch.io.wavio import read_wav, read_wav_mono, write_wav
+    from jefferson_tpu_torch.serve import request
+
+    sock, _ = card_daemon
+    sig = (np.random.default_rng(3).standard_normal(44100) * 0.2).astype(np.float32)
+    write_wav(tmp_path / "in.wav", sig, 44100, bits=32, float_format=True)
+    spec = "orbit:period=2,ele=10,r=1.2"
+    resp = request(sock, {"cmd": "render", "input": str(tmp_path / "in.wav"),
+                          "output": str(tmp_path / "o.wav"), "trajectory": spec,
+                          "blocks": 3000, "float": True, "bits": 32})
+    assert resp["ok"], resp
+    got = read_wav(tmp_path / "o.wav")[0]
+    pos = parse_trajectory(spec).sample(3000, DEFAULT_CONFIG)
+    want = Renderer(card_db, device="cuda").render(read_wav_mono(tmp_path / "in.wav")[0], pos)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_daemon_session_runs_on_a_stream_of_its_own(card_daemon, tmp_path, monkeypatch):
+    """A live session's blocks run on a CUDA stream of the session's own,
+    not the default stream a render's chunks queue on."""
+    from jefferson_tpu_torch.engine import stream as stream_mod
+    from jefferson_tpu_torch.io.wavio import read_wav, write_wav
+    from jefferson_tpu_torch.serve import request
+
+    sock, service = card_daemon
+    seen = set()
+    process = stream_mod.StreamingSpatializer.process_block
+
+    def spy(self, block):
+        seen.add(torch.cuda.current_stream(self.device).cuda_stream)
+        return process(self, block)
+
+    monkeypatch.setattr(stream_mod.StreamingSpatializer, "process_block", spy)
+    write_wav(tmp_path / "in.wav", np.full(4000, 0.1, np.float32), 44100)
+    sids = [request(sock, {"cmd": "stream_start", "input": str(tmp_path / "in.wav"),
+                           "output": str(tmp_path / f"l{i}.wav"), "seconds": 0.2,
+                           "paced": False})["session"] for i in range(2)]
+    for sid in sids:
+        for _ in range(1000):
+            if not service._streams[sid]["thread"].is_alive():
+                break
+            time.sleep(0.01)
+        stats = request(sock, {"cmd": "stream_stop", "session": sid})
+        assert stats["ok"] and stats["blocks"] == 69, stats
+    assert len(seen) == 2
+    assert torch.cuda.default_stream().cuda_stream not in seen
+    y = read_wav(tmp_path / "l0.wav")[0]
+    assert y.shape == (69 * 128, 2) and np.isfinite(y).all()
+
+
+def test_rt_on_the_card_matches_the_cpu(card_db, tmp_path):
+    from jefferson_tpu_torch.io.wavio import read_wav, write_wav
+    from jefferson_tpu_torch.rt.__main__ import main as rt_main
+
+    sig = (np.random.default_rng(4).standard_normal(30000) * 0.2).astype(np.float32)
+    write_wav(tmp_path / "in.wav", sig, 44100, bits=32, float_format=True)
+    for device in ("cuda", "cpu"):
+        assert rt_main(["-i", str(tmp_path / "in.wav"), "-o", str(tmp_path / f"{device}.wav"),
+                        "--seconds", "1", "--device", device]) == 0
+    got, want = (read_wav(tmp_path / f"{d}.wav")[0] for d in ("cuda", "cpu"))
+    assert got.shape == want.shape == (345 * 128, 2)
+    assert float(np.abs(got - want).max()) <= 1e-6

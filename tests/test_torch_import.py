@@ -1,4 +1,6 @@
-"""The port imports without jax, triton or anything of the JAX package,
+"""The port (every module, the daemon, the live CLI, the sweep, the viz
+copies and the scripts among them) imports without jax, triton or anything
+of the JAX package,
 turns TF32 off, and its chip smoke test imports nothing of the JAX package
 and refuses to run without a CUDA device.
 
@@ -20,37 +22,63 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_MODULES = [
     "jefferson_tpu_torch",
     "jefferson_tpu_torch.bench",
+    "jefferson_tpu_torch.bench.__main__",
+    "jefferson_tpu_torch.bench.sweep",
+    "jefferson_tpu_torch.cli",
     "jefferson_tpu_torch.cli.check",
     "jefferson_tpu_torch.cli.main",
     "jefferson_tpu_torch.config",
     "jefferson_tpu_torch.convert",
+    "jefferson_tpu_torch.engine",
     "jefferson_tpu_torch.engine.batch",
     "jefferson_tpu_torch.engine.plan",
     "jefferson_tpu_torch.engine.renderer",
     "jefferson_tpu_torch.engine.stream",
+    "jefferson_tpu_torch.hrtf",
     "jefferson_tpu_torch.hrtf.kemar",
     "jefferson_tpu_torch.hrtf.sofa",
+    "jefferson_tpu_torch.io",
     "jefferson_tpu_torch.io.resample",
     "jefferson_tpu_torch.io.wavio",
+    "jefferson_tpu_torch.kernels",
     "jefferson_tpu_torch.kernels.assoc_probe",
     "jefferson_tpu_torch.kernels.build",
     "jefferson_tpu_torch.kernels.dma_blend",
     "jefferson_tpu_torch.kernels.fused_apply",
     "jefferson_tpu_torch.kernels.fused_spatializer",
     "jefferson_tpu_torch.kernels.fused_step",
+    "jefferson_tpu_torch.native",
+    "jefferson_tpu_torch.ops",
     "jefferson_tpu_torch.ops.fft",
     "jefferson_tpu_torch.ops.filters",
+    "jefferson_tpu_torch.oracle",
     "jefferson_tpu_torch.oracle.reference",
+    "jefferson_tpu_torch.reverb",
     "jefferson_tpu_torch.reverb.convolution",
+    "jefferson_tpu_torch.rt",
+    "jefferson_tpu_torch.rt.__main__",
     "jefferson_tpu_torch.rt.control",
     "jefferson_tpu_torch.rt.playout",
+    "jefferson_tpu_torch.scripts",
+    "jefferson_tpu_torch.scripts.acceptance",
     "jefferson_tpu_torch.scripts.apply_assoc_probe",
     "jefferson_tpu_torch.scripts.bench_blend_variants",
     "jefferson_tpu_torch.scripts.error_budget",
+    "jefferson_tpu_torch.scripts.live_sessions",
+    "jefferson_tpu_torch.scripts.soak_daemon",
+    "jefferson_tpu_torch.serve",
     "jefferson_tpu_torch.testing",
+    "jefferson_tpu_torch.trajectory",
     "jefferson_tpu_torch.trajectory.interpolation",
     "jefferson_tpu_torch.trajectory.spatial",
     "jefferson_tpu_torch.trajectory.trajectory",
+    "jefferson_tpu_torch.utils",
+    "jefferson_tpu_torch.utils.profiling",
+    "jefferson_tpu_torch.viz",
+    "jefferson_tpu_torch.viz.html",
+    "jefferson_tpu_torch.viz.live",
+    "jefferson_tpu_torch.viz.scene",
+    "jefferson_tpu_torch.viz.scene3d",
 ]
 
 
@@ -61,11 +89,14 @@ def _python(code: str, cwd=ROOT, timeout=120):
 
 
 def test_every_port_module_lists_in_the_test():
-    found = {
-        ".".join(p.relative_to(ROOT).with_suffix("").parts)
-        for p in (ROOT / "jefferson_tpu_torch").rglob("*.py") if p.name != "__init__.py"
-    }
-    assert found | {"jefferson_tpu_torch"} == set(PORT_MODULES)
+    """Every module and package of the port but its examples (scripts,
+    checked by tests/test_torch_examples.py)."""
+    found = set()
+    for p in (ROOT / "jefferson_tpu_torch").rglob("*.py"):
+        parts = p.relative_to(ROOT).with_suffix("").parts
+        if "examples" not in parts:
+            found.add(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    assert found == set(PORT_MODULES)
 
 
 def test_port_imports_without_jax_or_triton():
