@@ -156,20 +156,43 @@ line:
              launch B and row 12; the CLI's host stages from its spans),
              --selftest, rt for 3 s (row 8 once a block and twice for the
              prime), counted in this process; the acceptance script
-             (jefferson_tpu_torch.scripts.acceptance) and the seven examples
-             in processes of their own, started together.
+             (jefferson_tpu_torch.scripts.acceptance) and the nine examples
+             (03 localizes and 06 personalizes on the card) in processes of
+             their own, started together.
  10. soak    scripts/soak_daemon.py --minutes 2 in a process of its own,
              beside phases 8-9: its RSS and the allocator's memory at the
              first and last intervals, its errors exactly the deliberate.
- 11. serve   python -m jefferson_tpu_torch.serve in a process of its own:
-             a 12,556-block render, cold and warm, and a 16-source x 12,544-
+ 11. serve   once the worker pool is idle (its last jobs, the diff phase's
+             CPU runs, would take cores from the live sessions), python -m
+             jefferson_tpu_torch.serve in a process of its own: a
+             12,556-block render, cold and warm, and a 16-source x 12,544-
              block scene, each within 1e-6 of render_oracle; four paced
              10-s sessions moved every 100 ms, alone (each within the strict
              live gate: median < 2.902 ms, p90 < 5.804 ms) and beside
              back-to-back renders, their BlockStats; viz.live.watch on one;
              the daemon's launches by kernel from stats; shutdown, the
              daemon out within 15 s.
- 12. bench   the bench step (blocks/s), and again with row 1's launch B in
+ 12. diff    the differentiable path (jefferson_tpu_torch.diff) on the card,
+             the launch counts set to 0 just before (it runs plain PyTorch
+             ops on autograd and launches none of the kernels, as the JAX
+             module reaches no Pallas kernel): DifferentiableRenderer.localize
+             on example 03's case (12 blocks hidden at 62, 18, 1.3 m, 400
+             steps, lr 0.1) and on a moving source (512 blocks, 1.49 s, at
+             (77, 6, 1.15 m) then (293, -8, 0.85 m), off the grids,
+             segment_blocks 64, 200 steps), and fit_database on the full
+             710 x 2 x 513 table from 24 measured directions of a listener
+             (400 steps).  Each under the JAX tests' gates
+             (tests/test_diff.py, tests/test_personalize.py; the moving
+             source per 64-block segment), run three times (first, warm,
+             under torch.profiler): the first run's wall, each stage's wall
+             time in the warm run (per step for the descents and the fit),
+             the card's idle share (the profiled run's device time against
+             the warm run's wall), max_memory_allocated, the spread over the
+             runs, and for the 12-block case and the fit the distance to the
+             port's own CPU run (in a worker process): positions within 0.5
+             degrees and 0.01 m, fitted spectra within 1e-2 and the table
+             error within 1e-4 of it.
+ 13. bench   the bench step (blocks/s), and again with row 1's launch B in
              each form, STEP_PAIRS pairs in turns, beside each form's
              quartile spread; each step's kernel and twin times in
              turns (twin, forms, forms reversed, twin) beside its bound (row 8
@@ -601,8 +624,22 @@ def cli_phase(bench, inputs, cfg, fwd_forms) -> dict | None:
             line += (f"; vs --device cpu ({cpu_wall:.3f} s) max|diff| {d_cpu:.3e} at block "
                      f"{int(np.abs(got - cpu).argmax()) // 2 // fpb} (limit {CARD_CPU_TOL:.0e})")
         say("cli", f"{line}  [{bench.card()}]")
-        if d_cpu > CARD_CPU_TOL:
-            fail("cli", f"{name}: the card's render disagrees with the CPU's")
+        if not d_cpu <= CARD_CPU_TOL:
+            # which side moved: each render again, and each against the oracle
+            again, _, _ = render(name + "_again", args)
+            cpu_again, _, _ = render(name + "_again", args, device="cpu")
+            bad = np.abs(got - cpu) > CARD_CPU_TOL
+            at = np.unravel_index(int(np.nan_to_num(np.abs(got - cpu), nan=np.inf).argmax()),
+                                  got.shape)
+            fail("cli", f"{name}: at sample {at[0]} channel {at[1]} the card gives "
+                        f"{got[at]!r}, the CPU {cpu[at]!r}, the oracle {want[at]!r}")
+            fail("cli", f"{name}: the card's render disagrees with the CPU's: max|diff| "
+                        f"{d_cpu:.3e} (limit {CARD_CPU_TOL:.0e}) on {int(bad.sum())} samples in "
+                        f"blocks {np.unique(np.nonzero(bad)[0] // fpb)[:8].tolist()}; finite "
+                        f"card {bool(np.isfinite(got).all())} CPU {bool(np.isfinite(cpu).all())}; "
+                        f"vs the oracle card {diff(got, want)[0]:.3e} CPU {diff(cpu, want)[0]:.3e}; "
+                        f"rendered again, card vs card {float(np.abs(again - got).max()):.3e}, "
+                        f"CPU vs CPU {float(np.abs(cpu_again - cpu).max()):.3e}")
             return None
         if not (d_max <= gate and d_rms < ORACLE_RMS):
             fail("cli", f"{name}: the render disagrees with the oracle")
@@ -1491,6 +1528,17 @@ SOAK_MINUTES, SOAK_REPORT_S = 2, 30
 DAEMON_EXIT_S = 15
 EXAMPLE_TIMEOUT_S = 300
 
+# the diff phase: example 03's localize case, a moving source at full width
+# and length, and fit_database on the full table (tests/test_personalize.py)
+LOC_B, LOC_TRUE, LOC_INIT, LOC_STEPS, LOC_LR = 12, (62.0, 18.0, 1.3), (0.0, 0.0, 1.0), 400, 0.1
+MOVE_B, MOVE_SEG, MOVE_STEPS = 512, 64, 200
+MOVE_DIRS = ((77.0, 6.0, 1.15), (293.0, -8.0, 0.85))  # off the grids
+FIT_STEPS = 400
+LOC_CPU_DEG, LOC_CPU_M = 0.5, 0.01  # the 12-block fit, card against the port's CPU run
+# fit_database, card against the port's CPU run: tests/test_torch_personalize.py's
+# FIT_TOL and ERR_REL (Adam walks noise-level entries apart on any two devices)
+FIT_CPU_TOL, FIT_ERR_REL = 1e-2, 1e-4
+
 
 class OraclePool:
     """render_oracle renders from old = (0, 0) in the worker pool, one
@@ -1861,7 +1909,7 @@ def surfaces_phase(cfg, files, tmp, fwd_forms) -> dict | None:
     """The CLI's --viz and --profile-dir (the trace names launch A and rows
     5 and 12; the CLI's stages timed apart), --selftest, rt for 3 s on the
     card (these in this process, counted), the acceptance script and the
-    seven examples (processes of their own, at once).  The launches by
+    nine examples (processes of their own, at once).  The launches by
     kernel, or None on a failure."""
     import re
     import subprocess
@@ -1980,6 +2028,209 @@ def surfaces_phase(cfg, files, tmp, fwd_forms) -> dict | None:
     return launched
 
 
+def probe_signal(seed: int, n: int):
+    """tests/test_diff.py's band-limited probe (white noise has a delta
+    autocorrelation, which makes the waveform loss blind to the distance
+    delay), 0.3 peak."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sig = np.convolve(rng.standard_normal(n), np.hanning(16), mode="same")
+    return (0.3 * sig / np.abs(sig).max()).astype(np.float32)
+
+
+def diff_cases() -> dict:
+    """The diff phase's localize cases: name -> (signal, hidden positions,
+    initial positions, localize's keyword arguments)."""
+    import numpy as np
+
+    tile = lambda p, n: np.tile(p, (n, 1)).astype(np.float32)
+    half = MOVE_B // 2
+    return {
+        "example 03": (probe_signal(0, 9000), tile(LOC_TRUE, LOC_B), tile(LOC_INIT, LOC_B),
+                       dict(steps=LOC_STEPS, lr=LOC_LR)),
+        "moving source": (probe_signal(1, MOVE_B * 128),
+                          np.concatenate([tile(MOVE_DIRS[0], half),
+                                          tile(MOVE_DIRS[1], MOVE_B - half)]),
+                          tile((0.0, 0.0, 1.0), MOVE_B),
+                          dict(steps=MOVE_STEPS, lr=LOC_LR, segment_blocks=MOVE_SEG)),
+    }
+
+
+def fit_case(db):
+    """tests/test_personalize.py's listener (``db`` seen through a smooth
+    spectral tilt) and 24 of its directions, measured."""
+    import numpy as np
+
+    from jefferson_tpu_torch.hrtf.kemar import NUM_HRTF, HRTFDatabase, grid_position
+
+    cfg = db.config
+    k = np.arange(cfg.num_bins) / cfg.num_bins
+    eq = (1.0 + 0.5 * np.sin(2 * np.pi * k))[None, None, :]
+    hrirs = np.fft.irfft(db.spectra * eq, n=cfg.pad_len, axis=-1)
+    truth = HRTFDatabase.from_hrirs(hrirs[:, :, : cfg.hrtf_len].astype(np.float32), cfg,
+                                    source="tilted")
+    picks = np.random.default_rng(5).choice(NUM_HRTF, size=24, replace=False)
+    meas = [(grid_position(int(i))[1], grid_position(int(i))[0],
+             truth.hrirs[i, :, : cfg.hrtf_len]) for i in picks]
+    return truth, picks, meas
+
+
+def _diff_cpu_job(kind: str):
+    """The port's own CPU run of the diff phase's 12-block localize or its
+    fit, on one thread in a worker: (result, seconds)."""
+    import torch
+
+    from jefferson_tpu_torch.diff.personalize import fit_database
+    from jefferson_tpu_torch.diff.render import DifferentiableRenderer
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    if kind == "localize":
+        sig, true, init, kw = diff_cases()["example 03"]
+        r = DifferentiableRenderer(_worker_db, device="cpu")
+        out = r.localize(sig, r.render(sig, true), init, **kw)[0]
+    else:
+        fitted, hist = fit_database(fit_case(_worker_db)[2], _worker_db, steps=FIT_STEPS,
+                                    device="cpu")
+        out = (fitted.spectra, hist)
+    return out, time.perf_counter() - t0
+
+
+def three_runs(device, fn):
+    """``fn()`` three times on the card: first (cold), again (warm; its peak
+    memory, beside what was allocated when it started), and under
+    torch.profiler with the CUDA activity alone, the device's busy time
+    summed from the raw kernel and copy records (key_averages builds an
+    event tree, slow over this path's 10^5 launches).  Returns ([three results],
+    [first s, warm s], (warm peak MiB, MiB allocated at its start), busy ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out, walls = [], []
+    for _ in range(2):
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        start = torch.cuda.memory_allocated(device) / 2**20
+        t0 = time.perf_counter()
+        out.append(fn())
+        walls.append(time.perf_counter() - t0)
+    peak = (torch.cuda.max_memory_allocated(device) / 2**20, start)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out.append(fn())
+        torch.cuda.synchronize(device)
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6
+    return out, walls, peak, busy
+
+
+def diff_phase(bench, db, device, cpu_runs) -> bool:
+    """The differentiable path on the card (module docstring, phase 12):
+    localize on two cases and fit_database, each under the JAX tests'
+    gates, run three times (``three_runs``): the stage times of the warm
+    run, the idle share against its wall, its peak memory, the spread
+    between the runs and, where ``cpu_runs`` has it, the distance to the
+    port's CPU run."""
+    import numpy as np
+
+    from jefferson_tpu_torch.diff.personalize import fit_database
+    from jefferson_tpu_torch.diff.render import DifferentiableRenderer
+    from jefferson_tpu_torch.kernels import fused_step
+
+    card = bench.card()
+    t_phase = time.perf_counter()
+    fused_step.reset_launches()
+    r = DifferentiableRenderer(db, device=device)
+    for name, (sig, true, init, kw) in diff_cases().items():
+        b = len(true)
+        target = r.render(sig, true)
+        out, walls, peak, busy = three_runs(
+            device, lambda: (r.localize(sig, target, init, **kw), dict(r.timings)))
+        (fitted, hist), t = out[1]
+        spread = max(float(np.abs(o[0][0] - fitted).max()) for o in out)
+        d_azi = np.abs((fitted[:, 0] - true[:, 0] + 180.0) % 360.0 - 180.0)
+        d_ele, d_r = np.abs(fitted[:, 1] - true[:, 1]), np.abs(fitted[:, 2] - true[:, 2])
+        say("diff", f"localize, {name}: {b} blocks, {kw}: first run {walls[0]:.3f} s, warm "
+                    f"{walls[1]:.3f} s: coarse grid {t['grid_candidates']} candidates "
+                    f"{t['grid_s']:.3f} s, descent {t['descent_steps']} steps "
+                    f"{t['descent_s']:.3f} s ({1e3 * t['descent_s'] / t['descent_steps']:.3f} "
+                    f"ms a step), fine grid {t['fine_grid_candidates']} candidates "
+                    f"{t['fine_grid_s']:.3f} s, polish {t['polish_steps']} steps "
+                    f"{t['polish_s']:.3f} s ({1e3 * t['polish_s'] / t['polish_steps']:.3f} ms a "
+                    f"step); device busy {busy:.1f} ms under torch.profiler (idle share "
+                    f"{1 - busy / (walls[1] * 1e3):.3f} of the warm wall); max_memory_allocated "
+                    f"{peak[0]:.1f} MiB ({peak[1]:.1f} allocated at the start); spread over "
+                    f"the three runs {spread:.3g}  [{card}]")
+        say("diff", f"localize, {name}: mean |error| azi {d_azi.mean():.4f} ele "
+                    f"{d_ele.mean():.4f} degrees, r {d_r.mean():.5f} m; fitted mean "
+                    f"{fitted.mean(axis=0).round(4).tolist()}; loss {hist[0]:.6g} -> "
+                    f"{hist[-1]:.6g} ({len(hist)} entries)")
+        if name == "example 03":
+            ok = (hist[-1] < 0.25 * hist[0] and d_azi.mean() < 5.0 and d_ele.mean() < 5.0
+                  and d_r.mean() < 0.1)
+            cpu, cpu_s = cpu_runs["localize"].result()
+            dist = np.abs(fitted - cpu).max(axis=0)
+            say("diff", f"localize, {name}: the port's CPU run ({cpu_s:.1f} s on one thread) "
+                        f"is {dist.tolist()} (azi, ele, r) away, max over blocks")
+            if dist[:2].max() >= LOC_CPU_DEG or dist[2] >= LOC_CPU_M:
+                fail("diff", f"localize, {name}: the card is {dist.tolist()} from the CPU run, "
+                             f"want < {LOC_CPU_DEG} degrees and {LOC_CPU_M} m")
+                return False
+        else:
+            segs = [float(d_azi[s0:s0 + MOVE_SEG].mean()) for s0 in range(0, b, MOVE_SEG)]
+            say("diff", f"localize, {name}: mean |azi error| per {MOVE_SEG}-block segment "
+                        f"{[round(e, 4) for e in segs]} degrees")
+            ok = max(segs) < 10.0
+        if not ok or not np.isfinite(fitted).all():
+            fail("diff", f"localize, {name}: outside the JAX test's gates")
+            return False
+
+    truth, picks, meas = fit_case(db)
+    err = lambda spectra: float(np.mean(np.abs(spectra - truth.spectra) ** 2))
+    t0 = time.perf_counter()
+    fit_database(meas, db, steps=0, device=device)
+    wall0 = time.perf_counter() - t0
+    out, walls, peak, busy = three_runs(
+        device, lambda: fit_database(meas, db, steps=FIT_STEPS, device=device))
+    fitted, hist = out[1]
+    spread = max(float(np.abs(o[0].spectra - fitted.spectra).max()) for o in out)
+    e0, e1 = err(db.spectra), err(fitted.spectra)
+    near = max(float(np.abs(fitted.spectra[i] - truth.spectra[i]).max()
+                     / np.abs(db.spectra[i] - truth.spectra[i]).max()) for i in picks[:5])
+    say("diff", f"fit_database, {len(meas)} measurements, {FIT_STEPS} steps on the "
+                f"{'x'.join(map(str, db.spectra.shape))} table: first run {walls[0]:.3f} s, "
+                f"warm {walls[1]:.3f} s, {1e3 * (walls[1] - wall0) / FIT_STEPS:.3f} ms a step "
+                f"(set-up and rebuild {wall0:.3f} s, a 0-step call); device busy {busy:.1f} ms "
+                f"under torch.profiler (idle share {1 - busy / (walls[1] * 1e3):.3f}); "
+                f"max_memory_allocated {peak[0]:.1f} MiB ({peak[1]:.1f} allocated at the "
+                f"start); spread over the three runs "
+                f"{spread:.3g}  [{card}]")
+    cpu, cpu_s = cpu_runs["fit"].result()
+    d_cpu = float(np.abs(fitted.spectra - cpu[0]).max())
+    e_cpu = abs(e1 - err(cpu[0]))
+    say("diff", f"fit_database: loss {hist[0]:.6g} -> {hist[-1]:.6g}; table error {e0:.6g} "
+                f"-> {e1:.6g}; measured directions at {near:.4f} of their start; the port's "
+                f"CPU run ({cpu_s:.1f} s on one thread): spectra {d_cpu:.3g} away (peak "
+                f"{float(np.abs(cpu[0]).max()):.3g}), table error {e_cpu / e1:.3g} of it away, "
+                f"loss {cpu[1][-1]:.6g}")
+    if not (hist[-1] < 0.1 * hist[0] and e1 < 0.3 * e0 and near < 0.15):
+        fail("diff", "fit_database: outside tests/test_personalize.py's gates")
+        return False
+    if d_cpu > FIT_CPU_TOL or e_cpu > FIT_ERR_REL * e1:
+        fail("diff", f"fit_database: the card is {d_cpu:.3g} from the CPU run (want <= "
+                     f"{FIT_CPU_TOL}), its table error {e_cpu / e1:.3g} of it (want <= "
+                     f"{FIT_ERR_REL})")
+        return False
+    launched = {k: v for k, v in fused_step.launches.items() if v}
+    say("diff", f"kernel launches in the phase: {launched or 'none'}; the phase "
+                f"{time.perf_counter() - t_phase:.1f} s")
+    if launched:
+        fail("diff", "the differentiable path launched a kernel of the render path")
+        return False
+    return True
+
+
 def rss_mib(pid: int) -> float:
     """A process's resident set, MiB (/proc/<pid>/status)."""
     with open(f"/proc/{pid}/status") as f:
@@ -1991,11 +2242,32 @@ def rss_mib(pid: int) -> float:
 
 
 
+def host_cpu() -> str:
+    """The host's CPU model and core count (the CPU twins' results and the
+    host path's times depend on it)."""
+    import os
+    import platform
+    from pathlib import Path
+
+    info = Path("/proc/cpuinfo")
+    fields = {}
+    for ln in info.read_text().splitlines() if info.exists() else []:
+        if not ln.strip():
+            break  # the first processor's block
+        key, _, value = ln.partition(":")
+        fields[key.strip()] = value.strip()
+    model = fields.get("model name") or (
+        f"{fields.get('vendor_id', platform.machine())} family {fields.get('cpu family', '?')} "
+        f"model {fields.get('model', '?')}")
+    return f"{model} x {os.cpu_count()}"
+
+
 def main() -> int:
     import torch
 
     say("env", f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-               f"CUDA {torch.version.cuda}")
+               f"CUDA {torch.version.cuda}; host {host_cpu()}, torch's CPU kernels "
+               f"{torch.backends.cpu.get_cpu_capability()}, MKL {torch.backends.mkl.is_available()}")
     if not torch.cuda.is_available():
         return fail("env", "torch.cuda.is_available() is false: no CUDA device")
 
@@ -2023,6 +2295,8 @@ def main() -> int:
 
 
 def run(pool, host, tmp) -> int:
+    from concurrent.futures import wait
+
     import numpy as np
     import torch
 
@@ -2075,6 +2349,8 @@ def run(pool, host, tmp) -> int:
     oracle_pool.submit(noise, serve_pos[0])
     for pos in serve_pos[1]:
         oracle_pool.submit(noise * np.float32(SERVE_SCENE_GAIN), pos)
+    # the diff phase's CPU runs, one thread each
+    diff_cpu = {kind: pool.submit(_diff_cpu_job, kind) for kind in ("localize", "fit")}
 
     # ---- build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2460,8 +2736,18 @@ def run(pool, host, tmp) -> int:
         if soak[0].poll() is None:
             soak[0].kill()
             soak[0].communicate()
+    # the serve phase holds the daemon's sessions to the live gate on the
+    # host's clock: the workers finish first (the serve oracles, the diff
+    # phase's CPU runs), so that no core is theirs while it measures
+    t0 = time.perf_counter()
+    wait([*oracle_pool.futures.values(), *diff_cpu.values()])
+    say("serve", f"waited {time.perf_counter() - t0:.1f} s for the worker pool to go idle")
     serve_launches = serve_phase(cfg, noise, oracle_pool, serve_pos, tmp)
     if serve_launches is None:
+        return 1
+
+    # ---- the differentiable path, beside the port's CPU runs ---------------
+    if not diff_phase(bench, db, device, diff_cpu):
         return 1
 
     # ---- timings -----------------------------------------------------------

@@ -8,15 +8,17 @@ find.  It imports ``torch`` and never ``jax``, and nothing of
 pinned to its original by a test.
 
 Every entry point (``Renderer``, ``BatchRenderer``, ``StreamingSpatializer``,
-``render_scan``) runs on the card unless the caller passes ``device="cpu"``;
-a CUDA device without a card raises, and nothing falls back to another
-device.  The engine is float32 end to
+``render_scan``, ``DifferentiableRenderer``, ``fit_database``) runs on the
+card unless the caller passes ``device="cpu"``; a CUDA device without a
+card raises, and nothing falls back to another device.  The engine is
+float32 end to
 end and never TF32 — the distance ramp's 12-bit phase split
 (``ops/filters.distance_phase_split``) and the 1e-6 oracle gate need full
 fp32 products, so both TF32 switches are turned off on import.
 
 The top-level names are those of ``jefferson_tpu/__init__.py`` that the
-port has; the renderers, the oracle and the SOFA loader resolve lazily.
+port has; the renderers, the oracle, the SOFA loader and the
+differentiable path resolve lazily.
 """
 
 import torch
@@ -45,6 +47,8 @@ _LAZY = {
     "AudioPlayout": "jefferson_tpu_torch.rt.playout",
     "render_oracle": "jefferson_tpu_torch.oracle.reference",
     "load_sofa": "jefferson_tpu_torch.hrtf.sofa",
+    "DifferentiableRenderer": "jefferson_tpu_torch.diff.render",
+    "fit_database": "jefferson_tpu_torch.diff.personalize",
 }
 
 

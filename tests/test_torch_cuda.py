@@ -1237,3 +1237,94 @@ def test_rt_on_the_card_matches_the_cpu(card_db, tmp_path):
     got, want = (read_wav(tmp_path / f"{d}.wav")[0] for d in ("cuda", "cpu"))
     assert got.shape == want.shape == (345 * 128, 2)
     assert float(np.abs(got - want).max()) <= 1e-6
+
+
+# ---- the differentiable path (diff/) -------------------------------------------
+
+
+def _diff_probe(seed=42, n=9000):
+    rng = np.random.default_rng(seed)
+    sig = np.convolve(rng.standard_normal(n), np.hanning(16), mode="same")
+    return (0.3 * sig / np.abs(sig).max()).astype(np.float32)
+
+
+def test_diff_entry_points_refuse_a_cuda_device_without_a_card(monkeypatch):
+    """``device="cuda"`` without a card raises; nothing falls back to the
+    CPU.  Runs without a card too."""
+    from jefferson_tpu_torch.diff.personalize import fit_database
+    from jefferson_tpu_torch.diff.render import DifferentiableRenderer
+
+    db = synthetic_database(DEFAULT_CONFIG)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        DifferentiableRenderer(db)
+    with pytest.raises(RuntimeError, match="is_available"):
+        DifferentiableRenderer(db, device="cuda:0")
+    with pytest.raises(RuntimeError, match="is_available"):
+        fit_database([(30.0, 0.0, db.hrirs[0, :, :128])], db, steps=1)
+
+
+@pytest.mark.parametrize("nb", [8, 512])
+def test_diff_render_spectra_and_gradients_on_the_card_match_the_cpu(card_db, nb):
+    from jefferson_tpu_torch.diff.render import DifferentiableRenderer
+
+    sig = _diff_probe(n=nb * 128)
+    rng = np.random.default_rng(nb)
+    pos = np.stack([rng.uniform(0, 360, nb), rng.uniform(-40, 90, nb), rng.uniform(0.3, 4, nb)],
+                   -1).astype(np.float32)
+    pos[:4] = [[40.0, 0.0, 1.0], [90.0, 90.0, 1.5], [10.0, -40.0, 0.5], [0.0, 20.0, 4.0]]
+    out, grads = {}, {}
+    for device in ("cuda", "cpu"):
+        r = DifferentiableRenderer(card_db, device=device)
+        xr, xi = r._forward(sig, nb)
+        p = torch.tensor(pos, device=r.device, requires_grad=True)
+        y = r.render_spectra(xr, xi, p)
+        torch.sum(y ** 2).backward()
+        out[device], grads[device] = y.detach().cpu().numpy(), p.grad.cpu().numpy()
+    assert out["cuda"].shape == (nb, 128, 2)
+    assert np.abs(out["cuda"] - out["cpu"]).max() <= 1e-6
+    for col in range(3):
+        g, w = grads["cuda"][:, col], grads["cpu"][:, col]
+        assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max(), col
+
+
+def test_diff_grid_chunk_on_the_card_matches_the_cpu(card_db):
+    """One grid chunk (256 candidates x 12 blocks, batched) on the card."""
+    from jefferson_tpu_torch.diff.render import DifferentiableRenderer, _Fit
+
+    sig, b = _diff_probe(), 12
+    true_pos = np.tile([62.0, 18.0, 1.3], (b, 1)).astype(np.float32)
+    init = np.tile([40.0, 0.0, 1.0], (b, 1)).astype(np.float32)
+    rng = np.random.default_rng(3)
+    cand = np.stack([rng.uniform(0, 360, 256), rng.uniform(-40, 90, 256),
+                     rng.uniform(0.25, 4, 256)], -1).astype(np.float32)
+    got = {}
+    for device in ("cuda", "cpu"):
+        r = DifferentiableRenderer(card_db, device=device)
+        target = r.render(sig, true_pos)
+        got[device] = _Fit(r, sig, target, init, True).grid(cand)
+    assert got["cuda"].shape == (256, b)
+    assert np.abs(got["cuda"] - got["cpu"]).max() <= 1e-5 * np.abs(got["cpu"]).max()
+
+
+def test_diff_fit_database_step_on_the_card_matches_the_cpu(card_db, monkeypatch):
+    """One fit_database step: its loss and the gradients it steps with."""
+    from jefferson_tpu_torch.diff.personalize import fit_database
+    from jefferson_tpu_torch.hrtf.kemar import grid_position
+
+    picks = np.random.default_rng(5).choice(710, size=24, replace=False)
+    meas = [(grid_position(int(i))[1], grid_position(int(i))[0],
+             card_db.hrirs[i, :, :128] * 1.1) for i in picks]
+    grads = []
+    step = torch.optim.Adam.step
+
+    def logged(self, *a, **kw):
+        grads.append([p.grad.cpu().numpy() for g in self.param_groups for p in g["params"]])
+        return step(self, *a, **kw)
+
+    monkeypatch.setattr(torch.optim.Adam, "step", logged)
+    hist = {d: fit_database(meas, card_db, steps=1, device=d)[1] for d in ("cuda", "cpu")}
+    np.testing.assert_allclose(hist["cuda"], hist["cpu"], rtol=1e-6)
+    peak = max(np.abs(g).max() for g in grads[1])
+    for g, w in zip(*grads):
+        assert np.abs(g - w).max() <= 1e-5 * peak

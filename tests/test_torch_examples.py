@@ -19,7 +19,9 @@ WRITES = {
     "01_offline_render.py": ["orbit.wav", "orbit.scene.svg", "orbit.wave.svg", "orbit.html",
                              "orbit.3d.html"],
     "02_streaming.py": ["stream.wav"],
+    "03_localization.py": [],
     "05_realtime_playout.py": ["live_mix.wav"],
+    "06_personalization.py": [],
     "07_live_control.py": ["live_control.wav"],
     "08_daemon_live_viz.py": [],
     "10_sofa.py": ["listener.sofa", "sofa_orbit.wav"],
@@ -27,7 +29,7 @@ WRITES = {
 }
 
 
-def test_the_seven_examples_are_here():
+def test_the_nine_examples_are_here():
     assert [p.name for p in EXAMPLES] == sorted(WRITES)
 
 

@@ -29,6 +29,9 @@ PORT_MODULES = [
     "jefferson_tpu_torch.cli.main",
     "jefferson_tpu_torch.config",
     "jefferson_tpu_torch.convert",
+    "jefferson_tpu_torch.diff",
+    "jefferson_tpu_torch.diff.personalize",
+    "jefferson_tpu_torch.diff.render",
     "jefferson_tpu_torch.engine",
     "jefferson_tpu_torch.engine.batch",
     "jefferson_tpu_torch.engine.plan",
@@ -159,3 +162,26 @@ def test_bench_refuses_a_cpu_device():
     assert proc.returncode == 2
     assert "measures a CUDA device" in proc.stderr
     assert proc.stdout == ""
+
+
+def test_the_lazy_names_are_the_jax_packages():
+    """The port's top-level lazy names are those of jefferson_tpu/__init__.py
+    (read from its source: importing it imports jax), and the two of the
+    differentiable path resolve, in a fresh interpreter, to the diff
+    modules' objects without importing jax or the JAX package."""
+    tree = ast.parse((ROOT / "jefferson_tpu" / "__init__.py").read_text())
+    jax_lazy = next(ast.literal_eval(n.value) for n in tree.body if isinstance(n, ast.Assign)
+                    and getattr(n.targets[0], "id", None) == "_LAZY")
+    code = (
+        "import json, sys\n"
+        "import jefferson_tpu_torch as jt\n"
+        "from jefferson_tpu_torch.diff import personalize, render\n"
+        "print(json.dumps({'lazy': sorted(jt._LAZY), 'all': sorted(set(jt._LAZY) - set(jt.__all__)),\n"
+        "  'same': [jt.DifferentiableRenderer is render.DifferentiableRenderer,\n"
+        "           jt.fit_database is personalize.fit_database],\n"
+        "  'jax': sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jefferson_tpu'))}))\n"
+    )
+    proc = _python(code)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {"lazy": sorted(jax_lazy), "all": [], "same": [True, True], "jax": []}
