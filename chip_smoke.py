@@ -156,9 +156,11 @@ line:
              launch B and row 12; the CLI's host stages from its spans),
              --selftest, rt for 3 s (row 8 once a block and twice for the
              prime), counted in this process; the acceptance script
-             (jefferson_tpu_torch.scripts.acceptance) and the nine examples
-             (03 localizes and 06 personalizes on the card) in processes of
-             their own, started together.
+             (jefferson_tpu_torch.scripts.acceptance, its step 4 the graft
+             dryrun in CPU ranks) and the examples (03 localizes and 06
+             personalizes on the card; not 04 and 09, whose CPU ranks phase
+             mesh replaces on the card) in processes of their own, started
+             together.
  10. soak    scripts/soak_daemon.py --minutes 2 in a process of its own,
              beside phases 8-9: its RSS and the allocator's memory at the
              first and last intervals, its errors exactly the deliberate.
@@ -192,7 +194,25 @@ line:
              port's own CPU run (in a worker process): positions within 0.5
              degrees and 0.01 m, fitted spectra within 1e-2 and the table
              error within 1e-4 of it.
- 13. bench   the bench step (blocks/s), and again with row 1's launch B in
+ 13. mesh    the mesh paths (jefferson_tpu_torch.parallel) in ranks of their
+             own, all on cuda:0 over gloo (requested explicitly: NCCL refuses
+             two ranks on one card), the CUDA libraries deleted first so that
+             the 4 ranks build them at one moment at their first load.  The
+             16 x 12,544 scene sets (scene_hold, scene_movers, wide; chunks of
+             256) through BatchRenderer(mesh=make_mesh(2)) and make_mesh(4),
+             each with mix=False and mix=True: every rank's result the same,
+             each source within 1e-7 of rank 0's unsharded card render (and
+             whether torch.equal), the mix within 1e-6 of the unsharded mix,
+             each source within 1e-6 of render_oracle (the workers'), the arms
+             per shard, one collective a chunk, launches by kernel per rank; a
+             12,556-block orbit through Renderer(mesh=make_mesh(2, ("blk",)))
+             within 1e-7 of the unsharded unfused render and 1e-6 of the
+             oracle; a one-rank NCCL world, BatchRenderer(mesh=make_mesh(1))
+             torch.equal to the meshless render; then
+             graft.dryrun_multichip(4, device="cuda", backend="gloo"), stages
+             (a)-(f) ((e) on --device cpu).  Each render's wall per rank
+             beside the unsharded render's, beside the card.
+ 14. bench   the bench step (blocks/s), and again with row 1's launch B in
              each form, STEP_PAIRS pairs in turns, beside each form's
              quartile spread; each step's kernel and twin times in
              turns (twin, forms, forms reversed, twin) beside its bound (row 8
@@ -229,8 +249,8 @@ line:
              set-up with the host library and with its NumPy forms, in turns;
              the unfused chain's warm render with each tail; beside the card.
 Then a {"kernels": [...]} line (rows 1-12, and launch A at the scene step's
-16 x 256; launches summed over phases 5-11, the daemon's from its own
-counts), the nvidia-smi line, and last
+16 x 256; launches summed over phases 5-11 and 13, the daemon's and the
+ranks' from their own counts), the nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -260,6 +280,14 @@ SPATIALIZER = "fused_spatializer_apply"
 FORM_ROWS = (1, 2, 7)            # row 8's forms held bit-equal here, and at SMALL_ROWS
 CROSSOVER_ROWS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
 SIDE_S, SIDE_NB, SIDE_CF = 16, 256, 32  # the side-pass at a scene_hold chunk: its bucket
+# the mesh phase: ranks share cuda:0 over gloo, asked for by name (NCCL
+# refuses two ranks on one card); one rank runs the NCCL world
+MESH_RANKS, MESH_BACKEND, MESH_SIZES, MESH_BLK = 4, "gloo", (2, 4), 2
+MESH_SCENES = ("scene_hold", "scene_movers", "wide")
+MESH_ROW_TOL, MESH_MIX_TOL = 1e-7, 1e-6  # per source (tests/test_batch_parallel.py:45), mixdown
+MESH_TIMEOUT = 600.0
+MESH_LIBS = ("fused_step_onehot", "fused_step_gather", "dma_blend")
+MESH_EXAMPLES = ("04_multichip.py", "09_multihost.py")
 
 PROD_ULP = 2.0**-22  # row 9 vs twin, of the plane's two |products|: one FMA contraction
 MM_REL = 2e-6        # rows 10-11 vs twin, of the output peak: fp32 sums in other orders
@@ -1909,7 +1937,7 @@ def surfaces_phase(cfg, files, tmp, fwd_forms) -> dict | None:
     """The CLI's --viz and --profile-dir (the trace names launch A and rows
     5 and 12; the CLI's stages timed apart), --selftest, rt for 3 s on the
     card (these in this process, counted), the acceptance script and the
-    nine examples (processes of their own, at once).  The launches by
+    examples but 04 and 09 (processes of their own, at once).  The launches by
     kernel, or None on a failure."""
     import re
     import subprocess
@@ -1927,8 +1955,11 @@ def surfaces_phase(cfg, files, tmp, fwd_forms) -> dict | None:
     tmp.mkdir()
     fused_step.reset_launches()
     # the examples and the acceptance script first: processes of their own
+    # (04 and 09 spawn CPU ranks; phase mesh drives their paths on the card)
     procs = {}
     for ex in sorted((root / "jefferson_tpu_torch" / "examples").glob("*.py")):
+        if ex.name in MESH_EXAMPLES:
+            continue
         cwd = tmp / ex.stem
         cwd.mkdir()
         procs[ex.name] = (subprocess.Popen([sys.executable, str(ex)], cwd=cwd,
@@ -2750,6 +2781,11 @@ def run(pool, host, tmp) -> int:
     if not diff_phase(bench, db, device, diff_cpu):
         return 1
 
+    # ---- the mesh paths, in ranks of their own ------------------------------
+    mesh_launches = mesh_phase(bench, tmp, sets, oracles, single_oracles["orbit"].result())
+    if mesh_launches is None:
+        return 1
+
     # ---- timings -----------------------------------------------------------
     step_ms = bench.time_steps_ms(wl)
     bps = S * NB / (step_ms * 1e-3)
@@ -2918,7 +2954,8 @@ def run(pool, host, tmp) -> int:
     launches["dma_blend"] += single["dma_blend"] + scene_launches["dma_blend"]
     # and the cli, sweep, surfaces and serve phases' renders (launch A's
     # through fwd_forms, but for the daemon's, which counts its own)
-    for counted in (cli_launches, sweep_launches, surface_launches, serve_launches):
+    for counted in (cli_launches, sweep_launches, surface_launches, serve_launches,
+                    mesh_launches):
         for name, n in counted.items():
             launches[name] += n
     say("path", f"launch A on the counted paths by form: {fwd_forms}")
@@ -3147,5 +3184,253 @@ def profile(bench, what: str, fn, wall: float) -> None:
         say("bench", f"  {ms:9.4f} ms  x{calls:g}  {kernel[:100]}")
 
 
+def mesh_rank(out: str) -> int:
+    """One rank of the mesh phase (``python chip_smoke.py --mesh-rank DIR``):
+    DIR/spec.json names the world; the rank's records go to DIR/rank<r>.json.
+    Rank 0 renders the unsharded references and holds every sharded render
+    to them and to the oracles the phase saved in DIR/.."""
+    import hashlib
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from jefferson_tpu_torch import bench
+    from jefferson_tpu_torch.engine.batch import BatchRenderer
+    from jefferson_tpu_torch.engine.renderer import Renderer
+    from jefferson_tpu_torch.hrtf.kemar import synthetic_database
+    from jefferson_tpu_torch.kernels import build, fused_step
+    from jefferson_tpu_torch.parallel import mesh as pm
+
+    out = Path(out)
+    spec = json.loads((out / "spec.json").read_text())
+    device = pm.ensure_world(spec["ranks"], device="cuda", backend=spec["backend"])
+    rank = dist.get_rank()
+    records = []
+    # every rank loads the libraries at one moment: each that finds one
+    # missing compiles it (its compilers at once), and all replace it atomically
+    dist.barrier()
+    t0 = time.perf_counter()
+    missing = [name for name in MESH_LIBS if not build.library_path(name).exists()]
+    build.build_all(MESH_LIBS)
+    for name in MESH_LIBS:
+        build.load(name)
+    records.append({"render": "load", "rank": rank, "missing": missing,
+                    "wall_s": time.perf_counter() - t0})
+    db = synthetic_database()
+    fpb = db.config.frames_per_buffer
+    noise = (np.random.default_rng(0).standard_normal(SIGNAL_SAMPLES) * 0.2).astype(np.float32)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    def sharded(what, make, mesh, args, want, tol, oracle=None, srcs=()):
+        """``make(mesh)`` renders ``args`` on the mesh's ranks, counted and
+        timed from a start they share; rank 0 holds it to ``want`` and the
+        oracle."""
+        dist.barrier()  # every rank of the world, so no rank's wall holds another's work
+        if mesh.get_coordinate() is None:
+            return
+        r = make(mesh)
+        fused_step.reset_launches()
+        pm.reset_collectives()
+        got, wall = timed(lambda: r.render(*args))
+        rec = {"render": what, "mesh": mesh.size(), "rank": rank, "wall_s": wall,
+               "arms": sorted({tuple(a) for a in r.dispatch}), "chunks": len(r.dispatch),
+               "collectives": dict(pm.collectives),
+               "launches": {k: v for k, v in fused_step.launches.items() if v},
+               "forward": sum(fused_step.forward_launches.values()),
+               "sha": hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest(),
+               "finite": bool(np.isfinite(got).all())}
+        if rank == 0:
+            rec["max_abs"] = float(np.abs(got - want).max())
+            rec["equal"] = bool(np.array_equal(got, want))
+            rec["tol"] = tol
+            if oracle is not None:
+                d = [diff(got[i] if got.ndim == 3 else got, oracle[k]) for k, i in enumerate(srcs)]
+                rec["oracle"] = [max(x[0] for x in d), max(x[1] for x in d)]
+        records.append(rec)
+
+    def reference(what, fn):
+        got, wall = timed(fn)
+        records.append({"render": what, "mesh": 0, "rank": rank, "wall_s": wall})
+        return got
+
+    def warm(names, orbit=None):
+        """One chunk of each render unsharded on every rank first, so that
+        no timed render pays a process's first use of its arms."""
+        for name in names:
+            pset, cb, opts, _, _ = scenes()[name]
+            BatchRenderer(db, device=device, chunk_blocks=cb, **opts).render(
+                scene_sigs[:, : cb * fpb], sets[pset][0][:, :cb])
+        if orbit is not None:
+            Renderer(db, device=device, chunk_blocks=STREAM_B, fused=False).render(
+                noise, orbit[:STREAM_B])
+        torch.cuda.synchronize()
+
+    scene_sigs = bench.scene_signals(noise, SCENE_S, SCENE_B, fpb)
+    sets = scene_positions(bench)
+    if spec["mode"] == "scenes":
+        meshes = [pm.make_mesh(n, device="cuda") for n in MESH_SIZES]
+        mesh_blk = pm.make_mesh(MESH_BLK, ("blk",), device="cuda")
+        orbit = renders(bench)["orbit"][0]
+        warm(MESH_SCENES, orbit)
+        for name in MESH_SCENES:
+            pset, cb, opts, _, _ = scenes()[name]
+            pos, srcs = sets[pset]
+            make = lambda mix: (lambda m=None: BatchRenderer(db, device=device, chunk_blocks=cb,
+                                                             mix=mix, mesh=m, **opts))
+            want = want_mix = oracle = None
+            if rank == 0:
+                want = reference(f"{name}", lambda: make(False)().render(scene_sigs, pos))
+                want_mix = reference(f"{name} mix", lambda: make(True)().render(scene_sigs, pos))
+                oracle = np.load(out.parent / f"oracle_{pset}.npy", mmap_mode="r")
+            for mesh in meshes:
+                sharded(name, make(False), mesh, (scene_sigs, pos), want, MESH_ROW_TOL, oracle,
+                        srcs)
+                sharded(f"{name} mix", make(True), mesh, (scene_sigs, pos), want_mix,
+                        MESH_MIX_TOL)
+            del want, want_mix
+        unfused = lambda m=None: Renderer(db, device=device, chunk_blocks=STREAM_B, fused=False,
+                                          mesh=m)
+        want = None
+        if rank == 0:
+            want = reference("orbit", lambda: unfused().render(noise, orbit))
+        sharded("orbit", unfused, mesh_blk, (noise, orbit), want, MESH_ROW_TOL,
+                np.load(out.parent / "oracle_orbit.npy", mmap_mode="r")[None], (0,))
+    else:  # a one-rank NCCL world: the mesh of one equals no mesh, bit for bit
+        pset, cb, opts, _, _ = scenes()["scene_hold"]
+        pos, _ = sets[pset]
+        mesh = pm.make_mesh(1, device="cuda")
+        warm(["scene_hold"])
+        for mix in (False, True):
+            make = lambda m=None: BatchRenderer(db, device=device, chunk_blocks=cb, mix=mix,
+                                                mesh=m, **opts)
+            want = reference(f"scene_hold{' mix' if mix else ''}",
+                             lambda: make().render(scene_sigs, pos))
+            sharded(f"scene_hold{' mix' if mix else ''}", make, mesh, (scene_sigs, pos), want, 0.0)
+    (out / f"rank{rank}.json").write_text(json.dumps(records))
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_phase(bench, tmp, sets, oracles, orbit_oracle) -> dict | None:
+    """Phase 13: the mesh paths in spawned ranks; their launches summed over
+    the ranks, or None on a failure."""
+    import contextlib
+    import io
+    import os
+    from pathlib import Path
+
+    import numpy as np
+
+    from jefferson_tpu_torch import graft
+    from jefferson_tpu_torch.kernels import build, fused_step
+    from jefferson_tpu_torch.parallel import mesh as pm
+
+    card = bench.card()
+    work = Path(tmp) / "mesh"
+    work.mkdir()
+    for pset, (_, srcs) in sets.items():
+        np.save(work / f"oracle_{pset}.npy", np.stack([oracles[pset][i].result() for i in srcs]))
+    np.save(work / "oracle_orbit.npy", orbit_oracle)
+    for name in MESH_LIBS:  # the ranks build them, all at their first load
+        build.library_path(name).unlink()
+    launches = dict.fromkeys(fused_step.launches, 0)
+    launches[LAUNCH_A] = 0
+    for mode, ranks, backend in (("scenes", MESH_RANKS, MESH_BACKEND), ("nccl", 1, "nccl")):
+        say("mesh", f"{mode}: {ranks} rank(s) on cuda:0, backend {backend} (requested "
+                    f"explicitly), torch.distributed")
+        d = work / mode
+        d.mkdir()
+        (d / "spec.json").write_text(json.dumps({"mode": mode, "ranks": ranks,
+                                                 "backend": backend}))
+        port = pm.free_port()
+        t0 = time.perf_counter()
+        failed, outs = pm.spawn(
+            [[sys.executable, str(Path(__file__).resolve()), "--mesh-rank", str(d)]] * ranks,
+            [pm.rank_env(os.environ, r, ranks, port) for r in range(ranks)], MESH_TIMEOUT)
+        if failed:
+            for r, text in enumerate(outs):
+                print(f"--- mesh rank {r} ---\n{text[-4000:]}", file=sys.stderr)
+            return fail("mesh", f"{mode}: ranks failed: {failed}")
+        say("mesh", f"{mode}: the ranks ran in {time.perf_counter() - t0:.1f} s")
+        recs = [rec for r in range(ranks) for rec in json.loads((d / f"rank{r}.json").read_text())]
+        for rec in recs:
+            if rec["render"] == "load":
+                say("mesh", f"rank {rec['rank']}: {len(rec['missing'])} of {len(MESH_LIBS)} "
+                            f"libraries missing at its first load ({', '.join(rec['missing'])}), "
+                            f"loaded in {rec['wall_s']:.1f} s")
+        refs = {rec["render"]: rec["wall_s"] for rec in recs if rec.get("mesh") == 0}
+        runs = {}
+        for rec in recs:
+            if rec.get("mesh"):
+                runs.setdefault((rec["render"], rec["mesh"]), []).append(rec)
+        for (what, n), group in runs.items():
+            group.sort(key=lambda rec: rec["rank"])
+            head = group[0]
+            per_rank = "; ".join(
+                f"rank {rec['rank']} {rec['wall_s']:.3f} s, launches {rec['launches']}, launch A "
+                f"{rec['forward']}, collectives {rec['collectives']}" for rec in group)
+            check = (f"vs unsharded max|diff| {head['max_abs']:.3e} (limit {head['tol']:.0e}), "
+                     f"torch.equal: {head['equal']}")
+            if "oracle" in head:
+                check += f"; vs render_oracle max|diff| {head['oracle'][0]:.3e}, rms " \
+                         f"{head['oracle'][1]:.3e}"
+            say("mesh", f"{what} on {n} rank(s): arms {head['arms']} per shard, {head['chunks']} "
+                        f"chunks; {check}; walls: {per_rank}; unsharded {refs[what]:.3f} s  "
+                        f"[{card}]")
+            mix = what.endswith("mix")
+            want_counts = {"mix_all_reduce": head["chunks"] if mix else 0,
+                           "gather_rows": 0 if mix else head["chunks"]}
+            if len({rec["sha"] for rec in group}) != 1 or not head["finite"]:
+                return fail("mesh", f"{what} on {n}: the ranks' results differ or are not finite")
+            if not head["max_abs"] <= head["tol"] or (mode == "nccl" and not head["equal"]):
+                return fail("mesh", f"{what} on {n}: the sharded render disagrees with the "
+                                    f"unsharded one")
+            if "oracle" in head and not (head["oracle"][0] <= ORACLE_TOL
+                                         and head["oracle"][1] < ORACLE_RMS):
+                return fail("mesh", f"{what} on {n}: the port disagrees with the oracle")
+            if any(rec["collectives"] != want_counts for rec in group):
+                return fail("mesh", f"{what} on {n}: collectives, want {want_counts} on each rank")
+            unfused = all(arm in ("dedup", "plain") for arm, _, _ in head["arms"])
+            for rec in group:
+                steps = sum(v for k, v in rec["launches"].items() if k != "dma_blend")
+                if steps != (0 if unfused else rec["chunks"]):
+                    return fail("mesh", f"{what} on {n}: rank {rec['rank']} launched "
+                                        f"{rec['launches']}, want a step a chunk")
+                for k, v in rec["launches"].items():
+                    launches[k] += v
+                launches[LAUNCH_A] += rec["forward"]
+    left = sorted(p.name for p in build.BUILD_DIR.glob("*.tmp*"))
+    built = [build.library_path(name).exists() for name in MESH_LIBS]
+    say("mesh", f"the ranks' builds: libraries {dict(zip(MESH_LIBS, built))}, temporaries left "
+                f"{left}")
+    if not all(built) or left:
+        return fail("mesh", "the ranks' concurrent builds left no library or a temporary")
+    t0 = time.perf_counter()
+    text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            graft.dryrun_multichip(MESH_RANKS, device="cuda", backend=MESH_BACKEND,
+                                   timeout=MESH_TIMEOUT)
+    except RuntimeError as e:
+        print(text.getvalue(), file=sys.stderr)
+        return fail("mesh", f"graft.dryrun_multichip: {e}")
+    for line in text.getvalue().splitlines():
+        if line.strip():
+            say("mesh", line)
+    say("mesh", f"graft.dryrun_multichip({MESH_RANKS}, device='cuda', backend="
+                f"'{MESH_BACKEND}') in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(sys.argv[2]))
     sys.exit(main())

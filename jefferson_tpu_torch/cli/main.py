@@ -10,8 +10,12 @@ switches (reverb on/off, HRTF dir, block count) options.
 
 ``--device cuda`` (the default) renders on the card and raises without
 one; ``--device cpu`` runs the same dispatch on the kernels' plain twins.
-Nothing falls back from one to the other.  ``--devices`` above 1 waits for
-its ROADMAP item and exits naming it.  ``--profile-dir`` traces the whole
+Nothing falls back from one to the other.  ``--devices N`` above 1 renders
+on N ranks (``parallel.mesh.ensure_world`` re-executes the command as N
+ranks unless it already is one): a scene's sources shard over a ``src``
+mesh (shrunk to the largest count that divides them), a single source's
+blocks over a ``blk`` mesh; rank 0 writes the output.  On ``cuda`` the N
+ranks need N cards (NCCL), and fewer raises.  ``--profile-dir`` traces the whole
 file-to-file run, each host stage a named span (``cli.read_wav``,
 ``cli.reverb``, ``cli.load_hrtf``, ``cli.selftest``, ``cli.render`` with the
 renderer's ``renderer.plan`` and ``renderer.chunks``, ``cli.write``,
@@ -28,16 +32,6 @@ import time
 from pathlib import Path
 
 import numpy as np
-
-# the flags whose modules are not ported yet, and the ROADMAP item of each
-_NOT_PORTED = {
-    "--devices": "ROADMAP queue 1 item 9 (parallel/mesh.py -> torch.distributed)",
-}
-
-
-def not_ported(flag: str) -> SystemExit:
-    return SystemExit(f"{flag} is not ported: {_NOT_PORTED[flag]}")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -95,8 +89,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda = the card (the default; raises without one); cpu = the "
                         "kernels' plain twins on the CPU")
     p.add_argument("--devices", type=int, default=None,
-                   help="shard the render over N devices (not ported above 1: "
-                        "ROADMAP queue 1 item 9)")
+                   help="shard the render over N ranks, one per device: a scene's "
+                        "sources, or a single source's blocks (on cuda: N cards)")
     p.add_argument("--initial-old", default="0,0",
                    help="crossfade state before block 0 as 'azi,ele' (reference "
                         "constructor default 0,0) or 'none' to disable")
@@ -213,6 +207,41 @@ def load_hrtf(hrtf_dir, config, quiet=False):
     return synthetic_database(config)
 
 
+def scene_devices(num_sources: int, devices: int | None, quiet: bool = True) -> int:
+    """The --devices count a scene shards over: the largest count up to
+    ``devices`` that divides the sources (the fused steps need even source
+    shards; a lopsided mesh would take the unfused arms), with a warning
+    when it shrinks."""
+    if not devices or devices <= 1:
+        return 1
+    n = min(devices, num_sources)
+    while num_sources % n:
+        n -= 1
+    if n != devices and not quiet:
+        print(f"warning: --devices {devices} shrunk to {n} (must divide the "
+              f"{num_sources}-source scene)", file=sys.stderr)
+    return n
+
+
+def scene_mesh(num_sources: int, devices: int | None, quiet: bool = True, *, device="cuda"):
+    """The --devices source mesh of a scene (``scene_devices`` ranks), or
+    None for one device.  Every rank of the world calls it."""
+    n = scene_devices(num_sources, devices, quiet)
+    if n <= 1:
+        return None
+    from ..parallel.mesh import make_mesh
+
+    return make_mesh(n, ("src",), device=device)
+
+
+def is_writer() -> bool:
+    """Whether this process writes the outputs: rank 0 of a world, or a
+    process outside one."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 # Bound on a long-lived caller's scene-renderer cache (render_scene_spec):
 # each entry keeps a BatchRenderer and its filter table on the device.
 _SCENE_RENDERER_CACHE_MAX = 8
@@ -233,15 +262,16 @@ def render_scene_spec(
     """Render a scene dict ({"sources": [{"input", "trajectory", "gain"}…]})
     into one stereo mix on ``device``.  ``renderer_cache``: long-lived
     callers pass a dict so BatchRenderers persist across requests, keyed by
-    (chunk size, device), least recently used evicted past
-    _SCENE_RENDERER_CACHE_MAX.  ``devices`` above 1 (a source mesh) is not
-    ported and raises."""
+    (chunk size, device[, mesh size]), least recently used evicted past
+    _SCENE_RENDERER_CACHE_MAX.  ``devices`` above 1 shards the sources over
+    a source mesh of that many ranks (``scene_mesh``); every rank of the
+    world calls this and every rank of the mesh gets the mix (a rank of a
+    larger world outside the mesh renders nothing and gets None)."""
     from ..engine.batch import BatchRenderer
     from ..engine.plan import fed_stream
     from ..io.wavio import read_wav_mono
+    from ..parallel.mesh import in_mesh
 
-    if devices is not None and devices > 1:
-        raise NotImplementedError(f"devices={devices}: {_NOT_PORTED['--devices']}")
     sources = scene.get("sources", [])
     if not sources:
         raise ValueError("scene has no sources")
@@ -282,16 +312,20 @@ def render_scene_spec(
     # the final chunk, so any cb >= num_blocks is one padded chunk
     cb = (None if chunk_blocks is None
           else min(chunk_blocks, 1 << max(0, int(np.ceil(np.log2(num_blocks))))))
-    key = (cb, str(device))
+    n_mesh = scene_devices(len(sources), devices, quiet)  # warns once when it shrinks
+    key = (cb, str(device)) + ((n_mesh,) if n_mesh > 1 else ())
     if renderer_cache is not None and key in renderer_cache:
         br = renderer_cache.pop(key)  # LRU: back of the order
         renderer_cache[key] = br
     else:
-        br = BatchRenderer(db, config, device=device, chunk_blocks=cb, mix=True)
+        mesh = scene_mesh(len(sources), devices, quiet=True, device=device)
+        br = BatchRenderer(db, config, device=device, chunk_blocks=cb, mix=True, mesh=mesh)
         if renderer_cache is not None:
             renderer_cache[key] = br
             while len(renderer_cache) > _SCENE_RENDERER_CACHE_MAX:
                 renderer_cache.pop(next(iter(renderer_cache)))
+    if not in_mesh(br.mesh):
+        return None, num_blocks
     return br.render(feds, positions).reshape(-1, 2), num_blocks
 
 
@@ -308,28 +342,35 @@ def _write(args, out, config) -> None:
               bits=resolve_float_bits(args.bits, args.float), float_format=args.float)
 
 
+def _read_scene(path: str) -> dict:
+    try:
+        return json.loads(Path(path).read_text())
+    except FileNotFoundError:
+        raise SystemExit(f"scene file {path!r} not found")
+    except json.JSONDecodeError as e:
+        raise SystemExit(f"scene file {path!r}: bad JSON: {e}")
+
+
 def render_scene(args, config, device) -> int:
     """Multi-source render: each source spatialized along its trajectory,
     summed into one stereo mix (per-source gain applied before the render)."""
-    try:
-        scene = json.loads(Path(args.scene).read_text())
-    except FileNotFoundError:
-        raise SystemExit(f"scene file {args.scene!r} not found")
-    except json.JSONDecodeError as e:
-        raise SystemExit(f"scene file {args.scene!r}: bad JSON: {e}")
+    scene = _read_scene(args.scene)
     db = load_hrtf(args.hrtf_dir, config, args.quiet)
     t0 = time.time()
     try:
         out, num_blocks = render_scene_spec(
             scene, db, config,
             num_blocks=args.blocks, duration=args.duration,
-            chunk_blocks=args.chunk_blocks, quiet=args.quiet, device=device,
+            chunk_blocks=args.chunk_blocks, quiet=args.quiet, devices=args.devices,
+            device=device,
         )
     except (ValueError, FileNotFoundError) as e:
         # a scene source or events file that is missing: one line, like
         # every other scene validation failure
         raise SystemExit(str(e))
     dt = time.time() - t0
+    if not is_writer():
+        return 0
     _write(args, out, config)
     if not args.quiet:
         audio_s = num_blocks * config.block_duration
@@ -382,16 +423,35 @@ def main(argv=None) -> int:
                 f"sources render through the batched type-0 pipeline; put "
                 f"per-source options in the scene JSON)"
             )
-    if args.devices is not None and args.devices > 1:
-        raise not_ported("--devices")
+    if args.devices is not None and args.devices < 1:
+        raise SystemExit(f"--devices {args.devices} must be positive")
+    ranks = args.devices or 1
+    if ranks > 1 and args.scene is not None:
+        # the world is the scene's mesh: the largest count that divides it
+        ranks = scene_devices(len(_read_scene(args.scene).get("sources", [])) or 1, ranks)
+    elif ranks > 1:
+        eff_cb = args.chunk_blocks if args.chunk_blocks is not None else 2048
+        if eff_cb % ranks:
+            flag = "default" if args.chunk_blocks is None else "--chunk-blocks"
+            raise SystemExit(f"{flag} chunk size {eff_cb} must divide evenly over "
+                             f"--devices {args.devices}")
     from ..config import DEFAULT_CONFIG
     from ..engine.renderer import resolve_device
     from ..utils.profiling import trace
 
     try:
-        device = resolve_device(args.device)
+        if ranks > 1:
+            from ..parallel.mesh import ensure_world
+
+            device = ensure_world(ranks, device=args.device)
+        else:
+            device = resolve_device(args.device)
+    except ValueError as e:
+        raise SystemExit(f"--devices {args.devices}: {e}")
     except RuntimeError as e:
         raise SystemExit(f"--device {args.device}: {e}")
+    if not is_writer():
+        args.quiet = True  # rank 0 speaks for the world
     config = DEFAULT_CONFIG
 
     if args.scene is not None:
@@ -539,13 +599,21 @@ def render_file(args, config, device) -> int:
         else:
             from ..engine.renderer import Renderer
 
-            r = Renderer(db, config, device=device,
-                         chunk_blocks=(args.chunk_blocks if args.chunk_blocks is not None
-                                       else 2048),
+            eff_cb = args.chunk_blocks if args.chunk_blocks is not None else 2048
+            mesh = None
+            if args.devices and args.devices > 1:  # main() checked eff_cb divides
+                from ..parallel.mesh import in_mesh, make_mesh
+
+                mesh = make_mesh(args.devices, ("blk",), device=args.device)
+                if not in_mesh(mesh):  # a rank of a larger world: rank 0 writes
+                    return 0
+            r = Renderer(db, config, device=device, chunk_blocks=eff_cb,
                          backend=args.backend, fused=not args.no_fused,
-                         pipeline_fetch=args.pipeline_fetch)
+                         pipeline_fetch=args.pipeline_fetch, mesh=mesh)
             out = r.render(signal, positions, ptype, initial_old=initial_old)
     dt = time.time() - t0
+    if not is_writer():
+        return 0
     with span("cli.write"):
         _write(args, out, config)
     if args.viz:

@@ -1,14 +1,14 @@
-"""Multi-source batched rendering on one device.
+"""Multi-source batched rendering, on one device or sharded over a mesh.
 
-Counterpart of ``jefferson_tpu/engine/batch.py`` without the mesh: the
-chunk functions of every arm the JAX ``BatchRenderer`` dispatches to on one
-device (the unfused chain and its deduplicated form; the one-hot step with
-one shared or per-source-group compact tables; the gather step, with the
-apply-only step for tiles that do not own whole sources; the dedup+fused
-composition with its no-crossfade and sparse-crossfade forms), the
-render-wide planning that chooses among them, and ``BatchRenderer``.
-Sources are a leading batch axis; after the forward transform, sources x
-blocks are independent rows of one tall matrix.
+Counterpart of ``jefferson_tpu/engine/batch.py``: the chunk functions of
+every arm the JAX ``BatchRenderer`` dispatches to (the unfused chain and
+its deduplicated form; the one-hot step with one shared or
+per-source-group compact tables; the gather step, with the apply-only step
+for tiles that do not own whole sources; the dedup+fused composition with
+its no-crossfade and sparse-crossfade forms), the render-wide planning that
+chooses among them, and ``BatchRenderer``, whose ``mesh`` shards the source
+axis over ranks.  Sources are a leading batch axis; after the forward
+transform, sources x blocks are independent rows of one tall matrix.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from ..kernels.dma_blend import blend_rows
 from ..kernels.fused_apply import fused_apply_xfade
 from ..ops import fft as fft_ops
 from ..ops.filters import cmul, distance_factors_split
+from ..parallel.mesh import check_mesh, gather_rows, mix_all_reduce, source_range
 from .plan import (
     compact_filter_ids, compact_filter_ids_grouped_sources, dedup_rows, fed_stream, make_plan,
     pad_plan,
@@ -436,7 +437,8 @@ def mix_sources(outs: torch.Tensor) -> torch.Tensor:
 
 
 class BatchRenderer:
-    """Render S concurrent independent source streams on one device.
+    """Render S concurrent independent source streams, on one device or
+    sharded over a source mesh.
 
     signals: (S, n) float32 — one mono stream per source; positions:
     (S, B, 3) per-block (azi, ele, r); ``config`` the engine geometry,
@@ -444,45 +446,60 @@ class BatchRenderer:
     (None: the JAX package's automatic size) carry the overlap-save history
     from chunk to chunk; the final chunk is padded and the output trimmed.
 
-    Each chunk takes the arm the JAX ``BatchRenderer`` takes on one device,
-    recorded in ``dispatch`` as (arm, with_xfade, sparse bucket) with the
-    arm names of ``jefferson_tpu.bench.sweep._batch_dispatches``:
-    "dedup_fused" (sources that hold their positions: rows 6 and 7 with the
-    no-crossfade and sparse forms), "onehot_shared" (row 1),
-    "onehot_grouped" (row 2), "gather_fused" (rows 6 and 7), and with
-    ``fused=False`` or no fused tile "dedup" and "plain" (the JAX package's
-    XLA arms, here plain torch).  It runs on the card unless the caller
-    asks for the CPU: ``device="cpu"`` runs the kernels' twins.
-    ``dedup`` and ``sparse_xfade`` are the JAX package's switches; a history
-    that is not a whole number of blocks takes the unfused chain, as there.
+    Each chunk takes the arm the JAX ``BatchRenderer`` takes, recorded in
+    ``dispatch`` as (arm, with_xfade, sparse bucket) with the arm names of
+    ``jefferson_tpu.bench.sweep._batch_dispatches``: "dedup_fused" (sources
+    that hold their positions: rows 6 and 7 with the no-crossfade and
+    sparse forms), "onehot_shared" (row 1), "onehot_grouped" (row 2),
+    "gather_fused" (rows 6 and 7), and with ``fused=False`` or no fused
+    tile "dedup" and "plain" (the JAX package's XLA arms, here plain
+    torch).  It runs on the card unless the caller asks for the CPU:
+    ``device="cpu"`` runs the kernels' twins.  ``dedup`` and
+    ``sparse_xfade`` are the JAX package's switches; a history that is not
+    a whole number of blocks takes the unfused chain, as there.
     ``timings`` holds the last render's host seconds: ``planning_s`` (plans,
     chunk size, dedup, one-hot and sparse planning) and ``chunks_s`` (the
-    chunk loop: operands, launches, output copies, and the output's
-    assembly).  ``pipeline_fetch=True`` fetches each chunk's output one
-    chunk late, after the next chunk is launched (``renderer.ChunkFetch``),
-    bit-identical to the default synchronous fetch.
+    chunk loop: operands, launches, collectives, output copies, and the
+    output's assembly).  ``pipeline_fetch=True`` fetches each chunk's
+    output one chunk late, after the next chunk is launched
+    (``renderer.ChunkFetch``), bit-identical to the default synchronous
+    fetch.
 
-    Not ported: a device mesh (it raises, naming its ROADMAP item).  The JAX
-    package's fallback from a failed fused program to the XLA arms, and its
-    redo of a chunk whose deferred fetch failed, are not carried over: a
-    failed build or launch raises, and so does a deferred fetch.
+    ``mesh``: a 1-D ``DeviceMesh`` (``parallel.mesh.make_mesh``) shards the
+    source axis, SPMD: every rank of the mesh calls ``render`` with the
+    whole inputs, plans the whole batch as the JAX package does (the dedup
+    rows, the compact distance, the one-hot plan on S / mesh size sources,
+    the sparse bucket per shard), keeps the replicated operands whole (the
+    unique blend rows, the shared one-hot table, the distance triples),
+    takes its own contiguous sources of the per-source operands (and its
+    groups' tables), and runs its chunk through the arm and kernel the JAX
+    package's ``shard_map`` runs.  Each chunk ends in one collective: the
+    mixdown's ``mix_all_reduce`` with ``mix=True``, else ``gather_rows``;
+    every rank returns the whole result.  A mesh that does not divide S
+    renders every source on every rank through the unfused arms, with no
+    collective, as the JAX package's replicated XLA path does.
+
+    The JAX package's fallback from a failed fused program to the XLA arms,
+    and its redo of a chunk whose deferred fetch failed, are not carried
+    over: a failed build or launch raises, and so does a deferred fetch.
     """
 
     def __init__(self, db: HRTFDatabase, config: EngineConfig | None = None, *, device="cuda",
                  chunk_blocks: int | None = None, mix: bool = False, dedup: bool = True,
                  fused: bool = True, sparse_xfade: bool = True, mesh=None,
                  pipeline_fetch: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (the JAX BatchRenderer's source sharding) is not ported: "
-                "ROADMAP queue 1 item 9 (parallel/mesh.py -> torch.distributed)"
-            )
+        if mesh is not None and check_mesh(mesh).ndim != 1:
+            # the shard planning reads the mesh's size as the SOURCE shard
+            # count, which it is only on a 1-D mesh
+            raise ValueError(
+                f"BatchRenderer needs a 1-D source mesh, got axes {mesh.mesh_dim_names}")
         if chunk_blocks is not None and chunk_blocks < 1:
             raise ValueError(f"chunk_blocks ({chunk_blocks}) must be positive")
         self.db = db
         self.config = config or db.config
         aligned = self.config.history_len % self.config.frames_per_buffer == 0
         self.chunk_blocks = chunk_blocks
+        self.mesh = mesh
         self.mix = mix
         self.pipeline_fetch = pipeline_fetch
         self.dedup = dedup and aligned
@@ -507,29 +524,39 @@ class BatchRenderer:
         positions = np.asarray(positions)
         s, b_total = positions.shape[0], positions.shape[1]
         plans = [make_plan(positions[i], cfg) for i in range(s)]
-        cb = self.chunk_blocks or _auto_chunk(s, b_total, plans, fused=self.fused)
+        # the sources each device renders (no fused arm when the mesh does
+        # not divide them) and this rank's [lo, hi) of them
+        n_dev = self.mesh.size() if self.mesh is not None else 1
+        s_local = s // n_dev if s % n_dev == 0 else 0
+        sharded = self.mesh is not None and s_local > 0
+        lo, hi = source_range(self.mesh, s) if sharded else (0, s)
+        cb = self.chunk_blocks or _auto_chunk(s_local or s, b_total, plans,
+                                              fused=self.fused and s_local > 0)
         b_real = b_total
         if b_total % cb:  # pad the final chunk to the fixed size; trimmed below
             pad_b = cb - b_total % cb
             plans = [pad_plan(p, pad_b) for p in plans]
             b_total += pad_b
-        feds = np.stack([fed_stream(signals[i], b_total, cfg) for i in range(s)])
-        stack = lambda attr, sl: np.stack([getattr(p, attr)[sl] for p in plans])
+        mine = plans[lo:hi]
+        feds = np.stack([fed_stream(signals[i], b_total, cfg) for i in range(lo, hi)])
+        stack = lambda attr, sl: np.stack([getattr(p, attr)[sl] for p in mine])
 
         dedup = _plan_dedup(plans, b_total, cb) if self.dedup else None
         # sparse crossfades: one no-crossfade step + side-pass for every
-        # chunk when every chunk's crossfade count fits a small bucket
+        # chunk when every (chunk, shard)'s crossfade count fits a small
+        # bucket
         sparse_ncf = None
-        if dedup is not None and self.fused and self.sparse_xfade:
-            max_ncf = max(int(sum(p.xfade[st : st + cb].sum() for p in plans))
-                          for st in range(0, b_total, cb))
-            sparse_ncf = _sparse_bucket(max_ncf, s * cb)
+        if dedup is not None and self.fused and self.sparse_xfade and s_local:
+            max_ncf = max(int(sum(p.xfade[st : st + cb].sum()
+                                  for p in plans[d * s_local : (d + 1) * s_local]))
+                          for st in range(0, b_total, cb) for d in range(n_dev))
+            sparse_ncf = _sparse_bucket(max_ncf, s_local * cb)
         chunk_xfs = _apply_xfade_amortization([
             bool(any(p.xfade[st : st + cb].any() for p in plans)) for st in range(0, b_total, cb)
         ])
         onehot_plan = None
-        if self.fused and dedup is None:
-            onehot_plan = _plan_batch_onehot(plans, b_total, cb, s)
+        if self.fused and dedup is None and s_local:
+            onehot_plan = _plan_batch_onehot(plans, b_total, cb, s_local)
         if onehot_plan is not None:
             # compact distance across the whole batch, for the one-hot arms:
             # constant-radius scenes give a handful of unique triples
@@ -538,10 +565,10 @@ class BatchRenderer:
             nd = None if dist is None else dist[4]
             if dist is not None:
                 triples = tuple(self._put(a) for a in dist[:3])
-                dsel_all = dist[3].reshape(s, b_total)
+                dsel_all = dist[3].reshape(s, b_total)[lo:hi]
         t1 = time.perf_counter()
 
-        hists = torch.zeros((s, cfg.history_len), dtype=torch.float32, device=self.device)
+        hists = torch.zeros((hi - lo, cfg.history_len), dtype=torch.float32, device=self.device)
         self.dispatch = []
         out = np.empty((b_real * fpb, 2) if self.mix else (s, b_real * fpb, 2), np.float32)
         fetch = ChunkFetch(self.device, self.pipeline_fetch)
@@ -552,12 +579,14 @@ class BatchRenderer:
             xfade_np = stack("xfade", sl)
             row_dist = tuple(self._put(stack(a, sl)) for a in ("u_hi", "u_lo", "inv_frac"))
             cxf = chunk_xfs[ci]
-            tb = pick_fused_tile(s * cb, cb) if self.fused else None
+            tb = pick_fused_tile(s_local * cb, cb) if self.fused and s_local else None
             if tb is not None and dedup is not None:
                 uniq_idx, uniq_w, inv = _dedup_chunk(dedup, ci)
+                inv = inv[lo:hi]
                 dxf = cxf and sparse_ncf is None
                 cf = {}
                 if sparse_ncf is not None:
+                    # this shard's crossfading rows, as shard-local row ids
                     cfi = _pad_cf_indices(xfade_np.reshape(-1), sparse_ncf)
                     cf = dict(cf_idx=self._put(cfi.astype(np.int32)),
                               cf_old=self._put(inv[:, :cb].reshape(-1)[cfi]))
@@ -569,8 +598,10 @@ class BatchRenderer:
                               self._put(inv[:, cb]), self._put(xfade_np), *row_dist, **cf)
                 arm = ("dedup_fused", dxf, sparse_ncf)
             elif tb is not None:
-                idx_old = stack("idx_old", sl)
-                idx_last = stack("idx_new", stop - 1)
+                # the compact tables are planned on every source: one shared
+                # table is replicated, the grouped tables split by group
+                idx_old = np.stack([p.idx_old[sl] for p in plans])
+                idx_last = np.stack([p.idx_new[stop - 1] for p in plans])
                 onehot, group_tiles = False, None
                 if onehot_plan is not None and onehot_plan[0] == "shared":
                     onehot = tb % cb == 0  # the one-hot step's tiles own whole sources
@@ -578,7 +609,7 @@ class BatchRenderer:
                     # per-source-group tables; the tile is re-picked inside
                     # the group, owns whole sources and never straddles one
                     _, g_srcs, g_upad = onehot_plan
-                    tb_g = group_tile(s, cb, g_srcs)
+                    tb_g = group_tile(s_local, cb, g_srcs)
                     if tb_g is not None and tb_g >= GROUPED_MIN_TB:
                         onehot, tb, group_tiles = True, tb_g, (g_srcs * cb) // tb_g
                 w_args = (self._put(stack("w_old", sl)),)
@@ -586,18 +617,20 @@ class BatchRenderer:
                 if onehot and group_tiles is not None:
                     uniq_ids, ridx, ridx_last = compact_filter_ids_grouped_sources(
                         idx_old, idx_last, g_srcs, g_upad)
+                    uniq_ids = uniq_ids[lo // g_srcs * g_upad : hi // g_srcs * g_upad]
                 elif onehot:
                     uniq_ids, ridx, ridx_last, _ = compact_filter_ids(
                         idx_old, idx_last, u_pad=onehot_plan[1])
                 if onehot:
-                    head = (self._put(uniq_ids), self._put(ridx))
-                    last = self._put(ridx_last)
+                    head = (self._put(uniq_ids), self._put(ridx[lo:hi]))
+                    last = self._put(ridx_last[lo:hi])
                     d_args, dsel = (row_dist, {}) if nd is None else (
                         triples, {"dsel": self._put(dsel_all[:, sl])})
                     arm = ("onehot_grouped" if group_tiles is not None else "onehot_shared",
                            True, None)
                 else:
-                    head, last, d_args, dsel = (self._put(idx_old),), self._put(idx_last), row_dist, {}
+                    head, last = (self._put(idx_old[lo:hi]),), self._put(idx_last[lo:hi])
+                    d_args, dsel = row_dist, {}
                     arm = ("gather_fused", True, None)
                 fn = batched_chunk_fn_fused(cfg, cb, tb, onehot=onehot, group_tiles=group_tiles,
                                             n_dist=nd if onehot else None)
@@ -605,6 +638,7 @@ class BatchRenderer:
                               self._put(xfade_np), *d_args, **dsel)
             elif dedup is not None:
                 uniq_idx, uniq_w, inv = _dedup_chunk(dedup, ci)
+                inv = inv[lo:hi]
                 fn = batched_chunk_fn_dedup(cfg, cb, with_xfade=cxf)
                 y, hists = fn(self._spectra, hists, fed, self._put(uniq_idx), self._put(uniq_w),
                               self._put(inv if cxf else inv[:, 1:]), self._put(xfade_np),
@@ -618,6 +652,12 @@ class BatchRenderer:
                               self._put(xfade_np), *row_dist)
                 arm = ("plain", cxf, None)
             self.dispatch.append(arm)
+            if self.mix:
+                y = mix_sources(y)
+                if sharded:
+                    y = mix_all_reduce(y, self.mesh)
+            elif sharded:
+                y = gather_rows(y, self.mesh)
 
             def commit(host, start=start):
                 # (S,) cb, fpb, 2 -> the chunk's rows of out, the padding trimmed
@@ -625,7 +665,7 @@ class BatchRenderer:
                 dst = out[..., start * fpb : start * fpb + rows, :]
                 dst[...] = host.reshape(*host.shape[:-3], cb * fpb, 2)[..., :rows, :]
 
-            fetch.put(mix_sources(y) if self.mix else y, commit)
+            fetch.put(y, commit)
         fetch.finish()
         self.timings = {"planning_s": t1 - t0, "chunks_s": time.perf_counter() - t1}
         return out

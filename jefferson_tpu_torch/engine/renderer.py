@@ -34,6 +34,7 @@ from ..ops import fft as fft_ops
 from ..ops.filters import (
     blend_filters, cmul, crossfade_tails, distance_factors, distance_factors_split, xfade_ramp,
 )
+from ..parallel.mesh import block_range, check_mesh, gather_rows
 from ..utils.profiling import span
 from .plan import (
     RenderPlan, compact_filter_ids, compact_filter_ids_grouped, dedup_rows, fed_stream,
@@ -642,7 +643,8 @@ class ChunkFetch:
         if not self.pipelined:
             commit(y.cpu().numpy())
             return
-        read = y.numpy if self._side is None else self._copy(y)
+        # a host tensor (a gloo collective's result) is read in place
+        read = y.numpy if self._side is None or not y.is_cuda else self._copy(y)
         self.finish()
         self._pending = (commit, read)
 
@@ -701,11 +703,22 @@ class Renderer:
     A history that is not a whole number of blocks takes the apply-only
     step (row 7) where the JAX package does; its twin runs on the CPU, and
     ``fused=True`` on a CUDA device refuses any geometry but the one the
-    kernels are built for (fpb 128, pad 1024).  Not ported: a device mesh
-    (it raises, naming its ROADMAP item).  The JAX package's fallback
-    ladder and its redo of a chunk whose deferred fetch failed are not
-    carried over: a failed build or launch raises, and so does a deferred
-    fetch.
+    kernels are built for (fpb 128, pad 1024).
+
+    ``mesh``: a 1-D ``DeviceMesh`` (``parallel.mesh.make_mesh(n,
+    ("blk",))``) shards each chunk's blocks, SPMD: every rank of the mesh
+    calls ``render`` with the whole input and computes its contiguous
+    ``chunk / n`` blocks of every chunk, its overlap-save history read from
+    the fed stream (``block_halo``: no halo moves between ranks), then one
+    ``gather_rows`` a chunk gives every rank the whole chunk.  As in the
+    JAX package ``chunk_blocks`` must divide over the mesh, a short
+    render's chunk is padded up to a mesh multiple, and the mesh turns
+    ``fused`` off (the unfused arms, the dedup chunk and the plain chunk,
+    and -t 1 / -t 2).
+
+    The JAX package's fallback ladder and its redo of a chunk whose
+    deferred fetch failed are not carried over: a failed build or launch
+    raises, and so does a deferred fetch.
     """
 
     def __init__(
@@ -729,10 +742,14 @@ class Renderer:
         if backend not in BACKENDS:
             raise ValueError(f"unknown fft backend {backend!r}")
         if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (the JAX Renderer's block-axis sharding) is not ported: "
-                "ROADMAP queue 1 item 9 (parallel/mesh.py -> torch.distributed)"
-            )
+            if check_mesh(mesh).ndim != 1:
+                raise ValueError("Renderer mesh must be 1-D (block axis)")
+            if chunk_blocks % mesh.size():
+                raise ValueError(f"chunk_blocks ({chunk_blocks}) must divide evenly over the "
+                                 f"{mesh.size()}-device mesh")
+            # the block shards run the unfused chunks, as in the JAX package
+            fused = False
+        self.mesh = mesh
         self.backend = backend
         self.dedup = dedup and backend != "fft"
         self.fused = fused and backend != "fft"
@@ -789,19 +806,31 @@ class Renderer:
         fpb = cfg.frames_per_buffer
         b_total = plan.num_blocks
         cb = min(self.chunk_blocks, b_total) if b_total else self.chunk_blocks
+        if self.mesh is not None and cb % self.mesh.size():
+            # a short render keeps its chunk a mesh multiple (never above
+            # chunk_blocks, itself a multiple); the padding is trimmed
+            cb += self.mesh.size() - cb % self.mesh.size()
         aligned = cfg.history_len % fpb == 0
-        fed_all = fed_stream(signal, b_total, cfg)
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-        hist = torch.zeros(cfg.history_len, dtype=torch.float32, device=self.device)
+        off, nb_run = 0, cb  # this rank's blocks [off, off + nb_run) of every chunk
+        if self.mesh is not None:
+            off, stop_ = block_range(self.mesh, cb)
+            nb_run = stop_ - off
+        # the history, every fed sample and the final chunk's zero padding:
+        # each chunk's history (its halo) and fed blocks are read from it
+        stream = np.concatenate([np.zeros(cfg.history_len, np.float32),
+                                 fed_stream(signal, b_total, cfg),
+                                 np.zeros((-b_total % cb) * fpb, np.float32)])
         out = np.empty((b_total * fpb, 2), dtype=np.float32)
         with_xfade = bool(plan.xfade.any())
         self.dispatch = []
 
         def pad(a, nb):
-            """A chunk's per-block rows, the final chunk padded with its last row."""
-            if nb == cb:
-                return put(a)
-            return put(np.concatenate([a, np.repeat(a[-1:], cb - nb, axis=0)]))
+            """A chunk's per-block rows, the final chunk padded with its last
+            row; this rank's blocks of them."""
+            if nb < cb:
+                a = np.concatenate([a, np.repeat(a[-1:], cb - nb, axis=0)])
+            return put(a[off : off + nb_run])
 
         # compact distance for the one-hot arms only; the gather arms keep
         # per-row ramps, as the JAX dispatch does
@@ -852,16 +881,16 @@ class Renderer:
                 and interp:
             onehot_group, onehot_u_pad = plan_onehot_chunking(plan, b_total, cb, tb)
 
-        kw = dict(config=cfg, num_blocks=cb)
+        kw = dict(config=cfg, num_blocks=nb_run)
         fetch = ChunkFetch(self.device, self.pipeline_fetch)
         for start in range(0, b_total, cb):
             stop = min(start + cb, b_total)
             nb = stop - start
             sl = slice(start, stop)
-            fed_np = fed_all[start * fpb : stop * fpb]
-            if nb < cb:
-                fed_np = np.concatenate([fed_np, np.zeros((cb - nb) * fpb, np.float32)])
-            fed = put(fed_np)
+            first = start + off
+            hist = put(block_halo(stream, first, cfg))
+            fed = put(stream[cfg.history_len + first * fpb :
+                             cfg.history_len + (first + nb_run) * fpb])
             cxf = chunk_xfs[start // cb]
             last_i = plan.idx_new[stop - 1 : stop]
             last_w = plan.w_new[stop - 1 : stop]
@@ -873,11 +902,11 @@ class Renderer:
                 return a if nb == cb else np.concatenate([a, np.repeat(nxt, cb - nb, axis=0)])
 
             if ptype in _FD_BASIC:
-                y, hist_f = _fd_basic_chunk(self._spectra, hist, fed, pad(plan.nearest[sl], nb),
+                y, _ = _fd_basic_chunk(self._spectra, hist, fed, pad(plan.nearest[sl], nb),
                                             **kw, backend=self.backend)
                 arm = ("fd_basic", False, None)
             elif not interp:
-                y, hist_f = _td_chunk(self._hrirs, hist, fed, pad(plan.nearest[sl], nb), **kw)
+                y, _ = _td_chunk(self._hrirs, hist, fed, pad(plan.nearest[sl], nb), **kw)
                 arm = ("td", False, None)
             elif onehot_u_pad is not None:
                 io_np = with_last(plan.idx_old[sl], last_i)
@@ -891,7 +920,7 @@ class Renderer:
                     uniq_ids, ridx, rbnd = compact_filter_ids_grouped(
                         io_np, last_i, onehot_group, tb, onehot_u_pad)
                     wbnd = np.concatenate([wo_np[tb::tb], last_w])
-                    y, hist_f = _fd_complex_chunk_onehot_grouped(
+                    y, _ = _fd_complex_chunk_onehot_grouped(
                         self._spectra, hist, fed, put(uniq_ids), put(ridx), put(wo_np),
                         put(rbnd), put(wbnd), *tail, **kw, tb=tb,
                         group_tiles=onehot_group // tb, u_pad=onehot_u_pad, n_dist=nd)
@@ -899,14 +928,14 @@ class Renderer:
                 else:
                     uniq_ids, ridx, ridx_last, _ = compact_filter_ids(
                         io_np, last_i, u_pad=onehot_u_pad)
-                    y, hist_f = _fd_complex_chunk_onehot(
+                    y, _ = _fd_complex_chunk_onehot(
                         self._spectra, hist, fed, put(uniq_ids), put(ridx), put(wo_np),
                         put(ridx_last), put(last_w), *tail, **kw, n_dist=nd)
                     arm = ("onehot", True, None)
             elif dedup_chunks is None and tb is not None:
                 rows_i = plan.idx_old[sl] if cxf else plan.idx_new[sl]
                 rows_w = plan.w_old[sl] if cxf else plan.w_new[sl]
-                y, hist_f = _fd_complex_chunk_fused(
+                y, _ = _fd_complex_chunk_fused(
                     self._spectra, hist, fed, put(with_last(rows_i, last_i)),
                     put(with_last(rows_w, last_w)), put(last_i), put(last_w), pad(plan.xfade[sl], nb), *row_dist(sl, nb),
                     **kw, with_xfade=cxf)
@@ -923,7 +952,7 @@ class Renderer:
                     if sparse_ncf is not None:
                         cfi = _pad_cf_indices(plan.xfade[sl], sparse_ncf)
                         cf = dict(cf_idx=put(cfi), cf_old=put(inv[:cb][cfi]))
-                    y, hist_f = _fd_complex_chunk_dedup_fused(
+                    y, _ = _fd_complex_chunk_dedup_fused(
                         self._spectra, hist, fed, put(uniq_idx), put(uniq_w),
                         # old-aligned rows for the crossfade form, the NEW
                         # rows for the no-crossfade one
@@ -932,13 +961,15 @@ class Renderer:
                         with_xfade=dxf, n_cf=sparse_ncf)
                     arm = ("dedup_fused", dxf, sparse_ncf)
                 else:
-                    y, hist_f = _fd_complex_chunk_dedup(
-                        self._spectra, hist, fed, put(uniq_idx), put(uniq_w),
-                        put(inv if cxf else inv[1:]), pad(plan.xfade[sl], nb),
-                        *row_dist(sl, nb), **kw, with_xfade=cxf)
+                    # extended rows [off, off + nb_run] with the crossfade,
+                    # the new rows of this rank's blocks without
+                    rows = inv[off : off + nb_run + 1] if cxf else inv[1 + off : 1 + off + nb_run]
+                    y, _ = _fd_complex_chunk_dedup(
+                        self._spectra, hist, fed, put(uniq_idx), put(uniq_w), put(rows),
+                        pad(plan.xfade[sl], nb), *row_dist(sl, nb), **kw, with_xfade=cxf)
                     arm = ("dedup", cxf, None)
             else:
-                y, hist_f = _fd_complex_chunk(
+                y, _ = _fd_complex_chunk(
                     self._spectra, hist, fed,
                     *(pad(getattr(plan, a)[sl], nb)
                       for a in ("idx_new", "w_new", "idx_old", "w_old", "xfade")),
@@ -948,7 +979,17 @@ class Renderer:
                 out[start * fpb : stop * fpb] = host[: (stop - start) * fpb]
 
             self.dispatch.append(arm)
+            if self.mesh is not None:
+                y = gather_rows(y, self.mesh)
             fetch.put(y.reshape(cb * fpb, 2), commit)
-            hist = hist_f
         fetch.finish()
         return out
+
+
+def block_halo(stream: np.ndarray, block: int, config: EngineConfig) -> np.ndarray:
+    """The overlap-save history before ``block`` of a render: the
+    ``history_len`` samples of ``stream`` (zeros(history_len) followed by
+    the fed samples) that a chunk starting at ``block`` reads, equal to the
+    history the previous chunk's step carries out."""
+    start = block * config.frames_per_buffer
+    return stream[start : start + config.history_len]

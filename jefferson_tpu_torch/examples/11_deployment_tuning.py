@@ -10,8 +10,10 @@ outputs); they trade the launch and transfer schedule, not audio:
   * explicit ``chunk_blocks``: a daemon serving varied durations keeps one
     chunk shape; interactive tools keep the automatic sizing (hold scenes
     take larger chunks, movers stay at the fused step's 256).
-  * a device mesh (``Renderer(mesh=...)`` in the JAX package) waits for
-    ROADMAP queue 1 item 9.
+  * a device mesh: ``Renderer(mesh=make_mesh(n, ("blk",)))`` shards one
+    render's blocks over n ranks, ``BatchRenderer(mesh=make_mesh(n))`` a
+    scene's sources (``jefferson_tpu_torch.parallel.mesh``; examples 04
+    and 09, the CLI's ``--devices``).
 
     python jefferson_tpu_torch/examples/11_deployment_tuning.py [--device cpu]
 """
@@ -62,7 +64,7 @@ def main(argv=None) -> int:
           f"{t_tuned*1e3:.0f} ms (bit-identical; the first render includes the "
           f"kernels' build and the first uploads)")
     print("deployment notes: a daemon -> pin chunk_blocks; a host-bound render -> "
-          "pipeline_fetch=True; several cards -> ROADMAP queue 1 item 9")
+          "pipeline_fetch=True; several cards -> a mesh of ranks (--devices N, example 04)")
     return 0
 
 

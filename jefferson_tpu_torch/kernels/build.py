@@ -15,8 +15,9 @@ PyTorch or Python header is included.  A failed build raises with the
 compiler's output; nothing falls back.  ``build_all`` starts one compiler
 per source at once.  Threads of one process build and load under one lock,
 so two that first use a library at once build it once and load the same
-handle; separate processes each compile into a temporary file of their own
-and replace the library atomically.
+handle; separate processes (the ranks of a mesh on one host) each compile
+into a temporary file of their own and replace the library and its build
+log atomically.
 """
 
 from __future__ import annotations
@@ -136,7 +137,11 @@ def _finish(name: str, tc: Toolchain, started) -> None:
         proc.communicate()
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"{tc.compiler} on {what} took more than 600 s") from None
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + stdout + stderr)
+    # the log too is replaced whole: ranks that first load a library at
+    # once each compile it and write their own
+    log = tmp.with_name(tmp.name + ".log")
+    log.write_text(" ".join(cmd) + "\n" + stdout + stderr)
+    os.replace(log, out.with_suffix(".log"))
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(

@@ -6,11 +6,12 @@ package's ``scripts/acceptance.sh``.
    replaces them, an empty string skips the step);
 2. a render with reverb, a trajectory and ``--viz``;
 3. the engine-vs-oracle WAV gate: a ``-t 0`` render and its ``-t 3``
-   oracle render through ``cli.check --eps 5e-7``.
+   oracle render through ``cli.check --eps 5e-7``;
+4. the graft stages (``python -m jefferson_tpu_torch.graft``): entry() on
+   ``--device`` and the mesh paths' dryrun in 4 ranks on the CPU.
 
-The JAX script's fourth step (``__graft_entry__.py``'s stages) waits for
-the port of ``parallel/`` (ROADMAP queue 1 item 9).  Each CLI step runs on
-``--device`` (the card by default).  Exits non-zero on the first failure.
+Each CLI step runs on ``--device`` (the card by default).  Exits non-zero
+on the first failure.
 
     python -m jefferson_tpu_torch.scripts.acceptance [WORKDIR] [--device cpu]
 """
@@ -98,7 +99,8 @@ def main(argv=None) -> int:
         run(sys.executable, "-m", "jefferson_tpu_torch.cli.check", work / "engine.wav",
             work / "cpu.wav", "--eps", "5e-7")
 
-        step("4. __graft_entry__.py's stages: not ported (ROADMAP queue 1 item 9)")
+        step("4. the graft stages: entry() and the mesh paths' dryrun in 4 ranks")
+        run(sys.executable, "-m", "jefferson_tpu_torch.graft", "--device", args.device)
     except subprocess.CalledProcessError as e:
         print(f"== ACCEPTANCE FAILED: {' '.join(map(str, e.cmd))} exited {e.returncode}",
               file=sys.stderr)

@@ -63,6 +63,11 @@ import numpy as np
 # A), rows 5-7, and row 12 under rows 5-7's pre-blend
 LIBRARIES = ("fused_step_onehot", "fused_step_gather", "dma_blend")
 
+# a mesh behind the socket needs the daemon's engine resident in every rank
+DEVICES_NOT_PORTED = ("a mesh of cards behind the daemon is not ported: it needs resident rank "
+                      "processes serving each request together (ROADMAP queue 1 item 9); the "
+                      "CLI's --devices runs the mesh paths")
+
 
 class RenderService:
     """Resident engine: one Renderer, the scene BatchRenderers per chunk
@@ -70,13 +75,14 @@ class RenderService:
 
     def __init__(self, hrtf_dir=None, chunk_blocks: int = 2048, quiet: bool = True,
                  devices: int | None = None, *, device="cuda"):
-        """``devices`` above 1 (a mesh of cards) is not ported and raises."""
-        from .cli.main import _NOT_PORTED, load_hrtf
+        """``devices`` above 1 (a mesh of cards behind the daemon) is not
+        ported and raises."""
+        from .cli.main import load_hrtf
         from .config import DEFAULT_CONFIG
         from .engine.renderer import Renderer, resolve_device
 
         if devices is not None and devices > 1:
-            raise NotImplementedError(f"devices={devices}: {_NOT_PORTED['--devices']}")
+            raise NotImplementedError(f"devices={devices}: {DEVICES_NOT_PORTED}")
         self.device = resolve_device(device)
         self.config = DEFAULT_CONFIG
         self.db = load_hrtf(hrtf_dir, self.config, quiet=quiet)
@@ -585,8 +591,8 @@ def main(argv=None) -> int:
     p.add_argument("--hrtf-dir", default=None)
     p.add_argument("--chunk-blocks", type=int, default=2048)
     p.add_argument("--devices", type=int, default=None,
-                   help="shard renders over N cards (not ported above 1: ROADMAP "
-                        "queue 1 item 9)")
+                   help="shard renders over N cards (not ported above 1 for the "
+                        "daemon: ROADMAP queue 1 item 9)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda = the card (the default; raises without one); cpu = the "
                         "kernels' plain twins")

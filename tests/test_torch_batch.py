@@ -291,7 +291,7 @@ def test_scene_arm_matches_jax_and_oracle(db, tdb, config, castanets, name, monk
 
 
 def test_batch_renderer_refuses_what_is_not_ported(tdb):
-    with pytest.raises(NotImplementedError, match="mesh.*queue 1 item 9"):
+    with pytest.raises(TypeError, match="mesh must be a torch.distributed DeviceMesh"):
         BatchRenderer(tdb, device="cpu", mesh=object())
     cfg96 = EngineConfig(frames_per_buffer=64, hrtf_len=512)
     tdb64 = database_from_numpy(tdb.spectra, tdb.hrirs, dataclasses.asdict(cfg96))

@@ -98,3 +98,30 @@ def test_temporary_file_is_keyed_by_process_and_thread(empty_build_dir, monkeypa
     for t in threads:
         t.join(timeout=30)
     assert len(set(names)) == 2
+
+
+def test_processes_that_first_load_a_library_at_once_build_it_correctly(tmp_path):
+    """The ranks of a mesh on one host are processes: each that finds no
+    library compiles its own into a temporary file and replaces the library
+    and its log whole, so every rank loads a library of the right source
+    and one library, one log and no temporary remain."""
+    from jefferson_tpu_torch.parallel import mesh as pm
+
+    code = (
+        "import sys, time; from pathlib import Path\n"
+        "from jefferson_tpu_torch import native; from jefferson_tpu_torch.kernels import build\n"
+        f"build.BUILD_DIR = Path({str(tmp_path)!r})\n"
+        "while time.time() < float(sys.argv[1]): time.sleep(0.005)\n"
+        "lib = build.load('native', native.TOOLCHAIN)\n"
+        "print('loaded', lib.jtn_error is not None)\n"
+    )
+    import os
+    import time
+
+    start = str(time.time() + 3.0)  # every process past its imports before it loads
+    env = {**os.environ, "PYTHONPATH": str(pm.REPO_ROOT)}
+    failed, outs = pm.spawn([[sys.executable, "-c", code, start]] * THREADS, [env] * THREADS, 120)
+    assert not failed, outs
+    assert all("loaded True" in out for out in outs), outs
+    assert sorted(p.suffix for p in tmp_path.iterdir()) == [".log", ".so"]
+    assert "native.cpp" in next(tmp_path.glob("*.log")).read_text()

@@ -7,13 +7,18 @@ input, and the engine renders (-t 0/1/2, both backends, reverb, scenes)
 match the JAX CLI's float WAVs within 5e-7 and the oracle at the engine
 gates (1e-6; 5e-6 for TD against the gain-scaled oracle).  ``--viz``,
 ``--selftest[-full]`` and ``--profile-dir`` render with their artifacts,
-gates and trace; ``--devices`` above 1 waits for its ROADMAP item and exits
-naming it, and ``--device cuda`` without a card exits instead of rendering
-on the CPU.
+gates and trace; ``--devices 4`` renders in 4 gloo ranks on ``--device
+cpu`` (a source mesh for ``--scene``, a block mesh for ``-i``) within 1e-6
+of the JAX CLI's ``--devices 4`` renders, and ``--device cuda`` without a
+card exits instead of rendering on the CPU.
 """
 
 import json
+import os
 import struct
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -223,16 +228,105 @@ def test_device_cpu_flag(tmp_path, wav_in):
     assert y.shape[0] == 8 * 128 and np.isfinite(y).all()
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--devices", "2"], "item 9"),
-])
-def test_flags_left_for_later_exit_by_name(tmp_path, wav_in, flag, item):
-    with pytest.raises(SystemExit, match=f"is not ported: ROADMAP queue 1 {item}"):
-        _run(["-i", wav_in, "-o", tmp_path / "o.wav", "--blocks", 4, "--quiet", *flag])
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("form", ["scene", "single"])
+def test_devices_flag_renders_like_the_jax_cli(tmp_path, wav_in, form):
+    """tests/test_batch_parallel.py:308: `--scene --devices 4` (sources on a
+    src mesh) and `-i --devices 4` (blocks on a blk mesh) reach the mesh
+    from the CLI; here the CLI re-executes itself as 4 gloo ranks on the CPU
+    and rank 0 writes a WAV within 1e-6 of the JAX CLI's on 4 devices."""
+    if form == "scene":
+        scene = tmp_path / "scene.json"
+        scene.write_text(json.dumps({"sources": [
+            {"input": str(wav_in), "trajectory": f"orbit:period=0.5,start={i * 45}"}
+            for i in range(8)]}))
+        args = ["--scene", scene]
+    else:
+        args = ["-i", wav_in, "--trajectory", "orbit:period=0.5"]
+    args += ["--blocks", 32, "--chunk-blocks", 16, "--devices", 4, "--quiet", "--float",
+             "--bits", 32]
+    out = tmp_path / "port.wav"
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-m", "jefferson_tpu_torch.cli.main",
+                           *map(str, args), "-o", str(out), "--device", "cpu"],
+                          cwd=tmp_path, env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert "re-exec as 4 ranks (gloo, cpu)" in proc.stderr
+    jout = tmp_path / "jax.wav"
+    assert jmain([*map(str, args), "-o", str(jout), "--device", "cpu"]) == 0
+    got, _ = read_wav(out)
+    want, _ = read_wav(jout)
+    assert got.shape == want.shape == (32 * 128, 2)
+    assert np.abs(got - want).max() <= E2E_EPS
+
+
+def test_ranks_past_the_cli_mesh_stay_idle(tmp_path, wav_in):
+    """A world larger than the CLI's mesh (torchrun with more ranks than
+    --devices, or a scene that shrinks it): the ranks past the mesh render
+    nothing and exit 0, and rank 0 writes what one device renders.  Four
+    gloo ranks run `-i --devices 2` (a blk mesh of 2) and `--scene
+    --devices 4` on 6 sources (shrunk to a src mesh of 3)."""
+    from jefferson_tpu_torch.parallel import mesh as pm
+
+    scene = tmp_path / "scene.json"
+    scene.write_text(json.dumps({"sources": [
+        {"input": str(wav_in), "trajectory": f"orbit:period=0.5,start={i * 45}"}
+        for i in range(6)]}))
+    common = ["--blocks", "32", "--chunk-blocks", "16", "--quiet", "--float", "--bits", "32",
+              "--device", "cpu"]
+    forms = {"single": ["-i", str(wav_in), "--trajectory", "orbit:period=0.5", *common,
+                        "--devices", "2"],
+             "scene": ["--scene", str(scene), *common, "--devices", "4"]}
+    code = ("import sys; from jefferson_tpu_torch.cli.main import main; sys.exit(" + " or ".join(
+        f"main({[*args, '-o', str(tmp_path / f'{form}_world.wav')]!r})"
+        for form, args in forms.items()) + ")")
+    env = {k: v for k, v in os.environ.items() if k != "JEFFERSON_HRTF_DIR"}
+    env["OMP_NUM_THREADS"] = "1"
+    port = pm.free_port()
+    failed, outs = pm.spawn([[sys.executable, "-c", code]] * 4,
+                            [pm.rank_env(env, r, 4, port) for r in range(4)], timeout=240)
+    assert not failed, "\n".join(outs)
+    for form, args in forms.items():
+        one = tmp_path / f"{form}_one.wav"
+        assert _run([*args[:-2], "-o", one], device=None) == 0
+        got, _ = read_wav(tmp_path / f"{form}_world.wav")
+        want, _ = read_wav(one)
+        assert got.shape == want.shape == (32 * 128, 2)
+        assert np.abs(got - want).max() <= (1e-7 if form == "single" else E2E_EPS), form
+
+
+def test_devices_need_the_cards_they_name(tmp_path, wav_in):
+    """On cuda the ranks take one card each (NCCL): fewer raise, as
+    make_mesh does in the JAX package; a chunk that does not divide over
+    the devices exits before any rank starts; one device renders alone."""
+    with pytest.raises(SystemExit, match="--devices 2: requested 2 devices, have 0"):
+        _run(["-i", wav_in, "-o", tmp_path / "o.wav", "--blocks", 4, "--quiet",
+              "--devices", "2"], device="cuda")
+    with pytest.raises(SystemExit, match="chunk size 16 must divide evenly over --devices 3"):
+        _run(["-i", wav_in, "-o", tmp_path / "o.wav", "--blocks", 4, "--chunk-blocks", 16,
+              "--quiet", "--devices", "3"])
+    with pytest.raises(SystemExit, match="--devices 0 must be positive"):
+        _run(["-i", wav_in, "-o", tmp_path / "o.wav", "--devices", "0"])
     assert not (tmp_path / "o.wav").exists()
-    # one device is the default and renders
     assert _run(["-i", wav_in, "-o", tmp_path / "o.wav", "--blocks", 4, "--quiet",
                  "--devices", "1"]) == 0
+
+
+def test_scene_mesh_shrink_warning(capsys):
+    """tests/test_cli.py:422: --devices that does not divide the sources
+    shrinks to the largest divisor, loudly when not quiet; a mesh needs a
+    world of as many ranks (the CLI's ensure_world makes one)."""
+    assert tcli.scene_devices(6, 4, quiet=False) == 3
+    assert "shrunk to 3" in capsys.readouterr().err
+    assert tcli.scene_devices(6, 4, quiet=True) == 3
+    assert capsys.readouterr().err == ""
+    assert tcli.scene_devices(6, 8) == 6 and tcli.scene_devices(9, 8) == 3
+    assert tcli.scene_devices(6, 1) == 1 and tcli.scene_devices(5, 3) == 1
+    assert tcli.scene_mesh(6, 1) is None and tcli.scene_mesh(5, 3, device="cpu") is None
+    with pytest.raises(ValueError, match="requested 3 devices, have 1"):
+        tcli.scene_mesh(6, 4, device="cpu")
 
 
 @pytest.fixture
@@ -344,8 +438,9 @@ def test_scene_rejects_bad_blocks_and_empty_source(tmp_path):
         render_scene_spec(sc, db, CFG, duration=0.0, device="cpu")
     with pytest.raises(ValueError, match="chunk_blocks .0. must be positive"):
         render_scene_spec(sc, db, CFG, chunk_blocks=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        render_scene_spec(sc, db, CFG, devices=2, device="cpu")
+    # one source shrinks any --devices to one device: no mesh, no world
+    out, nb = render_scene_spec(sc, db, CFG, num_blocks=4, devices=2, device="cpu")
+    assert out.shape == (4 * 128, 2) and nb == 4
 
 
 def test_empty_input_rejected(tmp_path):

@@ -1328,3 +1328,40 @@ def test_diff_fit_database_step_on_the_card_matches_the_cpu(card_db, monkeypatch
     peak = max(np.abs(g).max() for g in grads[1])
     for g, w in zip(*grads):
         assert np.abs(g - w).max() <= 1e-5 * peak
+
+
+MESH_CASES = ("dedup_fused_sparse", "onehot_shared", "onehot_shared_mix", "onehot_grouped",
+              "gather_fused", "blk_mover")
+
+
+def test_mesh_renders_in_two_gloo_ranks_on_the_card(card_db, tmp_path):
+    """Two gloo ranks share the card (requested explicitly: NCCL refuses
+    two ranks on one card): BatchRenderer on a src mesh and Renderer on a
+    blk mesh, each rank's kernels on its shard, held to the unsharded card
+    render (1e-7 per source, 1e-6 for the mixdown) with one collective a
+    chunk."""
+    from test_torch_parallel import CASES, _render, spawn_worker
+
+    records, outputs = spawn_worker(tmp_path, n=2, device="cuda", backend="gloo",
+                                    names=list(MESH_CASES))
+    for name in MESH_CASES:
+        mix = CASES[name][3].get("mix", False)
+        want, r = _render(name, card_db, "cuda")
+        assert np.abs(outputs[name] - want).max() <= (1e-6 if mix else 1e-7), name
+        for rec in records:
+            case = rec["cases"][name]
+            chunks = len(case["dispatch"])
+            assert case["collectives"] == ({"mix_all_reduce": chunks, "gather_rows": 0} if mix
+                                           else {"mix_all_reduce": 0, "gather_rows": chunks})
+            if CASES[name][0] == "batch":  # the blk mesh runs the unfused chunks
+                assert sum(case["launches"].values()) >= chunks, (name, case["launches"])
+
+
+def test_mesh_nccl_refuses_two_ranks_on_one_card(card_db, monkeypatch):
+    from jefferson_tpu_torch.parallel import mesh as pm
+
+    if torch.cuda.device_count() > 1:
+        pytest.skip("two ranks get a card each on this host")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="NCCL refuses two ranks on one card.*backend='gloo'"):
+        pm.init_world("nccl", device="cuda")

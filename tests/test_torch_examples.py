@@ -20,10 +20,12 @@ WRITES = {
                              "orbit.3d.html"],
     "02_streaming.py": ["stream.wav"],
     "03_localization.py": [],
+    "04_multichip.py": [],
     "05_realtime_playout.py": ["live_mix.wav"],
     "06_personalization.py": [],
     "07_live_control.py": ["live_control.wav"],
     "08_daemon_live_viz.py": [],
+    "09_multihost.py": [],
     "10_sofa.py": ["listener.sofa", "sofa_orbit.wav"],
     "11_deployment_tuning.py": [],
 }

@@ -37,6 +37,7 @@ PORT_MODULES = [
     "jefferson_tpu_torch.engine.plan",
     "jefferson_tpu_torch.engine.renderer",
     "jefferson_tpu_torch.engine.stream",
+    "jefferson_tpu_torch.graft",
     "jefferson_tpu_torch.hrtf",
     "jefferson_tpu_torch.hrtf.kemar",
     "jefferson_tpu_torch.hrtf.sofa",
@@ -56,6 +57,9 @@ PORT_MODULES = [
     "jefferson_tpu_torch.ops.filters",
     "jefferson_tpu_torch.oracle",
     "jefferson_tpu_torch.oracle.reference",
+    "jefferson_tpu_torch.parallel",
+    "jefferson_tpu_torch.parallel.mesh",
+    "jefferson_tpu_torch.parallel.multihost",
     "jefferson_tpu_torch.reverb",
     "jefferson_tpu_torch.reverb.convolution",
     "jefferson_tpu_torch.rt",

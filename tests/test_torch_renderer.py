@@ -152,7 +152,7 @@ def test_renderer_raises_where_the_port_stops(tdb, config):
         assert r.dispatch == [(arm, False, None)]
     with pytest.raises(ValueError, match="unknown fft backend"):
         Renderer(tdb, device="cpu", backend="dct")
-    with pytest.raises(NotImplementedError, match="mesh.*queue 1 item 9"):
+    with pytest.raises(TypeError, match="mesh must be a torch.distributed DeviceMesh"):
         Renderer(tdb, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="positive"):
         Renderer(tdb, device="cpu", chunk_blocks=0)
