@@ -11,9 +11,14 @@ line:
              processes, and are collected in phases 5 and 6; g++ builds the
              host library (native/native.cpp) before they start, as they
              plan through it.
-  2. build   nvcc builds csrc/fused_step_onehot.cu (rows 1-4 and 8),
-             csrc/fused_step_gather.cu (rows 5-7), csrc/assoc_probe.cu (rows
-             9-11) and csrc/dma_blend.cu (row 12) for sm_90a, all at once.
+  2. build   nvcc builds csrc/fused_step_onehot.cu (rows 1-4 and 8) and
+             csrc/fused_step_gather.cu (rows 5-7) for fpb 128 / pad 1024
+             (MAIN_GEOMETRY, -DJT_FPB=128 -DJT_PAD=1024), csrc/assoc_probe.cu
+             (rows 9-11) and csrc/dma_blend.cu (row 12) for sm_90a, all at
+             once.  After the live path (phase 6) the two render-step
+             sources build for each geometry of phase 13 in a process of
+             their own, one nvcc a library, all at once, while phases 7-12
+             run.
   3. plan    make_plan with the host library against its plain NumPy forms
              (bench.plain_host), every field bit-equal, on every source of the
              six scenes' three position sets and on the five single-source
@@ -194,7 +199,32 @@ line:
              port's own CPU run (in a worker process): positions within 0.5
              degrees and 0.01 m, fitted spectra within 1e-2 and the table
              error within 1e-4 of it.
- 13. mesh    the mesh paths (jefferson_tpu_torch.parallel) in ranks of their
+ 13. geometry every other block and transform size of the card's envelope,
+             GEOMETRIES: fpb 64, 256, 512 and 1024 over the 512-tap set
+             (pad 1024; 2048 at fpb 1024), fpb 64 over a 256-tap set (pad
+             512) and the histories of partial blocks fpb 100 and 441 (pad
+             1024).  Each geometry's two libraries (their build seconds, and
+             each library's own report of its forms against
+             fused_step.geometry_forms); GEO_SAMPLES = 1,607,168 samples of
+             the noise (the 12,556-block render's length) through Renderer
+             on the sweep, an orbit, the helix and a source at a new random
+             position every block (the dedup+fused, one-hot and gather arms;
+             chunks of 256 under 4,096 blocks), each held to render_oracle at
+             1e-6 with the JAX dispatch's arm (GEO_ARMS, pinned on the CPU by
+             tests/test_torch_geometry.py) and counted by kernel and form;
+             render_scan on the sweep; at f64, f256 and f64t256 the 16-source
+             scene_hold and scene_movers (chunks of 256), two sources held to
+             the oracle and every source to the unfused card render at 5e-7;
+             the live path (StreamingSpatializer under run_offline, 10 s of
+             the helix then 200 held blocks) held to the oracle and gated
+             median < the block's deadline, p90 < twice it; every kernel
+             form the geometry's library has against its twin (rows 1-8 and
+             launch A; rows 7 and 8's apply-only forms at a history of
+             partial blocks), and each kernel timed at one shape (events,
+             device time alone, twin, bound); then Renderer and
+             StreamingSpatializer at fpb 16 and at pad 4096 raise before any
+             launch, naming ROADMAP queue 1 item 11.
+ 14. mesh    the mesh paths (jefferson_tpu_torch.parallel) in ranks of their
              own, all on cuda:0 over gloo (requested explicitly: NCCL refuses
              two ranks on one card), the CUDA libraries deleted first so that
              the 4 ranks build them at one moment at their first load.  The
@@ -212,7 +242,7 @@ line:
              graft.dryrun_multichip(4, device="cuda", backend="gloo"), stages
              (a)-(f) ((e) on --device cpu).  Each render's wall per rank
              beside the unsharded render's, beside the card.
- 14. bench   the bench step (blocks/s), and again with row 1's launch B in
+ 15. bench   the bench step (blocks/s), and again with row 1's launch B in
              each form, STEP_PAIRS pairs in turns, beside each form's
              quartile spread; each step's kernel and twin times in
              turns (twin, forms, forms reversed, twin) beside its bound (row 8
@@ -249,8 +279,9 @@ line:
              set-up with the host library and with its NumPy forms, in turns;
              the unfused chain's warm render with each tail; beside the card.
 Then a {"kernels": [...]} line (rows 1-12, and launch A at the scene step's
-16 x 256; launches summed over phases 5-11 and 13, the daemon's and the
-ranks' from their own counts), the nvidia-smi line, and last
+16 x 256; launches summed over phases 5-11 and 14, the daemon's and the
+ranks' from their own counts; beside them each kernel's launches by
+geometry, phase 13's, and its times there), the nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -287,6 +318,7 @@ MESH_SCENES = ("scene_hold", "scene_movers", "wide")
 MESH_ROW_TOL, MESH_MIX_TOL = 1e-7, 1e-6  # per source (tests/test_batch_parallel.py:45), mixdown
 MESH_TIMEOUT = 600.0
 MESH_LIBS = ("fused_step_onehot", "fused_step_gather", "dma_blend")
+MAIN_GEOMETRY = (128, 1024)   # (fpb, pad) of every phase but geometry: the libraries' build
 MESH_EXAMPLES = ("04_multichip.py", "09_multihost.py")
 
 PROD_ULP = 2.0**-22  # row 9 vs twin, of the plane's two |products|: one FMA contraction
@@ -2382,10 +2414,16 @@ def run(pool, host, tmp) -> int:
         oracle_pool.submit(noise * np.float32(SERVE_SCENE_GAIN), pos)
     # the diff phase's CPU runs, one thread each
     diff_cpu = {kind: pool.submit(_diff_cpu_job, kind) for kind in ("localize", "fit")}
+    # the geometry phase's renders, scenes and live sessions
+    geo_oracles = geometry_oracles(
+        bench, pool, noise, lambda c: bench.scene_signals(noise, SCENE_S, GEO_SAMPLES //
+                                                          c.frames_per_buffer,
+                                                          c.frames_per_buffer))
 
     # ---- build -------------------------------------------------------------
     t0 = time.perf_counter()
-    libs = build.build_all(["fused_step_onehot", "fused_step_gather", "assoc_probe", "dma_blend"])
+    libs = build.build_all(["fused_step_onehot", "fused_step_gather", "assoc_probe", "dma_blend"],
+                           geometries=[MAIN_GEOMETRY])
     say("build", f"{', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s")
     for lib in libs:
         ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
@@ -2742,6 +2780,10 @@ def run(pool, host, tmp) -> int:
             return fail("path", f"live {name}: row 8 by form {forms}, want every live block "
                                 f"on the cluster form")
 
+    # the geometry phase's libraries, in a process of their own from here on
+    # (after the live path's gates, which its compilers would load)
+    geo_build = geometry_build_start()
+
     # ---- the probes: the scripts, counted, each kernel against its twin ----
     fused_step.reset_launches()
     probe_launches = probe_scripts(device, errs, db, noise, budget_pos, budget_oracle)
@@ -2771,7 +2813,7 @@ def run(pool, host, tmp) -> int:
     # host's clock: the workers finish first (the serve oracles, the diff
     # phase's CPU runs), so that no core is theirs while it measures
     t0 = time.perf_counter()
-    wait([*oracle_pool.futures.values(), *diff_cpu.values()])
+    wait([*oracle_pool.futures.values(), *diff_cpu.values(), *geo_oracles.values()])
     say("serve", f"waited {time.perf_counter() - t0:.1f} s for the worker pool to go idle")
     serve_launches = serve_phase(cfg, noise, oracle_pool, serve_pos, tmp)
     if serve_launches is None:
@@ -2779,6 +2821,11 @@ def run(pool, host, tmp) -> int:
 
     # ---- the differentiable path, beside the port's CPU runs ---------------
     if not diff_phase(bench, db, device, diff_cpu):
+        return 1
+
+    # ---- every other block and transform size through the kernels ---------
+    by_geometry = geometry_phase(bench, device, noise, geo_oracles, geo_build)
+    if by_geometry is None:
         return 1
 
     # ---- the mesh paths, in ranks of their own ------------------------------
@@ -2977,6 +3024,14 @@ def run(pool, host, tmp) -> int:
                              else None),
         # no single PyTorch call computes a fused step (rows 1-8)
         "library_ms": times[name][2] if name in PROBES else None,
+        # phase geometry: the launches of each geometry's renders, scans,
+        # scenes and live blocks (f128: the counted paths above), and where
+        # the kernel was timed there, its shape, form, times, bound and
+        # max|kernel - twin| over its forms
+        "launches_by_geometry": {"f128": launches[name],
+                                 **{g: r["launches"].get(name, 0) for g, r in by_geometry.items()}},
+        "geometry": {g: {**r["times"][name], "max_abs_err": r["errs"].get(name)}
+                     for g, r in by_geometry.items() if name in r["times"]},
     } for name, (source, replaces) in KERNELS.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3212,10 +3267,11 @@ def mesh_rank(out: str) -> int:
     # missing compiles it (its compilers at once), and all replace it atomically
     dist.barrier()
     t0 = time.perf_counter()
-    missing = [name for name in MESH_LIBS if not build.library_path(name).exists()]
-    build.build_all(MESH_LIBS)
-    for name in MESH_LIBS:
-        build.load(name)
+    libs = build.libraries(MESH_LIBS, [MAIN_GEOMETRY])
+    missing = [name for name, geo in libs if not build.library_path(name, geometry=geo).exists()]
+    build.build_all(MESH_LIBS, geometries=[MAIN_GEOMETRY])
+    for name, geo in libs:
+        build.load(name, geometry=geo)
     records.append({"render": "load", "rank": rank, "missing": missing,
                     "wall_s": time.perf_counter() - t0})
     db = synthetic_database()
@@ -3320,7 +3376,7 @@ def mesh_rank(out: str) -> int:
 
 
 def mesh_phase(bench, tmp, sets, oracles, orbit_oracle) -> dict | None:
-    """Phase 13: the mesh paths in spawned ranks; their launches summed over
+    """Phase 14: the mesh paths in spawned ranks; their launches summed over
     the ranks, or None on a failure."""
     import contextlib
     import io
@@ -3339,8 +3395,9 @@ def mesh_phase(bench, tmp, sets, oracles, orbit_oracle) -> dict | None:
     for pset, (_, srcs) in sets.items():
         np.save(work / f"oracle_{pset}.npy", np.stack([oracles[pset][i].result() for i in srcs]))
     np.save(work / "oracle_orbit.npy", orbit_oracle)
-    for name in MESH_LIBS:  # the ranks build them, all at their first load
-        build.library_path(name).unlink()
+    # the ranks build them, all at their first load
+    for name, geo in build.libraries(MESH_LIBS, [MAIN_GEOMETRY]):
+        build.library_path(name, geometry=geo).unlink()
     launches = dict.fromkeys(fused_step.launches, 0)
     launches[LAUNCH_A] = 0
     for mode, ranks, backend in (("scenes", MESH_RANKS, MESH_BACKEND), ("nccl", 1, "nccl")):
@@ -3408,7 +3465,8 @@ def mesh_phase(bench, tmp, sets, oracles, orbit_oracle) -> dict | None:
                     launches[k] += v
                 launches[LAUNCH_A] += rec["forward"]
     left = sorted(p.name for p in build.BUILD_DIR.glob("*.tmp*"))
-    built = [build.library_path(name).exists() for name in MESH_LIBS]
+    built = [build.library_path(name, geometry=geo).exists()
+             for name, geo in build.libraries(MESH_LIBS, [MAIN_GEOMETRY])]
     say("mesh", f"the ranks' builds: libraries {dict(zip(MESH_LIBS, built))}, temporaries left "
                 f"{left}")
     if not all(built) or left:
@@ -3428,6 +3486,549 @@ def mesh_phase(bench, tmp, sets, oracles, orbit_oracle) -> dict | None:
     say("mesh", f"graft.dryrun_multichip({MESH_RANKS}, device='cuda', backend="
                 f"'{MESH_BACKEND}') in {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# ---- phase 13: the geometry phase ------------------------------------------
+
+GEO_SAMPLES = 1607168            # the 12,556-block render at fpb 128
+# name: (fpb, HRIR taps): callbacks of 64-1024 samples over the 512-tap set,
+# 64-sample blocks over a 256-tap set, and 10 ms blocks (441: a history of
+# partial blocks) beside 100
+GEOMETRIES = {
+    "f64": (64, 512), "f256": (256, 512), "f512": (512, 512), "f1024": (1024, 512),
+    "f64t256": (64, 256), "f100": (100, 512), "f441": (441, 512),
+}
+GEO_SCENES = ("f64", "f256", "f64t256")   # the scene renders, 16 sources
+GEO_SCENE_SRCS = (0, 7)                   # the scene sources held to the oracle
+GEO_SCENE_TOL = 5e-7                      # each scene source against the unfused card render
+GEO_LIVE_S = 10.0                         # seconds of the live helix
+GEO_HELD = 200                            # then held blocks
+# outside the card's envelope: fpb 16 (pad 1024) and pad 4096 (fpb 128)
+GEO_EDGES = ((16, 512), (128, 3969))
+# the arms the JAX dispatch takes on every chunk of each render (the CPU
+# test tests/test_torch_geometry.py pins the port's and the JAX package's
+# full-size dispatch to these): the sweep, the orbit, the helix and a
+# source at a new random position every block
+_DEDUP = ("dedup_fused", True, None)
+_GATHER = ("gather_fused", True, None)
+_ONEHOT = ("onehot", True, None)
+GEO_ARMS = {
+    "f64": {"sweep": ("dedup_fused", False, 8), "orbit": _DEDUP, "helix": _ONEHOT,
+            "wide": _GATHER},
+    "f256": {"sweep": ("dedup_fused", False, 32), "orbit": _DEDUP, "helix": _ONEHOT,
+             "wide": _GATHER},
+    "f512": {"sweep": ("dedup_fused", False, 8), "orbit": _ONEHOT, "helix": _ONEHOT,
+             "wide": _GATHER},
+    "f1024": {"sweep": ("dedup_fused", False, 16), "orbit": _ONEHOT, "helix": _ONEHOT,
+              "wide": _GATHER},
+    "f64t256": {"sweep": ("dedup_fused", False, 8), "orbit": _DEDUP, "helix": _ONEHOT,
+                "wide": _GATHER},
+    "f100": {"sweep": _DEDUP, "orbit": _DEDUP, "helix": _GATHER, "wide": _GATHER},
+    "f441": {"sweep": _DEDUP, "orbit": _DEDUP, "helix": _GATHER, "wide": _GATHER},
+}
+GEO_SCENE_ARMS = {
+    "f64": {"scene_hold": ("dedup_fused", False, 16),
+            "scene_movers": ("onehot_grouped", True, None)},
+    "f256": {"scene_hold": ("dedup_fused", False, 64),
+             "scene_movers": ("onehot_grouped", True, None)},
+    "f64t256": {"scene_hold": ("dedup_fused", False, 16),
+                "scene_movers": ("onehot_grouped", True, None)},
+}
+
+
+def geometry_config(name: str):
+    from jefferson_tpu_torch.config import EngineConfig
+
+    fpb, taps = GEOMETRIES[name]
+    return EngineConfig(frames_per_buffer=fpb, hrtf_len=taps)
+
+
+def geometry_renders(bench, cfg) -> dict:
+    """A geometry's single-source renders of GEO_SAMPLES samples: name ->
+    (positions, chunk_blocks).  A render of fewer than 4,096 blocks takes
+    chunks of 256 (the default 2,048 would leave it one untiled chunk)."""
+    from jefferson_tpu_torch.trajectory.trajectory import AzimuthSweep, CircularOrbit
+
+    fpb = cfg.frames_per_buffer
+    n = GEO_SAMPLES // fpb
+    cb = 2048 if n > 4096 else 256
+    # the reference sweep's cadence: a 5-degree step every 22,016 samples
+    sweep = AzimuthSweep(start_azi=3.0, ele=5.0, r=0.5, blocks_per_step=round(22016 / fpb),
+                         num_steps=72)
+    return {
+        "sweep": (sweep.sample(n, cfg), cb),
+        "orbit": (CircularOrbit(period_s=0.4, ele=5, r=1.0).sample(n, cfg), cb),
+        "helix": (bench.helix_positions(n, cfg=cfg), cb),
+        "wide": (bench.wide_positions(1, n)[0], cb),
+    }
+
+
+def geometry_scenes(bench, cfg) -> dict:
+    """A geometry's 16-source scenes of GEO_SAMPLES samples a source."""
+    fpb = cfg.frames_per_buffer
+    n = GEO_SAMPLES // fpb
+    return {"scene_hold": bench.scene_hold_positions(SCENE_S, n, round(22016 / fpb)),
+            "scene_movers": bench.scene_mover_positions(SCENE_S, n)}
+
+
+def geometry_live(bench, cfg):
+    """The live session's positions: GEO_LIVE_S seconds of the helix, then
+    GEO_HELD blocks held at its last position."""
+    import numpy as np
+
+    n = round(GEO_LIVE_S * cfg.sample_rate / cfg.frames_per_buffer)
+    helix = bench.helix_positions(n, cfg=cfg)
+    return np.concatenate([helix, np.repeat(helix[-1:], GEO_HELD, axis=0)])
+
+
+_geo_dbs = {}
+
+
+def _geo_db(fpb: int, taps: int):
+    from jefferson_tpu_torch.config import EngineConfig
+    from jefferson_tpu_torch.hrtf.kemar import synthetic_database
+
+    if (fpb, taps) not in _geo_dbs:
+        _geo_dbs[fpb, taps] = synthetic_database(EngineConfig(frames_per_buffer=fpb,
+                                                              hrtf_len=taps))
+    return _geo_dbs[fpb, taps]
+
+
+def _geo_oracle_job(fpb, taps, signal, positions):
+    """render_oracle from old = (0, 0) on the synthetic database of (fpb,
+    taps), made once a worker."""
+    from jefferson_tpu_torch.oracle.reference import render_oracle
+
+    db = _geo_db(fpb, taps)
+    return render_oracle(signal, db, [tuple(p) for p in positions], db.config,
+                         initial_old=(0.0, 0.0))
+
+
+def geometry_oracles(bench, pool, noise, scene_sigs_of) -> dict:
+    """Every oracle render of the geometry phase, submitted to the worker
+    pool: {(geometry, what): future}, ``what`` a render's name, a scene's
+    (name, source) or "live"."""
+    futures = {}
+    for name, (fpb, taps) in GEOMETRIES.items():
+        cfg = geometry_config(name)
+        for what, (pos, _) in geometry_renders(bench, cfg).items():
+            futures[name, what] = pool.submit(_geo_oracle_job, fpb, taps, noise, pos)
+        futures[name, "live"] = pool.submit(_geo_oracle_job, fpb, taps, noise,
+                                            geometry_live(bench, cfg))
+        if name in GEO_SCENES:
+            sigs = scene_sigs_of(cfg)
+            for scene, pos in geometry_scenes(bench, cfg).items():
+                for i in GEO_SCENE_SRCS:
+                    futures[name, (scene, i)] = pool.submit(_geo_oracle_job, fpb, taps, sigs[i],
+                                                            pos[i])
+    return futures
+
+
+def geometry_build_start():
+    """Start the geometry phase's builds in a process of their own (one nvcc
+    a library, all at once), so they run while the 128/1024 phases do: the
+    process and its start time."""
+    import subprocess
+    from pathlib import Path
+
+    geos = [(c.frames_per_buffer, c.pad_len) for c in map(geometry_config, GEOMETRIES)]
+    code = ("from jefferson_tpu_torch.kernels import build; "
+            f"build.build_all(build.GEOMETRIC, geometries={geos!r})")
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            cwd=Path(__file__).resolve().parent)
+    return proc, time.perf_counter()
+
+
+def _counts():
+    """Every launch count of the kernels and their forms, nonzero only."""
+    from jefferson_tpu_torch.kernels import fused_step as fs
+
+    out = {}
+    for what, counts in (("kernel", fs.launches), ("split", fs.split_launches),
+                         ("row 1", fs.row1_forms), ("row 8", fs.spatializer_forms),
+                         ("launch A", fs.forward_launches), ("row 12", fs.blend_forms)):
+        nz = {k: v for k, v in counts.items() if v}
+        if nz:
+            out[what] = nz
+    return out
+
+
+def queued_device_ms(call, reps: int = 10) -> float:
+    """Device ms per call of ``call()`` with no host time in it: the stream
+    is held by a spin kernel while ``reps`` calls queue behind it, then
+    CUDA events time them running back to back (torch.profiler, late in
+    this process, drops most of its device events)."""
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)   # about 0.1 s: longer than the host takes to queue the calls
+    start.record()
+    for _ in range(reps):
+        call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def geometry_kernels(bench, db, device, name, forms, errs, times) -> bool:
+    """Every kernel form the geometry's library has, against its twin on
+    the card (KERNEL_TOL; launch A at FWD_REL of the XD peak), at the render
+    shapes; then each kernel timed at one shape (events, device time alone,
+    twin) beside its bound.  ``errs``/``times``: kernel -> value, filled."""
+    import torch
+
+    from jefferson_tpu_torch.engine import stream as stream_mod
+    from jefferson_tpu_torch.kernels import fused_apply as fa
+    from jefferson_tpu_torch.kernels import fused_spatializer as fsp
+    from jefferson_tpu_torch.kernels import fused_step as fs
+
+    cfg = db.config
+    fpb, bins, pad = cfg.frames_per_buffer, cfg.num_bins, cfg.pad_len
+    geo = dict(pad_len=pad, bins=bins, fpb=fpb)
+    q = forms.q
+    twin = lambda fn: getattr(sys.modules[fn.__module__], fn.__name__ + "_reference")
+    tail_forms = [fs.LAUNCH_B] + ([fs.SPLIT] if forms.split else [])
+    # kernel -> (call of the picked form, twin call, flops, bytes or None for
+    # its operands' and output's, its shape, its (args, kwargs))
+    timed = {}
+
+    def hold(kernel, what, got_by_form, want, rows):
+        errs_k = {f: float((g - want).abs().max()) for f, g in got_by_form.items()}
+        finite = all(bool(torch.isfinite(g).all()) for g in got_by_form.values())
+        # the forms on the same XD planes (not row 8's forward form: its own)
+        same = [torch.equal(g, next(iter(got_by_form.values())))
+                for f, g in got_by_form.items() if not f.startswith("forward")]
+        say("geometry", f"{name} {kernel} {what}: max|kernel - twin| by form "
+                        f"{ {f: f'{e:.3e}' for f, e in errs_k.items()} } (limit {KERNEL_TOL:.0e}); "
+                        f"the forms on one XD torch.equal: {all(same)}")
+        errs[kernel] = max(errs.get(kernel, 0.0), *errs_k.values())
+        ok = finite and max(errs_k.values()) <= KERNEL_TOL
+        ok = ok and all(g.shape == (rows, 2 * fpb) for g in got_by_form.values())
+        if not ok:
+            fail("geometry", f"{name} {kernel} {what}: a form disagrees with its twin")
+        return ok
+
+    def step(fn, args, kw, kernel, what, rows, names):
+        got = {f: fs._cuda(fn, *args, form=f, **kw) for f in names}
+        torch.cuda.synchronize()
+        return hold(kernel, what, got, twin(fn)(*args, **kw), rows)
+
+    if q:
+        # launch A: every form the library has, at the scene step's shape
+        # (per-row distance, and 8 triples) and the live block's
+        fwd_forms = [fs.FWD_TILE] + ([fs.FWD_PRODUCT] if forms.product else [])
+        for s_, nb, nd in ((16, 256, None), (16, 256, 8), (1, 1, None)):
+            ops = bench.forward_operands(s_, nb, device, n_dist=nd, config=cfg)
+            names = fwd_forms + ([fs.FWD_FEW] if nb <= forms.few_nb else [])
+            got = {f: fs._forward_cuda(*ops, form=f, **geo) for f in names}
+            torch.cuda.synchronize()
+            want = fs._forward_reference(*ops, **geo)
+            peak = max(float(w.abs().max()) for w in want)
+            rel = {f: max(float((g - w).abs().max()) for g, w in zip(xd, want)) / peak
+                   for f, xd in got.items()}
+            same = all(all(torch.equal(a, b) for a, b in zip(xd, got[fs.FWD_TILE]))
+                       for xd in got.values())
+            picked = fs.forward_form(nb, fpb, pad)
+            say("geometry", f"{name} launch A {s_}x{nb} ({'per-row' if nd is None else nd} "
+                            f"distance): max|XD - twin| / peak by form "
+                            f"{ {f: f'{r:.3e}' for f, r in rel.items()} } (limit {FWD_REL:.0e}), "
+                            f"the forms torch.equal: {same}; the steps take {picked}")
+            errs[LAUNCH_A] = max(errs.get(LAUNCH_A, 0.0), *rel.values())
+            if max(rel.values()) > FWD_REL or picked not in got:
+                return not fail("geometry", f"{name} launch A {s_}x{nb}: a form disagrees")
+            if (s_, nb, nd) == (16, 256, None):
+                timed[LAUNCH_A] = (
+                    lambda ops=ops, f=picked: fs._forward_cuda(*ops, form=f, **geo),
+                    lambda ops=ops: fs._forward_reference(*ops, **geo),
+                    bench.forward_flops(s_, nb, fpb, bins, q),
+                    bench.forward_bytes(s_, nb, fpb, bins, q), f"{s_}x{nb}, {picked}", None)
+        # row 1 at 16 sources x 64 blocks (compact distance), launch B
+        wl = bench.build_workload(db, SCENE_S, 64, device)
+        args, kw = bench.step_operands(wl, cfg)
+        fn = fs.fused_step_onehot_xfade
+        names = [fs.LAUNCH_B] + ([fs.STAGED] if forms.staged else [])
+        if not step(fn, args, kw, "fused_step_onehot_xfade", f"{SCENE_S}x64", SCENE_S * 64, names):
+            return False
+        timed["fused_step_onehot_xfade"] = (
+            lambda fn=fn, a=args, k=kw: fn(*a, **k),
+            lambda fn=fn, a=args, k=kw: twin(fn)(*a, **k),
+            bench.step_flops("fused_step_onehot_xfade", SCENE_S, 64, fpb, bins, q), None,
+            f"{SCENE_S}x64, {fs.pick_form(fs.ROW1, SCENE_S * 64, fpb, pad)}", (args, kw))
+        # rows 3-5 at the Renderer's chunk of 2,048 blocks
+        for form, kernel in FORMS.items():
+            fn, args, kw = bench.stream_step(db, form, STREAM_B, device, tb=GROUP_TB,
+                                             group_tiles=GROUP_TILES, xf_every=7)
+            if not step(fn, args, kw, kernel, f"B={STREAM_B}", STREAM_B, tail_forms):
+                return False
+            if form == "gather":
+                timed[kernel] = (lambda fn=fn, a=args, k=kw: fn(*a, **k),
+                                 lambda fn=fn, a=args, k=kw: twin(fn)(*a, **k),
+                                 bench.step_flops(kernel, 1, STREAM_B, fpb, bins, q), None,
+                                 f"1x{STREAM_B}, {fs.pick_form(kernel, STREAM_B, fpb, pad)}",
+                                 (args, kw))
+    # rows 2, 6 and 7 at the scene path's shapes (row 7 alone at a history
+    # of partial blocks)
+    for form, (kernel, s_, nb) in SCENE_FORMS.items():
+        if not q and not form.startswith("apply"):
+            continue
+        fn, args, kw = bench.scene_step(db, form, s_, nb, device, xf_every=7)
+        if not step(fn, args, kw, kernel, f"{s_}x{nb}", s_ * nb, tail_forms):
+            return False
+        if form in ("gather", "apply"):
+            timed[kernel] = (lambda fn=fn, a=args, k=kw: fn(*a, **k),
+                             lambda fn=fn, a=args, k=kw: twin(fn)(*a, **k),
+                             bench.step_flops(kernel, s_, nb, fpb, bins, max(q, 1)), None,
+                             f"{s_}x{nb}, {fs.pick_form(kernel, s_ * nb, fpb, pad)}", (args, kw))
+    # row 8: its apply-only entry at the live block's row and 4,096 rows, in
+    # every form the library has, and its forward form (whole blocks)
+    row8_forms = tail_forms + ([fsp.CLUSTER] if forms.cluster else [])
+    for rows in (1, 4096):
+        table, fwd, br, xf = bench.spatializer_step(db, rows, device)
+        if q:
+            xd = fs._forward_reference(fwd[0][None], rows, *fwd[1:], None, None, **geo)
+        else:
+            xd = stream_mod._window_xd(fwd[0].unfold(0, pad, fpb), *fwd[1:], cfg)
+        got = {f: fsp._cuda(device, rows, table, br, xf, *xd, None, form=f, **geo)
+               for f in row8_forms}
+        if q:
+            got["forward, " + fsp.pick_form(rows, fpb, pad)] = fsp.fused_forward_apply(
+                table, *fwd, *br, xf, **geo)
+        torch.cuda.synchronize()
+        want = fsp.fused_apply_reference(table, *xd, *br, xf, bins=bins, fpb=fpb)
+        if not hold(SPATIALIZER, f"{rows} row(s)", got, want, rows):
+            return False
+        if rows == 4096:
+            timed[SPATIALIZER] = (
+                lambda a=(table, *xd, *br, xf): fsp.fused_apply(*a, bins=bins, fpb=fpb),
+                lambda a=(table, *xd, *br, xf): fsp.fused_apply_reference(*a, bins=bins, fpb=fpb),
+                bench.step_flops(SPATIALIZER, 1, rows, fpb, bins), None,
+                f"1x{rows}, {fsp.pick_form(rows, fpb, pad)}", ((table, *xd, *br, xf), {}))
+    # each kernel at its shape: events, device time alone, twin, bound
+    for kernel, (call, plain, flops, moved, shape, ops) in timed.items():
+        ms = bench.time_ms(call, reps=10, rounds=5)
+        plain_ms = bench.time_ms(plain, reps=2, rounds=3, warmup=1)
+        alone = queued_device_ms(call)
+        if moved is None:
+            args, kw = ops
+            moved = nbytes(*args, *kw.values(), call())
+            if kernel == SPATIALIZER:  # of the full table, the rows its brackets name
+                table = args[0]
+                ids = torch.cat([a for a in args if a.dtype == torch.int32]).unique()
+                moved += (ids.numel() - table.shape[0]) * table.shape[1] * table.element_size()
+        bound, by = bench.bound_ms(flops, moved)
+        times[kernel] = {"shape": shape, "ms": ms, "device_ms": alone, "plain_ms": plain_ms,
+                         "bound_ms": bound, "bound_by": by}
+        say("geometry", f"{name} {kernel} ({shape}): kernel {ms:.4f} ms (device time alone "
+                        f"{alone:.4f} ms, queued behind a held stream), twin {plain_ms:.4f} ms, "
+                        f"bound {bound:.6f} ms ({by})  [{bench.card()}]")
+    return True
+
+
+def geometry_phase(bench, device, noise, oracles, build_proc) -> dict | None:
+    """Phase 13 (module docstring): every named geometry through the card's
+    kernels -> {geometry: {"launches": kernel -> count, "errs": ..., "times":
+    ...}}, or None on a failure."""
+    import numpy as np
+    import torch
+
+    from jefferson_tpu_torch.engine.batch import BatchRenderer
+    from jefferson_tpu_torch.engine.renderer import Renderer
+    from jefferson_tpu_torch.engine.stream import SCAN_CHUNK, StreamingSpatializer, render_scan
+    from jefferson_tpu_torch.kernels import build
+    from jefferson_tpu_torch.kernels import fused_spatializer as fsp
+    from jefferson_tpu_torch.kernels import fused_step as fs
+
+    t_phase = time.perf_counter()
+    proc, t0 = build_proc
+    out, _ = proc.communicate()
+    waited = time.perf_counter() - t_phase
+    if proc.returncode:
+        print(out, file=sys.stderr)
+        return fail("geometry", f"the geometry builds exited {proc.returncode}")
+    say("geometry", f"built {len(GEOMETRIES) * len(build.GEOMETRIC)} libraries (one nvcc each, "
+                    f"all at once, started after the live path) in "
+                    f"{time.perf_counter() - t0:.1f} s since their start; the phase waited "
+                    f"{waited:.1f} s for them")
+    results = {}
+    card = bench.card()
+    for name, (fpb, taps) in GEOMETRIES.items():
+        t_geo = time.perf_counter()
+        db = _geo_db(fpb, taps)
+        cfg = db.config
+        pad = cfg.pad_len
+        forms = fs.geometry_forms(fpb, pad)
+        for lib in build.GEOMETRIC:
+            path = build.library_path(lib, geometry=(fpb, pad))
+            own = fs.library_geometry(lib, fpb, pad)
+            say("geometry", f"{name}: fpb {fpb}, {taps} taps, pad {pad}, {cfg.num_bins} bins, "
+                            f"history {cfg.history_len}, Q {forms.q or 'n/a'}: {path.name} built "
+                            f"{path.exists()}, its forms {own}")
+            if own != forms:
+                return fail("geometry", f"{name}: {lib} reports {own}, geometry_forms says "
+                                        f"{forms}")
+        launched = {}
+
+        # ---- renders ----
+        for what, (pos, cb) in geometry_renders(bench, cfg).items():
+            r = Renderer(db, device=device, chunk_blocks=cb)
+            fs.reset_launches()
+            t0 = time.perf_counter()
+            got = r.render(noise, pos)
+            wall = time.perf_counter() - t0
+            by_form = _counts()
+            for k, v in by_form.get("kernel", {}).items():
+                launched[k] = launched.get(k, 0) + v
+            launched[LAUNCH_A] = launched.get(LAUNCH_A, 0) + sum(
+                by_form.get("launch A", {}).values())
+            arm = GEO_ARMS[name][what]
+            d_max, d_rms = diff(got, oracles[name, what].result())
+            say("geometry", f"{name} Renderer {what}, {len(pos)} blocks in chunks of {cb}: "
+                            f"{len(r.dispatch)} chunks as {sorted(set(r.dispatch))} (the JAX "
+                            f"dispatch: {arm}) in {wall:.2f} s wall; launches {by_form}; vs "
+                            f"render_oracle max|diff| {d_max:.3e} (limit {ORACLE_TOL:.0e}), rms "
+                            f"{d_rms:.3e}")
+            if got.shape != (len(pos) * fpb, 2) or not np.isfinite(got).all():
+                return fail("geometry", f"{name} {what}: output {got.shape} not finite")
+            if not (d_max <= ORACLE_TOL and d_rms < ORACLE_RMS):
+                return fail("geometry", f"{name} {what}: the port disagrees with the oracle")
+            if set(r.dispatch) != {arm}:
+                return fail("geometry", f"{name} {what}: dispatch {sorted(set(r.dispatch))}, the "
+                                        f"JAX dispatch takes {arm}")
+            steps = sum(v for k, v in by_form.get("kernel", {}).items() if k != "dma_blend")
+            if steps != len(r.dispatch):
+                return fail("geometry", f"{name} {what}: {steps} step launches on "
+                                        f"{len(r.dispatch)} chunks")
+            if forms.q and (fault := launch_a_fault(f"{name} {what}", by_form["kernel"],
+                                                    dict(fs.forward_launches))):
+                return fail("geometry", fault)
+            if not forms.q and fs.forward_launches != dict.fromkeys(fs.forward_launches, 0):
+                return fail("geometry", f"{name} {what}: launch A ran at a history of partial "
+                                        f"blocks")
+            del got
+        # ---- render_scan on the sweep ----
+        pos = geometry_renders(bench, cfg)["sweep"][0]
+        fs.reset_launches()
+        t0 = time.perf_counter()
+        got = render_scan(noise, db, pos, cfg, device=device)
+        wall = time.perf_counter() - t0
+        by_form = _counts()
+        chunks = -(-len(pos) // SCAN_CHUNK)
+        d_max, d_rms = diff(got, oracles[name, "sweep"].result())
+        say("geometry", f"{name} render_scan sweep, {len(pos)} blocks in {wall:.3f} s wall: "
+                        f"launches {by_form}; vs render_oracle max|diff| {d_max:.3e}, rms "
+                        f"{d_rms:.3e}")
+        want_form = fsp.pick_form(SCAN_CHUNK if len(pos) > SCAN_CHUNK else len(pos), fpb, pad)
+        if (by_form.get("kernel") != {SPATIALIZER: chunks}
+                or by_form.get("row 8") != {want_form: chunks}
+                or sum(by_form.get("launch A", {}).values()) != (chunks if forms.q else 0)):
+            return fail("geometry", f"{name} render_scan launched {by_form}, want row 8 once a "
+                                    f"chunk on {want_form}")
+        if not (d_max <= ORACLE_TOL and d_rms < ORACLE_RMS):
+            return fail("geometry", f"{name} render_scan: the port disagrees with the oracle")
+        launched[SPATIALIZER] = launched.get(SPATIALIZER, 0) + chunks
+        launched[LAUNCH_A] = launched.get(LAUNCH_A, 0) + (chunks if forms.q else 0)
+        # ---- the 16-source scenes ----
+        if name in GEO_SCENES:
+            sigs = bench.scene_signals(noise, SCENE_S, GEO_SAMPLES // fpb, fpb)
+            for scene, pos in geometry_scenes(bench, cfg).items():
+                r = BatchRenderer(db, device=device, chunk_blocks=256)
+                fs.reset_launches()
+                t0 = time.perf_counter()
+                got = r.render(sigs, pos)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                by_form = _counts()
+                for k, v in by_form.get("kernel", {}).items():
+                    launched[k] = launched.get(k, 0) + v
+                launched[LAUNCH_A] = launched.get(LAUNCH_A, 0) + sum(
+                    by_form.get("launch A", {}).values())
+                t0 = time.perf_counter()
+                plain = BatchRenderer(db, device=device, chunk_blocks=256, fused=False).render(
+                    sigs, pos)
+                wall_plain = time.perf_counter() - t0
+                d = [diff(got[i], oracles[name, (scene, i)].result()) for i in GEO_SCENE_SRCS]
+                d_max, d_rms = max(x[0] for x in d), max(x[1] for x in d)
+                d_plain = float(np.abs(got - plain).max())
+                arm = GEO_SCENE_ARMS[name][scene]
+                say("geometry", f"{name} BatchRenderer {scene}, {SCENE_S}x{pos.shape[1]}, chunks "
+                                f"of 256: {len(r.dispatch)} chunks as {sorted(set(r.dispatch))} "
+                                f"(the JAX dispatch: {arm}) in {wall:.2f} s wall; launches "
+                                f"{by_form}; sources {GEO_SCENE_SRCS} vs render_oracle max|diff| "
+                                f"{d_max:.3e}, rms {d_rms:.3e}; every source vs the unfused card "
+                                f"render ({wall_plain:.2f} s) max|diff| {d_plain:.3e} (limit "
+                                f"{GEO_SCENE_TOL:.0e})")
+                if got.shape != (SCENE_S, pos.shape[1] * fpb, 2) or not np.isfinite(got).all():
+                    return fail("geometry", f"{name} {scene}: output {got.shape} not finite")
+                if not (d_max <= ORACLE_TOL and d_rms < ORACLE_RMS and d_plain <= GEO_SCENE_TOL):
+                    return fail("geometry", f"{name} {scene}: the port disagrees with the oracle "
+                                            f"or the unfused render")
+                if set(r.dispatch) != {arm}:
+                    return fail("geometry", f"{name} {scene}: dispatch {sorted(set(r.dispatch))}"
+                                            f", the JAX dispatch takes {arm}")
+                if fault := launch_a_fault(f"{name} {scene}", by_form["kernel"],
+                                           dict(fs.forward_launches)):
+                    return fail("geometry", fault)
+                del got, plain
+        # ---- the live path ----
+        pos = geometry_live(bench, cfg)
+        fs.reset_launches()
+        stats, got, spats = drive_live(db, device, pos[None], noise[None])
+        by_form = _counts()
+        ms = np.asarray(stats.compute_ms)
+        helix = ms[: len(pos) - GEO_HELD]
+        deadline = 1e3 * cfg.block_duration
+        d_max, d_rms = diff(got[0], oracles[name, "live"].result())
+        med, p90 = float(np.median(helix)), float(np.percentile(helix, 90))
+        say("geometry", f"{name} live: {len(pos) - GEO_HELD} helix blocks then {GEO_HELD} held, "
+                        f"{spats[0].crossfades} crossfades; launches {by_form}; vs render_oracle "
+                        f"max|diff| {d_max:.3e}, rms {d_rms:.3e}; {stats.summary()}; the helix "
+                        f"median {med:.4f} ms, p90 {p90:.4f} ms against the {deadline:.3f} ms "
+                        f"deadline; held blocks median {float(np.median(ms[-GEO_HELD:])):.4f} ms"
+                        f"  [{card}]")
+        n_live = len(pos) + 2
+        if by_form.get("kernel") != {SPATIALIZER: n_live}:
+            return fail("geometry", f"{name} live: launched {by_form}, want row 8 once a block")
+        if not (d_max <= ORACLE_TOL and d_rms < ORACLE_RMS):
+            return fail("geometry", f"{name} live: the port disagrees with the oracle")
+        if not (med < deadline and p90 < 2 * deadline):
+            return fail("geometry", f"{name} live: median {med:.4f} ms / p90 {p90:.4f} ms past "
+                                    f"the {deadline:.3f} ms deadline")
+        launched[SPATIALIZER] = launched.get(SPATIALIZER, 0) + n_live
+        launched[LAUNCH_A] = launched.get(LAUNCH_A, 0) + sum(by_form.get("launch A", {}).values())
+        # ---- every form against its twin, and the timings ----
+        errs, times = {}, {}
+        if not geometry_kernels(bench, db, device, name, forms, errs, times):
+            return None
+        results[name] = {"launches": launched, "errs": errs, "times": times}
+        say("geometry", f"{name}: launches on its renders, scans, scenes and live blocks "
+                        f"{launched}; {time.perf_counter() - t_geo:.1f} s")
+    # ---- the envelope's edges ----
+    from jefferson_tpu_torch.config import EngineConfig
+    from jefferson_tpu_torch.hrtf.kemar import synthetic_database
+
+    for fpb, taps in GEO_EDGES:
+        cfg = EngineConfig(frames_per_buffer=fpb, hrtf_len=taps)
+        db = synthetic_database(cfg)
+        fs.reset_launches()
+        for what, make in (("Renderer", lambda: Renderer(db, device=device)),
+                           ("StreamingSpatializer",
+                            lambda: StreamingSpatializer(db, device=device))):
+            try:
+                make()
+            except ValueError as e:
+                raised = str(e)
+            else:
+                raised = None
+            ok = raised is not None and "queue 1 item 11" in raised and not _counts()
+            say("geometry", f"{what} at fpb {fpb}, pad {cfg.pad_len} on the card: raised before "
+                            f"any launch: {ok} ({raised})")
+            if not ok:
+                return fail("geometry", f"{what} at fpb {fpb}, pad {cfg.pad_len} did not raise")
+    say("geometry", f"the phase in {time.perf_counter() - t_phase:.1f} s")
+    return results
 
 
 if __name__ == "__main__":

@@ -409,7 +409,10 @@ def scene_step(db, form: str, s: int, nb: int, device, *, seed: int = 0,
         fn = fused_step.fused_step_xfade
     elif form in ("apply", "apply_noxf"):
         noxf = form == "apply_noxf"
-        xr, xi = fft_ops.rfft_sliding_split_batched(streams, nb, fpb, cfg.pad_len)
+        if cfg.history_len % fpb:  # a history of partial blocks: each window's transform
+            xr, xi = fft_ops.rfft_split(streams.unfold(-1, cfg.pad_len, fpb), cfg.pad_len)
+        else:
+            xr, xi = fft_ops.rfft_sliding_split_batched(streams, nb, fpb, cfg.pad_len)
         dr, di = distance_factors_split(*(put(cat_rows(a)) for a in ("u_hi", "u_lo", "inv_frac")),
                                         cfg.num_bins)
         xdr, xdi = cmul(xr.reshape(s * nb, -1), xi.reshape(s * nb, -1), dr, di)

@@ -19,6 +19,15 @@
 // steps take; and the few-block form, which they take at nb <= FEW_NB
 // blocks a source (the live step).  Every launch B form reads the same XD.
 //
+// Geometry: each library is built for one (fpb, pad_len), passed as
+// -DJT_FPB=<fpb> -DJT_PAD=<pad> (kernels/build.py); BINS = PAD/2 + 1 and,
+// when the history is whole blocks (PAD % FPB == 0), Q = PAD/FPB.  The card
+// takes 32 <= fpb <= 1024 and pad <= 2048.  Every form below is written for
+// any geometry of that envelope unless its HAS_* flag says where it exists;
+// at fpb 128 / pad 1024 each compiles to the form it was measured as.  A
+// history of partial blocks has no launch A (the caller computes XD); its
+// entries take launch B alone (rows 7 and 8's apply-only forms).
+//
 // Numerics: every product whose rounding the JAX op order fixes (twiddle
 // sum, distance planes with the 12-bit phase split, complex multiplies) is
 // written with __fmul_rn/__fadd_rn/__fsub_rn so FMA contraction cannot
@@ -38,24 +47,66 @@
 
 namespace {
 
-constexpr int FPB = 128;        // samples per block = sub-block length
-constexpr int Q = 8;            // sub-blocks per 1024-sample window
-constexpr int BINS = 513;       // half-spectrum of the 1024-point DFT
+#ifndef JT_FPB
+#define JT_FPB 128
+#endif
+#ifndef JT_PAD
+#define JT_PAD 1024
+#endif
+// the forms tuned for fpb 128 / pad 1024 alone: row 1's staged launch B and
+// row 8's cluster form
+#define JT_TUNED_128 (JT_FPB == 128 && JT_PAD == 1024)
+static_assert(JT_FPB >= 32 && JT_FPB <= 1024 && JT_PAD <= 2048 && JT_PAD >= JT_FPB &&
+                  (JT_PAD & (JT_PAD - 1)) == 0,
+              "the card's envelope: 32 <= fpb <= 1024, pad a power of two <= 2048");
+
+constexpr int FPB = JT_FPB;     // samples per block = sub-block length
+constexpr int PAD = JT_PAD;     // transform length
+constexpr int BINS = PAD / 2 + 1;   // half-spectrum of the PAD-point DFT
+constexpr bool ALIGNED = PAD % FPB == 0;   // the history is whole blocks: launch A runs
+constexpr int Q = ALIGNED ? PAD / FPB : 1; // sub-blocks per window
 constexpr int C4 = 4 * BINS;    // combined filter row [rL | iL | rR | iR]
 
 // ---- launch A: sub-block DFT, twiddle sum, distance multiply -------------
 constexpr int A_BT = 32;                // output blocks per CTA
 constexpr int A_KT = 64;                // bins per CTA
 constexpr int A_THREADS = 256;          // 64 columns x 4 row groups
-constexpr int A_ROWS = 40;              // A_BT + Q - 1 = 39 sub-blocks, padded
-constexpr int A_ROWS_PER_THREAD = A_ROWS / (A_THREADS / A_KT);   // 10
-constexpr int A_OUT_PER_THREAD = A_BT / (A_THREADS / A_KT);      // 8
+constexpr int A_RG = A_THREADS / A_KT;  // 4 row groups
+constexpr int A_ROWS = (A_BT + Q - 1 + A_RG - 1) / A_RG * A_RG;  // 39 sub-blocks -> 40 at Q 8
+// A sub-block's DFT is one fmaf chain ascending from sample 0 up to fpb
+// 128; a longer sub-block sums its 128-sample chains in order, each from 0
+// ((0 + c0) + c1) + ..., as the blocked tail sums its 128-bin blocks, so
+// the chain's rounding does not grow with fpb.  Every form does the same.
+constexpr int F_BLOCK = 128;            // samples a DFT chain
+constexpr bool DFT_BLOCKED = FPB > F_BLOCK;
+constexpr int A_NC = FPB < F_BLOCK ? FPB : F_BLOCK;   // samples staged at once
+constexpr int A_ROWS_PER_THREAD = A_ROWS / A_RG;                 // 10 at Q 8
+constexpr int A_OUT_PER_THREAD = A_BT / A_RG;                    // 8
 constexpr size_t A_SMEM =
-    sizeof(float) * (A_ROWS * FPB + 2 * FPB * A_KT + 2 * A_ROWS * A_KT);
+    sizeof(float) * (A_ROWS * A_NC + 2 * A_NC * A_KT + 2 * A_ROWS * A_KT);
+static_assert(!ALIGNED || FPB % A_NC == 0, "whole sample chunks");
 
 // ---- launch B's tail IDFT: 32-bin K chunks, 8 x 8 register tiles ---------
 constexpr int T_KC = 32;                // bins per K chunk
 constexpr int T_QS = T_KC + 1;          // padded row stride of a q chunk
+// A CTA's tail covers TT output columns t (one t-tile; FPB at fpb 128).
+// Larger fpb take T_TILES tiles along the grid's y (each CTA builds its
+// rows' q again); a smaller fpb leaves the tile's columns past FPB unused
+// (their basis is 0 and nothing stores them).
+constexpr int TT = 128;
+constexpr int T_TILES = (FPB + TT - 1) / TT;
+constexpr int T_W = FPB < TT ? FPB : TT;           // columns a full tile stores
+constexpr bool B_MASK = FPB % TT != 0;             // some basis columns lie past FPB
+constexpr bool T_MASK = FPB > TT && FPB % TT != 0; // the last tile is ragged
+
+// Where the tuned layouts fit (kernels/fused_step.geometry_forms mirrors
+// these): launch A's product form (64-bin slices plus the last bin, 32-sample
+// K chunks), its few-block form (static shared memory under 48 KB), launch
+// B's split form (one rank per 128-bin block, at most 8, 16-byte basis rows).
+constexpr bool HAS_PRODUCT = ALIGNED && BINS - 1 >= 64 && (BINS - 1) % 64 == 0 && FPB % 32 == 0;
+constexpr int T_BLOCK = 128;            // bins a block of the blocked tail
+constexpr bool HAS_SPLIT = (BINS - 1) % T_BLOCK == 0 && (BINS - 1) / T_BLOCK >= 1 &&
+                           (BINS - 1) / T_BLOCK <= 8 && FPB % 4 == 0;
 
 // Distance plane at bin k: cos/-sin(2π·frac(frac(u_hi·k) + u_lo·k))·inv_frac,
 // in the op order of ops/filters.distance_factors_split.  u_hi·k is exact
@@ -86,10 +137,10 @@ forward_distance(const float* __restrict__ streams, int nb,
                  const float* __restrict__ twr, const float* __restrict__ twi,
                  float* __restrict__ xdr, float* __restrict__ xdi) {
   extern __shared__ float smem[];
-  float* subs = smem;                       // [A_ROWS][FPB]
-  float* bre = subs + A_ROWS * FPB;         // [FPB][A_KT]
-  float* bim = bre + FPB * A_KT;
-  float* pre = bim + FPB * A_KT;            // [A_ROWS][A_KT]
+  float* subs = smem;                       // [A_ROWS][A_NC]
+  float* bre = subs + A_ROWS * A_NC;        // [A_NC][A_KT]
+  float* bim = bre + A_NC * A_KT;
+  float* pre = bim + A_NC * A_KT;           // [A_ROWS][A_KT]
   float* pim = pre + A_ROWS * A_KT;
 
   const int b0 = blockIdx.x * A_BT;
@@ -101,34 +152,48 @@ forward_distance(const float* __restrict__ streams, int nb,
 
   // sub-blocks [b0, b0 + nsub) of source s are contiguous samples
   const float* src = streams + (size_t)s * (nb + Q - 1) * FPB + (size_t)b0 * FPB;
-  for (int i = tid; i < A_ROWS * FPB; i += A_THREADS)
-    subs[i] = i < nsub * FPB ? src[i] : 0.f;
-  for (int i = tid; i < FPB * A_KT; i += A_THREADS) {
-    const int n = i / A_KT, k = k0 + i % A_KT;
-    bre[i] = k < BINS ? cfr[n * BINS + k] : 0.f;
-    bim[i] = k < BINS ? cfi[n * BINS + k] : 0.f;
-  }
-  __syncthreads();
-
-  // P = subs @ basis slice: thread owns column c, rows rg*10 .. rg*10+9
+  // P = subs @ basis slice: thread owns column c, rows rg*10 .. rg*10+9; the
+  // samples arrive A_NC at a time, each chain still ascending from sample 0
   const int c = tid % A_KT;
   const int rg = tid / A_KT;
   float acc_r[A_ROWS_PER_THREAD], acc_i[A_ROWS_PER_THREAD];
+  float tot_r[A_ROWS_PER_THREAD], tot_i[A_ROWS_PER_THREAD];   // DFT_BLOCKED: the chains' sum
 #pragma unroll
-  for (int i = 0; i < A_ROWS_PER_THREAD; ++i) acc_r[i] = acc_i[i] = 0.f;
-  for (int n = 0; n < FPB; ++n) {
-    const float br = bre[n * A_KT + c], bi = bim[n * A_KT + c];
-#pragma unroll
-    for (int i = 0; i < A_ROWS_PER_THREAD; ++i) {
-      const float x = subs[(rg * A_ROWS_PER_THREAD + i) * FPB + n];
-      acc_r[i] = fmaf(x, br, acc_r[i]);
-      acc_i[i] = fmaf(x, bi, acc_i[i]);
+  for (int i = 0; i < A_ROWS_PER_THREAD; ++i) acc_r[i] = acc_i[i] = tot_r[i] = tot_i[i] = 0.f;
+  for (int n0 = 0; n0 < FPB; n0 += A_NC) {
+    for (int i = tid; i < A_ROWS * A_NC; i += A_THREADS) {
+      const int r = i / A_NC, n = i % A_NC;
+      subs[i] = r < nsub ? src[r * FPB + n0 + n] : 0.f;
     }
+    for (int i = tid; i < A_NC * A_KT; i += A_THREADS) {
+      const int n = n0 + i / A_KT, k = k0 + i % A_KT;
+      bre[i] = k < BINS ? cfr[n * BINS + k] : 0.f;
+      bim[i] = k < BINS ? cfi[n * BINS + k] : 0.f;
+    }
+    __syncthreads();
+    for (int n = 0; n < A_NC; ++n) {
+      const float br = bre[n * A_KT + c], bi = bim[n * A_KT + c];
+#pragma unroll
+      for (int i = 0; i < A_ROWS_PER_THREAD; ++i) {
+        const float x = subs[(rg * A_ROWS_PER_THREAD + i) * A_NC + n];
+        acc_r[i] = fmaf(x, br, acc_r[i]);
+        acc_i[i] = fmaf(x, bi, acc_i[i]);
+      }
+    }
+    if constexpr (DFT_BLOCKED) {             // a chunk is one 128-sample chain
+#pragma unroll
+      for (int i = 0; i < A_ROWS_PER_THREAD; ++i) {
+        tot_r[i] = __fadd_rn(tot_r[i], acc_r[i]);
+        tot_i[i] = __fadd_rn(tot_i[i], acc_i[i]);
+        acc_r[i] = acc_i[i] = 0.f;
+      }
+    }
+    if (n0 + A_NC < FPB) __syncthreads();   // the next chunk overwrites this one
   }
 #pragma unroll
   for (int i = 0; i < A_ROWS_PER_THREAD; ++i) {
-    pre[(rg * A_ROWS_PER_THREAD + i) * A_KT + c] = acc_r[i];
-    pim[(rg * A_ROWS_PER_THREAD + i) * A_KT + c] = acc_i[i];
+    pre[(rg * A_ROWS_PER_THREAD + i) * A_KT + c] = DFT_BLOCKED ? tot_r[i] : acc_r[i];
+    pim[(rg * A_ROWS_PER_THREAD + i) * A_KT + c] = DFT_BLOCKED ? tot_i[i] : acc_i[i];
   }
   __syncthreads();
 
@@ -200,14 +265,18 @@ std::atomic<unsigned long long> tile_smem_set{0};
 // flight, and selected per row, as the JAX package's _select_distance does
 // (the same function of triple and bin, so the same bits); without one,
 // per row.
+// At Q > 16 (fpb 32 under pad 1024 or more) a tile holds 128 rows, so that
+// its output starts (G_OUT) stay most of its rows, at two CTAs an SM.
 constexpr int D_UNIQ = 8;                     // fused_step.MAX_DIST_UNIQ
-constexpr int G_ROWS = 64;                    // flat sub-block rows a tile
+constexpr int G_ROWS = Q <= 16 ? 64 : 128;    // flat sub-block rows a tile
+constexpr int G_MIN_CTAS = G_ROWS == 64 && !DFT_BLOCKED ? 3 : 2;   // blocked: 34 more registers
 constexpr int G_RT = G_ROWS / 16;             // rows a thread
 constexpr int G_OUT = G_ROWS - Q + 1;         // output starts a tile
 constexpr int G_KT = 64;                      // bins a slice
-constexpr int G_SLICES = (BINS - 1) / G_KT;   // 8; the last also bin 512
+constexpr int G_SLICES = HAS_PRODUCT ? (BINS - 1) / G_KT : 1;   // 8; the last also bin 512
 constexpr int G_KC = 32;                      // samples a K chunk
 constexpr int G_CHUNKS = FPB / G_KC;
+constexpr int G_FOLD = F_BLOCK / G_KC;        // K chunks a 128-sample chain (DFT_BLOCKED)
 constexpr int G_THREADS = 256;                // 16 row groups x 16 bin groups
 constexpr int G_AS = G_KC + 4;                // padded row stride of an A chunk
 constexpr int G_BS = 2 * G_KT;                // a B chunk row: 64 re | 64 im
@@ -218,7 +287,8 @@ constexpr int G_DS = G_KT + 1;                // distance table row: the slice, 
 constexpr int G_RUN = (G_OUT + 3) / 4;        // outputs a thread's run (4 runs a column)
 constexpr int G_BUF = 2 * G_STAGE > 2 * G_PLANE ? 2 * G_STAGE : 2 * G_PLANE;
 constexpr size_t G_SMEM = sizeof(float) * (G_BUF + 2 * D_UNIQ * G_DS);
-static_assert(G_SLICES * G_KT == BINS - 1, "slices cover bins 0-511");
+static_assert(!HAS_PRODUCT || G_SLICES * G_KT == BINS - 1, "slices cover bins 0-511");
+static_assert(G_OUT >= 1 && G_OUT <= G_THREADS && G_ROWS <= G_THREADS, "a tile's outputs");
 static_assert(G_STAGE % 4 == 0 && G_PLANE % 4 == 0 && G_BUF % 4 == 0, "float4 alignment");
 
 std::atomic<unsigned long long> product_smem_set[2];   // by VEC
@@ -335,7 +405,7 @@ __device__ __forceinline__ void tile_outputs(
 }
 
 template <bool VEC>  // VEC: streams 16-byte aligned, its rows copied 16 bytes at a time
-__global__ void __launch_bounds__(G_THREADS, 3)
+__global__ void __launch_bounds__(G_THREADS, G_MIN_CTAS)
 forward_distance_product(const float* __restrict__ streams, int num_sources, int nb,
                          const float* __restrict__ uh, const float* __restrict__ ul,
                          const float* __restrict__ fr, const int* __restrict__ dsel,
@@ -386,7 +456,7 @@ forward_distance_product(const float* __restrict__ streams, int num_sources, int
   };
 
   load_chunk(0);
-  load_chunk(1);
+  if (G_CHUNKS > 1) load_chunk(1);
   const bool table = dsel != nullptr && n_dist <= D_UNIQ;
   if (table) {
     for (int i = tid; i < n_dist * G_DS; i += G_THREADS) {
@@ -402,11 +472,18 @@ forward_distance_product(const float* __restrict__ streams, int num_sources, int
   const int bg = (warp & 1) * 8 + (lane & 7);     // bins 4bg .. 4bg+3 of the slice
   const bool nyq_row = nyq && tid < G_ROWS;       // bin 512 of row tid
   float accr[G_RT][4], acci[G_RT][4];
+  float totr[DFT_BLOCKED ? G_RT : 1][4], toti[DFT_BLOCKED ? G_RT : 1][4];   // the chains' sum
 #pragma unroll
   for (int i = 0; i < G_RT; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) accr[i][j] = acci[i][j] = 0.f;
-  float nr = 0.f, ni = 0.f;
+  if constexpr (DFT_BLOCKED) {
+#pragma unroll
+    for (int i = 0; i < G_RT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) totr[i][j] = toti[i][j] = 0.f;
+  }
+  float nr = 0.f, ni = 0.f, ntr = 0.f, nti = 0.f;
 
   for (int c = 0; c < G_CHUNKS; ++c) {
     if (c + 1 < G_CHUNKS) cp_async_wait<1>(); else cp_async_wait<0>();
@@ -454,8 +531,34 @@ forward_distance_product(const float* __restrict__ streams, int num_sources, int
         ni = fmaf(x.w, b23.w, ni);
       }
     }
+    if constexpr (DFT_BLOCKED) {
+      if ((c + 1) % G_FOLD == 0) {           // a 128-sample chain ends here
+#pragma unroll
+        for (int i = 0; i < G_RT; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            totr[i][j] = __fadd_rn(totr[i][j], accr[i][j]);
+            toti[i][j] = __fadd_rn(toti[i][j], acci[i][j]);
+            accr[i][j] = acci[i][j] = 0.f;
+          }
+        ntr = __fadd_rn(ntr, nr);
+        nti = __fadd_rn(nti, ni);
+        nr = ni = 0.f;
+      }
+    }
     __syncthreads();
     if (c + 2 < G_CHUNKS) load_chunk(c + 2);
+  }
+  if constexpr (DFT_BLOCKED) {
+#pragma unroll
+    for (int i = 0; i < G_RT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        accr[i][j] = totr[i][j];
+        acci[i][j] = toti[i][j];
+      }
+    nr = ntr;
+    ni = nti;
   }
 
   // the tile's P over the stages: [plane][row][G_PS]
@@ -491,7 +594,16 @@ forward_distance_product(const float* __restrict__ streams, int num_sources, int
 // warp 0.0064, and the sample loop unrolled 16 deep rather than 4 0.0073
 // (PERF.md, launch A).
 constexpr int F_THREADS = 32;
-constexpr int FEW_NB = 9;                     // most blocks a source: nb + 7 <= 16
+// R rows a thread fit where the static shared memory stays under 48 KB:
+// R = 16 up to fpb 128, R = 8 up to 256; none above.
+constexpr bool FEW16 = ALIGNED && Q <= 16 && sizeof(float) * FPB * (16 + F_THREADS) < 48 * 1024;
+constexpr bool FEW8 = ALIGNED && Q <= 8 && sizeof(float) * FPB * (8 + F_THREADS) < 48 * 1024;
+template <int R>
+constexpr bool few_fits() {
+  return R == 16 ? FEW16 : R == 8 ? FEW8 : false;
+}
+// most blocks a source: nb + Q - 1 <= R (9 at fpb 128 / pad 1024)
+constexpr int FEW_NB = FEW16 ? 17 - Q : FEW8 ? 9 - Q : 0;
 
 template <int R>  // sub-block rows a thread carries, R >= nb + 7
 __global__ void __launch_bounds__(F_THREADS)
@@ -524,17 +636,36 @@ forward_distance_few(const float* __restrict__ streams, int nb,
   float acc[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r] = 0.f;
+  auto chain = [&](int n0, int n1) {             // acc += samples n0 .. n1-1, ascending
 #pragma unroll 16
-  for (int n = 0; n < FPB; ++n) {
-    const float b = bs[n * F_THREADS + tid];
+    for (int n = n0; n < n1; ++n) {
+      const float b = bs[n * F_THREADS + tid];
 #pragma unroll
-    for (int r4 = 0; r4 < R / 4; ++r4) {
-      const float4 x = *reinterpret_cast<const float4*>(xs + n * R + 4 * r4);
-      acc[4 * r4 + 0] = fmaf(x.x, b, acc[4 * r4 + 0]);
-      acc[4 * r4 + 1] = fmaf(x.y, b, acc[4 * r4 + 1]);
-      acc[4 * r4 + 2] = fmaf(x.z, b, acc[4 * r4 + 2]);
-      acc[4 * r4 + 3] = fmaf(x.w, b, acc[4 * r4 + 3]);
+      for (int r4 = 0; r4 < R / 4; ++r4) {
+        const float4 x = *reinterpret_cast<const float4*>(xs + n * R + 4 * r4);
+        acc[4 * r4 + 0] = fmaf(x.x, b, acc[4 * r4 + 0]);
+        acc[4 * r4 + 1] = fmaf(x.y, b, acc[4 * r4 + 1]);
+        acc[4 * r4 + 2] = fmaf(x.z, b, acc[4 * r4 + 2]);
+        acc[4 * r4 + 3] = fmaf(x.w, b, acc[4 * r4 + 3]);
+      }
     }
+  };
+  if constexpr (DFT_BLOCKED) {
+    float tot[R];                                // the 128-sample chains' sum
+#pragma unroll
+    for (int r = 0; r < R; ++r) tot[r] = 0.f;
+    for (int n0 = 0; n0 < FPB; n0 += F_BLOCK) {
+      chain(n0, n0 + F_BLOCK);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        tot[r] = __fadd_rn(tot[r], acc[r]);
+        acc[r] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = tot[r];
+  } else {
+    chain(0, FPB);
   }
   float pr[R], pi[R];
 #pragma unroll
@@ -577,25 +708,46 @@ forward_distance_few(const float* __restrict__ streams, int nb,
 enum ForwardForm { FWD_TILE = 0, FWD_PRODUCT = 1, FWD_FEW = 2 };
 
 // The form the render steps take at nb blocks a source (kernels/fused_step
-// .forward_form mirrors it).
-inline int forward_form(int nb) { return nb <= FEW_NB ? FWD_FEW : FWD_PRODUCT; }
+// .forward_form mirrors it): the few-block form up to FEW_NB, else the
+// product form where the geometry has it, else the tile form.
+inline int forward_form(int nb) {
+  return nb <= FEW_NB ? FWD_FEW : HAS_PRODUCT ? FWD_PRODUCT : FWD_TILE;
+}
+
+template <int R>
+cudaError_t launch_few(cudaStream_t stream, const float* streams, int num_sources, int nb,
+                       const float* uh, const float* ul, const float* fr, const int* dsel,
+                       int n_dist, const float* cfr, const float* cfi, const float* twr,
+                       const float* twi, float* xdr, float* xdi) {
+  if constexpr (few_fits<R>()) {
+    const dim3 grid((2 * BINS + F_THREADS - 1) / F_THREADS, num_sources);
+    forward_distance_few<R><<<grid, F_THREADS, 0, stream>>>(streams, nb, uh, ul, fr, dsel,
+                                                            n_dist, cfr, cfi, twr, twi, xdr, xdi);
+    return cudaSuccess;
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
 
 // Launch A in ``form`` over num_sources streams of nb blocks each (rows =
-// num_sources*nb); anything else, or FWD_FEW above FEW_NB blocks, is
-// refused (cudaErrorInvalidValue).
+// num_sources*nb); anything else, a form the geometry lacks, FWD_FEW above
+// FEW_NB blocks, or a history of partial blocks, is refused
+// (cudaErrorInvalidValue).
 inline cudaError_t launch_forward_form(
     int form, cudaStream_t stream, const float* streams, int num_sources, int nb,
     const float* uh, const float* ul, const float* fr, const int* dsel, int n_dist,
     const float* cfr, const float* cfi, const float* twr, const float* twi,
     float* xdr, float* xdi) {
   cudaError_t err = cudaSuccess;
-  if (form == FWD_TILE) {
+  if (!ALIGNED) {
+    return cudaErrorInvalidValue;
+  } else if (form == FWD_TILE) {
     err = allow_smem_once(forward_distance, A_SMEM, tile_smem_set);
     if (err != cudaSuccess) return err;
     const dim3 grid((nb + A_BT - 1) / A_BT, (BINS + A_KT - 1) / A_KT, num_sources);
     forward_distance<<<grid, A_THREADS, A_SMEM, stream>>>(
         streams, nb, uh, ul, fr, dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi);
-  } else if (form == FWD_PRODUCT) {
+  } else if (form == FWD_PRODUCT && HAS_PRODUCT) {
     const bool vec = reinterpret_cast<size_t>(streams) % 16 == 0;
     auto kernel = vec ? forward_distance_product<true> : forward_distance_product<false>;
     err = allow_smem_once(kernel, G_SMEM, product_smem_set[vec]);
@@ -605,10 +757,11 @@ inline cudaError_t launch_forward_form(
     kernel<<<grid, G_THREADS, G_SMEM, stream>>>(streams, num_sources, nb, uh, ul, fr, dsel,
                                                 n_dist, cfr, cfi, twr, twi, xdr, xdi);
   } else if (form == FWD_FEW && nb <= FEW_NB) {
-    auto kernel = nb + Q - 1 <= 8 ? forward_distance_few<8> : forward_distance_few<16>;
-    const dim3 grid((2 * BINS + F_THREADS - 1) / F_THREADS, num_sources);
-    kernel<<<grid, F_THREADS, 0, stream>>>(streams, nb, uh, ul, fr, dsel, n_dist, cfr, cfi,
-                                           twr, twi, xdr, xdi);
+    err = nb + Q - 1 <= 8 ? launch_few<8>(stream, streams, num_sources, nb, uh, ul, fr, dsel,
+                                          n_dist, cfr, cfi, twr, twi, xdr, xdi)
+                          : launch_few<16>(stream, streams, num_sources, nb, uh, ul, fr, dsel,
+                                           n_dist, cfr, cfi, twr, twi, xdr, xdi);
+    if (err != cudaSuccess) return err;
   } else {
     return cudaErrorInvalidValue;
   }
@@ -625,15 +778,20 @@ inline cudaError_t launch_forward_distance(
                              dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi);
 }
 
-// Stage the (T_KC x FPB) tail-basis chunk that starts at bin k0.
+// The first output column of this CTA's t-tile.
+__device__ __forceinline__ int tile_t0() { return T_TILES == 1 ? 0 : (int)blockIdx.y * TT; }
+
+// Stage the (T_KC x TT) tail-basis chunk that starts at bin k0, columns
+// t0 .. t0 + TT - 1 (0 past BINS or FPB).
 __device__ __forceinline__ void load_tail_basis(float* br, float* bi,
                                                 const float* __restrict__ icr,
                                                 const float* __restrict__ ici,
-                                                int k0, int tid, int nthreads) {
-  for (int i = tid; i < T_KC * FPB; i += nthreads) {
-    const int k = k0 + i / FPB;
-    br[i] = k < BINS ? icr[(size_t)k0 * FPB + i] : 0.f;
-    bi[i] = k < BINS ? ici[(size_t)k0 * FPB + i] : 0.f;
+                                                int k0, int t0, int tid, int nthreads) {
+  for (int i = tid; i < T_KC * TT; i += nthreads) {
+    const int k = k0 + i / TT, t = t0 + i % TT;
+    const bool ok = k < BINS && (!B_MASK || t < FPB);
+    br[i] = ok ? icr[(size_t)k * FPB + t] : 0.f;
+    bi[i] = ok ? ici[(size_t)k * FPB + t] : 0.f;
   }
 }
 
@@ -652,8 +810,8 @@ __device__ __forceinline__ void tail_chunk_fma(float (&acc)[8][8], const float* 
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      vr[j] = br[kk * FPB + tx + 16 * j];
-      vi[j] = bi[kk * FPB + tx + 16 * j];
+      vr[j] = br[kk * TT + tx + 16 * j];
+      vi[j] = bi[kk * TT + tx + 16 * j];
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -671,8 +829,6 @@ __device__ __forceinline__ void tail_chunk_fma(float (&acc)[8][8], const float* 
 // rounding error grows with its length.  The JAX package's tail_tree
 // contraction cuts K at the same 128-bin boundaries (pallas/fused_step.py
 // _tail_dots :195) for the same reason.
-constexpr int T_BLOCK = 128;
-
 __device__ __forceinline__ bool ends_tail_block(int k0) {
   return (k0 + T_KC) % T_BLOCK == 0 || k0 + T_KC >= BINS;
 }
@@ -720,15 +876,19 @@ __device__ __forceinline__ void fold_tail_block(float (&acc)[8][8], float (&part
 // 128 threads and two CTAs an SM: PERF.md, the kernel table).
 namespace cg = cooperative_groups;
 
-constexpr int S_RANKS = 4;                      // tail blocks 0-3, one per rank
+// At other geometries the cluster has one rank per 128-bin block (2 at 257
+// bins, 8 at 1025), the last bin folded last, and the t-tiles of TT columns
+// lie along the grid's y.
+constexpr int S_RANKS = HAS_SPLIT ? (BINS - 1) / T_BLOCK : 1;   // tail blocks, one per rank
 constexpr int S_M = 128;                        // operand rows (side, ear, row)
 constexpr int S_THREADS = 256;                  // 16 x 16 threads, 8 x 8 outputs each
 constexpr int S_CHUNKS = T_BLOCK / T_KC;        // 32-bin chunks a rank walks
 constexpr int S_QLD = S_M + 4;                  // padded bin stride of a q chunk
-constexpr int S_BASIS = 2 * T_KC * FPB;         // one chunk of both basis planes
+constexpr int S_BASIS = 2 * T_KC * TT;          // one chunk of both basis planes
 constexpr size_t S_SMEM = sizeof(float) * (2 * S_BASIS + 2 * T_KC * S_QLD);
-static_assert(S_M * FPB <= 2 * S_BASIS, "the block partial must fit in the basis buffers");
-static_assert(S_RANKS * T_BLOCK == BINS - 1, "rank blocks cover bins 0-511, bin 512 is p4");
+static_assert(S_M * TT <= 2 * S_BASIS, "the block partial must fit in the basis buffers");
+static_assert(!HAS_SPLIT || S_RANKS * T_BLOCK == BINS - 1,
+              "rank blocks cover bins 0-511, bin 512 is p4");
 
 template <int SIDES>
 struct SplitShape {
@@ -807,7 +967,7 @@ __device__ __forceinline__ void split_chunk_fma(float (&acc)[8][8], const float*
 #pragma unroll
     for (int plane = 0; plane < 2; ++plane) {
       const float* q = (plane ? qi : qr) + kk * S_QLD + ty * 8;
-      const float* v = (plane ? bi : br) + kk * FPB + tx * 4;
+      const float* v = (plane ? bi : br) + kk * TT + tx * 4;
       const float4 a0 = *reinterpret_cast<const float4*>(q);
       const float4 a1 = *reinterpret_cast<const float4*>(q + 4);
       const float4 v0 = *reinterpret_cast<const float4*>(v);
@@ -838,10 +998,10 @@ split_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi, i
   using Shape = SplitShape<SIDES>;
   constexpr int R = Shape::R, ENT = Shape::ENT, FOLD = Shape::FOLD;
   extern __shared__ __align__(16) float smem[];
-  float* basis = smem;                       // [buffer][plane][T_KC][FPB]
+  float* basis = smem;                       // [buffer][plane][T_KC][TT]
   float* qr = smem + 2 * S_BASIS;            // [T_KC][S_QLD], m = (side*2 + ear)*R + row
   float* qi = qr + T_KC * S_QLD;
-  float* part = smem;                        // [S_M][FPB] after the main loop
+  float* part = smem;                        // [S_M][TT] after the main loop
   __shared__ typename Rows::Entry ent[ENT];  // the tile's staged filter rows
   __shared__ int user[ENT][2];               // the row whose side 0 / 1 it is, or -1
   __shared__ int new_ent[R];                 // each row's new-side entry
@@ -852,13 +1012,18 @@ split_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi, i
   const int r0 = (int)(blockIdx.x / S_RANKS) * R;
   const int tid = threadIdx.x;
   const int kb = b * T_BLOCK;
+  const int t0 = tile_t0();
 
   auto stage_basis = [&](int c) {            // one commit group per chunk
     float* dst = basis + (c & 1) * S_BASIS;
-    const size_t at = (size_t)(kb + c * T_KC) * FPB;
+    const size_t at = (size_t)(kb + c * T_KC) * FPB + t0;
     for (int i = tid; i < S_BASIS / 4; i += S_THREADS) {
       const int plane = i / (S_BASIS / 8), j = 4 * (i % (S_BASIS / 8));
-      cp_async16(dst + plane * T_KC * FPB + j, (plane ? ici : icr) + at + j);
+      const int kk = j / TT, tt = j % TT;    // FPB % 4 == 0: four columns all in or all out
+      if (!B_MASK || t0 + tt < FPB)
+        cp_async16(dst + plane * T_KC * TT + j, (plane ? ici : icr) + at + (size_t)kk * FPB + tt);
+      else
+        *reinterpret_cast<float4*>(dst + plane * T_KC * TT + j) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
     cp_async_commit();
   };
@@ -958,22 +1123,22 @@ split_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi, i
       cp_async_wait<0>();
     __syncthreads();
     const float* br = basis + (c & 1) * S_BASIS;
-    split_chunk_fma(acc, qr, qi, br, br + T_KC * FPB, tx, ty);
+    split_chunk_fma(acc, qr, qi, br, br + T_KC * TT, tx, ty);
     __syncthreads();
   }
 
   // this rank's block partial into its own shared memory
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    float* row = part + (ty * 8 + i) * FPB + tx * 4;
+    float* row = part + (ty * 8 + i) * TT + tx * 4;
     *reinterpret_cast<float4*>(row) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     *reinterpret_cast<float4*>(row + 64) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
   }
   // bin 512 of the rows this rank folds: q (launch B's code) and the basis row
   float* q4r = qr;                           // [(side*2 + ear)*FOLD + row]
   float* q4i = q4r + SIDES * 2 * FOLD;
-  float* b4r = q4i + SIDES * 2 * FOLD;       // [FPB]
-  float* b4i = b4r + FPB;
+  float* b4r = q4i + SIDES * 2 * FOLD;       // [TT]
+  float* b4i = b4r + TT;
   if (tid < SIDES * FOLD) {
     const int side = tid / FOLD, lr = tid % FOLD, row = b * FOLD + lr, r = r0 + row;
     if (r < rows) {
@@ -987,28 +1152,30 @@ split_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi, i
       }
     }
   }
-  for (int t = tid; t < FPB; t += S_THREADS) {
-    b4r[t] = icr[(size_t)(BINS - 1) * FPB + t];
-    b4i[t] = ici[(size_t)(BINS - 1) * FPB + t];
+  for (int t = tid; t < TT; t += S_THREADS) {
+    const bool ok = !B_MASK || t0 + t < FPB;
+    b4r[t] = ok ? icr[(size_t)(BINS - 1) * FPB + t0 + t] : 0.f;
+    b4i[t] = ok ? ici[(size_t)(BINS - 1) * FPB + t0 + t] : 0.f;
   }
   cluster.sync();                            // every rank's partial stored
 
   const float* parts[S_RANKS];
 #pragma unroll
   for (int q = 0; q < S_RANKS; ++q) parts[q] = cluster.map_shared_rank(part, q);
-  for (int i = tid; i < FOLD * 2 * FPB; i += S_THREADS) {
-    const int lr = i / (2 * FPB), col = i % (2 * FPB), row = b * FOLD + lr, r = r0 + row;
+  for (int i = tid; i < FOLD * 2 * T_W; i += S_THREADS) {
+    const int lr = i / (2 * T_W), col = i % (2 * T_W), row = b * FOLD + lr, r = r0 + row;
     if (r >= rows) break;
-    const int ear = col / FPB, t = col % FPB;
+    const int ear = col / T_W, tt = col % T_W, t = t0 + tt;
+    if (T_MASK && t >= FPB) continue;
     float y[SIDES];
 #pragma unroll
     for (int side = 0; side < SIDES; ++side) {
       const int m = (side * 2 + ear) * R + row;
       float v = 0.f;
 #pragma unroll
-      for (int q = 0; q < S_RANKS; ++q) v = __fadd_rn(v, parts[q][m * FPB + t]);
+      for (int q = 0; q < S_RANKS; ++q) v = __fadd_rn(v, parts[q][m * TT + tt]);
       const int m4 = (side * 2 + ear) * FOLD + lr;
-      y[side] = __fadd_rn(v, fmaf(q4i[m4], b4i[t], fmaf(q4r[m4], b4r[t], 0.f)));
+      y[side] = __fadd_rn(v, fmaf(q4i[m4], b4i[tt], fmaf(q4r[m4], b4r[tt], 0.f)));
     }
     float v = y[SIDES - 1];
     if (SIDES == 2) {                        // launch B's crossfade epilogue
@@ -1018,25 +1185,30 @@ split_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi, i
       const float bn = on ? fn : 1.f;
       v = __fadd_rn(__fmul_rn(y[0], a), __fmul_rn(y[SIDES - 1], bn));
     }
-    out[(size_t)r * 2 * FPB + col] = v;
+    out[(size_t)r * 2 * FPB + ear * FPB + t] = v;
   }
   cluster.sync();                            // keep this partial until every rank read it
 }
 
 // Launch B's split form over ``rows`` rows in segments of ``seg``; a
 // refused launch (shared memory, registers, cluster occupancy) returns its
-// error.
+// error, and a geometry without the form (HAS_SPLIT) cudaErrorInvalidValue.
 template <int SIDES, class Rows>
 cudaError_t launch_split_tail(cudaStream_t s, const float* xdr, const float* xdi, int rows,
                               int seg, const Rows& src, const float* xf, const float* icr,
                               const float* ici, float* out) {
-  auto kernel = split_tail_xfade<SIDES, Rows>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S_SMEM);
-  if (err != cudaSuccess) return err;
-  const int tiles = (rows + SplitShape<SIDES>::R - 1) / SplitShape<SIDES>::R;
-  kernel<<<tiles * S_RANKS, S_THREADS, S_SMEM, s>>>(xdr, xdi, rows, seg, src, xf, icr, ici, out);
-  return cudaGetLastError();
+  if constexpr (!HAS_SPLIT) {
+    return cudaErrorInvalidValue;
+  } else {
+    auto kernel = split_tail_xfade<SIDES, Rows>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S_SMEM);
+    if (err != cudaSuccess) return err;
+    const int tiles = (rows + SplitShape<SIDES>::R - 1) / SplitShape<SIDES>::R;
+    kernel<<<dim3(tiles * S_RANKS, T_TILES), S_THREADS, S_SMEM, s>>>(xdr, xdi, rows, seg, src,
+                                                                     xf, icr, ici, out);
+    return cudaGetLastError();
+  }
 }
 
 // The forms of launch B an entry takes: one CTA per 32-row tile, the split
@@ -1045,3 +1217,19 @@ cudaError_t launch_split_tail(cudaStream_t s, const float* xdr, const float* xdi
 enum TailForm { FORM_LAUNCH_B = 0, FORM_SPLIT = 1, FORM_STAGED = 2 };
 
 }  // namespace
+
+// The geometry this library was built for and the forms it has, for the
+// wrappers to check their mirror (kernels/fused_step.geometry_forms):
+// out[0..8] = fpb, pad, bins, q (0: a history of partial blocks), FEW_NB,
+// product form, split form, row 1's staged form, row 8's cluster form.
+extern "C" void jt_geometry(int* out) {
+  out[0] = FPB;
+  out[1] = PAD;
+  out[2] = BINS;
+  out[3] = ALIGNED ? Q : 0;
+  out[4] = FEW_NB;
+  out[5] = HAS_PRODUCT;
+  out[6] = HAS_SPLIT;
+  out[7] = JT_TUNED_128;
+  out[8] = JT_TUNED_128;
+}

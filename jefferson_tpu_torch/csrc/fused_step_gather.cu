@@ -36,6 +36,12 @@
 // crossfade as the epilogue.  Every entry also takes launch B's split form
 // (fused_forward.cuh: four CTAs a tile, one per 128-bin block, each filter
 // row staged once), which gives the same bits.
+//
+// Geometry (fused_forward.cuh): both forms run at every geometry of the
+// card's envelope where they exist (the split form where HAS_SPLIT), a CTA
+// per 32 rows and TT = 128 output columns, T_TILES along the grid's y.  At
+// a history of partial blocks (fpb 100, 441 under pad 1024) the entry with
+// launch A refuses and jt_fused_apply_xfade is the step.
 
 #include "fused_forward.cuh"
 
@@ -47,8 +53,8 @@ template <int SIDES>
 struct GatherShape {
   static constexpr int M = SIDES * 2 * G_R;         // (side, ear, row) operand rows
   static constexpr int THREADS = 2 * M;             // (M / 8) x 16 threads
-  static constexpr size_t SMEM = sizeof(float) * (2 * M * T_QS + 2 * T_KC * FPB);
-  static_assert(M * FPB <= 2 * M * T_QS + 2 * T_KC * FPB,
+  static constexpr size_t SMEM = sizeof(float) * (2 * M * T_QS + 2 * T_KC * TT);
+  static_assert(M * TT <= 2 * M * T_QS + 2 * T_KC * TT,
                 "epilogue tile must fit in the main-loop shared memory");
 };
 
@@ -64,12 +70,13 @@ gather_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
   extern __shared__ float smem[];
   float* qr = smem;                 // [M][T_QS], m = (side*2 + ear)*G_R + row
   float* qi = qr + M * T_QS;
-  float* br = qi + M * T_QS;        // [T_KC][FPB]
-  float* bi = br + T_KC * FPB;
-  float* y = smem;                  // epilogue [M][FPB], after the main loop
+  float* br = qi + M * T_QS;        // [T_KC][TT]
+  float* bi = br + T_KC * TT;
+  float* y = smem;                  // epilogue [M][TT], after the main loop
   __shared__ const float* grow[SIDES][G_R];   // each (side, row)'s filter row
 
   const int r0 = blockIdx.x * G_R;
+  const int t0 = tile_t0();
   const int tid = threadIdx.x;
   if (tid < SIDES * G_R) {
     // The last side is the new one: with the crossfade, old row r+1 of the
@@ -117,7 +124,7 @@ gather_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
           qi[m * T_QS + kk] = q[side][ear][1];
         }
     }
-    load_tail_basis(br, bi, icr, ici, k0, tid, THREADS);
+    load_tail_basis(br, bi, icr, ici, k0, t0, tid, THREADS);
     __syncthreads();
     tail_chunk_fma(part, qr, qi, br, bi, tx, ty);
     if (ends_tail_block(k0)) fold_tail_block(acc, part);
@@ -127,25 +134,26 @@ gather_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) y[(ty * 8 + i) * FPB + tx + 16 * j] = acc[i][j];
+    for (int j = 0; j < 8; ++j) y[(ty * 8 + i) * TT + tx + 16 * j] = acc[i][j];
   __syncthreads();
 
-  // epilogue: out[r] = [L 128 | R 128]
-  for (int i = tid; i < G_R * 2 * FPB; i += THREADS) {
-    const int row = i / (2 * FPB), col = i % (2 * FPB), r = r0 + row;
+  // epilogue: out[r] = [L fpb | R fpb], this tile's columns
+  for (int i = tid; i < G_R * 2 * T_W; i += THREADS) {
+    const int row = i / (2 * T_W), col = i % (2 * T_W), r = r0 + row;
     if (r >= rows) break;
-    const int ear = col / FPB, t = col % FPB;
-    const float y_new = y[((SIDES - 1) * 2 + ear) * G_R * FPB + row * FPB + t];
+    const int ear = col / T_W, tt = col % T_W, t = t0 + tt;
+    if (T_MASK && t >= FPB) continue;
+    const float y_new = y[((SIDES - 1) * 2 + ear) * G_R * TT + row * TT + tt];
     float v = y_new;
     if (SIDES == 2) {
-      const float y_old = y[(ear * G_R + row) * FPB + t];
+      const float y_old = y[(ear * G_R + row) * TT + tt];
       const float fn = (float)t / (float)(FPB - 1);
       const bool on = xf[r] > 0.f;
       const float a = on ? __fsub_rn(1.f, fn) : 0.f;
       const float b = on ? fn : 1.f;
       v = __fadd_rn(__fmul_rn(y_old, a), __fmul_rn(y_new, b));
     }
-    out[(size_t)r * 2 * FPB + col] = v;
+    out[(size_t)r * 2 * FPB + ear * FPB + t] = v;
   }
 }
 
@@ -162,7 +170,8 @@ cudaError_t launch_gather_tail(cudaStream_t s, int form, const float* xdr, const
   cudaError_t err = cudaFuncSetAttribute(
       gather_tail_xfade<SIDES>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Shape::SMEM);
   if (err != cudaSuccess) return err;
-  gather_tail_xfade<SIDES><<<(rows + G_R - 1) / G_R, Shape::THREADS, Shape::SMEM, s>>>(
+  gather_tail_xfade<SIDES><<<dim3((rows + G_R - 1) / G_R, T_TILES), Shape::THREADS, Shape::SMEM,
+                             s>>>(
       xdr, xdi, rows, nb, g_rows, g_last, xf, icr, ici, out);
   return cudaGetLastError();
 }
@@ -176,7 +185,9 @@ cudaError_t launch_gather_tail(cudaStream_t s, int form, const float* xdr, const
 // and xf (rows), else both may be null.  dsel as in the one-hot step.
 // form: launch B as FORM_LAUNCH_B (one CTA per 32 rows) or FORM_SPLIT (a
 // cluster of four CTAs per tile, fused_forward.cuh), the same bits; any
-// other is refused (cudaErrorInvalidValue).  Launches on ``stream`` of ``device`` without synchronising, leaves the
+// other, or a form the geometry lacks, is refused (cudaErrorInvalidValue),
+// and so is a history of partial blocks (launch A needs whole blocks).
+// Launches on ``stream`` of ``device`` without synchronising, leaves the
 // caller's current device as it was, and returns the first CUDA error.
 extern "C" int jt_fused_step_gather_xfade(
     int device, void* stream, const float* streams, int num_sources, int nb,

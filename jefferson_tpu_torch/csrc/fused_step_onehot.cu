@@ -60,6 +60,13 @@
 // Row 8 at few rows (the live block step: one row) has its own launch, the
 // cluster form (spatializer_cluster, below): launch B there builds a
 // 128-row operand of which 4 rows are real and walks all of K on one SM.
+//
+// Geometry (fused_forward.cuh): launch B and its split form run at every
+// geometry of the card's envelope, a CTA per 32 rows and TT = 128 output
+// columns (T_TILES along the grid's y at fpb above 128).  Row 1's staged
+// form and row 8's cluster form are laid out for fpb 128 / pad 1024 and exist
+// only there (JT_TUNED_128); elsewhere row 1 takes launch B and row 8 the
+// split form or launch B.
 
 #include "fused_forward.cuh"
 
@@ -68,8 +75,8 @@ namespace {
 constexpr int B_R = 32;                 // output rows per CTA
 constexpr int B_M = 4 * B_R;            // (side, ear, row) operand rows
 constexpr int B_THREADS = 256;          // 16 x 16 threads, 8 x 8 outputs each
-constexpr size_t B_SMEM = sizeof(float) * (2 * B_M * T_QS + 2 * T_KC * FPB);
-static_assert(B_M * FPB <= 2 * B_M * T_QS + 2 * T_KC * FPB,
+constexpr size_t B_SMEM = sizeof(float) * (2 * B_M * T_QS + 2 * T_KC * TT);
+static_assert(B_M * TT <= 2 * B_M * T_QS + 2 * T_KC * TT,
               "epilogue tile must fit in the main-loop shared memory");
 static_assert(B_THREADS == 2 * B_R * 4, "one thread per (side, row, bracket)");
 
@@ -87,13 +94,14 @@ blend_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
   extern __shared__ float smem[];
   float* qr = smem;                 // [B_M][T_QS], m = (side*2 + ear)*B_R + row
   float* qi = qr + B_M * T_QS;
-  float* br = qi + B_M * T_QS;      // [T_KC][FPB]
-  float* bi = br + T_KC * FPB;
-  float* y = smem;                  // epilogue [B_M][FPB], after the main loop
+  float* br = qi + B_M * T_QS;      // [T_KC][TT]
+  float* bi = br + T_KC * TT;
+  float* y = smem;                  // epilogue [B_M][TT], after the main loop
   __shared__ int sid[2][B_R][4];    // [side][row][bracket]: side 0 old, 1 new
   __shared__ float swt[2][B_R][4];
 
   const int r0 = blockIdx.x * B_R;
+  const int t0 = tile_t0();
   const int tid = threadIdx.x;
   {
     // One (side, row, bracket) per thread.  Side 0 blends old row r; side 1
@@ -160,7 +168,7 @@ blend_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
           qi[m * T_QS + kk] = q[side][ear][1];
         }
     }
-    load_tail_basis(br, bi, icr, ici, k0, tid, B_THREADS);
+    load_tail_basis(br, bi, icr, ici, k0, t0, tid, B_THREADS);
     __syncthreads();
     if (BLOCKED) {
       tail_chunk_fma(part, qr, qi, br, bi, tx, ty);
@@ -174,24 +182,40 @@ blend_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) y[(ty * 8 + i) * FPB + tx + 16 * j] = acc[i][j];
+    for (int j = 0; j < 8; ++j) y[(ty * 8 + i) * TT + tx + 16 * j] = acc[i][j];
   __syncthreads();
 
-  // crossfade epilogue: out[r] = [L 128 | R 128]
-  for (int i = tid; i < B_R * 2 * FPB; i += B_THREADS) {
-    const int row = i / (2 * FPB), col = i % (2 * FPB), r = r0 + row;
+  // crossfade epilogue: out[r] = [L fpb | R fpb], this tile's columns
+  for (int i = tid; i < B_R * 2 * T_W; i += B_THREADS) {
+    const int row = i / (2 * T_W), col = i % (2 * T_W), r = r0 + row;
     if (r >= rows) break;
-    const int ear = col / FPB, t = col % FPB;
-    const float y_old = y[(ear * B_R + row) * FPB + t];
-    const float y_new = y[((2 + ear) * B_R + row) * FPB + t];
+    const int ear = col / T_W, tt = col % T_W, t = t0 + tt;
+    if (T_MASK && t >= FPB) continue;
+    const float y_old = y[(ear * B_R + row) * TT + tt];
+    const float y_new = y[((2 + ear) * B_R + row) * TT + tt];
     const float fn = (float)t / (float)(FPB - 1);
     const bool on = xf[r] > 0.f;
     const float a = on ? __fsub_rn(1.f, fn) : 0.f;
     const float b = on ? fn : 1.f;
-    out[(size_t)r * 2 * FPB + col] = __fadd_rn(__fmul_rn(y_old, a), __fmul_rn(y_new, b));
+    out[(size_t)r * 2 * FPB + ear * FPB + t] = __fadd_rn(__fmul_rn(y_old, a), __fmul_rn(y_new, b));
   }
 }
 
+// Launch B, one CTA per 32-row tile and t-tile.
+template <bool BLOCKED>
+cudaError_t launch_blend_tail(cudaStream_t s, const float* xdr, const float* xdi, int rows,
+                              const float* table, int u_rows, const int* ridx, const float* w,
+                              const int* bnd_idx, const float* bnd_w, int seg, int group_rows,
+                              const float* xf, const float* icr, const float* ici, float* out) {
+  const cudaError_t err =
+      allow_smem_once(blend_tail_xfade<BLOCKED>, B_SMEM, launch_b_smem_set[BLOCKED ? 1 : 0]);
+  if (err != cudaSuccess) return err;
+  blend_tail_xfade<BLOCKED><<<dim3((rows + B_R - 1) / B_R, T_TILES), B_THREADS, B_SMEM, s>>>(
+      xdr, xdi, rows, table, u_rows, ridx, w, bnd_idx, bnd_w, seg, group_rows, xf, icr, ici, out);
+  return cudaGetLastError();
+}
+
+#if JT_TUNED_128
 // ---- row 1's launch B, the staged form ---------------------------------------
 //
 // Row 1 sums each output's tail as one fmaf chain over K, so it cannot take
@@ -525,6 +549,9 @@ blend_tail_staged(const float* __restrict__ xdr, const float* __restrict__ xdi, 
   }
 }
 
+#endif  // JT_TUNED_128: the staged form
+
+#if JT_TUNED_128
 // ---- row 8 at few rows: one cluster of five CTAs per output row ----------
 //
 // The blocked tail is five independent chains per output, one per 128-bin
@@ -679,6 +706,7 @@ spatializer_cluster(const float* __restrict__ xdr, const float* __restrict__ xdi
   const float bn = on ? fn : 1.f;
   out[(size_t)r * 2 * FPB + col] = __fadd_rn(__fmul_rn(y_old, a), __fmul_rn(y_new, bn));
 }
+#endif  // JT_TUNED_128: the cluster form
 
 }  // namespace
 
@@ -694,7 +722,8 @@ spatializer_cluster(const float* __restrict__ xdr, const float* __restrict__ xdi
 // FORM_SPLIT (a cluster of four CTAs per tile, fused_forward.cuh: the same
 // bits; it needs group_rows % seg == 0); one chain over K as FORM_LAUNCH_B
 // or FORM_STAGED (blend_tail_staged: the same bits; it needs group_rows %
-// seg == 0); anything else is refused (cudaErrorInvalidValue).
+// seg == 0); anything else, a form the geometry lacks, or a history of
+// partial blocks (no launch A) is refused (cudaErrorInvalidValue).
 // Launches on ``stream`` of ``device`` without synchronising, leaves the
 // caller's current device as it was, and returns the first CUDA error (0
 // when both launches went).
@@ -709,14 +738,16 @@ extern "C" int jt_fused_step_onehot_xfade(
     float* xdr, float* xdi, float* out) {
   return on_device(device, [&]() {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (!(form == FORM_LAUNCH_B || (form == FORM_SPLIT && blocked_tail && group_rows % seg == 0) ||
-          (form == FORM_STAGED && !blocked_tail && group_rows % seg == 0)))
+    if (!(form == FORM_LAUNCH_B ||
+          (form == FORM_SPLIT && HAS_SPLIT && blocked_tail && group_rows % seg == 0) ||
+          (form == FORM_STAGED && JT_TUNED_128 && !blocked_tail && group_rows % seg == 0)))
       return cudaErrorInvalidValue;
     cudaError_t err = launch_forward_distance(s, streams, num_sources, nb, uh, ul, fr,
                                               dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi);
     if (err != cudaSuccess) return err;
     const int rows = num_sources * nb;
     const RowsBlended src{table, u_rows, ridx, w, bnd_idx, bnd_w, group_rows};
+#if JT_TUNED_128
     if (form == FORM_STAGED) {
       err = allow_smem_once(blend_tail_staged, P_SMEM, staged_smem_set);
       if (err != cudaSuccess) return err;
@@ -724,15 +755,15 @@ extern "C" int jt_fused_step_onehot_xfade(
           xdr, xdi, rows, seg, src, xf, icr, ici, out);
       return cudaGetLastError();
     }
+#endif
     if (form == FORM_SPLIT)
       return launch_split_tail<2>(s, xdr, xdi, rows, seg, src, xf, icr, ici, out);
-    auto kernel = blocked_tail ? blend_tail_xfade<true> : blend_tail_xfade<false>;
-    err = allow_smem_once(kernel, B_SMEM, launch_b_smem_set[blocked_tail ? 1 : 0]);
-    if (err != cudaSuccess) return err;
-    kernel<<<(rows + B_R - 1) / B_R, B_THREADS, B_SMEM, s>>>(
-        xdr, xdi, rows, table, u_rows, ridx, w, bnd_idx, bnd_w, seg, group_rows, xf,
-        icr, ici, out);
-    return cudaGetLastError();
+    return blocked_tail ? launch_blend_tail<true>(s, xdr, xdi, rows, table, u_rows, ridx, w,
+                                                  bnd_idx, bnd_w, seg, group_rows, xf, icr, ici,
+                                                  out)
+                        : launch_blend_tail<false>(s, xdr, xdi, rows, table, u_rows, ridx, w,
+                                                   bnd_idx, bnd_w, seg, group_rows, xf, icr, ici,
+                                                   out);
   });
 }
 
@@ -760,10 +791,13 @@ extern "C" int jt_forward_distance(
 // table (table_rows rows), the blocked tail, and the crossfade where
 // xf[r] > 0.  ``form`` picks launch B's form: 0 launch B with seg = 1 (one
 // group), 1 the cluster form (spatializer_cluster), 2 the split form
-// (fused_forward.cuh) with seg = 1; anything else is refused.  With
+// (fused_forward.cuh) with seg = 1; anything else, or a form the geometry
+// lacks (the cluster form exists at fpb 128 / pad 1024 alone, the split
+// form where HAS_SPLIT), is refused.  With
 // streams null, xdr and xdi are the caller's XD planes (rows x 513); else
 // launch A first writes them from one stream of rows blocks (streams:
-// (rows + 7) x 128 samples, history first) with per-row distance uh/ul/fr
+// (rows + Q - 1) x fpb samples, history first; whole blocks of history
+// only) with per-row distance uh/ul/fr
 // (rows each).  The live block step runs the cluster form at one row, the
 // scan render another form at every row of a chunk.  Launches on
 // ``stream`` of ``device`` without synchronising and returns the first
@@ -778,12 +812,14 @@ extern "C" int jt_fused_spatializer_apply(
     const float* icr, const float* ici, float* out) {
   return on_device(device, [&]() {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (form < 0 || form > 2) return cudaErrorInvalidValue;
+    if (form < 0 || form > 2 || (form == 1 && !JT_TUNED_128) || (form == 2 && !HAS_SPLIT))
+      return cudaErrorInvalidValue;
     cudaError_t err = cudaSuccess;
     if (streams)
       err = launch_forward_distance(s, streams, 1, rows, uh, ul, fr, nullptr, 0,
                                     cfr, cfi, twr, twi, xdr, xdi);
     if (err != cudaSuccess) return err;
+#if JT_TUNED_128
     if (form == 1) {
       err = cudaFuncSetAttribute(spatializer_cluster,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C_SMEM);
@@ -792,18 +828,14 @@ extern "C" int jt_fused_spatializer_apply(
           xdr, xdi, table, table_rows, idx_old, w_old, idx_new, w_new, xf, icr, ici, out);
       return cudaGetLastError();
     }
+#endif
     if (form == 2)
       return launch_split_tail<2>(
           s, xdr, xdi, rows, 1,
           RowsBlended{table, table_rows, idx_old, w_old, idx_new, w_new, rows}, xf, icr, ici,
           out);
-    err = cudaFuncSetAttribute(blend_tail_xfade<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)B_SMEM);
-    if (err != cudaSuccess) return err;
-    blend_tail_xfade<true><<<(rows + B_R - 1) / B_R, B_THREADS, B_SMEM, s>>>(
-        xdr, xdi, rows, table, table_rows, idx_old, w_old, idx_new, w_new, 1, rows, xf,
-        icr, ici, out);
-    return cudaGetLastError();
+    return launch_blend_tail<true>(s, xdr, xdi, rows, table, table_rows, idx_old, w_old,
+                                   idx_new, w_new, 1, rows, xf, icr, ici, out);
   });
 }
 

@@ -588,14 +588,10 @@ def plan_onehot_chunking(plan: RenderPlan, b_total: int, cb: int, tb: int):
 
 def check_card_geometry(config: EngineConfig, what: str = "fused=True",
                         remedy: str = "use fused=False or the CPU") -> None:
-    """Raise unless the CUDA steps are built for ``config``'s geometry."""
-    cfg = (config.frames_per_buffer, config.pad_len, config.num_bins)
-    if cfg != (fused_step._FPB, fused_step._PAD, fused_step._BINS):
-        raise ValueError(
-            f"{what} on a CUDA device: the kernels are built for fpb 128, pad 1024 "
-            f"(513 bins), not fpb {cfg[0]}, pad {cfg[1]}: ROADMAP queue 1 item 11, kernels "
-            f"for geometries other than fpb 128 / pad 1024; {remedy}"
-        )
+    """Raise, before any launch, unless ``config``'s geometry lies in the
+    card's envelope (``fused_step.check_envelope``: 32 <= fpb <= 1024, pad
+    <= 2048); inside it every kernel's library is built for it."""
+    fused_step.check_envelope(config.frames_per_buffer, config.pad_len, what, remedy)
 
 
 def resolve_device(device) -> torch.device:
@@ -701,9 +697,10 @@ class Renderer:
     default synchronous fetch.
 
     A history that is not a whole number of blocks takes the apply-only
-    step (row 7) where the JAX package does; its twin runs on the CPU, and
-    ``fused=True`` on a CUDA device refuses any geometry but the one the
-    kernels are built for (fpb 128, pad 1024).
+    step (row 7) where the JAX package does, on the card as on the CPU.
+    ``fused=True`` on a CUDA device runs every geometry of the card's
+    envelope (32 <= fpb <= 1024, pad <= 2048) and refuses any other at
+    construction (``check_card_geometry``).
 
     ``mesh``: a 1-D ``DeviceMesh`` (``parallel.mesh.make_mesh(n,
     ("blk",))``) shards each chunk's blocks, SPMD: every rank of the mesh

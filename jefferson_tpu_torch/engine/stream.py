@@ -15,10 +15,15 @@ Counterpart of ``jefferson_tpu/engine/stream.py``, in two forms:
   samples up and 256 floats down through pinned host buffers.
 
 Both run on the card unless the caller asks for the CPU, where the
-kernels' plain twins run.  The JAX package applies each filter to the
-plain forward and then the distance, ``(X·G)·D``; the port's steps apply
-the distance to the sliding forward first, ``(X·D)·G``: the two differ in
-rounding only.  Every session on one device shares one copy of the filter
+kernels' plain twins run, at every geometry of the card's envelope.  A
+history of whole blocks takes the sliding forward in launch A; a history
+of partial blocks (fpb 100 or 441 under pad 1024) takes the JAX package's
+form: the forward DFT of each whole window (``ops/fft.rfft_split``) and the
+distance planes in plain torch, then row 8's apply-only entry
+(``kernels/fused_spatializer.fused_apply``) on those XD planes.  The JAX
+package applies each filter to the plain forward and then the distance,
+``(X·G)·D``; the port's steps apply the distance to the forward first,
+``(X·D)·G``: the two differ in rounding only.  Every session on one device shares one copy of the filter
 table per database (``_device_table``); PyTorch has no jit, so the JAX
 package's shared jitted step has no counterpart.
 """
@@ -34,8 +39,9 @@ import torch
 
 from ..config import DEFAULT_CONFIG, EngineConfig
 from ..hrtf.kemar import HRTFDatabase, round_half_away
-from ..kernels.fused_spatializer import fused_forward_apply, kernel_planes
-from ..ops.filters import distance_phase_split
+from ..kernels.fused_spatializer import fused_apply, fused_forward_apply, kernel_planes
+from ..ops import fft as fft_ops
+from ..ops.filters import cmul, distance_factors_split, distance_phase_split
 from ..trajectory.interpolation import interpolation_calculations
 from ..trajectory.spatial import (
     cartesian_to_spherical, radius_from_cartesian, spherical_to_cartesian,
@@ -52,14 +58,8 @@ SCAN_CHUNK = 16384
 
 
 def _stream_device(device, config: EngineConfig) -> torch.device:
-    """The device the streaming forms run on; raises for a geometry they
-    cannot run there."""
-    if config.history_len % config.frames_per_buffer:
-        raise NotImplementedError(
-            "the streaming forms take the sliding forward, which needs a history of whole "
-            f"blocks (history {config.history_len}, fpb {config.frames_per_buffer}): ROADMAP "
-            "queue 1 item 11"
-        )
+    """The device the streaming forms run on; raises, before any launch, for
+    a geometry outside the card's envelope there."""
     if torch.device(device).type == "cuda":
         check_card_geometry(config, "the streaming engine", "run it on the CPU")
     return resolve_device(device)
@@ -80,15 +80,31 @@ def _xf_flag(device: torch.device, on: bool) -> torch.Tensor:
     return _published(torch.full((1, 1), float(on), dtype=torch.float32, device=device))
 
 
+def _window_xd(windows, u_hi, u_lo, inv_frac, config: EngineConfig):
+    """XD planes of (rows, pad_len) whole windows: their forward DFT times
+    the distance planes of the (rows, 1) split, for a history of partial
+    blocks, where the sliding forward does not apply."""
+    xr, xi = fft_ops.rfft_split(windows, config.pad_len)
+    dr, di = distance_factors_split(u_hi[:, 0], u_lo[:, 0], inv_frac[:, 0], config.num_bins)
+    return cmul(xr, xi, dr, di)
+
+
 def _block_step(table, hist, block, idx_new, w_new, idx_old, w_old, xf, u_hi, u_lo, inv_frac,
                 *, config: EngineConfig, scratch=None):
     """One block through the interpolating pipeline: hist (history_len,),
     block (fpb,), brackets (1, 4), xf and the distance split (1, 1) ->
-    ((2, fpb) [L; R], new hist).  ``scratch``: the (1, bins) XD planes."""
+    ((2, fpb) [L; R], new hist).  ``scratch``: the (1, bins) XD planes
+    launch A writes (a history of whole blocks)."""
     fpb = config.frames_per_buffer
     seg = torch.cat([hist, block])
-    y = fused_forward_apply(table, seg, u_hi, u_lo, inv_frac, idx_old, w_old, idx_new, w_new, xf,
-                            pad_len=config.pad_len, bins=config.num_bins, fpb=fpb, scratch=scratch)
+    if config.history_len % fpb == 0:
+        y = fused_forward_apply(table, seg, u_hi, u_lo, inv_frac, idx_old, w_old, idx_new, w_new,
+                                xf, pad_len=config.pad_len, bins=config.num_bins, fpb=fpb,
+                                scratch=scratch)
+    else:
+        xdr, xdi = _window_xd(seg[None], u_hi, u_lo, inv_frac, config)
+        y = fused_apply(table, xdr, xdi, idx_old, w_old, idx_new, w_new, xf,
+                        bins=config.num_bins, fpb=fpb)
     return y.view(2, fpb), seg[fpb:]
 
 
@@ -140,7 +156,8 @@ def render_scan(
 ) -> np.ndarray:
     """Sequential render of the interpolating FD path -> (B*fpb, 2): the
     JAX ``lax.scan`` with its zero initial history, one launch of row 8 per
-    chunk of ``chunk_blocks`` blocks."""
+    chunk of ``chunk_blocks`` blocks (after the chunk's window transforms
+    in plain torch at a history of partial blocks)."""
     if chunk_blocks < 1:
         raise ValueError(f"chunk_blocks ({chunk_blocks}) must be positive")
     device = _stream_device(device, config)
@@ -158,10 +175,16 @@ def render_scan(
     out = torch.empty((b, 2 * fpb), dtype=torch.float32, device=device)
     for start in range(0, b, chunk_blocks):
         sl = slice(start, min(start + chunk_blocks, b))
-        out[sl] = fused_forward_apply(
-            table, stream[start * fpb : sl.stop * fpb + hist], *(a[sl] for a in dist),
-            *(a[sl] for a in brackets), xf[sl],
-            pad_len=config.pad_len, bins=config.num_bins, fpb=fpb)
+        if config.history_len % fpb == 0:
+            out[sl] = fused_forward_apply(
+                table, stream[start * fpb : sl.stop * fpb + hist], *(a[sl] for a in dist),
+                *(a[sl] for a in brackets), xf[sl],
+                pad_len=config.pad_len, bins=config.num_bins, fpb=fpb)
+        else:
+            windows = stream[start * fpb : sl.stop * fpb + hist].unfold(0, config.pad_len, fpb)
+            xdr, xdi = _window_xd(windows, *(a[sl] for a in dist), config)
+            out[sl] = fused_apply(table, xdr, xdi, *(a[sl] for a in brackets), xf[sl],
+                                  bins=config.num_bins, fpb=fpb)
     return out.view(b, 2, fpb).permute(0, 2, 1).reshape(b * fpb, 2).cpu().numpy()
 
 

@@ -12,12 +12,22 @@ where the hash covers the source, every local header it includes
 compiler and the flags, so an edited source or header rebuilds and an
 unchanged one loads the cached library.  A build takes seconds because no
 PyTorch or Python header is included.  A failed build raises with the
-compiler's output; nothing falls back.  ``build_all`` starts one compiler
-per source at once.  Threads of one process build and load under one lock,
-so two that first use a library at once build it once and load the same
-handle; separate processes (the ranks of a mesh on one host) each compile
-into a temporary file of their own and replace the library and its build
-log atomically.
+compiler's output; nothing falls back.
+
+The render steps' sources (``GEOMETRIC``: ``fused_step_onehot``,
+``fused_step_gather``) are compiled once per geometry, a ``(fpb, pad_len)``
+pair passed as ``-DJT_FPB=<fpb> -DJT_PAD=<pad>`` (``csrc/fused_forward.cuh``
+derives the bins and the sub-block count from them).  Their library is
+``<name>-f<fpb>p<pad>-<hash>.so``, the hash covering the defines with the
+other flags, and ``load(name, geometry=...)`` keeps one handle per
+geometry; without a geometry they build for ``DEFAULT_GEOMETRY`` (fpb 128,
+pad 1024).  The other sources (``dma_blend``, ``assoc_probe``, the host
+library) take no geometry.  ``build_all`` starts one compiler per library
+at once: each source, and each geometric source at each geometry asked.
+Threads of one process build and load under one lock, so two that first
+use a library at once build it once and load the same handle; separate
+processes (the ranks of a mesh on one host) each compile into a temporary
+file of their own and replace the library and its build log atomically.
 """
 
 from __future__ import annotations
@@ -42,6 +52,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# The sources compiled once per (fpb, pad_len), and the geometry they build
+# for when none is named.
+GEOMETRIC = ("fused_step_onehot", "fused_step_gather")
+DEFAULT_GEOMETRY = (128, 1024)
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
@@ -103,25 +118,47 @@ def sources(name: str, toolchain: Toolchain | None = None) -> list[Path]:
     return found
 
 
-def library_path(name: str, toolchain: Toolchain | None = None) -> Path:
+def _geometry(name: str, geometry) -> tuple[int, int] | None:
+    """The (fpb, pad_len) ``name`` builds for: ``geometry`` or the default
+    for a geometric source, None for the others (which refuse one)."""
+    if name not in GEOMETRIC:
+        if geometry is not None:
+            raise ValueError(f"{name} takes no geometry, got {geometry}")
+        return None
+    fpb, pad = DEFAULT_GEOMETRY if geometry is None else geometry
+    return int(fpb), int(pad)
+
+
+def flags(name: str, toolchain: Toolchain | None = None, geometry=None) -> tuple[str, ...]:
+    """The compiler flags of ``name``'s library: the toolchain's, then the
+    geometry's defines for a geometric source."""
+    tc = toolchain or cuda()
+    geo = _geometry(name, geometry)
+    return tc.flags if geo is None else (*tc.flags, f"-DJT_FPB={geo[0]}", f"-DJT_PAD={geo[1]}")
+
+
+def library_path(name: str, toolchain: Toolchain | None = None, geometry=None) -> Path:
     """Where ``<name><suffix>`` builds to, keyed by its sources, compiler
-    and flags."""
+    and flags (a geometric source's defines among them)."""
     tc = toolchain or cuda()
     digest = hashlib.sha256()
     for path in sources(name, tc):
         digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
-    digest.update(" ".join((tc.compiler, *tc.flags)).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    digest.update(" ".join((tc.compiler, *flags(name, tc, geometry))).encode())
+    geo = _geometry(name, geometry)
+    tag = "" if geo is None else f"-f{geo[0]}p{geo[1]}"
+    return BUILD_DIR / f"{name}{tag}-{digest.hexdigest()[:16]}.so"
 
 
-def _start(name: str, tc: Toolchain):
+def _start(name: str, tc: Toolchain, geometry=None):
     """Start the compiler on ``name`` unless its library is built: (out,
     tmp, cmd, process) or None."""
-    out = library_path(name, tc)
+    out = library_path(name, tc, geometry)
     if out.exists():
         return None
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [tc.locate(tc.compiler), *tc.flags, "-o", str(tmp), str(tc.src_dir / f"{name}{tc.suffix}")]
+    cmd = [tc.locate(tc.compiler), *flags(name, tc, geometry), "-o", str(tmp),
+           str(tc.src_dir / f"{name}{tc.suffix}")]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return out, tmp, cmd, proc
@@ -149,17 +186,31 @@ def _finish(name: str, tc: Toolchain, started) -> None:
     os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
 
 
-def build_all(names, toolchain: Toolchain | None = None) -> list[Path]:
-    """Compile every ``<name><suffix>`` that is not built yet, all compiler
-    processes at once; waits for each and raises on the first failure."""
+def libraries(names, geometries=None) -> list[tuple[str, tuple[int, int] | None]]:
+    """The (name, geometry) libraries of ``names``: a geometric source once
+    per geometry of ``geometries`` (default: ``DEFAULT_GEOMETRY`` alone),
+    any other source once, in the order given."""
+    geos = [DEFAULT_GEOMETRY] if geometries is None else [tuple(g) for g in geometries]
+    out = []
+    for name in names:
+        for geo in (geos if name in GEOMETRIC else [None]):
+            if (name, geo) not in out:
+                out.append((name, geo))
+    return out
+
+
+def build_all(names, toolchain: Toolchain | None = None, geometries=None) -> list[Path]:
+    """Compile every library of ``names`` (``libraries``: a geometric source
+    at each of ``geometries``) that is not built yet, all compiler processes
+    at once; waits for each and raises on the first failure."""
     tc = toolchain or cuda()
-    names = list(names)
+    libs = libraries(names, geometries)
     started = {}
     with _LOCK:
         try:
-            for name in names:
-                started[name] = _start(name, tc)
-            for name, job in started.items():
+            for lib in libs:
+                started[lib] = _start(lib[0], tc, lib[1])
+            for (name, _), job in started.items():
                 if job is not None:
                     _finish(name, tc, job)
         finally:
@@ -167,23 +218,26 @@ def build_all(names, toolchain: Toolchain | None = None) -> list[Path]:
                 if job is not None and job[3].poll() is None:
                     job[3].kill()
                     job[3].communicate()
-    return [library_path(name, tc) for name in names]
+    return [library_path(name, tc, geo) for name, geo in libs]
 
 
-def build(name: str, toolchain: Toolchain | None = None) -> Path:
+def build(name: str, toolchain: Toolchain | None = None, geometry=None) -> Path:
     """Compile ``<name><suffix>`` unless its library is already built."""
-    return build_all([name], toolchain)[0]
+    return build_all([name], toolchain, None if geometry is None else [geometry])[0]
 
 
-def load(name: str, toolchain: Toolchain | None = None) -> ctypes.CDLL:
-    """The loaded library of ``<name><suffix>``, built on first use."""
+def load(name: str, toolchain: Toolchain | None = None, geometry=None) -> ctypes.CDLL:
+    """The loaded library of ``<name><suffix>`` (at ``geometry``, a
+    geometric source), built on first use."""
     # the kernels' wrappers look their library up on every launch: a CUDA
-    # source's name is its key, with no toolchain built for the lookup
-    key = name if toolchain is None else (toolchain, name)
+    # source's name and geometry are its key, with no toolchain built for
+    # the lookup
+    geo = _geometry(name, geometry)
+    key = (name, geo) if toolchain is None else (toolchain, name, geo)
     lib = _loaded.get(key)
     if lib is None:
         with _LOCK:
             lib = _loaded.get(key)
             if lib is None:
-                lib = _loaded[key] = ctypes.CDLL(str(build(name, toolchain)))
+                lib = _loaded[key] = ctypes.CDLL(str(build(name, toolchain, geo)))
     return lib

@@ -15,7 +15,10 @@ On the card it is launch B of the gather step (``csrc/fused_step_gather.cu``,
 in place of the block count, so rows 5-7 share one tail loop, in either of
 launch B's forms (``fused_step.pick_form``).  The TPU
 kernel's tile rule (seg | tb or tb | seg) does not apply; the wrapper needs
-only whole segments.  Operands on the CPU run the twin; on a CUDA device
+only whole segments.  It runs at every geometry of the card's envelope
+(``fused_step.check_envelope``) from the (fpb, pad_len) library, a history
+of partial blocks included: it is the card's step there (fpb 100 or 441
+under pad 1024).  Operands on the CPU run the twin; on a CUDA device
 the kernel runs or the wrapper raises.
 """
 
@@ -28,7 +31,7 @@ import torch
 
 from . import build
 from .fused_step import (
-    _BINS, _FORM_CODE, _FPB, SPLIT, _check, _count, _cuda_error, _form, _tails_reference,
+    _FORM_CODE, SPLIT, _check, _count, _cuda_error, _form, _tails_reference, _where,
 )
 
 NO_XFADE = "fused_apply_xfade/no_xfade"
@@ -46,8 +49,8 @@ def fused_apply_xfade_reference(xdr, xdi, g_old, g_last, xf, icr, ici, *, seg: i
 
 
 @functools.cache
-def _entry():
-    fn = build.load("fused_step_gather").jt_fused_apply_xfade
+def _entry(geometry: tuple[int, int]):
+    fn = build.load("fused_step_gather", geometry=geometry).jt_fused_apply_xfade
     p, i = ctypes.c_void_p, ctypes.c_int
     # device, stream, xdr, xdi, rows, seg, g_rows, g_last, xf, with_xfade, form, icr, ici, out
     fn.argtypes = [i, p, p, p, i, i, p, p, p, i, i, p, p, p]
@@ -71,16 +74,11 @@ def fused_apply_xfade(
     if with_xfade and (g_last is None or xf is None):
         raise ValueError("the crossfade form needs g_last and xf")
     operands = [xdr, xdi, g_old, icr, ici] + ([g_last, xf] if with_xfade else [])
-    device = xdr.device
-    if any(t.device != device for t in operands):
-        raise ValueError("all operands must lie on one device")
+    pad_len = 2 * (bins - 1)
+    device = _where(operands, pad_len, bins, fpb)
     if device.type == "cpu":
         return fused_apply_xfade_reference(xdr, xdi, g_old, g_last, xf, icr, ici, seg=seg,
                                            bins=bins, fpb=fpb, with_xfade=with_xfade)
-    if device.type != "cuda":
-        raise ValueError(f"no kernel for device {device}")
-    if (fpb, bins) != (_FPB, _BINS):
-        raise ValueError(f"the CUDA step is built for fpb={_FPB}, bins={_BINS}")
     specs = {
         "xdr": (xdr, (b, bins), torch.float32), "xdi": (xdi, (b, bins), torch.float32),
         "g_old": (g_old, (b, 4 * bins), torch.float32),
@@ -93,13 +91,13 @@ def fused_apply_xfade(
     if b < 1:
         raise ValueError("the step needs a block")
     name = "fused_apply_xfade" if with_xfade else NO_XFADE
-    form = _form(name, b)
+    form = _form(name, b, fpb, pad_len)
     if form == SPLIT and (icr.data_ptr() % 16 or ici.data_ptr() % 16):
         raise ValueError("the split form copies the tail basis in 16-byte pieces: "
                          "icr and ici must start on a 16-byte boundary")
     out = torch.empty((b, 2 * fpb), dtype=torch.float32, device=device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = _entry()(
+    err = _entry((fpb, pad_len))(
         device.index, torch.cuda.current_stream(device).cuda_stream,
         ptr(xdr), ptr(xdi), b, seg, ptr(g_old),
         ptr(g_last) if with_xfade else None, ptr(xf) if with_xfade else None, int(with_xfade),
@@ -107,6 +105,6 @@ def fused_apply_xfade(
     )
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({_cuda_error('fused_step_gather', err)})")
+                           f"({_cuda_error('fused_step_gather', err, (fpb, pad_len))})")
     _count(name, form)
     return out

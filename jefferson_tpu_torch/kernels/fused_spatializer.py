@@ -32,10 +32,17 @@ all behind the entry ``jt_fused_spatializer_apply`` of
 * or launch B's split form there: one cluster of four CTAs per 32 rows,
   one per 128-bin block (``csrc/fused_forward.cuh``).
 
-All keep the blocked tail's order, so they agree bit for bit.  What bounds
-row 8 on the H100: at many rows the tail IDFT's fp32 FMAs (two sides x two
-ears x 513 x 128 per row) on the CUDA cores; at one row the launch and one
-128-step chain.  The table stays in the 50 MB L2 and a row reads only its
+All keep the blocked tail's order, so they agree bit for bit.  The
+cluster form exists at fpb 128 / pad 1024 alone and the split form where
+``fused_step.geometry_forms`` says so; at other geometries ``pick_form``
+takes the split form at every row count where it exists, else launch B,
+and a form a geometry lacks, named through ``_cuda``, raises.
+``fused_apply`` runs at a history of partial blocks too (the streaming
+forms' card step there); ``fused_forward_apply`` needs whole blocks.
+
+What bounds row 8 on the H100: at many rows the tail IDFT's fp32 FMAs
+(two sides x two ears x 513 x 128 per row) on the CUDA cores; at one row
+the launch and one 128-step chain.  The table stays in the 50 MB L2 and a row reads only its
 eight bracket rows from it.
 
 Where the two versions differ in rounding only: the TPU kernel's one-hot
@@ -59,8 +66,8 @@ from ..ops import fft as fft_ops
 from . import build
 from .fused_step import (
     LAUNCH_B, SPATIALIZER, SPLIT, _check, _check_streams, _cuda_error, _forward_reference,
-    _in_table, _tails_reference, _where, blend_cat, forward_form, forward_launches, launches,
-    spatializer_forms,
+    _in_table, _tails_reference, _where, _whole_blocks, blend_cat, forward_form,
+    forward_launches, geometry_forms, launches, spatializer_forms,
 )
 
 # Rows up to which row 8 takes the cluster form, and above which
@@ -78,9 +85,13 @@ MANY_ROWS_FORM = SPLIT
 _FORM_CODE = {LAUNCH_B: 0, CLUSTER: 1, SPLIT: 2}
 
 
-def pick_form(rows: int) -> str:
-    """Row 8's form on the card for ``rows`` rows."""
-    return CLUSTER if rows <= SMALL_ROWS else MANY_ROWS_FORM
+def pick_form(rows: int, fpb: int = 128, pad_len: int = 1024) -> str:
+    """Row 8's form on the card for ``rows`` rows, among those of the
+    (fpb, pad_len) library."""
+    forms = geometry_forms(fpb, pad_len)
+    if rows <= SMALL_ROWS and forms.cluster:
+        return CLUSTER
+    return MANY_ROWS_FORM if forms.split else LAUNCH_B
 
 
 def kernel_planes(db, device) -> torch.Tensor:
@@ -111,8 +122,8 @@ def fused_forward_apply_reference(table, stream, uh, ul, fr, idx_old, w_old, idx
 
 
 @functools.cache
-def _entry():
-    fn = build.load("fused_step_onehot").jt_fused_spatializer_apply
+def _entry(geometry: tuple[int, int]):
+    fn = build.load("fused_step_onehot", geometry=geometry).jt_fused_spatializer_apply
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [i, p, i, i,           # device, stream, rows, form
                    p, p, p, p,           # streams, uh, ul, fr
@@ -125,12 +136,17 @@ def _entry():
 
 def _cuda(device, rows: int, table, brackets, xf, xdr, xdi, forward, *, pad_len, bins, fpb,
           form=None):
-    """Row 8 on the card in ``form`` (None: ``pick_form(rows)``; the card
-    tests name a form to hold the two against each other); ``forward`` =
+    """Row 8 on the card in ``form`` (None: ``pick_form``; the card tests
+    name a form to hold the forms against each other); ``forward`` =
     (stream, uh, ul, fr) runs launch A into xdr/xdi first, None reads them."""
-    form = pick_form(rows) if form is None else form
+    form = pick_form(rows, fpb, pad_len) if form is None else form
     if form not in _FORM_CODE:
         raise ValueError(f"form {form!r}: want {CLUSTER!r}, {LAUNCH_B!r} or {SPLIT!r}")
+    forms = geometry_forms(fpb, pad_len)
+    if (form == CLUSTER and not forms.cluster) or (form == SPLIT and not forms.split):
+        raise ValueError(f"the {form} form does not exist at fpb {fpb}, pad {pad_len}")
+    if forward is not None:
+        _whole_blocks(fpb, pad_len)
     idx_old, w_old, idx_new, w_new = brackets
     specs = {
         "table": (table, (table.shape[0], 4 * bins), torch.float32),
@@ -154,18 +170,18 @@ def _cuda(device, rows: int, table, brackets, xf, xdr, xdi, forward, *, pad_len,
         fwd = [ptr(t) for t in (*forward, *bases)]
     icr, ici = fft_ops.on_device(fft_ops._idft_tail_matrices, pad_len, fpb, device=device)
     out = torch.empty((rows, 2 * fpb), dtype=torch.float32, device=device)
-    err = _entry()(
+    err = _entry((fpb, pad_len))(
         device.index, torch.cuda.current_stream(device).cuda_stream, rows, _FORM_CODE[form],
         *fwd, ptr(xdr), ptr(xdi), ptr(table), table.shape[0], *(ptr(t) for t in brackets),
         ptr(xf), ptr(icr), ptr(ici), ptr(out),
     )
     if err:
         raise RuntimeError(f"{SPATIALIZER} launch failed: CUDA error {err} "
-                           f"({_cuda_error('fused_step_onehot', err)})")
+                           f"({_cuda_error('fused_step_onehot', err, (fpb, pad_len))})")
     launches[SPATIALIZER] += 1
     spatializer_forms[form] += 1
     if forward is not None:
-        forward_launches[forward_form(rows)] += 1
+        forward_launches[forward_form(rows, fpb, pad_len)] += 1
     return out
 
 

@@ -37,16 +37,25 @@ rows, or the split form, a cluster of four CTAs per tile
 (``csrc/fused_forward.cuh``).  Launch A, the forward every step of rows
 1-6 runs first, takes its product form, or its few-block form up to
 ``FEW_NB`` blocks a source (``forward_form``); its tile form is kept to
-hold them against (``_forward_cuda``).  The kernels are built for fpb
-128, pad_len 1024 and 513 bins.  Both keep the TPU kernels' answer for
-ids outside the table (they add nothing) and for selectors outside
+hold them against (``_forward_cuda``).  Both keep the TPU kernels' answer
+for ids outside the table (they add nothing) and for selectors outside
 1..n_dist-1 (triple 0), so no check syncs the device.
+
+The kernels run at every geometry of the card's envelope (``check_envelope``:
+32 <= fpb <= 1024, pad_len <= 2048), each from a library built for the
+operands' (fpb, pad_len) (``kernels/build``).  ``geometry_forms`` says which
+forms a geometry's library has (the tuned layouts fit some geometries
+only); ``pick_form`` and ``forward_form`` choose among those, and a form a
+geometry lacks, named through ``_cuda``, raises.  Rows 1-6 need a history
+of whole blocks (launch A); at a history of partial blocks the renderers
+take row 7 on XD computed outside the kernels.
 """
 
 from __future__ import annotations
 
 import contextvars
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -132,9 +141,10 @@ FWD_TILE, FWD_PRODUCT, FWD_FEW = "tile", "product", "few"
 _FWD_CODE = {FWD_TILE: 0, FWD_PRODUCT: 1, FWD_FEW: 2}
 
 # Most blocks a source at which the steps take launch A's few-block form
-# (csrc/fused_forward.cuh FEW_NB; its kernel carries nb + 7 <= 16 rows a
-# thread): on an H100 (700 W) it took less device time alone than the
-# product form at every count of 1-9 blocks (chip_smoke.py, phase bench).
+# at fpb 128 / pad 1024 (csrc/fused_forward.cuh FEW_NB; its kernel carries
+# nb + 7 <= 16 rows a thread): on an H100 (700 W) it took less device time
+# alone than the product form at every count of 1-9 blocks (chip_smoke.py,
+# phase bench).  Other geometries: ``geometry_forms(fpb, pad).few_nb``.
 FEW_NB = 9
 
 # Launch A's launches by form: one per launch of rows 1-6, of row 8's
@@ -152,7 +162,62 @@ blend_forms: dict[str, int] = dict.fromkeys((DOUBLE, DEDUP), 0)
 # The form a card test or chip_smoke.py names through ``_cuda``; None: pick.
 _named_form: contextvars.ContextVar[str | None] = contextvars.ContextVar("form", default=None)
 
-_FPB, _PAD, _BINS = 128, 1024, 513  # the geometry the CUDA kernels are built for
+# The card's envelope: the geometries the CUDA kernels are built for, one
+# library a (fpb, pad_len).  Outside it the wrappers and the engines raise
+# on a CUDA device, before any launch (ROADMAP queue 1 item 11).
+CARD_MIN_FPB, CARD_MAX_FPB, CARD_MAX_PAD = 32, 1024, 2048
+
+
+def check_envelope(fpb: int, pad_len: int, what: str = "the CUDA step",
+                   remedy: str | None = None) -> None:
+    """Raise a ValueError naming the geometry (and ``remedy``) unless the
+    card's kernels take fpb and pad_len."""
+    if not (CARD_MIN_FPB <= fpb <= CARD_MAX_FPB and pad_len <= CARD_MAX_PAD):
+        raise ValueError(
+            f"{what} on a CUDA device: fpb {fpb}, pad {pad_len} lies outside the card's "
+            f"envelope ({CARD_MIN_FPB} <= fpb <= {CARD_MAX_FPB}, pad <= {CARD_MAX_PAD}): "
+            f"ROADMAP queue 1 item 11" + (f"; {remedy}" if remedy else ""))
+
+
+@dataclasses.dataclass(frozen=True)
+class Forms:
+    """The forms a geometry's library has (csrc/fused_forward.cuh's HAS_*
+    and FEW_NB; ``jt_geometry`` reports the library's own)."""
+
+    fpb: int
+    pad: int
+    bins: int
+    q: int          # sub-blocks a window; 0 for a history of partial blocks (no launch A)
+    few_nb: int     # launch A's few-block form up to this many blocks a source
+    product: bool   # launch A's product form
+    split: bool     # launch B's split form (rows 2-8)
+    staged: bool    # row 1's staged launch B
+    cluster: bool   # row 8's cluster form
+
+
+@functools.cache
+def geometry_forms(fpb: int, pad_len: int) -> Forms:
+    """The forms of the (fpb, pad_len) library, by the sources' rules:
+    launch A where the history is whole blocks (its product form with
+    64-bin slices from pad 128, its few-block form where its static shared
+    memory stays under 48 KB), launch B's split form with one rank per
+    128-bin block (2 to 8) and 16-byte basis rows, row 1's staged form and
+    row 8's cluster form at fpb 128 / pad 1024 alone."""
+    bins = pad_len // 2 + 1
+    aligned = pad_len % fpb == 0
+    q = pad_len // fpb if aligned else 0
+
+    def few_fits(r: int) -> bool:
+        return aligned and q <= r and 4 * fpb * (r + 32) < 48 * 1024
+
+    few_nb = 17 - q if few_fits(16) else 9 - q if few_fits(8) else 0
+    tuned = (fpb, pad_len) == (128, 1024)
+    return Forms(
+        fpb=fpb, pad=pad_len, bins=bins, q=q, few_nb=few_nb,
+        product=aligned and bins - 1 >= 64 and (bins - 1) % 64 == 0 and fpb % 32 == 0,
+        split=(bins - 1) % 128 == 0 and 1 <= (bins - 1) // 128 <= 8 and fpb % 4 == 0,
+        staged=tuned, cluster=tuned,
+    )
 
 
 def reset_launches() -> None:
@@ -163,18 +228,21 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
-def pick_form(name: str, rows: int) -> str:
+def pick_form(name: str, rows: int, fpb: int = 128, pad_len: int = 1024) -> str:
     """Launch B's form on the card for kernel ``name`` (rows 1-7) at ``rows``
-    rows."""
+    rows, among those of the (fpb, pad_len) library."""
+    forms = geometry_forms(fpb, pad_len)
     if name == ROW1:
-        return STAGED if rows >= STAGED_FROM else LAUNCH_B
-    return SPLIT if name in split_launches and rows >= SPLIT_FROM else LAUNCH_B
+        return STAGED if rows >= STAGED_FROM and forms.staged else LAUNCH_B
+    return SPLIT if name in split_launches and rows >= SPLIT_FROM and forms.split else LAUNCH_B
 
 
-def forward_form(nb: int) -> str:
+def forward_form(nb: int, fpb: int = 128, pad_len: int = 1024) -> str:
     """Launch A's form on the card at ``nb`` blocks a source (the steps'
-    choice, csrc/fused_forward.cuh forward_form)."""
-    return FWD_FEW if nb <= FEW_NB else FWD_PRODUCT
+    choice, csrc/fused_forward.cuh forward_form): the few-block form up to
+    the geometry's ``few_nb``, else its product form, else the tile form."""
+    forms = geometry_forms(fpb, pad_len)
+    return FWD_FEW if nb <= forms.few_nb else FWD_PRODUCT if forms.product else FWD_TILE
 
 
 def _cuda(fn, *args, form: str, **kwargs):
@@ -190,16 +258,20 @@ def _cuda(fn, *args, form: str, **kwargs):
         _named_form.reset(token)
 
 
-def _form(name: str, rows: int) -> str:
+def _form(name: str, rows: int, fpb: int = 128, pad_len: int = 1024) -> str:
     """The form this launch of ``name`` takes: the one named through
     ``_cuda``, else ``pick_form``; the split form is the blocked tail's,
-    the staged form row 1's."""
-    form = _named_form.get() or pick_form(name, rows)
+    the staged form row 1's, and a form the geometry's library lacks
+    raises."""
+    form = _named_form.get() or pick_form(name, rows, fpb, pad_len)
     if form == SPLIT and name not in split_launches:
         raise ValueError(f"{name} sums one chain over K: launch B only, in its one-CTA or "
                          f"staged form")
     if form == STAGED and name != ROW1:
         raise ValueError(f"the staged form is row 1's, not {name}'s")
+    forms = geometry_forms(fpb, pad_len)
+    if (form == SPLIT and not forms.split) or (form == STAGED and not forms.staged):
+        raise ValueError(f"the {form} form does not exist at fpb {fpb}, pad {pad_len}")
     return form
 
 
@@ -389,8 +461,8 @@ _BASES_ARGS = [_ptr] * 6                              # cfr, cfi, twr, twi, icr,
 
 
 @functools.cache
-def _entry(lib: str, symbol: str, middle: tuple):
-    fn = getattr(build.load(lib), symbol)
+def _entry(lib: str, symbol: str, middle: tuple, geometry: tuple[int, int]):
+    fn = getattr(build.load(lib, geometry=geometry), symbol)
     fn.argtypes = [_int, _ptr, _ptr, _int, _int,      # device, stream, streams, sources, nb
                    *_DIST_ARGS, *middle, *_BASES_ARGS,
                    _ptr, _ptr, _ptr]                  # xdr, xdi scratch, out
@@ -398,21 +470,35 @@ def _entry(lib: str, symbol: str, middle: tuple):
     return fn
 
 
-def _onehot_entry():
+def _onehot_entry(geometry):
     # table, its rows per group, ridx, w, bnd_idx, bnd_w, seg, group_rows,
     # blocked_tail, form, xf
     return _entry("fused_step_onehot", "jt_fused_step_onehot_xfade",
-                  (_ptr, _int, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr))
+                  (_ptr, _int, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr), geometry)
 
 
-def _gather_entry():
+def _gather_entry(geometry):
     # g_rows, g_last, xf, with_xfade, form
     return _entry("fused_step_gather", "jt_fused_step_gather_xfade",
-                  (_ptr, _ptr, _ptr, _int, _int))
+                  (_ptr, _ptr, _ptr, _int, _int), geometry)
 
 
-def _cuda_error(lib: str, code: int) -> str:
-    fn = build.load(lib).jt_error_string
+def library_geometry(lib: str, fpb: int, pad_len: int) -> Forms:
+    """What the (fpb, pad_len) library of ``lib`` reports of itself
+    (``jt_geometry``), as ``Forms``: the card tests and chip_smoke.py hold
+    ``geometry_forms`` to it."""
+    fn = build.load(lib, geometry=(fpb, pad_len)).jt_geometry
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    out = (ctypes.c_int * 9)()
+    fn(out)
+    v = list(out)
+    return Forms(fpb=v[0], pad=v[1], bins=v[2], q=v[3], few_nb=v[4], product=bool(v[5]),
+                 split=bool(v[6]), staged=bool(v[7]), cluster=bool(v[8]))
+
+
+def _cuda_error(lib: str, code: int, geometry=None) -> str:
+    fn = build.load(lib, geometry=geometry).jt_error_string
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     return fn(code).decode()
@@ -430,11 +516,22 @@ def _one_device(operands) -> torch.device:
 
 
 def _where(operands, pad_len: int, bins: int, fpb: int) -> torch.device:
-    """``_one_device``, which on CUDA must also be the kernels' geometry."""
+    """``_one_device``; on CUDA the geometry must also lie in the card's
+    envelope, with bins = pad_len/2 + 1."""
     device = _one_device(operands)
-    if device.type == "cuda" and (fpb, pad_len, bins) != (_FPB, _PAD, _BINS):
-        raise ValueError(f"the CUDA step is built for fpb={_FPB}, pad_len={_PAD}, bins={_BINS}")
+    if device.type == "cuda":
+        check_envelope(fpb, pad_len)
+        if bins != pad_len // 2 + 1:
+            raise ValueError(f"bins {bins} is not pad_len/2 + 1 for pad_len {pad_len}")
     return device
+
+
+def _whole_blocks(fpb: int, pad_len: int) -> None:
+    """Launch A runs the sliding forward, which needs a history of whole
+    blocks."""
+    if pad_len % fpb:
+        raise ValueError(f"launch A needs a history of whole blocks: fpb {fpb} does not divide "
+                         f"pad {pad_len} (compute XD and take the apply-only step)")
 
 
 def _check(specs: dict) -> None:
@@ -464,9 +561,10 @@ def _check_streams(streams, nb: int, pad_len: int, fpb: int) -> None:
 
 def _launch(name: str, form: str, lib: str, entry, device, streams, n_src, nb, dist, middle,
             rows: int, pad_len: int, bins: int, fpb: int):
-    """Allocate the scratch and output, launch ``entry`` on the current
-    stream with launch B in ``form``, count the launch, and return the
-    (rows, 2*fpb) output."""
+    """Allocate the scratch and output, launch ``entry`` (of the (fpb,
+    pad_len) library) on the current stream with launch B in ``form``,
+    count the launch, and return the (rows, 2*fpb) output."""
+    _whole_blocks(fpb, pad_len)
     cfr, cfi = fft_ops.on_device(fft_ops._subblock_dft_matrices, pad_len, fpb, device=device)
     twr, twi = fft_ops.on_device(fft_ops._sliding_twiddles, pad_len, fpb, device=device)
     icr, ici = fft_ops.on_device(fft_ops._idft_tail_matrices, pad_len, fpb, device=device)
@@ -486,15 +584,16 @@ def _launch(name: str, form: str, lib: str, entry, device, streams, n_src, nb, d
         ptr(xdr), ptr(xdi), ptr(out),
     )
     if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({_cuda_error(lib, err)})")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({_cuda_error(lib, err, (fpb, pad_len))})")
     _count(name, form)
-    forward_launches[forward_form(nb)] += 1
+    forward_launches[forward_form(nb, fpb, pad_len)] += 1
     return out
 
 
 @functools.cache
-def _forward_entry():
-    fn = build.load("fused_step_onehot").jt_forward_distance
+def _forward_entry(geometry: tuple[int, int]):
+    fn = build.load("fused_step_onehot", geometry=geometry).jt_forward_distance
     fn.argtypes = [_int, _ptr, _int, _ptr, _int, _int,  # device, stream, form, streams, S, nb
                    *_DIST_ARGS, *_BASES_ARGS[:4], _ptr, _ptr]  # ..., cfr..twi, xdr, xdi
     fn.restype = _int
@@ -509,8 +608,13 @@ def _forward_cuda(streams, nb: int, uh, ul, fr, dsel, n_dist, *, form: str, pad_
     counted in ``forward_launches``."""
     if form not in _FWD_CODE:
         raise ValueError(f"form {form!r}: want one of {sorted(_FWD_CODE)}")
-    if form == FWD_FEW and nb > FEW_NB:
-        raise ValueError(f"the few-block form takes at most {FEW_NB} blocks a source, not {nb}")
+    forms = geometry_forms(fpb, pad_len)
+    if form == FWD_FEW and nb > forms.few_nb:
+        raise ValueError(f"the few-block form takes at most {forms.few_nb} blocks a source at "
+                         f"fpb {fpb}, pad {pad_len}, not {nb}")
+    if form == FWD_PRODUCT and not forms.product:
+        raise ValueError(f"the product form does not exist at fpb {fpb}, pad {pad_len}")
+    _whole_blocks(fpb, pad_len)
     _check_streams(streams, nb, pad_len, fpb)
     if (dsel is None) != (n_dist is None):
         raise ValueError("dsel and n_dist go together (compact distance)")
@@ -527,13 +631,13 @@ def _forward_cuda(streams, nb: int, uh, ul, fr, dsel, n_dist, *, form: str, pad_
     xdr = torch.empty((rows, bins), dtype=torch.float32, device=device)
     xdi = torch.empty_like(xdr)
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = _forward_entry()(
+    err = _forward_entry((fpb, pad_len))(
         device.index, torch.cuda.current_stream(device).cuda_stream, _FWD_CODE[form],
         ptr(streams), streams.shape[0], nb, ptr(uh), ptr(ul), ptr(fr), ptr(dsel), n_dist or 0,
         ptr(cfr), ptr(cfi), ptr(twr), ptr(twi), ptr(xdr), ptr(xdi))
     if err:
         raise RuntimeError(f"launch A ({form}) failed: CUDA error {err} "
-                           f"({_cuda_error('fused_step_onehot', err)})")
+                           f"({_cuda_error('fused_step_onehot', err, (fpb, pad_len))})")
     forward_launches[form] += 1
     return xdr, xdi
 
@@ -557,7 +661,7 @@ def _onehot_cuda(name, device, streams, nb, uh, ul, fr, dsel, n_dist, table, u_r
     _check(specs)
     if u_rows < 1 or rows < 1:
         raise ValueError("the step needs a table row and a block")
-    form = _form(name, rows)
+    form = _form(name, rows, fpb, pad_len)
     if form != LAUNCH_B and group_rows % seg:
         # the split and staged forms serve row r's new side from staged row
         # r+1 of the same segment, blended against row r+1's group: group
@@ -566,8 +670,9 @@ def _onehot_cuda(name, device, streams, nb, uh, ul, fr, dsel, n_dist, table, u_r
     blocked = int(name != ROW1)
     middle = (table, u_rows, ridx, w, bnd_idx, bnd_w, seg, group_rows, blocked,
               _FORM_CODE[form], xf)
-    return _launch(name, form, "fused_step_onehot", _onehot_entry(), device, streams,
-                   rows // nb, nb, (uh, ul, fr, dsel, n_dist), middle, rows, pad_len, bins, fpb)
+    return _launch(name, form, "fused_step_onehot", _onehot_entry((fpb, pad_len)), device,
+                   streams, rows // nb, nb, (uh, ul, fr, dsel, n_dist), middle, rows, pad_len,
+                   bins, fpb)
 
 
 def fused_step_onehot_xfade(
@@ -754,8 +859,9 @@ def _gather_cuda(name, device, streams, n_src, nb, uh, ul, fr, g_old, g_last, xf
     _check(specs)
     if rows < 1:
         raise ValueError("the step needs a block")
-    form = _form(name, rows)
+    form = _form(name, rows, fpb, pad_len)
     middle = (g_old, g_last if with_xfade else None, xf if with_xfade else None, int(with_xfade),
               _FORM_CODE[form])
-    return _launch(name, form, "fused_step_gather", _gather_entry(), device, streams, n_src, nb,
-                   (uh, ul, fr, dsel, n_dist), middle, rows, pad_len, bins, fpb)
+    return _launch(name, form, "fused_step_gather", _gather_entry((fpb, pad_len)), device,
+                   streams, n_src, nb, (uh, ul, fr, dsel, n_dist), middle, rows, pad_len, bins,
+                   fpb)

@@ -60,7 +60,8 @@ from pathlib import Path
 import numpy as np
 
 # the CUDA libraries the daemon's paths launch: rows 1-4 and 8 (and launch
-# A), rows 5-7, and row 12 under rows 5-7's pre-blend
+# A), rows 5-7, and row 12 under rows 5-7's pre-blend; the first two are
+# built for the database's geometry at start
 LIBRARIES = ("fused_step_onehot", "fused_step_gather", "dma_blend")
 
 # a mesh behind the socket needs the daemon's engine resident in every rank
@@ -145,7 +146,8 @@ class RenderService:
         if self.device.type == "cuda":
             from .kernels import build
 
-            build.build_all(LIBRARIES)
+            build.build_all(LIBRARIES, geometries=[(self.config.frames_per_buffer,
+                                                     self.config.pad_len)])
         StreamingSpatializer(self.db, self.config, device=self.device).prime()
         fpb = self.config.frames_per_buffer
         self.renderer.render(np.zeros(8 * fpb, np.float32),

@@ -293,10 +293,17 @@ def test_scene_arm_matches_jax_and_oracle(db, tdb, config, castanets, name, monk
 def test_batch_renderer_refuses_what_is_not_ported(tdb):
     with pytest.raises(TypeError, match="mesh must be a torch.distributed DeviceMesh"):
         BatchRenderer(tdb, device="cpu", mesh=object())
-    cfg96 = EngineConfig(frames_per_buffer=64, hrtf_len=512)
-    tdb64 = database_from_numpy(tdb.spectra, tdb.hrirs, dataclasses.asdict(cfg96))
-    with pytest.raises(ValueError, match="fpb 128 / pad 1024"):
-        BatchRenderer(tdb64, device="cuda")
+    # fpb 64 lies in the card's envelope (with no card here only the device
+    # is refused); fpb 16 lies outside it and is refused before any launch
+    cfg64 = EngineConfig(frames_per_buffer=64, hrtf_len=512)
+    tdb64 = database_from_numpy(tdb.spectra, tdb.hrirs, dataclasses.asdict(cfg64))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            BatchRenderer(tdb64, device="cuda")
+    cfg16 = EngineConfig(frames_per_buffer=16, hrtf_len=512)
+    tdb16 = database_from_numpy(tdb.spectra, tdb.hrirs, dataclasses.asdict(cfg16))
+    with pytest.raises(ValueError, match="fpb 16, pad 1024 lies outside.*queue 1 item 11"):
+        BatchRenderer(tdb16, device="cuda")
 
 
 def test_unfused_chain_unaligned_geometry_matches_jax():

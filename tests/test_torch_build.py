@@ -1,5 +1,6 @@
 """The kernel build path under threads: several threads of one process that
-first use a library at once build it once and load one handle.
+first use a library at once build it once and load one handle; and the
+render steps' libraries keyed by their geometry (fpb, pad_len).
 
 The host library (``native/native.cpp``) builds with g++, so this runs
 without a card; the CUDA sources take the same path with nvcc.
@@ -125,3 +126,39 @@ def test_processes_that_first_load_a_library_at_once_build_it_correctly(tmp_path
     assert all("loaded True" in out for out in outs), outs
     assert sorted(p.suffix for p in tmp_path.iterdir()) == [".log", ".so"]
     assert "native.cpp" in next(tmp_path.glob("*.log")).read_text()
+
+
+def test_each_geometry_builds_its_own_library():
+    """A render step's library is keyed by its geometry: its name carries
+    f<fpb>p<pad>, its flags the two defines; the same geometry keeps one
+    path; the geometry-free libraries refuse a geometry."""
+    paths = {g: build.library_path("fused_step_gather", geometry=g)
+             for g in ((128, 1024), (64, 1024), (64, 512), (100, 1024))}
+    assert len(set(paths.values())) == 4
+    assert paths[(64, 512)].name.startswith("fused_step_gather-f64p512-")
+    assert build.library_path("fused_step_gather", geometry=(64, 512)) == paths[(64, 512)]
+    assert build.library_path("fused_step_gather") == paths[(128, 1024)]
+    assert build.flags("fused_step_onehot", geometry=(441, 1024))[-2:] == (
+        "-DJT_FPB=441", "-DJT_PAD=1024")
+    assert "-DJT_FPB=441" not in " ".join(build.flags("fused_step_onehot"))
+    assert build.library_path("dma_blend").name.startswith("dma_blend-")
+    with pytest.raises(ValueError, match="takes no geometry"):
+        build.library_path("dma_blend", geometry=(64, 1024))
+    assert build.libraries(["dma_blend", "fused_step_onehot"], [(64, 1024), (256, 1024)]) == [
+        ("dma_blend", None), ("fused_step_onehot", (64, 1024)), ("fused_step_onehot", (256, 1024))]
+
+
+def test_a_geometry_library_raises_without_nvcc_and_builds_nothing(tmp_path, monkeypatch):
+    """A render step's library at any geometry needs nvcc: without it the
+    load raises, no handle is cached and no file is left."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path / "no-bin"))
+    for geometry in ((64, 1024), (441, 1024)):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build.load("fused_step_gather", geometry=geometry)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_all(build.GEOMETRIC, geometries=[(256, 1024), (1024, 2048)])
+    assert build._loaded == {}
+    assert not (tmp_path / "out").exists() or not any((tmp_path / "out").iterdir())

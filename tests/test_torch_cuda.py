@@ -113,7 +113,7 @@ def test_kernel_refuses_operands_it_does_not_take(card_db):
     bad[5] = args[5].t().contiguous().t()
     with pytest.raises(ValueError, match="ridx: want contiguous"):
         tfs.fused_step_onehot_xfade(*bad, **kw)
-    with pytest.raises(ValueError, match="built for fpb=128"):
+    with pytest.raises(ValueError, match="bins 257 is not pad_len/2 \\+ 1"):
         tfs.fused_step_onehot_xfade(*args, **{**kw, "bins": 257})
 
 
@@ -298,7 +298,7 @@ def test_scene_kernels_refuse_operands_they_do_not_take(card_db):
     bad[0] = args[0][:, :500]
     with pytest.raises(ValueError, match="xdr: want contiguous"):
         fn(*bad, **kw)
-    with pytest.raises(ValueError, match="built for fpb=128"):
+    with pytest.raises(ValueError, match="icr: want contiguous .*96"):  # the 128-sample basis
         fn(*args, **{**kw, "fpb": 96})
     fn, args, kw = _scene(card_db, "gather", 264)
     with pytest.raises(ValueError, match="g_last: want"):
@@ -875,7 +875,7 @@ def test_a_refused_few_block_launch_raises(card):
     bases = [t.data_ptr() for t in (
         tfs.fft_ops.on_device(tfs.fft_ops._subblock_dft_matrices, 1024, 128, device=card)
         + tfs.fft_ops.on_device(tfs.fft_ops._sliding_twiddles, 1024, 128, device=card))]
-    err = tfs._forward_entry()(
+    err = tfs._forward_entry((128, 1024))(
         card.index, torch.cuda.current_stream(card).cuda_stream, tfs._FWD_CODE[tfs.FWD_FEW],
         ops[0].data_ptr(), 1, tfs.FEW_NB + 1, *(t.data_ptr() for t in ops[2:5]), None, 0,
         *bases, *(t.data_ptr() for t in xd))
@@ -1365,3 +1365,147 @@ def test_mesh_nccl_refuses_two_ranks_on_one_card(card_db, monkeypatch):
     monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
     with pytest.raises(RuntimeError, match="NCCL refuses two ranks on one card.*backend='gloo'"):
         pm.init_world("nccl", device="cuda")
+
+
+# ---- every block and transform size in the card's envelope ---------------
+
+def _smoke_geometries() -> dict:
+    """chip_smoke.py's phase geometry's table: name -> (fpb, HRIR taps)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.GEOMETRIES
+
+
+GEOMETRIES = _smoke_geometries()
+_geo_dbs = {}
+
+
+def _geo_db(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if name not in _geo_dbs:
+        from jefferson_tpu_torch.config import EngineConfig
+
+        fpb, taps = GEOMETRIES[name]
+        _geo_dbs[name] = synthetic_database(EngineConfig(frames_per_buffer=fpb, hrtf_len=taps))
+    return _geo_dbs[name]
+
+
+def _held_to_twin(fn, args, kw, forms, rows, fpb):
+    """Every named form of a step against its twin, and the forms bit-equal."""
+    twin = getattr(tfa if fn is tfa.fused_apply_xfade else tfs, fn.__name__ + "_reference")
+    got = [tfs._cuda(fn, *args, form=f, **kw) for f in forms]
+    torch.cuda.synchronize()
+    want = twin(*args, **kw)
+    for g in got:
+        assert g.shape == (rows, 2 * fpb)
+        assert float((g - want).abs().max()) <= TOL
+        assert torch.equal(g, got[0])
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_geometry_library_reports_the_forms_the_wrappers_pick_among(name):
+    db = _geo_db(name)
+    cfg = db.config
+    for lib in tbuild.GEOMETRIC:
+        assert tfs.library_geometry(lib, cfg.frames_per_buffer, cfg.pad_len) == \
+            tfs.geometry_forms(cfg.frames_per_buffer, cfg.pad_len)
+        path = tbuild.library_path(lib, geometry=(cfg.frames_per_buffer, cfg.pad_len))
+        assert path.exists() and f"-f{cfg.frames_per_buffer}p{cfg.pad_len}-" in path.name
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_geometry_kernel_forms_match_their_twins(name):
+    """Rows 1-8 and launch A in every form the geometry's library has
+    (rows 7 and 8's apply-only forms at a history of partial blocks), at
+    8 and 264 rows, against their twins and each other."""
+    db = _geo_db(name)
+    cfg = db.config
+    fpb, pad, bins = cfg.frames_per_buffer, cfg.pad_len, cfg.num_bins
+    forms = tfs.geometry_forms(fpb, pad)
+    dev = torch.device("cuda", 0)
+    tail = [tfs.LAUNCH_B] + ([tfs.SPLIT] if forms.split else [])
+    geo = dict(pad_len=pad, bins=bins, fpb=fpb)
+    if forms.q:
+        for s_, nb, nd in ((3, 88, None), (2, 4, 3), (1, 1, None)):
+            ops = bench.forward_operands(s_, nb, dev, n_dist=nd, config=cfg)
+            names = [tfs.FWD_TILE] + ([tfs.FWD_PRODUCT] if forms.product else []) + (
+                [tfs.FWD_FEW] if nb <= forms.few_nb else [])
+            got = [tfs._forward_cuda(*ops, form=f, **geo) for f in names]
+            want = tfs._forward_reference(*ops, **geo)
+            peak = max(float(w.abs().max()) for w in want)
+            for xd in got:
+                assert all(torch.equal(a, b) for a, b in zip(xd, got[0]))
+                assert max(float((a - w).abs().max()) for a, w in zip(xd, want)) <= 1e-6 * peak
+        args, kw = bench.step_operands(bench.build_workload(db, 2, 4, dev), cfg)
+        _held_to_twin(tfs.fused_step_onehot_xfade, args, kw, [tfs.LAUNCH_B], 8, fpb)
+        for form in ("onehot", "grouped", "gather", "gather_noxf"):
+            fn, args, kw = bench.stream_step(db, form, 264, dev, tb=88, group_tiles=1, xf_every=5)
+            _held_to_twin(fn, args, kw, tail, 264, fpb)
+        for form in ("grouped", "gather", "gather_noxf"):
+            groups = {"group_sources": 1} if form == "grouped" else {}
+            fn, args, kw = bench.scene_step(db, form, 4, 66, dev, xf_every=5, **groups)
+            _held_to_twin(fn, args, kw, tail, 264, fpb)
+    for form in ("apply", "apply_noxf"):
+        fn, args, kw = bench.scene_step(db, form, 2, 132, dev, xf_every=5)
+        _held_to_twin(fn, args, kw, tail, 264, fpb)
+    row8 = tail + ([tsp.CLUSTER] if forms.cluster else [])
+    for rows in (1, 8, 264):
+        table, fwd, br, xf = bench.spatializer_step(db, rows, dev)
+        if forms.q:
+            xd = tfs._forward_reference(fwd[0][None], rows, *fwd[1:], None, None, **geo)
+        else:
+            from jefferson_tpu_torch.engine.stream import _window_xd
+
+            xd = _window_xd(fwd[0].unfold(0, pad, fpb), *fwd[1:], cfg)
+        got = [tsp._cuda(dev, rows, table, br, xf, *xd, None, form=f, **geo) for f in row8]
+        want = tsp.fused_apply_reference(table, *xd, *br, xf, bins=bins, fpb=fpb)
+        for g in got:
+            assert float((g - want).abs().max()) <= TOL and torch.equal(g, got[0])
+        if forms.q:
+            y = tsp.fused_forward_apply(table, *fwd, *br, xf, **geo)
+            assert float((y - want).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_geometry_renders_on_the_card_match_the_twins(name):
+    """A short render of each engine on the card against the same render on
+    the CPU (the twins), with the launches the dispatch names."""
+    db = _geo_db(name)
+    cfg = db.config
+    fpb = cfg.frames_per_buffer
+    sig = (np.random.default_rng(3).standard_normal(96 * fpb) * 0.2).astype(np.float32)
+    pos = bench.helix_positions(96, cfg=cfg)
+    tfs.reset_launches()
+    got = Renderer(db, device="cuda", chunk_blocks=32).render(sig, pos)
+    assert sum(tfs.launches.values()) >= 3
+    want = Renderer(db, device="cpu", chunk_blocks=32).render(sig, pos)
+    assert float(np.abs(got - want).max()) <= 1e-6
+    got = render_scan(sig, db, pos, cfg, device="cuda", chunk_blocks=40)
+    assert float(np.abs(got - render_scan(sig, db, pos, cfg, device="cpu")).max()) <= 1e-6
+    card, cpu = (StreamingSpatializer(db, device=d) for d in ("cuda", "cpu"))
+    for b in range(12):
+        for sp in (card, cpu):
+            sp.set_position(azi=30.0 * (b // 3), ele=5.0, r=1.0)
+        blk = sig[b * fpb:(b + 1) * fpb]
+        assert float(np.abs(card.process_block(blk) - cpu.process_block(blk)).max()) <= 1e-6
+
+
+@pytest.mark.parametrize("fpb,taps", [(16, 512), (128, 3969)])
+def test_geometry_outside_the_envelope_raises_before_any_launch(fpb, taps):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from jefferson_tpu_torch.config import EngineConfig
+
+    db = synthetic_database(EngineConfig(frames_per_buffer=fpb, hrtf_len=taps))
+    tfs.reset_launches()
+    for make in (lambda: Renderer(db, device="cuda"),
+                 lambda: StreamingSpatializer(db, device="cuda")):
+        with pytest.raises(ValueError, match="queue 1 item 11"):
+            make()
+    assert not any(tfs.launches.values())

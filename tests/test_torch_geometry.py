@@ -1,0 +1,397 @@
+"""The port at block and transform sizes other than fpb 128 / pad 1024, on
+the CPU: each kernel's plain twin against the JAX package's Pallas kernel
+in interpret mode, the renderers and the streaming engine against the JAX
+package's at every named geometry with the JAX dispatch's arms, the card's
+envelope, and the per-geometry library keys.
+
+The named geometries (44.1 kHz): f64 (64-sample blocks, the 512-tap set:
+pad 1024, Q 16), f256 (Q 4), f64t256 (64-sample blocks of a 256-tap set:
+pad 512), f1024 (1024-sample blocks: pad 2048, 1025 bins), and the two
+histories of partial blocks f100 and f441 (10 ms), which take the
+apply-only kernels (rows 7 and 8) on XD computed outside them.
+
+Tolerances: 5e-7 max-abs for a twin against its Pallas kernel (the JAX
+package's fused-vs-unfused gate, tests/test_batch_parallel.py:834), 1e-5
+for row 8 (tests/test_pallas.py:56, standard-normal planes), and 1e-6 for
+a render against the JAX render (tests/test_engine_parity.py:23).
+"""
+
+import dataclasses
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jefferson_tpu import EngineConfig as JaxConfig
+from jefferson_tpu import synthetic_database
+from jefferson_tpu.engine import stream as jstream
+from jefferson_tpu.engine.batch import BatchRenderer as JaxBatchRenderer
+from jefferson_tpu.ops.filters import cmul as jcmul
+from jefferson_tpu.ops.filters import distance_factors_split as jdistance
+from jefferson_tpu.ops.filters import distance_phase_split
+from jefferson_tpu.pallas import fused_apply as jfa
+from jefferson_tpu.pallas import fused_step as jfs
+from jefferson_tpu.pallas.fused_spatializer import fused_apply as j_fused_apply
+from jefferson_tpu.pallas.fused_spatializer import kernel_planes as j_kernel_planes
+from jefferson_tpu.trajectory.trajectory import CircularOrbit
+from jefferson_tpu_torch import bench
+from jefferson_tpu_torch.config import EngineConfig
+from jefferson_tpu_torch.convert import database_from_numpy
+from jefferson_tpu_torch.engine import stream as tstream
+from jefferson_tpu_torch.engine.batch import BatchRenderer
+from jefferson_tpu_torch.engine.renderer import Renderer, check_card_geometry
+from jefferson_tpu_torch.kernels import build
+from jefferson_tpu_torch.kernels import fused_apply as tfa
+from jefferson_tpu_torch.kernels import fused_spatializer as tsp
+from jefferson_tpu_torch.kernels import fused_step as tfs
+
+from test_torch_batch import record_jax_arms
+from test_torch_renderer import _hold, _jax_render, _orbit
+
+torch.set_num_threads(1)
+
+TOL = 5e-7
+TOL_ROW8 = 1e-5
+TOL_JAX = 1e-6
+
+# name: (frames_per_buffer, HRIR taps)
+GEOMETRIES = {
+    "f64": (64, 512), "f256": (256, 512), "f64t256": (64, 256), "f1024": (1024, 512),
+    "f100": (100, 512), "f441": (441, 512),
+}
+ALIGNED = ("f64", "f256", "f64t256", "f1024")
+RENDERED = ("f64", "f256", "f64t256", "f100", "f441")
+
+
+@functools.cache
+def _dbs(name):
+    """(JAX database, the port's database) of a named geometry."""
+    fpb, taps = GEOMETRIES[name]
+    cfg = JaxConfig(frames_per_buffer=fpb, hrtf_len=taps)
+    db = synthetic_database(cfg, n_taps=taps, seed=11)
+    return db, database_from_numpy(db.spectra, db.hrirs, dataclasses.asdict(cfg))
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a.numpy())
+
+
+def _run(fn, args, kw):
+    """The wrapper on CPU operands: its twin, never a kernel."""
+    before = dict(tfs.launches)
+    got = fn(*args, **kw)
+    assert tfs.launches == before
+    return got.numpy()
+
+
+def _pallas(fn, args, kw, tb):
+    jkw = {**kw, "tb": tb}
+    if "dsel" in jkw:
+        jkw["dsel"] = _j(jkw["dsel"])
+    module = jfa if fn is tfa.fused_apply_xfade else jfs
+    return np.asarray(getattr(module, fn.__name__)(*map(_j, args), **jkw))
+
+
+# form: (operand maker, its arguments, the Pallas tile)
+STEPS = {
+    "onehot": (bench.stream_step, dict(form="onehot", b=16, xf_every=3), 8),
+    "grouped": (bench.stream_step, dict(form="grouped", b=16, tb=8, group_tiles=1), 8),
+    "gather": (bench.scene_step, dict(form="gather", s=2, nb=8, xf_every=3), 8),
+    "gather_noxf": (bench.scene_step, dict(form="gather_noxf", s=2, nb=8), 8),
+    "apply": (bench.scene_step, dict(form="apply", s=2, nb=8, xf_every=3), 8),
+}
+
+
+@pytest.mark.parametrize("form", list(STEPS))
+@pytest.mark.parametrize("name", ALIGNED)
+def test_twins_match_the_pallas_kernels_at_each_geometry(name, form):
+    """Rows 4 and 3 (one stream), 6 in both forms and 7 (two sources), at
+    each whole-block geometry, against the Pallas kernels interpreted."""
+    _, tdb = _dbs(name)
+    make, opts, tb = STEPS[form]
+    fn, args, kw = make(tdb, device="cpu", seed=5, **opts)
+    got = _run(fn, args, kw)
+    fpb = GEOMETRIES[name][0]
+    assert got.shape == (16, 2 * fpb)
+    assert np.abs(got - _pallas(fn, args, kw, tb)).max() <= TOL
+
+
+@pytest.mark.parametrize("name", ("f64", "f256", "f64t256", "f1024", "f441"))
+def test_row_8_twin_matches_the_pallas_kernel_at_each_geometry(name):
+    """Row 8's apply-only entry on 16 rows of standard-normal planes, a
+    crossfade on some, every bracket a random table row."""
+    db, tdb = _dbs(name)
+    cfg, b = tdb.config, 16
+    rng = np.random.default_rng(len(name))
+    xr, xi = (rng.standard_normal((b, cfg.num_bins)).astype(np.float32) for _ in range(2))
+    n = db.spectra.shape[0]
+    idxo, idxn = (rng.integers(0, n, (b, 4)).astype(np.int32) for _ in range(2))
+    wo, wn = (rng.random((b, 4)).astype(np.float32) for _ in range(2))
+    xf = rng.random(b) > 0.4
+    uh, ul, fr = distance_phase_split(cfg.fsvs, rng.random(b).astype(np.float32), cfg.num_bins)
+    jxdr, jxdi = jcmul(jnp.asarray(xr), jnp.asarray(xi),
+                       *jdistance(jnp.asarray(uh), jnp.asarray(ul), jnp.asarray(fr), cfg.num_bins))
+    want = np.asarray(j_fused_apply(
+        j_kernel_planes(db), jxdr, jxdi, jnp.asarray(np.concatenate([idxo, idxn], 1)),
+        jnp.asarray(np.concatenate([wo, wn], 1)), jnp.asarray(xf), db.config, tb=8,
+        interpret=True))
+    t = torch.from_numpy
+    got = _run(tsp.fused_apply_packed,
+               (tsp.kernel_planes(tdb, "cpu"), t(np.array(jxdr)), t(np.array(jxdi)),
+                t(np.concatenate([idxo, idxn], 1)), t(np.concatenate([wo, wn], 1)), t(xf)),
+               dict(bins=cfg.num_bins, fpb=cfg.frames_per_buffer))
+    assert got.shape == want.shape == (b, cfg.frames_per_buffer, 2)
+    assert np.abs(got - want).max() <= TOL_ROW8
+
+
+def _signal(blocks, fpb, seed):
+    return (np.random.default_rng(seed).standard_normal(blocks * fpb) * 0.2).astype(np.float32)
+
+
+# case: (positions of 48 blocks, chunk_blocks, renderer options)
+RENDERS = {
+    "hold": (_hold(48), 16, {}),
+    "orbit": (_orbit(48), 16, {}),
+    "gather": (_orbit(48), 16, {"dedup": False}),
+}
+
+
+@pytest.mark.parametrize("case", list(RENDERS))
+@pytest.mark.parametrize("name", RENDERED)
+def test_renderer_matches_jax_at_each_geometry(name, case, monkeypatch):
+    """The dedup+fused, one-hot and gather arms (at a history of partial
+    blocks, what the JAX dispatch takes there), each chunk on the JAX arm."""
+    db, tdb = _dbs(name)
+    pos, cb, opts = RENDERS[case]
+    if case == "gather":  # the orbit's filters overflow the one-hot gate
+        monkeypatch.setattr(jfs, "MAX_ONEHOT_U", 4)
+        monkeypatch.setattr(tfs, "MAX_ONEHOT_U", 4)
+    sig = _signal(len(pos), GEOMETRIES[name][0], 3)
+    want, jax_arms = _jax_render(db, sig, pos, (0.0, 0.0), chunk_blocks=cb, fused=True, **opts)
+    r = Renderer(tdb, device="cpu", chunk_blocks=cb, **opts)
+    got = r.render(sig, pos)
+    assert r.dispatch == jax_arms and len(jax_arms) == 3
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= TOL_JAX
+
+
+@pytest.mark.parametrize("scene", ["hold", "movers"])
+@pytest.mark.parametrize("name", RENDERED)
+def test_batch_renderer_matches_jax_at_each_geometry(name, scene):
+    """Two sources of 24 blocks in chunks of 8: the hold scene's and the
+    movers' arms, the unfused chain at a history of partial blocks."""
+    db, tdb = _dbs(name)
+    s, nb = 2, 24
+    pos = (bench.scene_hold_positions(s, nb, blocks_per_step=10) if scene == "hold"
+           else bench.scene_mover_positions(s, nb))
+    fpb = GEOMETRIES[name][0]
+    signals = np.stack([_signal(nb, fpb, 7 + i) for i in range(s)])
+    jr = JaxBatchRenderer(db, chunk_blocks=8, fused=True)
+    jax_arms = record_jax_arms(jr)
+    want = jr.render(signals, pos)
+    r = BatchRenderer(tdb, device="cpu", chunk_blocks=8)
+    got = r.render(signals, pos)
+    assert r.dispatch == jax_arms and len(jax_arms) == 3
+    assert np.abs(got - want).max() <= TOL_JAX
+
+
+@pytest.mark.parametrize("name", RENDERED)
+def test_streaming_forms_match_jax_at_each_geometry(name):
+    """``render_scan`` in chunks, and ``StreamingSpatializer`` moving and
+    held, at pipeline latency 0 and 1, against the JAX stream."""
+    db, tdb = _dbs(name)
+    fpb = GEOMETRIES[name][0]
+    pos = CircularOrbit(period_s=0.3, ele=8, r=0.9).sample(24, tdb.config)
+    sig = _signal(24, fpb, 5)
+    got = tstream.render_scan(sig, tdb, pos, tdb.config, device="cpu", chunk_blocks=7)
+    want = np.asarray(jstream.render_scan(sig, db, pos, db.config))
+    assert np.abs(got - want).max() <= TOL_JAX
+    for latency in (0, 1):
+        port = tstream.StreamingSpatializer(tdb, pipeline_latency=latency, device="cpu")
+        jax = jstream.StreamingSpatializer(db, db.config, pipeline_latency=latency)
+        port.buf = jax.buf = sig
+        for b in range(12):
+            if b in (0, 3, 4):
+                for sp in (port, jax):
+                    sp.set_position(azi=40.0 * b + 10, ele=5.0 * b, r=0.5 + 0.1 * b)
+            assert np.abs(port.process_next() - jax.process_next()).max() <= TOL_JAX
+        assert port.crossfades == jax.crossfades == 3
+
+
+def _pretend_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_the_card_takes_every_named_geometry(name, monkeypatch):
+    """Inside the envelope the engines' card checks pass (the kernels build
+    for the geometry at their first launch)."""
+    _, tdb = _dbs(name)
+    _pretend_a_card(monkeypatch)
+    check_card_geometry(tdb.config)
+    assert tstream._stream_device("cuda", tdb.config) == torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("fpb,taps", [(16, 512), (128, 3969), (2048, 64)])
+def test_the_card_refuses_a_geometry_outside_the_envelope(fpb, taps, monkeypatch):
+    """fpb 16 (Q 64 at pad 1024), pad 4096 and fpb 2048 raise on "cuda"
+    before any launch, naming the geometry and the ROADMAP item."""
+    cfg = EngineConfig(frames_per_buffer=fpb, hrtf_len=taps)
+    assert cfg.frames_per_buffer < 32 or cfg.frames_per_buffer > 1024 or cfg.pad_len > 2048
+    _, tdb = _dbs("f64")
+    tdb = dataclasses.replace(tdb, config=cfg)
+    _pretend_a_card(monkeypatch)
+    match = f"fpb {fpb}, pad {cfg.pad_len} lies outside the card's envelope.*queue 1 item 11"
+    before = dict(tfs.launches)
+    for make in (lambda: Renderer(tdb, device="cuda"),
+                 lambda: tstream.StreamingSpatializer(tdb, cfg, device="cuda"),
+                 lambda: tstream.render_scan(np.zeros(64, np.float32), tdb,
+                                             [(0.0, 0.0, 1.0)], cfg, device="cuda"),
+                 lambda: BatchRenderer(tdb, device="cuda")):
+        with pytest.raises(ValueError, match=match):
+            make()
+    assert tfs.launches == before
+
+
+def test_geometry_forms_follow_the_sources_rules():
+    """The forms each named geometry's library has (csrc/fused_forward.cuh;
+    the card tests hold the libraries' own report to these)."""
+    f = tfs.geometry_forms
+    assert f(128, 1024) == tfs.Forms(128, 1024, 513, 8, 9, True, True, True, True)
+    assert f(64, 1024) == tfs.Forms(64, 1024, 513, 16, 1, True, True, False, False)
+    assert f(256, 1024) == tfs.Forms(256, 1024, 513, 4, 5, True, True, False, False)
+    assert f(512, 1024) == tfs.Forms(512, 1024, 513, 2, 0, True, True, False, False)
+    assert f(1024, 2048) == tfs.Forms(1024, 2048, 1025, 2, 0, True, True, False, False)
+    assert f(64, 512) == tfs.Forms(64, 512, 257, 8, 9, True, True, False, False)
+    assert f(100, 1024) == tfs.Forms(100, 1024, 513, 0, 0, False, True, False, False)
+    assert f(441, 1024) == tfs.Forms(441, 1024, 513, 0, 0, False, False, False, False)
+    assert f(32, 64) == tfs.Forms(32, 64, 33, 2, 15, False, False, False, False)
+    # the choices among them
+    assert tfs.forward_form(1, 64, 1024) == tfs.FWD_FEW
+    assert tfs.forward_form(2, 64, 1024) == tfs.FWD_PRODUCT
+    assert tfs.forward_form(1, 1024, 2048) == tfs.FWD_PRODUCT
+    assert tfs.forward_form(16, 32, 64) == tfs.FWD_TILE
+    assert tsp.pick_form(1, 64, 1024) == tsp.SPLIT == tsp.pick_form(1, 100, 1024)
+    assert tsp.pick_form(1, 441, 1024) == tfs.LAUNCH_B
+    assert tsp.pick_form(1) == tsp.CLUSTER
+    assert tfs.pick_form(tfs.ROW1, 1 << 20, 64, 1024) == tfs.LAUNCH_B
+    assert tfs.pick_form("fused_apply_xfade", 64, 441, 1024) == tfs.LAUNCH_B
+    assert tfs.pick_form("fused_apply_xfade", 64, 100, 1024) == tfs.SPLIT
+
+
+def test_a_form_the_geometry_lacks_is_refused_before_a_launch(monkeypatch):
+    """Naming the cluster form at fpb 64, or the split form at fpb 441,
+    raises before the library is loaded."""
+    _, tdb = _dbs("f441")
+    fn, args, kw = bench.scene_step(tdb, "apply", 1, 8, "cpu", seed=2)
+    monkeypatch.setattr(tfs, "_one_device", lambda ops: torch.device("cuda", 0))
+    monkeypatch.setattr(build, "load", lambda *a, **k: pytest.fail("loaded a library"))
+    with pytest.raises(ValueError, match="split form does not exist at fpb 441"):
+        tfs._cuda(fn, *args, form=tfs.SPLIT, **kw)
+    _, tdb64 = _dbs("f64")
+    cfg = tdb64.config
+    rows = 2
+    z = lambda *shape: torch.zeros(shape)
+    with pytest.raises(ValueError, match="cluster form does not exist at fpb 64"):
+        tsp._cuda(torch.device("cuda", 0), rows, z(3, 4 * cfg.num_bins), None, z(rows, 1),
+                  z(rows, cfg.num_bins), z(rows, cfg.num_bins), None, pad_len=cfg.pad_len,
+                  bins=cfg.num_bins, fpb=cfg.frames_per_buffer, form=tsp.CLUSTER)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("name", ["f64", "f256", "f512", "f1024", "f64t256", "f100", "f441"])
+def test_full_size_dispatch_matches_jax_at_each_geometry(name, monkeypatch):
+    """The arms ``chip_smoke.py``'s phase geometry holds the card to, at
+    full size (1,607,168 samples): both renderers plan every chunk with
+    their chunk programs stubbed out, and take the same arm on every chunk
+    of every render; at f64, f256 and f64t256 the 16-source scenes too."""
+    from jefferson_tpu.engine.renderer import Renderer as JaxRenderer
+    from jefferson_tpu_torch.engine import batch as tbatch
+    from jefferson_tpu_torch.engine import renderer as trenderer
+
+    from test_torch_batch import jax_arm
+    from test_torch_renderer import _CACHES, _Recorder
+
+    smoke = _chip_smoke()
+    fpb, taps = smoke.GEOMETRIES[name]
+    assert GEOMETRIES.get(name, (fpb, taps)) == (fpb, taps)
+    cfg = JaxConfig(frames_per_buffer=fpb, hrtf_len=taps)
+    db = synthetic_database(cfg, n_taps=taps, seed=11)
+    tdb = database_from_numpy(db.spectra, db.hrirs, dataclasses.asdict(cfg))
+    stub = lambda spectra, hist, *a, num_blocks, **k: (torch.zeros(num_blocks, fpb, 2), hist)
+    for fn in ("_fd_complex_chunk_dedup_fused", "_fd_complex_chunk_onehot",
+               "_fd_complex_chunk_onehot_grouped", "_fd_complex_chunk_fused",
+               "_fd_complex_chunk_dedup", "_fd_complex_chunk"):
+        monkeypatch.setattr(trenderer, fn, stub)
+    jax_stub = lambda nb, *a, **k: (lambda *args: (jnp.zeros((nb, fpb, 2), jnp.float32), args[1]))
+    n = smoke.GEO_SAMPLES // fpb
+    sig = np.zeros(n * fpb, np.float32)
+    renders = smoke.geometry_renders(bench, tdb.config)
+    assert set(renders) == set(smoke.GEO_ARMS[name])
+    for what, (pos, cb) in renders.items():
+        r = JaxRenderer(db, fused=True, chunk_blocks=cb)
+        for mk in ("_mk_fd_dedup_fused", "_mk_fd_onehot", "_mk_fd_onehot_grp", "_mk_fd_fused",
+                   "_mk_fd_dedup", "_mk_fd_complex"):
+            setattr(r, mk, jax_stub)
+        jax_arms = []
+        for cache, arm_of in _CACHES.items():
+            setattr(r, cache, _Recorder(arm_of, jax_arms))
+        r.render(sig, pos)
+        port = Renderer(tdb, device="cpu", chunk_blocks=cb)
+        port.render(sig, pos)
+        assert len(pos) == n and port.dispatch == jax_arms, what
+        assert set(jax_arms) == {smoke.GEO_ARMS[name][what]}, what
+    if name not in smoke.GEO_SCENES:
+        return
+    for fn in ("batched_chunk_fn_dedup_fused", "batched_chunk_fn_fused", "batched_chunk_fn_dedup",
+               "batched_chunk_fn"):
+        monkeypatch.setattr(tbatch, fn, lambda cfg, cb, *a, **k: (
+            lambda spectra, hists, *args, **kw: (
+                torch.zeros(hists.shape[0], cb, cfg.frames_per_buffer, 2), hists)))
+    sigs = np.zeros((smoke.SCENE_S, n * fpb), np.float32)
+    for scene, pos in smoke.geometry_scenes(bench, tdb.config).items():
+        jr = JaxBatchRenderer(db, chunk_blocks=256, fused=True)
+        arms = []
+
+        def logged(nb, **key):
+            arms.append(jax_arm(nb, **key))
+            return lambda *args, **kw: (
+                jnp.zeros((args[1].shape[0], nb, fpb, 2), jnp.float32), args[1])
+
+        jr._get_fn = logged
+        jr.render(sigs, pos)
+        port = BatchRenderer(tdb, device="cpu", chunk_blocks=256)
+        port.render(sigs, pos)
+        assert port.dispatch == arms and set(arms) == {smoke.GEO_SCENE_ARMS[name][scene]}, scene
+
+
+def test_the_smoke_names_every_geometry_and_its_libraries():
+    """The geometry phase's table holds this file's geometries and f512,
+    every one inside the card's envelope with the sample counts of a
+    1,607,168-sample render, and its edges outside it."""
+    smoke = _chip_smoke()
+    assert set(GEOMETRIES) <= set(smoke.GEOMETRIES) and "f512" in smoke.GEOMETRIES
+    for name, (fpb, taps) in smoke.GEOMETRIES.items():
+        cfg = EngineConfig(frames_per_buffer=fpb, hrtf_len=taps)
+        tfs.check_envelope(fpb, cfg.pad_len)
+        assert smoke.geometry_config(name) == cfg
+        assert smoke.GEO_SAMPLES // fpb == {64: 25112, 256: 6278, 512: 3139, 1024: 1569,
+                                            100: 16071, 441: 3644}[fpb]
+    for fpb, taps in smoke.GEO_EDGES:
+        cfg = EngineConfig(frames_per_buffer=fpb, hrtf_len=taps)
+        with pytest.raises(ValueError, match="queue 1 item 11"):
+            tfs.check_envelope(fpb, cfg.pad_len)
+    assert smoke.MAIN_GEOMETRY == build.DEFAULT_GEOMETRY

@@ -32,13 +32,43 @@ HEADER = (Path(__file__).resolve().parents[1] / "jefferson_tpu_torch" / "csrc"
 GEO = dict(pad_len=1024, bins=513, fpb=128)
 
 
+# the geometry the header's constants take without -D flags, the default
+# library's (kernels/build.DEFAULT_GEOMETRY)
+MACROS = {"JT_FPB": 128, "JT_PAD": 1024}
+
+
+def _py(expr: str) -> str:
+    """A C constant expression of the header as Python: conditionals
+    (right-associative), &&, ||, !, sizeof(float), integer division."""
+    expr = expr.strip()
+    depth = 0
+    for i, ch in enumerate(expr):
+        depth += (ch == "(") - (ch == ")")
+        if ch == "?" and depth == 0:
+            nest, j, d = 0, i + 1, 0
+            while True:  # the ':' of this '?'
+                c = expr[j]
+                d += (c == "(") - (c == ")")
+                if d == 0 and c == "?":
+                    nest += 1
+                elif d == 0 and c == ":":
+                    if not nest:
+                        break
+                    nest -= 1
+                j += 1
+            return f"(({_py(expr[i + 1:j])}) if ({_py(expr[:i])}) else ({_py(expr[j + 1:])}))"
+    expr = expr.replace("&&", " and ").replace("||", " or ").replace("sizeof(float)", "4")
+    return re.sub(r"!(?!=)", " not ", expr).replace("/", "//")
+
+
 def _const(name: str) -> int:
-    """An integer constexpr of the forward header, as the kernels see it."""
-    value = re.search(rf"constexpr int {name} = ([^;]+);", HEADER).group(1)
-    if m := re.fullmatch(r"(.+) \? (.+) : (.+)", value):  # C's conditional
-        value = f"({m[2]}) if ({m[1]}) else ({m[3]})"
+    """An integer (or bool) constexpr of the forward header, as the kernels
+    see it in the default library (fpb 128, pad 1024)."""
+    if name in MACROS:
+        return MACROS[name]
+    value = " ".join(re.search(rf"constexpr (?:int|bool) {name} = ([^;]+);", HEADER)[1].split())
     names = {k: _const(k) for k in re.findall(r"\b[A-Z][A-Z0-9_]*\b", value)}
-    return int(eval(value.replace("/", "//"), {}, names))
+    return int(eval(_py(value), {}, names))
 
 
 def _triples(n_dist, rows, seed):

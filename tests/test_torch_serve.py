@@ -338,7 +338,8 @@ def test_warm_up_builds_the_libraries_and_renders_before_the_first_request(monke
     from jefferson_tpu_torch.kernels import build
 
     built = []
-    monkeypatch.setattr(build, "build_all", lambda names: built.append(tuple(names)))
+    monkeypatch.setattr(build, "build_all",
+                        lambda names, geometries: built.append((tuple(names), geometries)))
     svc = RenderService.__new__(RenderService)
     svc.device = torch.device("cpu")
     svc.db = synthetic_database()
@@ -349,7 +350,7 @@ def test_warm_up_builds_the_libraries_and_renders_before_the_first_request(monke
     svc.device = torch.device("cuda", 0)
     with pytest.raises(Exception):  # the live step's prime: no card here
         svc._warm()
-    assert built == [tserve.LIBRARIES]
+    assert built == [(tserve.LIBRARIES, [(128, 1024)])]
 
 
 def test_live_sessions_script_runs_each_mode(capsys):

@@ -338,7 +338,8 @@ def test_prime_leaves_the_state_alone(tdb, tconfig, castanets):
 def test_entry_points_run_on_the_card_unless_asked(tdb, tconfig, monkeypatch):
     """Every entry point's device defaults to the card; without one it
     raises instead of running on the CPU, and on a card the streaming forms
-    refuse geometries the kernels are not built for."""
+    take every geometry of the card's envelope and refuse, before any
+    launch, one outside it."""
     for fn in (StreamingSpatializer.__init__, render_scan, Renderer.__init__,
                BatchRenderer.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -353,14 +354,43 @@ def test_entry_points_run_on_the_card_unless_asked(tdb, tconfig, monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     cfg64 = EngineConfig(frames_per_buffer=64, hrtf_len=192)
     assert cfg64.history_len % 64 == 0 and cfg64.pad_len != 1024
-    with pytest.raises(ValueError, match="built for fpb 128"):
-        StreamingSpatializer(tdb, cfg64, device="cuda")
-    with pytest.raises(ValueError, match="built for fpb 128"):
-        render_scan(sig, tdb, pos, cfg64, device="cuda")
+    assert tstream._stream_device("cuda", cfg64) == torch.device("cuda", 0)
+    cfg16 = EngineConfig(frames_per_buffer=16, hrtf_len=192)
+    before = dict(tfs.launches)
+    with pytest.raises(ValueError, match="fpb 16, pad 256 lies outside.*queue 1 item 11"):
+        StreamingSpatializer(tdb, cfg16, device="cuda")
+    with pytest.raises(ValueError, match="fpb 16, pad 256 lies outside.*queue 1 item 11"):
+        render_scan(sig, tdb, pos, cfg16, device="cuda")
+    assert tfs.launches == before
 
 
-def test_streaming_refuses_a_history_of_partial_blocks(tdb):
-    cfg = EngineConfig(frames_per_buffer=96, hrtf_len=256)
-    assert cfg.history_len % 96
-    with pytest.raises(NotImplementedError, match="whole"):
-        StreamingSpatializer(tdb, cfg, device="cpu")
+@pytest.mark.parametrize("fpb,taps", [(96, 256), (100, 512), (441, 512)])
+def test_streaming_refuses_a_history_of_partial_blocks(fpb, taps):
+    """No longer refused: at a history that is not whole blocks the
+    streaming forms take the JAX block step's forward of each window, then
+    row 8's apply-only entry (its twin here).  ``StreamingSpatializer``
+    moving and held, at pipeline latency 0 and 1, and ``render_scan`` in
+    chunks match the JAX package's at 1e-6."""
+    from jefferson_tpu import EngineConfig as JaxConfig
+    from jefferson_tpu import synthetic_database
+
+    cfg = JaxConfig(frames_per_buffer=fpb, hrtf_len=taps)
+    assert cfg.history_len % fpb
+    db = synthetic_database(cfg, n_taps=taps, seed=9)
+    tdb = database_from_numpy(db.spectra, db.hrirs, dataclasses.asdict(cfg))
+    sig = (np.random.default_rng(1).standard_normal(20 * fpb) * 0.2).astype(np.float32)
+    for latency in (0, 1):
+        port = StreamingSpatializer(tdb, pipeline_latency=latency, device="cpu")
+        jax = jstream.StreamingSpatializer(db, cfg, pipeline_latency=latency)
+        port.buf = jax.buf = sig
+        before = dict(tfs.launches)
+        for b in range(16):
+            if b % 5 == 0:
+                for sp in (port, jax):
+                    sp.set_position(azi=70.0 * b, ele=-10.0 + b, r=0.4 + 0.1 * b)
+            assert np.abs(port.process_next() - jax.process_next()).max() <= EPS
+        assert tfs.launches == before  # CPU operands: the twins
+        assert port.crossfades == jax.crossfades == 4
+    pos = CircularOrbit(period_s=0.2, ele=3, r=1.1).sample(20, cfg)
+    got = render_scan(sig, tdb, pos, tdb.config, device="cpu", chunk_blocks=6)
+    assert np.abs(got - np.asarray(jstream.render_scan(sig, db, pos, cfg))).max() <= EPS
