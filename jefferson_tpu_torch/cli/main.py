@@ -266,11 +266,23 @@ def render_scene_spec(
     _SCENE_RENDERER_CACHE_MAX.  ``devices`` above 1 shards the sources over
     a source mesh of that many ranks (``scene_mesh``); every rank of the
     world calls this and every rank of the mesh gets the mix (a rank of a
-    larger world outside the mesh renders nothing and gets None)."""
-    from ..engine.batch import BatchRenderer
+    larger world outside the mesh renders nothing and gets None).  The
+    inputs are read first, with no collective (``scene_inputs``), then
+    rendered (``render_scene_inputs``)."""
+    inputs = scene_inputs(scene, config, num_blocks, duration, chunk_blocks, quiet)
+    return render_scene_inputs(inputs, db, config, chunk_blocks, quiet, devices,
+                               renderer_cache, device)
+
+
+def scene_inputs(scene: dict, config, num_blocks: int | None = None,
+                 duration: float | None = None, chunk_blocks: int | None = None,
+                 quiet: bool = True) -> tuple[np.ndarray, np.ndarray, int]:
+    """A scene's fed streams (S, ...), positions (S, nb, 3) and block count:
+    the sources read, resampled and scaled by their gains, their
+    trajectories sampled.  Local to the process: a rank of a mesh that
+    fails here fails before any collective."""
     from ..engine.plan import fed_stream
     from ..io.wavio import read_wav_mono
-    from ..parallel.mesh import in_mesh
 
     sources = scene.get("sources", [])
     if not sources:
@@ -307,18 +319,31 @@ def render_scene_spec(
     num_blocks = int(num_blocks)
     feds = np.stack([fed_stream(s, num_blocks, config) for s in signals])
     positions = np.stack([t.sample(num_blocks, config) for t in trajs])
+    return feds, positions, num_blocks
+
+
+def render_scene_inputs(inputs, db, config, chunk_blocks: int | None = None, quiet: bool = True,
+                        devices: int | None = None, renderer_cache: dict | None = None,
+                        device="cuda"):
+    """``scene_inputs``' streams and positions rendered into the mix, as
+    ``render_scene_spec`` says -> (mix or None, num_blocks)."""
+    from ..engine.batch import BatchRenderer
+    from ..parallel.mesh import in_mesh
+
+    feds, positions, num_blocks = inputs
+    n_sources = feds.shape[0]
     # the chunk quantized to the next power of two >= num_blocks (capped at
     # the request), so short renders share a cache key; the renderer pads
     # the final chunk, so any cb >= num_blocks is one padded chunk
     cb = (None if chunk_blocks is None
           else min(chunk_blocks, 1 << max(0, int(np.ceil(np.log2(num_blocks))))))
-    n_mesh = scene_devices(len(sources), devices, quiet)  # warns once when it shrinks
+    n_mesh = scene_devices(n_sources, devices, quiet)  # warns once when it shrinks
     key = (cb, str(device)) + ((n_mesh,) if n_mesh > 1 else ())
     if renderer_cache is not None and key in renderer_cache:
         br = renderer_cache.pop(key)  # LRU: back of the order
         renderer_cache[key] = br
     else:
-        mesh = scene_mesh(len(sources), devices, quiet=True, device=device)
+        mesh = scene_mesh(n_sources, devices, quiet=True, device=device)
         br = BatchRenderer(db, config, device=device, chunk_blocks=cb, mix=True, mesh=mesh)
         if renderer_cache is not None:
             renderer_cache[key] = br

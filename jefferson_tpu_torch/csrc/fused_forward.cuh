@@ -11,22 +11,26 @@
 //   XD[r] = X[r] * D(u_hi, u_lo, inv_frac)
 //
 // XD goes to a scratch buffer (rows x 513 x 2 floats) that launch B reads.
-// Launch A has three forms with the same bits (launch_forward_form): the
+// Launch A has four forms with the same bits (launch_forward_form): the
 // tile form (forward_distance: one CTA per (32 blocks, 64 bins, source),
 // the sub-block samples and a (128 x 64) slice of the DFT basis in shared
 // memory, the twiddle sum and the distance multiply on the CTA's P tile),
-// kept to hold the others against; the product form, which the render
-// steps take; and the few-block form, which they take at nb <= FEW_NB
-// blocks a source (the live step).  Every launch B form reads the same XD.
+// kept to hold the others against where it exists; the product form, which
+// the render steps take; the few-block form, which they take at nb <=
+// FEW_NB blocks a source (the live step); and the planes form, which takes
+// any Q (P written to a scratch of the caller's, then the twiddle sum read
+// through L2), where the others do not exist.  Every launch B form reads
+// the same XD.
 //
 // Geometry: each library is built for one (fpb, pad_len), passed as
 // -DJT_FPB=<fpb> -DJT_PAD=<pad> (kernels/build.py); BINS = PAD/2 + 1 and,
-// when the history is whole blocks (PAD % FPB == 0), Q = PAD/FPB.  The card
-// takes 32 <= fpb <= 1024 and pad <= 2048.  Every form below is written for
-// any geometry of that envelope unless its HAS_* flag says where it exists;
-// at fpb 128 / pad 1024 each compiles to the form it was measured as.  A
-// history of partial blocks has no launch A (the caller computes XD); its
-// entries take launch B alone (rows 7 and 8's apply-only forms).
+// when the history is whole blocks (PAD % FPB == 0), Q = PAD/FPB.  Any fpb
+// >= 2 and any power-of-two pad build: the planes form takes launch A and
+// launch B every geometry.  The other forms exist where their HAS_* flag
+// says (their tiles and register arrays are laid out for some geometries
+// only); at fpb 128 / pad 1024 each compiles to the form it was measured
+// as.  A history of partial blocks has no launch A (the caller computes
+// XD); its entries take launch B alone (rows 7 and 8's apply-only forms).
 //
 // Numerics: every product whose rounding the JAX op order fixes (twiddle
 // sum, distance planes with the 12-bit phase split, complex multiplies) is
@@ -56,9 +60,8 @@ namespace {
 // the forms tuned for fpb 128 / pad 1024 alone: row 1's staged launch B and
 // row 8's cluster form
 #define JT_TUNED_128 (JT_FPB == 128 && JT_PAD == 1024)
-static_assert(JT_FPB >= 32 && JT_FPB <= 1024 && JT_PAD <= 2048 && JT_PAD >= JT_FPB &&
-                  (JT_PAD & (JT_PAD - 1)) == 0,
-              "the card's envelope: 32 <= fpb <= 1024, pad a power of two <= 2048");
+static_assert(JT_FPB >= 2 && JT_PAD >= JT_FPB && (JT_PAD & (JT_PAD - 1)) == 0,
+              "a geometry: fpb >= 2, pad a power of two >= fpb");
 
 constexpr int FPB = JT_FPB;     // samples per block = sub-block length
 constexpr int PAD = JT_PAD;     // transform length
@@ -100,10 +103,18 @@ constexpr bool B_MASK = FPB % TT != 0;             // some basis columns lie pas
 constexpr bool T_MASK = FPB > TT && FPB % TT != 0; // the last tile is ragged
 
 // Where the tuned layouts fit (kernels/fused_step.geometry_forms mirrors
-// these): launch A's product form (64-bin slices plus the last bin, 32-sample
-// K chunks), its few-block form (static shared memory under 48 KB), launch
-// B's split form (one rank per 128-bin block, at most 8, 16-byte basis rows).
-constexpr bool HAS_PRODUCT = ALIGNED && BINS - 1 >= 64 && (BINS - 1) % 64 == 0 && FPB % 32 == 0;
+// these): launch A's tile form (its twiddle sum keeps Q twiddles in
+// registers and its tile 32 + Q - 1 sub-block rows in shared memory: Q <=
+// 16), its product form (64-bin slices plus the last bin, 32-sample K
+// chunks, tiles whose output starts stay most of their rows: Q <= 64), its
+// few-block form (static shared memory under 48 KB), launch B's split form
+// (one rank per 128-bin block, at most 8: a cluster of 16 is not portable;
+// 16-byte basis rows).
+constexpr int TILE_MAX_Q = 16;
+constexpr int PRODUCT_MAX_Q = 64;
+constexpr bool HAS_TILE = ALIGNED && Q <= TILE_MAX_Q;
+constexpr bool HAS_PRODUCT = ALIGNED && BINS - 1 >= 64 && (BINS - 1) % 64 == 0 && FPB % 32 == 0 &&
+                             Q <= PRODUCT_MAX_Q;
 constexpr int T_BLOCK = 128;            // bins a block of the blocked tail
 constexpr bool HAS_SPLIT = (BINS - 1) % T_BLOCK == 0 && (BINS - 1) / T_BLOCK >= 1 &&
                            (BINS - 1) / T_BLOCK <= 8 && FPB % 4 == 0;
@@ -129,6 +140,7 @@ __device__ __forceinline__ void cmul_rn(float ar, float ai, float br, float bi,
   *im = __fadd_rn(__fmul_rn(ar, bi), __fmul_rn(ai, br));
 }
 
+template <int QT>  // = Q: instantiated only where HAS_TILE
 __global__ void __launch_bounds__(A_THREADS)
 forward_distance(const float* __restrict__ streams, int nb,
                  const float* __restrict__ uh, const float* __restrict__ ul,
@@ -199,9 +211,9 @@ forward_distance(const float* __restrict__ streams, int nb,
 
   const int k = k0 + c;
   if (k >= BINS) return;
-  float tr[Q], ti[Q];
+  float tr[QT], ti[QT];
 #pragma unroll
-  for (int m = 1; m < Q; ++m) {
+  for (int m = 1; m < QT; ++m) {
     tr[m] = twr[m * BINS + k];
     ti[m] = twi[m * BINS + k];
   }
@@ -212,7 +224,7 @@ forward_distance(const float* __restrict__ streams, int nb,
     // X[b] = P[b] + sum_{m=1..7} tw[m] * P[b+m], m ascending (JAX order)
     float xr = pre[b * A_KT + c], xi = pim[b * A_KT + c];
 #pragma unroll
-    for (int m = 1; m < Q; ++m) {
+    for (int m = 1; m < QT; ++m) {
       const float pr = pre[(b + m) * A_KT + c], pi = pim[(b + m) * A_KT + c];
       xr = __fadd_rn(xr, __fsub_rn(__fmul_rn(tr[m], pr), __fmul_rn(ti[m], pi)));
       xi = __fadd_rn(xi, __fadd_rn(__fmul_rn(tr[m], pi), __fmul_rn(ti[m], pr)));
@@ -288,7 +300,8 @@ constexpr int G_RUN = (G_OUT + 3) / 4;        // outputs a thread's run (4 runs 
 constexpr int G_BUF = 2 * G_STAGE > 2 * G_PLANE ? 2 * G_STAGE : 2 * G_PLANE;
 constexpr size_t G_SMEM = sizeof(float) * (G_BUF + 2 * D_UNIQ * G_DS);
 static_assert(!HAS_PRODUCT || G_SLICES * G_KT == BINS - 1, "slices cover bins 0-511");
-static_assert(G_OUT >= 1 && G_OUT <= G_THREADS && G_ROWS <= G_THREADS, "a tile's outputs");
+static_assert(!HAS_PRODUCT || (G_OUT >= 1 && G_OUT <= G_THREADS && G_ROWS <= G_THREADS),
+              "a tile's outputs");
 static_assert(G_STAGE % 4 == 0 && G_PLANE % 4 == 0 && G_BUF % 4 == 0, "float4 alignment");
 
 std::atomic<unsigned long long> product_smem_set[2];   // by VEC
@@ -324,6 +337,7 @@ __device__ __forceinline__ float lane4(const float4& v, int i) {
 // column t % 64 over a quarter of them, its window of 8 P rows sliding one
 // row an output (four outputs in flight a thread measured no faster); in
 // the last slice, bin 512 takes one output a thread.
+template <int QT = Q>  // instantiated by the product form alone
 __device__ __forceinline__ void tile_outputs(
     const float* pr, const float* pi, const float* dtab, bool table, bool nyq, int t, int g0,
     int total, int nb, int k0, const float* __restrict__ uh, const float* __restrict__ ul,
@@ -337,7 +351,7 @@ __device__ __forceinline__ void tile_outputs(
   const int o0 = (t / G_KT) * G_RUN, o1 = min(o0 + G_RUN, n_out);
   const int k = k0 + col;
   if (o0 < o1) {
-    float tr[Q], ti[Q], wr[Q], wi[Q];
+    float tr[QT], ti[QT], wr[QT], wi[QT];
 #pragma unroll
     for (int m = 1; m < Q; ++m) {
       tr[m] = twr[m * BINS + k];
@@ -381,7 +395,7 @@ __device__ __forceinline__ void tile_outputs(
   if (nyq && t < n_out) {
     const int g = g0 + t, s = g / L, j = g - s * L;
     if (j < nb) {
-      float tr[Q], ti[Q], wr[Q], wi[Q], xr, xi, dr, di;
+      float tr[QT], ti[QT], wr[QT], wi[QT], xr, xi, dr, di;
 #pragma unroll
       for (int m = 0; m < Q; ++m) {
         tr[m] = twr[m * BINS + BINS - 1];
@@ -702,16 +716,155 @@ forward_distance_few(const float* __restrict__ streams, int nb,
   }
 }
 
+// ---- launch A's planes form: any Q ------------------------------------------
+//
+// The other forms keep a window's Q sub-block DFTs on chip: the tile form
+// its 32 + Q - 1 rows in shared memory and Q twiddles in registers, the
+// product form Q - 1 of a tile's rows spent on the next tile's windows, the
+// few-block form every row of a source in one thread.  Past Q 16 (tile), 64
+// (product) and 16 (few) none of them fits: fpb 16 under pad 1024 is Q 64,
+// fpb 2 is Q 512.  Here launch A is two launches through a scratch of the
+// caller's (pr, pi: the total = S*(nb+Q-1) flat sub-block rows x BINS):
+//   - subblock_planes writes each sub-block's DFT P once: a CTA per 32 flat
+//     rows x 64 bins, samples and basis staged 32 at a time, each P[g, k]
+//     the tile form's fmaf chain ascending from sample 0 (128-sample chains
+//     summed in order above fpb 128);
+//   - twiddle_distance runs the twiddle sum and the distance multiply per
+//     (output, bin): a warp takes 32 bins, a thread V_RUN consecutive output
+//     starts at one bin, m outer so that each twiddle is read once for the
+//     run and each P row once (a window of V_RUN rows slides by one a step),
+//     every output still summed m = 1 .. Q-1 ascending in twiddle_sum's op
+//     order; P and the twiddles come through L2.
+// So it gives the tile form's bits.  What bounds it: the twiddle sum's
+// 8 (Q - 1) fp32 operations an output and bin (no FMA: each product rounds
+// on its own), 23 GFLOP for 22,050 blocks at Q 256; the P reads, one 8-byte
+// load a step for V_RUN outputs, stay under it.
+constexpr int W_ROWS = 32;                    // flat sub-block rows a DFT tile
+constexpr int W_KT = 64;                      // bins a DFT tile
+constexpr int W_THREADS = 256;                // 64 bins x 4 row groups
+constexpr int W_RPT = W_ROWS / (W_THREADS / W_KT);   // 8 rows a thread
+constexpr int W_NC = FPB < 32 ? FPB : 32;     // samples staged at once
+constexpr int V_RUN = 16;                     // output starts a thread
+constexpr int V_KT = 32;                      // bins a warp
+constexpr int V_THREADS = 128;                // 4 warps: 4 runs of one bin group
+static_assert(!ALIGNED || FPB % W_NC == 0, "whole sample chunks");
+
+template <int QT>  // = Q
+__global__ void __launch_bounds__(W_THREADS)
+subblock_planes(const float* __restrict__ streams, int total, const float* __restrict__ cfr,
+                const float* __restrict__ cfi, float* __restrict__ pr, float* __restrict__ pi) {
+  __shared__ float xs[W_ROWS][W_NC];
+  __shared__ float bre[W_NC][W_KT], bim[W_NC][W_KT];
+  const int g0 = blockIdx.x * W_ROWS, k0 = blockIdx.y * W_KT, tid = threadIdx.x;
+  const int c = tid % W_KT, rg = tid / W_KT;
+  float acc_r[W_RPT], acc_i[W_RPT], tot_r[W_RPT], tot_i[W_RPT];
+#pragma unroll
+  for (int i = 0; i < W_RPT; ++i) acc_r[i] = acc_i[i] = tot_r[i] = tot_i[i] = 0.f;
+  for (int n0 = 0; n0 < FPB; n0 += W_NC) {
+    for (int i = tid; i < W_ROWS * W_NC; i += W_THREADS) {
+      const int r = i / W_NC, n = i % W_NC;
+      xs[r][n] = g0 + r < total ? streams[(size_t)(g0 + r) * FPB + n0 + n] : 0.f;
+    }
+    for (int i = tid; i < W_NC * W_KT; i += W_THREADS) {
+      const int n = i / W_KT, kk = i % W_KT, k = k0 + kk;
+      bre[n][kk] = k < BINS ? cfr[(size_t)(n0 + n) * BINS + k] : 0.f;
+      bim[n][kk] = k < BINS ? cfi[(size_t)(n0 + n) * BINS + k] : 0.f;
+    }
+    __syncthreads();
+    for (int n = 0; n < W_NC; ++n) {
+      const float br = bre[n][c], bi = bim[n][c];
+#pragma unroll
+      for (int i = 0; i < W_RPT; ++i) {
+        const float x = xs[rg * W_RPT + i][n];
+        acc_r[i] = fmaf(x, br, acc_r[i]);
+        acc_i[i] = fmaf(x, bi, acc_i[i]);
+      }
+    }
+    if (DFT_BLOCKED && (n0 + W_NC) % F_BLOCK == 0) {   // a 128-sample chain ends here
+#pragma unroll
+      for (int i = 0; i < W_RPT; ++i) {
+        tot_r[i] = __fadd_rn(tot_r[i], acc_r[i]);
+        tot_i[i] = __fadd_rn(tot_i[i], acc_i[i]);
+        acc_r[i] = acc_i[i] = 0.f;
+      }
+    }
+    __syncthreads();                        // the next chunk overwrites this one
+  }
+  const int k = k0 + c;
+  if (k >= BINS) return;
+#pragma unroll
+  for (int i = 0; i < W_RPT; ++i) {
+    const int g = g0 + rg * W_RPT + i;
+    if (g < total) {
+      pr[(size_t)g * BINS + k] = DFT_BLOCKED ? tot_r[i] : acc_r[i];
+      pi[(size_t)g * BINS + k] = DFT_BLOCKED ? tot_i[i] : acc_i[i];
+    }
+  }
+}
+
+template <int QT>  // = Q
+__global__ void __launch_bounds__(V_THREADS)
+twiddle_distance(const float* __restrict__ pr, const float* __restrict__ pi, int total, int nb,
+                 int bin_groups, const float* __restrict__ uh, const float* __restrict__ ul,
+                 const float* __restrict__ fr, const int* __restrict__ dsel, int n_dist,
+                 const float* __restrict__ twr, const float* __restrict__ twi,
+                 float* __restrict__ xdr, float* __restrict__ xdi) {
+  // bin groups and runs share the grid's x (its y holds 65,535 CTAs at most)
+  const int kg = blockIdx.x % bin_groups;
+  const int run = (blockIdx.x / bin_groups) * (V_THREADS / V_KT) + threadIdx.x / V_KT;
+  const int k = kg * V_KT + threadIdx.x % V_KT;
+  const int starts = total - (QT - 1);      // flat output starts; a source's last Q-1 are gaps
+  const int g0 = run * V_RUN;
+  if (k >= BINS || g0 >= starts) return;
+  auto p = [&](const float* plane, int g) { return g < total ? plane[(size_t)g * BINS + k] : 0.f; };
+  float xr[V_RUN], xi[V_RUN], wr[V_RUN], wi[V_RUN];
+#pragma unroll
+  for (int o = 0; o < V_RUN; ++o) {         // m = 0: X = P[g]
+    xr[o] = wr[o] = p(pr, g0 + o);
+    xi[o] = wi[o] = p(pi, g0 + o);
+  }
+#pragma unroll 2
+  for (int m = 1; m < QT; ++m) {            // wr[o] = P[g0 + o + m]
+    const float a = twr[(size_t)m * BINS + k], b = twi[(size_t)m * BINS + k];
+#pragma unroll
+    for (int o = 0; o + 1 < V_RUN; ++o) {
+      wr[o] = wr[o + 1];
+      wi[o] = wi[o + 1];
+    }
+    wr[V_RUN - 1] = p(pr, g0 + V_RUN - 1 + m);
+    wi[V_RUN - 1] = p(pi, g0 + V_RUN - 1 + m);
+#pragma unroll
+    for (int o = 0; o < V_RUN; ++o) {       // twiddle_sum's op order
+      xr[o] = __fadd_rn(xr[o], __fsub_rn(__fmul_rn(a, wr[o]), __fmul_rn(b, wi[o])));
+      xi[o] = __fadd_rn(xi[o], __fadd_rn(__fmul_rn(a, wi[o]), __fmul_rn(b, wr[o])));
+    }
+  }
+  const int L = nb + QT - 1;
+  const float kf = (float)k;
+#pragma unroll
+  for (int o = 0; o < V_RUN; ++o) {
+    const int g = g0 + o, s = g / L, j = g - s * L;
+    if (g < starts && j < nb) {
+      const int row = s * nb + j;
+      const int t = triple_of(row, dsel, n_dist);
+      float dr, di;
+      distance_plane(uh[t], ul[t], fr[t], kf, &dr, &di);
+      cmul_rn(xr[o], xi[o], dr, di, &xdr[(size_t)row * BINS + k], &xdi[(size_t)row * BINS + k]);
+    }
+  }
+}
+
 // Launch A's forms.  FWD_TILE: forward_distance, one CTA per 32 blocks x
-// 64 bins of a source, kept as the comparison form; FWD_PRODUCT and
-// FWD_FEW as above.  All three give the same bits.
-enum ForwardForm { FWD_TILE = 0, FWD_PRODUCT = 1, FWD_FEW = 2 };
+// 64 bins of a source, kept as the comparison form; FWD_PRODUCT, FWD_FEW
+// and FWD_PLANES as above.  All four give the same bits.
+enum ForwardForm { FWD_TILE = 0, FWD_PRODUCT = 1, FWD_FEW = 2, FWD_PLANES = 3 };
 
 // The form the render steps take at nb blocks a source (kernels/fused_step
 // .forward_form mirrors it): the few-block form up to FEW_NB, else the
-// product form where the geometry has it, else the tile form.
+// product form where the geometry has it, else the tile form where it has
+// that, else the planes form.
 inline int forward_form(int nb) {
-  return nb <= FEW_NB ? FWD_FEW : HAS_PRODUCT ? FWD_PRODUCT : FWD_TILE;
+  return nb <= FEW_NB ? FWD_FEW : HAS_PRODUCT ? FWD_PRODUCT : HAS_TILE ? FWD_TILE : FWD_PLANES;
 }
 
 template <int R>
@@ -730,42 +883,64 @@ cudaError_t launch_few(cudaStream_t stream, const float* streams, int num_source
 }
 
 // Launch A in ``form`` over num_sources streams of nb blocks each (rows =
-// num_sources*nb); anything else, a form the geometry lacks, FWD_FEW above
-// FEW_NB blocks, or a history of partial blocks, is refused
+// num_sources*nb); pr and pi are the planes form's scratch (num_sources *
+// (nb + Q - 1) rows x BINS each; null for the other forms).  Anything else,
+// a form the geometry lacks, FWD_FEW above FEW_NB blocks, the planes form
+// without its scratch, or a history of partial blocks, is refused
 // (cudaErrorInvalidValue).
 inline cudaError_t launch_forward_form(
     int form, cudaStream_t stream, const float* streams, int num_sources, int nb,
     const float* uh, const float* ul, const float* fr, const int* dsel, int n_dist,
     const float* cfr, const float* cfi, const float* twr, const float* twi,
-    float* xdr, float* xdi) {
-  cudaError_t err = cudaSuccess;
-  if (!ALIGNED) {
+    float* xdr, float* xdi, float* pr, float* pi) {
+  if constexpr (!ALIGNED) {
     return cudaErrorInvalidValue;
-  } else if (form == FWD_TILE) {
-    err = allow_smem_once(forward_distance, A_SMEM, tile_smem_set);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((nb + A_BT - 1) / A_BT, (BINS + A_KT - 1) / A_KT, num_sources);
-    forward_distance<<<grid, A_THREADS, A_SMEM, stream>>>(
-        streams, nb, uh, ul, fr, dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi);
-  } else if (form == FWD_PRODUCT && HAS_PRODUCT) {
-    const bool vec = reinterpret_cast<size_t>(streams) % 16 == 0;
-    auto kernel = vec ? forward_distance_product<true> : forward_distance_product<false>;
-    err = allow_smem_once(kernel, G_SMEM, product_smem_set[vec]);
-    if (err != cudaSuccess) return err;
-    const int total = num_sources * (nb + Q - 1);
-    const dim3 grid((total - (Q - 1) + G_OUT - 1) / G_OUT, G_SLICES);
-    kernel<<<grid, G_THREADS, G_SMEM, stream>>>(streams, num_sources, nb, uh, ul, fr, dsel,
-                                                n_dist, cfr, cfi, twr, twi, xdr, xdi);
-  } else if (form == FWD_FEW && nb <= FEW_NB) {
-    err = nb + Q - 1 <= 8 ? launch_few<8>(stream, streams, num_sources, nb, uh, ul, fr, dsel,
-                                          n_dist, cfr, cfi, twr, twi, xdr, xdi)
-                          : launch_few<16>(stream, streams, num_sources, nb, uh, ul, fr, dsel,
-                                           n_dist, cfr, cfi, twr, twi, xdr, xdi);
-    if (err != cudaSuccess) return err;
   } else {
-    return cudaErrorInvalidValue;
+    cudaError_t err = cudaSuccess;
+    const int total = num_sources * (nb + Q - 1);   // flat sub-block rows
+    if (form == FWD_TILE) {
+      if constexpr (HAS_TILE) {
+        err = allow_smem_once(forward_distance<Q>, A_SMEM, tile_smem_set);
+        if (err != cudaSuccess) return err;
+        const dim3 grid((nb + A_BT - 1) / A_BT, (BINS + A_KT - 1) / A_KT, num_sources);
+        forward_distance<Q><<<grid, A_THREADS, A_SMEM, stream>>>(
+            streams, nb, uh, ul, fr, dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi);
+      } else {
+        return cudaErrorInvalidValue;
+      }
+    } else if (form == FWD_PRODUCT) {
+      if constexpr (HAS_PRODUCT) {
+        const bool vec = reinterpret_cast<size_t>(streams) % 16 == 0;
+        auto kernel = vec ? forward_distance_product<true> : forward_distance_product<false>;
+        err = allow_smem_once(kernel, G_SMEM, product_smem_set[vec]);
+        if (err != cudaSuccess) return err;
+        const dim3 grid((total - (Q - 1) + G_OUT - 1) / G_OUT, G_SLICES);
+        kernel<<<grid, G_THREADS, G_SMEM, stream>>>(streams, num_sources, nb, uh, ul, fr, dsel,
+                                                    n_dist, cfr, cfi, twr, twi, xdr, xdi);
+      } else {
+        return cudaErrorInvalidValue;
+      }
+    } else if (form == FWD_FEW && nb <= FEW_NB) {
+      err = nb + Q - 1 <= 8 ? launch_few<8>(stream, streams, num_sources, nb, uh, ul, fr, dsel,
+                                            n_dist, cfr, cfi, twr, twi, xdr, xdi)
+                            : launch_few<16>(stream, streams, num_sources, nb, uh, ul, fr, dsel,
+                                             n_dist, cfr, cfi, twr, twi, xdr, xdi);
+      if (err != cudaSuccess) return err;
+    } else if (form == FWD_PLANES && pr && pi) {
+      const dim3 pgrid((total + W_ROWS - 1) / W_ROWS, (BINS + W_KT - 1) / W_KT);
+      subblock_planes<Q><<<pgrid, W_THREADS, 0, stream>>>(streams, total, cfr, cfi, pr, pi);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      const int bin_groups = (BINS + V_KT - 1) / V_KT;
+      const int runs = (total - (Q - 1) + V_RUN - 1) / V_RUN;
+      const int run_groups = (runs + V_THREADS / V_KT - 1) / (V_THREADS / V_KT);
+      twiddle_distance<Q><<<(unsigned)run_groups * bin_groups, V_THREADS, 0, stream>>>(
+          pr, pi, total, nb, bin_groups, uh, ul, fr, dsel, n_dist, twr, twi, xdr, xdi);
+    } else {
+      return cudaErrorInvalidValue;
+    }
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 // Launch A as the render steps take it: forward_form(nb).
@@ -773,9 +948,9 @@ inline cudaError_t launch_forward_distance(
     cudaStream_t stream, const float* streams, int num_sources, int nb,
     const float* uh, const float* ul, const float* fr, const int* dsel, int n_dist,
     const float* cfr, const float* cfi, const float* twr, const float* twi,
-    float* xdr, float* xdi) {
+    float* xdr, float* xdi, float* pr, float* pi) {
   return launch_forward_form(forward_form(nb), stream, streams, num_sources, nb, uh, ul, fr,
-                             dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi);
+                             dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi, pr, pi);
 }
 
 // The first output column of this CTA's t-tile.
@@ -1220,8 +1395,9 @@ enum TailForm { FORM_LAUNCH_B = 0, FORM_SPLIT = 1, FORM_STAGED = 2 };
 
 // The geometry this library was built for and the forms it has, for the
 // wrappers to check their mirror (kernels/fused_step.geometry_forms):
-// out[0..8] = fpb, pad, bins, q (0: a history of partial blocks), FEW_NB,
-// product form, split form, row 1's staged form, row 8's cluster form.
+// out[0..9] = fpb, pad, bins, q (0: a history of partial blocks), FEW_NB,
+// product form, split form, row 1's staged form, row 8's cluster form,
+// launch A's tile form.
 extern "C" void jt_geometry(int* out) {
   out[0] = FPB;
   out[1] = PAD;
@@ -1232,4 +1408,5 @@ extern "C" void jt_geometry(int* out) {
   out[6] = HAS_SPLIT;
   out[7] = JT_TUNED_128;
   out[8] = JT_TUNED_128;
+  out[9] = HAS_TILE;
 }

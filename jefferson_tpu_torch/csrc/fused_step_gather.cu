@@ -37,8 +37,8 @@
 // (fused_forward.cuh: four CTAs a tile, one per 128-bin block, each filter
 // row staged once), which gives the same bits.
 //
-// Geometry (fused_forward.cuh): both forms run at every geometry of the
-// card's envelope where they exist (the split form where HAS_SPLIT), a CTA
+// Geometry (fused_forward.cuh): both forms run at every geometry where
+// they exist (launch B everywhere, the split form where HAS_SPLIT), a CTA
 // per 32 rows and TT = 128 output columns, T_TILES along the grid's y.  At
 // a history of partial blocks (fpb 100, 441 under pad 1024) the entry with
 // launch A refuses and jt_fused_apply_xfade is the step.
@@ -180,7 +180,8 @@ cudaError_t launch_gather_tail(cudaStream_t s, int form, const float* xdr, const
 
 // One gather-form step over num_sources streams of nb blocks each.  Launch
 // A writes the XD planes to the caller's scratch (xdr, xdi: rows x 513,
-// rows = num_sources * nb); launch B writes out (rows x 256).  g_rows is
+// rows = num_sources * nb; pr, pi: its planes form's sub-block DFTs, as in
+// jt_fused_step_onehot_xfade); launch B writes out (rows x 256).  g_rows is
 // (rows x 2052); with_xfade != 0 also reads g_last (num_sources x 2052)
 // and xf (rows), else both may be null.  dsel as in the one-hot step.
 // form: launch B as FORM_LAUNCH_B (one CTA per 32 rows) or FORM_SPLIT (a
@@ -195,12 +196,13 @@ extern "C" int jt_fused_step_gather_xfade(
     const float* g_rows, const float* g_last, const float* xf, int with_xfade, int form,
     const float* cfr, const float* cfi, const float* twr, const float* twi,
     const float* icr, const float* ici,
-    float* xdr, float* xdi, float* out) {
+    float* xdr, float* xdi, float* pr, float* pi, float* out) {
   return on_device(device, [&]() {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (form != FORM_LAUNCH_B && form != FORM_SPLIT) return cudaErrorInvalidValue;
     cudaError_t err = launch_forward_distance(s, streams, num_sources, nb, uh, ul, fr,
-                                              dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi);
+                                              dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi, pr,
+                                              pi);
     if (err != cudaSuccess) return err;
     const int rows = num_sources * nb;
     return with_xfade ? launch_gather_tail<2>(s, form, xdr, xdi, rows, nb, g_rows, g_last, xf,

@@ -61,9 +61,10 @@
 // cluster form (spatializer_cluster, below): launch B there builds a
 // 128-row operand of which 4 rows are real and walks all of K on one SM.
 //
-// Geometry (fused_forward.cuh): launch B and its split form run at every
-// geometry of the card's envelope, a CTA per 32 rows and TT = 128 output
-// columns (T_TILES along the grid's y at fpb above 128).  Row 1's staged
+// Geometry (fused_forward.cuh): launch B runs at every geometry and its
+// split form where HAS_SPLIT, a CTA per 32 rows and TT = 128 output columns
+// (T_TILES along the grid's y at fpb above 128; below 128 the tile's
+// columns past fpb hold zeros and store nothing).  Row 1's staged
 // form and row 8's cluster form are laid out for fpb 128 / pad 1024 and exist
 // only there (JT_TUNED_128); elsewhere row 1 takes launch B and row 8 the
 // split form or launch B.
@@ -712,8 +713,9 @@ spatializer_cluster(const float* __restrict__ xdr, const float* __restrict__ xdi
 
 // One fused step.  Launch A runs the forward over num_sources streams of
 // nb blocks each and writes the XD planes to the caller's scratch (xdr,
-// xdi: rows x 513 each, rows = num_sources * nb); launch B writes out
-// (rows x 256).  Every pointer is device memory; dsel is null for per-row
+// xdi: rows x 513 each, rows = num_sources * nb; pr, pi: its planes form's
+// sub-block DFTs, num_sources * (nb + Q - 1) rows x 513 each, null where
+// the step takes another form); launch B writes out (rows x 256).  Every pointer is device memory; dsel is null for per-row
 // distance (uh/ul/fr then have one entry per row), else it selects each
 // row's triple among the first n_dist.  table holds u_rows rows per group
 // of group_rows output rows; bnd_idx/bnd_w hold one row per seg output
@@ -735,7 +737,7 @@ extern "C" int jt_fused_step_onehot_xfade(
     int form, const float* xf,
     const float* cfr, const float* cfi, const float* twr, const float* twi,
     const float* icr, const float* ici,
-    float* xdr, float* xdi, float* out) {
+    float* xdr, float* xdi, float* pr, float* pi, float* out) {
   return on_device(device, [&]() {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (!(form == FORM_LAUNCH_B ||
@@ -743,7 +745,8 @@ extern "C" int jt_fused_step_onehot_xfade(
           (form == FORM_STAGED && JT_TUNED_128 && !blocked_tail && group_rows % seg == 0)))
       return cudaErrorInvalidValue;
     cudaError_t err = launch_forward_distance(s, streams, num_sources, nb, uh, ul, fr,
-                                              dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi);
+                                              dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi, pr,
+                                              pi);
     if (err != cudaSuccess) return err;
     const int rows = num_sources * nb;
     const RowsBlended src{table, u_rows, ridx, w, bnd_idx, bnd_w, group_rows};
@@ -767,21 +770,22 @@ extern "C" int jt_fused_step_onehot_xfade(
   });
 }
 
-// Launch A alone in ``form`` (FWD_TILE, FWD_PRODUCT or FWD_FEW of
-// fused_forward.cuh; anything else is refused): the XD
-// planes (xdr, xdi: rows x 513, rows = num_sources * nb) of num_sources
-// streams of nb blocks, with per-row distance or, with dsel, each row's
-// triple among the first n_dist.  The card tests and chip_smoke.py hold
+// Launch A alone in ``form`` (FWD_TILE, FWD_PRODUCT, FWD_FEW or FWD_PLANES
+// of fused_forward.cuh, the last with its scratch pr, pi; anything else is
+// refused): the XD planes (xdr, xdi: rows x 513, rows = num_sources * nb)
+// of num_sources streams of nb blocks, with per-row distance or, with dsel,
+// each row's triple among the first n_dist.  The card tests and chip_smoke.py hold
 // the forms against each other through it.  Launches on ``stream`` of
 // ``device`` without synchronising and returns the first CUDA error.
 extern "C" int jt_forward_distance(
     int device, void* stream, int form, const float* streams, int num_sources, int nb,
     const float* uh, const float* ul, const float* fr, const int* dsel, int n_dist,
     const float* cfr, const float* cfi, const float* twr, const float* twi,
-    float* xdr, float* xdi) {
+    float* xdr, float* xdi, float* pr, float* pi) {
   return on_device(device, [&]() {
     return launch_forward_form(form, static_cast<cudaStream_t>(stream), streams, num_sources,
-                               nb, uh, ul, fr, dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi);
+                               nb, uh, ul, fr, dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi, pr,
+                               pi);
   });
 }
 
@@ -798,7 +802,8 @@ extern "C" int jt_forward_distance(
 // launch A first writes them from one stream of rows blocks (streams:
 // (rows + Q - 1) x fpb samples, history first; whole blocks of history
 // only) with per-row distance uh/ul/fr
-// (rows each).  The live block step runs the cluster form at one row, the
+// (rows each), pr and pi its planes form's scratch (rows + Q - 1 rows x
+// 513 each; null where it takes another form).  The live block step runs the cluster form at one row, the
 // scan render another form at every row of a chunk.  Launches on
 // ``stream`` of ``device`` without synchronising and returns the first
 // CUDA error.
@@ -806,7 +811,7 @@ extern "C" int jt_fused_spatializer_apply(
     int device, void* stream, int rows, int form,
     const float* streams, const float* uh, const float* ul, const float* fr,
     const float* cfr, const float* cfi, const float* twr, const float* twi,
-    float* xdr, float* xdi,
+    float* xdr, float* xdi, float* pr, float* pi,
     const float* table, int table_rows, const int* idx_old, const float* w_old,
     const int* idx_new, const float* w_new, const float* xf,
     const float* icr, const float* ici, float* out) {
@@ -817,7 +822,7 @@ extern "C" int jt_fused_spatializer_apply(
     cudaError_t err = cudaSuccess;
     if (streams)
       err = launch_forward_distance(s, streams, 1, rows, uh, ul, fr, nullptr, 0,
-                                    cfr, cfi, twr, twi, xdr, xdi);
+                                    cfr, cfi, twr, twi, xdr, xdi, pr, pi);
     if (err != cudaSuccess) return err;
 #if JT_TUNED_128
     if (form == 1) {

@@ -588,10 +588,11 @@ def plan_onehot_chunking(plan: RenderPlan, b_total: int, cb: int, tb: int):
 
 def check_card_geometry(config: EngineConfig, what: str = "fused=True",
                         remedy: str = "use fused=False or the CPU") -> None:
-    """Raise, before any launch, unless ``config``'s geometry lies in the
-    card's envelope (``fused_step.check_envelope``: 32 <= fpb <= 1024, pad
-    <= 2048); inside it every kernel's library is built for it."""
-    fused_step.check_envelope(config.frames_per_buffer, config.pad_len, what, remedy)
+    """Raise, before any launch, unless the card's kernels take ``config``'s
+    geometry (``fused_step.check_geometry``: refused only for a resource no
+    form supplies, never for a fixed fpb or pad bound); every kernel's
+    library is built for it at its first launch."""
+    fused_step.check_geometry(config.frames_per_buffer, config.pad_len, what, remedy)
 
 
 def resolve_device(device) -> torch.device:
@@ -698,9 +699,9 @@ class Renderer:
 
     A history that is not a whole number of blocks takes the apply-only
     step (row 7) where the JAX package does, on the card as on the CPU.
-    ``fused=True`` on a CUDA device runs every geometry of the card's
-    envelope (32 <= fpb <= 1024, pad <= 2048) and refuses any other at
-    construction (``check_card_geometry``).
+    ``fused=True`` on a CUDA device runs every geometry the JAX package
+    runs (any fpb >= 2, any hrtf_len) and refuses at construction only one
+    that needs a resource no kernel form supplies (``check_card_geometry``).
 
     ``mesh``: a 1-D ``DeviceMesh`` (``parallel.mesh.make_mesh(n,
     ("blk",))``) shards each chunk's blocks, SPMD: every rank of the mesh

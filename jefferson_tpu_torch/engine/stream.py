@@ -15,7 +15,7 @@ Counterpart of ``jefferson_tpu/engine/stream.py``, in two forms:
   samples up and 256 floats down through pinned host buffers.
 
 Both run on the card unless the caller asks for the CPU, where the
-kernels' plain twins run, at every geometry of the card's envelope.  A
+kernels' plain twins run, at every geometry the JAX package runs.  A
 history of whole blocks takes the sliding forward in launch A; a history
 of partial blocks (fpb 100 or 441 under pad 1024) takes the JAX package's
 form: the forward DFT of each whole window (``ops/fft.rfft_split``) and the
@@ -59,7 +59,7 @@ SCAN_CHUNK = 16384
 
 def _stream_device(device, config: EngineConfig) -> torch.device:
     """The device the streaming forms run on; raises, before any launch, for
-    a geometry outside the card's envelope there."""
+    a geometry the card cannot run (``check_card_geometry``)."""
     if torch.device(device).type == "cuda":
         check_card_geometry(config, "the streaming engine", "run it on the CPU")
     return resolve_device(device)

@@ -15,8 +15,8 @@ On the card it is launch B of the gather step (``csrc/fused_step_gather.cu``,
 in place of the block count, so rows 5-7 share one tail loop, in either of
 launch B's forms (``fused_step.pick_form``).  The TPU
 kernel's tile rule (seg | tb or tb | seg) does not apply; the wrapper needs
-only whole segments.  It runs at every geometry of the card's envelope
-(``fused_step.check_envelope``) from the (fpb, pad_len) library, a history
+only whole segments.  It runs at every geometry the card takes
+(``fused_step.check_geometry``) from the (fpb, pad_len) library, a history
 of partial blocks included: it is the card's step there (fpb 100 or 441
 under pad 1024).  Operands on the CPU run the twin; on a CUDA device
 the kernel runs or the wrapper raises.

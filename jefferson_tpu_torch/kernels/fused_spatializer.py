@@ -67,7 +67,7 @@ from . import build
 from .fused_step import (
     LAUNCH_B, SPATIALIZER, SPLIT, _check, _check_streams, _cuda_error, _forward_reference,
     _in_table, _tails_reference, _where, _whole_blocks, blend_cat, forward_form,
-    forward_launches, geometry_forms, launches, spatializer_forms,
+    forward_launches, geometry_forms, launches, planes_scratch, spatializer_forms,
 )
 
 # Rows up to which row 8 takes the cluster form, and above which
@@ -128,6 +128,7 @@ def _entry(geometry: tuple[int, int]):
     fn.argtypes = [i, p, i, i,           # device, stream, rows, form
                    p, p, p, p,           # streams, uh, ul, fr
                    p, p, p, p, p, p,     # cfr, cfi, twr, twi, xdr, xdi
+                   p, p,                 # pr, pi: launch A's planes form's scratch
                    p, i, p, p, p, p, p,  # table, its rows, idx_old, w_old, idx_new, w_new, xf
                    p, p, p]              # icr, ici, out
     fn.restype = ctypes.c_int
@@ -163,16 +164,18 @@ def _cuda(device, rows: int, table, brackets, xf, xdr, xdi, forward, *, pad_len,
     if rows < 1 or table.shape[0] < 1:
         raise ValueError("the step needs a table row and a block")
     ptr = lambda t: None if t is None else t.data_ptr()
-    fwd = [None] * 8
+    fwd, planes = [None] * 8, (None, None)
     if forward is not None:
         bases = (fft_ops.on_device(fft_ops._subblock_dft_matrices, pad_len, fpb, device=device)
                  + fft_ops.on_device(fft_ops._sliding_twiddles, pad_len, fpb, device=device))
         fwd = [ptr(t) for t in (*forward, *bases)]
+        planes = planes_scratch(1, rows, fpb, pad_len, device)
     icr, ici = fft_ops.on_device(fft_ops._idft_tail_matrices, pad_len, fpb, device=device)
     out = torch.empty((rows, 2 * fpb), dtype=torch.float32, device=device)
     err = _entry((fpb, pad_len))(
         device.index, torch.cuda.current_stream(device).cuda_stream, rows, _FORM_CODE[form],
-        *fwd, ptr(xdr), ptr(xdi), ptr(table), table.shape[0], *(ptr(t) for t in brackets),
+        *fwd, ptr(xdr), ptr(xdi), *(ptr(t) for t in planes), ptr(table), table.shape[0],
+        *(ptr(t) for t in brackets),
         ptr(xf), ptr(icr), ptr(ici), ptr(out),
     )
     if err:

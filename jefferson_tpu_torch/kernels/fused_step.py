@@ -36,17 +36,20 @@ card, launch B of rows 2-7 has two forms with the same bits, chosen by
 rows, or the split form, a cluster of four CTAs per tile
 (``csrc/fused_forward.cuh``).  Launch A, the forward every step of rows
 1-6 runs first, takes its product form, or its few-block form up to
-``FEW_NB`` blocks a source (``forward_form``); its tile form is kept to
-hold them against (``_forward_cuda``).  Both keep the TPU kernels' answer
+``FEW_NB`` blocks a source, or where neither exists its tile form or its
+planes form (``forward_form``); the tile form is also kept to hold the
+others against (``_forward_cuda``).  Both keep the TPU kernels' answer
 for ids outside the table (they add nothing) and for selectors outside
 1..n_dist-1 (triple 0), so no check syncs the device.
 
-The kernels run at every geometry of the card's envelope (``check_envelope``:
-32 <= fpb <= 1024, pad_len <= 2048), each from a library built for the
-operands' (fpb, pad_len) (``kernels/build``).  ``geometry_forms`` says which
-forms a geometry's library has (the tuned layouts fit some geometries
-only); ``pick_form`` and ``forward_form`` choose among those, and a form a
-geometry lacks, named through ``_cuda``, raises.  Rows 1-6 need a history
+The kernels run at every geometry the JAX package runs (any fpb >= 2, any
+power-of-two pad_len), each from a library built for the operands' (fpb,
+pad_len) (``kernels/build``).  ``geometry_forms`` says which forms a
+geometry's library has (the tuned layouts fit some geometries only; launch
+A's planes form and launch B take every one); ``pick_form`` and
+``forward_form`` choose among those, and a form a geometry lacks, named
+through ``_cuda``, raises.  ``check_geometry`` refuses only what no form can
+supply (``card_refusal``).  Rows 1-6 need a history
 of whole blocks (launch A); at a history of partial blocks the renderers
 take row 7 on XD computed outside the kernels.
 """
@@ -135,10 +138,12 @@ row1_forms: dict[str, int] = dict.fromkeys((LAUNCH_B, STAGED), 0)
 # Launch A's forms on the card, the same bits (csrc/fused_forward.cuh): the
 # tile form (one CTA per 32 blocks x 64 bins of a source), kept to hold the
 # others against; the product form (64 flat sub-block rows x 64 bins a
-# CTA); and the few-block form (a thread per bin and plane, every row of
-# its source), which the steps take up to FEW_NB blocks a source.
-FWD_TILE, FWD_PRODUCT, FWD_FEW = "tile", "product", "few"
-_FWD_CODE = {FWD_TILE: 0, FWD_PRODUCT: 1, FWD_FEW: 2}
+# CTA); the few-block form (a thread per bin and plane, every row of its
+# source), which the steps take up to FEW_NB blocks a source; and the
+# planes form (each sub-block's DFT written once to a scratch, then the
+# twiddle sum per output and bin through L2), which takes any Q.
+FWD_TILE, FWD_PRODUCT, FWD_FEW, FWD_PLANES = "tile", "product", "few", "planes"
+_FWD_CODE = {FWD_TILE: 0, FWD_PRODUCT: 1, FWD_FEW: 2, FWD_PLANES: 3}
 
 # Most blocks a source at which the steps take launch A's few-block form
 # at fpb 128 / pad 1024 (csrc/fused_forward.cuh FEW_NB; its kernel carries
@@ -162,27 +167,22 @@ blend_forms: dict[str, int] = dict.fromkeys((DOUBLE, DEDUP), 0)
 # The form a card test or chip_smoke.py names through ``_cuda``; None: pick.
 _named_form: contextvars.ContextVar[str | None] = contextvars.ContextVar("form", default=None)
 
-# The card's envelope: the geometries the CUDA kernels are built for, one
-# library a (fpb, pad_len).  Outside it the wrappers and the engines raise
-# on a CUDA device, before any launch (ROADMAP queue 1 item 11).
-CARD_MIN_FPB, CARD_MAX_FPB, CARD_MAX_PAD = 32, 1024, 2048
+# Launch B's output columns a CTA (csrc/fused_forward.cuh TT): its t-tiles
+# lie along the grid's y, which holds at most GRID_Y CTAs.
+T_TILE, GRID_Y = 128, 65535
 
-
-def check_envelope(fpb: int, pad_len: int, what: str = "the CUDA step",
-                   remedy: str | None = None) -> None:
-    """Raise a ValueError naming the geometry (and ``remedy``) unless the
-    card's kernels take fpb and pad_len."""
-    if not (CARD_MIN_FPB <= fpb <= CARD_MAX_FPB and pad_len <= CARD_MAX_PAD):
-        raise ValueError(
-            f"{what} on a CUDA device: fpb {fpb}, pad {pad_len} lies outside the card's "
-            f"envelope ({CARD_MIN_FPB} <= fpb <= {CARD_MAX_FPB}, pad <= {CARD_MAX_PAD}): "
-            f"ROADMAP queue 1 item 11" + (f"; {remedy}" if remedy else ""))
+# Launch A's tile form takes Q <= 16 (its twiddles in registers, its
+# 32 + Q - 1 sub-block rows in shared memory), its product form Q <= 64
+# (a tile's output starts stay most of its rows); past those the steps take
+# the planes form (csrc/fused_forward.cuh TILE_MAX_Q, PRODUCT_MAX_Q).
+TILE_MAX_Q, PRODUCT_MAX_Q = 16, 64
 
 
 @dataclasses.dataclass(frozen=True)
 class Forms:
     """The forms a geometry's library has (csrc/fused_forward.cuh's HAS_*
-    and FEW_NB; ``jt_geometry`` reports the library's own)."""
+    and FEW_NB; ``jt_geometry`` reports the library's own).  Launch A's
+    planes form and launch B exist at every geometry."""
 
     fpb: int
     pad: int
@@ -193,16 +193,18 @@ class Forms:
     split: bool     # launch B's split form (rows 2-8)
     staged: bool    # row 1's staged launch B
     cluster: bool   # row 8's cluster form
+    tile: bool      # launch A's tile form
 
 
 @functools.cache
 def geometry_forms(fpb: int, pad_len: int) -> Forms:
     """The forms of the (fpb, pad_len) library, by the sources' rules:
-    launch A where the history is whole blocks (its product form with
-    64-bin slices from pad 128, its few-block form where its static shared
-    memory stays under 48 KB), launch B's split form with one rank per
-    128-bin block (2 to 8) and 16-byte basis rows, row 1's staged form and
-    row 8's cluster form at fpb 128 / pad 1024 alone."""
+    launch A where the history is whole blocks (its tile form to Q 16, its
+    product form with 64-bin slices from pad 128 to Q 64, its few-block form
+    where its static shared memory stays under 48 KB, its planes form
+    always), launch B's split form with one rank per 128-bin block (2 to 8)
+    and 16-byte basis rows, row 1's staged form and row 8's cluster form at
+    fpb 128 / pad 1024 alone."""
     bins = pad_len // 2 + 1
     aligned = pad_len % fpb == 0
     q = pad_len // fpb if aligned else 0
@@ -214,10 +216,36 @@ def geometry_forms(fpb: int, pad_len: int) -> Forms:
     tuned = (fpb, pad_len) == (128, 1024)
     return Forms(
         fpb=fpb, pad=pad_len, bins=bins, q=q, few_nb=few_nb,
-        product=aligned and bins - 1 >= 64 and (bins - 1) % 64 == 0 and fpb % 32 == 0,
+        product=(aligned and bins - 1 >= 64 and (bins - 1) % 64 == 0 and fpb % 32 == 0
+                 and q <= PRODUCT_MAX_Q),
         split=(bins - 1) % 128 == 0 and 1 <= (bins - 1) // 128 <= 8 and fpb % 4 == 0,
-        staged=tuned, cluster=tuned,
+        staged=tuned, cluster=tuned, tile=aligned and q <= TILE_MAX_Q,
     )
+
+
+def card_refusal(fpb: int, pad_len: int) -> str | None:
+    """Why the card cannot run the (fpb, pad_len) geometry, naming the
+    resource no form supplies, or None.  Launch A's planes form takes any
+    whole-block history and launch B any geometry (a history of partial
+    blocks needs no launch A: the apply-only steps run there); what is left
+    is the grid's y, which holds launch B's t-tiles of 128 columns."""
+    if pad_len < fpb or pad_len & (pad_len - 1):
+        return f"pad {pad_len} is not a power of two >= fpb {fpb}"
+    t_tiles = -(-fpb // T_TILE)
+    if t_tiles > GRID_Y:
+        return (f"launch B's {t_tiles} t-tiles of {T_TILE} columns exceed the {GRID_Y} CTAs a "
+                f"grid's y holds")
+    return None
+
+
+def check_geometry(fpb: int, pad_len: int, what: str = "the CUDA step",
+                   remedy: str | None = None) -> None:
+    """Raise a ValueError naming the geometry, the resource (``card_refusal``)
+    and ``remedy`` unless the card's kernels take fpb and pad_len."""
+    why = card_refusal(fpb, pad_len)
+    if why is not None:
+        raise ValueError(f"{what} on a CUDA device: fpb {fpb}, pad {pad_len}: {why}"
+                         + (f"; {remedy}" if remedy else ""))
 
 
 def reset_launches() -> None:
@@ -240,9 +268,22 @@ def pick_form(name: str, rows: int, fpb: int = 128, pad_len: int = 1024) -> str:
 def forward_form(nb: int, fpb: int = 128, pad_len: int = 1024) -> str:
     """Launch A's form on the card at ``nb`` blocks a source (the steps'
     choice, csrc/fused_forward.cuh forward_form): the few-block form up to
-    the geometry's ``few_nb``, else its product form, else the tile form."""
+    the geometry's ``few_nb``, else its product form, else its tile form,
+    else the planes form."""
     forms = geometry_forms(fpb, pad_len)
-    return FWD_FEW if nb <= forms.few_nb else FWD_PRODUCT if forms.product else FWD_TILE
+    if nb <= forms.few_nb:
+        return FWD_FEW
+    return FWD_PRODUCT if forms.product else FWD_TILE if forms.tile else FWD_PLANES
+
+
+def planes_scratch(n_src: int, nb: int, fpb: int, pad_len: int, device):
+    """The planes form's scratch (pr, pi: the n_src * (nb + q - 1) sub-block
+    DFTs x bins each) where launch A takes that form at ``nb`` blocks a
+    source, else (None, None)."""
+    if forward_form(nb, fpb, pad_len) != FWD_PLANES:
+        return None, None
+    shape = (n_src * (nb + pad_len // fpb - 1), pad_len // 2 + 1)
+    return tuple(torch.empty(shape, dtype=torch.float32, device=device) for _ in range(2))
 
 
 def _cuda(fn, *args, form: str, **kwargs):
@@ -465,7 +506,7 @@ def _entry(lib: str, symbol: str, middle: tuple, geometry: tuple[int, int]):
     fn = getattr(build.load(lib, geometry=geometry), symbol)
     fn.argtypes = [_int, _ptr, _ptr, _int, _int,      # device, stream, streams, sources, nb
                    *_DIST_ARGS, *middle, *_BASES_ARGS,
-                   _ptr, _ptr, _ptr]                  # xdr, xdi scratch, out
+                   _ptr, _ptr, _ptr, _ptr, _ptr]      # xdr, xdi, pr, pi scratch, out
     fn.restype = _int
     return fn
 
@@ -490,11 +531,11 @@ def library_geometry(lib: str, fpb: int, pad_len: int) -> Forms:
     fn = build.load(lib, geometry=(fpb, pad_len)).jt_geometry
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
     fn.restype = None
-    out = (ctypes.c_int * 9)()
+    out = (ctypes.c_int * 10)()
     fn(out)
     v = list(out)
     return Forms(fpb=v[0], pad=v[1], bins=v[2], q=v[3], few_nb=v[4], product=bool(v[5]),
-                 split=bool(v[6]), staged=bool(v[7]), cluster=bool(v[8]))
+                 split=bool(v[6]), staged=bool(v[7]), cluster=bool(v[8]), tile=bool(v[9]))
 
 
 def _cuda_error(lib: str, code: int, geometry=None) -> str:
@@ -516,11 +557,11 @@ def _one_device(operands) -> torch.device:
 
 
 def _where(operands, pad_len: int, bins: int, fpb: int) -> torch.device:
-    """``_one_device``; on CUDA the geometry must also lie in the card's
-    envelope, with bins = pad_len/2 + 1."""
+    """``_one_device``; on CUDA the card must also take the geometry
+    (``check_geometry``), with bins = pad_len/2 + 1."""
     device = _one_device(operands)
     if device.type == "cuda":
-        check_envelope(fpb, pad_len)
+        check_geometry(fpb, pad_len)
         if bins != pad_len // 2 + 1:
             raise ValueError(f"bins {bins} is not pad_len/2 + 1 for pad_len {pad_len}")
     return device
@@ -573,6 +614,7 @@ def _launch(name: str, form: str, lib: str, entry, device, streams, n_src, nb, d
     # them out again only in order on this same stream.
     xdr = torch.empty((rows, bins), dtype=torch.float32, device=device)
     xdi = torch.empty_like(xdr)
+    pr, pi = planes_scratch(n_src, nb, fpb, pad_len, device)
     out = torch.empty((rows, 2 * fpb), dtype=torch.float32, device=device)
     ptr = lambda t: t.data_ptr() if isinstance(t, torch.Tensor) else t
     uh, ul, fr, dsel, n_dist = dist
@@ -581,7 +623,7 @@ def _launch(name: str, form: str, lib: str, entry, device, streams, n_src, nb, d
         ptr(streams), n_src, nb, ptr(uh), ptr(ul), ptr(fr), ptr(dsel), n_dist or 0,
         *(ptr(a) for a in middle),
         ptr(cfr), ptr(cfi), ptr(twr), ptr(twi), ptr(icr), ptr(ici),
-        ptr(xdr), ptr(xdi), ptr(out),
+        ptr(xdr), ptr(xdi), ptr(pr), ptr(pi), ptr(out),
     )
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
@@ -595,7 +637,8 @@ def _launch(name: str, form: str, lib: str, entry, device, streams, n_src, nb, d
 def _forward_entry(geometry: tuple[int, int]):
     fn = build.load("fused_step_onehot", geometry=geometry).jt_forward_distance
     fn.argtypes = [_int, _ptr, _int, _ptr, _int, _int,  # device, stream, form, streams, S, nb
-                   *_DIST_ARGS, *_BASES_ARGS[:4], _ptr, _ptr]  # ..., cfr..twi, xdr, xdi
+                   *_DIST_ARGS, *_BASES_ARGS[:4],
+                   _ptr, _ptr, _ptr, _ptr]              # ..., cfr..twi, xdr, xdi, pr, pi
     fn.restype = _int
     return fn
 
@@ -612,8 +655,8 @@ def _forward_cuda(streams, nb: int, uh, ul, fr, dsel, n_dist, *, form: str, pad_
     if form == FWD_FEW and nb > forms.few_nb:
         raise ValueError(f"the few-block form takes at most {forms.few_nb} blocks a source at "
                          f"fpb {fpb}, pad {pad_len}, not {nb}")
-    if form == FWD_PRODUCT and not forms.product:
-        raise ValueError(f"the product form does not exist at fpb {fpb}, pad {pad_len}")
+    if (form == FWD_PRODUCT and not forms.product) or (form == FWD_TILE and not forms.tile):
+        raise ValueError(f"the {form} form does not exist at fpb {fpb}, pad {pad_len}")
     _whole_blocks(fpb, pad_len)
     _check_streams(streams, nb, pad_len, fpb)
     if (dsel is None) != (n_dist is None):
@@ -630,11 +673,15 @@ def _forward_cuda(streams, nb: int, uh, ul, fr, dsel, n_dist, *, form: str, pad_
     twr, twi = fft_ops.on_device(fft_ops._sliding_twiddles, pad_len, fpb, device=device)
     xdr = torch.empty((rows, bins), dtype=torch.float32, device=device)
     xdi = torch.empty_like(xdr)
+    pr = pi = None
+    if form == FWD_PLANES:
+        pr, pi = (torch.empty((streams.shape[0] * (nb + pad_len // fpb - 1), bins),
+                              dtype=torch.float32, device=device) for _ in range(2))
     ptr = lambda t: None if t is None else t.data_ptr()
     err = _forward_entry((fpb, pad_len))(
         device.index, torch.cuda.current_stream(device).cuda_stream, _FWD_CODE[form],
         ptr(streams), streams.shape[0], nb, ptr(uh), ptr(ul), ptr(fr), ptr(dsel), n_dist or 0,
-        ptr(cfr), ptr(cfi), ptr(twr), ptr(twi), ptr(xdr), ptr(xdi))
+        ptr(cfr), ptr(cfi), ptr(twr), ptr(twi), ptr(xdr), ptr(xdi), ptr(pr), ptr(pi))
     if err:
         raise RuntimeError(f"launch A ({form}) failed: CUDA error {err} "
                            f"({_cuda_error('fused_step_onehot', err, (fpb, pad_len))})")

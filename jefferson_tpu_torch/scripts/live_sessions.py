@@ -22,6 +22,8 @@ import time
 from pathlib import Path
 
 MODES = ("turns", "free", "free", "turns")
+# seconds past its length that a session may take to play its blocks
+SESSION_GRACE_S = 30.0
 
 
 def serve_mode(sock: str, free: bool, device: str) -> int:
@@ -33,6 +35,20 @@ def serve_mode(sock: str, free: bool, device: str) -> int:
         service._live = contextlib.nullcontext()
     serve(sock, service)
     return 0
+
+
+def wait_played(sock, sids, deadline: float) -> None:
+    """Wait until each session has played all its blocks (its thread has
+    ended), polling ``stream_status``; a loaded host starts a session's
+    thread late, so a fixed wall time stops it short.  Past ``deadline``
+    (``time.time()``) raises."""
+    from ..serve import request
+
+    for sid in sids:
+        while request(sock, {"cmd": "stream_status", "session": sid})["alive"]:
+            if time.time() > deadline:
+                raise RuntimeError(f"session {sid} still plays past its deadline")
+            time.sleep(0.05)
 
 
 def run_mode(mode: str, wav: Path, work: Path, sessions: int, seconds: float, device: str):
@@ -62,6 +78,7 @@ def run_mode(mode: str, wav: Path, work: Path, sessions: int, seconds: float, de
                 request(sock, {"cmd": "move", "session": sid, "azi": (7 * k) % 360, "ele": 10})
             k += 1
             time.sleep(0.1)
+        wait_played(sock, sids, t1 + seconds + SESSION_GRACE_S)
         stats = [request(sock, {"cmd": "stream_stop", "session": sid}) for sid in sids]
         request(sock, {"cmd": "shutdown"})
         proc.wait(timeout=30)

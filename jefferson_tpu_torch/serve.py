@@ -40,7 +40,24 @@ live position and progress (``viz.live`` draws it).
         --request '{"cmd": "render", "input": ...}'
 
 The daemon runs on the card unless started with ``--device cpu`` (the
-kernels' plain twins); without a card the default raises.  The reference
+kernels' plain twins); without a card the default raises.
+
+``--devices N`` serves on a mesh of N ranks, as the JAX daemon serves on a
+mesh of N chips: the command re-executes itself as N ranks
+(``parallel.mesh.ensure_world``; NCCL on the card, a card a rank, unless
+``--backend gloo`` lets the ranks share cards; gloo on the CPU).  Every
+rank builds the same service; rank 0 serves the socket and hands each
+engine command (``render``, ``scene``) to the others over a broadcast, and
+every rank runs it: a render's blocks sharded over a ``blk`` mesh
+(``Renderer(mesh=)``, which turns the fused arms off, as in the JAX
+package), a scene's sources over a ``src`` mesh (``render_scene_spec``,
+shrunk to a count that divides them).  Each request runs in two steps with
+the ranks' outcomes gathered after each: the inputs are read (no
+collective), then rendered, so a rank that cannot read them makes rank 0's
+error reply and leaves no rank waiting in a collective.  Rank 0 writes the
+WAV and replies; the reply also carries each rank's record (wall,
+collectives, launches: ``parallel.record``).  ``ping``, ``stats`` and the
+live sessions stay on rank 0.  ``shutdown`` ends every rank with 0.  The reference
 has no serving story (a GLUT window is its interface); this is the
 deployment analogue of its always-resident realtime process (reference:
 Jefferson/src/main.cu:93-99 keeps the engine alive for the whole session).
@@ -49,6 +66,7 @@ Jefferson/src/main.cu:93-99 keeps the engine alive for the whole session).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import socket
 import socketserver
@@ -64,10 +82,20 @@ import numpy as np
 # built for the database's geometry at start
 LIBRARIES = ("fused_step_onehot", "fused_step_gather", "dma_blend")
 
-# a mesh behind the socket needs the daemon's engine resident in every rank
-DEVICES_NOT_PORTED = ("a mesh of cards behind the daemon is not ported: it needs resident rank "
-                      "processes serving each request together (ROADMAP queue 1 item 9); the "
-                      "CLI's --devices runs the mesh paths")
+# the engine commands every rank of a mesh runs; the others stay on rank 0
+RANKED = ("render", "scene")
+
+# how long a rank of a mesh waits for rank 0's next request: the daemon
+# idles between requests, so its command channel (a process group of its
+# own) waits far longer than a render's collectives (parallel.mesh.PG_TIMEOUT_S)
+CHANNEL_TIMEOUT_S = 365 * 24 * 3600.0
+
+
+def check_devices(chunk_blocks: int, devices: int | None) -> None:
+    """The JAX daemon's check: a render's chunk splits evenly over the mesh."""
+    if devices and devices > 1 and chunk_blocks % devices:
+        raise ValueError(f"chunk_blocks ({chunk_blocks}) must divide evenly over "
+                         f"devices ({devices})")
 
 
 class RenderService:
@@ -76,20 +104,35 @@ class RenderService:
 
     def __init__(self, hrtf_dir=None, chunk_blocks: int = 2048, quiet: bool = True,
                  devices: int | None = None, *, device="cuda"):
-        """``devices`` above 1 (a mesh of cards behind the daemon) is not
-        ported and raises."""
+        """``devices`` above 1: a mesh of that many ranks behind the daemon.
+        Every rank of a world of at least ``devices`` ranks builds the
+        service (``main`` starts them); outside such a world it raises
+        ``make_mesh``'s "requested n devices, have m"."""
         from .cli.main import load_hrtf
         from .config import DEFAULT_CONFIG
         from .engine.renderer import Renderer, resolve_device
+        from .parallel import mesh as pm
 
-        if devices is not None and devices > 1:
-            raise NotImplementedError(f"devices={devices}: {DEVICES_NOT_PORTED}")
+        check_devices(chunk_blocks, devices)
         self.device = resolve_device(device)
         self.config = DEFAULT_CONFIG
-        self.db = load_hrtf(hrtf_dir, self.config, quiet=quiet)
         self.devices = devices
+        self.mesh = self._channel = None
+        if devices is not None and devices > 1:
+            import datetime
+
+            import torch.distributed as dist
+
+            self.mesh = pm.make_mesh(devices, ("blk",), device=self.device)
+            # every rank of the world takes every request (ranks past the
+            # mesh meet the others in the scenes' mesh set-up), on a channel
+            # that waits out the daemon's idle time
+            self._channel = dist.new_group(
+                backend="gloo", timeout=datetime.timedelta(seconds=CHANNEL_TIMEOUT_S))
+        self.rank, self.world = self._rank_and_world()
+        self.db = load_hrtf(hrtf_dir, self.config, quiet=quiet)
         self.renderer = Renderer(self.db, self.config, device=self.device,
-                                 chunk_blocks=chunk_blocks)
+                                 chunk_blocks=chunk_blocks, mesh=self.mesh)
         self._warm()
         # scene BatchRenderers persist across requests (each holds its
         # table on the card), keyed by (chunk, device) in render_scene_spec
@@ -142,16 +185,28 @@ class RenderService:
         from .engine.stream import StreamingSpatializer
         from .io import resample  # noqa: F401  (scipy.signal: a second on a first import)
 
+        from .parallel.mesh import in_mesh
+
         native.library()
         if self.device.type == "cuda":
             from .kernels import build
 
             build.build_all(LIBRARIES, geometries=[(self.config.frames_per_buffer,
                                                      self.config.pad_len)])
-        StreamingSpatializer(self.db, self.config, device=self.device).prime()
+        if self.rank == 0:  # the live sessions run on rank 0 alone
+            StreamingSpatializer(self.db, self.config, device=self.device).prime()
         fpb = self.config.frames_per_buffer
-        self.renderer.render(np.zeros(8 * fpb, np.float32),
-                             parse_trajectory("orbit:period=0.05").sample(8, self.config))
+        if in_mesh(self.mesh):  # every rank of a mesh, together
+            self.renderer.render(np.zeros(8 * fpb, np.float32),
+                                 parse_trajectory("orbit:period=0.05").sample(8, self.config))
+
+    def _rank_and_world(self) -> tuple[int, int]:
+        """This process's rank and the world's size: (0, 1) without a mesh."""
+        if self.mesh is None:
+            return 0, 1
+        import torch.distributed as dist
+
+        return dist.get_rank(), dist.get_world_size()
 
     def handle(self, req: dict) -> dict:
         cmd = req.get("cmd", "render")
@@ -169,19 +224,28 @@ class RenderService:
             # the kernels' launch counts since the process started, launch A
             # as "forward_distance" (a launch in one thread may race an
             # increment in another)
+            from .parallel.mesh import collectives
+
             launched = {k: v for k, v in fused_step.launches.items() if v}
             if n := sum(fused_step.forward_launches.values()):
                 launched["forward_distance"] = n
-            return {"id": rid, "ok": True, **self.stats, "launches": launched}
+            # rank 0's counts: its launches and the collectives it met
+            return {"id": rid, "ok": True, **self.stats, "launches": launched,
+                    "world": self.world, "collectives": dict(collectives)}
         if cmd == "shutdown":
             # stop live sessions first so their writers flush
             stopped, pending = [], []
-            with self._slock:
-                # one snapshot + flag under the lock: a racing registration
-                # either lands before the snapshot (and is quit + joined
-                # below) or sees the flag and is rejected
-                self._shutting_down = True
-                snapshot = self._streams
+            # on a mesh, between engine commands: the other ranks leave, once
+            engine = self._lock if self._channel is not None else contextlib.nullcontext()
+            with engine:
+                if self._channel is not None and not self._shutting_down:
+                    self._broadcast({"cmd": "shutdown"})
+                with self._slock:
+                    # one snapshot + flag under the lock: a racing registration
+                    # either lands before the snapshot (and is quit + joined
+                    # below) or sees the flag and is rejected
+                    self._shutting_down = True
+                    snapshot = self._streams
             for s in snapshot.values():
                 s["control"].quit = True
             for sid, s in snapshot.items():
@@ -225,15 +289,71 @@ class RenderService:
             except Exception as e:
                 self.stats["errors"] += 1
                 return {"id": rid, "ok": False, "error": f"{type(e).__name__}: {e}"}
-        fns = {"render": self._render, "scene": self._scene}
-        if cmd not in fns:
+        if cmd not in RANKED:
             return {"id": rid, "ok": False, "error": f"unknown cmd {cmd!r}"}
+        with self._lock:
+            if self._channel is not None:
+                if self._shutting_down:  # the other ranks have left
+                    return {"id": rid, "ok": False, "error": "daemon is shutting down"}
+                self._broadcast(req)
+            return {"id": rid, **self.run(req)}
+
+    # --- engine commands, on every rank of a mesh --------------------------
+
+    def run(self, req: dict) -> dict:
+        """One engine command on this rank: its inputs read, then rendered
+        (and written, on rank 0) -> the reply, rank 0's (the others' is
+        empty).  On a mesh the ranks' outcomes are gathered after each step:
+        a failure on any rank skips what follows on every rank and becomes
+        the error reply, with each rank's record."""
+        from .parallel import record
+
+        records, job = [], None
+        # on a mesh the ranks' walls hold their device time
+        sync = self.device if self.world > 1 else None
         try:
-            with self._lock:
-                return {"id": rid, **fns[cmd](req)}
+            for step, fn in (("read its inputs", lambda: self._prepare(req)),
+                             ("render", lambda: self._finish(job))):
+                try:
+                    out, rec = record.recorded(fn, sync)
+                    err = None
+                except Exception as e:
+                    rec, err = None, e
+                self._gather(rec, err, records, step)
+                if job is None:
+                    job = out
         except Exception as e:  # report, don't kill the daemon
             self.stats["errors"] += 1
-            return {"id": rid, "ok": False, "error": f"{type(e).__name__}: {e}"}
+            error = str(e) if isinstance(e, _RankFailed) else f"{type(e).__name__}: {e}"
+            return {"ok": False, "error": error, **({"ranks": records} if records else {})}
+        return {**job["reply"], **({"ranks": records} if records else {})}
+
+    def _broadcast(self, req: dict) -> None:
+        """Rank 0 hands ``req`` to every rank (``follow``)."""
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([req], src=0, group=self._channel)
+
+    def _gather(self, rec, err, records: list, step: str):
+        """Every rank's outcome of ``step`` (its record, or its error) on
+        every rank; raise _RankFailed naming the failed ranks, else True.
+        Without a mesh only this rank's: a local error is re-raised."""
+        if self._channel is None:
+            if err is not None:
+                raise err
+            return True
+        mine = {**(rec or {"rank": self.rank}),
+                "error": None if err is None else f"{type(err).__name__}: {err}"}
+        import torch.distributed as dist
+
+        every = [None] * self.world
+        dist.all_gather_object(every, mine, group=self._channel)
+        records.append({"step": step, "ranks": every})
+        failed = [r for r in every if r["error"] is not None]
+        if failed:
+            raise _RankFailed("; ".join(f"rank {r['rank']} could not {step}: {r['error']}"
+                                        for r in failed))
+        return True
 
     def _write(self, req: dict, out: np.ndarray, what: str) -> None:
         from .io.wavio import resolve_float_bits, write_wav
@@ -244,10 +364,31 @@ class RenderService:
         write_wav(req["output"], out, self.config.sample_rate,
                   bits=resolve_float_bits(int(req.get("bits", 24)), ffmt), float_format=ffmt)
 
-    def _render(self, req: dict) -> dict:
+    def _prepare(self, req: dict) -> dict:
+        """An engine command's inputs, read with no collective -> its job."""
+        cmd = req.get("cmd", "render")
+        return (self._render_inputs if cmd == "render" else self._scene_inputs)(req)
+
+    def _finish(self, job: dict) -> bool:
+        """Render a prepared job (the collectives of a mesh inside), write its
+        WAV on rank 0 and fill in its reply."""
+        t0 = time.time()
+        out, nb = job["render"]()
+        dt = time.time() - t0
+        job["reply"] = {}
+        if self.rank == 0:
+            self._write(job["req"], out, job["what"])
+            self.stats["renders"] += 1
+            self.stats["blocks"] += nb
+            self.stats["seconds"] += dt
+            job["reply"] = job["reply_of"](nb, dt)
+        return True
+
+    def _render_inputs(self, req: dict) -> dict:
         from .cli.main import parse_trajectory
         from .config import ProcessType
         from .io.resample import read_wav_mono_at
+        from .parallel.mesh import in_mesh
 
         cfg = self.config
         signal = read_wav_mono_at(req["input"], cfg.sample_rate)
@@ -269,21 +410,23 @@ class RenderService:
         positions = traj.sample(nb, cfg)
         ptype = ProcessType(int(req.get("type", 0)))
 
-        t0 = time.time()
-        out = self.renderer.render(signal, positions, ptype)
-        dt = time.time() - t0
-        self._write(req, out, "render")
-        self.stats["renders"] += 1
-        self.stats["blocks"] += nb
-        self.stats["seconds"] += dt
-        audio_s = nb * cfg.block_duration
-        return {
-            "ok": True,
-            "output": req["output"],
-            "blocks": nb,
-            "seconds": round(dt, 4),
-            "rtf": round(audio_s / dt, 2) if dt > 0 else None,
-        }
+        def render():
+            # a rank of a larger world than the mesh renders nothing
+            out = (self.renderer.render(signal, positions, ptype) if in_mesh(self.mesh)
+                   else None)
+            return out, nb
+
+        def reply(nb, dt):
+            audio_s = nb * cfg.block_duration
+            return {
+                "ok": True,
+                "output": req["output"],
+                "blocks": nb,
+                "seconds": round(dt, 4),
+                "rtf": round(audio_s / dt, 2) if dt > 0 else None,
+            }
+
+        return {"req": req, "what": "render", "render": render, "reply_of": reply}
 
     # --- live stream session (interactive source control) -----------------
 
@@ -503,30 +646,45 @@ class RenderService:
             "crossfades": s["spat"].crossfades,
         }
 
-    def _scene(self, req: dict) -> dict:
+    def _scene_inputs(self, req: dict) -> dict:
         """Multi-source scene mix: {"cmd": "scene", "scene": {...} | path}."""
-        from .cli.main import render_scene_spec
+        from .cli.main import render_scene_inputs, scene_inputs
 
         scene = req["scene"]
         if isinstance(scene, str):
             scene = json.loads(Path(scene).read_text())
-        t0 = time.time()
-        out, nb = render_scene_spec(
-            scene, self.db, self.config,
-            num_blocks=req.get("blocks"), duration=req.get("duration"),
-            chunk_blocks=(None if req.get("chunk_blocks") is None
-                          else int(req["chunk_blocks"])),
-            devices=self.devices,
-            renderer_cache=self._scene_renderers,
-            device=self.device,
-        )
-        dt = time.time() - t0
-        self._write(req, out, "scene")
-        self.stats["renders"] += 1
-        self.stats["blocks"] += nb
-        self.stats["seconds"] += dt
-        return {"ok": True, "output": req["output"], "blocks": nb,
-                "sources": len(scene.get("sources", [])), "seconds": round(dt, 4)}
+        chunk = None if req.get("chunk_blocks") is None else int(req["chunk_blocks"])
+        inputs = scene_inputs(scene, self.config, num_blocks=req.get("blocks"),
+                              duration=req.get("duration"), chunk_blocks=chunk)
+
+        def render():
+            return render_scene_inputs(inputs, self.db, self.config, chunk_blocks=chunk,
+                                       devices=self.devices,
+                                       renderer_cache=self._scene_renderers, device=self.device)
+
+        def reply(nb, dt):
+            return {"ok": True, "output": req["output"], "blocks": nb,
+                    "sources": len(scene.get("sources", [])), "seconds": round(dt, 4)}
+
+        return {"req": req, "what": "scene", "render": render, "reply_of": reply}
+
+
+class _RankFailed(RuntimeError):
+    """A step of an engine command failed on some rank of the mesh."""
+
+
+def follow(service: RenderService) -> None:
+    """A rank past 0 of a meshed daemon: run every engine command rank 0
+    broadcasts, until its shutdown."""
+    import torch.distributed as dist
+
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=service._channel)
+        req = box[0]
+        if req.get("cmd") == "shutdown":
+            return
+        service.run(req)
 
 
 def serve(socket_path: str | Path, service: RenderService) -> None:
@@ -593,8 +751,12 @@ def main(argv=None) -> int:
     p.add_argument("--hrtf-dir", default=None)
     p.add_argument("--chunk-blocks", type=int, default=2048)
     p.add_argument("--devices", type=int, default=None,
-                   help="shard renders over N cards (not ported above 1 for the "
-                        "daemon: ROADMAP queue 1 item 9)")
+                   help="serve on a mesh of N ranks (the command re-executes itself as N "
+                        "ranks): renders sharded over their blocks, scenes over their "
+                        "sources; rank 0 serves the socket")
+    p.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                   help="the mesh's torch.distributed backend (default: NCCL on the card, a "
+                        "card a rank; gloo on the CPU; gloo lets ranks share a card)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda = the card (the default; raises without one); cpu = the "
                         "kernels' plain twins")
@@ -611,14 +773,31 @@ def main(argv=None) -> int:
         print(json.dumps(resp))
         return 0 if resp.get("ok") else 1
 
+    if args.devices is not None and args.devices < 1:
+        raise SystemExit(f"--devices {args.devices} must be positive")
+    device = args.device
     try:
+        check_devices(args.chunk_blocks, args.devices)  # before any rank starts
+        if args.devices and args.devices > 1:
+            from .parallel.mesh import ensure_world
+
+            device = ensure_world(args.devices, device=args.device, backend=args.backend)
         service = RenderService(args.hrtf_dir, chunk_blocks=args.chunk_blocks,
-                                devices=args.devices, device=args.device)
-    except (RuntimeError, NotImplementedError) as e:
+                                devices=args.devices, device=device)
+    except (RuntimeError, ValueError) as e:
         raise SystemExit(f"jefferson-torch-serve: {e}")
-    print(f"jefferson-torch-serve: listening on {args.socket} ({service.device})",
-          file=sys.stderr)
-    serve(args.socket, service)
+    if service.rank == 0:
+        print(f"jefferson-torch-serve: listening on {args.socket} ({service.device}"
+              + (f", {service.world} ranks" if service.world > 1 else "") + ")",
+              file=sys.stderr)
+        serve(args.socket, service)
+    else:
+        follow(service)
+    if service.mesh is not None:  # every rank past the shutdown, then the world ends
+        import torch.distributed as dist
+
+        dist.barrier(group=service._channel)
+        dist.destroy_process_group()
     return 0
 
 

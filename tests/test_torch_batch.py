@@ -293,17 +293,19 @@ def test_scene_arm_matches_jax_and_oracle(db, tdb, config, castanets, name, monk
 def test_batch_renderer_refuses_what_is_not_ported(tdb):
     with pytest.raises(TypeError, match="mesh must be a torch.distributed DeviceMesh"):
         BatchRenderer(tdb, device="cpu", mesh=object())
-    # fpb 64 lies in the card's envelope (with no card here only the device
-    # is refused); fpb 16 lies outside it and is refused before any launch
-    cfg64 = EngineConfig(frames_per_buffer=64, hrtf_len=512)
-    tdb64 = database_from_numpy(tdb.spectra, tdb.hrirs, dataclasses.asdict(cfg64))
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="is_available"):
-            BatchRenderer(tdb64, device="cuda")
-    cfg16 = EngineConfig(frames_per_buffer=16, hrtf_len=512)
-    tdb16 = database_from_numpy(tdb.spectra, tdb.hrirs, dataclasses.asdict(cfg16))
-    with pytest.raises(ValueError, match="fpb 16, pad 1024 lies outside.*queue 1 item 11"):
-        BatchRenderer(tdb16, device="cuda")
+    # the card takes fpb 64 and fpb 16 (with no card here only the device is
+    # refused); fpb 2^24 needs more t-tiles than a grid's y holds, and is
+    # refused before any launch, naming that resource
+    for fpb in (64, 16):
+        cfg = EngineConfig(frames_per_buffer=fpb, hrtf_len=512)
+        tdb_f = database_from_numpy(tdb.spectra, tdb.hrirs, dataclasses.asdict(cfg))
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="is_available"):
+                BatchRenderer(tdb_f, device="cuda")
+    big = EngineConfig(frames_per_buffer=1 << 24, hrtf_len=512)
+    tdb_big = dataclasses.replace(tdb, config=big)
+    with pytest.raises(ValueError, match="t-tiles of 128 columns exceed the 65535 CTAs"):
+        BatchRenderer(tdb_big, device="cuda")
 
 
 def test_unfused_chain_unaligned_geometry_matches_jax():

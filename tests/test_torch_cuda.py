@@ -7,6 +7,7 @@ This file imports no jax, so a machine without jax runs it on its own:
 """
 
 import ctypes
+import dataclasses
 import time
 
 import numpy as np
@@ -1032,6 +1033,24 @@ def test_blend_rows_on_the_card_is_blend_cat(card_db, r):
     assert torch.equal(tdb.blend_rows(cat, i_d.long(), w_d.double()), got)
 
 
+@pytest.mark.parametrize("pad", [4096, 8192])
+def test_blend_rows_on_the_card_at_the_wide_tables(card, pad):
+    """Row 12 at pad 4096 and 8192 (tables of 4 x 2,049 and 4 x 4,097
+    columns, 700 rows): both forms bit-equal to blend_cat at 1, 264 and
+    4,096 rows, ids and weights random, some outside the table."""
+    bins = pad // 2 + 1
+    rng = np.random.default_rng(pad)
+    table = torch.from_numpy(rng.standard_normal((700, 4 * bins)).astype(np.float32)).to(card)
+    for r in (1, 264, 4096):
+        idx = torch.from_numpy(rng.integers(-2, 702, (r, 4)).astype(np.int32)).to(card)
+        w = torch.from_numpy(rng.random((r, 4)).astype(np.float32)).to(card)
+        want = tfs.blend_cat(table, *tfs._in_table(idx, w, table.shape[0]))
+        got = tdb.blend_rows(table, idx, w)
+        double = tdb._cuda(table.reshape(-1), idx, w, 4 * bins, form=tfs.DOUBLE)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(double, want)
+
+
 def test_blend_rows_on_the_card_refuses_what_it_does_not_take(card):
     flat, idx, w, c_pad = _blend(card, 8, 2052)
     table = flat.view(-1, c_pad)
@@ -1357,6 +1376,44 @@ def test_mesh_renders_in_two_gloo_ranks_on_the_card(card_db, tmp_path):
                 assert sum(case["launches"].values()) >= chunks, (name, case["launches"])
 
 
+def test_meshed_daemon_on_gloo_ranks_on_the_card(tmp_path):
+    """serve --devices 2 --backend gloo (two ranks on cuda:0) against the
+    meshless daemon in this process and the unsharded card renders:
+    chip_smoke.py's check (``meshed_serve``) on a 1,024-block render and a
+    4-source scene of 256 blocks."""
+    import threading
+
+    from jefferson_tpu_torch import serve as tserve
+    from jefferson_tpu_torch.io.wavio import write_wav
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    smoke = _smoke()
+    cfg = DEFAULT_CONFIG
+    src = tmp_path / "in.wav"
+    noise = (np.random.default_rng(0).standard_normal(1024 * 128) * 0.2).astype(np.float32)
+    write_wav(src, noise, cfg.sample_rate, bits=32, float_format=True)
+    render_req = {"cmd": "render", "input": str(src), "output": str(tmp_path / "render.wav"),
+                  "trajectory": smoke.SERVE_ORBIT, "blocks": 1024, "float": True, "bits": 32}
+    scene_req = {"cmd": "scene", "blocks": 256, "float": True, "bits": 32, "scene": {"sources": [
+        {"input": str(src), "trajectory": spec, "gain": smoke.SERVE_SCENE_GAIN}
+        for spec in smoke.SERVE_SCENE[:smoke.MESH_SCENE_S]]}}
+    sock = tmp_path / "meshless.sock"
+    service = tserve.RenderService()
+    threading.Thread(target=tserve.serve, args=(sock, service), daemon=True).start()
+    for _ in range(400):
+        if sock.exists():
+            break
+        time.sleep(0.05)
+    try:
+        assert tserve.request(sock, render_req)["ok"]
+        assert tserve.request(sock, {**scene_req, "output": str(tmp_path / "scene4.wav")})["ok"]
+    finally:
+        tserve.request(sock, {"cmd": "shutdown"})
+    launched = smoke.meshed_serve(cfg, tmp_path, render_req, scene_req)
+    assert launched is not None and sum(launched.values()) >= 2
+
+
 def test_mesh_nccl_refuses_two_ranks_on_one_card(card_db, monkeypatch):
     from jefferson_tpu_torch.parallel import mesh as pm
 
@@ -1367,10 +1424,10 @@ def test_mesh_nccl_refuses_two_ranks_on_one_card(card_db, monkeypatch):
         pm.init_world("nccl", device="cuda")
 
 
-# ---- every block and transform size in the card's envelope ---------------
+# ---- every block and transform size the JAX package runs ------------------
 
-def _smoke_geometries() -> dict:
-    """chip_smoke.py's phase geometry's table: name -> (fpb, HRIR taps)."""
+def _smoke():
+    """chip_smoke.py as a module."""
     import importlib.util
     from pathlib import Path
 
@@ -1378,10 +1435,12 @@ def _smoke_geometries() -> dict:
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    return smoke.GEOMETRIES
+    return smoke
 
 
-GEOMETRIES = _smoke_geometries()
+# phase geometry's table (name -> (fpb, HRIR taps)) and fpb 2 (EngineConfig's
+# least block, Q 512): too many blocks for a whole render in the smoke, held here
+GEOMETRIES = {**_smoke().GEOMETRIES, "f2": (2, 512)}
 _geo_dbs = {}
 
 
@@ -1434,8 +1493,9 @@ def test_geometry_kernel_forms_match_their_twins(name):
     if forms.q:
         for s_, nb, nd in ((3, 88, None), (2, 4, 3), (1, 1, None)):
             ops = bench.forward_operands(s_, nb, dev, n_dist=nd, config=cfg)
-            names = [tfs.FWD_TILE] + ([tfs.FWD_PRODUCT] if forms.product else []) + (
-                [tfs.FWD_FEW] if nb <= forms.few_nb else [])
+            names = ([tfs.FWD_TILE] if forms.tile else []) + (
+                [tfs.FWD_PRODUCT] if forms.product else []) + (
+                [tfs.FWD_FEW] if nb <= forms.few_nb else []) + [tfs.FWD_PLANES]
             got = [tfs._forward_cuda(*ops, form=f, **geo) for f in names]
             want = tfs._forward_reference(*ops, **geo)
             peak = max(float(w.abs().max()) for w in want)
@@ -1498,14 +1558,26 @@ def test_geometry_renders_on_the_card_match_the_twins(name):
 
 @pytest.mark.parametrize("fpb,taps", [(16, 512), (128, 3969)])
 def test_geometry_outside_the_envelope_raises_before_any_launch(fpb, taps):
+    """The geometries the card once refused (fpb 16, pad 4096) build and
+    run; a geometry past the grid's y (launch B's t-tiles) raises before any
+    launch, naming that resource."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from jefferson_tpu_torch.config import EngineConfig
 
-    db = synthetic_database(EngineConfig(frames_per_buffer=fpb, hrtf_len=taps))
+    cfg = EngineConfig(frames_per_buffer=fpb, hrtf_len=taps)
+    db = synthetic_database(cfg)
+    sig = (np.random.default_rng(4).standard_normal(40 * fpb) * 0.2).astype(np.float32)
+    pos = bench.helix_positions(40, cfg=cfg)
     tfs.reset_launches()
-    for make in (lambda: Renderer(db, device="cuda"),
-                 lambda: StreamingSpatializer(db, device="cuda")):
-        with pytest.raises(ValueError, match="queue 1 item 11"):
+    got = Renderer(db, device="cuda", chunk_blocks=16).render(sig, pos)
+    assert sum(tfs.launches.values()) >= 3
+    want = Renderer(db, device="cpu", chunk_blocks=16).render(sig, pos)
+    assert float(np.abs(got - want).max()) <= 1e-6
+    big = dataclasses.replace(db, config=EngineConfig(frames_per_buffer=1 << 24, hrtf_len=taps))
+    tfs.reset_launches()
+    for make in (lambda: Renderer(big, device="cuda"),
+                 lambda: StreamingSpatializer(big, device="cuda")):
+        with pytest.raises(ValueError, match="t-tiles of 128 columns exceed the 65535 CTAs"):
             make()
     assert not any(tfs.launches.values())

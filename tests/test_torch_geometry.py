@@ -1,19 +1,36 @@
 """The port at block and transform sizes other than fpb 128 / pad 1024, on
 the CPU: each kernel's plain twin against the JAX package's Pallas kernel
 in interpret mode, the renderers and the streaming engine against the JAX
-package's at every named geometry with the JAX dispatch's arms, the card's
-envelope, and the per-geometry library keys.
+package's at every named geometry with the JAX dispatch's arms, the
+geometries the card takes and the one resource it refuses for, and the
+per-geometry library keys.
 
 The named geometries (44.1 kHz): f64 (64-sample blocks, the 512-tap set:
 pad 1024, Q 16), f256 (Q 4), f64t256 (64-sample blocks of a 256-tap set:
 pad 512), f1024 (1024-sample blocks: pad 2048, 1025 bins), and the two
 histories of partial blocks f100 and f441 (10 ms), which take the
-apply-only kernels (rows 7 and 8) on XD computed outside them.
+apply-only kernels (rows 7 and 8) on XD computed outside them; and the
+geometries the card once refused: f16, f4 and f2 (low-latency blocks: Q
+64, 256 and 512 at pad 1024), f2048 (2,048-sample blocks: pad 4096, 16
+t-tiles) and f128t2048 (a 2,048-tap set at the default block: pad 4096, Q
+32).
+
+At Q 256 and 512 (f4, f2) a Pallas kernel with the sliding forward, and a
+JAX render through one, takes 40-300 s to build (the kernel's twiddle loop
+is unrolled Q times), so there the forward twin is held to the JAX
+package's sliding forward (``ops.fft.rfft_sliding_split_batched``, eager),
+rows 7 and 8 to their Pallas kernels, and the renders and scenes to the
+JAX package's oracle (``render_oracle``) with the arms of the JAX
+dispatch run with its chunk programs stubbed out; the streaming forms to
+the JAX stream as everywhere.  f16, f2048 and f128t2048 face the Pallas
+kernels too, and f2048 one JAX render.
 
 Tolerances: 5e-7 max-abs for a twin against its Pallas kernel (the JAX
 package's fused-vs-unfused gate, tests/test_batch_parallel.py:834), 1e-5
-for row 8 (tests/test_pallas.py:56, standard-normal planes), and 1e-6 for
-a render against the JAX render (tests/test_engine_parity.py:23).
+for row 8 (tests/test_pallas.py:56, standard-normal planes), 1e-6 of the
+planes' peak for the forward (FWD_REL, tests/test_torch_ops.py), and 1e-6
+for a render against the JAX render or the oracle
+(tests/test_engine_parity.py:23).
 """
 
 import dataclasses
@@ -28,12 +45,15 @@ from jefferson_tpu import EngineConfig as JaxConfig
 from jefferson_tpu import synthetic_database
 from jefferson_tpu.engine import stream as jstream
 from jefferson_tpu.engine.batch import BatchRenderer as JaxBatchRenderer
+from jefferson_tpu.engine.renderer import Renderer as JaxRenderer
+from jefferson_tpu.ops.fft import rfft_sliding_split_batched as j_sliding
 from jefferson_tpu.ops.filters import cmul as jcmul
 from jefferson_tpu.ops.filters import distance_factors_split as jdistance
 from jefferson_tpu.ops.filters import distance_phase_split
 from jefferson_tpu.pallas import fused_apply as jfa
 from jefferson_tpu.pallas import fused_step as jfs
 from jefferson_tpu.pallas.fused_spatializer import fused_apply as j_fused_apply
+from jefferson_tpu.oracle.reference import render_oracle
 from jefferson_tpu.pallas.fused_spatializer import kernel_planes as j_kernel_planes
 from jefferson_tpu.trajectory.trajectory import CircularOrbit
 from jefferson_tpu_torch import bench
@@ -47,22 +67,30 @@ from jefferson_tpu_torch.kernels import fused_apply as tfa
 from jefferson_tpu_torch.kernels import fused_spatializer as tsp
 from jefferson_tpu_torch.kernels import fused_step as tfs
 
-from test_torch_batch import record_jax_arms
-from test_torch_renderer import _hold, _jax_render, _orbit
+from test_torch_batch import jax_arm, record_jax_arms
+from test_torch_renderer import _CACHES, _Recorder, _hold, _jax_render, _orbit
 
 torch.set_num_threads(1)
 
 TOL = 5e-7
 TOL_ROW8 = 1e-5
 TOL_JAX = 1e-6
+FWD_REL = 1e-6
 
 # name: (frames_per_buffer, HRIR taps)
 GEOMETRIES = {
     "f64": (64, 512), "f256": (256, 512), "f64t256": (64, 256), "f1024": (1024, 512),
     "f100": (100, 512), "f441": (441, 512),
+    "f16": (16, 512), "f4": (4, 512), "f2": (2, 512), "f2048": (2048, 512),
+    "f128t2048": (128, 2048),
 }
-ALIGNED = ("f64", "f256", "f64t256", "f1024")
+# the whole-block geometries whose Pallas kernels interpret in seconds
+ALIGNED = ("f64", "f256", "f64t256", "f1024", "f16", "f2048", "f128t2048")
 RENDERED = ("f64", "f256", "f64t256", "f100", "f441")
+# the geometries past the card's old envelope, and those of them at Q 256
+# and 512 (the module docstring)
+NEW = ("f16", "f4", "f2", "f2048", "f128t2048")
+LARGE_Q = ("f4", "f2")
 
 
 @functools.cache
@@ -118,7 +146,7 @@ def test_twins_match_the_pallas_kernels_at_each_geometry(name, form):
     assert np.abs(got - _pallas(fn, args, kw, tb)).max() <= TOL
 
 
-@pytest.mark.parametrize("name", ("f64", "f256", "f64t256", "f1024", "f441"))
+@pytest.mark.parametrize("name", ("f64", "f256", "f64t256", "f1024", "f441") + NEW)
 def test_row_8_twin_matches_the_pallas_kernel_at_each_geometry(name):
     """Row 8's apply-only entry on 16 rows of standard-normal planes, a
     crossfade on some, every bracket a random table row."""
@@ -144,6 +172,50 @@ def test_row_8_twin_matches_the_pallas_kernel_at_each_geometry(name):
                dict(bins=cfg.num_bins, fpb=cfg.frames_per_buffer))
     assert got.shape == want.shape == (b, cfg.frames_per_buffer, 2)
     assert np.abs(got - want).max() <= TOL_ROW8
+
+
+@pytest.mark.parametrize("name", LARGE_Q)
+def test_apply_twin_matches_the_pallas_kernel_at_large_q(name):
+    """Row 7 (XD computed outside it) at Q 256 and 512, against its Pallas
+    kernel interpreted."""
+    _, tdb = _dbs(name)
+    make, opts, tb = STEPS["apply"]
+    fn, args, kw = make(tdb, device="cpu", seed=5, **opts)
+    got = _run(fn, args, kw)
+    assert got.shape == (16, 2 * GEOMETRIES[name][0])
+    assert np.abs(got - _pallas(fn, args, kw, tb)).max() <= TOL
+
+
+@pytest.mark.parametrize("name", ("f16",) + LARGE_Q)
+def test_forward_twin_matches_the_jax_sliding_forward_at_large_q(name):
+    """Rows 1-6's launch A twin (the sliding forward times the distance
+    planes, per row and by triple) against the JAX package's sliding
+    forward and distance planes, two streams of 12 blocks."""
+    _, tdb = _dbs(name)
+    cfg = tdb.config
+    fpb, pad, bins = cfg.frames_per_buffer, cfg.pad_len, cfg.num_bins
+    q, s, nb = pad // fpb, 2, 12
+    rng = np.random.default_rng(q)
+    streams = (rng.standard_normal((s, (nb + q - 1) * fpb)) * 0.2).astype(np.float32)
+    uh, ul, fr = distance_phase_split(cfg.fsvs, rng.random(s * nb).astype(np.float32) + 0.5, bins)
+    jxr, jxi = j_sliding(jnp.asarray(streams), nb, fpb, pad)
+    jdr, jdi = jdistance(jnp.asarray(uh), jnp.asarray(ul), jnp.asarray(fr), bins)
+    want = [np.asarray(p).reshape(s * nb, bins)
+            for p in jcmul(jxr.reshape(s * nb, bins), jxi.reshape(s * nb, bins), jdr, jdi)]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    col = lambda a: t(a)[:, None]
+    got = tfs._forward_reference(t(streams), nb, col(uh), col(ul), col(fr), None, None,
+                                 pad_len=pad, bins=bins, fpb=fpb)
+    peak = max(np.abs(w).max() for w in want)
+    assert max(np.abs(g.numpy() - w).max() for g, w in zip(got, want)) <= FWD_REL * peak
+    # by triple: row r takes triple r % 3 of the first three rows' planes
+    sel = torch.arange(s * nb, dtype=torch.int32)[:, None] % 3
+    got = tfs._forward_reference(t(streams), nb, col(uh), col(ul), col(fr), sel, 3,
+                                 pad_len=pad, bins=bins, fpb=fpb)
+    idx = sel[:, 0].numpy()
+    want = [np.asarray(p) for p in jcmul(jxr.reshape(s * nb, bins), jxi.reshape(s * nb, bins),
+                                          jdr[idx], jdi[idx])]
+    assert max(np.abs(g.numpy() - w).max() for g, w in zip(got, want)) <= FWD_REL * peak
 
 
 def _signal(blocks, fpb, seed):
@@ -177,6 +249,84 @@ def test_renderer_matches_jax_at_each_geometry(name, case, monkeypatch):
     assert np.abs(got - want).max() <= TOL_JAX
 
 
+def _stub_jax_renderer(r, fpb):
+    """A JAX Renderer's chunk programs stubbed out: it plans and dispatches
+    every chunk, runs no kernel."""
+    jax_stub = lambda nb, *a, **k: (lambda *args: (jnp.zeros((nb, fpb, 2), jnp.float32), args[1]))
+    for mk in ("_mk_fd_dedup_fused", "_mk_fd_onehot", "_mk_fd_onehot_grp", "_mk_fd_fused",
+               "_mk_fd_dedup", "_mk_fd_complex"):
+        setattr(r, mk, jax_stub)
+
+
+def _jax_arms(db, sig, pos, **kw):
+    """The arms the JAX dispatch takes on every chunk of a render."""
+    r = JaxRenderer(db, fused=True, **kw)
+    _stub_jax_renderer(r, db.config.frames_per_buffer)
+    arms = []
+    for cache, arm_of in _CACHES.items():
+        setattr(r, cache, _Recorder(arm_of, arms))
+    r.render(sig, pos)
+    return arms
+
+
+def _oracle(db, sig, pos):
+    return render_oracle(sig, db, [tuple(p) for p in pos], db.config, initial_old=(0.0, 0.0))
+
+
+@pytest.mark.parametrize("case", list(RENDERS))
+@pytest.mark.parametrize("name", NEW)
+def test_renderer_matches_the_oracle_with_the_jax_arms_at_the_new_geometries(name, case,
+                                                                              monkeypatch):
+    """The dedup+fused, one-hot and gather arms past the old envelope: each
+    chunk on the JAX dispatch's arm, the render within 1e-6 of the JAX
+    package's oracle (f2 at 24 blocks); at f2048 the orbit also against
+    the JAX render."""
+    db, tdb = _dbs(name)
+    pos, cb, opts = RENDERS[case]
+    if name == "f2":
+        pos, cb = pos[:24], 8
+    if case == "gather":  # the orbit's filters overflow the one-hot gate
+        monkeypatch.setattr(jfs, "MAX_ONEHOT_U", 4)
+        monkeypatch.setattr(tfs, "MAX_ONEHOT_U", 4)
+    sig = _signal(len(pos), GEOMETRIES[name][0], 3)
+    r = Renderer(tdb, device="cpu", chunk_blocks=cb, **opts)
+    got = r.render(sig, pos)
+    assert r.dispatch == _jax_arms(db, sig, pos, chunk_blocks=cb, **opts)
+    assert len(r.dispatch) == 3
+    assert np.abs(got - _oracle(db, sig, pos)).max() <= TOL_JAX
+    if case == "orbit" and name == "f2048":
+        want, _ = _jax_render(db, sig, pos, (0.0, 0.0), chunk_blocks=cb, fused=True, **opts)
+        assert np.abs(got - want).max() <= TOL_JAX
+
+
+@pytest.mark.parametrize("scene", ["hold", "movers"])
+@pytest.mark.parametrize("name", NEW)
+def test_batch_renderer_matches_the_oracle_with_the_jax_arms_at_the_new_geometries(name, scene):
+    """Two sources of 24 blocks in chunks of 8 (f2: 16 blocks): the hold
+    scene's and the movers' arms, each source against the JAX oracle."""
+    db, tdb = _dbs(name)
+    s, nb = 2, (16 if name == "f2" else 24)
+    pos = (bench.scene_hold_positions(s, nb, blocks_per_step=10) if scene == "hold"
+           else bench.scene_mover_positions(s, nb))
+    fpb = GEOMETRIES[name][0]
+    signals = np.stack([_signal(nb, fpb, 7 + i) for i in range(s)])
+    jr = JaxBatchRenderer(db, chunk_blocks=8, fused=True)
+    arms = []
+
+    def logged(n, **key):
+        arms.append(jax_arm(n, **key))
+        return lambda *args, **kw: (jnp.zeros((args[1].shape[0], n, fpb, 2), jnp.float32),
+                                    args[1])
+
+    jr._get_fn = logged
+    jr.render(signals, pos)
+    r = BatchRenderer(tdb, device="cpu", chunk_blocks=8)
+    got = r.render(signals, pos)
+    assert r.dispatch == arms and len(arms) == nb // 8
+    for i in range(s):
+        assert np.abs(got[i] - _oracle(db, signals[i], pos[i])).max() <= TOL_JAX
+
+
 @pytest.mark.parametrize("scene", ["hold", "movers"])
 @pytest.mark.parametrize("name", RENDERED)
 def test_batch_renderer_matches_jax_at_each_geometry(name, scene):
@@ -197,7 +347,7 @@ def test_batch_renderer_matches_jax_at_each_geometry(name, scene):
     assert np.abs(got - want).max() <= TOL_JAX
 
 
-@pytest.mark.parametrize("name", RENDERED)
+@pytest.mark.parametrize("name", RENDERED + NEW)
 def test_streaming_forms_match_jax_at_each_geometry(name):
     """``render_scan`` in chunks, and ``StreamingSpatializer`` moving and
     held, at pipeline latency 0 and 1, against the JAX stream."""
@@ -227,8 +377,8 @@ def _pretend_a_card(monkeypatch):
 
 @pytest.mark.parametrize("name", list(GEOMETRIES))
 def test_the_card_takes_every_named_geometry(name, monkeypatch):
-    """Inside the envelope the engines' card checks pass (the kernels build
-    for the geometry at their first launch)."""
+    """The engines' card checks pass at every named geometry (the kernels
+    build for it at their first launch)."""
     _, tdb = _dbs(name)
     _pretend_a_card(monkeypatch)
     check_card_geometry(tdb.config)
@@ -237,43 +387,65 @@ def test_the_card_takes_every_named_geometry(name, monkeypatch):
 
 @pytest.mark.parametrize("fpb,taps", [(16, 512), (128, 3969), (2048, 64)])
 def test_the_card_refuses_a_geometry_outside_the_envelope(fpb, taps, monkeypatch):
-    """fpb 16 (Q 64 at pad 1024), pad 4096 and fpb 2048 raise on "cuda"
-    before any launch, naming the geometry and the ROADMAP item."""
+    """fpb 16 (Q 64 at pad 1024), pad 4096 and fpb 2048, which the card
+    once refused, pass its checks: launch A's planes form and launch B take
+    them.  What the card still refuses names its resource, before any
+    launch: launch B's t-tiles past the grid's y (fpb 2^24)."""
     cfg = EngineConfig(frames_per_buffer=fpb, hrtf_len=taps)
     assert cfg.frames_per_buffer < 32 or cfg.frames_per_buffer > 1024 or cfg.pad_len > 2048
+    assert tfs.card_refusal(fpb, cfg.pad_len) is None
+    tfs.check_geometry(fpb, cfg.pad_len)
+    check_card_geometry(cfg)
+    big = EngineConfig(frames_per_buffer=1 << 24, hrtf_len=taps)
     _, tdb = _dbs("f64")
-    tdb = dataclasses.replace(tdb, config=cfg)
+    tdb = dataclasses.replace(tdb, config=big)
     _pretend_a_card(monkeypatch)
-    match = f"fpb {fpb}, pad {cfg.pad_len} lies outside the card's envelope.*queue 1 item 11"
+    match = (f"fpb {1 << 24}, pad {big.pad_len}: launch B's 131072 t-tiles of 128 columns "
+             f"exceed the 65535 CTAs a grid's y holds")
     before = dict(tfs.launches)
     for make in (lambda: Renderer(tdb, device="cuda"),
-                 lambda: tstream.StreamingSpatializer(tdb, cfg, device="cuda"),
+                 lambda: tstream.StreamingSpatializer(tdb, big, device="cuda"),
                  lambda: tstream.render_scan(np.zeros(64, np.float32), tdb,
-                                             [(0.0, 0.0, 1.0)], cfg, device="cuda"),
+                                             [(0.0, 0.0, 1.0)], big, device="cuda"),
                  lambda: BatchRenderer(tdb, device="cuda")):
         with pytest.raises(ValueError, match=match):
             make()
     assert tfs.launches == before
+    with pytest.raises(ValueError, match="pad 1000 is not a power of two"):
+        tfs.check_geometry(fpb, 1000)
 
 
 def test_geometry_forms_follow_the_sources_rules():
     """The forms each named geometry's library has (csrc/fused_forward.cuh;
     the card tests hold the libraries' own report to these)."""
     f = tfs.geometry_forms
-    assert f(128, 1024) == tfs.Forms(128, 1024, 513, 8, 9, True, True, True, True)
-    assert f(64, 1024) == tfs.Forms(64, 1024, 513, 16, 1, True, True, False, False)
-    assert f(256, 1024) == tfs.Forms(256, 1024, 513, 4, 5, True, True, False, False)
-    assert f(512, 1024) == tfs.Forms(512, 1024, 513, 2, 0, True, True, False, False)
-    assert f(1024, 2048) == tfs.Forms(1024, 2048, 1025, 2, 0, True, True, False, False)
-    assert f(64, 512) == tfs.Forms(64, 512, 257, 8, 9, True, True, False, False)
-    assert f(100, 1024) == tfs.Forms(100, 1024, 513, 0, 0, False, True, False, False)
-    assert f(441, 1024) == tfs.Forms(441, 1024, 513, 0, 0, False, False, False, False)
-    assert f(32, 64) == tfs.Forms(32, 64, 33, 2, 15, False, False, False, False)
+    assert f(128, 1024) == tfs.Forms(128, 1024, 513, 8, 9, True, True, True, True, True)
+    assert f(64, 1024) == tfs.Forms(64, 1024, 513, 16, 1, True, True, False, False, True)
+    assert f(256, 1024) == tfs.Forms(256, 1024, 513, 4, 5, True, True, False, False, True)
+    assert f(512, 1024) == tfs.Forms(512, 1024, 513, 2, 0, True, True, False, False, True)
+    assert f(1024, 2048) == tfs.Forms(1024, 2048, 1025, 2, 0, True, True, False, False, True)
+    assert f(64, 512) == tfs.Forms(64, 512, 257, 8, 9, True, True, False, False, True)
+    assert f(100, 1024) == tfs.Forms(100, 1024, 513, 0, 0, False, True, False, False, False)
+    assert f(441, 1024) == tfs.Forms(441, 1024, 513, 0, 0, False, False, False, False, False)
+    assert f(32, 64) == tfs.Forms(32, 64, 33, 2, 15, False, False, False, False, True)
+    # past the old envelope: the tile form to Q 16, the product form to Q
+    # 64, the split form to 8 ranks (1,025 bins)
+    assert f(16, 1024) == tfs.Forms(16, 1024, 513, 64, 0, False, True, False, False, False)
+    assert f(4, 1024) == tfs.Forms(4, 1024, 513, 256, 0, False, True, False, False, False)
+    assert f(2, 1024) == tfs.Forms(2, 1024, 513, 512, 0, False, False, False, False, False)
+    assert f(2048, 4096) == tfs.Forms(2048, 4096, 2049, 2, 0, True, False, False, False, True)
+    assert f(128, 4096) == tfs.Forms(128, 4096, 2049, 32, 0, True, False, False, False, False)
+    assert f(32, 4096).product is False and f(32, 2048).product is True
     # the choices among them
     assert tfs.forward_form(1, 64, 1024) == tfs.FWD_FEW
     assert tfs.forward_form(2, 64, 1024) == tfs.FWD_PRODUCT
     assert tfs.forward_form(1, 1024, 2048) == tfs.FWD_PRODUCT
     assert tfs.forward_form(16, 32, 64) == tfs.FWD_TILE
+    for geo in ((16, 1024), (4, 1024), (2, 1024), (32, 4096)):
+        assert tfs.forward_form(1, *geo) == tfs.forward_form(300, *geo) == tfs.FWD_PLANES
+    assert tfs.forward_form(1, 128, 4096) == tfs.FWD_PRODUCT == tfs.forward_form(1, 2048, 4096)
+    assert tfs.pick_form("fused_step_xfade", 64, 2048, 4096) == tfs.LAUNCH_B
+    assert tfs.pick_form("fused_step_xfade", 64, 4, 1024) == tfs.SPLIT
     assert tsp.pick_form(1, 64, 1024) == tsp.SPLIT == tsp.pick_form(1, 100, 1024)
     assert tsp.pick_form(1, 441, 1024) == tfs.LAUNCH_B
     assert tsp.pick_form(1) == tsp.CLUSTER
@@ -312,18 +484,15 @@ def _chip_smoke():
     return smoke
 
 
-@pytest.mark.parametrize("name", ["f64", "f256", "f512", "f1024", "f64t256", "f100", "f441"])
+@pytest.mark.parametrize("name", ["f64", "f256", "f512", "f1024", "f64t256", "f100", "f441",
+                                  "f16", "f4", "f2048", "f128t2048"])
 def test_full_size_dispatch_matches_jax_at_each_geometry(name, monkeypatch):
     """The arms ``chip_smoke.py``'s phase geometry holds the card to, at
-    full size (1,607,168 samples): both renderers plan every chunk with
+    full size (1,607,168 samples; a 2-s input at f16 and f4): both renderers plan every chunk with
     their chunk programs stubbed out, and take the same arm on every chunk
     of every render; at f64, f256 and f64t256 the 16-source scenes too."""
-    from jefferson_tpu.engine.renderer import Renderer as JaxRenderer
     from jefferson_tpu_torch.engine import batch as tbatch
     from jefferson_tpu_torch.engine import renderer as trenderer
-
-    from test_torch_batch import jax_arm
-    from test_torch_renderer import _CACHES, _Recorder
 
     smoke = _chip_smoke()
     fpb, taps = smoke.GEOMETRIES[name]
@@ -336,16 +505,13 @@ def test_full_size_dispatch_matches_jax_at_each_geometry(name, monkeypatch):
                "_fd_complex_chunk_onehot_grouped", "_fd_complex_chunk_fused",
                "_fd_complex_chunk_dedup", "_fd_complex_chunk"):
         monkeypatch.setattr(trenderer, fn, stub)
-    jax_stub = lambda nb, *a, **k: (lambda *args: (jnp.zeros((nb, fpb, 2), jnp.float32), args[1]))
-    n = smoke.GEO_SAMPLES // fpb
+    n = smoke.geometry_samples(tdb.config) // fpb
     sig = np.zeros(n * fpb, np.float32)
     renders = smoke.geometry_renders(bench, tdb.config)
     assert set(renders) == set(smoke.GEO_ARMS[name])
     for what, (pos, cb) in renders.items():
         r = JaxRenderer(db, fused=True, chunk_blocks=cb)
-        for mk in ("_mk_fd_dedup_fused", "_mk_fd_onehot", "_mk_fd_onehot_grp", "_mk_fd_fused",
-                   "_mk_fd_dedup", "_mk_fd_complex"):
-            setattr(r, mk, jax_stub)
+        _stub_jax_renderer(r, fpb)
         jax_arms = []
         for cache, arm_of in _CACHES.items():
             setattr(r, cache, _Recorder(arm_of, jax_arms))
@@ -379,19 +545,22 @@ def test_full_size_dispatch_matches_jax_at_each_geometry(name, monkeypatch):
 
 
 def test_the_smoke_names_every_geometry_and_its_libraries():
-    """The geometry phase's table holds this file's geometries and f512,
-    every one inside the card's envelope with the sample counts of a
-    1,607,168-sample render, and its edges outside it."""
+    """The geometry phase's table holds this file's geometries but f2 (card
+    tests only) and f512, every one taken by the card, with the block counts
+    of a 1,607,168-sample render (a 2-s input at f16 and f4), and the
+    geometry the card refuses for its resource."""
     smoke = _chip_smoke()
-    assert set(GEOMETRIES) <= set(smoke.GEOMETRIES) and "f512" in smoke.GEOMETRIES
+    assert set(GEOMETRIES) - {"f2"} <= set(smoke.GEOMETRIES) and "f512" in smoke.GEOMETRIES
+    assert "f2" not in smoke.GEOMETRIES
     for name, (fpb, taps) in smoke.GEOMETRIES.items():
         cfg = EngineConfig(frames_per_buffer=fpb, hrtf_len=taps)
-        tfs.check_envelope(fpb, cfg.pad_len)
+        tfs.check_geometry(fpb, cfg.pad_len)
         assert smoke.geometry_config(name) == cfg
-        assert smoke.GEO_SAMPLES // fpb == {64: 25112, 256: 6278, 512: 3139, 1024: 1569,
-                                            100: 16071, 441: 3644}[fpb]
+        assert smoke.geometry_samples(cfg) // fpb == {
+            64: 25112, 256: 6278, 512: 3139, 1024: 1569, 100: 16071, 441: 3644, 16: 5512,
+            4: 22050, 2048: 784, 128: 12556}[fpb]
     for fpb, taps in smoke.GEO_EDGES:
         cfg = EngineConfig(frames_per_buffer=fpb, hrtf_len=taps)
-        with pytest.raises(ValueError, match="queue 1 item 11"):
-            tfs.check_envelope(fpb, cfg.pad_len)
+        with pytest.raises(ValueError, match="CTAs a grid's y holds"):
+            tfs.check_geometry(fpb, cfg.pad_len)
     assert smoke.MAIN_GEOMETRY == build.DEFAULT_GEOMETRY

@@ -60,6 +60,7 @@ PORT_MODULES = [
     "jefferson_tpu_torch.parallel",
     "jefferson_tpu_torch.parallel.mesh",
     "jefferson_tpu_torch.parallel.multihost",
+    "jefferson_tpu_torch.parallel.record",
     "jefferson_tpu_torch.reverb",
     "jefferson_tpu_torch.reverb.convolution",
     "jefferson_tpu_torch.rt",
@@ -72,6 +73,7 @@ PORT_MODULES = [
     "jefferson_tpu_torch.scripts.bench_blend_variants",
     "jefferson_tpu_torch.scripts.error_budget",
     "jefferson_tpu_torch.scripts.live_sessions",
+    "jefferson_tpu_torch.scripts.output_hashes",
     "jefferson_tpu_torch.scripts.soak_daemon",
     "jefferson_tpu_torch.serve",
     "jefferson_tpu_torch.testing",

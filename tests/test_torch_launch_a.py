@@ -182,7 +182,8 @@ def test_the_seam_refuses_what_it_does_not_take():
 def test_reset_sets_launch_as_counts_to_0():
     tfs.forward_launches[tfs.FWD_PRODUCT] = 3
     tfs.reset_launches()
-    assert tfs.forward_launches == dict.fromkeys((tfs.FWD_TILE, tfs.FWD_PRODUCT, tfs.FWD_FEW), 0)
+    assert tfs.forward_launches == dict.fromkeys(
+        (tfs.FWD_TILE, tfs.FWD_PRODUCT, tfs.FWD_FEW, tfs.FWD_PLANES), 0)
 
 
 @pytest.mark.parametrize("sources,nb,want_ms", [

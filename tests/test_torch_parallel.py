@@ -17,7 +17,6 @@ package's mesh render on conftest's 8 virtual devices (5e-7, ``TOL_JAX``
 of tests/test_torch_renderer.py), arm for arm.
 """
 
-import hashlib
 import json
 import os
 import sys
@@ -38,6 +37,7 @@ from jefferson_tpu_torch.engine.batch import BatchRenderer
 from jefferson_tpu_torch.engine.renderer import Renderer, block_halo
 from jefferson_tpu_torch.kernels import fused_step as tfs
 from jefferson_tpu_torch.parallel import mesh as pm
+from jefferson_tpu_torch.parallel.record import digest, recorded
 from jefferson_tpu_torch.trajectory.trajectory import AzimuthSweep, CircularOrbit, StaticPosition
 
 torch.set_num_threads(1)
@@ -191,20 +191,14 @@ def worker(out_dir: str, n: int, device: str, backend, names) -> None:
     for name in names:
         log = []
         saved = _spy(log)
-        pm.reset_collectives()
-        launches = dict(tfs.launches)
-        t0 = time.perf_counter()
         try:
-            out, r = _render(name, db, rank_device, meshes[CASES[name][0]])
+            (out, r), rec = recorded(
+                lambda: _render(name, db, rank_device, meshes[CASES[name][0]]), rank_device)
         finally:
             for fname, fn in saved.items():
                 setattr(dist, fname, fn)
-        record[name] = {
-            "dispatch": [list(a) for a in r.dispatch], "collectives": dict(pm.collectives),
-            "dist_calls": log, "wall_s": time.perf_counter() - t0,
-            "launches": {k: v - launches[k] for k, v in tfs.launches.items() if v != launches[k]},
-            "sha256": hashlib.sha256(np.ascontiguousarray(out).tobytes()).hexdigest(),
-        }
+        record[name] = {**rec, "dispatch": [list(a) for a in r.dispatch], "dist_calls": log,
+                        "sha256": digest(out)}
         outputs[name] = out
     refusals = {}
     for what, make in (("batch_2d", lambda: BatchRenderer(db, device="cpu", mesh=mesh_2d)),

@@ -167,8 +167,8 @@ def test_unaligned_history_needs_the_unfused_arms(case):
     """A history that is not a whole number of blocks (fpb 96, 256 taps):
     the fused arms take the apply-only step (row 7, its twin here), as the
     JAX package's fused arms take its apply-only kernel; the unfused arm
-    renders as the JAX package's fused=False does.  The geometry lies in
-    the card's envelope, so a CUDA device takes it too (its kernels build
+    renders as the JAX package's fused=False does.  The card takes the
+    geometry, so a CUDA device takes it too (its kernels build
     for fpb 96 / pad 512): with no card here, only the device is refused."""
     cfg = EngineConfig(frames_per_buffer=96, hrtf_len=256)
     db96 = synthetic_database(cfg, n_taps=256, seed=9)

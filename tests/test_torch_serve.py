@@ -310,10 +310,14 @@ def test_serve_socket_exits_on_shutdown(tmp_path):
 
 
 def test_devices_above_one_refused_naming_item_9():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    """A service of 2 devices outside a world of 2 ranks raises make_mesh's
+    message (the meshed daemon itself: tests/test_torch_serve_mesh.py)."""
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
         RenderService(devices=2, device="cpu")
-    with pytest.raises(SystemExit, match="item 9"):
-        tserve.main(["--devices", "2", "--device", "cpu", "--socket", "unused.sock"])
+    with pytest.raises(SystemExit, match=r"chunk_blocks \(2047\) must divide evenly over "
+                                         r"devices \(2\)"):
+        tserve.main(["--devices", "2", "--chunk-blocks", "2047", "--device", "cpu",
+                     "--socket", "unused.sock"])
 
 
 def test_cli_refuses_bad_chunk_blocks_and_no_card():
@@ -342,6 +346,7 @@ def test_warm_up_builds_the_libraries_and_renders_before_the_first_request(monke
                         lambda names, geometries: built.append((tuple(names), geometries)))
     svc = RenderService.__new__(RenderService)
     svc.device = torch.device("cpu")
+    svc.rank, svc.mesh = 0, None
     svc.db = synthetic_database()
     svc.config = svc.db.config
     svc.renderer = Renderer(svc.db, device="cpu")

@@ -338,8 +338,8 @@ def test_prime_leaves_the_state_alone(tdb, tconfig, castanets):
 def test_entry_points_run_on_the_card_unless_asked(tdb, tconfig, monkeypatch):
     """Every entry point's device defaults to the card; without one it
     raises instead of running on the CPU, and on a card the streaming forms
-    take every geometry of the card's envelope and refuse, before any
-    launch, one outside it."""
+    take fpb 64 and 16 and refuse, before any launch, a geometry past the
+    grid's y (launch B's t-tiles), naming that resource."""
     for fn in (StreamingSpatializer.__init__, render_scan, Renderer.__init__,
                BatchRenderer.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -356,11 +356,14 @@ def test_entry_points_run_on_the_card_unless_asked(tdb, tconfig, monkeypatch):
     assert cfg64.history_len % 64 == 0 and cfg64.pad_len != 1024
     assert tstream._stream_device("cuda", cfg64) == torch.device("cuda", 0)
     cfg16 = EngineConfig(frames_per_buffer=16, hrtf_len=192)
+    assert tstream._stream_device("cuda", cfg16) == torch.device("cuda", 0)
+    big = EngineConfig(frames_per_buffer=1 << 24, hrtf_len=192)
     before = dict(tfs.launches)
-    with pytest.raises(ValueError, match="fpb 16, pad 256 lies outside.*queue 1 item 11"):
-        StreamingSpatializer(tdb, cfg16, device="cuda")
-    with pytest.raises(ValueError, match="fpb 16, pad 256 lies outside.*queue 1 item 11"):
-        render_scan(sig, tdb, pos, cfg16, device="cuda")
+    match = "t-tiles of 128 columns exceed the 65535 CTAs a grid's y holds"
+    with pytest.raises(ValueError, match=match):
+        StreamingSpatializer(tdb, big, device="cuda")
+    with pytest.raises(ValueError, match=match):
+        render_scan(sig, tdb, pos, big, device="cuda")
     assert tfs.launches == before
 
 
