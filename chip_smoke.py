@@ -15,10 +15,10 @@ line:
              csrc/fused_step_gather.cu (rows 5-7) for fpb 128 / pad 1024
              (MAIN_GEOMETRY, -DJT_FPB=128 -DJT_PAD=1024), csrc/assoc_probe.cu
              (rows 9-11) and csrc/dma_blend.cu (row 12) for sm_90a, all at
-             once.  After the live path (phase 6) the two render-step
+             once.  After the live path (phase 5) the two render-step
              sources build for each geometry of phase 13 in a process of
-             their own, one nvcc a library, all at once, while phases 7-12
-             run.
+             their own, one nvcc a library, all at once, while phases 6-10
+             run; phase serve waits for them to end.
   3. plan    make_plan with the host library against its plain NumPy forms
              (bench.plain_host), every field bit-equal, on every source of the
              six scenes' three position sets and on the five single-source
@@ -233,7 +233,14 @@ line:
              form the geometry's library has against its twin (rows 1-8 and
              launch A; rows 7 and 8's apply-only forms at a history of
              partial blocks), and each kernel timed at one shape (events,
-             device time alone, twin, bound); then Renderer and
+             device time alone, twin, bound); at SPLIT_TIMED (f2048,
+             f128t2048, f441, f1024) rows 5-8's split form in the layout
+             the wrappers take, torch.equal to launch B and timed beside it
+             and the twin, and, where launch B takes a span of counts
+             (fused_step.LAUNCH_B_SPANS), both forms' device time alone at
+             the span's ends (scripts/split_layouts.py; the script reads
+             the whole crossover); each geometry's launches by kernel
+             and, of rows 2-8, those in the split form; then Renderer and
              StreamingSpatializer at fpb 2^24 raise before any launch,
              naming the resource no form supplies (launch B's t-tiles past
              the grid's y).
@@ -262,7 +269,8 @@ line:
              at both its shapes), rows 1-8 in each form of launch B with
              their device time alone, launch A and launch B apart
              (torch.profiler: at small sizes a call's events time the host's
-             launch path); row 8's three forms at 1 to 1,024 rows (the
+             launch path), and queued behind a held stream as phase geometry
+             reads its rows; row 8's three forms at 1 to 1,024 rows (the
              crossover that sets SMALL_ROWS); launch B's two forms at 8-16,384
              rows (the crossover that sets fused_step.SPLIT_FROM and row 8's
              MANY_ROWS_FORM); rows 9-12 with their device time alone, beside
@@ -293,8 +301,10 @@ line:
              the unfused chain's warm render with each tail; beside the card.
 Then a {"kernels": [...]} line (rows 1-12, and launch A at the scene step's
 16 x 256; launches summed over phases 5-11 and 14, the daemon's and the
-ranks' from their own counts; beside them each kernel's launches by
-geometry, phase 13's, and its times there), the nvidia-smi line, and last
+ranks' from their own counts; rows 1-8's device time queued behind a held
+stream; beside them each kernel's launches by geometry, phase 13's, those
+of rows 2-8 in the split form, and its times there), the nvidia-smi line,
+and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -1522,7 +1532,7 @@ def probe_scripts(device, errs, db, noise, budget_pos, budget_oracle):
         problems.append(f"a probe kernel was not launched: {launches}")
     if not all(v["bit_identical_to_xla16"] for v in blend["variants"].values()):
         problems.append("a blend variant differs from xla16")
-    configs = ("unfused", *error_budget.SWAPS, "apply_kernel", "fused")
+    configs = ("unfused", *error_budget.SWAPS, "apply_kernel", "fused", "fused/sidepass_blocked")
     for name in configs:
         if not budget[name]["max_abs"] <= ORACLE_TOL:
             problems.append(f"error budget {name}: {budget[name]['max_abs']:.3e} from the oracle "
@@ -2967,11 +2977,14 @@ def run(pool, host, tmp) -> int:
             soak[0].kill()
             soak[0].communicate()
     # the serve phase holds the daemon's sessions to the live gate on the
-    # host's clock: the workers finish first (the serve oracles, the diff
-    # phase's CPU runs), so that no core is theirs while it measures
+    # host's clock: the workers (the serve oracles, the diff phase's CPU
+    # runs) and the geometry phase's compilers finish first, so that no core
+    # is theirs while it measures
     t0 = time.perf_counter()
     wait([*oracle_pool.futures.values(), *diff_cpu.values(), *geo_oracles.values()])
-    say("serve", f"waited {time.perf_counter() - t0:.1f} s for the worker pool to go idle")
+    built = geometry_build_finish(geo_build)
+    say("serve", f"waited {time.perf_counter() - t0:.1f} s for the worker pool to go idle and "
+                 f"the geometry builds to end ({built:.1f} s of it for the builds)")
     serve_launches = serve_phase(cfg, noise, oracle_pool, serve_pos, tmp)
     if serve_launches is None:
         return 1
@@ -3013,7 +3026,7 @@ def run(pool, host, tmp) -> int:
         at = "" if rows == 1 else f" at {SCAN_B} rows"
         ops[SPATIALIZER + at] = (fused_spatializer.fused_apply, (table, *xd, *br, xf), kw8, 1,
                                  rows)
-    times, bounds, forms_of = {}, {}, {}
+    times, bounds, forms_of, held_ms = {}, {}, {}, {}
     for name, (fn, args, kw, s_, nb_) in ops.items():
         # the main path's form first, then the other: events in turns (twin,
         # forms, forms reversed, twin), then each form's device time alone
@@ -3035,11 +3048,17 @@ def run(pool, host, tmp) -> int:
         bounds[name] = bench.bound_ms(bench.step_flops(name.split(" at ")[0], s_, nb_), moved)
         for f, c in calls.items():
             a_ms, b_ms = launches_apart(bench.device_profile(c, calls=20))
+            # the same calls queued behind a held stream, as phase geometry
+            # reads its rows
+            held = queued_device_ms(c)
+            if f == picked:
+                held_ms[name] = held
             say("bench", f"{name} ({s_}x{nb_}), {f}{' (main path)' if f == picked else ''}: "
                          f"kernel {ev[f][0]:.4f}/{ev[f][1]:.4f} ms (device time alone "
                          f"{a_ms + b_ms:.4f} ms: launch A {a_ms:.4f}, launch B {b_ms:.4f}; "
-                         f"torch.profiler), twin {plain_a:.4f}/{plain_b:.4f} ms, bound "
-                         f"{bounds[name][0]:.6f} ms ({bounds[name][1]})  [{bench.card()}]")
+                         f"torch.profiler; {held:.4f} ms queued behind a held stream), twin "
+                         f"{plain_a:.4f}/{plain_b:.4f} ms, bound {bounds[name][0]:.6f} ms "
+                         f"({bounds[name][1]})  [{bench.card()}]")
     row8_crossover(bench, db, device, geo)
     split_crossover(bench, db, device)
     row1_crossover(bench, db, device)
@@ -3171,6 +3190,8 @@ def run(pool, host, tmp) -> int:
         "launches": launches[name],
         "max_abs_err": errs[name],
         "ms": times[name][0],
+        # rows 1-8: the main path's form queued behind a held stream
+        "device_ms": held_ms.get(name),
         "plain_ms": times[name][1],
         "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1],
@@ -3187,6 +3208,10 @@ def run(pool, host, tmp) -> int:
         # max|kernel - twin| over its forms
         "launches_by_geometry": {"f128": launches[name],
                                  **{g: r["launches"].get(name, 0) for g, r in by_geometry.items()}},
+        # rows 2-8: the launches of those that took launch B's split form
+        "split_launches_by_geometry": {g: r["split_launches"][name]
+                                       for g, r in by_geometry.items()
+                                       if name in r["split_launches"]},
         "geometry": {g: {**r["times"][name], "max_abs_err": r["errs"].get(name)}
                      for g, r in by_geometry.items() if name in r["times"]},
     } for name, (source, replaces) in KERNELS.items()]}))
@@ -3241,7 +3266,9 @@ def split_crossover(bench, db, device) -> None:
     scene_of = {name: form for form, (name, _, _) in SCENE_FORMS.items()}
     stream_of = {name: form for form, name in FORMS.items()}
     forms = (fused_step.LAUNCH_B, fused_step.SPLIT)
-    alone = lambda call: sum(row[1] for row in bench.device_profile(call, calls=10))
+    # behind a held stream, as phase geometry reads its rows (torch.profiler,
+    # late in this process, drops most of its device events)
+    alone = lambda call: queued_device_ms(call, reps=5)
     for name in [*fused_step.split_launches, SPATIALIZER]:
         took = {}
         for rows in (CROSS_ROWS_8 if name == SPATIALIZER else CROSS_ROWS):
@@ -3293,7 +3320,7 @@ def row8_crossover(bench, db, device, geo) -> None:
             # the wrapper's private seam names the form; fused_apply picks it by rows
             call = lambda: fsp._cuda(device, rows, table, br, xf, *xd, None, form=form, **geo)
             got[form] = (bench.time_ms(call),
-                         sum(row[1] for row in bench.device_profile(call, calls=10)))
+                         queued_device_ms(call, reps=5))
         if got[fsp.CLUSTER][1] < got[fsp.MANY_ROWS_FORM][1]:
             last_cluster = rows
         say("bench", f"row 8 forms at {rows} rows: " + ", ".join(
@@ -3807,10 +3834,10 @@ def geometry_oracles(bench, pool, noise, scene_sigs_of) -> dict:
     return futures
 
 
-def geometry_build_start():
+def geometry_build_start() -> dict:
     """Start the geometry phase's builds in a process of their own (one nvcc
-    a library, all at once), so they run while the 128/1024 phases do: the
-    process and its start time."""
+    a library, all at once), so they run while the 128/1024 phases do:
+    {"proc", "t0": its start, "out": None until geometry_build_finish}."""
     import subprocess
     from pathlib import Path
 
@@ -3820,7 +3847,17 @@ def geometry_build_start():
     proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
                             cwd=Path(__file__).resolve().parent)
-    return proc, time.perf_counter()
+    return {"proc": proc, "t0": time.perf_counter(), "out": None}
+
+
+def geometry_build_finish(build: dict) -> float:
+    """Wait for geometry_build_start's process and keep its output (once;
+    again returns at once) -> the seconds waited."""
+    t0 = time.perf_counter()
+    if build["out"] is None:
+        build["out"], _ = build["proc"].communicate()
+        build["done"] = time.perf_counter()
+    return time.perf_counter() - t0
 
 
 def _counts():
@@ -3837,6 +3874,43 @@ def _counts():
     return out
 
 
+# the geometries whose split form phase geometry also times beside launch B
+# at rows 5-8's main shapes, with the crossover counts that set a pick there
+SPLIT_TIMED = ("f2048", "f128t2048", "f441", "f1024")
+SPLIT_ROWS = ("fused_step_stream_xfade", "fused_step_xfade", "fused_apply_xfade", SPATIALIZER)
+
+
+def split_cross(fpb, pad, kernel) -> tuple:
+    """The counts that set ``kernel``'s pick at (fpb, pad): the ends of its
+    kind's span in fused_step.LAUNCH_B_SPANS, or none."""
+    from jefferson_tpu_torch.kernels import fused_step as fs
+
+    kind = "row 8" if kernel == SPATIALIZER else "blended" if kernel in fs.BLENDED else None
+    span = fs.LAUNCH_B_SPANS.get((fpb, pad), {}).get(kind)
+    return tuple(sorted(set(span))) if span else ()
+
+
+def split_timing(name, db, forms) -> dict | None:
+    """Rows 5-8's split form at geometry ``name`` (a history of partial
+    blocks: rows 7 and 8) in the layout the wrappers take, torch.equal to
+    launch B and timed beside it and the twin, with both forms at the
+    counts that set its pick (split_layouts.measure) -> its numbers, or
+    None on a failure."""
+    from jefferson_tpu_torch.scripts import split_layouts
+
+    got = {"kernels": {}}
+    for k in SPLIT_ROWS:
+        if forms.q or k in ("fused_apply_xfade", SPATIALIZER):
+            cross = split_cross(forms.fpb, forms.pad, k)
+            got["kernels"].update(split_layouts.measure(name, kernels=[k], cross=cross,
+                                                        db=db)["kernels"])
+    bad = [k for k, v in got["kernels"].items() if not v["equal"]]
+    if bad:
+        fail("geometry", f"{name}: the split form of {bad} is not launch B's bits")
+        return None
+    return got
+
+
 def queued_device_ms(call, reps: int = 10) -> float:
     """Device ms per call of ``call()`` with no host time in it: the stream
     is held by a spin kernel while ``reps`` calls queue behind it, then
@@ -3847,7 +3921,9 @@ def queued_device_ms(call, reps: int = 10) -> float:
     call()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)   # about 0.1 s: longer than the host takes to queue the calls
+    # about 25 ms of spinning: far longer than the host takes to queue ten
+    # calls (well under 1 ms), and short enough to read hundreds of shapes
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         call()
@@ -4028,15 +4104,14 @@ def geometry_phase(bench, device, noise, oracles, build_proc) -> dict | None:
     from jefferson_tpu_torch.kernels import fused_step as fs
 
     t_phase = time.perf_counter()
-    proc, t0 = build_proc
-    out, _ = proc.communicate()
-    waited = time.perf_counter() - t_phase
+    waited = geometry_build_finish(build_proc)
+    proc = build_proc["proc"]
     if proc.returncode:
-        print(out, file=sys.stderr)
+        print(build_proc["out"], file=sys.stderr)
         return fail("geometry", f"the geometry builds exited {proc.returncode}")
     say("geometry", f"built {len(GEOMETRIES) * len(build.GEOMETRIC)} libraries (one nvcc each, "
                     f"all at once, started after the live path) in "
-                    f"{time.perf_counter() - t0:.1f} s since their start; the phase waited "
+                    f"{build_proc['done'] - build_proc['t0']:.1f} s; the phase waited "
                     f"{waited:.1f} s for them")
     results = {}
     card = bench.card()
@@ -4055,7 +4130,14 @@ def geometry_phase(bench, device, noise, oracles, build_proc) -> dict | None:
             if own != forms:
                 return fail("geometry", f"{name}: {lib} reports {own}, geometry_forms says "
                                         f"{forms}")
-        launched = {}
+        launched, split_launched = {}, {}
+
+        def count_split(by_form):
+            """The launches of rows 2-8 that took the split form."""
+            for k, v in [*by_form.get("split", {}).items(),
+                         (SPATIALIZER, by_form.get("row 8", {}).get("split", 0))]:
+                if v:
+                    split_launched[k] = split_launched.get(k, 0) + v
 
         # ---- renders ----
         for what, (pos, cb) in geometry_renders(bench, cfg).items():
@@ -4065,6 +4147,7 @@ def geometry_phase(bench, device, noise, oracles, build_proc) -> dict | None:
             got = r.render(noise, pos)
             wall = time.perf_counter() - t0
             by_form = _counts()
+            count_split(by_form)
             for k, v in by_form.get("kernel", {}).items():
                 launched[k] = launched.get(k, 0) + v
             launched[LAUNCH_A] = launched.get(LAUNCH_A, 0) + sum(
@@ -4101,6 +4184,7 @@ def geometry_phase(bench, device, noise, oracles, build_proc) -> dict | None:
         got = render_scan(noise, db, pos, cfg, device=device)
         wall = time.perf_counter() - t0
         by_form = _counts()
+        count_split(by_form)
         chunks = -(-len(pos) // SCAN_CHUNK)
         d_max, d_rms = diff(got, oracles[name, "sweep"].result())
         say("geometry", f"{name} render_scan sweep, {len(pos)} blocks in {wall:.3f} s wall: "
@@ -4127,6 +4211,7 @@ def geometry_phase(bench, device, noise, oracles, build_proc) -> dict | None:
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 by_form = _counts()
+                count_split(by_form)
                 for k, v in by_form.get("kernel", {}).items():
                     launched[k] = launched.get(k, 0) + v
                 launched[LAUNCH_A] = launched.get(LAUNCH_A, 0) + sum(
@@ -4163,6 +4248,7 @@ def geometry_phase(bench, device, noise, oracles, build_proc) -> dict | None:
         fs.reset_launches()
         stats, got, spats = drive_live(db, device, pos[None], noise[None])
         by_form = _counts()
+        count_split(by_form)
         ms = np.asarray(stats.compute_ms)
         helix = ms[: len(pos) - GEO_HELD]
         deadline = 1e3 * cfg.block_duration
@@ -4191,9 +4277,13 @@ def geometry_phase(bench, device, noise, oracles, build_proc) -> dict | None:
         errs, times = {}, {}
         if not geometry_kernels(bench, db, device, name, forms, errs, times):
             return None
-        results[name] = {"launches": launched, "errs": errs, "times": times, "live": live}
+        if name in SPLIT_TIMED and split_timing(name, db, forms) is None:
+            return None
+        results[name] = {"launches": launched, "split_launches": split_launched, "errs": errs,
+                         "times": times, "live": live}
         say("geometry", f"{name}: launches on its renders, scans, scenes and live blocks "
-                        f"{launched}; {time.perf_counter() - t_geo:.1f} s")
+                        f"{launched}, of them in launch B's split form {split_launched}; "
+                        f"{time.perf_counter() - t_geo:.1f} s")
     # ---- the geometry the card refuses: a resource, before any launch ----
     import dataclasses
 

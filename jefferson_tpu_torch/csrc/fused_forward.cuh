@@ -42,6 +42,7 @@
 #pragma once
 
 #include <atomic>
+#include <type_traits>
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -93,9 +94,10 @@ static_assert(!ALIGNED || FPB % A_NC == 0, "whole sample chunks");
 constexpr int T_KC = 32;                // bins per K chunk
 constexpr int T_QS = T_KC + 1;          // padded row stride of a q chunk
 // A CTA's tail covers TT output columns t (one t-tile; FPB at fpb 128).
-// Larger fpb take T_TILES tiles along the grid's y (each CTA builds its
-// rows' q again); a smaller fpb leaves the tile's columns past FPB unused
-// (their basis is 0 and nothing stores them).
+// Larger fpb take T_TILES tiles: along the grid's y in launch B and the
+// split form's chunked layout (each CTA builds its rows' q again), inside
+// the CTA in its narrow layout (q built once); a smaller fpb leaves the
+// tile's columns past FPB unused (their basis is 0 and nothing stores them).
 constexpr int TT = 128;
 constexpr int T_TILES = (FPB + TT - 1) / TT;
 constexpr int T_W = FPB < TT ? FPB : TT;           // columns a full tile stores
@@ -107,17 +109,14 @@ constexpr bool T_MASK = FPB > TT && FPB % TT != 0; // the last tile is ragged
 // registers and its tile 32 + Q - 1 sub-block rows in shared memory: Q <=
 // 16), its product form (64-bin slices plus the last bin, 32-sample K
 // chunks, tiles whose output starts stay most of their rows: Q <= 64), its
-// few-block form (static shared memory under 48 KB), launch B's split form
-// (one rank per 128-bin block, at most 8: a cluster of 16 is not portable;
-// 16-byte basis rows).
+// few-block form (static shared memory under 48 KB); launch B's split form
+// (whole 128-bin tail blocks, at most 16: HAS_SPLIT, with the layouts below).
 constexpr int TILE_MAX_Q = 16;
 constexpr int PRODUCT_MAX_Q = 64;
 constexpr bool HAS_TILE = ALIGNED && Q <= TILE_MAX_Q;
 constexpr bool HAS_PRODUCT = ALIGNED && BINS - 1 >= 64 && (BINS - 1) % 64 == 0 && FPB % 32 == 0 &&
                              Q <= PRODUCT_MAX_Q;
 constexpr int T_BLOCK = 128;            // bins a block of the blocked tail
-constexpr bool HAS_SPLIT = (BINS - 1) % T_BLOCK == 0 && (BINS - 1) / T_BLOCK >= 1 &&
-                           (BINS - 1) / T_BLOCK <= 8 && FPB % 4 == 0;
 
 // Distance plane at bin k: cos/-sin(2π·frac(frac(u_hi·k) + u_lo·k))·inv_frac,
 // in the op order of ops/filters.distance_factors_split.  u_hi·k is exact
@@ -1018,60 +1017,93 @@ __device__ __forceinline__ void fold_tail_block(float (&acc)[8][8], float (&part
     }
 }
 
-// ---- launch B's split form: one cluster of four CTAs per tile -------------
+// ---- launch B's split form: a cluster of CTAs per tile, one per block ----
 //
-// The blocked tail is five independent chains per output, one per 128-bin
-// block, folded in order: ((((0 + p0) + p1) + p2) + p3) + p4.  Launch B
-// walks them one after another in one CTA; here rank b of a tile's cluster
-// walks bins 128b .. 128b+127 alone, so a CTA holds one 8 x 8 accumulator
-// tile (launch B holds two) and a tile takes four CTAs, two of them to an
-// SM.  Per tile:
-//   - its filter rows are staged once a chunk: old rows r0 .. r0+R (the new
-//     side of row r inside a segment is old row r+1) and each segment end's
+// The blocked tail is NBLK independent chains per output, one per 128-bin
+// block, folded in order: (((0 + p0) + p1) + ...) + p_last, then the last
+// bin's chain fmaf(qi, bi, fmaf(qr, br, 0)).  Launch B walks them one after
+// another in one CTA; here the ranks of a tile's cluster walk the blocks
+// apart, so a CTA holds one 8 x 8 accumulator tile a block (launch B holds
+// two) and folds its share of the tile's rows over distributed shared
+// memory in block order.  Per tile:
+//   - its filter rows are staged once: old rows r0 .. r0+R (the new side of
+//     row r inside a segment is old row r+1) and each segment end's
 //     boundary row, pre-blended (rows 5-7) or blended here with launch B's
 //     4-bracket code (rows 2-4, 8), so every G keeps its bits;
-//   - the q chunk (32 bins) lies bin-major with a padded stride, so a
-//     thread's 8 operand rows are two float4 loads, and each thread owns 4
+//   - q (XD times G, per side and ear) lies bin-major with a padded stride,
+//     so a thread's operand rows are float4 loads, and each thread owns 4
 //     consecutive output columns per float4 of the basis; each output still
 //     sums fmaf(qr, br) then fmaf(qi, bi) over ascending k from 0, as
 //     tail_chunk_fma does;
-//   - the next chunk's basis is in flight (cp.async) while this chunk's q is
-//     built and multiplied;
-//   - each rank stores its block partial in its own shared memory; after
-//     cluster.sync() rank b folds rows b*R/4 .. of the tile over distributed
-//     shared memory in rank order, adds p4 (bin 512, launch B's chain
-//     fmaf(qi, bi, fmaf(qr, br, 0))), runs launch B's epilogue and writes
-//     its rows.
+//   - the basis arrives in chunks of 32 bins (16 in the narrow layout) by
+//     cp.async, the next chunk in flight while this one is multiplied
+//     (16-byte copies where fpb % 4 == 0, else 4-byte copies: rows of fpb
+//     floats);
+//   - each rank stores its block partials in its own shared memory; after
+//     cluster.sync() rank b folds rows b*FOLD .. of the tile in block order,
+//     adds the last bin's chain (launch B's code), runs launch B's epilogue
+//     and writes its rows.
 // So the result is launch B's bit for bit.  Reusing staged row r+1 as row
 // r's new side needs group ends on segment ends (the wrapper checks).
-// What bounds it: at 4,096 rows it runs at about 2.7x its FMA time on the
-// card; an 8 x 8 tile costs as many shared-memory wavefronts as FMA
-// cycles, and a CTA's staging waits on L2.  Larger tiles measured slower
-// (8 x 16 a thread, as producer and consumer warps at one CTA an SM, or at
-// 128 threads and two CTAs an SM: PERF.md, the kernel table).
+//
+// Two layouts, the same bits, chosen at compile time (launch_split_tail):
+//   - chunked (split_tail_xfade): one t-tile of TT columns a CTA, the
+//     t-tiles along the grid's y, one rank a block, q built a 32-bin chunk
+//     at a time beside the basis chunk, 99 KB of shared memory, two CTAs an
+//     SM.  Past fpb 128 each t-tile builds its rows' q again (T_TILES
+//     times).  What bounds it at 4,096 rows: about 2.7x its FMA time on the
+//     card; an 8 x 8 tile costs as many shared-memory wavefronts as FMA
+//     cycles, and a CTA's staging waits on L2.  Larger tiles measured
+//     slower (8 x 16 a thread, as producer and consumer warps at one CTA an
+//     SM, or at 128 threads and two CTAs an SM: PERF.md, the kernel table).
+//   - narrow (split_tail_tiles), q once per (tile, block): the CTA builds
+//     its block's q whole (128 bins x (M + 4) x 2 planes at M = 64, 16
+//     crossfading rows a tile: 104 KB with the basis chunks, two CTAs an
+//     SM), then walks every t-tile inside, 16-bin basis chunks streaming
+//     in, each t-tile folded over distributed shared memory before the next
+//     starts.
+// On an H100 the chunked layout took the least device time for rows 5-7
+// (filter rows pre-blended: a q chunk is four loads a product) at every
+// geometry, and for rows 2-4 and 8 at one t-tile; past it the narrow one
+// did (blending four table rows per filter row makes q dear, and q once
+// pays).  Past 8 blocks (pad 4096) a cluster of 16 ranks is not portable:
+// the launch allows it (cudaFuncAttributeNonPortableClusterSizeAllowed)
+// and an H100 holds 14 such clusters at two CTAs an SM.  Two other layouts
+// measured slower and went (PERF.md, PR 17): q once at M = 128 (one CTA
+// an SM) and 8 ranks of two blocks each at pad 4096.  What bounds both
+// kept layouts: the FMA loop, at about 2x the fp32 FMA time of the
+// clusters' SMs (PERF.md, the kernel table).
+// The form exists up to 16 blocks, below fpb 128 with fpb % 4 == 0
+// (HAS_SPLIT).
 namespace cg = cooperative_groups;
 
-// At other geometries the cluster has one rank per 128-bin block (2 at 257
-// bins, 8 at 1025), the last bin folded last, and the t-tiles of TT columns
-// lie along the grid's y.
-constexpr int S_RANKS = HAS_SPLIT ? (BINS - 1) / T_BLOCK : 1;   // tail blocks, one per rank
-constexpr int S_M = 128;                        // operand rows (side, ear, row)
-constexpr int S_THREADS = 256;                  // 16 x 16 threads, 8 x 8 outputs each
-constexpr int S_CHUNKS = T_BLOCK / T_KC;        // 32-bin chunks a rank walks
-constexpr int S_QLD = S_M + 4;                  // padded bin stride of a q chunk
-constexpr int S_BASIS = 2 * T_KC * TT;          // one chunk of both basis planes
-constexpr size_t S_SMEM = sizeof(float) * (2 * S_BASIS + 2 * T_KC * S_QLD);
-static_assert(S_M * TT <= 2 * S_BASIS, "the block partial must fit in the basis buffers");
-static_assert(!HAS_SPLIT || S_RANKS * T_BLOCK == BINS - 1,
-              "rank blocks cover bins 0-511, bin 512 is p4");
+constexpr int S_NBLK = (BINS - 1) / T_BLOCK;    // the blocked tail's 128-bin blocks
+constexpr int S_MAX_BLOCKS = 16;                // ranks a cluster, at most (one block each)
+// (rows of fpb floats that are not whole float4 columns, fpb % 4 != 0, are
+// staged by 4-byte copies; the form takes them past fpb 128 only, where it
+// was measured)
+constexpr bool HAS_SPLIT = (BINS - 1) % T_BLOCK == 0 && S_NBLK >= 1 &&
+                           S_NBLK <= S_MAX_BLOCKS && (FPB % 4 == 0 || T_TILES > 1);
+constexpr int S_CHUNKS = T_BLOCK / T_KC;        // 32-bin q chunks of a block
+static_assert(!HAS_SPLIT || S_NBLK * T_BLOCK == BINS - 1,
+              "rank blocks cover bins 0 .. BINS-2, the last bin is folded last");
 
-template <int SIDES>
+// A layout's shape: M operand rows (side, ear, row) of RPT a thread, 16
+// threads along the TT columns (8 each), basis chunks of KC bins.
+template <int SIDES, int M_, int RPT_, int KC_>
 struct SplitShape {
-  static constexpr int R = S_M / (2 * SIDES);            // rows a tile: 32, 64 without xfade
-  static constexpr int ENT = SIDES == 2 ? 2 * R + 1 : R;  // staged filter rows, at most
-  static constexpr int FOLD = R / S_RANKS;               // rows each rank folds
-  static_assert(SIDES == 1 || R == 32, "one warp lays out a crossfading tile's rows");
+  static constexpr int M = M_, RPT = RPT_, KC = KC_;
+  static constexpr int THREADS = M / RPT * 16;
+  static constexpr int R = M / (2 * SIDES);              // rows a tile
+  static constexpr int QLD = M + 4;                      // padded bin stride of q
+  static constexpr int BASIS = 2 * KC * TT;              // one chunk of both basis planes
+  static_assert(SIDES == 1 || R <= 32, "one warp lays out a crossfading tile's rows");
+  static_assert(M <= 2 * 2 * KC, "a t-tile's partials fit in the two basis buffers");
 };
+template <int SIDES>
+using ChunkedShape = SplitShape<SIDES, 128, 8, T_KC>;      // q a chunk at a time
+template <int SIDES>
+using NarrowShape = SplitShape<SIDES, 64, 8, T_KC / 2>;    // q once, 128 threads
 
 // A tile's filter rows arriving pre-blended (rows 5-7): old row r is
 // g_rows[r], a segment's boundary row g_last[r / seg].
@@ -1131,30 +1163,56 @@ struct RowsBlended {
   }
 };
 
-// acc[i][j] += the chunk's bins of qr*br + qi*bi for operand row ty*8+i and
-// output column 4tx+j (j < 4) or 64+4tx+j-4, bins ascending, each output's
-// real then imaginary term: tail_chunk_fma's order per output.
-__device__ __forceinline__ void split_chunk_fma(float (&acc)[8][8], const float* qr,
-                                                const float* qi, const float* br,
-                                                const float* bi, int tx, int ty) {
-#pragma unroll 2
-  for (int kk = 0; kk < T_KC; ++kk) {
-#pragma unroll
-    for (int plane = 0; plane < 2; ++plane) {
-      const float* q = (plane ? qi : qr) + kk * S_QLD + ty * 8;
-      const float* v = (plane ? bi : br) + kk * TT + tx * 4;
-      const float4 a0 = *reinterpret_cast<const float4*>(q);
-      const float4 a1 = *reinterpret_cast<const float4*>(q + 4);
-      const float4 v0 = *reinterpret_cast<const float4*>(v);
-      const float4 v1 = *reinterpret_cast<const float4*>(v + 64);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+// A tile's staged filter rows: entry e serves row user[e][0]'s old side and
+// row user[e][1]'s new side (-1: none), new_ent[i] is row i's new-side
+// entry, n_ent the entries in use.
+template <int SIDES, int R, class Rows>
+struct SplitRows {
+  typename Rows::Entry ent[SIDES == 2 ? 2 * R + 1 : R];
+  int user[SIDES == 2 ? 2 * R + 1 : R][2];
+  int new_ent[R];
+  int n_ent;
+};
+
+// Lay out rows r0 .. r0+R-1's entries (every thread calls it; it ends on a
+// barrier).
+template <int THREADS, int SIDES, int R, class Rows>
+__device__ __forceinline__ void split_stage_rows(SplitRows<SIDES, R, Rows>& t, const Rows& src,
+                                                 int r0, int rows, int seg, int tid) {
+  constexpr int ENT = SIDES == 2 ? 2 * R + 1 : R;
+  for (int i = tid; i < ENT; i += THREADS) t.user[i][0] = t.user[i][1] = -1;
+  __syncthreads();
+  if constexpr (SIDES == 1) {
+    // g_rows carries the new rows: row i's one side is old row i
+    for (int i = tid; i < R; i += THREADS)
+      if (r0 + i < rows) {
+        t.ent[i] = src.old_row(r0 + i);
+        t.user[i][0] = i;
+        t.new_ent[i] = i;
+      }
+    if (tid == 0) t.n_ent = R;
+  } else if (tid < 32) {  // warp 0, one lane per row
+    const int i = tid, r = r0 + i;
+    const bool live = i < R && r < rows;
+    const bool inside = live && r % seg + 1 < seg;  // the new side is old row r+1
+    const unsigned ends = __ballot_sync(~0u, live && !inside);
+    if (live) {
+      t.ent[i] = src.old_row(r);
+      t.user[i][0] = i;
     }
+    if (inside) {
+      t.user[i + 1][1] = i;
+      t.new_ent[i] = i + 1;
+      if (i + 1 == R) t.ent[R] = src.old_row(r + 1);
+    } else if (live) {
+      const int e = R + 1 + __popc(ends & ((1u << i) - 1));
+      t.ent[e] = src.boundary(r, seg);
+      t.user[e][1] = i;
+      t.new_ent[i] = e;
+    }
+    if (i == 0) t.n_ent = R + 1 + __popc(ends);
   }
+  __syncthreads();
 }
 
 // One item of a q chunk: an entry's filter at one bin and the XD of the
@@ -1164,94 +1222,25 @@ struct QItem {
   float g[4], x[2][2];
 };
 
-template <int SIDES, class Rows>
-__global__ void __cluster_dims__(S_RANKS, 1, 1) __launch_bounds__(S_THREADS, 2)
-split_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi, int rows,
-                 int seg, Rows src, const float* __restrict__ xf,
-                 const float* __restrict__ icr, const float* __restrict__ ici,
-                 float* __restrict__ out) {
-  using Shape = SplitShape<SIDES>;
-  constexpr int R = Shape::R, ENT = Shape::ENT, FOLD = Shape::FOLD;
-  extern __shared__ __align__(16) float smem[];
-  float* basis = smem;                       // [buffer][plane][T_KC][TT]
-  float* qr = smem + 2 * S_BASIS;            // [T_KC][S_QLD], m = (side*2 + ear)*R + row
-  float* qi = qr + T_KC * S_QLD;
-  float* part = smem;                        // [S_M][TT] after the main loop
-  __shared__ typename Rows::Entry ent[ENT];  // the tile's staged filter rows
-  __shared__ int user[ENT][2];               // the row whose side 0 / 1 it is, or -1
-  __shared__ int new_ent[R];                 // each row's new-side entry
-  __shared__ int n_ent;
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int b = (int)cluster.block_rank();   // this CTA's tail block
-  const int r0 = (int)(blockIdx.x / S_RANKS) * R;
-  const int tid = threadIdx.x;
-  const int kb = b * T_BLOCK;
-  const int t0 = tile_t0();
-
-  auto stage_basis = [&](int c) {            // one commit group per chunk
-    float* dst = basis + (c & 1) * S_BASIS;
-    const size_t at = (size_t)(kb + c * T_KC) * FPB + t0;
-    for (int i = tid; i < S_BASIS / 4; i += S_THREADS) {
-      const int plane = i / (S_BASIS / 8), j = 4 * (i % (S_BASIS / 8));
-      const int kk = j / TT, tt = j % TT;    // FPB % 4 == 0: four columns all in or all out
-      if (!B_MASK || t0 + tt < FPB)
-        cp_async16(dst + plane * T_KC * TT + j, (plane ? ici : icr) + at + (size_t)kk * FPB + tt);
-      else
-        *reinterpret_cast<float4*>(dst + plane * T_KC * TT + j) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    cp_async_commit();
-  };
-  stage_basis(0);
-
-  for (int i = tid; i < ENT; i += S_THREADS) user[i][0] = user[i][1] = -1;
-  for (int i = tid; i < 2 * T_KC * S_QLD; i += S_THREADS) qr[i] = 0.f;  // rows past the end
-  __syncthreads();
-  if constexpr (SIDES == 1) {
-    // g_rows carries the new rows: row i's one side is old row i
-    for (int i = tid; i < R; i += S_THREADS)
-      if (r0 + i < rows) {
-        ent[i] = src.old_row(r0 + i);
-        user[i][0] = i;
-        new_ent[i] = i;
-      }
-    if (tid == 0) n_ent = R;
-  } else if (tid < R) {  // warp 0, one lane per row
-    const int i = tid, r = r0 + i;
-    const bool live = r < rows;
-    const bool inside = live && r % seg + 1 < seg;  // the new side is old row r+1
-    const unsigned ends = __ballot_sync(~0u, live && !inside);
-    if (live) {
-      ent[i] = src.old_row(r);
-      user[i][0] = i;
-    }
-    if (inside) {
-      user[i + 1][1] = i;
-      new_ent[i] = i + 1;
-      if (i + 1 == R) ent[R] = src.old_row(r + 1);
-    } else if (live) {
-      const int e = R + 1 + __popc(ends & ((1u << i) - 1));
-      ent[e] = src.boundary(r, seg);
-      user[e][1] = i;
-      new_ent[i] = e;
-    }
-    if (i == 0) n_ent = R + 1 + __popc(ends);
-  }
-  __syncthreads();
-
-  // q of a chunk: a warp takes 4 entries x 8 bins (32-byte pieces of each
-  // filter plane); each entry's G multiplies the XD of the rows it serves.
-  // Two items' loads are in flight before either's products are stored.
-  auto load = [&](int it, int k0, QItem& q) {
+// q of the 32 bins from k0 into qr, qi ([T_KC][QLD], m = (side*2 + ear)*R
+// + row): a warp takes 4 entries x 8 bins (32-byte pieces of each filter
+// plane); each entry's G multiplies the XD of the rows it serves.  Two
+// items' loads are in flight before either's products are stored.
+template <int THREADS, int SIDES, int R, int QLD, class Rows>
+__device__ __forceinline__ void split_stage_q(const SplitRows<SIDES, R, Rows>& t,
+                                              const Rows& src, const float* __restrict__ xdr,
+                                              const float* __restrict__ xdi, int r0, int k0,
+                                              float* qr, float* qi, int tid) {
+  auto load = [&](int it, QItem& q) {
     const int lane = it % 32, wi = it / 32, e = (wi / 4) * 4 + lane / 8;
     q.kk = (wi % 4) * 8 + lane % 8;
     q.u[0] = q.u[1] = -1;
-    if (e >= n_ent) return;
-    q.u[0] = user[e][0];
-    q.u[1] = user[e][1];
+    if (e >= t.n_ent) return;
+    q.u[0] = t.user[e][0];
+    q.u[1] = t.user[e][1];
     if (q.u[0] < 0 && q.u[1] < 0) return;
     const int k = k0 + q.kk;
-    src.filter(ent[e], k, q.g);
+    src.filter(t.ent[e], k, q.g);
 #pragma unroll
     for (int side = 0; side < SIDES; ++side)
       if (q.u[side] >= 0) {
@@ -1266,59 +1255,110 @@ split_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi, i
       if (q.u[side] >= 0)
 #pragma unroll
         for (int ear = 0; ear < 2; ++ear) {
-          const int m = q.kk * S_QLD + (side * 2 + ear) * R + q.u[side];
+          const int m = q.kk * QLD + (side * 2 + ear) * R + q.u[side];
           cmul_rn(q.x[side][0], q.x[side][1], q.g[2 * ear], q.g[2 * ear + 1], &qr[m], &qi[m]);
         }
   };
-  auto stage_q = [&](int c) {
-    const int k0 = kb + c * T_KC;
-    const int items = (n_ent + 3) / 4 * 4 * T_KC;
-    for (int it = tid; it < items; it += 2 * S_THREADS) {
-      QItem q0, q1;
-      load(it, k0, q0);
-      q1.u[0] = q1.u[1] = -1;
-      if (it + S_THREADS < items) load(it + S_THREADS, k0, q1);
-      store(q0);
-      store(q1);
-    }
-  };
-
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int c = 0; c < S_CHUNKS; ++c) {
-    if (c + 1 < S_CHUNKS) stage_basis(c + 1);  // its buffer's readers passed the last barrier
-    stage_q(c);
-    if (c + 1 < S_CHUNKS)
-      cp_async_wait<1>();
-    else
-      cp_async_wait<0>();
-    __syncthreads();
-    const float* br = basis + (c & 1) * S_BASIS;
-    split_chunk_fma(acc, qr, qi, br, br + T_KC * TT, tx, ty);
-    __syncthreads();
+  const int items = (t.n_ent + 3) / 4 * 4 * T_KC;
+  for (int it = tid; it < items; it += 2 * THREADS) {
+    QItem q0, q1;
+    load(it, q0);
+    q1.u[0] = q1.u[1] = -1;
+    if (it + THREADS < items) load(it + THREADS, q1);
+    store(q0);
+    store(q1);
   }
+}
 
-  // this rank's block partial into its own shared memory
+// Stage the basis chunk of bins k0 .. k0+KC-1, columns t0 .. t0+TT-1 (0
+// past FPB), into dst ([plane][KC][TT]) as one commit group.
+template <int THREADS, int KC>
+__device__ __forceinline__ void split_stage_basis(float* dst, const float* __restrict__ icr,
+                                                  const float* __restrict__ ici, int k0, int t0,
+                                                  int tid) {
+  constexpr int PLANE = KC * TT;
+  if constexpr (FPB % 4 == 0) {               // four columns all in or all out
+    const size_t at = (size_t)k0 * FPB + t0;
+    for (int i = tid; i < 2 * PLANE / 4; i += THREADS) {
+      const int plane = i / (PLANE / 4), j = 4 * (i % (PLANE / 4));
+      const int kk = j / TT, tt = j % TT;
+      if (!B_MASK || t0 + tt < FPB)
+        cp_async16(dst + plane * PLANE + j, (plane ? ici : icr) + at + (size_t)kk * FPB + tt);
+      else
+        *reinterpret_cast<float4*>(dst + plane * PLANE + j) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {                                    // rows of fpb floats: 4-byte copies
+    for (int i = tid; i < 2 * PLANE; i += THREADS) {
+      const int plane = i / PLANE, j = i % PLANE;
+      const int kk = j / TT, tt = j % TT;
+      if (t0 + tt < FPB)
+        cp_async4(dst + plane * PLANE + j, (plane ? ici : icr) + (size_t)(k0 + kk) * FPB + t0 + tt);
+      else
+        dst[plane * PLANE + j] = 0.f;
+    }
+  }
+  cp_async_commit();
+}
+
+// acc[i][j] += the chunk's KC bins of qr*br + qi*bi for operand row
+// ty*RPT+i and output column 4tx+j (j < 4) or 64+4tx+j-4, bins ascending,
+// each output's real then imaginary term: tail_chunk_fma's order per output.
+// (Threads as 4 tx x 8 ty a warp, and the next bin's operands loaded into
+// registers during this bin's products, measured slower on the card.)
+template <int RPT, int QLD, int KC>
+__device__ __forceinline__ void split_chunk_fma(float (&acc)[RPT][8], const float* qr,
+                                                const float* qi, const float* br,
+                                                const float* bi, int tx, int ty) {
+#pragma unroll 2
+  for (int kk = 0; kk < KC; ++kk) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float* row = part + (ty * 8 + i) * TT + tx * 4;
+    for (int plane = 0; plane < 2; ++plane) {
+      const float* q = (plane ? qi : qr) + kk * QLD + ty * RPT;
+      const float* v = (plane ? bi : br) + kk * TT + tx * 4;
+      float a[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; i += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(q + i);
+        a[i] = x.x;
+        a[i + 1] = x.y;
+        a[i + 2] = x.z;
+        a[i + 3] = x.w;
+      }
+      const float4 v0 = *reinterpret_cast<const float4*>(v);
+      const float4 v1 = *reinterpret_cast<const float4*>(v + 64);
+      const float b[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+}
+
+// A thread's block partial tile into part ([M][TT], row ty*RPT+i).
+template <int RPT>
+__device__ __forceinline__ void split_store_partial(float* part, float (&acc)[RPT][8], int tx,
+                                                    int ty) {
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    float* row = part + (ty * RPT + i) * TT + tx * 4;
     *reinterpret_cast<float4*>(row) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     *reinterpret_cast<float4*>(row + 64) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
   }
-  // bin 512 of the rows this rank folds: q (launch B's code) and the basis row
-  float* q4r = qr;                           // [(side*2 + ear)*FOLD + row]
-  float* q4i = q4r + SIDES * 2 * FOLD;
-  float* b4r = q4i + SIDES * 2 * FOLD;       // [TT]
-  float* b4i = b4r + TT;
+}
+
+// The last bin's q of the FOLD rows rank b folds (q4r, q4i: [(side*2 +
+// ear)*FOLD + row], launch B's code).
+template <int SIDES, int R, int FOLD, class Rows>
+__device__ __forceinline__ void split_last_bin_q(const SplitRows<SIDES, R, Rows>& t,
+                                                 const Rows& src, const float* __restrict__ xdr,
+                                                 const float* __restrict__ xdi, int r0, int rows,
+                                                 int b, float* q4r, float* q4i, int tid) {
   if (tid < SIDES * FOLD) {
     const int side = tid / FOLD, lr = tid % FOLD, row = b * FOLD + lr, r = r0 + row;
     if (r < rows) {
       float g[4];
-      src.filter(ent[side ? new_ent[row] : row], BINS - 1, g);
+      src.filter(t.ent[side ? t.new_ent[row] : row], BINS - 1, g);
       const size_t x = (size_t)r * BINS + BINS - 1;
 #pragma unroll
       for (int ear = 0; ear < 2; ++ear) {
@@ -1327,17 +1367,30 @@ split_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi, i
       }
     }
   }
-  for (int t = tid; t < TT; t += S_THREADS) {
+}
+
+// The last bin's basis row at columns t0 .. t0+TT-1 (b4r, b4i: [TT]).
+template <int THREADS>
+__device__ __forceinline__ void split_last_bin_basis(const float* __restrict__ icr,
+                                                     const float* __restrict__ ici, int t0,
+                                                     float* b4r, float* b4i, int tid) {
+  for (int t = tid; t < TT; t += THREADS) {
     const bool ok = !B_MASK || t0 + t < FPB;
     b4r[t] = ok ? icr[(size_t)(BINS - 1) * FPB + t0 + t] : 0.f;
     b4i[t] = ok ? ici[(size_t)(BINS - 1) * FPB + t0 + t] : 0.f;
   }
-  cluster.sync();                            // every rank's partial stored
+}
 
-  const float* parts[S_RANKS];
-#pragma unroll
-  for (int q = 0; q < S_RANKS; ++q) parts[q] = cluster.map_shared_rank(part, q);
-  for (int i = tid; i < FOLD * 2 * T_W; i += S_THREADS) {
+// After cluster.sync(): rank b folds its FOLD rows of the t-tile at t0 over
+// every rank's partials (parts[q], q < RANKS: [M][TT]) in block order,
+// adds the last bin's chain, runs launch B's epilogue and writes.
+template <int THREADS, int SIDES, int RANKS, int M, int FOLD>
+__device__ __forceinline__ void split_fold(const float* const* parts, const float* q4r,
+                                           const float* q4i, const float* b4r, const float* b4i,
+                                           const float* __restrict__ xf, int r0, int rows, int b,
+                                           int t0, float* __restrict__ out, int tid) {
+  constexpr int R = M / (2 * SIDES);
+  for (int i = tid; i < FOLD * 2 * T_W; i += THREADS) {
     const int lr = i / (2 * T_W), col = i % (2 * T_W), row = b * FOLD + lr, r = r0 + row;
     if (r >= rows) break;
     const int ear = col / T_W, tt = col % T_W, t = t0 + tt;
@@ -1348,7 +1401,7 @@ split_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi, i
       const int m = (side * 2 + ear) * R + row;
       float v = 0.f;
 #pragma unroll
-      for (int q = 0; q < S_RANKS; ++q) v = __fadd_rn(v, parts[q][m * TT + tt]);
+      for (int q = 0; q < RANKS; ++q) v = __fadd_rn(v, parts[q][m * TT + tt]);
       const int m4 = (side * 2 + ear) * FOLD + lr;
       y[side] = __fadd_rn(v, fmaf(q4i[m4], b4i[tt], fmaf(q4r[m4], b4r[tt], 0.f)));
     }
@@ -1362,27 +1415,216 @@ split_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi, i
     }
     out[(size_t)r * 2 * FPB + ear * FPB + t] = v;
   }
+}
+
+// The chunked layout: one t-tile a CTA (blockIdx.y), one block a rank (a
+// cluster of RANKS along x, set at launch), q built a chunk at a time.
+template <int SIDES, class Shape>
+constexpr size_t chunked_smem() {
+  return sizeof(float) * (2 * Shape::BASIS + 2 * T_KC * Shape::QLD);
+}
+
+template <int SIDES, int RANKS, class Rows>
+__global__ void __launch_bounds__(256, 2)
+split_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi, int rows,
+                 int seg, Rows src, const float* __restrict__ xf,
+                 const float* __restrict__ icr, const float* __restrict__ ici,
+                 float* __restrict__ out) {
+  using Shape = ChunkedShape<SIDES>;
+  constexpr int R = Shape::R, QLD = Shape::QLD, THREADS = Shape::THREADS, FOLD = R / RANKS;
+  constexpr int BASIS = Shape::BASIS;
+  static_assert(THREADS == 256 && FOLD * RANKS == R, "256 threads; ranks fold whole rows");
+  extern __shared__ __align__(16) float smem[];
+  float* basis = smem;                       // [buffer][plane][T_KC][TT]
+  float* qr = smem + 2 * BASIS;              // [T_KC][QLD], m = (side*2 + ear)*R + row
+  float* qi = qr + T_KC * QLD;
+  float* part = smem;                        // [M][TT] after the main loop
+  __shared__ SplitRows<SIDES, R, Rows> t;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = (int)cluster.block_rank();   // this CTA's tail block
+  const int r0 = (int)(blockIdx.x / RANKS) * R;
+  const int tid = threadIdx.x;
+  const int kb = b * T_BLOCK;
+  const int t0 = tile_t0();
+
+  split_stage_basis<THREADS, T_KC>(basis, icr, ici, kb, t0, tid);
+  for (int i = tid; i < 2 * T_KC * QLD; i += THREADS) qr[i] = 0.f;  // rows past the end
+  split_stage_rows<THREADS>(t, src, r0, rows, seg, tid);
+
+  const int tx = tid % 16, ty = tid / 16;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int c = 0; c < S_CHUNKS; ++c) {
+    // its buffer's readers passed the last barrier
+    if (c + 1 < S_CHUNKS)
+      split_stage_basis<THREADS, T_KC>(basis + ((c + 1) & 1) * BASIS, icr, ici,
+                                       kb + (c + 1) * T_KC, t0, tid);
+    split_stage_q<THREADS, SIDES, R, QLD>(t, src, xdr, xdi, r0, kb + c * T_KC, qr, qi, tid);
+    if (c + 1 < S_CHUNKS)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    const float* br = basis + (c & 1) * BASIS;
+    split_chunk_fma<8, QLD, T_KC>(acc, qr, qi, br, br + T_KC * TT, tx, ty);
+    __syncthreads();
+  }
+
+  // this rank's block partial into its own shared memory, and the last bin
+  split_store_partial(part, acc, tx, ty);
+  float* q4r = qr;                           // [(side*2 + ear)*FOLD + row]
+  float* q4i = q4r + SIDES * 2 * FOLD;
+  float* b4r = q4i + SIDES * 2 * FOLD;       // [TT]
+  float* b4i = b4r + TT;
+  split_last_bin_q<SIDES, R, FOLD>(t, src, xdr, xdi, r0, rows, b, q4r, q4i, tid);
+  split_last_bin_basis<THREADS>(icr, ici, t0, b4r, b4i, tid);
+  cluster.sync();                            // every rank's partial stored
+
+  const float* parts[RANKS];
+#pragma unroll
+  for (int q = 0; q < RANKS; ++q) parts[q] = cluster.map_shared_rank(part, q);
+  split_fold<THREADS, SIDES, RANKS, Shape::M, FOLD>(parts, q4r, q4i, b4r, b4i, xf, r0, rows, b,
+                                                    t0, out, tid);
   cluster.sync();                            // keep this partial until every rank read it
 }
 
-// Launch B's split form over ``rows`` rows in segments of ``seg``; a
-// refused launch (shared memory, registers, cluster occupancy) returns its
-// error, and a geometry without the form (HAS_SPLIT) cudaErrorInvalidValue.
+// The narrow layout: q once per (tile, block), every t-tile walked inside,
+// one block a rank.
+template <int SIDES, int RANKS, class Shape>
+constexpr size_t narrow_smem() {
+  constexpr int FOLD = Shape::R / RANKS;
+  return sizeof(float) * (2 * Shape::BASIS + 2 * T_BLOCK * Shape::QLD + 2 * SIDES * 2 * FOLD +
+                          2 * TT);
+}
+
+template <int SIDES, int RANKS, class Shape, class Rows>
+__global__ void __launch_bounds__(Shape::THREADS, 256 / Shape::THREADS)
+split_tail_tiles(const float* __restrict__ xdr, const float* __restrict__ xdi, int rows,
+                 int seg, Rows src, const float* __restrict__ xf,
+                 const float* __restrict__ icr, const float* __restrict__ ici,
+                 float* __restrict__ out) {
+  constexpr int M = Shape::M, R = Shape::R, RPT = Shape::RPT, QLD = Shape::QLD;
+  constexpr int KC = Shape::KC, THREADS = Shape::THREADS;
+  constexpr int BASIS = Shape::BASIS, FOLD = R / RANKS;
+  constexpr int CHUNKS = T_BLOCK / KC;       // basis chunks a t-tile
+  static_assert(FOLD * RANKS == R && CHUNKS % 2 == 0, "ranks fold whole rows");
+  extern __shared__ __align__(16) float smem[];
+  float* basis = smem;                       // [buffer][plane][KC][TT]
+  float* part = smem;                        // [M][TT] after a t-tile's chunks
+  float* qr = smem + 2 * BASIS;              // [T_BLOCK][QLD]
+  float* qi = qr + T_BLOCK * QLD;
+  float* q4r = qi + T_BLOCK * QLD;           // [(side*2 + ear)*FOLD + row]
+  float* q4i = q4r + SIDES * 2 * FOLD;
+  float* b4r = q4i + SIDES * 2 * FOLD;       // [TT]
+  float* b4i = b4r + TT;
+  __shared__ SplitRows<SIDES, R, Rows> t;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();  // this CTA's tail block
+  const int r0 = (int)(blockIdx.x / RANKS) * R;
+  const int tid = threadIdx.x;
+  const int kb = rank * T_BLOCK;
+
+  split_stage_basis<THREADS, KC>(basis, icr, ici, kb, 0, tid);
+  for (int i = tid; i < 2 * T_BLOCK * QLD; i += THREADS) qr[i] = 0.f;  // rows past the end
+  split_stage_rows<THREADS>(t, src, r0, rows, seg, tid);
+  for (int c = 0; c < S_CHUNKS; ++c)
+    split_stage_q<THREADS, SIDES, R, QLD>(t, src, xdr, xdi, r0, kb + c * T_KC,
+                                          qr + c * T_KC * QLD, qi + c * T_KC * QLD, tid);
+  split_last_bin_q<SIDES, R, FOLD>(t, src, xdr, xdi, r0, rows, rank, q4r, q4i, tid);
+  const float* parts[RANKS];
+#pragma unroll
+  for (int q = 0; q < RANKS; ++q) parts[q] = cluster.map_shared_rank(part, q);
+
+  const int tx = tid % 16, ty = tid / 16;
+  for (int t0 = 0; t0 < FPB; t0 += TT) {
+    float acc[RPT][8];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+    for (int i = 0; i < CHUNKS; ++i) {
+      // its buffer's readers passed the last barrier
+      if (i + 1 < CHUNKS)
+        split_stage_basis<THREADS, KC>(basis + ((i + 1) & 1) * BASIS, icr, ici,
+                                       kb + (i + 1) * KC, t0, tid);
+      if (i + 1 < CHUNKS)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      __syncthreads();
+      const float* br = basis + (i & 1) * BASIS;
+      split_chunk_fma<RPT, QLD, KC>(acc, qr + i * KC * QLD, qi + i * KC * QLD, br, br + KC * TT,
+                                    tx, ty);
+      __syncthreads();
+    }
+    split_store_partial(part, acc, tx, ty);
+    split_last_bin_basis<THREADS>(icr, ici, t0, b4r, b4i, tid);
+    cluster.sync();                          // every rank's partial of this t-tile stored
+    split_fold<THREADS, SIDES, RANKS, M, FOLD>(parts, q4r, q4i, b4r, b4i, xf, r0, rows, rank, t0,
+                                               out, tid);
+    cluster.sync();                          // keep them until every rank read them
+    if (t0 + TT < FPB) split_stage_basis<THREADS, KC>(basis, icr, ici, kb, t0 + TT, tid);
+  }
+}
+
+// Launch ``kernel`` over ``grid`` in clusters of ``ranks`` CTAs along x,
+// its shared memory raised (and a cluster past 8 allowed) first.
+template <class Kernel, class... Args>
+cudaError_t launch_cluster(Kernel kernel, dim3 grid, int threads, size_t smem, int ranks,
+                           cudaStream_t s, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (ranks > 8) {                           // past the portable cluster size
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Launch B's split form over ``rows`` rows in segments of ``seg``: the
+// narrow layout where the rows are blended here (rows 2-4, 8) and there is
+// more than one t-tile, else the chunked one (kernels/fused_step.
+// split_default says the same).  A refused launch (shared memory,
+// registers, cluster occupancy) returns its error, and a geometry without
+// the form cudaErrorInvalidValue.
 template <int SIDES, class Rows>
 cudaError_t launch_split_tail(cudaStream_t s, const float* xdr, const float* xdi, int rows,
                               int seg, const Rows& src, const float* xf, const float* icr,
                               const float* ici, float* out) {
   if constexpr (!HAS_SPLIT) {
     return cudaErrorInvalidValue;
+  } else if constexpr (std::is_same<Rows, RowsBlended>::value && T_TILES > 1) {
+    using Shape = NarrowShape<SIDES>;
+    const int tiles = (rows + Shape::R - 1) / Shape::R;
+    return launch_cluster(split_tail_tiles<SIDES, S_NBLK, Shape, Rows>, dim3(tiles * S_NBLK),
+                          Shape::THREADS, narrow_smem<SIDES, S_NBLK, Shape>(), S_NBLK, s, xdr,
+                          xdi, rows, seg, src, xf, icr, ici, out);
   } else {
-    auto kernel = split_tail_xfade<SIDES, Rows>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S_SMEM);
-    if (err != cudaSuccess) return err;
-    const int tiles = (rows + SplitShape<SIDES>::R - 1) / SplitShape<SIDES>::R;
-    kernel<<<dim3(tiles * S_RANKS, T_TILES), S_THREADS, S_SMEM, s>>>(xdr, xdi, rows, seg, src,
-                                                                     xf, icr, ici, out);
-    return cudaGetLastError();
+    using Shape = ChunkedShape<SIDES>;
+    const int tiles = (rows + Shape::R - 1) / Shape::R;
+    return launch_cluster(split_tail_xfade<SIDES, S_NBLK, Rows>, dim3(tiles * S_NBLK, T_TILES),
+                          Shape::THREADS, chunked_smem<SIDES, Shape>(), S_NBLK, s, xdr, xdi,
+                          rows, seg, src, xf, icr, ici, out);
   }
 }
 

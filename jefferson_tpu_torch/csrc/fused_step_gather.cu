@@ -34,12 +34,13 @@
 // operand, K tiled in 32-bin chunks through shared memory, 8 x 8 register
 // tiles summed by 128-bin blocks (the blocked tail, fused_forward.cuh), the
 // crossfade as the epilogue.  Every entry also takes launch B's split form
-// (fused_forward.cuh: four CTAs a tile, one per 128-bin block, each filter
-// row staged once), which gives the same bits.
+// (fused_forward.cuh: a cluster of CTAs a tile, one per 128-bin block, each
+// filter row staged once), which gives the same bits.
 //
 // Geometry (fused_forward.cuh): both forms run at every geometry where
 // they exist (launch B everywhere, the split form where HAS_SPLIT), a CTA
-// per 32 rows and TT = 128 output columns, T_TILES along the grid's y.  At
+// per 32 rows and TT = 128 output columns, T_TILES along the grid's y (or,
+// in the split form's narrow layout, walked inside a CTA).  At
 // a history of partial blocks (fpb 100, 441 under pad 1024) the entry with
 // launch A refuses and jt_fused_apply_xfade is the step.
 
@@ -185,7 +186,7 @@ cudaError_t launch_gather_tail(cudaStream_t s, int form, const float* xdr, const
 // (rows x 2052); with_xfade != 0 also reads g_last (num_sources x 2052)
 // and xf (rows), else both may be null.  dsel as in the one-hot step.
 // form: launch B as FORM_LAUNCH_B (one CTA per 32 rows) or FORM_SPLIT (a
-// cluster of four CTAs per tile, fused_forward.cuh), the same bits; any
+// cluster of CTAs per tile, fused_forward.cuh), the same bits; any
 // other, or a form the geometry lacks, is refused (cudaErrorInvalidValue),
 // and so is a history of partial blocks (launch A needs whole blocks).
 // Launches on ``stream`` of ``device`` without synchronising, leaves the

@@ -53,8 +53,8 @@
 // on its own (__fmul_rn/__fadd_rn); only the tail dot products use fmaf.
 //
 // Rows 2-4 and 8 also take launch B's split form (fused_forward.cuh: a
-// cluster of four CTAs per tile, one per 128-bin block, each table row
-// blended once a tile), with the same bits; row 1 cannot (one chain), and
+// cluster of CTAs per tile, one per 128-bin block, each table row blended
+// once a tile), with the same bits; row 1 cannot (one chain), and
 // takes the staged form instead.
 //
 // Row 8 at few rows (the live block step: one row) has its own launch, the
@@ -721,7 +721,7 @@ spatializer_cluster(const float* __restrict__ xdr, const float* __restrict__ xdi
 // of group_rows output rows; bnd_idx/bnd_w hold one row per seg output
 // rows; blocked_tail != 0 sums the tail by 128-bin blocks.  form: the
 // blocked tail's launch B as FORM_LAUNCH_B (one CTA per 32 rows) or
-// FORM_SPLIT (a cluster of four CTAs per tile, fused_forward.cuh: the same
+// FORM_SPLIT (a cluster of CTAs per tile, fused_forward.cuh: the same
 // bits; it needs group_rows % seg == 0); one chain over K as FORM_LAUNCH_B
 // or FORM_STAGED (blend_tail_staged: the same bits; it needs group_rows %
 // seg == 0); anything else, a form the geometry lacks, or a history of

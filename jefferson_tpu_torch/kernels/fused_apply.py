@@ -92,7 +92,7 @@ def fused_apply_xfade(
         raise ValueError("the step needs a block")
     name = "fused_apply_xfade" if with_xfade else NO_XFADE
     form = _form(name, b, fpb, pad_len)
-    if form == SPLIT and (icr.data_ptr() % 16 or ici.data_ptr() % 16):
+    if form == SPLIT and fpb % 4 == 0 and (icr.data_ptr() % 16 or ici.data_ptr() % 16):
         raise ValueError("the split form copies the tail basis in 16-byte pieces: "
                          "icr and ici must start on a 16-byte boundary")
     out = torch.empty((b, 2 * fpb), dtype=torch.float32, device=device)

@@ -29,13 +29,14 @@ all behind the entry ``jt_fused_spatializer_apply`` of
 * launch B (above it: ``render_scan``'s chunks, ``MANY_ROWS_FORM``): the
   one-hot step with segments of one row, each row's new side reading its
   own new brackets, and the whole table as one group; one CTA per 32 rows;
-* or launch B's split form there: one cluster of four CTAs per 32 rows,
-  one per 128-bin block (``csrc/fused_forward.cuh``).
+* or launch B's split form there: one cluster of CTAs per tile, one per
+  128-bin block (``csrc/fused_forward.cuh``).
 
 All keep the blocked tail's order, so they agree bit for bit.  The
 cluster form exists at fpb 128 / pad 1024 alone and the split form where
 ``fused_step.geometry_forms`` says so; at other geometries ``pick_form``
-takes the split form at every row count where it exists, else launch B,
+takes the split form where it exists, but at the row counts where launch B
+measured less device time (``fused_step.LAUNCH_B_SPANS``), else launch B,
 and a form a geometry lacks, named through ``_cuda``, raises.
 ``fused_apply`` runs at a history of partial blocks too (the streaming
 forms' card step there); ``fused_forward_apply`` needs whole blocks.
@@ -67,7 +68,8 @@ from . import build
 from .fused_step import (
     LAUNCH_B, SPATIALIZER, SPLIT, _check, _check_streams, _cuda_error, _forward_reference,
     _in_table, _tails_reference, _where, _whole_blocks, blend_cat, forward_form,
-    forward_launches, geometry_forms, launches, planes_scratch, spatializer_forms,
+    forward_launches, geometry_forms, launch_b_span, launches, planes_scratch,
+    spatializer_forms,
 )
 
 # Rows up to which row 8 takes the cluster form, and above which
@@ -78,9 +80,11 @@ from .fused_step import (
 # the kernel table).  The live block step runs 1 row, render_scan chunks of up to 16,384.
 SMALL_ROWS = 128
 CLUSTER = "cluster"
-# The form above SMALL_ROWS: launch B, or its split form (a cluster of four
-# CTAs per 32-row tile, csrc/fused_forward.cuh), the one that took less
-# device time alone at render_scan's 12,556 rows (chip_smoke.py, phase bench).
+# The form above SMALL_ROWS: launch B, or its split form (a cluster of CTAs
+# per tile, one per 128-bin block, csrc/fused_forward.cuh), the one that
+# took less device time alone at render_scan's 12,556 rows (chip_smoke.py,
+# phase bench).  At the other geometries it takes launch B at the counts of
+# fused_step.LAUNCH_B_SPANS["row 8"].
 MANY_ROWS_FORM = SPLIT
 _FORM_CODE = {LAUNCH_B: 0, CLUSTER: 1, SPLIT: 2}
 
@@ -91,7 +95,9 @@ def pick_form(rows: int, fpb: int = 128, pad_len: int = 1024) -> str:
     forms = geometry_forms(fpb, pad_len)
     if rows <= SMALL_ROWS and forms.cluster:
         return CLUSTER
-    return MANY_ROWS_FORM if forms.split else LAUNCH_B
+    if not forms.split or launch_b_span("row 8", rows, fpb, pad_len):
+        return LAUNCH_B
+    return MANY_ROWS_FORM
 
 
 def kernel_planes(db, device) -> torch.Tensor:

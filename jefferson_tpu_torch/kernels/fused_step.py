@@ -33,12 +33,13 @@ Operands on the CPU run the plain twin (``*_reference``); operands on a
 CUDA device run the kernel, or the wrapper raises (no fallback).  On the
 card, launch B of rows 2-7 has two forms with the same bits, chosen by
 ``pick_form`` (the choice of shape, not a fallback): one CTA per 32
-rows, or the split form, a cluster of four CTAs per tile
-(``csrc/fused_forward.cuh``).  Launch A, the forward every step of rows
-1-6 runs first, takes its product form, or its few-block form up to
-``FEW_NB`` blocks a source, or where neither exists its tile form or its
-planes form (``forward_form``); the tile form is also kept to hold the
-others against (``_forward_cuda``).  Both keep the TPU kernels' answer
+rows, or the split form, a cluster of CTAs per tile, one per 128-bin
+block (``csrc/fused_forward.cuh``, in the layout ``split_default``
+names).  Launch A, the forward every step of rows 1-6 runs first,
+takes its product form, or its few-block form up to ``FEW_NB`` blocks a
+source, or where neither exists its tile form or its planes form
+(``forward_form``); the tile form is also kept to hold the others
+against (``_forward_cuda``).  Both keep the TPU kernels' answer
 for ids outside the table (they add nothing) and for selectors outside
 1..n_dist-1 (triple 0), so no check syncs the device.
 
@@ -97,7 +98,7 @@ launches: dict[str, int] = dict.fromkeys((
 ), 0)
 
 # Launch B's forms on the card: one CTA per 32-row tile, or the split
-# form, a cluster of four CTAs per tile, one per 128-bin block of the
+# form, a cluster of CTAs per tile, one per 128-bin block of the
 # blocked tail, folded in launch B's order (csrc/fused_forward.cuh): the
 # same bits.  Row 1 sums one chain over K: launch B, or its staged form
 # (csrc/fused_step_onehot.cu: each filter row blended once a tile from its
@@ -123,8 +124,44 @@ split_launches: dict[str, int] = dict.fromkeys((
 # Rows from which rows 2-7 take the split form on the card: on an H100
 # (700 W) it took less device time alone than launch B for each of them at
 # every count of 8-16,384 rows (chip_smoke.py's crossover, phase bench;
-# PERF.md, the kernel table).
+# PERF.md, the kernel table).  At the other geometries, see LAUNCH_B_SPANS.
 SPLIT_FROM = 1
+
+# The kernels of rows 2-8 that blend their filter rows (rows 2-4 and 8);
+# rows 5-7 take theirs pre-blended.
+BLENDED = (GROUPED, "fused_step_stream_onehot_xfade", "fused_step_stream_onehot_grouped_xfade",
+           SPATIALIZER)
+
+# Away from fpb 128 / pad 1024: the row counts, first to last, at which
+# launch B took less device time alone than the split form by more than a
+# reading's spread between chip runs, by geometry and kind of row
+# ("blended": rows 2-4, "row 8"; rows 5-7 took more nowhere); at every other
+# count of the crossover (8, 64, 256, 512, 1,024, 2,048, 3,072, 4,096,
+# 6,144, 8,192, 16,384 rows; rows 5-7 at 8, 512, 2,048, 4,096, 16,384) the
+# split form took less or the two were within that spread, and so the
+# split form is taken there and at the counts between (an H100, 700 W;
+# scripts/split_layouts.py, two readings in turns; PERF.md, the kernel
+# table).  Launch B wins where its grid of ceil(rows / 32) x T_TILES CTAs
+# is one whole wave of 128 (and at f441 up to four), launch B / split ms:
+# rows 2 / 3 / 4 at f512 1,024 rows 0.2714 / 0.3100, 0.2725 / 0.3101,
+# 0.2740 / 0.3107; f1024 512 rows 0.5415 / 0.5808, 0.5346 / 0.5801,
+# 0.5263 / 0.5795; f2048 256 rows 1.0756 / 1.1448, 1.0750 / 1.1511,
+# 1.0766 / 1.1438; row 8 at 4,096 rows at f64 0.1930 / 0.2386, f100 0.1980
+# / 0.2464, f16 0.1937 / 0.2267, f4 0.1921 / 0.2283; f256 2,048 rows
+# 0.2007 / 0.2390; f512 1,024 0.2006 / 0.2518; f1024 512 0.4003 / 0.4566;
+# f2048 256 0.8269 / 0.9040; f441 1,024 0.2014 / 0.3205 to 4,096 0.8098 /
+# 0.8752.
+LAUNCH_B_SPANS: dict[tuple[int, int], dict[str, tuple[int, int]]] = {
+    (4, 1024): {"row 8": (4096, 4096)},
+    (16, 1024): {"row 8": (4096, 4096)},
+    (64, 1024): {"row 8": (4096, 4096)},
+    (100, 1024): {"row 8": (4096, 4096)},
+    (256, 1024): {"row 8": (2048, 2048)},
+    (441, 1024): {"row 8": (1024, 4096)},
+    (512, 1024): {"blended": (1024, 1024), "row 8": (1024, 1024)},
+    (1024, 2048): {"blended": (512, 512), "row 8": (512, 512)},
+    (2048, 4096): {"blended": (256, 256), "row 8": (256, 256)},
+}
 
 # Rows from which row 1 takes launch B's staged form on the card: on an
 # H100 (700 W) it took less device time alone than the one-CTA form at
@@ -167,6 +204,16 @@ blend_forms: dict[str, int] = dict.fromkeys((DOUBLE, DEDUP), 0)
 # The form a card test or chip_smoke.py names through ``_cuda``; None: pick.
 _named_form: contextvars.ContextVar[str | None] = contextvars.ContextVar("form", default=None)
 
+# Launch B's split form exists where the blocked tail is 1 to
+# SPLIT_MAX_BLOCKS whole 128-bin blocks and fpb % 4 == 0 or fpb > 128
+# (csrc/fused_forward.cuh HAS_SPLIT), in one of two layouts with the same
+# bits, fixed when the library is built (``split_default``): chunked (a
+# CTA per t-tile and block, q built a 32-bin chunk at a time) or narrow (a
+# CTA per block walking every t-tile, q built once, 16-row crossfading
+# tiles).
+SPLIT_MAX_BLOCKS = 16
+SPLIT_CHUNKED, SPLIT_NARROW = "chunked", "narrow"
+
 # Launch B's output columns a CTA (csrc/fused_forward.cuh TT): its t-tiles
 # lie along the grid's y, which holds at most GRID_Y CTAs.
 T_TILE, GRID_Y = 128, 65535
@@ -202,9 +249,9 @@ def geometry_forms(fpb: int, pad_len: int) -> Forms:
     launch A where the history is whole blocks (its tile form to Q 16, its
     product form with 64-bin slices from pad 128 to Q 64, its few-block form
     where its static shared memory stays under 48 KB, its planes form
-    always), launch B's split form with one rank per 128-bin block (2 to 8)
-    and 16-byte basis rows, row 1's staged form and row 8's cluster form at
-    fpb 128 / pad 1024 alone."""
+    always), launch B's split form where the tail is 1 to 16 whole 128-bin
+    blocks and fpb % 4 == 0 or fpb > 128, row 1's
+    staged form and row 8's cluster form at fpb 128 / pad 1024 alone."""
     bins = pad_len // 2 + 1
     aligned = pad_len % fpb == 0
     q = pad_len // fpb if aligned else 0
@@ -218,9 +265,18 @@ def geometry_forms(fpb: int, pad_len: int) -> Forms:
         fpb=fpb, pad=pad_len, bins=bins, q=q, few_nb=few_nb,
         product=(aligned and bins - 1 >= 64 and (bins - 1) % 64 == 0 and fpb % 32 == 0
                  and q <= PRODUCT_MAX_Q),
-        split=(bins - 1) % 128 == 0 and 1 <= (bins - 1) // 128 <= 8 and fpb % 4 == 0,
+        split=((bins - 1) % 128 == 0 and 1 <= (bins - 1) // 128 <= SPLIT_MAX_BLOCKS
+               and (fpb % 4 == 0 or fpb > T_TILE)),
         staged=tuned, cluster=tuned, tile=aligned and q <= TILE_MAX_Q,
     )
+
+
+def split_default(name: str, fpb: int) -> str:
+    """The layout the split form takes for kernel ``name`` (rows 2-8; csrc/
+    fused_forward.cuh launch_split_tail): the narrow layout where the kernel
+    blends its filter rows (rows 2-4 and 8) past fpb 128, else the chunked
+    layout."""
+    return SPLIT_NARROW if name in BLENDED and fpb > T_TILE else SPLIT_CHUNKED
 
 
 def card_refusal(fpb: int, pad_len: int) -> str | None:
@@ -256,13 +312,23 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
+def launch_b_span(kind: str, rows: int, fpb: int, pad_len: int) -> bool:
+    """Whether ``rows`` lies in LAUNCH_B_SPANS' span for rows of ``kind`` at
+    (fpb, pad_len)."""
+    first, last = LAUNCH_B_SPANS.get((fpb, pad_len), {}).get(kind, (0, -1))
+    return first <= rows <= last
+
+
 def pick_form(name: str, rows: int, fpb: int = 128, pad_len: int = 1024) -> str:
     """Launch B's form on the card for kernel ``name`` (rows 1-7) at ``rows``
     rows, among those of the (fpb, pad_len) library."""
     forms = geometry_forms(fpb, pad_len)
     if name == ROW1:
         return STAGED if rows >= STAGED_FROM and forms.staged else LAUNCH_B
-    return SPLIT if name in split_launches and rows >= SPLIT_FROM and forms.split else LAUNCH_B
+    if name not in split_launches or rows < SPLIT_FROM or not forms.split:
+        return LAUNCH_B
+    blended = name in BLENDED and launch_b_span("blended", rows, fpb, pad_len)
+    return LAUNCH_B if blended else SPLIT
 
 
 def forward_form(nb: int, fpb: int = 128, pad_len: int = 1024) -> str:

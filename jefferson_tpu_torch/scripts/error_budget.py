@@ -27,6 +27,16 @@ found which of its stages read over the CPU's margin on a card:
   unfused/forward_cpu - the sliding forward (``ops/fft.rfft_sliding_split``)
                  computed on the CPU and copied to the device.
 
+and the fused configuration with one stage swapped:
+
+  fused/sidepass_blocked - the sparse side-pass's old-side tail
+                 (``engine/renderer._sparse_xfade_fix``) summed by 128-bin
+                 blocks (``ops/fft.irfft_tail``), as launch B and the
+                 unfused chain sum theirs, where production takes one
+                 product over 513 bins (``ops/fft.irfft_tail_split``);
+                 ``sidepass_blocked`` makes the swap for any render
+                 (chip_smoke.py's sweep phase also reads scene_hold with it).
+
 plus the blend micro A/B the configurations do not isolate: the one-hot
 blend as one ``torch.matmul`` against ``blend_cat``'s gather, on the
 scenario's first 2,048 old rows.  ``lane512`` and ``tail_tree`` are TPU
@@ -158,6 +168,13 @@ SWAPS = {
 }
 
 
+def sidepass_blocked():
+    """The sparse side-pass's old-side tail summed by 128-bin blocks for the
+    ``with`` block only (its one caller of ``irfft_tail_split`` on a render
+    path), restored even when a render raises."""
+    return patched(fft_ops, irfft_tail_split=fft_ops.irfft_tail)
+
+
 def blend_micro_ab(db, plan, device) -> dict:
     """One-hot blend (one ``torch.matmul`` of the one-hot weights by the
     compact table) against ``blend_cat``'s gather, on the scenario's first
@@ -243,6 +260,8 @@ def run(db, signal, positions, want, device) -> dict:
     with apply_kernel_patch():
         run_config("apply_kernel", lambda: R.Renderer(db, device=device))
     run_config("fused", lambda: R.Renderer(db, device=device))
+    with sidepass_blocked():
+        run_config("fused/sidepass_blocked", lambda: R.Renderer(db, device=device))
     for name, why in ABSENT.items():
         results[name] = {"absent": why, "jax_margin": JAX_MARGIN[name],
                          "jax_cpu_margin": JAX_CPU_MARGIN[name]}

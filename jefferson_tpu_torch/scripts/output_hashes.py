@@ -11,9 +11,10 @@ a sweep, an orbit, the helix and a new random position every block (the
 dedup+fused, one-hot and gather arms, also without the crossfade), each
 with and without ``fused``; ``BatchRenderer`` on a hold scene, a mover
 scene and wide movers (16 sources); ``render_scan`` on the orbit; 300
-live blocks of ``StreamingSpatializer``; and the bench step (row 1).  Each
-with the launches it made by kernel and launch A's by form.  Inputs come
-from a seed.
+live blocks of ``StreamingSpatializer``; and the bench step (row 1).  At a
+history of partial blocks (fpb 441) the scenes and the bench step, which
+need whole blocks, are left out.  Each with the launches it made by kernel
+and launch A's by form.  Inputs come from a seed.
 """
 
 from __future__ import annotations
@@ -68,11 +69,12 @@ def main(argv=None) -> int:
         for fused in (True, False):
             r = Renderer(db, device=args.device, chunk_blocks=1024, fused=fused)
             record(f"Renderer {what}{'' if fused else ' unfused'}", lambda: r.render(sig, pos))
+    whole = cfg.pad_len % fpb == 0
     s, nb = 16, n // 4
     sigs = bench.scene_signals(sig, s, nb, fpb)
     for what, pos in (("hold", bench.scene_hold_positions(s, nb, 172)),
                       ("movers", bench.scene_mover_positions(s, nb)),
-                      ("wide", bench.wide_positions(s, nb))):
+                      ("wide", bench.wide_positions(s, nb))) if whole else ():
         r = BatchRenderer(db, device=args.device, chunk_blocks=256)
         record(f"BatchRenderer {what}", lambda: r.render(sigs, pos))
     record("render_scan orbit",
@@ -88,8 +90,9 @@ def main(argv=None) -> int:
         return np.concatenate(blocks)
 
     record("live 300 blocks", live)
-    wl = bench.build_workload(db, 16, 64, torch.device(args.device))
-    record("bench step", lambda: bench.run_step(wl)[0].cpu().numpy())
+    if whole:
+        wl = bench.build_workload(db, 16, 64, torch.device(args.device))
+        record("bench step", lambda: bench.run_step(wl)[0].cpu().numpy())
     print(json.dumps(out, sort_keys=True))
     return 0
 

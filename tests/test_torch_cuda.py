@@ -453,6 +453,115 @@ def test_a_refused_split_launch_raises(card_db, monkeypatch):
     assert sum(tfs.launches.values()) == 0
 
 
+# ---- launch B's split form past one t-tile or eight tail blocks -------------
+
+# fpb 2048 / pad 4096 (16 tail blocks, 16 t-tiles), 128 / 4096 (16 blocks),
+# 441 / 1024 (a history of partial blocks: rows 7 and 8 alone; 3 t-tiles and
+# a ragged one of 57 columns, rows of 441 floats) and 1024 / 2048 (8 t-tiles)
+_WIDE = ("f2048", "f128t2048", "f441", "f1024")
+_WIDE_GROUPING = {8: (8, 1), 264: (8, 3), 4096: (256, 2)}  # stream rows -> (tb, group_tiles)
+
+
+def _split_is_launch_b(call):
+    """The step in launch B, then in the split form (in the layout its
+    library takes, fused_step.split_default), through the private seams:
+    torch.equal."""
+    want = call(tfs.LAUNCH_B)
+    got = call(tfs.SPLIT)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    return want
+
+
+@pytest.mark.parametrize("rows", [8, 264, 4096])
+@pytest.mark.parametrize("name", _WIDE)
+def test_split_form_at_the_wide_geometries_is_launch_b_bit_for_bit(name, rows):
+    """Rows 2-7, with and without the crossfade, the split form against
+    launch B: at 264 rows segment and group ends fall inside tiles and the
+    brackets repeat one id; the library reports the form."""
+    db = _geo_db(name)
+    fpb, pad = db.config.frames_per_buffer, db.config.pad_len
+    forms = tfs.geometry_forms(fpb, pad)
+    assert forms.split and tfs.library_geometry("fused_step_gather", fpb, pad).split
+    assert tfs.library_geometry("fused_step_onehot", fpb, pad).split
+    dev = torch.device("cuda", 0)
+    s_, nb = _SCENE_SHAPES[rows]
+    tfs.reset_launches()
+    steps = 0
+    for form in ("apply", "apply_noxf") + (("gather", "gather_noxf", "grouped") if forms.q else ()):
+        groups = {"group_sources": _SPLIT_GROUPS[rows]} if form == "grouped" else {}
+        fn, args, kw = bench.scene_step(db, form, s_, nb, dev, xf_every=5,
+                                        duplicate=rows == 264, **groups)
+        want = _split_is_launch_b(lambda f: tfs._cuda(fn, *args, form=f, **kw))
+        assert want.shape == (rows, 2 * fpb)
+        steps += 1
+    if forms.q:
+        tb, gt = _WIDE_GROUPING[rows]
+        for form in bench.STREAM_FORMS:
+            fn, args, kw = bench.stream_step(db, form, rows, dev, tb=tb, group_tiles=gt,
+                                             radius_step=0.01, xf_every=5)
+            _split_is_launch_b(lambda f: tfs._cuda(fn, *args, form=f, **kw))
+            steps += 1
+    assert sum(tfs.split_launches.values()) == steps
+
+
+@pytest.mark.parametrize("name", ["f2048", "f128t2048", "f1024"])
+def test_split_form_at_the_wide_geometries_on_ids_outside_a_groups_table(name):
+    db = _geo_db(name)
+    fn, args, kw = bench.scene_step(db, "grouped", 4, 66, torch.device("cuda", 0),
+                                    group_sources=1, radius_step=0.01, xf_every=3)
+    args = list(args)
+    u = args[4].shape[0] // 4  # four groups of one source
+    args[5], args[7] = args[5].clone(), args[7].clone()
+    args[5][3, 1], args[5][100, 0], args[5][65, 2] = u, -4, u
+    args[7][-1, 2], args[7][0, 3] = 3 * u, -1
+    _split_is_launch_b(lambda f: tfs._cuda(fn, *args, form=f, **kw))
+
+
+@pytest.mark.parametrize("rows", [8, 264, 4096])
+@pytest.mark.parametrize("name", _WIDE)
+def test_spatializer_split_form_at_the_wide_geometries_is_launch_b_bit_for_bit(name, rows):
+    """Row 8's split form against launch B: random and duplicate brackets
+    with ids outside the table, with the crossfade and at xf = 0."""
+    db = _geo_db(name)
+    cfg = db.config
+    fpb, pad, bins = cfg.frames_per_buffer, cfg.pad_len, cfg.num_bins
+    geo = dict(pad_len=pad, bins=bins, fpb=fpb)
+    dev = torch.device("cuda", 0)
+    tfs.reset_launches()
+    for duplicate in (False, True):
+        table, fwd, br, xf = bench.spatializer_step(db, rows, dev, duplicate=duplicate, seed=4)
+        br = tuple(t.clone() for t in br)
+        br[0][0, 1], br[2][rows - 1, 3], br[2][rows // 2, 0] = db.num_hrtf, -1, 9000
+        if tfs.geometry_forms(fpb, pad).q:
+            xd = tfs._forward_reference(fwd[0][None], rows, *fwd[1:], None, None, **geo)
+        else:
+            from jefferson_tpu_torch.engine.stream import _window_xd
+
+            xd = _window_xd(fwd[0].unfold(0, pad, fpb), *fwd[1:], cfg)
+        for x in (xf, torch.zeros_like(xf)):
+            _split_is_launch_b(
+                lambda f: tsp._cuda(dev, rows, table, br, x, *xd, None, form=f, **geo))
+    assert tfs.spatializer_forms == {"cluster": 0, "launch_b": 4, "split": 4}
+
+
+@pytest.mark.parametrize("name", _WIDE)
+def test_split_layouts_script_on_the_card(name):
+    """scripts/split_layouts.py at rows 7 and 8 (the split form torch.equal
+    to launch B, times beside the twin and the bound, two readings in turns
+    at one crossover count)."""
+    _geo_db(name)
+    from jefferson_tpu_torch.scripts import split_layouts
+
+    got = split_layouts.measure(name, kernels=["fused_apply_xfade", tfs.SPATIALIZER],
+                                cross=(64,), repeat=2)
+    for kernel, res in got["kernels"].items():
+        assert res["equal"]
+        assert res["layout"] == tfs.split_default(kernel, got["fpb"])
+        assert 0 < res["bound_ms"] < res["alone"][tfs.SPLIT]
+        assert [len(res["cross"][64][f]) for f in (tfs.LAUNCH_B, tfs.SPLIT)] == [2, 2]
+
+
 # ---- kernel row 8 and the live path ------------------------------------------
 
 def _spatializer(db, rows, **kw):

@@ -426,15 +426,16 @@ def test_geometry_forms_follow_the_sources_rules():
     assert f(1024, 2048) == tfs.Forms(1024, 2048, 1025, 2, 0, True, True, False, False, True)
     assert f(64, 512) == tfs.Forms(64, 512, 257, 8, 9, True, True, False, False, True)
     assert f(100, 1024) == tfs.Forms(100, 1024, 513, 0, 0, False, True, False, False, False)
-    assert f(441, 1024) == tfs.Forms(441, 1024, 513, 0, 0, False, False, False, False, False)
+    assert f(441, 1024) == tfs.Forms(441, 1024, 513, 0, 0, False, True, False, False, False)
     assert f(32, 64) == tfs.Forms(32, 64, 33, 2, 15, False, False, False, False, True)
     # past the old envelope: the tile form to Q 16, the product form to Q
-    # 64, the split form to 8 ranks (1,025 bins)
+    # 64, the split form to 16 blocks (2,049 bins; 4-byte basis copies past
+    # fpb 128, whole float4 columns below it)
     assert f(16, 1024) == tfs.Forms(16, 1024, 513, 64, 0, False, True, False, False, False)
     assert f(4, 1024) == tfs.Forms(4, 1024, 513, 256, 0, False, True, False, False, False)
     assert f(2, 1024) == tfs.Forms(2, 1024, 513, 512, 0, False, False, False, False, False)
-    assert f(2048, 4096) == tfs.Forms(2048, 4096, 2049, 2, 0, True, False, False, False, True)
-    assert f(128, 4096) == tfs.Forms(128, 4096, 2049, 32, 0, True, False, False, False, False)
+    assert f(2048, 4096) == tfs.Forms(2048, 4096, 2049, 2, 0, True, True, False, False, True)
+    assert f(128, 4096) == tfs.Forms(128, 4096, 2049, 32, 0, True, True, False, False, False)
     assert f(32, 4096).product is False and f(32, 2048).product is True
     # the choices among them
     assert tfs.forward_form(1, 64, 1024) == tfs.FWD_FEW
@@ -444,24 +445,25 @@ def test_geometry_forms_follow_the_sources_rules():
     for geo in ((16, 1024), (4, 1024), (2, 1024), (32, 4096)):
         assert tfs.forward_form(1, *geo) == tfs.forward_form(300, *geo) == tfs.FWD_PLANES
     assert tfs.forward_form(1, 128, 4096) == tfs.FWD_PRODUCT == tfs.forward_form(1, 2048, 4096)
-    assert tfs.pick_form("fused_step_xfade", 64, 2048, 4096) == tfs.LAUNCH_B
+    assert tfs.pick_form("fused_step_xfade", 64, 2048, 4096) == tfs.SPLIT
     assert tfs.pick_form("fused_step_xfade", 64, 4, 1024) == tfs.SPLIT
     assert tsp.pick_form(1, 64, 1024) == tsp.SPLIT == tsp.pick_form(1, 100, 1024)
-    assert tsp.pick_form(1, 441, 1024) == tfs.LAUNCH_B
+    assert tsp.pick_form(1, 441, 1024) == tfs.SPLIT
     assert tsp.pick_form(1) == tsp.CLUSTER
     assert tfs.pick_form(tfs.ROW1, 1 << 20, 64, 1024) == tfs.LAUNCH_B
-    assert tfs.pick_form("fused_apply_xfade", 64, 441, 1024) == tfs.LAUNCH_B
+    assert tfs.pick_form("fused_apply_xfade", 64, 441, 1024) == tfs.SPLIT
     assert tfs.pick_form("fused_apply_xfade", 64, 100, 1024) == tfs.SPLIT
+    assert tfs.pick_form("fused_apply_xfade", 64, 2, 1024) == tfs.LAUNCH_B
 
 
 def test_a_form_the_geometry_lacks_is_refused_before_a_launch(monkeypatch):
-    """Naming the cluster form at fpb 64, or the split form at fpb 441,
-    raises before the library is loaded."""
-    _, tdb = _dbs("f441")
+    """Naming the cluster form at fpb 64, or the split form at fpb 2 (a
+    ragged basis row at one t-tile), raises before the library is loaded."""
+    _, tdb = _dbs("f2")
     fn, args, kw = bench.scene_step(tdb, "apply", 1, 8, "cpu", seed=2)
     monkeypatch.setattr(tfs, "_one_device", lambda ops: torch.device("cuda", 0))
     monkeypatch.setattr(build, "load", lambda *a, **k: pytest.fail("loaded a library"))
-    with pytest.raises(ValueError, match="split form does not exist at fpb 441"):
+    with pytest.raises(ValueError, match="split form does not exist at fpb 2,"):
         tfs._cuda(fn, *args, form=tfs.SPLIT, **kw)
     _, tdb64 = _dbs("f64")
     cfg = tdb64.config

@@ -75,6 +75,7 @@ PORT_MODULES = [
     "jefferson_tpu_torch.scripts.live_sessions",
     "jefferson_tpu_torch.scripts.output_hashes",
     "jefferson_tpu_torch.scripts.soak_daemon",
+    "jefferson_tpu_torch.scripts.split_layouts",
     "jefferson_tpu_torch.serve",
     "jefferson_tpu_torch.testing",
     "jefferson_tpu_torch.trajectory",

@@ -455,6 +455,40 @@ def test_error_budget_swaps_one_stage_of_the_unfused_chain(budget_case):
     assert tops.rfft_sliding_split is not seb._forward_on_cpu
 
 
+def test_error_budget_sums_the_side_pass_tail_by_blocks(monkeypatch):
+    """fused/sidepass_blocked renders the fused dispatch with the sparse
+    side-pass's old-side tail through ops/fft.irfft_tail (the 128-bin
+    blocks), within the oracle gate, and puts irfft_tail_split back.  At 64
+    blocks a position the sweep's crossfades are sparse: the side-pass
+    runs."""
+    db = synthetic_database()
+    pos = seb.scenario(64, 3)
+    signal = seb.noise()
+    want = render_oracle(signal, db, [tuple(p) for p in pos], db.config, initial_old=(0.0, 0.0))
+    tails = []
+    blocked = tops.irfft_tail
+
+    def spy(*a, **k):
+        tails.append(a[0].shape)
+        return blocked(*a, **k)
+
+    monkeypatch.setattr(tops, "irfft_tail", spy)
+    one_product = tops.irfft_tail_split
+    res = seb.run(db, signal, pos, want, torch.device("cpu"))
+    got = res["fused/sidepass_blocked"]
+    assert got["max_abs"] <= 1e-6
+    assert got["dispatch"] == res["fused"]["dispatch"]
+    assert got["dispatch"] == ["dedup_fused/False/8"]
+    # the unfused chains' tails (4 planes of every row), then the side-pass's
+    # (2 ears of its 8-row bucket)
+    assert (2, 8, db.config.num_bins) in tails and (4, len(pos), db.config.num_bins) in tails
+    assert got["jax_margin"] == seb.JAX_MARGIN["fused"]
+    assert tops.irfft_tail_split is one_product
+    with seb.sidepass_blocked():
+        assert tops.irfft_tail_split is spy
+    assert tops.irfft_tail_split is one_product
+
+
 @pytest.mark.parametrize("rows,bins", [(3, 513), (5, 130), (2, 100)])
 def test_blocked_tail_is_the_tail_idft_by_blocks(rows, bins):
     """Five (or fewer) K-block products added in order: the tail IDFT's
