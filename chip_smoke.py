@@ -1149,16 +1149,15 @@ def forward_forms(bench, device, geo, errs) -> bool:
     return True
 
 
-def forward_bench(bench, device, geo, times, bounds) -> None:
-    """Launch A's forms at FWD_MAIN, device time alone (torch.profiler) and
-    CUDA events, in turns (tile, picked, picked, tile), beside the bound;
-    then every form at 1 source x FWD_NB blocks (the crossover that sets
-    FEW_NB).  The scene step's 16 x 256 per-row shape fills ``times`` and
-    ``bounds`` for the kernels line."""
+def forward_bench(bench, device, geo, times, bounds, held_ms) -> None:
+    """Launch A's forms at FWD_MAIN, device time alone (queued behind a held
+    stream) and CUDA events, in turns (tile, picked, picked, tile), beside
+    the bound; then every form at 1 source x FWD_NB blocks (the crossover
+    that sets FEW_NB).  The scene step's 16 x 256 per-row shape fills
+    ``times``, ``bounds`` and ``held_ms`` for the kernels line."""
     from jefferson_tpu_torch.kernels import fused_step as fs
 
-    alone = lambda call: sum(ms for kernel, ms, _ in bench.device_profile(call, calls=20)
-                             if LAUNCH_A in kernel)
+    alone = queued_device_ms
     for s_, nb, n_dist in FWD_MAIN:
         ops = bench.forward_operands(s_, nb, device, seed=7, n_dist=n_dist)
         picked = fs.forward_form(nb)
@@ -1181,6 +1180,7 @@ def forward_bench(bench, device, geo, times, bounds) -> None:
         if (s_, nb, n_dist) == (SCENE_S, 256, None):
             times[LAUNCH_A] = (sum(ev[picked]) / 2, plain)
             bounds[LAUNCH_A] = bound
+            held_ms[LAUNCH_A] = dev[picked]
     took = {}
     for nb in FWD_NB:
         ops = bench.forward_operands(1, nb, device, seed=nb)
@@ -1188,7 +1188,8 @@ def forward_bench(bench, device, geo, times, bounds) -> None:
         took[nb] = {f: alone(lambda: fs._forward_cuda(*ops, form=f, **geo)) for f in forms}
     few_to = max((nb for nb, t in took.items()
                   if fs.FWD_FEW in t and t[fs.FWD_FEW] < t[fs.FWD_PRODUCT]), default=0)
-    say("bench", "launch A at 1 source, device time alone (tile / product / few) at "
+    say("bench", "launch A at 1 source, device time alone (queued behind a held stream; tile "
+                 "/ product / few) at "
                  + ", ".join(f"{nb}: " + " / ".join(f"{t[f]:.4f}" for f in t)
                              for nb, t in took.items())
                  + f" ms; the few-block form takes less than the product form up to {few_to} "
@@ -1309,12 +1310,25 @@ def blend_forms(bench, db, device, errs) -> bool:
 ROW1_CROSS = (16, 64, 128, 192, 256, 512)   # sources of 64 blocks: 1,024 to 32,768 rows
 
 
-def row1_crossover(bench, db, device) -> None:
-    """Row 1's launch B in its two forms, device time alone, at ROW1_CROSS
-    sources of 64 blocks, in turns: the crossover that sets
-    fused_step.STAGED_FROM."""
+def launch_a_call(args, kw, rows: int, geo):
+    """Launch A alone, in the form the step takes, on the operands of a step
+    of rows 1-6 (its wrapper's leading stream or streams and distance)."""
     from jefferson_tpu_torch.kernels import fused_step as fs
 
+    streams = args[0] if args[0].dim() == 2 else args[0][None]
+    nb = rows // streams.shape[0]
+    fwd = (streams, nb, *args[1:4], kw.get("dsel"), kw.get("n_dist"))
+    form = fs.forward_form(nb, geo["fpb"], geo["pad_len"])
+    return lambda: fs._forward_cuda(*fwd, form=form, **geo)
+
+
+def row1_crossover(bench, db, device) -> None:
+    """Row 1's launch B in its two forms, device time alone (queued behind a
+    held stream: the step less launch A alone), at ROW1_CROSS sources of 64
+    blocks, in turns: the crossover that sets fused_step.STAGED_FROM."""
+    from jefferson_tpu_torch.kernels import fused_step as fs
+
+    geo = dict(pad_len=1024, bins=513, fpb=128)
     took = {}
     for s_ in ROW1_CROSS:
         args, kw = bench.step_operands(bench.build_workload(db, s_, bench.BLOCKS, device))
@@ -1330,17 +1344,19 @@ def row1_crossover(bench, db, device) -> None:
             say("bench", f"row 1's launch B alone at {s_}x{bench.BLOCKS}: bound {b_ms:.4f} ms "
                          f"({b_by}: {flops / 1e9:.2f} GFLOP at 67 TFLOP/s)  [{bench.card()}]")
         t = {}
+        a_ms = queued_device_ms(launch_a_call(args, kw, s_ * bench.BLOCKS, geo))
         for form in (fs.LAUNCH_B, fs.STAGED, fs.STAGED, fs.LAUNCH_B):
-            rows = bench.device_profile(
-                lambda: fs._cuda(fs.fused_step_onehot_xfade, *args, form=form, **kw), calls=10)
-            t.setdefault(form, []).append(launches_apart(rows)[1])
+            whole = queued_device_ms(
+                lambda: fs._cuda(fs.fused_step_onehot_xfade, *args, form=form, **kw))
+            t.setdefault(form, []).append(whole - a_ms)
         took[s_ * bench.BLOCKS] = {f: sum(v) / 2 for f, v in t.items()}
     staged_from = None
     for rows in sorted(took, reverse=True):
         if took[rows][fs.STAGED] >= took[rows][fs.LAUNCH_B]:
             break
         staged_from = rows
-    say("bench", "row 1's launch B alone (one-CTA form / staged form), device time, at "
+    say("bench", "row 1's launch B alone (one-CTA form / staged form), device time queued "
+                 "behind a held stream less launch A's, at "
                  + ", ".join(f"{r} rows: {t[fs.LAUNCH_B]:.4f} / {t[fs.STAGED]:.4f}"
                              for r, t in took.items())
                  + f" ms; the staged form takes less from {staged_from} of these rows on "
@@ -1390,13 +1406,15 @@ def dedup_l2_bytes(idx, c: int) -> int:
     return sum(len(np.unique(idx[r0:r0 + DEDUP_ROWS])) for r0 in tiles) * c * 4
 
 
-def blend_bench(bench, device) -> None:
-    """Row 12's two forms, device time alone in turns (double, dedup, dedup,
-    double), beside the bound and the table bytes each reads through L2, at
+def blend_bench(bench, device, held_ms) -> None:
+    """Row 12's two forms, device time alone (queued behind a held stream)
+    in turns (double, dedup, dedup, double), beside the bound and the table
+    bytes each reads through L2, at
     the probe's 8,448 x 2,176 and the render path's widths and rows; then
     blend_rows against blend_cat (events: the host path included) at the
     render shapes: whether the dedup form, which the wrappers take at every
-    row count, takes less device time at every count measured."""
+    row count, takes less device time at every count measured.  The dedup
+    form's device time at the probe's 8,448 x 2,176 fills ``held_ms``."""
     import numpy as np
     import torch
 
@@ -1414,10 +1432,12 @@ def blend_bench(bench, device) -> None:
         flat, idx, w = put(tab.reshape(-1)), put(idx_all[:r]), put(w_all[:r])
         t = {}
         for form in (fs.DOUBLE, fs.DEDUP, fs.DEDUP, fs.DOUBLE):
-            rows = bench.device_profile(lambda: dma_blend._cuda(flat, idx, w, c, form=form), 20)
-            t.setdefault(form, []).append(sum(ms for k, ms, _ in rows if "dma_blend" in k))
+            t.setdefault(form, []).append(
+                queued_device_ms(lambda: dma_blend._cuda(flat, idx, w, c, form=form)))
         t = {f: sum(v) / 2 for f, v in t.items()}
         took[(r, c)] = t
+        if (r, c) == (BLEND_ROWS, 2176):
+            held_ms["dma_blend"] = t[fs.DEDUP]
         bound = bench.bound_ms(*bbv.work(idx_all[:r], c))
         l2 = {fs.DOUBLE: idx_all[:r].size * c * 4, fs.DEDUP: dedup_l2_bytes(idx_all[:r], c)}
         widths = sorted({w for _, w in dma_blend.dedup_slices(c)}, reverse=True)
@@ -1437,7 +1457,7 @@ def blend_bench(bench, device) -> None:
         idx, w = put(idx_all[:r]), put(w_all[:r])
         rows_ms = bench.time_ms(lambda: dma_blend.blend_rows(cat, idx, w))
         cat_ms = bench.time_ms(lambda: fs.blend_cat(cat, idx, w))
-        alone = {n: sum(ms for _, ms, _ in bench.device_profile(f, calls=20))
+        alone = {n: queued_device_ms(f)
                  for n, f in (("rows", lambda: dma_blend.blend_rows(cat, idx, w)),
                               ("cat", lambda: fs.blend_cat(cat, idx, w)))}
         say("bench", f"blend_rows {r}x{cat.shape[1]}: {rows_ms:.4f} ms (device time alone "
@@ -2995,7 +3015,7 @@ def run(pool, host, tmp) -> int:
 
     # ---- every other block and transform size through the kernels ---------
     by_geometry = geometry_phase(bench, device, noise, geo_oracles, geo_build)
-    if by_geometry is None:
+    if not isinstance(by_geometry, dict):   # None, or the code of a failed check
         return 1
 
     # ---- the mesh paths, in ranks of their own ------------------------------
@@ -3062,7 +3082,7 @@ def run(pool, host, tmp) -> int:
     row8_crossover(bench, db, device, geo)
     split_crossover(bench, db, device)
     row1_crossover(bench, db, device)
-    forward_bench(bench, device, geo, times, bounds)
+    forward_bench(bench, device, geo, times, bounds, held_ms)
     for name, (fn, args, kw, flops, moved, lib) in probe_timed(device).items():
         k = lambda: fn(*args, **kw)
         p = lambda: twin(fn)(*args, **kw)
@@ -3161,7 +3181,7 @@ def run(pool, host, tmp) -> int:
                  f"its NumPy forms (the calls alone {np_calls_a:.4f}/{np_calls_b:.4f} ms), in "
                  f"turns  [{bench.card()}]")
 
-    blend_bench(bench, device)
+    blend_bench(bench, device, held_ms)
     blend_wiring(bench, db, device, sets, scene_sigs)
 
     sparse_calls = sum(1 for log in (logs["sweep"], scene_log["scene_hold"],
@@ -3190,7 +3210,8 @@ def run(pool, host, tmp) -> int:
         "launches": launches[name],
         "max_abs_err": errs[name],
         "ms": times[name][0],
-        # rows 1-8: the main path's form queued behind a held stream
+        # rows 1-8: the main path's form queued behind a held stream (launch
+        # A at 16 x 256 and row 12 at the probe's shape too)
         "device_ms": held_ms.get(name),
         "plain_ms": times[name][1],
         "bound_ms": bounds[name][0],
@@ -3876,6 +3897,8 @@ def _counts():
 
 # the geometries whose split form phase geometry also times beside launch B
 # at rows 5-8's main shapes, with the crossover counts that set a pick there
+# (and, where launch B's tile fits a block below T_TILE columns, every
+# kernel of rows 2-8)
 SPLIT_TIMED = ("f2048", "f128t2048", "f441", "f1024")
 SPLIT_ROWS = ("fused_step_stream_xfade", "fused_step_xfade", "fused_apply_xfade", SPATIALIZER)
 
@@ -3885,21 +3908,24 @@ def split_cross(fpb, pad, kernel) -> tuple:
     kind's span in fused_step.LAUNCH_B_SPANS, or none."""
     from jefferson_tpu_torch.kernels import fused_step as fs
 
-    kind = "row 8" if kernel == SPATIALIZER else "blended" if kernel in fs.BLENDED else None
+    kind = ("row 8" if kernel == SPATIALIZER else "blended" if kernel in fs.BLENDED
+            else "pre-blended" if kernel in fs.PRE_BLENDED else None)
     span = fs.LAUNCH_B_SPANS.get((fpb, pad), {}).get(kind)
     return tuple(sorted(set(span))) if span else ()
 
 
 def split_timing(name, db, forms) -> dict | None:
     """Rows 5-8's split form at geometry ``name`` (a history of partial
-    blocks: rows 7 and 8) in the layout the wrappers take, torch.equal to
-    launch B and timed beside it and the twin, with both forms at the
-    counts that set its pick (split_layouts.measure) -> its numbers, or
-    None on a failure."""
+    blocks: rows 7 and 8), and every kernel of rows 2-8 where launch B's
+    tile fits a block below 128 columns, in the layout the wrappers take,
+    torch.equal to launch B and timed beside it, the twin and the bound,
+    with both forms at the counts that set its pick
+    (split_layouts.measure) -> its numbers, or None on a failure."""
+    from jefferson_tpu_torch.kernels import fused_step as fs
     from jefferson_tpu_torch.scripts import split_layouts
 
     got = {"kernels": {}}
-    for k in SPLIT_ROWS:
+    for k in SPLIT_ROWS if forms.tile_cols == fs.T_TILE else split_layouts.MAIN_ROWS:
         if forms.q or k in ("fused_apply_xfade", SPATIALIZER):
             cross = split_cross(forms.fpb, forms.pad, k)
             got["kernels"].update(split_layouts.measure(name, kernels=[k], cross=cross,
@@ -3952,7 +3978,8 @@ def geometry_kernels(bench, db, device, name, forms, errs, times) -> bool:
     twin = lambda fn: getattr(sys.modules[fn.__module__], fn.__name__ + "_reference")
     tail_forms = [fs.LAUNCH_B] + ([fs.SPLIT] if forms.split else [])
     # kernel -> (call of the picked form, twin call, flops, bytes or None for
-    # its operands' and output's, its shape, its (args, kwargs))
+    # its operands' and output's, its shape, its (args, kwargs), launch A
+    # alone on its operands or None)
     timed = {}
 
     def hold(kernel, what, got_by_form, want, rows):
@@ -4006,7 +4033,7 @@ def geometry_kernels(bench, db, device, name, forms, errs, times) -> bool:
                     lambda ops=ops, f=picked: fs._forward_cuda(*ops, form=f, **geo),
                     lambda ops=ops: fs._forward_reference(*ops, **geo),
                     bench.forward_flops(s_, nb, fpb, bins, q),
-                    bench.forward_bytes(s_, nb, fpb, bins, q), f"{s_}x{nb}, {picked}", None)
+                    bench.forward_bytes(s_, nb, fpb, bins, q), f"{s_}x{nb}, {picked}", None, None)
         # row 1 at 16 sources x 64 blocks (compact distance), launch B
         wl = bench.build_workload(db, SCENE_S, 64, device)
         args, kw = bench.step_operands(wl, cfg)
@@ -4018,7 +4045,8 @@ def geometry_kernels(bench, db, device, name, forms, errs, times) -> bool:
             lambda fn=fn, a=args, k=kw: fn(*a, **k),
             lambda fn=fn, a=args, k=kw: twin(fn)(*a, **k),
             bench.step_flops("fused_step_onehot_xfade", SCENE_S, 64, fpb, bins, q), None,
-            f"{SCENE_S}x64, {fs.pick_form(fs.ROW1, SCENE_S * 64, fpb, pad)}", (args, kw))
+            f"{SCENE_S}x64, {fs.pick_form(fs.ROW1, SCENE_S * 64, fpb, pad)}", (args, kw),
+            launch_a_call(args, kw, SCENE_S * 64, geo))
         # rows 3-5 at the Renderer's chunk of 2,048 blocks
         for form, kernel in FORMS.items():
             fn, args, kw = bench.stream_step(db, form, STREAM_B, device, tb=GROUP_TB,
@@ -4030,7 +4058,7 @@ def geometry_kernels(bench, db, device, name, forms, errs, times) -> bool:
                                  lambda fn=fn, a=args, k=kw: twin(fn)(*a, **k),
                                  bench.step_flops(kernel, 1, STREAM_B, fpb, bins, q), None,
                                  f"1x{STREAM_B}, {fs.pick_form(kernel, STREAM_B, fpb, pad)}",
-                                 (args, kw))
+                                 (args, kw), launch_a_call(args, kw, STREAM_B, geo))
     # rows 2, 6 and 7 at the scene path's shapes (row 7 alone at a history
     # of partial blocks)
     for form, (kernel, s_, nb) in SCENE_FORMS.items():
@@ -4043,7 +4071,8 @@ def geometry_kernels(bench, db, device, name, forms, errs, times) -> bool:
             timed[kernel] = (lambda fn=fn, a=args, k=kw: fn(*a, **k),
                              lambda fn=fn, a=args, k=kw: twin(fn)(*a, **k),
                              bench.step_flops(kernel, s_, nb, fpb, bins, max(q, 1)), None,
-                             f"{s_}x{nb}, {fs.pick_form(kernel, s_ * nb, fpb, pad)}", (args, kw))
+                             f"{s_}x{nb}, {fs.pick_form(kernel, s_ * nb, fpb, pad)}", (args, kw),
+                             launch_a_call(args, kw, s_ * nb, geo) if form == "gather" else None)
     # row 8: its apply-only entry at the live block's row and 4,096 rows, in
     # every form the library has, and its forward form (whole blocks)
     row8_forms = tail_forms + ([fsp.CLUSTER] if forms.cluster else [])
@@ -4067,12 +4096,17 @@ def geometry_kernels(bench, db, device, name, forms, errs, times) -> bool:
                 lambda a=(table, *xd, *br, xf): fsp.fused_apply(*a, bins=bins, fpb=fpb),
                 lambda a=(table, *xd, *br, xf): fsp.fused_apply_reference(*a, bins=bins, fpb=fpb),
                 bench.step_flops(SPATIALIZER, 1, rows, fpb, bins), None,
-                f"1x{rows}, {fsp.pick_form(rows, fpb, pad)}", ((table, *xd, *br, xf), {}))
-    # each kernel at its shape: events, device time alone, twin, bound
-    for kernel, (call, plain, flops, moved, shape, ops) in timed.items():
+                f"1x{rows}, {fsp.pick_form(rows, fpb, pad)}", ((table, *xd, *br, xf), {}), None)
+    # each kernel at its shape: events, device time alone (rows 1, 5 and 6
+    # also launch A's alone, so launch B's apart), twin, bound
+    for kernel, (call, plain, flops, moved, shape, ops, fwd) in timed.items():
         ms = bench.time_ms(call, reps=10, rounds=5)
         plain_ms = bench.time_ms(plain, reps=2, rounds=3, warmup=1)
         alone = queued_device_ms(call)
+        apart = {}
+        if fwd is not None:
+            a_ms = queued_device_ms(fwd)
+            apart = {"launch_a_ms": a_ms, "launch_b_ms": alone - a_ms}
         if moved is None:
             args, kw = ops
             moved = nbytes(*args, *kw.values(), call())
@@ -4081,11 +4115,13 @@ def geometry_kernels(bench, db, device, name, forms, errs, times) -> bool:
                 ids = torch.cat([a for a in args if a.dtype == torch.int32]).unique()
                 moved += (ids.numel() - table.shape[0]) * table.shape[1] * table.element_size()
         bound, by = bench.bound_ms(flops, moved)
-        times[kernel] = {"shape": shape, "ms": ms, "device_ms": alone, "plain_ms": plain_ms,
-                         "bound_ms": bound, "bound_by": by}
+        times[kernel] = {"shape": shape, "ms": ms, "device_ms": alone, **apart,
+                         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+        parts = (f"; launch A {apart['launch_a_ms']:.4f}, launch B {apart['launch_b_ms']:.4f}"
+                 if apart else "")
         say("geometry", f"{name} {kernel} ({shape}): kernel {ms:.4f} ms (device time alone "
-                        f"{alone:.4f} ms, queued behind a held stream), twin {plain_ms:.4f} ms, "
-                        f"bound {bound:.6f} ms ({by})  [{bench.card()}]")
+                        f"{alone:.4f} ms, queued behind a held stream{parts}), twin "
+                        f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by})  [{bench.card()}]")
     return True
 
 
@@ -4190,12 +4226,16 @@ def geometry_phase(bench, device, noise, oracles, build_proc) -> dict | None:
         say("geometry", f"{name} render_scan sweep, {len(pos)} blocks in {wall:.3f} s wall: "
                         f"launches {by_form}; vs render_oracle max|diff| {d_max:.3e}, rms "
                         f"{d_rms:.3e}")
-        want_form = fsp.pick_form(SCAN_CHUNK if len(pos) > SCAN_CHUNK else len(pos), fpb, pad)
+        # each chunk's form by its rows (a last short chunk may take another)
+        want_forms = {}
+        for start in range(0, len(pos), SCAN_CHUNK):
+            f = fsp.pick_form(min(SCAN_CHUNK, len(pos) - start), fpb, pad)
+            want_forms[f] = want_forms.get(f, 0) + 1
         if (by_form.get("kernel") != {SPATIALIZER: chunks}
-                or by_form.get("row 8") != {want_form: chunks}
+                or by_form.get("row 8") != want_forms
                 or sum(by_form.get("launch A", {}).values()) != (chunks if forms.q else 0)):
             return fail("geometry", f"{name} render_scan launched {by_form}, want row 8 once a "
-                                    f"chunk on {want_form}")
+                                    f"chunk, by form {want_forms}")
         if not (d_max <= ORACLE_TOL and d_rms < ORACLE_RMS):
             return fail("geometry", f"{name} render_scan: the port disagrees with the oracle")
         launched[SPATIALIZER] = launched.get(SPATIALIZER, 0) + chunks
@@ -4277,7 +4317,8 @@ def geometry_phase(bench, device, noise, oracles, build_proc) -> dict | None:
         errs, times = {}, {}
         if not geometry_kernels(bench, db, device, name, forms, errs, times):
             return None
-        if name in SPLIT_TIMED and split_timing(name, db, forms) is None:
+        if ((name in SPLIT_TIMED or forms.tile_cols < fs.T_TILE)
+                and split_timing(name, db, forms) is None):
             return None
         results[name] = {"launches": launched, "split_launches": split_launched, "errs": errs,
                          "times": times, "live": live}

@@ -25,6 +25,12 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# MKL's vector math (torch.cos and torch.sin on the CPU) sets itself up on
+# its first call.  Made first by several threads at once (a tensor torch
+# splits over them), that call returned now and then some cosines off the
+# ones every later call returns (scripts/first_step.py).  One call on one
+# thread, here, sets it up before any other.
+torch.cos(torch.zeros(16))
 
 from .config import DEFAULT_CONFIG, EngineConfig, ProcessType  # noqa: E402
 from .hrtf.kemar import (  # noqa: E402

@@ -96,12 +96,18 @@ constexpr int T_QS = T_KC + 1;          // padded row stride of a q chunk
 // A CTA's tail covers TT output columns t (one t-tile; FPB at fpb 128).
 // Larger fpb take T_TILES tiles: along the grid's y in launch B and the
 // split form's chunked layout (each CTA builds its rows' q again), inside
-// the CTA in its narrow layout (q built once); a smaller fpb leaves the
-// tile's columns past FPB unused (their basis is 0 and nothing stores them).
+// the CTA in its narrow layout (q built once).  A smaller fpb that divides
+// TT (64, 32, ..., 2) fits the tile to the block: T_COLS = FPB columns, so
+// no FMA, shared memory or basis copy is spent past FPB, and each thread's
+// register tile narrows (TailTile, SplitTile).  One that does not (fpb
+// 100) keeps the TT-column tile, its columns past FPB unused (their basis
+// is 0 and nothing stores them).
 constexpr int TT = 128;
 constexpr int T_TILES = (FPB + TT - 1) / TT;
+constexpr bool T_FIT = FPB < TT && TT % FPB == 0;  // the tile is as wide as the block
+constexpr int T_COLS = T_FIT ? FPB : TT;           // columns a tile spans
 constexpr int T_W = FPB < TT ? FPB : TT;           // columns a full tile stores
-constexpr bool B_MASK = FPB % TT != 0;             // some basis columns lie past FPB
+constexpr bool B_MASK = FPB % T_COLS != 0;         // some basis columns lie past FPB
 constexpr bool T_MASK = FPB > TT && FPB % TT != 0; // the last tile is ragged
 
 // Where the tuned layouts fit (kernels/fused_step.geometry_forms mirrors
@@ -969,28 +975,102 @@ __device__ __forceinline__ void load_tail_basis(float* br, float* bi,
   }
 }
 
+// N floats of shared memory at p (16-byte aligned for N a multiple of 4,
+// 8-byte for N = 2) into a, in 16-, 8- or 4-byte loads.
+template <int N>
+__device__ __forceinline__ void load_floats(const float* p, float* a) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + i);
+      a[i] = x.x;
+      a[i + 1] = x.y;
+      a[i + 2] = x.z;
+      a[i + 3] = x.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    a[0] = x.x;
+    a[1] = x.y;
+  } else {
+    static_assert(N == 1, "1, 2 or a multiple of 4 floats");
+    a[0] = p[0];
+  }
+}
+
+// Where the tile fits the block, launch B's basis chunk is whole basis rows,
+// one run of T_KC * FPB floats a plane: started by cp.async (16-byte
+// copies, 4-byte at fpb 2; rows past BINS zero) before the chunk's q build,
+// so the copy lands during it and holds no registers; the caller waits
+// (cp_async_wait<0>) before its barrier.  (Copied synchronously after the
+// q build, load_tail_basis's way or in float4s, rows 2-4 and 8 took up to
+// 1.6x as long at fpb 64 on an H100: PERF.md, PR 18.)
+__device__ __forceinline__ void start_fit_basis(float* br, float* bi,
+                                                const float* __restrict__ icr,
+                                                const float* __restrict__ ici, int k0, int tid,
+                                                int nthreads) {
+  constexpr int V = FPB % 4 == 0 ? 4 : 1, PLANE = T_KC * FPB / V;
+  const int n = (BINS - k0 < T_KC ? BINS - k0 : T_KC) * FPB;   // floats of rows < BINS
+  for (int i = tid; i < 2 * PLANE; i += nthreads) {
+    const int j = (i % PLANE) * V;
+    float* d = (i < PLANE ? br : bi) + j;
+    const float* src = (i < PLANE ? icr : ici) + (size_t)k0 * FPB + j;
+    if (j >= n) {
+      for (int v = 0; v < V; ++v) d[v] = 0.f;
+    } else if constexpr (V == 4) {
+      cp_async16(d, src);
+    } else {
+      cp_async4(d, src);
+    }
+  }
+  cp_async_commit();
+}
+
+// Launch B's rows a CTA: 32, or 16 where the tile fits a smaller block
+// (twice the CTAs, each with half the q build and FMA loop: a small grid
+// spreads over more SMs, a large one holds two CTAs an SM where it held one).
+constexpr int B_ROWS = T_FIT ? 16 : 32;
+
+// Launch B's register tile over an (M x T_COLS) output tile at 2M threads:
+// TX threads along the columns, each RI operand rows ty*RI + i by CJ
+// columns col(tx, j) = (j / VW) * (T_COLS / G) + VW * tx + j % VW, read as
+// G vectors of VW.  At TT columns 16 x 8 x 8 in scalars (columns tx + 16j).
+// Fitted to a smaller block, 8 columns a thread (fewer below fpb 16), read
+// in float4s, and TX / 2 rows.
+struct TailTile {
+  static constexpr int CJ = !T_FIT ? 8 : T_COLS / 2 < 8 ? T_COLS / 2 : 8;
+  static constexpr int TX = T_COLS / CJ;
+  static constexpr int RI = TX / 2;
+  static constexpr int VW = !T_FIT ? 1 : CJ < 4 ? CJ : 4;
+  static constexpr int G = CJ / VW;
+  __device__ static int col(int tx, int j) { return (j / VW) * (T_COLS / G) + VW * tx + j % VW; }
+};
+
 // acc[i][j] += sum over the chunk's bins of qr*br + qi*bi for operand row
-// ty*8+i and output column tx+16*j, bins in ascending order: each output
-// element accumulates the same sequence whatever the operand's height.
-__device__ __forceinline__ void tail_chunk_fma(float (&acc)[8][8], const float* qr,
-                                               const float* qi, const float* br,
-                                               const float* bi, int tx, int ty) {
+// ty*RI+i and output column TailTile::col(tx, j), bins in ascending order:
+// each output element accumulates the same sequence whatever the operand's
+// height.
+__device__ __forceinline__ void tail_chunk_fma(float (&acc)[TailTile::RI][TailTile::CJ],
+                                               const float* qr, const float* qi,
+                                               const float* br, const float* bi, int tx,
+                                               int ty) {
+  constexpr int RI = TailTile::RI, CJ = TailTile::CJ, VW = TailTile::VW, G = TailTile::G;
   for (int kk = 0; kk < T_KC; ++kk) {
-    float ar[8], ai[8], vr[8], vi[8];
+    float ar[RI], ai[RI], vr[CJ], vi[CJ];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      ar[i] = qr[(ty * 8 + i) * T_QS + kk];
-      ai[i] = qi[(ty * 8 + i) * T_QS + kk];
+    for (int i = 0; i < RI; ++i) {
+      ar[i] = qr[(ty * RI + i) * T_QS + kk];
+      ai[i] = qi[(ty * RI + i) * T_QS + kk];
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      vr[j] = br[kk * TT + tx + 16 * j];
-      vi[j] = bi[kk * TT + tx + 16 * j];
+    for (int g = 0; g < G; ++g) {
+      load_floats<VW>(br + kk * T_COLS + g * (T_COLS / G) + VW * tx, vr + g * VW);
+      load_floats<VW>(bi + kk * T_COLS + g * (T_COLS / G) + VW * tx, vi + g * VW);
     }
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < CJ; ++j) {
         acc[i][j] = fmaf(ar[i], vr[j], acc[i][j]);
         acc[i][j] = fmaf(ai[i], vi[j], acc[i][j]);
       }
@@ -1007,11 +1087,12 @@ __device__ __forceinline__ bool ends_tail_block(int k0) {
   return (k0 + T_KC) % T_BLOCK == 0 || k0 + T_KC >= BINS;
 }
 
-__device__ __forceinline__ void fold_tail_block(float (&acc)[8][8], float (&part)[8][8]) {
+__device__ __forceinline__ void fold_tail_block(float (&acc)[TailTile::RI][TailTile::CJ],
+                                                float (&part)[TailTile::RI][TailTile::CJ]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < TailTile::RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < TailTile::CJ; ++j) {
       acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
       part[i][j] = 0.f;
     }
@@ -1056,6 +1137,9 @@ __device__ __forceinline__ void fold_tail_block(float (&acc)[8][8], float (&part
 //     cycles, and a CTA's staging waits on L2.  Larger tiles measured
 //     slower (8 x 16 a thread, as producer and consumer warps at one CTA an
 //     SM, or at 128 threads and two CTAs an SM: PERF.md, the kernel table).
+//     Where the tile fits a smaller block (T_FIT) its basis chunks, its
+//     partials and each thread's register tile narrow with it (SplitTile),
+//     and its shared memory shrinks to 36-66 KB.
 //   - narrow (split_tail_tiles), q once per (tile, block): the CTA builds
 //     its block's q whole (128 bins x (M + 4) x 2 planes at M = 64, 16
 //     crossfading rows a tile: 104 KB with the basis chunks, two CTAs an
@@ -1088,22 +1172,33 @@ constexpr int S_CHUNKS = T_BLOCK / T_KC;        // 32-bin q chunks of a block
 static_assert(!HAS_SPLIT || S_NBLK * T_BLOCK == BINS - 1,
               "rank blocks cover bins 0 .. BINS-2, the last bin is folded last");
 
-// A layout's shape: M operand rows (side, ear, row) of RPT a thread, 16
-// threads along the TT columns (8 each), basis chunks of KC bins.
-template <int SIDES, int M_, int RPT_, int KC_>
+// A layout's shape: M operand rows (side, ear, row) of RPT a thread, TX
+// threads along the T_COLS columns (CPT each: vectors of VW columns, G
+// groups T_COLS / G apart), basis chunks of KC bins.
+template <int SIDES, int M_, int RPT_, int CPT_, int KC_>
 struct SplitShape {
-  static constexpr int M = M_, RPT = RPT_, KC = KC_;
-  static constexpr int THREADS = M / RPT * 16;
+  static constexpr int M = M_, RPT = RPT_, CPT = CPT_, KC = KC_;
+  static constexpr int VW = CPT < 4 ? CPT : 4, G = CPT / VW;
+  static constexpr int TX = T_COLS / CPT;
+  static constexpr int THREADS = M / RPT * TX;
   static constexpr int R = M / (2 * SIDES);              // rows a tile
   static constexpr int QLD = M + 4;                      // padded bin stride of q
-  static constexpr int BASIS = 2 * KC * TT;              // one chunk of both basis planes
+  static constexpr int BASIS = 2 * KC * T_COLS;          // one chunk of both basis planes
   static_assert(SIDES == 1 || R <= 32, "one warp lays out a crossfading tile's rows");
   static_assert(M <= 2 * 2 * KC, "a t-tile's partials fit in the two basis buffers");
 };
+// The chunked layout's tile at 256 threads: at TT columns 16 threads of 8
+// x 8 (columns 4tx .. 4tx+3 and 64+4tx ..); fitted to a smaller block, 4
+// columns a thread (2 at fpb 4) and RPT = TX / 2 rows, so a thread holds
+// T_COLS / 2 outputs.
+struct SplitTile {
+  static constexpr int CPT = T_COLS == TT ? 8 : T_COLS < 8 ? T_COLS / 2 : 4;
+  static constexpr int RPT = T_COLS / CPT / 2;
+};
+template <int SIDES>  // q a chunk at a time
+using ChunkedShape = SplitShape<SIDES, 128, SplitTile::RPT, SplitTile::CPT, T_KC>;
 template <int SIDES>
-using ChunkedShape = SplitShape<SIDES, 128, 8, T_KC>;      // q a chunk at a time
-template <int SIDES>
-using NarrowShape = SplitShape<SIDES, 64, 8, T_KC / 2>;    // q once, 128 threads
+using NarrowShape = SplitShape<SIDES, 64, 8, 8, T_KC / 2>;    // q once, 128 threads
 
 // A tile's filter rows arriving pre-blended (rows 5-7): old row r is
 // g_rows[r], a segment's boundary row g_last[r / seg].
@@ -1270,18 +1365,18 @@ __device__ __forceinline__ void split_stage_q(const SplitRows<SIDES, R, Rows>& t
   }
 }
 
-// Stage the basis chunk of bins k0 .. k0+KC-1, columns t0 .. t0+TT-1 (0
-// past FPB), into dst ([plane][KC][TT]) as one commit group.
+// Stage the basis chunk of bins k0 .. k0+KC-1, columns t0 .. t0+T_COLS-1
+// (0 past FPB), into dst ([plane][KC][T_COLS]) as one commit group.
 template <int THREADS, int KC>
 __device__ __forceinline__ void split_stage_basis(float* dst, const float* __restrict__ icr,
                                                   const float* __restrict__ ici, int k0, int t0,
                                                   int tid) {
-  constexpr int PLANE = KC * TT;
+  constexpr int PLANE = KC * T_COLS;
   if constexpr (FPB % 4 == 0) {               // four columns all in or all out
     const size_t at = (size_t)k0 * FPB + t0;
     for (int i = tid; i < 2 * PLANE / 4; i += THREADS) {
       const int plane = i / (PLANE / 4), j = 4 * (i % (PLANE / 4));
-      const int kk = j / TT, tt = j % TT;
+      const int kk = j / T_COLS, tt = j % T_COLS;
       if (!B_MASK || t0 + tt < FPB)
         cp_async16(dst + plane * PLANE + j, (plane ? ici : icr) + at + (size_t)kk * FPB + tt);
       else
@@ -1290,7 +1385,7 @@ __device__ __forceinline__ void split_stage_basis(float* dst, const float* __res
   } else {                                    // rows of fpb floats: 4-byte copies
     for (int i = tid; i < 2 * PLANE; i += THREADS) {
       const int plane = i / PLANE, j = i % PLANE;
-      const int kk = j / TT, tt = j % TT;
+      const int kk = j / T_COLS, tt = j % T_COLS;
       if (t0 + tt < FPB)
         cp_async4(dst + plane * PLANE + j, (plane ? ici : icr) + (size_t)(k0 + kk) * FPB + t0 + tt);
       else
@@ -1301,50 +1396,56 @@ __device__ __forceinline__ void split_stage_basis(float* dst, const float* __res
 }
 
 // acc[i][j] += the chunk's KC bins of qr*br + qi*bi for operand row
-// ty*RPT+i and output column 4tx+j (j < 4) or 64+4tx+j-4, bins ascending,
-// each output's real then imaginary term: tail_chunk_fma's order per output.
-// (Threads as 4 tx x 8 ty a warp, and the next bin's operands loaded into
-// registers during this bin's products, measured slower on the card.)
-template <int RPT, int QLD, int KC>
-__device__ __forceinline__ void split_chunk_fma(float (&acc)[RPT][8], const float* qr,
-                                                const float* qi, const float* br,
-                                                const float* bi, int tx, int ty) {
+// ty*RPT+i and output column g*(T_COLS/G) + VW*tx + v (j = g*VW + v): at TT
+// columns 4tx+j (j < 4) or 64+4tx+j-4.  Bins ascending, each output's real
+// then imaginary term: tail_chunk_fma's order per output.  (Threads as 4
+// tx x 8 ty a warp, and the next bin's operands loaded into registers
+// during this bin's products, measured slower on the card.)
+template <class Shape>
+__device__ __forceinline__ void split_chunk_fma(float (&acc)[Shape::RPT][Shape::CPT],
+                                                const float* qr, const float* qi,
+                                                const float* br, const float* bi, int tx,
+                                                int ty) {
+  constexpr int RPT = Shape::RPT, CPT = Shape::CPT, VW = Shape::VW, G = Shape::G;
+  constexpr int QLD = Shape::QLD;
 #pragma unroll 2
-  for (int kk = 0; kk < KC; ++kk) {
+  for (int kk = 0; kk < Shape::KC; ++kk) {
 #pragma unroll
     for (int plane = 0; plane < 2; ++plane) {
       const float* q = (plane ? qi : qr) + kk * QLD + ty * RPT;
-      const float* v = (plane ? bi : br) + kk * TT + tx * 4;
-      float a[RPT];
+      const float* v = (plane ? bi : br) + kk * T_COLS + tx * VW;
+      float a[RPT], b[CPT];
+      load_floats<RPT>(q, a);
 #pragma unroll
-      for (int i = 0; i < RPT; i += 4) {
-        const float4 x = *reinterpret_cast<const float4*>(q + i);
-        a[i] = x.x;
-        a[i + 1] = x.y;
-        a[i + 2] = x.z;
-        a[i + 3] = x.w;
-      }
-      const float4 v0 = *reinterpret_cast<const float4*>(v);
-      const float4 v1 = *reinterpret_cast<const float4*>(v + 64);
-      const float b[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+      for (int g = 0; g < G; ++g) load_floats<VW>(v + g * (T_COLS / G), b + g * VW);
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
   }
 }
 
-// A thread's block partial tile into part ([M][TT], row ty*RPT+i).
-template <int RPT>
-__device__ __forceinline__ void split_store_partial(float* part, float (&acc)[RPT][8], int tx,
+// A thread's block partial tile into part ([M][T_COLS], row ty*RPT+i, the
+// columns split_chunk_fma gives it).
+template <class Shape>
+__device__ __forceinline__ void split_store_partial(float* part,
+                                                    float (&acc)[Shape::RPT][Shape::CPT], int tx,
                                                     int ty) {
+  constexpr int VW = Shape::VW, G = Shape::G;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    float* row = part + (ty * RPT + i) * TT + tx * 4;
-    *reinterpret_cast<float4*>(row) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(row + 64) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-  }
+  for (int i = 0; i < Shape::RPT; ++i)
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float* at = part + (ty * Shape::RPT + i) * T_COLS + g * (T_COLS / G) + tx * VW;
+      const float* a = acc[i] + g * VW;
+      if constexpr (VW == 4)
+        *reinterpret_cast<float4*>(at) = make_float4(a[0], a[1], a[2], a[3]);
+      else if constexpr (VW == 2)
+        *reinterpret_cast<float2*>(at) = make_float2(a[0], a[1]);
+      else
+        at[0] = a[0];
+    }
 }
 
 // The last bin's q of the FOLD rows rank b folds (q4r, q4i: [(side*2 +
@@ -1369,12 +1470,12 @@ __device__ __forceinline__ void split_last_bin_q(const SplitRows<SIDES, R, Rows>
   }
 }
 
-// The last bin's basis row at columns t0 .. t0+TT-1 (b4r, b4i: [TT]).
+// The last bin's basis row at columns t0 .. t0+T_COLS-1 (b4r, b4i: [T_COLS]).
 template <int THREADS>
 __device__ __forceinline__ void split_last_bin_basis(const float* __restrict__ icr,
                                                      const float* __restrict__ ici, int t0,
                                                      float* b4r, float* b4i, int tid) {
-  for (int t = tid; t < TT; t += THREADS) {
+  for (int t = tid; t < T_COLS; t += THREADS) {
     const bool ok = !B_MASK || t0 + t < FPB;
     b4r[t] = ok ? icr[(size_t)(BINS - 1) * FPB + t0 + t] : 0.f;
     b4i[t] = ok ? ici[(size_t)(BINS - 1) * FPB + t0 + t] : 0.f;
@@ -1382,7 +1483,7 @@ __device__ __forceinline__ void split_last_bin_basis(const float* __restrict__ i
 }
 
 // After cluster.sync(): rank b folds its FOLD rows of the t-tile at t0 over
-// every rank's partials (parts[q], q < RANKS: [M][TT]) in block order,
+// every rank's partials (parts[q], q < RANKS: [M][T_COLS]) in block order,
 // adds the last bin's chain, runs launch B's epilogue and writes.
 template <int THREADS, int SIDES, int RANKS, int M, int FOLD>
 __device__ __forceinline__ void split_fold(const float* const* parts, const float* q4r,
@@ -1401,7 +1502,7 @@ __device__ __forceinline__ void split_fold(const float* const* parts, const floa
       const int m = (side * 2 + ear) * R + row;
       float v = 0.f;
 #pragma unroll
-      for (int q = 0; q < RANKS; ++q) v = __fadd_rn(v, parts[q][m * TT + tt]);
+      for (int q = 0; q < RANKS; ++q) v = __fadd_rn(v, parts[q][m * T_COLS + tt]);
       const int m4 = (side * 2 + ear) * FOLD + lr;
       y[side] = __fadd_rn(v, fmaf(q4i[m4], b4i[tt], fmaf(q4r[m4], b4r[tt], 0.f)));
     }
@@ -1425,20 +1526,20 @@ constexpr size_t chunked_smem() {
 }
 
 template <int SIDES, int RANKS, class Rows>
-__global__ void __launch_bounds__(256, 2)
+__global__ void __launch_bounds__(256, T_FIT ? 3 : 2)
 split_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi, int rows,
                  int seg, Rows src, const float* __restrict__ xf,
                  const float* __restrict__ icr, const float* __restrict__ ici,
                  float* __restrict__ out) {
   using Shape = ChunkedShape<SIDES>;
   constexpr int R = Shape::R, QLD = Shape::QLD, THREADS = Shape::THREADS, FOLD = R / RANKS;
-  constexpr int BASIS = Shape::BASIS;
+  constexpr int BASIS = Shape::BASIS, RPT = Shape::RPT, CPT = Shape::CPT;
   static_assert(THREADS == 256 && FOLD * RANKS == R, "256 threads; ranks fold whole rows");
   extern __shared__ __align__(16) float smem[];
-  float* basis = smem;                       // [buffer][plane][T_KC][TT]
+  float* basis = smem;                       // [buffer][plane][T_KC][T_COLS]
   float* qr = smem + 2 * BASIS;              // [T_KC][QLD], m = (side*2 + ear)*R + row
   float* qi = qr + T_KC * QLD;
-  float* part = smem;                        // [M][TT] after the main loop
+  float* part = smem;                        // [M][T_COLS] after the main loop
   __shared__ SplitRows<SIDES, R, Rows> t;
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -1452,12 +1553,12 @@ split_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi, i
   for (int i = tid; i < 2 * T_KC * QLD; i += THREADS) qr[i] = 0.f;  // rows past the end
   split_stage_rows<THREADS>(t, src, r0, rows, seg, tid);
 
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[8][8];
+  const int tx = tid % Shape::TX, ty = tid / Shape::TX;
+  float acc[RPT][CPT];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < RPT; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
   for (int c = 0; c < S_CHUNKS; ++c) {
     // its buffer's readers passed the last barrier
     if (c + 1 < S_CHUNKS)
@@ -1470,16 +1571,16 @@ split_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi, i
       cp_async_wait<0>();
     __syncthreads();
     const float* br = basis + (c & 1) * BASIS;
-    split_chunk_fma<8, QLD, T_KC>(acc, qr, qi, br, br + T_KC * TT, tx, ty);
+    split_chunk_fma<Shape>(acc, qr, qi, br, br + T_KC * T_COLS, tx, ty);
     __syncthreads();
   }
 
   // this rank's block partial into its own shared memory, and the last bin
-  split_store_partial(part, acc, tx, ty);
+  split_store_partial<Shape>(part, acc, tx, ty);
   float* q4r = qr;                           // [(side*2 + ear)*FOLD + row]
   float* q4i = q4r + SIDES * 2 * FOLD;
-  float* b4r = q4i + SIDES * 2 * FOLD;       // [TT]
-  float* b4i = b4r + TT;
+  float* b4r = q4i + SIDES * 2 * FOLD;       // [T_COLS]
+  float* b4i = b4r + T_COLS;
   split_last_bin_q<SIDES, R, FOLD>(t, src, xdr, xdi, r0, rows, b, q4r, q4i, tid);
   split_last_bin_basis<THREADS>(icr, ici, t0, b4r, b4i, tid);
   cluster.sync();                            // every rank's partial stored
@@ -1512,6 +1613,7 @@ split_tail_tiles(const float* __restrict__ xdr, const float* __restrict__ xdi, i
   constexpr int BASIS = Shape::BASIS, FOLD = R / RANKS;
   constexpr int CHUNKS = T_BLOCK / KC;       // basis chunks a t-tile
   static_assert(FOLD * RANKS == R && CHUNKS % 2 == 0, "ranks fold whole rows");
+  static_assert(Shape::TX * Shape::CPT == TT, "t-tiles of TT columns: past fpb 128 alone");
   extern __shared__ __align__(16) float smem[];
   float* basis = smem;                       // [buffer][plane][KC][TT]
   float* part = smem;                        // [M][TT] after a t-tile's chunks
@@ -1540,13 +1642,13 @@ split_tail_tiles(const float* __restrict__ xdr, const float* __restrict__ xdi, i
 #pragma unroll
   for (int q = 0; q < RANKS; ++q) parts[q] = cluster.map_shared_rank(part, q);
 
-  const int tx = tid % 16, ty = tid / 16;
+  const int tx = tid % Shape::TX, ty = tid / Shape::TX;
   for (int t0 = 0; t0 < FPB; t0 += TT) {
-    float acc[RPT][8];
+    float acc[RPT][Shape::CPT];
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+      for (int c = 0; c < Shape::CPT; ++c) acc[i][c] = 0.f;
     for (int i = 0; i < CHUNKS; ++i) {
       // its buffer's readers passed the last barrier
       if (i + 1 < CHUNKS)
@@ -1558,11 +1660,11 @@ split_tail_tiles(const float* __restrict__ xdr, const float* __restrict__ xdi, i
         cp_async_wait<0>();
       __syncthreads();
       const float* br = basis + (i & 1) * BASIS;
-      split_chunk_fma<RPT, QLD, KC>(acc, qr + i * KC * QLD, qi + i * KC * QLD, br, br + KC * TT,
-                                    tx, ty);
+      split_chunk_fma<Shape>(acc, qr + i * KC * QLD, qi + i * KC * QLD, br, br + KC * TT, tx,
+                             ty);
       __syncthreads();
     }
-    split_store_partial(part, acc, tx, ty);
+    split_store_partial<Shape>(part, acc, tx, ty);
     split_last_bin_basis<THREADS>(icr, ici, t0, b4r, b4i, tid);
     cluster.sync();                          // every rank's partial of this t-tile stored
     split_fold<THREADS, SIDES, RANKS, M, FOLD>(parts, q4r, q4i, b4r, b4i, xf, r0, rows, rank, t0,
@@ -1637,9 +1739,10 @@ enum TailForm { FORM_LAUNCH_B = 0, FORM_SPLIT = 1, FORM_STAGED = 2 };
 
 // The geometry this library was built for and the forms it has, for the
 // wrappers to check their mirror (kernels/fused_step.geometry_forms):
-// out[0..9] = fpb, pad, bins, q (0: a history of partial blocks), FEW_NB,
+// out[0..10] = fpb, pad, bins, q (0: a history of partial blocks), FEW_NB,
 // product form, split form, row 1's staged form, row 8's cluster form,
-// launch A's tile form.
+// launch A's tile form, the columns of launch B's and the chunked layout's
+// tile (T_COLS).
 extern "C" void jt_geometry(int* out) {
   out[0] = FPB;
   out[1] = PAD;
@@ -1651,4 +1754,5 @@ extern "C" void jt_geometry(int* out) {
   out[7] = JT_TUNED_128;
   out[8] = JT_TUNED_128;
   out[9] = HAS_TILE;
+  out[10] = T_COLS;
 }

@@ -40,7 +40,9 @@
 // Geometry (fused_forward.cuh): both forms run at every geometry where
 // they exist (launch B everywhere, the split form where HAS_SPLIT), a CTA
 // per 32 rows and TT = 128 output columns, T_TILES along the grid's y (or,
-// in the split form's narrow layout, walked inside a CTA).  At
+// in the split form's narrow layout, walked inside a CTA); below fpb 128,
+// where fpb divides 128, T_COLS = fpb columns, 16 rows a CTA and each
+// thread's register tile narrowed to it (B_ROWS, TailTile).  At
 // a history of partial blocks (fpb 100, 441 under pad 1024) the entry with
 // launch A refuses and jt_fused_apply_xfade is the step.
 
@@ -48,14 +50,14 @@
 
 namespace {
 
-constexpr int G_R = 32;                 // output rows per CTA
+constexpr int G_R = B_ROWS;             // output rows per CTA (16 where the tile fits)
 
 template <int SIDES>
 struct GatherShape {
   static constexpr int M = SIDES * 2 * G_R;         // (side, ear, row) operand rows
   static constexpr int THREADS = 2 * M;             // (M / 8) x 16 threads
-  static constexpr size_t SMEM = sizeof(float) * (2 * M * T_QS + 2 * T_KC * TT);
-  static_assert(M * TT <= 2 * M * T_QS + 2 * T_KC * TT,
+  static constexpr size_t SMEM = sizeof(float) * (2 * M * T_QS + 2 * T_KC * T_COLS);
+  static_assert(M * T_COLS <= 2 * M * T_QS + 2 * T_KC * T_COLS,
                 "epilogue tile must fit in the main-loop shared memory");
 };
 
@@ -71,9 +73,9 @@ gather_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
   extern __shared__ float smem[];
   float* qr = smem;                 // [M][T_QS], m = (side*2 + ear)*G_R + row
   float* qi = qr + M * T_QS;
-  float* br = qi + M * T_QS;        // [T_KC][TT]
-  float* bi = br + T_KC * TT;
-  float* y = smem;                  // epilogue [M][TT], after the main loop
+  float* br = qi + M * T_QS;        // [T_KC][T_COLS]
+  float* bi = br + T_KC * T_COLS;
+  float* y = smem;                  // epilogue [M][T_COLS], after the main loop
   __shared__ const float* grow[SIDES][G_R];   // each (side, row)'s filter row
 
   const int r0 = blockIdx.x * G_R;
@@ -94,14 +96,16 @@ gather_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
   }
   __syncthreads();
 
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[8][8], part[8][8];
+  constexpr int RI = TailTile::RI, CJ = TailTile::CJ;
+  const int tx = tid % TailTile::TX, ty = tid / TailTile::TX;
+  float acc[RI][CJ], part[RI][CJ];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = part[i][j] = 0.f;
+    for (int j = 0; j < CJ; ++j) acc[i][j] = part[i][j] = 0.f;
 
   for (int k0 = 0; k0 < BINS; k0 += T_KC) {
+    if constexpr (T_FIT) start_fit_basis(br, bi, icr, ici, k0, tid, THREADS);
     for (int i = tid; i < G_R * T_KC; i += THREADS) {
       const int row = i / T_KC, kk = i % T_KC, k = k0 + kk, r = r0 + row;
       float q[SIDES][2][2] = {};    // [side][ear][re, im]
@@ -125,7 +129,10 @@ gather_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
           qi[m * T_QS + kk] = q[side][ear][1];
         }
     }
-    load_tail_basis(br, bi, icr, ici, k0, t0, tid, THREADS);
+    if constexpr (T_FIT)
+      cp_async_wait<0>();
+    else
+      load_tail_basis(br, bi, icr, ici, k0, t0, tid, THREADS);
     __syncthreads();
     tail_chunk_fma(part, qr, qi, br, bi, tx, ty);
     if (ends_tail_block(k0)) fold_tail_block(acc, part);
@@ -133,9 +140,9 @@ gather_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
   }
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) y[(ty * 8 + i) * TT + tx + 16 * j] = acc[i][j];
+    for (int j = 0; j < CJ; ++j) y[(ty * RI + i) * T_COLS + TailTile::col(tx, j)] = acc[i][j];
   __syncthreads();
 
   // epilogue: out[r] = [L fpb | R fpb], this tile's columns
@@ -144,10 +151,10 @@ gather_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
     if (r >= rows) break;
     const int ear = col / T_W, tt = col % T_W, t = t0 + tt;
     if (T_MASK && t >= FPB) continue;
-    const float y_new = y[((SIDES - 1) * 2 + ear) * G_R * TT + row * TT + tt];
+    const float y_new = y[((SIDES - 1) * 2 + ear) * G_R * T_COLS + row * T_COLS + tt];
     float v = y_new;
     if (SIDES == 2) {
-      const float y_old = y[(ear * G_R + row) * TT + tt];
+      const float y_old = y[(ear * G_R + row) * T_COLS + tt];
       const float fn = (float)t / (float)(FPB - 1);
       const bool on = xf[r] > 0.f;
       const float a = on ? __fsub_rn(1.f, fn) : 0.f;

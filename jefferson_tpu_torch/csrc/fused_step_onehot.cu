@@ -63,8 +63,14 @@
 //
 // Geometry (fused_forward.cuh): launch B runs at every geometry and its
 // split form where HAS_SPLIT, a CTA per 32 rows and TT = 128 output columns
-// (T_TILES along the grid's y at fpb above 128; below 128 the tile's
-// columns past fpb hold zeros and store nothing).  Row 1's staged
+// (T_TILES along the grid's y at fpb above 128).  Below 128, where fpb
+// divides 128, the tile is fpb columns wide (T_COLS), so a CTA spends no
+// FMA, shared memory or basis copy past fpb; a CTA takes 16 rows (B_ROWS:
+// twice the CTAs) and each thread a narrower tile whose basis arrives in
+// float4s (TailTile: 4 x 8 at fpb 64, 1 x 8 at 16, 1 x 2 at 4).  What is
+// left is the q build (bracket rows through L2) and an FMA loop read from
+// shared memory.  At fpb 100 the 128-column tile stays, its columns past
+// fpb zeros that store nothing.  Row 1's staged
 // form and row 8's cluster form are laid out for fpb 128 / pad 1024 and exist
 // only there (JT_TUNED_128); elsewhere row 1 takes launch B and row 8 the
 // split form or launch B.
@@ -73,11 +79,11 @@
 
 namespace {
 
-constexpr int B_R = 32;                 // output rows per CTA
+constexpr int B_R = B_ROWS;             // output rows per CTA (16 where the tile fits)
 constexpr int B_M = 4 * B_R;            // (side, ear, row) operand rows
-constexpr int B_THREADS = 256;          // 16 x 16 threads, 8 x 8 outputs each
-constexpr size_t B_SMEM = sizeof(float) * (2 * B_M * T_QS + 2 * T_KC * TT);
-static_assert(B_M * TT <= 2 * B_M * T_QS + 2 * T_KC * TT,
+constexpr int B_THREADS = 2 * B_M;      // 16 x 16 threads, 8 x 8 outputs each (TailTile)
+constexpr size_t B_SMEM = sizeof(float) * (2 * B_M * T_QS + 2 * T_KC * T_COLS);
+static_assert(B_M * T_COLS <= 2 * B_M * T_QS + 2 * T_KC * T_COLS,
               "epilogue tile must fit in the main-loop shared memory");
 static_assert(B_THREADS == 2 * B_R * 4, "one thread per (side, row, bracket)");
 
@@ -95,9 +101,9 @@ blend_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
   extern __shared__ float smem[];
   float* qr = smem;                 // [B_M][T_QS], m = (side*2 + ear)*B_R + row
   float* qi = qr + B_M * T_QS;
-  float* br = qi + B_M * T_QS;      // [T_KC][TT]
-  float* bi = br + T_KC * TT;
-  float* y = smem;                  // epilogue [B_M][TT], after the main loop
+  float* br = qi + B_M * T_QS;      // [T_KC][T_COLS]
+  float* bi = br + T_KC * T_COLS;
+  float* y = smem;                  // epilogue [B_M][T_COLS], after the main loop
   __shared__ int sid[2][B_R][4];    // [side][row][bracket]: side 0 old, 1 new
   __shared__ float swt[2][B_R][4];
 
@@ -128,14 +134,16 @@ blend_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
   }
   __syncthreads();
 
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[8][8], part[8][8];
+  constexpr int RI = TailTile::RI, CJ = TailTile::CJ;
+  const int tx = tid % TailTile::TX, ty = tid / TailTile::TX;
+  float acc[RI][CJ], part[RI][CJ];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = part[i][j] = 0.f;
+    for (int j = 0; j < CJ; ++j) acc[i][j] = part[i][j] = 0.f;
 
   for (int k0 = 0; k0 < BINS; k0 += T_KC) {
+    if constexpr (T_FIT) start_fit_basis(br, bi, icr, ici, k0, tid, B_THREADS);
     // q chunk: for (row, bin) the blended rows of both sides, times XD
     for (int i = tid; i < B_R * T_KC; i += B_THREADS) {
       const int row = i / T_KC, kk = i % T_KC, k = k0 + kk, r = r0 + row;
@@ -169,7 +177,10 @@ blend_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
           qi[m * T_QS + kk] = q[side][ear][1];
         }
     }
-    load_tail_basis(br, bi, icr, ici, k0, t0, tid, B_THREADS);
+    if constexpr (T_FIT)
+      cp_async_wait<0>();
+    else
+      load_tail_basis(br, bi, icr, ici, k0, t0, tid, B_THREADS);
     __syncthreads();
     if (BLOCKED) {
       tail_chunk_fma(part, qr, qi, br, bi, tx, ty);
@@ -181,9 +192,9 @@ blend_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
   }
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) y[(ty * 8 + i) * TT + tx + 16 * j] = acc[i][j];
+    for (int j = 0; j < CJ; ++j) y[(ty * RI + i) * T_COLS + TailTile::col(tx, j)] = acc[i][j];
   __syncthreads();
 
   // crossfade epilogue: out[r] = [L fpb | R fpb], this tile's columns
@@ -192,8 +203,8 @@ blend_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi,
     if (r >= rows) break;
     const int ear = col / T_W, tt = col % T_W, t = t0 + tt;
     if (T_MASK && t >= FPB) continue;
-    const float y_old = y[(ear * B_R + row) * TT + tt];
-    const float y_new = y[((2 + ear) * B_R + row) * TT + tt];
+    const float y_old = y[(ear * B_R + row) * T_COLS + tt];
+    const float y_new = y[((2 + ear) * B_R + row) * T_COLS + tt];
     const float fn = (float)t / (float)(FPB - 1);
     const bool on = xf[r] > 0.f;
     const float a = on ? __fsub_rn(1.f, fn) : 0.f;

@@ -128,33 +128,44 @@ split_launches: dict[str, int] = dict.fromkeys((
 SPLIT_FROM = 1
 
 # The kernels of rows 2-8 that blend their filter rows (rows 2-4 and 8);
-# rows 5-7 take theirs pre-blended.
+# rows 5-7 take theirs pre-blended (PRE_BLENDED: their crossfade forms, the
+# kind LAUNCH_B_SPANS names "pre-blended").
 BLENDED = (GROUPED, "fused_step_stream_onehot_xfade", "fused_step_stream_onehot_grouped_xfade",
            SPATIALIZER)
+PRE_BLENDED = ("fused_step_stream_xfade", "fused_step_xfade", "fused_apply_xfade")
 
 # Away from fpb 128 / pad 1024: the row counts, first to last, at which
 # launch B took less device time alone than the split form by more than a
 # reading's spread between chip runs, by geometry and kind of row
-# ("blended": rows 2-4, "row 8"; rows 5-7 took more nowhere); at every other
-# count of the crossover (8, 64, 256, 512, 1,024, 2,048, 3,072, 4,096,
-# 6,144, 8,192, 16,384 rows; rows 5-7 at 8, 512, 2,048, 4,096, 16,384) the
-# split form took less or the two were within that spread, and so the
-# split form is taken there and at the counts between (an H100, 700 W;
-# scripts/split_layouts.py, two readings in turns; PERF.md, the kernel
-# table).  Launch B wins where its grid of ceil(rows / 32) x T_TILES CTAs
-# is one whole wave of 128 (and at f441 up to four), launch B / split ms:
-# rows 2 / 3 / 4 at f512 1,024 rows 0.2714 / 0.3100, 0.2725 / 0.3101,
-# 0.2740 / 0.3107; f1024 512 rows 0.5415 / 0.5808, 0.5346 / 0.5801,
-# 0.5263 / 0.5795; f2048 256 rows 1.0756 / 1.1448, 1.0750 / 1.1511,
-# 1.0766 / 1.1438; row 8 at 4,096 rows at f64 0.1930 / 0.2386, f100 0.1980
-# / 0.2464, f16 0.1937 / 0.2267, f4 0.1921 / 0.2283; f256 2,048 rows
-# 0.2007 / 0.2390; f512 1,024 0.2006 / 0.2518; f1024 512 0.4003 / 0.4566;
-# f2048 256 0.8269 / 0.9040; f441 1,024 0.2014 / 0.3205 to 4,096 0.8098 /
-# 0.8752.
+# ("blended": rows 2-4, "pre-blended": rows 5-7 with the crossfade
+# (PRE_BLENDED), "row 8"); at every other count of the crossover (8, 64,
+# 256, 512, 1,024, 2,048, 3,072, 4,096, 6,144, 8,192, 16,384 rows; rows 5-7
+# at 8, 512, 2,048, 4,096, 16,384) the split form took less or the two were
+# within that spread, and so the split form is taken there and at the
+# counts between (an H100, 700 W; scripts/split_layouts.py, two readings in
+# turns; PERF.md, the kernel table).  From fpb 128 up (and at fpb 100)
+# launch B wins where its grid of ceil(rows / 32) x T_TILES CTAs is one
+# whole wave of 128 (and at f441 up to four), launch B / split ms: rows 2
+# / 3 / 4 at f512 1,024 rows 0.2714 / 0.3100, 0.2725 / 0.3101, 0.2740 /
+# 0.3107; f1024 512 rows 0.5415 / 0.5808, 0.5346 / 0.5801, 0.5263 /
+# 0.5795; f2048 256 rows 1.0756 / 1.1448, 1.0750 / 1.1511, 1.0766 /
+# 1.1438; row 8 at f100 4,096 rows 0.1980 / 0.2464; f256 2,048 rows 0.2007
+# / 0.2390; f512 1,024 0.2006 / 0.2518; f1024 512 0.4003 / 0.4566; f2048
+# 256 0.8269 / 0.9040; f441 1,024 0.2014 / 0.3205 to 4,096 0.8098 / 0.8752
+# (PR 17).  Where the tile fits the block (fpb 64, 16, 4: launch B's CTAs
+# of 16 rows) row 8 takes launch B from 3,072 rows (f4 6,144), launch B /
+# split ms at 4,096 rows f64 0.1328 / 0.1871, f64t256 0.0752 / 0.0880, f16
+# 0.0969 / 0.1250, at 16,384 f4 0.1854 / 0.3068; rows 3 and 4 at f64
+# 6,144-8,192 rows (0.2213 /
+# 0.2410 to 0.2964 / 0.3154), rows 2-4 at f64t256 8,192 (0.1482 / 0.1742),
+# rows 2 and 4 and rows 5 and 7 at f16 16,384 (0.6016 / 0.6362, 0.1589 /
+# 0.1930), row 7 at f4 16,384 (0.1214 / 0.1307) (PR 18).
 LAUNCH_B_SPANS: dict[tuple[int, int], dict[str, tuple[int, int]]] = {
-    (4, 1024): {"row 8": (4096, 4096)},
-    (16, 1024): {"row 8": (4096, 4096)},
-    (64, 1024): {"row 8": (4096, 4096)},
+    (4, 1024): {"pre-blended": (16384, 16384), "row 8": (6144, 16384)},
+    (16, 1024): {"blended": (16384, 16384), "pre-blended": (16384, 16384),
+                 "row 8": (3072, 16384)},
+    (64, 512): {"blended": (8192, 8192), "row 8": (3072, 16384)},
+    (64, 1024): {"blended": (6144, 8192), "row 8": (3072, 16384)},
     (100, 1024): {"row 8": (4096, 4096)},
     (256, 1024): {"row 8": (2048, 2048)},
     (441, 1024): {"row 8": (1024, 4096)},
@@ -215,7 +226,8 @@ SPLIT_MAX_BLOCKS = 16
 SPLIT_CHUNKED, SPLIT_NARROW = "chunked", "narrow"
 
 # Launch B's output columns a CTA (csrc/fused_forward.cuh TT): its t-tiles
-# lie along the grid's y, which holds at most GRID_Y CTAs.
+# lie along the grid's y, which holds at most GRID_Y CTAs.  Below T_TILE a
+# block size that divides it fits the tile (``Forms.tile_cols``).
 T_TILE, GRID_Y = 128, 65535
 
 # Launch A's tile form takes Q <= 16 (its twiddles in registers, its
@@ -241,6 +253,7 @@ class Forms:
     staged: bool    # row 1's staged launch B
     cluster: bool   # row 8's cluster form
     tile: bool      # launch A's tile form
+    tile_cols: int  # columns of launch B's and the chunked layout's tile (csrc T_COLS)
 
 
 @functools.cache
@@ -251,7 +264,9 @@ def geometry_forms(fpb: int, pad_len: int) -> Forms:
     where its static shared memory stays under 48 KB, its planes form
     always), launch B's split form where the tail is 1 to 16 whole 128-bin
     blocks and fpb % 4 == 0 or fpb > 128, row 1's
-    staged form and row 8's cluster form at fpb 128 / pad 1024 alone."""
+    staged form and row 8's cluster form at fpb 128 / pad 1024 alone; a
+    tile of fpb columns for launch B and the split form's chunked layout
+    where fpb divides 128 below it (64, 32, ..., 2), else of 128."""
     bins = pad_len // 2 + 1
     aligned = pad_len % fpb == 0
     q = pad_len // fpb if aligned else 0
@@ -268,6 +283,7 @@ def geometry_forms(fpb: int, pad_len: int) -> Forms:
         split=((bins - 1) % 128 == 0 and 1 <= (bins - 1) // 128 <= SPLIT_MAX_BLOCKS
                and (fpb % 4 == 0 or fpb > T_TILE)),
         staged=tuned, cluster=tuned, tile=aligned and q <= TILE_MAX_Q,
+        tile_cols=fpb if fpb < T_TILE and T_TILE % fpb == 0 else T_TILE,
     )
 
 
@@ -327,8 +343,8 @@ def pick_form(name: str, rows: int, fpb: int = 128, pad_len: int = 1024) -> str:
         return STAGED if rows >= STAGED_FROM and forms.staged else LAUNCH_B
     if name not in split_launches or rows < SPLIT_FROM or not forms.split:
         return LAUNCH_B
-    blended = name in BLENDED and launch_b_span("blended", rows, fpb, pad_len)
-    return LAUNCH_B if blended else SPLIT
+    kind = "blended" if name in BLENDED else "pre-blended" if name in PRE_BLENDED else None
+    return LAUNCH_B if kind and launch_b_span(kind, rows, fpb, pad_len) else SPLIT
 
 
 def forward_form(nb: int, fpb: int = 128, pad_len: int = 1024) -> str:
@@ -597,11 +613,12 @@ def library_geometry(lib: str, fpb: int, pad_len: int) -> Forms:
     fn = build.load(lib, geometry=(fpb, pad_len)).jt_geometry
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
     fn.restype = None
-    out = (ctypes.c_int * 10)()
+    out = (ctypes.c_int * 11)()
     fn(out)
     v = list(out)
     return Forms(fpb=v[0], pad=v[1], bins=v[2], q=v[3], few_nb=v[4], product=bool(v[5]),
-                 split=bool(v[6]), staged=bool(v[7]), cluster=bool(v[8]), tile=bool(v[9]))
+                 split=bool(v[6]), staged=bool(v[7]), cluster=bool(v[8]), tile=bool(v[9]),
+                 tile_cols=v[10])
 
 
 def _cuda_error(lib: str, code: int, geometry=None) -> str:

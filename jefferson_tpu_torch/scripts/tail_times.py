@@ -1,0 +1,81 @@
+"""Launch B's device time alone, rows 1-8, in every form a geometry's
+library has, at the shapes of chip_smoke.py's phase geometry: a change to
+launch B's layouts runs this on the parent's checkout and on its own in
+one call, in turns, and compares the readings.
+
+    PYTHONPATH=<checkout> python jefferson_tpu_torch/scripts/tail_times.py
+        [--geometry f64 f64t256 f16 f4 f128] [--readings 3]
+
+Run it as a file, with the checkout to time first on PYTHONPATH: it
+imports ``jefferson_tpu_torch`` from there (its ``scripts.split_layouts``
+gives rows 2-8's operands).  Rows 2-8 at split_layouts' main shapes (rows
+3-5 1 x 2,048, rows 2 and 6 16 x 256, row 7 16 x 512, row 8 4,096 rows;
+rows 2-6 with launch A, as their wrappers run it), in launch B and in the
+split form where it exists; row 1 at 16 sources x 64 blocks (compact
+distance): the whole step, launch A alone in the form the step takes, and
+launch B as the difference.  Each number is the median of ``--readings``
+readings of device time alone (10 calls queued behind a stream held by a
+spin kernel, then CUDA events around them).  Prints one JSON line.  It
+needs a card and raises without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--geometry", nargs="*", default=["f64", "f64t256", "f16", "f4", "f128"])
+    p.add_argument("--readings", type=int, default=3)
+    args = p.parse_args(argv)
+
+    import torch
+
+    from jefferson_tpu_torch import bench
+    from jefferson_tpu_torch.config import EngineConfig
+    from jefferson_tpu_torch.hrtf.kemar import synthetic_database
+    from jefferson_tpu_torch.kernels import fused_step as fs
+    from jefferson_tpu_torch.scripts import split_layouts as sl
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("tail_times needs a CUDA device")
+    device = torch.device("cuda", torch.cuda.current_device())
+    alone = lambda call: statistics.median(sl.device_ms(call, reps=10)
+                                           for _ in range(args.readings))
+    out = {}
+    for name in args.geometry:
+        fpb, taps = sl.GEOMETRIES[name]
+        cfg = EngineConfig(frames_per_buffer=fpb, hrtf_len=taps)
+        db = synthetic_database(cfg)
+        pad, bins = cfg.pad_len, cfg.num_bins
+        forms = fs.geometry_forms(fpb, pad)
+        tail = [fs.LAUNCH_B] + ([fs.SPLIT] if forms.split else [])
+        got = {}
+        for kernel in sl.MAIN_ROWS:
+            if not (forms.q or kernel.startswith(("fused_apply", fs.SPATIALIZER))):
+                continue
+            call = sl.step(db, kernel, sl.MAIN_ROWS[kernel], device)[0]
+            got[kernel] = {f: alone(lambda: call(f)) for f in tail}
+        if forms.q:
+            a, kw = bench.step_operands(bench.build_workload(db, 16, 64, device), cfg)
+            step = lambda: fs.fused_step_onehot_xfade(*a, **kw)
+            fwd = (a[0], kw["nb"], *a[1:4], kw.get("dsel"), kw.get("n_dist"))
+            a_form = fs.forward_form(kw["nb"], fpb, pad)
+            whole = alone(step)
+            launch_a = alone(lambda: fs._forward_cuda(*fwd, form=a_form, pad_len=pad,
+                                                      bins=bins, fpb=fpb))
+            got[fs.ROW1] = {"step": whole, "launch A": launch_a, "launch_b": whole - launch_a}
+        out[name] = got
+        print(f"{name}: " + "; ".join(
+            f"{k} " + " ".join(f"{f} {ms:.4f}" for f, ms in v.items()) for k, v in got.items())
+              + f" ms  [{bench.card()}]", file=sys.stderr, flush=True)
+    print(json.dumps({"card": bench.card(), "geometries": out}, sort_keys=True))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -460,6 +460,21 @@ def test_a_refused_split_launch_raises(card_db, monkeypatch):
 # a ragged one of 57 columns, rows of 441 floats) and 1024 / 2048 (8 t-tiles)
 _WIDE = ("f2048", "f128t2048", "f441", "f1024")
 _WIDE_GROUPING = {8: (8, 1), 264: (8, 3), 4096: (256, 2)}  # stream rows -> (tb, group_tiles)
+# fpb 64 over 512 and 256 taps, 16 and 4 (launch A's planes form) and 2 (no
+# split form): launch B's and the chunked layout's tile fpb columns wide
+_FIT = ("f64", "f64t256", "f16", "f4", "f2")
+ROW8_TOL = 1e-5  # row 8 vs twin: its blend over the full table, as chip_smoke.py
+
+
+def _fit_forms(fn, args, kw, forms, rows, fpb, tol=TOL):
+    """The step in each of ``forms`` (launch B, and the split form where the
+    geometry has it): torch.equal, each held to the twin at ``tol``."""
+    got = [tfs._cuda(fn, *args, form=f, **kw) for f in forms]
+    torch.cuda.synchronize()
+    want = _twin(fn)(*args, **kw)
+    for g in got:
+        assert g.shape == (rows, 2 * fpb) and torch.equal(g, got[0])
+        assert float((g - want).abs().max()) <= tol
 
 
 def _split_is_launch_b(call):
@@ -505,9 +520,14 @@ def test_split_form_at_the_wide_geometries_is_launch_b_bit_for_bit(name, rows):
     assert sum(tfs.split_launches.values()) == steps
 
 
-@pytest.mark.parametrize("name", ["f2048", "f128t2048", "f1024"])
+@pytest.mark.parametrize("name", ["f2048", "f128t2048", "f1024", *_FIT])
 def test_split_form_at_the_wide_geometries_on_ids_outside_a_groups_table(name):
+    """Row 2 with ids outside its groups' tables: the split form (where the
+    geometry has it) torch.equal to launch B, both within TOL of the twin;
+    where the tile fits the block too (_FIT)."""
     db = _geo_db(name)
+    fpb, pad = db.config.frames_per_buffer, db.config.pad_len
+    tail = [tfs.LAUNCH_B] + ([tfs.SPLIT] if tfs.geometry_forms(fpb, pad).split else [])
     fn, args, kw = bench.scene_step(db, "grouped", 4, 66, torch.device("cuda", 0),
                                     group_sources=1, radius_step=0.01, xf_every=3)
     args = list(args)
@@ -515,18 +535,20 @@ def test_split_form_at_the_wide_geometries_on_ids_outside_a_groups_table(name):
     args[5], args[7] = args[5].clone(), args[7].clone()
     args[5][3, 1], args[5][100, 0], args[5][65, 2] = u, -4, u
     args[7][-1, 2], args[7][0, 3] = 3 * u, -1
-    _split_is_launch_b(lambda f: tfs._cuda(fn, *args, form=f, **kw))
+    _fit_forms(fn, args, kw, tail, 264, fpb)
 
 
 @pytest.mark.parametrize("rows", [8, 264, 4096])
-@pytest.mark.parametrize("name", _WIDE)
+@pytest.mark.parametrize("name", _WIDE + _FIT)
 def test_spatializer_split_form_at_the_wide_geometries_is_launch_b_bit_for_bit(name, rows):
-    """Row 8's split form against launch B: random and duplicate brackets
-    with ids outside the table, with the crossfade and at xf = 0."""
+    """Row 8's split form (where the geometry has it) against launch B:
+    random and duplicate brackets with ids outside the table, with the
+    crossfade and at xf = 0; both within ROW8_TOL of the twin."""
     db = _geo_db(name)
     cfg = db.config
     fpb, pad, bins = cfg.frames_per_buffer, cfg.pad_len, cfg.num_bins
     geo = dict(pad_len=pad, bins=bins, fpb=fpb)
+    split = tfs.geometry_forms(fpb, pad).split
     dev = torch.device("cuda", 0)
     tfs.reset_launches()
     for duplicate in (False, True):
@@ -540,9 +562,11 @@ def test_spatializer_split_form_at_the_wide_geometries_is_launch_b_bit_for_bit(n
 
             xd = _window_xd(fwd[0].unfold(0, pad, fpb), *fwd[1:], cfg)
         for x in (xf, torch.zeros_like(xf)):
-            _split_is_launch_b(
-                lambda f: tsp._cuda(dev, rows, table, br, x, *xd, None, form=f, **geo))
-    assert tfs.spatializer_forms == {"cluster": 0, "launch_b": 4, "split": 4}
+            want = tsp.fused_apply_reference(table, *xd, *br, x, bins=bins, fpb=fpb)
+            call = lambda f: tsp._cuda(dev, rows, table, br, x, *xd, None, form=f, **geo)
+            got = _split_is_launch_b(call) if split else call(tfs.LAUNCH_B)
+            assert float((got - want).abs().max()) <= ROW8_TOL
+    assert tfs.spatializer_forms == {"cluster": 0, "launch_b": 4, "split": 4 if split else 0}
 
 
 @pytest.mark.parametrize("name", _WIDE)
@@ -1690,3 +1714,36 @@ def test_geometry_outside_the_envelope_raises_before_any_launch(fpb, taps):
         with pytest.raises(ValueError, match="t-tiles of 128 columns exceed the 65535 CTAs"):
             make()
     assert not any(tfs.launches.values())
+
+
+# ---- launch B's tile fitted to blocks below 128 columns ---------------------
+
+@pytest.mark.parametrize("rows", [8, 264, 4096])
+@pytest.mark.parametrize("name", _FIT)
+def test_fitted_tile_forms_are_bit_equal_and_match_their_twins(name, rows):
+    """Rows 1-7 at the geometries whose tile fits the block, with and
+    without the crossfade: launch B and the split form torch.equal, both
+    within TOL of the twin; at 264 rows segment and group ends fall inside
+    tiles and the brackets repeat one id.  The libraries report the tile's
+    width."""
+    db = _geo_db(name)
+    fpb, pad = db.config.frames_per_buffer, db.config.pad_len
+    forms = tfs.geometry_forms(fpb, pad)
+    assert forms.tile_cols == fpb
+    for lib in tbuild.GEOMETRIC:
+        assert tfs.library_geometry(lib, fpb, pad).tile_cols == fpb
+    tail = [tfs.LAUNCH_B] + ([tfs.SPLIT] if forms.split else [])
+    dev = torch.device("cuda", 0)
+    s_, nb = _SCENE_SHAPES[rows]
+    args, kw = bench.step_operands(bench.build_workload(db, s_, nb, dev), db.config)
+    _fit_forms(tfs.fused_step_onehot_xfade, args, kw, [tfs.LAUNCH_B], rows, fpb)
+    for form in ("apply", "apply_noxf", "gather", "gather_noxf", "grouped"):
+        groups = {"group_sources": _SPLIT_GROUPS[rows]} if form == "grouped" else {}
+        fn, args, kw = bench.scene_step(db, form, s_, nb, dev, xf_every=5,
+                                        duplicate=rows == 264, **groups)
+        _fit_forms(fn, args, kw, tail, rows, fpb)
+    tb, gt = _WIDE_GROUPING[rows]
+    for form in bench.STREAM_FORMS:
+        fn, args, kw = bench.stream_step(db, form, rows, dev, tb=tb, group_tiles=gt,
+                                         radius_step=0.01, xf_every=5)
+        _fit_forms(fn, args, kw, tail, rows, fpb)

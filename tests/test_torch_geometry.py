@@ -419,23 +419,23 @@ def test_geometry_forms_follow_the_sources_rules():
     """The forms each named geometry's library has (csrc/fused_forward.cuh;
     the card tests hold the libraries' own report to these)."""
     f = tfs.geometry_forms
-    assert f(128, 1024) == tfs.Forms(128, 1024, 513, 8, 9, True, True, True, True, True)
-    assert f(64, 1024) == tfs.Forms(64, 1024, 513, 16, 1, True, True, False, False, True)
-    assert f(256, 1024) == tfs.Forms(256, 1024, 513, 4, 5, True, True, False, False, True)
-    assert f(512, 1024) == tfs.Forms(512, 1024, 513, 2, 0, True, True, False, False, True)
-    assert f(1024, 2048) == tfs.Forms(1024, 2048, 1025, 2, 0, True, True, False, False, True)
-    assert f(64, 512) == tfs.Forms(64, 512, 257, 8, 9, True, True, False, False, True)
-    assert f(100, 1024) == tfs.Forms(100, 1024, 513, 0, 0, False, True, False, False, False)
-    assert f(441, 1024) == tfs.Forms(441, 1024, 513, 0, 0, False, True, False, False, False)
-    assert f(32, 64) == tfs.Forms(32, 64, 33, 2, 15, False, False, False, False, True)
+    assert f(128, 1024) == tfs.Forms(128, 1024, 513, 8, 9, True, True, True, True, True, 128)
+    assert f(64, 1024) == tfs.Forms(64, 1024, 513, 16, 1, True, True, False, False, True, 64)
+    assert f(256, 1024) == tfs.Forms(256, 1024, 513, 4, 5, True, True, False, False, True, 128)
+    assert f(512, 1024) == tfs.Forms(512, 1024, 513, 2, 0, True, True, False, False, True, 128)
+    assert f(1024, 2048) == tfs.Forms(1024, 2048, 1025, 2, 0, True, True, False, False, True, 128)
+    assert f(64, 512) == tfs.Forms(64, 512, 257, 8, 9, True, True, False, False, True, 64)
+    assert f(100, 1024) == tfs.Forms(100, 1024, 513, 0, 0, False, True, False, False, False, 128)
+    assert f(441, 1024) == tfs.Forms(441, 1024, 513, 0, 0, False, True, False, False, False, 128)
+    assert f(32, 64) == tfs.Forms(32, 64, 33, 2, 15, False, False, False, False, True, 32)
     # past the old envelope: the tile form to Q 16, the product form to Q
     # 64, the split form to 16 blocks (2,049 bins; 4-byte basis copies past
     # fpb 128, whole float4 columns below it)
-    assert f(16, 1024) == tfs.Forms(16, 1024, 513, 64, 0, False, True, False, False, False)
-    assert f(4, 1024) == tfs.Forms(4, 1024, 513, 256, 0, False, True, False, False, False)
-    assert f(2, 1024) == tfs.Forms(2, 1024, 513, 512, 0, False, False, False, False, False)
-    assert f(2048, 4096) == tfs.Forms(2048, 4096, 2049, 2, 0, True, True, False, False, True)
-    assert f(128, 4096) == tfs.Forms(128, 4096, 2049, 32, 0, True, True, False, False, False)
+    assert f(16, 1024) == tfs.Forms(16, 1024, 513, 64, 0, False, True, False, False, False, 16)
+    assert f(4, 1024) == tfs.Forms(4, 1024, 513, 256, 0, False, True, False, False, False, 4)
+    assert f(2, 1024) == tfs.Forms(2, 1024, 513, 512, 0, False, False, False, False, False, 2)
+    assert f(2048, 4096) == tfs.Forms(2048, 4096, 2049, 2, 0, True, True, False, False, True, 128)
+    assert f(128, 4096) == tfs.Forms(128, 4096, 2049, 32, 0, True, True, False, False, False, 128)
     assert f(32, 4096).product is False and f(32, 2048).product is True
     # the choices among them
     assert tfs.forward_form(1, 64, 1024) == tfs.FWD_FEW
@@ -454,6 +454,57 @@ def test_geometry_forms_follow_the_sources_rules():
     assert tfs.pick_form("fused_apply_xfade", 64, 441, 1024) == tfs.SPLIT
     assert tfs.pick_form("fused_apply_xfade", 64, 100, 1024) == tfs.SPLIT
     assert tfs.pick_form("fused_apply_xfade", 64, 2, 1024) == tfs.LAUNCH_B
+
+
+@pytest.mark.parametrize("fpb,pad,cols", [
+    # below 128 a block that divides 128 sets the tile's width
+    (64, 1024, 64), (64, 512, 64), (32, 1024, 32), (16, 1024, 16), (8, 1024, 8), (4, 1024, 4),
+    (2, 1024, 2), (32, 64, 32),
+    # one that does not keeps 128 columns, masked past fpb; so does every fpb from 128
+    (100, 1024, 128), (96, 1024, 128), (48, 256, 128), (128, 1024, 128), (441, 1024, 128),
+    (256, 1024, 128), (2048, 4096, 128),
+])
+def test_launch_b_tile_fits_a_block_that_divides_its_columns(fpb, pad, cols):
+    """Launch B's and the chunked layout's tile is fpb columns wide where
+    fpb divides 128 below it (csrc/fused_forward.cuh T_FIT, T_COLS), else
+    128; the t-tiles and the split form's existence do not change."""
+    forms = tfs.geometry_forms(fpb, pad)
+    assert forms.tile_cols == cols
+    assert tfs.card_refusal(fpb, pad) is None
+    if cols < tfs.T_TILE:  # the split form's chunked layout takes the same tile
+        assert tfs.T_TILE % cols == 0 and forms.split == (fpb % 4 == 0 and pad >= 256)
+
+
+def test_the_smokes_launch_a_seam_takes_each_steps_forward_operands(monkeypatch):
+    """chip_smoke.launch_a_call reads launch A alone on the operands of rows
+    1, 5 and 6 (one stream or S streams), in the form the step takes: here
+    with the card's entry swapped for the twin, its XD is the step's."""
+    smoke = _chip_smoke()
+    _, tdb = _dbs("f64")
+    cfg = tdb.config
+    geo = dict(pad_len=cfg.pad_len, bins=cfg.num_bins, fpb=cfg.frames_per_buffer)
+    seen = []
+
+    def forward(*fwd, form, **g):
+        seen.append(form)
+        return tfs._forward_reference(*fwd, **g)
+
+    monkeypatch.setattr(tfs, "_forward_cuda", forward)
+    wl = bench.build_workload(tdb, 2, 4, "cpu")
+    cases = [(bench.step_operands(wl, cfg), 8, 4)]
+    for what, s_, nb in (("stream", 1, 40), ("scene", 3, 6)):
+        fn, args, kw = (bench.stream_step(tdb, "gather", nb, "cpu") if what == "stream"
+                        else bench.scene_step(tdb, "gather", s_, nb, "cpu"))
+        cases.append(((args, kw), s_ * nb, nb))
+    for (args, kw), rows, nb in cases:
+        xdr, xdi = smoke.launch_a_call(args, kw, rows, geo)()
+        assert xdr.shape == xdi.shape == (rows, cfg.num_bins)
+        streams = args[0] if args[0].dim() == 2 else args[0][None]
+        want = tfs._forward_reference(streams, nb, *args[1:4], kw.get("dsel"), kw.get("n_dist"),
+                                      **geo)
+        assert torch.equal(xdr, want[0]) and torch.equal(xdi, want[1])
+    assert seen == [tfs.forward_form(4, 64, 1024), tfs.forward_form(40, 64, 1024),
+                    tfs.forward_form(6, 64, 1024)]
 
 
 def test_a_form_the_geometry_lacks_is_refused_before_a_launch(monkeypatch):

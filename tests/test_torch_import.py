@@ -72,10 +72,12 @@ PORT_MODULES = [
     "jefferson_tpu_torch.scripts.apply_assoc_probe",
     "jefferson_tpu_torch.scripts.bench_blend_variants",
     "jefferson_tpu_torch.scripts.error_budget",
+    "jefferson_tpu_torch.scripts.first_step",
     "jefferson_tpu_torch.scripts.live_sessions",
     "jefferson_tpu_torch.scripts.output_hashes",
     "jefferson_tpu_torch.scripts.soak_daemon",
     "jefferson_tpu_torch.scripts.split_layouts",
+    "jefferson_tpu_torch.scripts.tail_times",
     "jefferson_tpu_torch.serve",
     "jefferson_tpu_torch.testing",
     "jefferson_tpu_torch.trajectory",

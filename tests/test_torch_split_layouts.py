@@ -58,7 +58,7 @@ def test_launch_b_spans_are_measured_counts_where_the_split_form_exists():
     for (fpb, pad), spans in tfs.LAUNCH_B_SPANS.items():
         assert tfs.geometry_forms(fpb, pad).split and (fpb, pad) != (128, 1024)
         for kind, (first, last) in spans.items():
-            assert kind in ("blended", "row 8")
+            assert kind in ("blended", "pre-blended", "row 8")
             assert first <= last and {first, last} <= set(sl.CROSS_ROWS)
 
 
@@ -68,7 +68,8 @@ def test_pick_form_takes_launch_b_on_its_span_alone(geo, kind):
     """Launch B at both ends of the span and inside it, the split form just
     outside it, for every kernel of the kind."""
     first, last = tfs.LAUNCH_B_SPANS[geo][kind]
-    kernels = [k for k in tfs.BLENDED if (k == tfs.SPATIALIZER) == (kind == "row 8")]
+    kernels = (list(tfs.PRE_BLENDED) if kind == "pre-blended" else
+               [k for k in tfs.BLENDED if (k == tfs.SPATIALIZER) == (kind == "row 8")])
     for k in kernels:
         pick = (lambda r: tsp.pick_form(r, *geo)) if k == tfs.SPATIALIZER else (
             lambda r: tfs.pick_form(k, r, *geo))
@@ -106,8 +107,10 @@ def test_pick_form_at_named_counts(name, rows, fpb, pad, want):
     (16384, 2048, 4096, tsp.SPLIT), (1, 2, 1024, tsp.LAUNCH_B),
     # f441's render_scan chunk of 3,644 rows, inside launch B's span
     (3644, 441, 1024, tsp.LAUNCH_B), (6144, 441, 1024, tsp.SPLIT),
-    # within the runs' spread at pad 512 and past one wave at f64
-    (4096, 64, 512, tsp.SPLIT), (8192, 64, 1024, tsp.SPLIT),
+    # where the tile fits the block: launch B from 3,072 rows at fpb 64
+    # (pad 512 and 1024) and 16, from 6,144 at fpb 4
+    (4096, 64, 512, tsp.LAUNCH_B), (8192, 64, 1024, tsp.LAUNCH_B),
+    (2048, 64, 1024, tsp.SPLIT), (4096, 4, 1024, tsp.SPLIT), (6144, 4, 1024, tsp.LAUNCH_B),
 ])
 def test_row_8_pick_at_named_counts(rows, fpb, pad, want):
     assert tsp.pick_form(rows, fpb, pad) == want
@@ -150,6 +153,28 @@ def test_split_layouts_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         sl.measure("f2048")
+
+
+def test_tail_times_needs_a_card(monkeypatch):
+    """scripts/tail_times.py (rows 1-8's device time alone at a checkout)
+    raises without a card rather than time the twins."""
+    from jefferson_tpu_torch.scripts import tail_times
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        tail_times.main(["--geometry", "f64"])
+
+
+def test_chip_smoke_times_every_kernel_where_the_tile_fits():
+    """Where launch B's tile fits a block below 128 columns, phase geometry
+    holds and times every kernel of rows 2-8 in both forms (split_timing),
+    at each such geometry of its table."""
+    smoke = _smoke()
+    fitted = [g for g, (fpb, taps) in smoke.GEOMETRIES.items()
+              if tfs.geometry_forms(fpb, EngineConfig(frames_per_buffer=fpb, hrtf_len=taps)
+                                    .pad_len).tile_cols < tfs.T_TILE]
+    assert sorted(fitted) == ["f16", "f4", "f64", "f64t256"]
+    assert len(sl.MAIN_ROWS) == 10 and set(smoke.SPLIT_ROWS) < set(sl.MAIN_ROWS)
 
 
 def test_chip_smoke_times_the_split_form_where_it_is_new():
