@@ -233,7 +233,14 @@ line:
              form the geometry's library has against its twin (rows 1-8 and
              launch A; rows 7 and 8's apply-only forms at a history of
              partial blocks), and each kernel timed at one shape (events,
-             device time alone, twin, bound); at SPLIT_TIMED (f2048,
+             device time alone, twin, bound; launch A also its issue
+             floor, bench.forward_issue_ms); where launch A has its ring
+             form (f16, f4, f128t2048), the ring form torch.equal to the
+             planes form also at 16 x 64 and 1 x 2,048, and where the steps
+             take it (f16, f4) both forms' device time alone at RING_TIMED
+             (16 x 256, 16 x 64, 1 x 2,048, 1 x 1), the planes form's two
+             launches apart, printed beside the bound and the issue floor;
+             at SPLIT_TIMED (f2048,
              f128t2048, f441, f1024) rows 5-8's split form in the layout
              the wrappers take, torch.equal to launch B and timed beside it
              and the twin, and, where launch B takes a span of counts
@@ -273,9 +280,9 @@ line:
              reads its rows; row 8's three forms at 1 to 1,024 rows (the
              crossover that sets SMALL_ROWS); launch B's two forms at 8-16,384
              rows (the crossover that sets fused_step.SPLIT_FROM and row 8's
-             MANY_ROWS_FORM); rows 9-12 with their device time alone, beside
-             one PyTorch call of the same function (its events and its device
-             time alone), row 9's host path split into Python, ctypes and
+             MANY_ROWS_FORM); rows 9-12 with their device time alone (queued
+             behind a held stream), beside one PyTorch call of the same
+             function (its events and its device time alone), row 9's host path split into Python, ctypes and
              the entry beside torch.mul's, and row 9's events against
              torch.mul's; launch A's forms at the main path's shapes,
              device time alone and events in turns (tile, picked, picked,
@@ -391,9 +398,6 @@ KERNELS = {
                "jefferson_tpu/pallas/fused_step.py:273"),
 }
 PROBES = ("prod", "mm", "mm_tree", "dma_blend")
-# probe kernel -> its CUDA function, as torch.profiler names it
-PROBE_SYMBOL = {"prod": "prod_kernel", "mm": "mm_kernel", "mm_tree": "mm_kernel",
-                "dma_blend": "dma_blend"}   # either form: dma_blend_dedup, dma_blend_kernel
 # single-stream form (bench.stream_step) -> kernel name
 FORMS = {
     "onehot": "fused_step_stream_onehot_xfade",
@@ -965,13 +969,15 @@ def fetch_renders(bench, db, device, scenarios, sets, scene_sigs, signal, scene_
 def launch_a_fault(where: str, launched: dict, forms: dict) -> str | None:
     """Launch A's launches on a counted path against its steps': one a
     launch of rows 1-6 and of row 8's forward form (every row-8 launch of
-    the live and scan paths), none on the tile form; the fault, or None."""
+    the live and scan paths), none on the tile form or the planes form (the
+    forms kept to hold the others against); the fault, or None."""
     from jefferson_tpu_torch.kernels import fused_step as fs
 
     want = sum(v for k, v in launched.items()
                if not k.startswith("fused_apply") and k not in PROBES)
-    if sum(forms.values()) != want or forms[fs.FWD_TILE] or not want:
-        return f"{where}: launch A by form {forms}, want {want} launches off the tile form"
+    if sum(forms.values()) != want or forms[fs.FWD_TILE] or forms[fs.FWD_PLANES] or not want:
+        return (f"{where}: launch A by form {forms}, want {want} launches off the tile and "
+                f"planes forms")
     return None
 
 
@@ -1318,7 +1324,7 @@ def launch_a_call(args, kw, rows: int, geo):
     streams = args[0] if args[0].dim() == 2 else args[0][None]
     nb = rows // streams.shape[0]
     fwd = (streams, nb, *args[1:4], kw.get("dsel"), kw.get("n_dist"))
-    form = fs.forward_form(nb, geo["fpb"], geo["pad_len"])
+    form = fs.forward_form(nb, geo["fpb"], geo["pad_len"], streams.shape[0])
     return lambda: fs._forward_cuda(*fwd, form=form, **geo)
 
 
@@ -3088,19 +3094,19 @@ def run(pool, host, tmp) -> int:
         p = lambda: twin(fn)(*args, **kw)
         plain_a, kernel_a, kernel_b, plain_b = (bench.time_ms(f) for f in (p, k, k, p))
         lib_ms = bench.time_ms(lib)
-        lib_alone = sum(row[1] for row in bench.device_profile(lib, calls=20))
+        lib_alone = queued_device_ms(lib)
         times[name] = ((kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2, lib_ms)
         if moved is None:
             out = k()
             moved = nbytes(*args, *(out if isinstance(out, tuple) else (out,)))
         bounds[name] = bench.bound_ms(flops, moved)
-        # the kernel alone on the device: at these sizes a call's events time
-        # the host's launch path
-        device_ms = sum(ms for kernel, ms, _ in bench.device_profile(k, calls=20)
-                        if PROBE_SYMBOL[name] in kernel)
+        # the call alone on the device (queued behind a held stream, as every
+        # other row is read): at these sizes a call's events time the host's
+        # launch path, and torch.profiler late in the smoke reads near 0
+        held_ms[name] = device_ms = queued_device_ms(k)
         say("bench", f"{name} ({', '.join('x'.join(map(str, a.shape)) for a in args[:2])}): kernel "
                      f"{kernel_a:.4f}/{kernel_b:.4f} ms (device time alone {device_ms:.4f} ms, "
-                     f"torch.profiler), twin {plain_a:.4f}/{plain_b:.4f} ms, library "
+                     f"queued behind a held stream), twin {plain_a:.4f}/{plain_b:.4f} ms, library "
                      f"{lib_ms:.4f} ms (device time alone {lib_alone:.4f} ms), bound "
                      f"{bounds[name][0]:.5f} ms ({bounds[name][1]})  [{bench.card()}]")
         if name == "prod":
@@ -3693,7 +3699,7 @@ GEO_SAMPLES = 1607168            # the 12,556-block render at fpb 128
 # name: (fpb, HRIR taps): callbacks of 64-1024 samples over the 512-tap set,
 # 64-sample blocks over a 256-tap set, and 10 ms blocks (441: a history of
 # partial blocks) beside 100; low-latency blocks of 16 and 4 samples (Q 64
-# and 256 at pad 1024: launch A's planes form), offline blocks of 2,048
+# and 256 at pad 1024: launch A's ring form), offline blocks of 2,048
 # (pad 4096) and a 2,048-tap SOFA set at the default block (pad 4096, Q 32)
 GEOMETRIES = {
     "f64": (64, 512), "f256": (256, 512), "f512": (512, 512), "f1024": (1024, 512),
@@ -4008,8 +4014,11 @@ def geometry_kernels(bench, db, device, name, forms, errs, times) -> bool:
         # launch A: every form the library has, at the scene step's shape
         # (per-row distance, and 8 triples) and the live block's
         fwd_forms = ([fs.FWD_TILE] if forms.tile else []) + (
-            [fs.FWD_PRODUCT] if forms.product else []) + [fs.FWD_PLANES]
-        for s_, nb, nd in ((16, 256, None), (16, 256, 8), (1, 1, None)):
+            [fs.FWD_PRODUCT] if forms.product else []) + [fs.FWD_PLANES] + (
+            [fs.FWD_RING] if forms.ring else [])
+        shapes = ((16, 256, None), (16, 256, 8), (1, 1, None)) + (
+            ((16, 64, None), (1, 2048, None)) if forms.ring else ())
+        for s_, nb, nd in shapes:
             ops = bench.forward_operands(s_, nb, device, n_dist=nd, config=cfg)
             names = fwd_forms + ([fs.FWD_FEW] if nb <= forms.few_nb else [])
             got = {f: fs._forward_cuda(*ops, form=f, **geo) for f in names}
@@ -4020,7 +4029,7 @@ def geometry_kernels(bench, db, device, name, forms, errs, times) -> bool:
                    for f, xd in got.items()}
             same = all(all(torch.equal(a, b) for a, b in zip(xd, got[fs.FWD_PLANES]))
                        for xd in got.values())
-            picked = fs.forward_form(nb, fpb, pad)
+            picked = fs.forward_form(nb, fpb, pad, s_)
             say("geometry", f"{name} launch A {s_}x{nb} ({'per-row' if nd is None else nd} "
                             f"distance): max|XD - twin| / peak by form "
                             f"{ {f: f'{r:.3e}' for f, r in rel.items()} } (limit {FWD_REL:.0e}), "
@@ -4097,6 +4106,8 @@ def geometry_kernels(bench, db, device, name, forms, errs, times) -> bool:
                 lambda a=(table, *xd, *br, xf): fsp.fused_apply_reference(*a, bins=bins, fpb=fpb),
                 bench.step_flops(SPATIALIZER, 1, rows, fpb, bins), None,
                 f"1x{rows}, {fsp.pick_form(rows, fpb, pad)}", ((table, *xd, *br, xf), {}), None)
+    ring_vs_planes = (ring_times(bench, device, cfg, name)
+                      if fs.forward_form(256, fpb, pad, 16) == fs.FWD_RING else None)
     # each kernel at its shape: events, device time alone (rows 1, 5 and 6
     # also launch A's alone, so launch B's apart), twin, bound
     for kernel, (call, plain, flops, moved, shape, ops, fwd) in timed.items():
@@ -4122,7 +4133,61 @@ def geometry_kernels(bench, db, device, name, forms, errs, times) -> bool:
         say("geometry", f"{name} {kernel} ({shape}): kernel {ms:.4f} ms (device time alone "
                         f"{alone:.4f} ms, queued behind a held stream{parts}), twin "
                         f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by})  [{bench.card()}]")
+    if q and LAUNCH_A in times:
+        say("geometry", f"{name} {LAUNCH_A} (16x256): issue floor "
+                        f"{bench.forward_issue_ms(16, 256, bins, q):.4f} ms (the twiddle sums' "
+                        f"8 (Q - 1) unfused operations an output and bin, one instruction each), "
+                        f"bound {times[LAUNCH_A]['bound_ms']:.4f} ms  [{bench.card()}]")
+        if ring_vs_planes:
+            times[LAUNCH_A]["ring_vs_planes"] = ring_vs_planes
     return True
+
+
+# launch A's shapes where its ring form is timed beside the planes form:
+# the scene step's, row 1's, row 5's and the live block
+RING_TIMED = ((16, 256), (16, 64), (1, 2048), (1, 1))
+
+
+def ring_times(bench, device, cfg, name) -> dict:
+    """Launch A's ring form and planes form, device time alone (queued
+    behind a held stream) in turns (planes, ring, ring, planes), and the
+    planes form's two launches apart (its sub-block DFTs; its twiddle sums
+    from them), at RING_TIMED, printed beside the table's bound and the
+    issue floor -> {shape: the readings, ms}."""
+    import torch
+
+    from jefferson_tpu_torch.kernels import fused_step as fs
+
+    fpb, pad, bins = cfg.frames_per_buffer, cfg.pad_len, cfg.num_bins
+    q = pad // fpb
+    geo = dict(pad_len=pad, bins=bins, fpb=fpb)
+    out = {}
+    for s_, nb in RING_TIMED:
+        ops = bench.forward_operands(s_, nb, device, seed=7, config=cfg)
+        scratch = tuple(torch.empty((s_ * (nb + q - 1), bins), device=device) for _ in range(2))
+        calls = {
+            "planes": lambda: fs._forward_cuda(*ops, form=fs.FWD_PLANES, **geo),
+            "ring": lambda: fs._forward_cuda(*ops, form=fs.FWD_RING, **geo),
+            "planes_dft": lambda: fs._forward_cuda(*ops, form=fs.FWD_PLANES, part=fs.PLANES_DFT,
+                                                   scratch=scratch, **geo),
+            "planes_sum": lambda: fs._forward_cuda(*ops, form=fs.FWD_PLANES, part=fs.PLANES_SUM,
+                                                   scratch=scratch, **geo),
+        }
+        got = {}
+        for form in ("planes", "ring", "ring", "planes", "planes_dft", "planes_sum"):
+            got.setdefault(form, []).append(queued_device_ms(calls[form]))
+        bound = bench.bound_ms(bench.forward_flops(s_, nb, fpb, bins, q),
+                               bench.forward_bytes(s_, nb, fpb, bins, q))
+        floor = bench.forward_issue_ms(s_, nb, bins, q)
+        out[f"{s_}x{nb}"] = {f"{f}_ms": v for f, v in got.items()}
+        say("geometry", f"{name} launch A {s_}x{nb}, device time alone: ring form "
+                        f"{got['ring'][0]:.4f}/{got['ring'][1]:.4f} ms, planes form "
+                        f"{got['planes'][0]:.4f}/{got['planes'][1]:.4f} (its sub-block DFTs "
+                        f"{got['planes_dft'][0]:.4f}, its twiddle sums {got['planes_sum'][0]:.4f}); "
+                        f"bound {bound[0]:.4f} ms ({bound[1]}, fp32 operations at the FMA rate), "
+                        f"issue floor {floor:.4f} ms (the twiddle sums' 8 (Q - 1) unfused "
+                        f"operations an output and bin, one instruction each)  [{bench.card()}]")
+    return out
 
 
 def geometry_phase(bench, device, noise, oracles, build_proc) -> dict | None:

@@ -493,6 +493,22 @@ def forward_flops(sources: int, nb: int, fpb: int = 128, bins: int = 513, q: int
     return float(sources * (nb + q - 1) * 4 * fpb * bins + sources * nb * bins * (8 * (q - 1) + 6))
 
 
+# The card's issue rate of fp32 instructions outside the tensor cores: 132
+# SMs x 128 lanes x 1.98 GHz (H100 SXM boost clock), half PEAK_FP32_FLOPS,
+# which counts an FMA as two operations.
+PEAK_FP32_ISSUE = 132 * 128 * 1.98e9
+
+
+def forward_issue_ms(sources: int, nb: int, bins: int = 513, q: int = 8) -> float:
+    """Launch A's issue floor in ms: its twiddle sums' 8 (q - 1) fp32
+    operations for each real output (S x nb, no window across two sources)
+    and bin, each its own instruction (the JAX op order rounds every
+    product and sum on its own: no FMA), over PEAK_FP32_ISSUE.  The table's
+    bound (``bound_ms`` of ``forward_flops``) counts them over the FMA rate,
+    half this floor."""
+    return sources * nb * bins * 8 * (q - 1) / PEAK_FP32_ISSUE * 1e3
+
+
 def forward_bytes(sources: int, nb: int, fpb: int = 128, bins: int = 513, q: int = 8,
                   n_dist: int | None = None) -> int:
     """The bytes launch A must move: its streams, DFT basis, twiddles and

@@ -11,16 +11,19 @@
 //   XD[r] = X[r] * D(u_hi, u_lo, inv_frac)
 //
 // XD goes to a scratch buffer (rows x 513 x 2 floats) that launch B reads.
-// Launch A has four forms with the same bits (launch_forward_form): the
+// Launch A has five forms with the same bits (launch_forward_form): the
 // tile form (forward_distance: one CTA per (32 blocks, 64 bins, source),
 // the sub-block samples and a (128 x 64) slice of the DFT basis in shared
 // memory, the twiddle sum and the distance multiply on the CTA's P tile),
 // kept to hold the others against where it exists; the product form, which
 // the render steps take; the few-block form, which they take at nb <=
-// FEW_NB blocks a source (the live step); and the planes form, which takes
-// any Q (P written to a scratch of the caller's, then the twiddle sum read
-// through L2), where the others do not exist.  Every launch B form reads
-// the same XD.
+// FEW_NB blocks a source (the live step); the ring form, which they take
+// past Q 16 where the product form does not exist and it pays (ring_pays;
+// one launch, each CTA a run of one source's blocks with its P in a
+// shared-memory ring); and the planes form, which takes any Q in two
+// launches (P written to a scratch of the caller's, then the twiddle sum
+// read through L2), taken where the ring form does not pay and kept to
+// hold it against.  Every launch B form reads the same XD.
 //
 // Geometry: each library is built for one (fpb, pad_len), passed as
 // -DJT_FPB=<fpb> -DJT_PAD=<pad> (kernels/build.py); BINS = PAD/2 + 1 and,
@@ -859,17 +862,396 @@ twiddle_distance(const float* __restrict__ pr, const float* __restrict__ pi, int
   }
 }
 
-// Launch A's forms.  FWD_TILE: forward_distance, one CTA per 32 blocks x
-// 64 bins of a source, kept as the comparison form; FWD_PRODUCT, FWD_FEW
-// and FWD_PLANES as above.  All four give the same bits.
-enum ForwardForm { FWD_TILE = 0, FWD_PRODUCT = 1, FWD_FEW = 2, FWD_PLANES = 3 };
+// ---- launch A's ring form: past Q 16, one launch ---------------------------
+//
+// What held the planes form back (PERF.md, the ring form): twiddle_distance sums
+// every flat start, the Q - 1 that straddle two sources too (48% of its
+// work at fpb 4, 16 x 256; 79% at 16 x 64); P goes to a scratch and back
+// through L2, each row read once a V_RUN outputs; its window moves by
+// register copies; and bin 512 holds a group of 32 lanes alone.  Here a CTA
+// (forward_distance_ring) takes one source's run of T consecutive output
+// blocks and a slice of R_KT = 32 bins (the last slice also bin 512), so
+// its windows never leave the source, and computes P itself into a
+// shared-memory ring of RING rows as it goes: m runs in chunks of R_MC, and
+// before chunk c the CTA computes the P rows chunk c reads first (rows 0 ..
+// R_MC + T - 2 for chunk 0, then R_MC more a chunk; the run's Q - 1 halo
+// rows are computed again by the next run's CTA, 2 fpb FMAs a row and bin
+// against the 8 (Q - 1) operations of each output) and stages the chunk's
+// twiddles, all by cp.async.  So any Q runs in the same shared memory.  A
+// thread holds V consecutive outputs at one bin and walks m ascending; its
+// window of V P values is a ring of registers indexed (u + o) % V, m
+// unrolled by V, so a step is one P load and one twiddle load from shared
+// memory for 8 V operations and no register moves.  The run T = V x RUNS
+// is 128 blocks where the grid fills the card, narrower where it does not
+// (ring_shape).  The bits are the planes form's: each P[g, k] is the same
+// fmaf chain ascending from sample 0 (128-sample chains summed in order
+// above fpb 128), each output's twiddle sum the same ops in the same order
+// (twiddle_sum), then the same distance plane (the triple table of the
+// product form when n_dist <= D_UNIQ: the same function of triple and bin)
+// and cmul_rn.  What bounds it: the twiddle sum's 8 (Q - 1) fp32
+// operations an output and bin, each its own instruction (no FMA), over
+// 132 SMs x 128 lanes a clock; then the P build (its halo rows) and the
+// distance planes (precise cosf/sinf, per row).
+constexpr int R_KT = 32;                      // bins a slice: a warp's lanes
+constexpr int R_MC = Q < 32 ? Q : 32;         // m a chunk
+constexpr int R_DR = 32;                      // P rows a DFT block
+constexpr int R_NC = FPB < 16 ? FPB : 16;     // samples staged at once
+constexpr bool R_VEC = R_NC % 4 == 0;         // a row's samples read 4 at a time
+// padded sample row (16-byte rows where read 4 at a time): bin 512's chains
+// read down it
+constexpr int R_XS = R_VEC ? R_NC + 4 : R_NC + 1;
+constexpr bool R_NYQ = (BINS - 1) % R_KT == 0;   // bin BINS-1 rides with the last slice
+constexpr int R_SLICES = R_NYQ ? (BINS - 1) / R_KT : (BINS + R_KT - 1) / R_KT;
+constexpr int R_PS = R_KT + 1;                // float2s a ring or twiddle row: the slice, bin 512
+constexpr int R_WAVE = 132;                   // the H100's SMs: a V = 16 grid this large
+constexpr bool HAS_RING = ALIGNED && Q > TILE_MAX_Q;   // where the tile form does not exist
+// The steps take the ring form up to fpb 32 at every shape, where it
+// measured faster than the planes form at every shape (fpb 2, 4, 16, 32).
+// Past fpb 32 its sub-block DFTs, built again for each run's halo rows,
+// grow with fpb, and it won only where the planes form throws much away
+// (ring_pays; kernels/fused_step.py RING_MAX_FPB has the readings).
+constexpr int RING_MAX_FPB = 32;
 
-// The form the render steps take at nb blocks a source (kernels/fused_step
-// .forward_form mirrors it): the few-block form up to FEW_NB, else the
-// product form where the geometry has it, else the tile form where it has
-// that, else the planes form.
-inline int forward_form(int nb) {
-  return nb <= FEW_NB ? FWD_FEW : HAS_PRODUCT ? FWD_PRODUCT : HAS_TILE ? FWD_TILE : FWD_PLANES;
+// Whether the steps take the ring form at S sources x nb blocks where it
+// exists: up to RING_MAX_FPB always; past it where fpb <= Q and the planes
+// form's sums that straddle two sources, (S - 1)(Q - 1), are at least half
+// of its S nb outputs.
+inline bool ring_pays(int num_sources, int nb) {
+  return FPB <= RING_MAX_FPB ||
+         (FPB <= Q && 2LL * (num_sources - 1) * (Q - 1) >= (long long)num_sources * nb);
+}
+static_assert(!HAS_RING || (Q % R_MC == 0 && R_MC % 16 == 0), "whole chunks of m");
+static_assert(!ALIGNED || FPB % R_NC == 0, "whole sample chunks");
+
+constexpr int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// V outputs a thread, RUNS runs of them down each bin of the slice,
+// MIN_CTAS CTAs an SM (their registers and shared memory fit).
+template <int V_, int RUNS_, int MIN_CTAS_>
+struct Ring {
+  static constexpr int V = V_, RUNS = RUNS_, MIN_CTAS = MIN_CTAS_;
+  static constexpr int THREADS = RUNS * R_KT;
+  static constexpr int T = V * RUNS;                           // output blocks a CTA
+  static constexpr int DRT = R_DR / RUNS;                      // DFT rows a thread
+  static constexpr int RING = pow2_at_least(R_MC + T - 1);     // P rows the ring holds
+  static constexpr int RING_F = 2 * RING * R_PS;               // floats: [row][R_PS] float2
+  static constexpr int TW_F = 2 * R_MC * R_PS;                 // a chunk's twiddles
+  static constexpr int XS_F = R_DR * R_XS;                     // a block's samples
+  static constexpr int BS_F = 2 * R_NC * R_PS;                 // the basis slice's samples
+  static constexpr int DT_F = 2 * D_UNIQ * R_PS;               // the triples' distance planes
+  static constexpr size_t SMEM = sizeof(float) * (RING_F + TW_F + XS_F + BS_F + DT_F);
+  static_assert(!HAS_RING || ((RING_F + TW_F) % 4 == 0 && XS_F % 4 == 0), "16-byte rows");
+  static_assert(!HAS_RING || SMEM + 1024 <= 232448 / MIN_CTAS, "MIN_CTAS CTAs an SM");
+};
+// The shapes the launch picks among (ring_shape), by the CTA's run T:
+// 128 blocks (16 outputs x 8 runs, 127 registers, two CTAs an SM), 64 (8 x
+// 8, three), 16 (4 x 4, four) and 4 (1 x 4, four).  Against 16 x 4 (T 64,
+// four CTAs, 128 registers with spills) at fpb 4, 16 x 256, device time
+// alone: 0.1983 / 0.2102 / 0.2566 ms; at 16 x 64, where a T-128 CTA's
+// second half is idle, T 64 0.0605, T 128 0.1056; at 3 x 88 and 1 x 1 the
+// narrow shapes (H100, 700 W; PERF.md, the ring form).
+using Ring128 = Ring<16, 8, 2>;
+using Ring64 = Ring<8, 8, 3>;
+using Ring16 = Ring<4, 4, 4>;
+using Ring4 = Ring<1, 4, 4>;
+
+std::atomic<unsigned long long> ring_smem_set[4];   // by shape
+
+template <class R>
+__global__ void __launch_bounds__(R::THREADS, R::MIN_CTAS)
+forward_distance_ring(const float* __restrict__ streams, int nb, int tiles,
+                      const float* __restrict__ uh, const float* __restrict__ ul,
+                      const float* __restrict__ fr, const int* __restrict__ dsel, int n_dist,
+                      const float* __restrict__ cfr, const float* __restrict__ cfi,
+                      const float* __restrict__ twr, const float* __restrict__ twi,
+                      float* __restrict__ xdr, float* __restrict__ xdi) {
+  constexpr int V = R::V, T = R::T, RM = R::RING - 1, NT = R::THREADS, DRT = R::DRT;
+  extern __shared__ __align__(16) float smem[];
+  float2* ring = reinterpret_cast<float2*>(smem);                  // [RING][R_PS]
+  float2* tw = reinterpret_cast<float2*>(smem + R::RING_F);        // [R_MC][R_PS]
+  float* xs = smem + R::RING_F + R::TW_F;                          // [R_DR][R_XS]
+  float2* bs = reinterpret_cast<float2*>(xs + R::XS_F);            // [R_NC][R_PS]
+  float* dtab = xs + R::XS_F + R::BS_F;                            // [plane][triple][R_PS]
+
+  const int slice = blockIdx.x % R_SLICES;
+  const int tile = (blockIdx.x / R_SLICES) % tiles;
+  const int s = blockIdx.x / R_SLICES / tiles;
+  const int k0 = slice * R_KT, j0 = tile * T;
+  const bool nyq = R_NYQ && slice == R_SLICES - 1;
+  const int tid = threadIdx.x, col = tid % R_KT, run = tid / R_KT;
+  const int nv = nb + Q - 1 - j0;                       // rows of the source from j0
+  const float* src = streams + ((size_t)s * (nb + Q - 1) + j0) * FPB;
+
+  const bool table = dsel != nullptr && n_dist <= D_UNIQ;
+  if (table) {
+    for (int i = tid; i < n_dist * R_PS; i += NT) {
+      const int t = i / R_PS, c = i % R_PS;
+      const int k = c < R_KT ? k0 + c : BINS - 1;
+      if ((c < R_KT && k < BINS) || (c == R_KT && nyq))
+        distance_plane(uh[t], ul[t], fr[t], (float)k, &dtab[t * R_PS + c],
+                       &dtab[(D_UNIQ + t) * R_PS + c]);
+    }
+  }
+
+  // P rows [ra, hi) (ra + R_DR or fewer) of the run into the ring: thread
+  // (run, col) holds rows run*DRT + i of the block at bin k0 + col, warp 0
+  // also bin 512's row tid in the last slice
+  auto dft_block = [&](int ra, int hi) {
+    float ar[DRT], ai[DRT], tr_[DFT_BLOCKED ? DRT : 1], ti_[DFT_BLOCKED ? DRT : 1];
+    float nr = 0.f, ni = 0.f, ntr = 0.f, nti = 0.f;
+#pragma unroll
+    for (int i = 0; i < DRT; ++i) ar[i] = ai[i] = 0.f;
+    if constexpr (DFT_BLOCKED) {
+#pragma unroll
+      for (int i = 0; i < DRT; ++i) tr_[i] = ti_[i] = 0.f;
+    }
+    for (int n0 = 0; n0 < FPB; n0 += R_NC) {
+      for (int i = tid; i < R_DR * R_NC; i += NT) {
+        const int r = i / R_NC, n = i % R_NC;
+        if (ra + r < nv) cp_async4(xs + r * R_XS + n, src + (size_t)(ra + r) * FPB + n0 + n);
+        else xs[r * R_XS + n] = 0.f;
+      }
+      for (int i = tid; i < R_NC * R_PS; i += NT) {
+        const int n = i / R_PS, c = i % R_PS;
+        const int k = c < R_KT ? k0 + c : BINS - 1;
+        float* dst = reinterpret_cast<float*>(bs + i);
+        if ((c < R_KT && k < BINS) || (c == R_KT && nyq)) {
+          cp_async4(dst, cfr + (size_t)(n0 + n) * BINS + k);
+          cp_async4(dst + 1, cfi + (size_t)(n0 + n) * BINS + k);
+        } else {
+          dst[0] = dst[1] = 0.f;
+        }
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if constexpr (R_VEC) {                 // each sample chain still ascends one n at a time
+#pragma unroll 2
+        for (int n4 = 0; n4 < R_NC; n4 += 4) {
+          float4 x[DRT];
+#pragma unroll
+          for (int i = 0; i < DRT; ++i)
+            x[i] = *reinterpret_cast<const float4*>(xs + (run * DRT + i) * R_XS + n4);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float2 b = bs[(n4 + q) * R_PS + col];
+#pragma unroll
+            for (int i = 0; i < DRT; ++i) {
+              const float xv = lane4(x[i], q);
+              ar[i] = fmaf(xv, b.x, ar[i]);
+              ai[i] = fmaf(xv, b.y, ai[i]);
+            }
+          }
+        }
+      } else {
+        for (int n = 0; n < R_NC; ++n) {
+          const float2 b = bs[n * R_PS + col];
+#pragma unroll
+          for (int i = 0; i < DRT; ++i) {
+            const float xv = xs[(run * DRT + i) * R_XS + n];
+            ar[i] = fmaf(xv, b.x, ar[i]);
+            ai[i] = fmaf(xv, b.y, ai[i]);
+          }
+        }
+      }
+      if (nyq && tid < R_DR) {
+        for (int n = 0; n < R_NC; ++n) {
+          const float2 b = bs[n * R_PS + R_KT];
+          const float xv = xs[tid * R_XS + n];
+          nr = fmaf(xv, b.x, nr);
+          ni = fmaf(xv, b.y, ni);
+        }
+      }
+      if constexpr (DFT_BLOCKED) {
+        if ((n0 + R_NC) % F_BLOCK == 0) {    // a 128-sample chain ends here
+#pragma unroll
+          for (int i = 0; i < DRT; ++i) {
+            tr_[i] = __fadd_rn(tr_[i], ar[i]);
+            ti_[i] = __fadd_rn(ti_[i], ai[i]);
+            ar[i] = ai[i] = 0.f;
+          }
+          ntr = __fadd_rn(ntr, nr);
+          nti = __fadd_rn(nti, ni);
+          nr = ni = 0.f;
+        }
+      }
+      __syncthreads();                       // the next chunk overwrites this one
+    }
+#pragma unroll
+    for (int i = 0; i < DRT; ++i) {
+      const int r = ra + run * DRT + i;
+      if (r < hi)
+        ring[(r & RM) * R_PS + col] =
+            DFT_BLOCKED ? make_float2(tr_[i], ti_[i]) : make_float2(ar[i], ai[i]);
+    }
+    if (nyq && tid < R_DR && ra + tid < hi)
+      ring[((ra + tid) & RM) * R_PS + R_KT] = DFT_BLOCKED ? make_float2(ntr, nti)
+                                                          : make_float2(nr, ni);
+  };
+
+  const int rb = run * V;                    // this thread's first output in the run
+  float xr[V], xi[V], wr[V], wi[V];          // wr[(row) % V] = P[rb + row], row < V + m - 1
+  float xnr = 0.f, xni = 0.f;                // bin 512 of output tid (tid < T)
+  for (int c0 = 0; c0 < Q; c0 += R_MC) {
+    // the chunk's twiddles m = c0 .. c0 + R_MC - 1 (joined to the first
+    // block's group), then the P rows it reads first
+    for (int i = tid; i < R_MC * R_PS; i += NT) {
+      const int u = i / R_PS, c = i % R_PS;
+      const int k = c < R_KT ? k0 + c : BINS - 1;
+      float* dst = reinterpret_cast<float*>(tw + i);
+      if ((c < R_KT && k < BINS) || (c == R_KT && nyq)) {
+        cp_async4(dst, twr + (size_t)(c0 + u) * BINS + k);
+        cp_async4(dst + 1, twi + (size_t)(c0 + u) * BINS + k);
+      } else {
+        dst[0] = dst[1] = 0.f;
+      }
+    }
+    const int lo = c0 == 0 ? 0 : c0 + T - 1, hi = c0 + R_MC + T - 1;
+    for (int ra = lo; ra < hi; ra += R_DR) dft_block(ra, min(ra + R_DR, hi));
+    __syncthreads();                         // the ring's new rows
+    if (c0 == 0) {
+#pragma unroll
+      for (int i = 0; i + 1 < V; ++i) {
+        const float2 p = ring[((rb + i) & RM) * R_PS + col];
+        wr[i] = p.x;
+        wi[i] = p.y;
+      }
+    }
+    for (int mb = c0; mb < c0 + R_MC; mb += V) {
+      const float2* twm = tw + (mb - c0) * R_PS + col;
+#pragma unroll
+      for (int u = 0; u < V; ++u) {          // m = mb + u; slot (u + o) % V holds P[rb + o + m]
+        const float2 p = ring[((rb + mb + u + V - 1) & RM) * R_PS + col];
+        wr[(u + V - 1) % V] = p.x;
+        wi[(u + V - 1) % V] = p.y;
+        if (u == 0 && mb == 0) {             // m = 0: X = P
+#pragma unroll
+          for (int o = 0; o < V; ++o) {
+            xr[o] = wr[o];
+            xi[o] = wi[o];
+          }
+        } else {
+          const float2 t = twm[u * R_PS];
+#pragma unroll
+          for (int o = 0; o < V; ++o) {      // twiddle_sum's op order
+            const int w = (u + o) % V;
+            xr[o] = __fadd_rn(xr[o], __fsub_rn(__fmul_rn(t.x, wr[w]), __fmul_rn(t.y, wi[w])));
+            xi[o] = __fadd_rn(xi[o], __fadd_rn(__fmul_rn(t.x, wi[w]), __fmul_rn(t.y, wr[w])));
+          }
+        }
+      }
+    }
+    if (nyq && tid < T) {
+      for (int m = c0; m < c0 + R_MC; ++m) {
+        const float2 p = ring[((tid + m) & RM) * R_PS + R_KT];
+        if (m == 0) {
+          xnr = p.x;
+          xni = p.y;
+        } else {
+          const float2 t = tw[(m - c0) * R_PS + R_KT];
+          xnr = __fadd_rn(xnr, __fsub_rn(__fmul_rn(t.x, p.x), __fmul_rn(t.y, p.y)));
+          xni = __fadd_rn(xni, __fadd_rn(__fmul_rn(t.x, p.y), __fmul_rn(t.y, p.x)));
+        }
+      }
+    }
+    __syncthreads();                         // the next chunk overwrites the ring and twiddles
+  }
+
+  const float* dti = dtab + D_UNIQ * R_PS;
+  const int k = k0 + col;
+  if (k < BINS) {
+#pragma unroll
+    for (int o = 0; o < V; ++o) {
+      const int j = j0 + rb + o;
+      if (j < nb) {
+        const int row = s * nb + j;
+        const int d = triple_of(row, dsel, n_dist);
+        float dr, di;
+        if (table) {
+          dr = dtab[d * R_PS + col];
+          di = dti[d * R_PS + col];
+        } else {
+          distance_plane(uh[d], ul[d], fr[d], (float)k, &dr, &di);
+        }
+        cmul_rn(xr[o], xi[o], dr, di, &xdr[(size_t)row * BINS + k], &xdi[(size_t)row * BINS + k]);
+      }
+    }
+  }
+  if (nyq && tid < T && j0 + tid < nb) {
+    const int row = s * nb + j0 + tid;
+    const int d = triple_of(row, dsel, n_dist);
+    float dr, di;
+    if (table) {
+      dr = dtab[d * R_PS + R_KT];
+      di = dti[d * R_PS + R_KT];
+    } else {
+      distance_plane(uh[d], ul[d], fr[d], (float)(BINS - 1), &dr, &di);
+    }
+    cmul_rn(xnr, xni, dr, di, &xdr[(size_t)row * BINS + BINS - 1],
+            &xdi[(size_t)row * BINS + BINS - 1]);
+  }
+}
+
+// The ring form over num_sources streams of nb blocks in shape R (refused
+// where the geometry has no ring form).
+template <class R, int SLOT>
+cudaError_t launch_ring(cudaStream_t stream, const float* streams, int num_sources, int nb,
+                        const float* uh, const float* ul, const float* fr, const int* dsel,
+                        int n_dist, const float* cfr, const float* cfi, const float* twr,
+                        const float* twi, float* xdr, float* xdi) {
+  if constexpr (HAS_RING) {
+    const cudaError_t err =
+        allow_smem_once(forward_distance_ring<R>, R::SMEM, ring_smem_set[SLOT]);
+    if (err != cudaSuccess) return err;
+    const int tiles = (nb + R::T - 1) / R::T;
+    const long long ctas = (long long)R_SLICES * tiles * num_sources;
+    if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+    forward_distance_ring<R><<<(unsigned)ctas, R::THREADS, R::SMEM, stream>>>(
+        streams, nb, tiles, uh, ul, fr, dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi);
+    return cudaSuccess;
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
+// The ring form's run at S sources x nb blocks: 128 blocks where a source
+// fills one and that grid holds a CTA an SM, else the widest of 64, 16
+// whose grid does, else 4: the outputs a thread carries only lengthen a
+// small grid's one wave.
+inline int ring_shape(int num_sources, int nb) {
+  auto ctas = [&](int t) { return (long long)num_sources * ((nb + t - 1) / t) * R_SLICES; };
+  return nb >= Ring128::T && ctas(Ring128::T) >= R_WAVE ? Ring128::T
+         : ctas(Ring64::T) >= R_WAVE                    ? Ring64::T
+         : ctas(Ring16::T) >= R_WAVE                    ? Ring16::T
+                                                        : Ring4::T;
+}
+
+// Launch A's forms.  FWD_TILE: forward_distance, one CTA per 32 blocks x
+// 64 bins of a source, kept as the comparison form; FWD_PRODUCT, FWD_FEW,
+// FWD_PLANES and FWD_RING as above.  All five give the same bits.
+// FWD_PLANES_DFT and FWD_PLANES_SUM are the planes form's two launches
+// alone (subblock_planes into pr, pi; twiddle_distance from them), for
+// timing each apart.
+enum ForwardForm {
+  FWD_TILE = 0, FWD_PRODUCT = 1, FWD_FEW = 2, FWD_PLANES = 3, FWD_RING = 4,
+  FWD_PLANES_DFT = 5, FWD_PLANES_SUM = 6
+};
+
+// The form the render steps take at S sources x nb blocks
+// (kernels/fused_step.forward_form mirrors it): the few-block form up to
+// FEW_NB, else the product form where the geometry has it, else the tile
+// form where it has that, else the ring form where it pays, else the
+// planes form.
+inline int forward_form(int num_sources, int nb) {
+  return nb <= FEW_NB                  ? FWD_FEW
+         : HAS_PRODUCT                 ? FWD_PRODUCT
+         : HAS_TILE                    ? FWD_TILE
+         : ring_pays(num_sources, nb) ? FWD_RING
+                                       : FWD_PLANES;
 }
 
 template <int R>
@@ -889,9 +1271,10 @@ cudaError_t launch_few(cudaStream_t stream, const float* streams, int num_source
 
 // Launch A in ``form`` over num_sources streams of nb blocks each (rows =
 // num_sources*nb); pr and pi are the planes form's scratch (num_sources *
-// (nb + Q - 1) rows x BINS each; null for the other forms).  Anything else,
-// a form the geometry lacks, FWD_FEW above FEW_NB blocks, the planes form
-// without its scratch, or a history of partial blocks, is refused
+// (nb + Q - 1) rows x BINS each; null for the other forms; FWD_PLANES_SUM
+// reads the DFTs FWD_PLANES_DFT wrote there).  Anything else, a form the
+// geometry lacks, FWD_FEW above FEW_NB blocks, the planes form without its
+// scratch, or a history of partial blocks, is refused
 // (cudaErrorInvalidValue).
 inline cudaError_t launch_forward_form(
     int form, cudaStream_t stream, const float* streams, int num_sources, int nb,
@@ -931,16 +1314,31 @@ inline cudaError_t launch_forward_form(
                             : launch_few<16>(stream, streams, num_sources, nb, uh, ul, fr, dsel,
                                              n_dist, cfr, cfi, twr, twi, xdr, xdi);
       if (err != cudaSuccess) return err;
-    } else if (form == FWD_PLANES && pr && pi) {
-      const dim3 pgrid((total + W_ROWS - 1) / W_ROWS, (BINS + W_KT - 1) / W_KT);
-      subblock_planes<Q><<<pgrid, W_THREADS, 0, stream>>>(streams, total, cfr, cfi, pr, pi);
-      err = cudaGetLastError();
+    } else if ((form == FWD_PLANES || form == FWD_PLANES_DFT || form == FWD_PLANES_SUM) && pr &&
+               pi) {
+      if (form != FWD_PLANES_SUM) {
+        const dim3 pgrid((total + W_ROWS - 1) / W_ROWS, (BINS + W_KT - 1) / W_KT);
+        subblock_planes<Q><<<pgrid, W_THREADS, 0, stream>>>(streams, total, cfr, cfi, pr, pi);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+      }
+      if (form != FWD_PLANES_DFT) {
+        const int bin_groups = (BINS + V_KT - 1) / V_KT;
+        const int runs = (total - (Q - 1) + V_RUN - 1) / V_RUN;
+        const int run_groups = (runs + V_THREADS / V_KT - 1) / (V_THREADS / V_KT);
+        twiddle_distance<Q><<<(unsigned)run_groups * bin_groups, V_THREADS, 0, stream>>>(
+            pr, pi, total, nb, bin_groups, uh, ul, fr, dsel, n_dist, twr, twi, xdr, xdi);
+      }
+    } else if (form == FWD_RING && HAS_RING) {
+#define JT_RING(R, SLOT) launch_ring<R, SLOT>(stream, streams, num_sources, nb, uh, ul, fr, dsel, \
+                                             n_dist, cfr, cfi, twr, twi, xdr, xdi)
+      const int t = ring_shape(num_sources, nb);
+      err = t == Ring128::T ? JT_RING(Ring128, 0)
+            : t == Ring64::T ? JT_RING(Ring64, 1)
+            : t == Ring16::T ? JT_RING(Ring16, 2)
+                             : JT_RING(Ring4, 3);
+#undef JT_RING
       if (err != cudaSuccess) return err;
-      const int bin_groups = (BINS + V_KT - 1) / V_KT;
-      const int runs = (total - (Q - 1) + V_RUN - 1) / V_RUN;
-      const int run_groups = (runs + V_THREADS / V_KT - 1) / (V_THREADS / V_KT);
-      twiddle_distance<Q><<<(unsigned)run_groups * bin_groups, V_THREADS, 0, stream>>>(
-          pr, pi, total, nb, bin_groups, uh, ul, fr, dsel, n_dist, twr, twi, xdr, xdi);
     } else {
       return cudaErrorInvalidValue;
     }
@@ -948,14 +1346,14 @@ inline cudaError_t launch_forward_form(
   }
 }
 
-// Launch A as the render steps take it: forward_form(nb).
+// Launch A as the render steps take it: forward_form(num_sources, nb).
 inline cudaError_t launch_forward_distance(
     cudaStream_t stream, const float* streams, int num_sources, int nb,
     const float* uh, const float* ul, const float* fr, const int* dsel, int n_dist,
     const float* cfr, const float* cfi, const float* twr, const float* twi,
     float* xdr, float* xdi, float* pr, float* pi) {
-  return launch_forward_form(forward_form(nb), stream, streams, num_sources, nb, uh, ul, fr,
-                             dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi, pr, pi);
+  return launch_forward_form(forward_form(num_sources, nb), stream, streams, num_sources, nb,
+                             uh, ul, fr, dsel, n_dist, cfr, cfi, twr, twi, xdr, xdi, pr, pi);
 }
 
 // The first output column of this CTA's t-tile.

@@ -37,7 +37,8 @@
 // step is FMA-bound; the tail IDFT is 3/4 of the work.  Design, kept simple
 // for a first port: two launches.
 //   A (launch_forward_distance, fused_forward.cuh: the product form, or the
-//     few-block form at nb <= FEW_NB blocks a source): XD to a scratch buffer.
+//     few-block form at nb <= FEW_NB blocks a source; the tile or ring form
+//     at other geometries): XD to a scratch buffer.
 //   B (blend_tail_xfade): one CTA per 32 rows.  The four (side, ear)
 //     products form a 128-row operand against the (513 x 128) tail basis,
 //     tiled along K = 513 in 32-bin chunks through shared memory, with an
@@ -781,9 +782,10 @@ extern "C" int jt_fused_step_onehot_xfade(
   });
 }
 
-// Launch A alone in ``form`` (FWD_TILE, FWD_PRODUCT, FWD_FEW or FWD_PLANES
-// of fused_forward.cuh, the last with its scratch pr, pi; anything else is
-// refused): the XD planes (xdr, xdi: rows x 513, rows = num_sources * nb)
+// Launch A alone in ``form`` (FWD_TILE, FWD_PRODUCT, FWD_FEW, FWD_PLANES or
+// FWD_RING of fused_forward.cuh, the planes form with its scratch pr, pi,
+// or one of its two launches, FWD_PLANES_DFT or FWD_PLANES_SUM; anything
+// else is refused): the XD planes (xdr, xdi: rows x 513, rows = num_sources * nb)
 // of num_sources streams of nb blocks, with per-row distance or, with dsel,
 // each row's triple among the first n_dist.  The card tests and chip_smoke.py hold
 // the forms against each other through it.  Launches on ``stream`` of

@@ -37,9 +37,10 @@ rows, or the split form, a cluster of CTAs per tile, one per 128-bin
 block (``csrc/fused_forward.cuh``, in the layout ``split_default``
 names).  Launch A, the forward every step of rows 1-6 runs first,
 takes its product form, or its few-block form up to ``FEW_NB`` blocks a
-source, or where neither exists its tile form or its planes form
-(``forward_form``); the tile form is also kept to hold the others
-against (``_forward_cuda``).  Both keep the TPU kernels' answer
+source, or where neither exists its tile form, or its ring form up to fpb
+32, past that its two-launch planes form (``forward_form``); the tile form
+and the planes form are also kept to hold the others against
+(``_forward_cuda``).  Both keep the TPU kernels' answer
 for ids outside the table (they add nothing) and for selectors outside
 1..n_dist-1 (triple 0), so no check syncs the device.
 
@@ -47,7 +48,8 @@ The kernels run at every geometry the JAX package runs (any fpb >= 2, any
 power-of-two pad_len), each from a library built for the operands' (fpb,
 pad_len) (``kernels/build``).  ``geometry_forms`` says which forms a
 geometry's library has (the tuned layouts fit some geometries only; launch
-A's planes form and launch B take every one); ``pick_form`` and
+A's planes form and launch B take every one, launch A's ring form every
+one past Q 16); ``pick_form`` and
 ``forward_form`` choose among those, and a form a geometry lacks, named
 through ``_cuda``, raises.  ``check_geometry`` refuses only what no form can
 supply (``card_refusal``).  Rows 1-6 need a history
@@ -187,11 +189,20 @@ row1_forms: dict[str, int] = dict.fromkeys((LAUNCH_B, STAGED), 0)
 # tile form (one CTA per 32 blocks x 64 bins of a source), kept to hold the
 # others against; the product form (64 flat sub-block rows x 64 bins a
 # CTA); the few-block form (a thread per bin and plane, every row of its
-# source), which the steps take up to FEW_NB blocks a source; and the
-# planes form (each sub-block's DFT written once to a scratch, then the
-# twiddle sum per output and bin through L2), which takes any Q.
-FWD_TILE, FWD_PRODUCT, FWD_FEW, FWD_PLANES = "tile", "product", "few", "planes"
-_FWD_CODE = {FWD_TILE: 0, FWD_PRODUCT: 1, FWD_FEW: 2, FWD_PLANES: 3}
+# source), which the steps take up to FEW_NB blocks a source; the ring
+# form (one launch: a CTA per run of one source's blocks and 32 bins, its
+# sub-block DFTs built into a shared-memory ring as m advances), which the
+# steps take past Q 16 where the product form does not exist and the ring
+# form pays (``ring_pays``); and the planes form (each sub-block's DFT
+# written once to a scratch, then the twiddle sum per output and bin
+# through L2, two launches), which takes any Q, is taken where the ring
+# form does not pay, and holds the ring form to its bits.
+FWD_TILE, FWD_PRODUCT, FWD_FEW, FWD_PLANES, FWD_RING = "tile", "product", "few", "planes", "ring"
+_FWD_CODE = {FWD_TILE: 0, FWD_PRODUCT: 1, FWD_FEW: 2, FWD_PLANES: 3, FWD_RING: 4}
+# The planes form's two launches alone, to time each apart: the sub-block
+# DFTs into the scratch, and the twiddle sums and distance multiply from it.
+PLANES_DFT, PLANES_SUM = "dft", "sum"
+_PLANES_PART_CODE = {PLANES_DFT: 5, PLANES_SUM: 6}
 
 # Most blocks a source at which the steps take launch A's few-block form
 # at fpb 128 / pad 1024 (csrc/fused_forward.cuh FEW_NB; its kernel carries
@@ -232,8 +243,9 @@ T_TILE, GRID_Y = 128, 65535
 
 # Launch A's tile form takes Q <= 16 (its twiddles in registers, its
 # 32 + Q - 1 sub-block rows in shared memory), its product form Q <= 64
-# (a tile's output starts stay most of its rows); past those the steps take
-# the planes form (csrc/fused_forward.cuh TILE_MAX_Q, PRODUCT_MAX_Q).
+# (a tile's output starts stay most of its rows); past Q 16 the ring form
+# exists, and the steps take it where the product form does not and it
+# pays (csrc/fused_forward.cuh TILE_MAX_Q, PRODUCT_MAX_Q, HAS_RING, ring_pays).
 TILE_MAX_Q, PRODUCT_MAX_Q = 16, 64
 
 
@@ -241,7 +253,8 @@ TILE_MAX_Q, PRODUCT_MAX_Q = 16, 64
 class Forms:
     """The forms a geometry's library has (csrc/fused_forward.cuh's HAS_*
     and FEW_NB; ``jt_geometry`` reports the library's own).  Launch A's
-    planes form and launch B exist at every geometry."""
+    planes form and launch B exist at every geometry, launch A's ring form
+    at every history of whole blocks past Q 16 (``ring``)."""
 
     fpb: int
     pad: int
@@ -254,6 +267,12 @@ class Forms:
     cluster: bool   # row 8's cluster form
     tile: bool      # launch A's tile form
     tile_cols: int  # columns of launch B's and the chunked layout's tile (csrc T_COLS)
+
+    @property
+    def ring(self) -> bool:
+        """Launch A's ring form: where the tile form does not exist (csrc
+        HAS_RING)."""
+        return self.q > TILE_MAX_Q
 
 
 @functools.cache
@@ -347,22 +366,69 @@ def pick_form(name: str, rows: int, fpb: int = 128, pad_len: int = 1024) -> str:
     return LAUNCH_B if kind and launch_b_span(kind, rows, fpb, pad_len) else SPLIT
 
 
-def forward_form(nb: int, fpb: int = 128, pad_len: int = 1024) -> str:
-    """Launch A's form on the card at ``nb`` blocks a source (the steps'
-    choice, csrc/fused_forward.cuh forward_form): the few-block form up to
-    the geometry's ``few_nb``, else its product form, else its tile form,
-    else the planes form."""
+# Launch A's ring form took less device time alone than the planes form at
+# every shape timed up to fpb 32, by more than a reading's spread
+# (RUN_SPREAD), so the steps take it there: ring / planes ms, fpb
+# 16 at 16 x 256 0.0733 / 0.1186, 16 x 64 0.0227 / 0.0477, 1 x 2,048
+# 0.0375 / 0.0537, 1 x 1 0.0089 / 0.0257; fpb 4 0.1964 / 0.5067, 0.0601 /
+# 0.3017, 0.1036 / 0.1519, 0.0194 / 0.0801 (an H100, 700 W;
+# scripts/tail_times.py, the parent's tree and this one in turns); fpb 2
+# 0.3639 / 1.3251, 0.1124 / 1.0108, 0.1876 / 0.2891, 0.0337 / 0.1493; fpb
+# 32 under pad 4096 0.5264 / 0.7491, 0.1635 / 0.3831, 0.2693 / 0.3268,
+# 0.0193 / 0.0445 (the same card, the shape ring_shape picks).  Past fpb
+# 32 its sub-block DFTs, built again for each run's halo rows, grow with
+# fpb, while the planes form loses only its sums that straddle two
+# sources, (S - 1)(Q - 1) of them: at one source the planes form won.  The
+# same shapes, ring / planes ms (scripts/tail_times.py --launch-a-forms;
+# the same card):
+# fpb 64 under pad 8192 (Q 128) 1.3113 / 1.5594, 0.4064 / 0.7759, 0.6669
+# / 0.5954, 0.0293 / 0.0507; fpb 64 under pad 16384 (Q 256) 4.4314 /
+# 7.9023, 1.4267 / 4.7949, 2.2599 / 2.1831, 0.1143 / 0.1632; fpb 128 under
+# pad 16384 (Q 128) 3.7229 / 3.7381, 1.1634 / 1.8158, 1.9094 / 1.3849,
+# 0.0955 / 0.0711; fpb 128 under pad 32768 (Q 256) 12.3229 / 17.6079,
+# 4.0205 / 10.6559, 6.2213 / 4.7721, 0.3118 / 0.2537; fpb 256 under pad
+# 32768 (Q 128) 12.5574 / 10.7793, 4.4599 / 5.2719, 6.3556 / 3.8689,
+# 0.3408 / 0.1934; fpb 512 under pad 65536 (Q 128) 51.8824 / 30.8404,
+# 16.4849 / 15.0841, 26.0050 / 10.9435, 1.1297 / 0.5981.  So past fpb 32
+# the steps take the ring form where fpb <= Q and the straddling sums are
+# at least half the outputs (``ring_pays``): every shape it picks there
+# won by more than RUN_SPREAD, and it picks none where the ring form lost
+# or tied; it leaves three wins to the planes form (fpb 64 under pad 8192
+# at 16 x 256, fpb 64 at 1 x 1, fpb 256 at 16 x 64), each beside a loss
+# of the same S and nb or the same fpb that a rule this simple would take
+# with it (csrc/fused_forward.cuh ring_pays; PERF.md, the ring form).
+RING_MAX_FPB = 32
+
+
+def ring_pays(sources: int, nb: int, fpb: int, pad_len: int) -> bool:
+    """Whether the steps take launch A's ring form at ``sources`` x ``nb``
+    blocks where the (fpb, pad_len) library has it (csrc/fused_forward.cuh
+    ring_pays): up to RING_MAX_FPB always; past it where fpb <= Q and the
+    planes form's (S - 1)(Q - 1) sums that straddle two sources are at
+    least half of its S nb outputs."""
+    q = pad_len // fpb
+    return fpb <= RING_MAX_FPB or (fpb <= q and 2 * (sources - 1) * (q - 1) >= sources * nb)
+
+
+def forward_form(nb: int, fpb: int = 128, pad_len: int = 1024, sources: int = 1) -> str:
+    """Launch A's form on the card at ``sources`` x ``nb`` blocks (the
+    steps' choice, csrc/fused_forward.cuh forward_form): the few-block form
+    up to the geometry's ``few_nb``, else its product form, else its tile
+    form, else the ring form where it pays (``ring_pays``), else the planes
+    form."""
     forms = geometry_forms(fpb, pad_len)
     if nb <= forms.few_nb:
         return FWD_FEW
-    return FWD_PRODUCT if forms.product else FWD_TILE if forms.tile else FWD_PLANES
+    if forms.product or forms.tile:
+        return FWD_PRODUCT if forms.product else FWD_TILE
+    return FWD_RING if forms.ring and ring_pays(sources, nb, fpb, pad_len) else FWD_PLANES
 
 
 def planes_scratch(n_src: int, nb: int, fpb: int, pad_len: int, device):
     """The planes form's scratch (pr, pi: the n_src * (nb + q - 1) sub-block
     DFTs x bins each) where launch A takes that form at ``nb`` blocks a
     source, else (None, None)."""
-    if forward_form(nb, fpb, pad_len) != FWD_PLANES:
+    if forward_form(nb, fpb, pad_len, n_src) != FWD_PLANES:
         return None, None
     shape = (n_src * (nb + pad_len // fpb - 1), pad_len // 2 + 1)
     return tuple(torch.empty(shape, dtype=torch.float32, device=device) for _ in range(2))
@@ -712,7 +778,7 @@ def _launch(name: str, form: str, lib: str, entry, device, streams, n_src, nb, d
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({_cuda_error(lib, err, (fpb, pad_len))})")
     _count(name, form)
-    forward_launches[forward_form(nb, fpb, pad_len)] += 1
+    forward_launches[forward_form(nb, fpb, pad_len, n_src)] += 1
     return out
 
 
@@ -727,18 +793,26 @@ def _forward_entry(geometry: tuple[int, int]):
 
 
 def _forward_cuda(streams, nb: int, uh, ul, fr, dsel, n_dist, *, form: str, pad_len: int,
-                  bins: int, fpb: int):
+                  bins: int, fpb: int, part: str | None = None, scratch=None):
     """Launch A alone on the card in ``form`` -> the (S*nb, bins) XD planes
     (xdr, xdi) of S streams, ``_forward_reference``'s function: the card
     tests and chip_smoke.py hold the forms against each other this way;
-    counted in ``forward_launches``."""
+    counted in ``forward_launches``.  ``part`` runs one of the planes
+    form's two launches alone on the caller's ``scratch`` (pr, pi):
+    PLANES_DFT writes the sub-block DFTs there (the XD returned is not
+    written), PLANES_SUM reads them (chip_smoke.py times each apart)."""
     if form not in _FWD_CODE:
         raise ValueError(f"form {form!r}: want one of {sorted(_FWD_CODE)}")
+    if part is not None and (form != FWD_PLANES or part not in _PLANES_PART_CODE
+                             or scratch is None):
+        raise ValueError(f"part {part!r}: the planes form's {sorted(_PLANES_PART_CODE)}, with "
+                         f"its scratch")
     forms = geometry_forms(fpb, pad_len)
     if form == FWD_FEW and nb > forms.few_nb:
         raise ValueError(f"the few-block form takes at most {forms.few_nb} blocks a source at "
                          f"fpb {fpb}, pad {pad_len}, not {nb}")
-    if (form == FWD_PRODUCT and not forms.product) or (form == FWD_TILE and not forms.tile):
+    if ((form == FWD_PRODUCT and not forms.product) or (form == FWD_TILE and not forms.tile)
+            or (form == FWD_RING and not forms.ring)):
         raise ValueError(f"the {form} form does not exist at fpb {fpb}, pad {pad_len}")
     _whole_blocks(fpb, pad_len)
     _check_streams(streams, nb, pad_len, fpb)
@@ -758,15 +832,19 @@ def _forward_cuda(streams, nb: int, uh, ul, fr, dsel, n_dist, *, form: str, pad_
     xdi = torch.empty_like(xdr)
     pr = pi = None
     if form == FWD_PLANES:
-        pr, pi = (torch.empty((streams.shape[0] * (nb + pad_len // fpb - 1), bins),
-                              dtype=torch.float32, device=device) for _ in range(2))
+        shape = (streams.shape[0] * (nb + pad_len // fpb - 1), bins)
+        pr, pi = scratch if part else (torch.empty(shape, dtype=torch.float32, device=device)
+                                       for _ in range(2))
+        _check({"pr": (pr, shape, torch.float32), "pi": (pi, shape, torch.float32)})
     ptr = lambda t: None if t is None else t.data_ptr()
+    code = _PLANES_PART_CODE[part] if part else _FWD_CODE[form]
     err = _forward_entry((fpb, pad_len))(
-        device.index, torch.cuda.current_stream(device).cuda_stream, _FWD_CODE[form],
+        device.index, torch.cuda.current_stream(device).cuda_stream, code,
         ptr(streams), streams.shape[0], nb, ptr(uh), ptr(ul), ptr(fr), ptr(dsel), n_dist or 0,
         ptr(cfr), ptr(cfi), ptr(twr), ptr(twi), ptr(xdr), ptr(xdi), ptr(pr), ptr(pi))
     if err:
-        raise RuntimeError(f"launch A ({form}) failed: CUDA error {err} "
+        what = f"{form}, {part}" if part else form
+        raise RuntimeError(f"launch A ({what}) failed: CUDA error {err} "
                            f"({_cuda_error('fused_step_onehot', err, (fpb, pad_len))})")
     forward_launches[form] += 1
     return xdr, xdi

@@ -1,10 +1,11 @@
 """Launch B's device time alone, rows 1-8, in every form a geometry's
-library has, at the shapes of chip_smoke.py's phase geometry: a change to
-launch B's layouts runs this on the parent's checkout and on its own in
-one call, in turns, and compares the readings.
+library has, at the shapes of chip_smoke.py's phase geometry, and launch A
+alone in the form the steps take: a change to launch A or B runs this on
+the parent's checkout and on its own in one call, in turns, and compares
+the readings.
 
     PYTHONPATH=<checkout> python jefferson_tpu_torch/scripts/tail_times.py
-        [--geometry f64 f64t256 f16 f4 f128] [--readings 3]
+        [--geometry f64 f64t256 f16 f4 f128] [--readings 3] [--launch-a-forms]
 
 Run it as a file, with the checkout to time first on PYTHONPATH: it
 imports ``jefferson_tpu_torch`` from there (its ``scripts.split_layouts``
@@ -13,7 +14,14 @@ gives rows 2-8's operands).  Rows 2-8 at split_layouts' main shapes (rows
 rows 2-6 with launch A, as their wrappers run it), in launch B and in the
 split form where it exists; row 1 at 16 sources x 64 blocks (compact
 distance): the whole step, launch A alone in the form the step takes, and
-launch B as the difference.  Each number is the median of ``--readings``
+launch B as the difference; launch A alone at 16 x 256, 16 x 64, 1 x
+2,048 and 1 x 1 (per-row distance), in the form the checkout's
+``forward_form`` names.  With ``--launch-a-forms`` it times launch A
+alone at those four shapes in each of the ring and planes forms the
+library has, and nothing else: the readings that set where the steps take
+the ring form (``fused_step.forward_form``).  A geometry is a name of
+split_layouts' ``GEOMETRIES`` or ``f<fpb>t<taps>`` (``f<fpb>``: 512 taps);
+the libraries of every geometry asked are built first, all at once.  Each number is the median of ``--readings``
 readings of device time alone (10 calls queued behind a stream held by a
 spin kernel, then CUDA events around them).  Prints one JSON line.  It
 needs a card and raises without one.
@@ -23,38 +31,75 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import sys
+
+
+# launch A's shapes: the scene step's, row 1's, row 5's and the live block
+LAUNCH_A_SHAPES = ((16, 256), (16, 64), (1, 2048), (1, 1))
+
+
+def geometry(name: str) -> tuple[int, int]:
+    """(fpb, HRIR taps) of ``name``: an entry of split_layouts' GEOMETRIES,
+    else ``f<fpb>t<taps>`` or ``f<fpb>`` (512 taps)."""
+    from jefferson_tpu_torch.scripts import split_layouts as sl
+
+    if name in sl.GEOMETRIES:
+        return sl.GEOMETRIES[name]
+    m = re.fullmatch(r"f(\d+)(?:t(\d+))?", name)
+    if m is None:
+        raise ValueError(f"geometry {name!r}: want one of {sorted(sl.GEOMETRIES)} or f<fpb>t<taps>")
+    return int(m[1]), int(m[2] or 512)
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--geometry", nargs="*", default=["f64", "f64t256", "f16", "f4", "f128"])
     p.add_argument("--readings", type=int, default=3)
+    p.add_argument("--launch-a-forms", action="store_true",
+                   help="launch A alone in its ring and planes forms, nothing else")
     args = p.parse_args(argv)
+    geos = {name: geometry(name) for name in args.geometry}
 
     import torch
 
     from jefferson_tpu_torch import bench
     from jefferson_tpu_torch.config import EngineConfig
     from jefferson_tpu_torch.hrtf.kemar import synthetic_database
+    from jefferson_tpu_torch.kernels import build
     from jefferson_tpu_torch.kernels import fused_step as fs
     from jefferson_tpu_torch.scripts import split_layouts as sl
 
     if not torch.cuda.is_available():
         raise RuntimeError("tail_times needs a CUDA device")
+    configs = {name: EngineConfig(frames_per_buffer=fpb, hrtf_len=taps)
+               for name, (fpb, taps) in geos.items()}
+    build.build_all(["fused_step_onehot"] + ([] if args.launch_a_forms else ["fused_step_gather"]),
+                    geometries=[(c.frames_per_buffer, c.pad_len) for c in configs.values()])
     device = torch.device("cuda", torch.cuda.current_device())
     alone = lambda call: statistics.median(sl.device_ms(call, reps=10)
                                            for _ in range(args.readings))
     out = {}
-    for name in args.geometry:
-        fpb, taps = sl.GEOMETRIES[name]
-        cfg = EngineConfig(frames_per_buffer=fpb, hrtf_len=taps)
-        db = synthetic_database(cfg)
-        pad, bins = cfg.pad_len, cfg.num_bins
+    for name, cfg in configs.items():
+        fpb, pad, bins = cfg.frames_per_buffer, cfg.pad_len, cfg.num_bins
         forms = fs.geometry_forms(fpb, pad)
-        tail = [fs.LAUNCH_B] + ([fs.SPLIT] if forms.split else [])
         got = {}
+        if args.launch_a_forms:
+            a_forms = [fs.FWD_RING] * forms.ring + [fs.FWD_PLANES] * bool(forms.q)
+            for s_, nb in LAUNCH_A_SHAPES:
+                ops = bench.forward_operands(s_, nb, device, seed=7, config=cfg)
+                got[f"launch A {s_}x{nb}"] = {f: alone(
+                    lambda: fs._forward_cuda(*ops, form=f, pad_len=pad, bins=bins, fpb=fpb))
+                    for f in a_forms}
+                del ops
+            out[name] = got
+            print(f"{name} (pad {pad}, Q {forms.q}): " + "; ".join(
+                f"{k} " + " ".join(f"{f} {ms:.4f}" for f, ms in v.items()) for k, v in got.items())
+                  + f" ms  [{bench.card()}]", file=sys.stderr, flush=True)
+            continue
+        db = synthetic_database(cfg)
+        tail = [fs.LAUNCH_B] + ([fs.SPLIT] if forms.split else [])
         for kernel in sl.MAIN_ROWS:
             if not (forms.q or kernel.startswith(("fused_apply", fs.SPATIALIZER))):
                 continue
@@ -64,11 +109,16 @@ def main(argv=None) -> int:
             a, kw = bench.step_operands(bench.build_workload(db, 16, 64, device), cfg)
             step = lambda: fs.fused_step_onehot_xfade(*a, **kw)
             fwd = (a[0], kw["nb"], *a[1:4], kw.get("dsel"), kw.get("n_dist"))
-            a_form = fs.forward_form(kw["nb"], fpb, pad)
+            a_form = fs.forward_form(kw["nb"], fpb, pad, a[0].shape[0] if a[0].dim() == 2 else 1)
             whole = alone(step)
             launch_a = alone(lambda: fs._forward_cuda(*fwd, form=a_form, pad_len=pad,
                                                       bins=bins, fpb=fpb))
             got[fs.ROW1] = {"step": whole, "launch A": launch_a, "launch_b": whole - launch_a}
+            for s_, nb in LAUNCH_A_SHAPES:
+                ops = bench.forward_operands(s_, nb, device, seed=7, config=cfg)
+                form = fs.forward_form(nb, fpb, pad, s_)
+                got[f"launch A {s_}x{nb}"] = {form: alone(
+                    lambda: fs._forward_cuda(*ops, form=form, pad_len=pad, bins=bins, fpb=fpb))}
         out[name] = got
         print(f"{name}: " + "; ".join(
             f"{k} " + " ".join(f"{f} {ms:.4f}" for f, ms in v.items()) for k, v in got.items())

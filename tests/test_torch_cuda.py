@@ -1573,7 +1573,9 @@ def _smoke():
 
 # phase geometry's table (name -> (fpb, HRIR taps)) and fpb 2 (EngineConfig's
 # least block, Q 512): too many blocks for a whole render in the smoke, held here
-GEOMETRIES = {**_smoke().GEOMETRIES, "f2": (2, 512)}
+# f2 (Q 512) and f4t2048 (fpb 4 under pad 4096: Q 1,024, launch A's ring form
+# cycling its shared-memory ring 32 times) beside the smoke's
+GEOMETRIES = {**_smoke().GEOMETRIES, "f2": (2, 512), "f4t2048": (4, 2048)}
 _geo_dbs = {}
 
 
@@ -1628,7 +1630,8 @@ def test_geometry_kernel_forms_match_their_twins(name):
             ops = bench.forward_operands(s_, nb, dev, n_dist=nd, config=cfg)
             names = ([tfs.FWD_TILE] if forms.tile else []) + (
                 [tfs.FWD_PRODUCT] if forms.product else []) + (
-                [tfs.FWD_FEW] if nb <= forms.few_nb else []) + [tfs.FWD_PLANES]
+                [tfs.FWD_FEW] if nb <= forms.few_nb else []) + [tfs.FWD_PLANES] + (
+                [tfs.FWD_RING] if forms.ring else [])
             got = [tfs._forward_cuda(*ops, form=f, **geo) for f in names]
             want = tfs._forward_reference(*ops, **geo)
             peak = max(float(w.abs().max()) for w in want)
@@ -1747,3 +1750,126 @@ def test_fitted_tile_forms_are_bit_equal_and_match_their_twins(name, rows):
         fn, args, kw = bench.stream_step(db, form, rows, dev, tb=tb, group_tiles=gt,
                                          radius_step=0.01, xf_every=5)
         _fit_forms(fn, args, kw, tail, rows, fpb)
+
+
+# ---- launch A's ring form past Q 16 ------------------------------------------
+
+_RING = ("f16", "f4", "f2", "f4t2048", "f128t2048")
+# (sources, blocks, n_dist or None): 16 outputs a thread at 16 x 64, 16 x
+# 256, 1 x 2,048 and 5 x 200 (its last run of 64 blocks ragged), 4 at 3 x 88
+# (ragged), 1 at the live block and at 2 x 4 with 3 triples
+_RING_SHAPES = [(3, 88, None), (2, 4, 3), (1, 1, None), (16, 64, None), (16, 256, None),
+                (16, 256, 8), (1, 2048, None), (5, 200, None)]
+
+
+@pytest.mark.parametrize("sources,nb,n_dist", _RING_SHAPES)
+@pytest.mark.parametrize("name", _RING)
+def test_launch_a_ring_form_is_the_planes_form_bit_for_bit(name, sources, nb, n_dist):
+    """The ring form torch.equal to the two-launch planes form in both XD
+    planes, within 1e-6 of the twin's peak, and counted as itself."""
+    db = _geo_db(name)
+    cfg = db.config
+    geo = dict(pad_len=cfg.pad_len, bins=cfg.num_bins, fpb=cfg.frames_per_buffer)
+    assert tfs.geometry_forms(cfg.frames_per_buffer, cfg.pad_len).ring
+    ops = bench.forward_operands(sources, nb, torch.device("cuda", 0), seed=sources + nb,
+                                 n_dist=n_dist, config=cfg)
+    tfs.reset_launches()
+    ring = tfs._forward_cuda(*ops, form=tfs.FWD_RING, **geo)
+    planes = tfs._forward_cuda(*ops, form=tfs.FWD_PLANES, **geo)
+    torch.cuda.synchronize()
+    assert tfs.forward_launches == {f: int(f in (tfs.FWD_RING, tfs.FWD_PLANES))
+                                    for f in tfs.forward_launches}
+    assert all(torch.equal(a, b) for a, b in zip(ring, planes))
+    want = tfs._forward_reference(*ops, **geo)
+    peak = max(float(w.abs().max()) for w in want)
+    assert max(float((a - w).abs().max()) for a, w in zip(ring, want)) <= 1e-6 * peak
+
+
+@pytest.mark.parametrize("name", ["f16", "f4"])
+def test_the_planes_forms_two_launches_apart_are_the_planes_form(name):
+    """The sub-block DFTs, then the twiddle sums from them, launched apart
+    (chip_smoke.py times each so): the planes form's XD."""
+    db = _geo_db(name)
+    cfg = db.config
+    geo = dict(pad_len=cfg.pad_len, bins=cfg.num_bins, fpb=cfg.frames_per_buffer)
+    dev = torch.device("cuda", 0)
+    ops = bench.forward_operands(4, 66, dev, config=cfg)
+    shape = (4 * (66 + cfg.pad_len // cfg.frames_per_buffer - 1), cfg.num_bins)
+    scratch = tuple(torch.empty(shape, device=dev) for _ in range(2))
+    tfs._forward_cuda(*ops, form=tfs.FWD_PLANES, part=tfs.PLANES_DFT, scratch=scratch, **geo)
+    got = tfs._forward_cuda(*ops, form=tfs.FWD_PLANES, part=tfs.PLANES_SUM, scratch=scratch,
+                            **geo)
+    want = tfs._forward_cuda(*ops, form=tfs.FWD_PLANES, **geo)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("name", ["f16", "f4", "f2", "f4t2048"])
+def test_the_steps_take_launch_a_in_the_ring_form(name):
+    """Rows 1-6 and row 8's forward form where launch A takes the ring form:
+    each within TOL of its twin (row 8 ROW8_TOL), launch A counted in the
+    ring form once a step."""
+    db = _geo_db(name)
+    cfg = db.config
+    fpb, pad, bins = cfg.frames_per_buffer, cfg.pad_len, cfg.num_bins
+    geo = dict(pad_len=pad, bins=bins, fpb=fpb)
+    dev = torch.device("cuda", 0)
+    assert tfs.forward_form(66, fpb, pad) == tfs.FWD_RING
+    tfs.reset_launches()
+    steps = 0
+    args, kw = bench.step_operands(bench.build_workload(db, 4, 66, dev), cfg)
+    _held_to_twin(tfs.fused_step_onehot_xfade, args, kw, [tfs.LAUNCH_B], 264, fpb)
+    steps += 1
+    tail = [tfs.LAUNCH_B] + ([tfs.SPLIT] if tfs.geometry_forms(fpb, pad).split else [])
+    for form in ("onehot", "grouped", "gather", "gather_noxf"):
+        fn, args, kw = bench.stream_step(db, form, 264, dev, tb=88, group_tiles=1, xf_every=5)
+        _held_to_twin(fn, args, kw, tail, 264, fpb)
+        steps += len(tail)
+    for form in ("grouped", "gather", "gather_noxf"):
+        groups = {"group_sources": 1} if form == "grouped" else {}
+        fn, args, kw = bench.scene_step(db, form, 4, 66, dev, xf_every=5, **groups)
+        _held_to_twin(fn, args, kw, tail, 264, fpb)
+        steps += len(tail)
+    table, fwd, br, xf = bench.spatializer_step(db, 264, dev)
+    y = tsp.fused_forward_apply(table, *fwd, *br, xf, **geo)
+    want = tsp.fused_forward_apply_reference(table, *fwd, *br, xf, **geo)
+    assert float((y - want).abs().max()) <= ROW8_TOL
+    steps += 1
+    torch.cuda.synchronize()
+    assert tfs.forward_launches == {f: steps if f == tfs.FWD_RING else 0
+                                    for f in tfs.forward_launches}
+
+
+def test_the_steps_keep_the_planes_form_past_the_ring_forms_blocks():
+    """fpb 64 under pad 8192 (Q 128, no product form, past RING_MAX_FPB):
+    a step of 2 sources x 8 blocks takes launch A's ring form (ring_pays)
+    and row 8's one source of 16 rows the planes form with its scratch,
+    each within its tolerance of the twin; the two forms give the same
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from jefferson_tpu_torch.config import EngineConfig
+
+    cfg = EngineConfig(frames_per_buffer=64, hrtf_len=4096)
+    db = synthetic_database(cfg)
+    fpb, pad, bins = cfg.frames_per_buffer, cfg.pad_len, cfg.num_bins
+    assert (pad, fpb > tfs.RING_MAX_FPB) == (8192, True)
+    assert tfs.ring_pays(2, 8, fpb, pad) and not tfs.ring_pays(1, 16, fpb, pad)
+    dev = torch.device("cuda", 0)
+    geo = dict(pad_len=pad, bins=bins, fpb=fpb)
+    fn, args, kw = bench.scene_step(db, "gather", 2, 8, dev, xf_every=5)
+    tfs.reset_launches()
+    _held_to_twin(fn, args, kw, [tfs.LAUNCH_B], 16, fpb)
+    assert tfs.forward_launches == {f: int(f == tfs.FWD_RING) for f in tfs.forward_launches}
+    table, fwd, br, xf = bench.spatializer_step(db, 16, dev)
+    tfs.reset_launches()
+    y = tsp.fused_forward_apply(table, *fwd, *br, xf, **geo)
+    want = tsp.fused_forward_apply_reference(table, *fwd, *br, xf, **geo)
+    torch.cuda.synchronize()
+    assert float((y - want).abs().max()) <= ROW8_TOL
+    assert tfs.forward_launches == {f: int(f == tfs.FWD_PLANES) for f in tfs.forward_launches}
+    ops = bench.forward_operands(2, 8, dev, config=cfg)
+    ring = tfs._forward_cuda(*ops, form=tfs.FWD_RING, **geo)
+    planes = tfs._forward_cuda(*ops, form=tfs.FWD_PLANES, **geo)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(ring, planes))

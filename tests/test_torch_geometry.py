@@ -443,7 +443,7 @@ def test_geometry_forms_follow_the_sources_rules():
     assert tfs.forward_form(1, 1024, 2048) == tfs.FWD_PRODUCT
     assert tfs.forward_form(16, 32, 64) == tfs.FWD_TILE
     for geo in ((16, 1024), (4, 1024), (2, 1024), (32, 4096)):
-        assert tfs.forward_form(1, *geo) == tfs.forward_form(300, *geo) == tfs.FWD_PLANES
+        assert tfs.forward_form(1, *geo) == tfs.forward_form(300, *geo) == tfs.FWD_RING
     assert tfs.forward_form(1, 128, 4096) == tfs.FWD_PRODUCT == tfs.forward_form(1, 2048, 4096)
     assert tfs.pick_form("fused_step_xfade", 64, 2048, 4096) == tfs.SPLIT
     assert tfs.pick_form("fused_step_xfade", 64, 4, 1024) == tfs.SPLIT

@@ -183,7 +183,7 @@ def test_reset_sets_launch_as_counts_to_0():
     tfs.forward_launches[tfs.FWD_PRODUCT] = 3
     tfs.reset_launches()
     assert tfs.forward_launches == dict.fromkeys(
-        (tfs.FWD_TILE, tfs.FWD_PRODUCT, tfs.FWD_FEW, tfs.FWD_PLANES), 0)
+        (tfs.FWD_TILE, tfs.FWD_PRODUCT, tfs.FWD_FEW, tfs.FWD_PLANES, tfs.FWD_RING), 0)
 
 
 @pytest.mark.parametrize("sources,nb,want_ms", [
@@ -261,3 +261,188 @@ def test_prod_on_the_cpu_is_its_twin_uncounted():
     assert tfs.launches["prod"] == 0
     with pytest.raises(ValueError, match="no kernel"):
         tap.prod(*(torch.empty((2, 3), device="meta") for _ in range(4)))
+
+
+# ---- launch A's ring form -----------------------------------------------------
+
+# geometries past Q 16: fpb 16, 4 and 2 under pad 1024 (Q 64, 256, 512), fpb
+# 32 under pad 4096 (Q 128, no product form), fpb 4 under pad 4096 (Q
+# 1,024), fpb 128 under pad 4096 (Q 32, the product form's), fpb 2 under
+# pad 64 (33 bins: one slice and bin 32)
+_RING_GEOS = [(16, 1024), (4, 1024), (2, 1024), (32, 4096), (4, 4096), (128, 4096), (2, 64)]
+
+
+def test_the_ring_form_is_named_and_coded_as_the_header():
+    enum = re.search(r"enum ForwardForm \{([^}]*)\}", HEADER)[1]
+    codes = {k: int(v) for k, v in re.findall(r"(FWD_\w+) = (\d+)", enum)}
+    assert tfs.FWD_RING == "ring" and codes["FWD_RING"] == tfs._FWD_CODE[tfs.FWD_RING] == 4
+    assert codes["FWD_PLANES"] == tfs._FWD_CODE[tfs.FWD_PLANES]
+    assert codes["FWD_PLANES_DFT"] == tfs._PLANES_PART_CODE[tfs.PLANES_DFT]
+    assert codes["FWD_PLANES_SUM"] == tfs._PLANES_PART_CODE[tfs.PLANES_SUM]
+    assert set(tfs.forward_launches) == set(tfs._FWD_CODE)
+
+
+@pytest.mark.parametrize("fpb,pad", [*_RING_GEOS, (128, 1024), (64, 1024), (8, 128), (16, 256),
+                                     (2048, 4096), (100, 1024)])
+def test_the_ring_form_exists_where_the_header_builds_it(monkeypatch, fpb, pad):
+    monkeypatch.setitem(MACROS, "JT_FPB", fpb)
+    monkeypatch.setitem(MACROS, "JT_PAD", pad)
+    forms = tfs.geometry_forms(fpb, pad)
+    assert bool(_const("HAS_RING")) == forms.ring == (forms.q > tfs.TILE_MAX_Q)
+    assert not (forms.ring and forms.tile)  # exactly where the tile form stops
+
+
+@pytest.mark.parametrize("fpb,pad", [*_RING_GEOS, (64, 8192), (128, 16384)])
+def test_the_steps_take_the_ring_form_where_they_took_the_planes_form(fpb, pad):
+    """Up to fpb 32 the ring form, which needs no scratch; past it (Q above
+    64, no product form) the ring form where it pays, else the planes form
+    and its scratch, as before."""
+    forms = tfs.geometry_forms(fpb, pad)
+    for sources in (1, 2, 16):
+        for nb in (1, 2, 9, 64, 300):
+            form = tfs.forward_form(nb, fpb, pad, sources)
+            scratch = tfs.planes_scratch(sources, nb, fpb, pad, "cpu")
+            if nb <= forms.few_nb:
+                assert form == tfs.FWD_FEW
+            elif forms.product:
+                assert form == tfs.FWD_PRODUCT
+            elif fpb <= tfs.RING_MAX_FPB or tfs.ring_pays(sources, nb, fpb, pad):
+                assert form == tfs.FWD_RING and scratch == (None, None)
+            else:
+                assert form == tfs.FWD_PLANES
+                assert all(t.shape == (sources * (nb + forms.q - 1), forms.bins)
+                           for t in scratch)
+
+
+def test_the_planes_form_is_taken_only_past_the_ring_forms_blocks():
+    assert _const("RING_MAX_FPB") == tfs.RING_MAX_FPB
+    for pad in (2, 4, 16, 64, 256, 1024, 4096, 16384):
+        for fpb in (2, 4, 8, 16, 32, 64, 128, 256, 512):
+            if fpb <= pad:
+                for sources in (1, 2, 16):
+                    for nb in (1, 9, 300):
+                        planes = tfs.forward_form(nb, fpb, pad, sources) == tfs.FWD_PLANES
+                        forms = tfs.geometry_forms(fpb, pad)
+                        assert planes == (fpb > tfs.RING_MAX_FPB and not forms.product
+                                          and not forms.tile and nb > forms.few_nb
+                                          and not tfs.ring_pays(sources, nb, fpb, pad))
+
+
+# Launch A's device time alone, ring / planes ms, at the geometries past
+# RING_MAX_FPB with a ring form and no product form: (fpb, pad) -> (S, nb)
+# -> (ring, planes) (scripts/tail_times.py --launch-a-forms on an H100,
+# 700 W; kernels/fused_step.py RING_MAX_FPB)
+RING_READINGS = {
+    (64, 8192): {(16, 256): (1.3113, 1.5594), (16, 64): (0.4064, 0.7759),
+                 (1, 2048): (0.6669, 0.5954), (1, 1): (0.0293, 0.0507)},
+    (64, 16384): {(16, 256): (4.4314, 7.9023), (16, 64): (1.4267, 4.7949),
+                  (1, 2048): (2.2599, 2.1831), (1, 1): (0.1143, 0.1632)},
+    (128, 16384): {(16, 256): (3.7229, 3.7381), (16, 64): (1.1634, 1.8158),
+                   (1, 2048): (1.9094, 1.3849), (1, 1): (0.0955, 0.0711)},
+    (128, 32768): {(16, 256): (12.3229, 17.6079), (16, 64): (4.0205, 10.6559),
+                   (1, 2048): (6.2213, 4.7721), (1, 1): (0.3118, 0.2537)},
+    (256, 32768): {(16, 256): (12.5574, 10.7793), (16, 64): (4.4599, 5.2719),
+                   (1, 2048): (6.3556, 3.8689), (1, 1): (0.3408, 0.1934)},
+    (512, 65536): {(16, 256): (51.8824, 30.8404), (16, 64): (16.4849, 15.0841),
+                   (1, 2048): (26.0050, 10.9435), (1, 1): (1.1297, 0.5981)},
+}
+
+
+@pytest.mark.parametrize("fpb,pad", list(RING_READINGS))
+def test_the_ring_form_is_taken_past_fpb_32_only_where_it_won(fpb, pad):
+    """Past RING_MAX_FPB the steps take the ring form at a shape only where
+    it took less than the planes form by more than RUN_SPREAD, and never
+    where it lost or tied."""
+    from jefferson_tpu_torch.scripts.split_layouts import RUN_SPREAD
+
+    forms = tfs.geometry_forms(fpb, pad)
+    assert fpb > tfs.RING_MAX_FPB and forms.ring and not forms.product
+    for (sources, nb), (ring, planes) in RING_READINGS[(fpb, pad)].items():
+        if tfs.forward_form(nb, fpb, pad, sources) == tfs.FWD_RING:
+            assert ring < planes * (1 - RUN_SPREAD)
+        if ring >= planes * (1 - RUN_SPREAD):
+            assert tfs.forward_form(nb, fpb, pad, sources) == tfs.FWD_PLANES
+
+
+# the ring form's shapes (csrc/fused_forward.cuh): run T -> (outputs a
+# thread V, runs down a bin, CTAs an SM)
+RING_SHAPES = {int(t): tuple(map(int, a)) for t, *a in re.findall(
+    r"using Ring(\d+) = Ring<(\d+), (\d+), (\d+)>;", HEADER)}
+
+
+def test_the_ring_forms_shapes_are_their_runs():
+    assert sorted(RING_SHAPES) == [4, 16, 64, 128]
+    for t, (v, runs, ctas) in RING_SHAPES.items():
+        assert v * runs == t and 32 * runs * ctas <= 2048   # threads an SM
+
+
+def _ring_split(sources, nb, v, runs, fpb, pad, monkeypatch):
+    """The ring form's work split, as forward_distance_ring computes it from
+    the header's constants: {(output row, bin): [the source's P rows its
+    window reads]} over every CTA and thread, bin 512 with the last slice."""
+    monkeypatch.setitem(MACROS, "JT_FPB", fpb)
+    monkeypatch.setitem(MACROS, "JT_PAD", pad)
+    q, bins, kt = _const("Q"), _const("BINS"), _const("R_KT")
+    slices, nyq, mc = _const("R_SLICES"), bool(_const("R_NYQ")), _const("R_MC")
+    t = v * runs
+    ring = 1 << (mc + t - 2).bit_length()
+    assert ring >= mc + t - 1 and q % mc == 0   # the rows a chunk reads fit
+    tiles = -(-nb // t)
+    out = {}
+    for cta in range(slices * tiles * sources):
+        sl, tile, s = cta % slices, cta // slices % tiles, cta // slices // tiles
+        j0, k0 = tile * t, sl * kt
+        for tid in range(runs * kt):
+            col, run = tid % kt, tid // kt
+            for o in range(v):
+                j, k = j0 + run * v + o, k0 + col
+                if j < nb and k < bins:
+                    out.setdefault((s * nb + j, k), []).append([j + m for m in range(q)])
+            if nyq and sl == slices - 1 and tid < t and j0 + tid < nb:
+                j = j0 + tid
+                out.setdefault((s * nb + j, bins - 1), []).append([j + m for m in range(q)])
+    return out, bins, q
+
+
+@pytest.mark.parametrize("fpb,pad", [(16, 1024), (4, 1024), (2, 64), (32, 4096)])
+@pytest.mark.parametrize("sources,nb", [(1, 1), (3, 88), (2, 70), (1, 130)])
+@pytest.mark.parametrize("t", [4, 16, 64, 128])
+def test_the_ring_forms_ctas_write_every_output_once_inside_its_source(
+        monkeypatch, fpb, pad, sources, nb, t):
+    v, runs, _ = RING_SHAPES[t]
+    split, bins, q = _ring_split(sources, nb, v, runs, fpb, pad, monkeypatch)
+    assert sorted(split) == [(r, k) for r in range(sources * nb) for k in range(bins)]
+    for (row, _), windows in split.items():
+        assert len(windows) == 1
+        j = row % nb
+        # the window of block j is rows j .. j + q - 1 of its own source
+        assert windows[0] == list(range(j, j + q)) and windows[0][-1] < nb + q - 1
+
+
+def test_launch_as_issue_floor_counts_the_real_outputs_alone():
+    # 8 (q - 1) unfused operations an output and bin, S x nb outputs: the
+    # q - 1 window starts between two sources add nothing
+    for s_, nb, q, want in ((16, 256, 256, 0.128), (16, 256, 64, 0.032), (16, 64, 256, 0.032),
+                            (16, 64, 64, 0.008), (1, 2048, 256, 0.064)):
+        ms = bench.forward_issue_ms(s_, nb, 513, q)
+        assert ms == s_ * nb * 513 * 8 * (q - 1) / bench.PEAK_FP32_ISSUE * 1e3
+        assert round(ms, 3) == want
+        assert bench.forward_issue_ms(2 * s_, nb, 513, q) == 2 * ms
+    # the table's bound counts the same operations over the FMA rate, plus
+    # the sub-block DFTs and the distance multiply
+    fpb, q = 4, 256
+    twiddles = bench.forward_flops(16, 256, fpb, 513, q) - 16 * (256 + q - 1) * 4 * fpb * 513
+    assert twiddles == 16 * 256 * 513 * (8 * (q - 1) + 6)
+    assert bench.PEAK_FP32_ISSUE * 2 == pytest.approx(bench.PEAK_FP32_FLOPS, rel=0.01)
+
+
+def test_the_seam_refuses_a_ring_form_or_part_the_library_lacks():
+    ops = bench.forward_operands(1, 4, "cpu", seed=0)
+    with pytest.raises(ValueError, match="the ring form does not exist at fpb 128, pad 1024"):
+        tfs._forward_cuda(*ops, form=tfs.FWD_RING, **GEO)
+    for form, part, scratch in ((tfs.FWD_RING, tfs.PLANES_DFT, (None, None)),
+                                (tfs.FWD_PLANES, "twiddles", (None, None)),
+                                (tfs.FWD_PLANES, tfs.PLANES_SUM, None)):
+        with pytest.raises(ValueError, match="the planes form's"):
+            tfs._forward_cuda(*ops, form=form, part=part, scratch=scratch, **GEO)
+    assert not any(tfs.forward_launches.values())
