@@ -3905,8 +3905,16 @@ def _counts():
 # at rows 5-8's main shapes, with the crossover counts that set a pick there
 # (and, where launch B's tile fits a block below T_TILE columns, every
 # kernel of rows 2-8)
-SPLIT_TIMED = ("f2048", "f128t2048", "f441", "f1024")
+SPLIT_TIMED = ("f2048", "f128t2048", "f441", "f1024", "f512", "f256")
 SPLIT_ROWS = ("fused_step_stream_xfade", "fused_step_xfade", "fused_apply_xfade", SPATIALIZER)
+# the split form's libraries, kinds of row and sides whose occupancy phase
+# geometry prints (fused_step.split_occupancy)
+SPLIT_OCCUPANCY = (("fused_step_onehot", "blended", 2), ("fused_step_gather", "pre-blended", 2),
+                   ("fused_step_gather", "pre-blended", 1))
+# the geometries at which phase geometry also times rows 5-8's tail product
+# alone as one torch.matmul (scripts/tail_times.tail_product_ms), the
+# library yardstick of launch B
+LIBRARY_TIMED = ("f512", "f1024", "f2048", "f128t2048")
 
 
 def split_cross(fpb, pad, kernel) -> tuple:
@@ -4130,6 +4138,16 @@ def geometry_kernels(bench, db, device, name, forms, errs, times) -> bool:
                          "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
         parts = (f"; launch A {apart['launch_a_ms']:.4f}, launch B {apart['launch_b_ms']:.4f}"
                  if apart else "")
+        if name in LIBRARY_TIMED and kernel in SPLIT_ROWS:
+            from jefferson_tpu_torch.scripts import tail_times
+
+            s_, nb = shape.split(",")[0].split("x")
+            rows = int(s_) * int(nb)
+            lib_ms = tail_times.tail_product_ms(rows, 2, bins, fpb, device, queued_device_ms)
+            times[kernel]["library_ms"] = lib_ms
+            parts += (f"; the tail product alone (no q build, blend or epilogue) as one "
+                      f"torch.matmul, fp32, TF32 off, {4 * rows}x{2 * bins} by {2 * bins}x{fpb}: "
+                      f"{lib_ms:.4f} ms alone")
         say("geometry", f"{name} {kernel} ({shape}): kernel {ms:.4f} ms (device time alone "
                         f"{alone:.4f} ms, queued behind a held stream{parts}), twin "
                         f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by})  [{bench.card()}]")
@@ -4231,6 +4249,17 @@ def geometry_phase(bench, device, noise, oracles, build_proc) -> dict | None:
             if own != forms:
                 return fail("geometry", f"{name}: {lib} reports {own}, geometry_forms says "
                                         f"{forms}")
+        if forms.split:
+            for lib, kind, sides in SPLIT_OCCUPANCY:
+                occ = fs.split_occupancy(lib, fpb, pad, sides)
+                say("geometry", f"{name} split form, {kind} rows, {sides} side(s): the "
+                                f"{occ['layout']} layout, {occ['threads']} threads and "
+                                f"{occ['smem']} bytes of shared memory a CTA, "
+                                f"{occ['ctas_per_sm']} CTA(s) an SM; "
+                                f"cudaOccupancyMaxActiveClusters {occ['clusters']} clusters of "
+                                f"{occ['ranks']} on {occ['sms']} of the card's "
+                                f"{torch.cuda.get_device_properties(device).multi_processor_count}"
+                                f" SMs  [{card}]")
         launched, split_launched = {}, {}
 
         def count_split(by_form):

@@ -1525,7 +1525,7 @@ __device__ __forceinline__ void fold_tail_block(float (&acc)[TailTile::RI][TailT
 // So the result is launch B's bit for bit.  Reusing staged row r+1 as row
 // r's new side needs group ends on segment ends (the wrapper checks).
 //
-// Two layouts, the same bits, chosen at compile time (launch_split_tail):
+// Layouts with the same bits, chosen at compile time (split_layout):
 //   - chunked (split_tail_xfade): one t-tile of TT columns a CTA, the
 //     t-tiles along the grid's y, one rank a block, q built a 32-bin chunk
 //     at a time beside the basis chunk, 99 KB of shared memory, two CTAs an
@@ -1544,6 +1544,9 @@ __device__ __forceinline__ void fold_tail_block(float (&acc)[TailTile::RI][TailT
 //     SM), then walks every t-tile inside, 16-bin basis chunks streaming
 //     in, each t-tile folded over distributed shared memory before the next
 //     starts.
+//   - pipelined (split_tail_pipe), past one t-tile: q once per (tile,
+//     block) for every kind of row, the t-tiles one unbroken stream of
+//     basis chunks through a ring, and the fold off the loop (below).
 // On an H100 the chunked layout took the least device time for rows 5-7
 // (filter rows pre-blended: a q chunk is four loads a product) at every
 // geometry, and for rows 2-4 and 8 at one t-tile; past it the narrow one
@@ -2072,6 +2075,203 @@ split_tail_tiles(const float* __restrict__ xdr, const float* __restrict__ xdi, i
   }
 }
 
+// The pipelined layout, past one t-tile (T_COLS == TT): one block a rank,
+// q built once per (tile, block) for every kind of row, every t-tile
+// walked inside.  The CTA is PIPE_FOLDERS fold threads beside the Shape's
+// multiply threads:
+//   - the first PIPE_STAGES - 1 basis chunks are in flight before q is built
+//     (all threads build it, the items' loads two deep, split_stage_q);
+//   - the multiply threads walk the t-tiles as one stream of KC-bin basis
+//     chunks (chunk n: t-tile n / CHUNKS, bins kb + (n % CHUNKS) * KC)
+//     through a ring of PIPE_STAGES, one barrier of their own a chunk: the
+//     next t-tile's first chunks land while this one's last are
+//     multiplied, and the ring never drains;
+//   - t-tile i's partial goes to its own buffer, part[i % 2], and the
+//     cluster barrier is split: the multiply threads arrive (release) after
+//     storing partial i and wait (acquire) only before storing partial i+1,
+//     a t-tile later; the fold threads wait, fold t-tile i over distributed
+//     shared memory (each rank its FOLD rows in block order, split_fold's
+//     sums four columns at a time) while t-tile i+1 is multiplied, then
+//     arrive.  So phase i completes when every rank stored partial i and
+//     folded t-tile i-1: partial i+1 overwrites what t-tile i-1's fold read
+//     only after every rank's fold of it.
+// Shared memory at M = 64 (SplitShape<SIDES, 64, 4, 8, 16>): q 2 x 128 x
+// 68 floats (69,632 bytes), the ring 4 x 2 x 16 x 128 (65,536), the two
+// partials 2 x 64 x 128 (65,536), the last bin's q: 196 KB, one CTA an SM,
+// 8 multiply warps and 2 fold warps.
+constexpr int PIPE_STAGES = 4;                      // basis chunks in the ring
+constexpr int PIPE_FOLDERS = 64;                    // fold threads (two warps)
+template <int SIDES>
+using PipeShape = SplitShape<SIDES, 64, 4, 8, T_KC / 2>;
+
+template <int SIDES, int RANKS, class Shape>
+constexpr size_t pipe_smem() {
+  constexpr int FOLD = Shape::R / RANKS;
+  return sizeof(float) * (2 * T_BLOCK * Shape::QLD + PIPE_STAGES * Shape::BASIS +
+                          2 * Shape::M * T_COLS + 2 * SIDES * 2 * FOLD);
+}
+
+// The cluster barrier in halves: arrive publishes this thread's shared
+// memory writes to the cluster, wait returns once every thread of every
+// rank arrived and makes theirs visible.  Each thread alternates them.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// A barrier of the first N threads alone (named barrier 1).
+template <int N>
+__device__ __forceinline__ void first_threads_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(N) : "memory");
+}
+
+// The fold threads' share of t-tile t0's fold (split_fold's sums and
+// epilogue, four consecutive columns a step): rank b's FOLD rows over every
+// rank's partial (parts[q]: [M][TT]) in block order, the last bin's chain
+// (its basis read from icr, ici), launch B's epilogue, the output written.
+template <int SIDES, int RANKS, int M, int FOLD>
+__device__ __forceinline__ void pipe_fold(const float* const* parts, const float* q4r,
+                                          const float* q4i, const float* __restrict__ icr,
+                                          const float* __restrict__ ici,
+                                          const float* __restrict__ xf, int r0, int rows, int b,
+                                          int t0, float* __restrict__ out, int ft) {
+  constexpr int R = M / (2 * SIDES), V4 = TT / 4;
+  const float* last_r = icr + (size_t)(BINS - 1) * FPB;
+  const float* last_i = ici + (size_t)(BINS - 1) * FPB;
+  for (int i = ft; i < FOLD * 2 * V4; i += PIPE_FOLDERS) {
+    const int lr = i / (2 * V4), ear = i / V4 % 2, tt = 4 * (i % V4);
+    const int row = b * FOLD + lr, r = r0 + row;
+    if (r >= rows) break;
+    if (T_MASK && t0 + tt >= FPB) continue;
+    float b4r[4], b4i[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const bool ok = !T_MASK || t0 + tt + c < FPB;
+      b4r[c] = ok ? last_r[t0 + tt + c] : 0.f;
+      b4i[c] = ok ? last_i[t0 + tt + c] : 0.f;
+    }
+    float y[SIDES][4];
+#pragma unroll
+    for (int side = 0; side < SIDES; ++side) {
+      const int m = (side * 2 + ear) * R + row;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int q = 0; q < RANKS; ++q) {
+        const float4 p = *reinterpret_cast<const float4*>(parts[q] + m * TT + tt);
+        v[0] = __fadd_rn(v[0], p.x);
+        v[1] = __fadd_rn(v[1], p.y);
+        v[2] = __fadd_rn(v[2], p.z);
+        v[3] = __fadd_rn(v[3], p.w);
+      }
+      const int m4 = (side * 2 + ear) * FOLD + lr;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        y[side][c] = __fadd_rn(v[c], fmaf(q4i[m4], b4i[c], fmaf(q4r[m4], b4r[c], 0.f)));
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int t = t0 + tt + c;
+      if (T_MASK && t >= FPB) break;
+      float v = y[SIDES - 1][c];
+      if (SIDES == 2) {                      // launch B's crossfade epilogue
+        const float fn = (float)t / (float)(FPB - 1);
+        const bool on = xf[r] > 0.f;
+        const float a = on ? __fsub_rn(1.f, fn) : 0.f;
+        const float bn = on ? fn : 1.f;
+        v = __fadd_rn(__fmul_rn(y[0][c], a), __fmul_rn(y[SIDES - 1][c], bn));
+      }
+      out[(size_t)r * 2 * FPB + ear * FPB + t] = v;
+    }
+  }
+}
+
+template <int SIDES, int RANKS, class Shape, class Rows>
+__global__ void __launch_bounds__(Shape::THREADS + PIPE_FOLDERS, 1)
+split_tail_pipe(const float* __restrict__ xdr, const float* __restrict__ xdi, int rows,
+                int seg, Rows src, const float* __restrict__ xf,
+                const float* __restrict__ icr, const float* __restrict__ ici,
+                float* __restrict__ out) {
+  constexpr int M = Shape::M, R = Shape::R, RPT = Shape::RPT, CPT = Shape::CPT;
+  constexpr int QLD = Shape::QLD, KC = Shape::KC, BASIS = Shape::BASIS;
+  constexpr int THREADS = Shape::THREADS, ALL = THREADS + PIPE_FOLDERS, FOLD = R / RANKS;
+  constexpr int CHUNKS = T_BLOCK / KC, N = T_TILES * CHUNKS, PART = M * TT;
+  static_assert(FOLD * RANKS == R, "ranks fold whole rows");
+  static_assert(T_COLS == TT && Shape::TX * CPT == TT, "t-tiles of TT columns");
+  static_assert(THREADS % 32 == 0 && N >= PIPE_STAGES - 1, "whole warps a role; a full ring");
+  extern __shared__ __align__(16) float smem[];
+  float* qr = smem;                          // [T_BLOCK][QLD], m = (side*2 + ear)*R + row
+  float* qi = qr + T_BLOCK * QLD;
+  float* ring = qi + T_BLOCK * QLD;          // [stage][plane][KC][TT]
+  float* part = ring + PIPE_STAGES * BASIS;     // [t-tile % 2][M][TT]
+  float* q4r = part + 2 * PART;              // [(side*2 + ear)*FOLD + row]
+  float* q4i = q4r + SIDES * 2 * FOLD;
+  __shared__ SplitRows<SIDES, R, Rows> t;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();  // this CTA's tail block
+  const int r0 = (int)(blockIdx.x / RANKS) * R;
+  const int tid = threadIdx.x;
+  const int kb = rank * T_BLOCK;
+  auto stage = [&](int n) {                  // chunk n into its ring slot, one commit group
+    split_stage_basis<THREADS, KC>(ring + n % PIPE_STAGES * BASIS, icr, ici,
+                                   kb + n % CHUNKS * KC, n / CHUNKS * TT, tid);
+  };
+
+  if (tid < THREADS)
+    for (int n = 0; n < PIPE_STAGES - 1; ++n) stage(n);
+  for (int i = tid; i < 2 * T_BLOCK * QLD; i += ALL) qr[i] = 0.f;  // rows past the end
+  split_stage_rows<ALL>(t, src, r0, rows, seg, tid);
+  for (int c = 0; c < S_CHUNKS; ++c)
+    split_stage_q<ALL, SIDES, R, QLD>(t, src, xdr, xdi, r0, kb + c * T_KC, qr + c * T_KC * QLD,
+                                      qi + c * T_KC * QLD, tid);
+  split_last_bin_q<SIDES, R, FOLD>(t, src, xdr, xdi, r0, rows, rank, q4r, q4i, tid);
+  __syncthreads();
+
+  if (tid < THREADS) {
+    const int tx = tid % Shape::TX, ty = tid / Shape::TX;
+    for (int tile = 0, n = 0; tile < T_TILES; ++tile) {
+      float acc[RPT][CPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
+      for (int c = 0; c < CHUNKS; ++c, ++n) {
+        cp_async_wait<PIPE_STAGES - 2>();       // chunk n is in (this thread's copies)
+        first_threads_sync<THREADS>();       // ... everyone's; slot (n-1) % PIPE_STAGES is free
+        if (n + PIPE_STAGES - 1 < N)
+          stage(n + PIPE_STAGES - 1);
+        else
+          cp_async_commit();                 // an empty group keeps the count
+        const float* br = ring + n % PIPE_STAGES * BASIS;
+        split_chunk_fma<Shape>(acc, qr + c * KC * QLD, qi + c * KC * QLD, br, br + KC * TT, tx,
+                               ty);
+      }
+      if (tile > 0) cluster_wait();          // every rank folded t-tile tile-2: its buffer is free
+      split_store_partial<Shape>(part + (tile & 1) * PART, acc, tx, ty);
+      cluster_arrive();
+    }
+    cluster_wait();
+    cluster_arrive();
+  } else {
+    const float* parts[RANKS];
+#pragma unroll
+    for (int q = 0; q < RANKS; ++q) parts[q] = cluster.map_shared_rank(part, q);
+    cluster_arrive();
+    for (int tile = 0; tile < T_TILES; ++tile) {
+      cluster_wait();                        // every rank's partial of this t-tile stored
+      const float* buf[RANKS];
+#pragma unroll
+      for (int q = 0; q < RANKS; ++q) buf[q] = parts[q] + (tile & 1) * PART;
+      pipe_fold<SIDES, RANKS, M, FOLD>(buf, q4r, q4i, icr, ici, xf, r0, rows, rank, tile * TT,
+                                       out, tid - THREADS);
+      cluster_arrive();
+    }
+  }
+  cluster_wait();                            // keep the partials until every rank read them
+}
+
 // Launch ``kernel`` over ``grid`` in clusters of ``ranks`` CTAs along x,
 // its shared memory raised (and a cluster past 8 allowed) first.
 template <class Kernel, class... Args>
@@ -2101,31 +2301,95 @@ cudaError_t launch_cluster(Kernel kernel, dim3 grid, int threads, size_t smem, i
   return cudaGetLastError();
 }
 
-// Launch B's split form over ``rows`` rows in segments of ``seg``: the
-// narrow layout where the rows are blended here (rows 2-4, 8) and there is
-// more than one t-tile, else the chunked one (kernels/fused_step.
-// split_default says the same).  A refused launch (shared memory,
-// registers, cluster occupancy) returns its error, and a geometry without
-// the form cudaErrorInvalidValue.
+// The split form's layouts (jt_geometry reports the one each kind of row
+// takes).  JT_SPLIT_LAYOUT names one for every kind of row in a library
+// built to time it against another (scripts/tail_times.py --split-layout)
+// where it exists (narrow: past one t-tile; pipelined: t-tiles of TT
+// columns); 0, the default, takes the rule of split_layout.
+enum SplitLayout { LAYOUT_NONE = 0, LAYOUT_CHUNKED = 1, LAYOUT_NARROW = 2, LAYOUT_PIPE = 3 };
+#ifndef JT_SPLIT_LAYOUT
+#define JT_SPLIT_LAYOUT 0
+#endif
+
+// The layout of launch B's split form for rows of kind Rows (blended:
+// RowsBlended): the pipelined one past one t-tile, else the chunked one
+// (kernels/fused_step.split_default says the same).
+template <class Rows>
+constexpr int split_layout() {
+  constexpr bool exists[4] = {false, true, T_TILES > 1, T_COLS == TT};
+  if (!HAS_SPLIT) return LAYOUT_NONE;
+  if (JT_SPLIT_LAYOUT > 0 && JT_SPLIT_LAYOUT < 4 && exists[JT_SPLIT_LAYOUT]) return JT_SPLIT_LAYOUT;
+  return T_TILES > 1 ? LAYOUT_PIPE : LAYOUT_CHUNKED;
+}
+
+// fn(kernel, rows a tile, CTAs along y, threads, shared memory) for the
+// split form's kernel over SIDES sides of rows of kind Rows, in its
+// layout; cudaErrorInvalidValue where the geometry has no split form.
+template <int SIDES, class Rows, class Fn>
+cudaError_t with_split_kernel(Fn fn) {
+  constexpr int layout = split_layout<Rows>();
+  if constexpr (layout == LAYOUT_PIPE) {
+    using Shape = PipeShape<SIDES>;
+    return fn(split_tail_pipe<SIDES, S_NBLK, Shape, Rows>, Shape::R, 1,
+              Shape::THREADS + PIPE_FOLDERS, pipe_smem<SIDES, S_NBLK, Shape>());
+  } else if constexpr (layout == LAYOUT_NARROW) {
+    using Shape = NarrowShape<SIDES>;
+    return fn(split_tail_tiles<SIDES, S_NBLK, Shape, Rows>, Shape::R, 1, Shape::THREADS,
+              narrow_smem<SIDES, S_NBLK, Shape>());
+  } else if constexpr (layout == LAYOUT_CHUNKED) {
+    using Shape = ChunkedShape<SIDES>;
+    return fn(split_tail_xfade<SIDES, S_NBLK, Rows>, Shape::R, T_TILES, Shape::THREADS,
+              chunked_smem<SIDES, Shape>());
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
+// Launch B's split form over ``rows`` rows in segments of ``seg``, in the
+// layout split_layout names.  A refused launch (shared memory, registers,
+// cluster occupancy) returns its error, and a geometry without the form
+// cudaErrorInvalidValue.
 template <int SIDES, class Rows>
 cudaError_t launch_split_tail(cudaStream_t s, const float* xdr, const float* xdi, int rows,
                               int seg, const Rows& src, const float* xf, const float* icr,
                               const float* ici, float* out) {
-  if constexpr (!HAS_SPLIT) {
-    return cudaErrorInvalidValue;
-  } else if constexpr (std::is_same<Rows, RowsBlended>::value && T_TILES > 1) {
-    using Shape = NarrowShape<SIDES>;
-    const int tiles = (rows + Shape::R - 1) / Shape::R;
-    return launch_cluster(split_tail_tiles<SIDES, S_NBLK, Shape, Rows>, dim3(tiles * S_NBLK),
-                          Shape::THREADS, narrow_smem<SIDES, S_NBLK, Shape>(), S_NBLK, s, xdr,
-                          xdi, rows, seg, src, xf, icr, ici, out);
-  } else {
-    using Shape = ChunkedShape<SIDES>;
-    const int tiles = (rows + Shape::R - 1) / Shape::R;
-    return launch_cluster(split_tail_xfade<SIDES, S_NBLK, Rows>, dim3(tiles * S_NBLK, T_TILES),
-                          Shape::THREADS, chunked_smem<SIDES, Shape>(), S_NBLK, s, xdr, xdi,
+  return with_split_kernel<SIDES, Rows>([&](auto kernel, int tile_rows, int y, int threads,
+                                            size_t smem) {
+    const int tiles = (rows + tile_rows - 1) / tile_rows;
+    return launch_cluster(kernel, dim3(tiles * S_NBLK, y), threads, smem, S_NBLK, s, xdr, xdi,
                           rows, seg, src, xf, icr, ici, out);
-  }
+  });
+}
+
+// How many of the split form's clusters (SIDES sides, rows of kind Rows)
+// the card holds at once: out = {clusters, CTAs a cluster, CTAs an SM,
+// threads, shared memory}.
+template <int SIDES, class Rows>
+cudaError_t split_occupancy(int* out) {
+  return with_split_kernel<SIDES, Rows>([&](auto kernel, int, int, int threads, size_t smem) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess && S_NBLK > 8)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(S_NBLK, 1, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = S_NBLK;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&out[0], kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    out[1] = S_NBLK;
+    out[3] = threads;
+    out[4] = (int)smem;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel, threads, smem);
+  });
 }
 
 // The forms of launch B an entry takes: one CTA per 32-row tile, the split
@@ -2137,10 +2401,11 @@ enum TailForm { FORM_LAUNCH_B = 0, FORM_SPLIT = 1, FORM_STAGED = 2 };
 
 // The geometry this library was built for and the forms it has, for the
 // wrappers to check their mirror (kernels/fused_step.geometry_forms):
-// out[0..10] = fpb, pad, bins, q (0: a history of partial blocks), FEW_NB,
+// out[0..12] = fpb, pad, bins, q (0: a history of partial blocks), FEW_NB,
 // product form, split form, row 1's staged form, row 8's cluster form,
 // launch A's tile form, the columns of launch B's and the chunked layout's
-// tile (T_COLS).
+// tile (T_COLS), the split form's layout (SplitLayout) for blended rows
+// (rows 2-4, 8) and for pre-blended rows (rows 5-7).
 extern "C" void jt_geometry(int* out) {
   out[0] = FPB;
   out[1] = PAD;
@@ -2153,4 +2418,17 @@ extern "C" void jt_geometry(int* out) {
   out[8] = JT_TUNED_128;
   out[9] = HAS_TILE;
   out[10] = T_COLS;
+  out[11] = split_layout<RowsBlended>();
+  out[12] = split_layout<RowsPreBlended>();
+}
+
+// The split form's occupancy on ``device`` for blended rows (rows 2-4, 8)
+// or pre-blended ones, at ``sides`` sides (split_occupancy's out[0..4]);
+// the first CUDA error, cudaErrorInvalidValue without the form.
+extern "C" int jt_split_occupancy(int device, int blended, int sides, int* out) {
+  return on_device(device, [&]() {
+    if (blended) return sides == 2 ? split_occupancy<2, RowsBlended>(out) : cudaErrorInvalidValue;
+    return sides == 2 ? split_occupancy<2, RowsPreBlended>(out)
+                      : split_occupancy<1, RowsPreBlended>(out);
+  });
 }

@@ -35,7 +35,7 @@ card, launch B of rows 2-7 has two forms with the same bits, chosen by
 ``pick_form`` (the choice of shape, not a fallback): one CTA per 32
 rows, or the split form, a cluster of CTAs per tile, one per 128-bin
 block (``csrc/fused_forward.cuh``, in the layout ``split_default``
-names).  Launch A, the forward every step of rows 1-6 runs first,
+names: chunked at one t-tile, pipelined past it).  Launch A, the forward every step of rows 1-6 runs first,
 takes its product form, or its few-block form up to ``FEW_NB`` blocks a
 source, or where neither exists its tile form, or its ring form up to fpb
 32, past that its two-launch planes form (``forward_form``); the tile form
@@ -228,13 +228,17 @@ _named_form: contextvars.ContextVar[str | None] = contextvars.ContextVar("form",
 
 # Launch B's split form exists where the blocked tail is 1 to
 # SPLIT_MAX_BLOCKS whole 128-bin blocks and fpb % 4 == 0 or fpb > 128
-# (csrc/fused_forward.cuh HAS_SPLIT), in one of two layouts with the same
-# bits, fixed when the library is built (``split_default``): chunked (a
-# CTA per t-tile and block, q built a 32-bin chunk at a time) or narrow (a
-# CTA per block walking every t-tile, q built once, 16-row crossfading
-# tiles).
+# (csrc/fused_forward.cuh HAS_SPLIT), in one of three layouts with the
+# same bits, fixed when the library is built (``split_default``; the
+# library reports its own, ``Forms.layouts``): chunked (a CTA per t-tile
+# and block, q built a 32-bin chunk at a time), narrow (a CTA per block
+# walking every t-tile, q built once, 16-row crossfading tiles) or
+# pipelined (a CTA per block, q built once, the t-tiles one stream of basis
+# chunks through a ring, the fold by warps of its own while the next t-tile
+# is multiplied).  Their codes in the library's report (SplitLayout).
 SPLIT_MAX_BLOCKS = 16
-SPLIT_CHUNKED, SPLIT_NARROW = "chunked", "narrow"
+SPLIT_CHUNKED, SPLIT_NARROW, SPLIT_PIPE = "chunked", "narrow", "pipelined"
+_LAYOUT_CODE = {"": 0, SPLIT_CHUNKED: 1, SPLIT_NARROW: 2, SPLIT_PIPE: 3}
 
 # Launch B's output columns a CTA (csrc/fused_forward.cuh TT): its t-tiles
 # lie along the grid's y, which holds at most GRID_Y CTAs.  Below T_TILE a
@@ -267,6 +271,7 @@ class Forms:
     cluster: bool   # row 8's cluster form
     tile: bool      # launch A's tile form
     tile_cols: int  # columns of launch B's and the chunked layout's tile (csrc T_COLS)
+    layouts: tuple[str, str] = ("", "")  # the split form's layout: blended, pre-blended rows
 
     @property
     def ring(self) -> bool:
@@ -295,23 +300,24 @@ def geometry_forms(fpb: int, pad_len: int) -> Forms:
 
     few_nb = 17 - q if few_fits(16) else 9 - q if few_fits(8) else 0
     tuned = (fpb, pad_len) == (128, 1024)
+    split = ((bins - 1) % 128 == 0 and 1 <= (bins - 1) // 128 <= SPLIT_MAX_BLOCKS
+             and (fpb % 4 == 0 or fpb > T_TILE))
     return Forms(
         fpb=fpb, pad=pad_len, bins=bins, q=q, few_nb=few_nb,
         product=(aligned and bins - 1 >= 64 and (bins - 1) % 64 == 0 and fpb % 32 == 0
                  and q <= PRODUCT_MAX_Q),
-        split=((bins - 1) % 128 == 0 and 1 <= (bins - 1) // 128 <= SPLIT_MAX_BLOCKS
-               and (fpb % 4 == 0 or fpb > T_TILE)),
-        staged=tuned, cluster=tuned, tile=aligned and q <= TILE_MAX_Q,
+        split=split, staged=tuned, cluster=tuned, tile=aligned and q <= TILE_MAX_Q,
         tile_cols=fpb if fpb < T_TILE and T_TILE % fpb == 0 else T_TILE,
+        layouts=((split_default(SPATIALIZER, fpb), split_default(PRE_BLENDED[0], fpb)) if split
+                 else ("", "")),
     )
 
 
 def split_default(name: str, fpb: int) -> str:
     """The layout the split form takes for kernel ``name`` (rows 2-8; csrc/
-    fused_forward.cuh launch_split_tail): the narrow layout where the kernel
-    blends its filter rows (rows 2-4 and 8) past fpb 128, else the chunked
-    layout."""
-    return SPLIT_NARROW if name in BLENDED and fpb > T_TILE else SPLIT_CHUNKED
+    fused_forward.cuh split_layout): the pipelined layout past fpb 128 (more
+    than one t-tile), else the chunked layout."""
+    return SPLIT_PIPE if fpb > T_TILE else SPLIT_CHUNKED
 
 
 def card_refusal(fpb: int, pad_len: int) -> str | None:
@@ -679,12 +685,34 @@ def library_geometry(lib: str, fpb: int, pad_len: int) -> Forms:
     fn = build.load(lib, geometry=(fpb, pad_len)).jt_geometry
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
     fn.restype = None
-    out = (ctypes.c_int * 11)()
+    out = (ctypes.c_int * 13)()
     fn(out)
     v = list(out)
+    names = {code: name for name, code in _LAYOUT_CODE.items()}
     return Forms(fpb=v[0], pad=v[1], bins=v[2], q=v[3], few_nb=v[4], product=bool(v[5]),
                  split=bool(v[6]), staged=bool(v[7]), cluster=bool(v[8]), tile=bool(v[9]),
-                 tile_cols=v[10])
+                 tile_cols=v[10], layouts=(names[v[11]], names[v[12]]))
+
+
+def split_occupancy(lib: str, fpb: int, pad_len: int, sides: int = 2, device: int = 0) -> dict:
+    """How the card holds the split form of the (fpb, pad_len) library of
+    ``lib`` (``fused_step_onehot``: blended rows; ``fused_step_gather``:
+    pre-blended rows) at ``sides`` sides, in the layout that library takes:
+    {"layout", "clusters" (cudaOccupancyMaxActiveClusters), "ranks" (CTAs a
+    cluster), "ctas_per_sm", "sms" (the SMs those clusters cover),
+    "threads", "smem"}.  Raises where the library has no split form."""
+    fn = build.load(lib, geometry=(fpb, pad_len)).jt_split_occupancy
+    fn.argtypes = [_int, _int, _int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = _int
+    out = (ctypes.c_int * 5)()
+    err = fn(device, int(lib == "fused_step_onehot"), sides, out)
+    if err:
+        raise RuntimeError(f"{lib} at fpb {fpb}, pad {pad_len}: the split form's occupancy: "
+                           f"{_cuda_error(lib, err, (fpb, pad_len))}")
+    clusters, ranks, per_sm, threads, smem = list(out)
+    layout = library_geometry(lib, fpb, pad_len).layouts[lib != "fused_step_onehot"]
+    return {"layout": layout, "clusters": clusters, "ranks": ranks, "ctas_per_sm": per_sm,
+            "sms": -(-clusters * ranks // max(per_sm, 1)), "threads": threads, "smem": smem}
 
 
 def _cuda_error(lib: str, code: int, geometry=None) -> str:

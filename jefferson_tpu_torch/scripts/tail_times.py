@@ -19,7 +19,14 @@ launch B as the difference; launch A alone at 16 x 256, 16 x 64, 1 x
 ``forward_form`` names.  With ``--launch-a-forms`` it times launch A
 alone at those four shapes in each of the ring and planes forms the
 library has, and nothing else: the readings that set where the steps take
-the ring form (``fused_step.forward_form``).  A geometry is a name of
+the ring form (``fused_step.forward_form``).  ``--split-layout NAME``
+builds the libraries with launch B's split form in that layout for every
+kind of row, where the layout exists (``csrc/fused_forward.cuh``
+JT_SPLIT_LAYOUT), to time one layout against another in one checkout;
+each geometry's line names the layout its libraries report and, where the
+checkout has ``fused_step.split_occupancy``, the clusters the card holds at
+once and the SMs they cover.  ``--library`` also reads, for rows 5-8, the
+tail product alone as one PyTorch call (``tail_product_ms``).  A geometry is a name of
 split_layouts' ``GEOMETRIES`` or ``f<fpb>t<taps>`` (``f<fpb>``: 512 taps);
 the libraries of every geometry asked are built first, all at once.  Each number is the median of ``--readings``
 readings of device time alone (10 calls queued behind a stream held by a
@@ -38,6 +45,30 @@ import sys
 
 # launch A's shapes: the scene step's, row 1's, row 5's and the live block
 LAUNCH_A_SHAPES = ((16, 256), (16, 64), (1, 2048), (1, 1))
+# rows 5-8's kernels (crossfading: two sides), whose tail product the
+# library yardstick times at split_layouts' main shapes
+LIBRARY_ROWS = ("fused_step_stream_xfade", "fused_step_xfade", "fused_apply_xfade",
+                "fused_spatializer_apply")
+LAYOUT_CODES = {"chunked": 1, "narrow": 2, "pipelined": 3}
+
+
+def tail_product_ms(rows: int, sides: int, bins: int, fpb: int, device, timer) -> float:
+    """The tail product alone (no q build, blend or epilogue) as one
+    PyTorch call, the library yardstick of launch B: ``torch.matmul`` in
+    fp32 with TF32 off of the rows' q planes ``[qr | qi]`` ((sides * 2 *
+    rows) x 2 bins) by ``[icr ; ici]`` (2 bins x fpb), on random operands;
+    ``timer(call)`` reads its device ms."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(0)
+    a = torch.randn(sides * 2 * rows, 2 * bins, device=device, generator=g)
+    b = torch.randn(2 * bins, fpb, device=device, generator=g)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return timer(lambda: torch.matmul(a, b))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def geometry(name: str) -> tuple[int, int]:
@@ -59,6 +90,10 @@ def main(argv=None) -> int:
     p.add_argument("--readings", type=int, default=3)
     p.add_argument("--launch-a-forms", action="store_true",
                    help="launch A alone in its ring and planes forms, nothing else")
+    p.add_argument("--split-layout", choices=list(LAYOUT_CODES), default=None,
+                   help="build launch B's split form in this layout where it exists")
+    p.add_argument("--library", action="store_true",
+                   help="also rows 5-8's tail product as one torch.matmul")
     args = p.parse_args(argv)
     geos = {name: geometry(name) for name in args.geometry}
 
@@ -75,6 +110,9 @@ def main(argv=None) -> int:
         raise RuntimeError("tail_times needs a CUDA device")
     configs = {name: EngineConfig(frames_per_buffer=fpb, hrtf_len=taps)
                for name, (fpb, taps) in geos.items()}
+    if args.split_layout:
+        build.NVCC_FLAGS = (*build.NVCC_FLAGS,
+                            f"-DJT_SPLIT_LAYOUT={LAYOUT_CODES[args.split_layout]}")
     build.build_all(["fused_step_onehot"] + ([] if args.launch_a_forms else ["fused_step_gather"]),
                     geometries=[(c.frames_per_buffer, c.pad_len) for c in configs.values()])
     device = torch.device("cuda", torch.cuda.current_device())
@@ -100,11 +138,20 @@ def main(argv=None) -> int:
             continue
         db = synthetic_database(cfg)
         tail = [fs.LAUNCH_B] + ([fs.SPLIT] if forms.split else [])
+        if forms.split:
+            for lib in ("fused_step_onehot", "fused_step_gather"):
+                what = getattr(fs.library_geometry(lib, fpb, pad), "layouts", None)
+                occ = (fs.split_occupancy(lib, fpb, pad) if hasattr(fs, "split_occupancy")
+                       else {})
+                got[f"split form, {lib}"] = {"layouts": what, **occ}
         for kernel in sl.MAIN_ROWS:
             if not (forms.q or kernel.startswith(("fused_apply", fs.SPATIALIZER))):
                 continue
             call = sl.step(db, kernel, sl.MAIN_ROWS[kernel], device)[0]
             got[kernel] = {f: alone(lambda: call(f)) for f in tail}
+            if args.library and kernel in LIBRARY_ROWS:
+                got[kernel]["library"] = tail_product_ms(sl.MAIN_ROWS[kernel], 2, bins, fpb,
+                                                         device, alone)
         if forms.q:
             a, kw = bench.step_operands(bench.build_workload(db, 16, 64, device), cfg)
             step = lambda: fs.fused_step_onehot_xfade(*a, **kw)
@@ -121,7 +168,8 @@ def main(argv=None) -> int:
                     lambda: fs._forward_cuda(*ops, form=form, pad_len=pad, bins=bins, fpb=fpb))}
         out[name] = got
         print(f"{name}: " + "; ".join(
-            f"{k} " + " ".join(f"{f} {ms:.4f}" for f, ms in v.items()) for k, v in got.items())
+            f"{k} " + " ".join(f"{f} {ms:.4f}" if isinstance(ms, float) else f"{f} {ms}"
+                               for f, ms in v.items()) for k, v in got.items())
               + f" ms  [{bench.card()}]", file=sys.stderr, flush=True)
     print(json.dumps({"card": bench.card(), "geometries": out}, sort_keys=True))
     return 0

@@ -586,6 +586,81 @@ def test_split_layouts_script_on_the_card(name):
         assert [len(res["cross"][64][f]) for f in (tfs.LAUNCH_B, tfs.SPLIT)] == [2, 2]
 
 
+# ---- the split form's pipelined layout, past one t-tile ---------------------
+
+# fpb 256 and 512 (pad 1024: 4 tail blocks, 2 and 4 t-tiles), 1024 (8 and
+# 8), 2048 (16 and 16) and 441 (rows 7 and 8; a ragged t-tile, rows of 441
+# floats); rows -> (sources, blocks): one row, R + 1 crossfading rows (17),
+# R + 1 rows of one side (33), and 512 and 4,096 rows, the last tile ragged
+_PIPE = ("f256", "f512", "f1024", "f2048", "f441")
+_PIPE_SHAPES = {1: (1, 1), 17: (1, 17), 33: (3, 11), 512: (2, 256), 4096: (16, 256)}
+
+
+@pytest.mark.parametrize("rows", list(_PIPE_SHAPES))
+@pytest.mark.parametrize("name", _PIPE)
+def test_pipelined_layout_is_launch_b_bit_for_bit(name, rows):
+    """Both kinds of row take the pipelined layout there (the libraries
+    report it), each torch.equal to launch B: rows 6 and 7 pre-blended, with
+    and without the crossfade (two sides and one), row 2 blended in groups
+    of one source (group ends on segment ends) with ids outside its groups'
+    tables, row 8 with ids outside the table."""
+    db = _geo_db(name)
+    cfg = db.config
+    fpb, pad, bins = cfg.frames_per_buffer, cfg.pad_len, cfg.num_bins
+    forms = tfs.geometry_forms(fpb, pad)
+    assert forms.layouts == (tfs.SPLIT_PIPE, tfs.SPLIT_PIPE)
+    assert tfs.library_geometry("fused_step_onehot", fpb, pad).layouts == forms.layouts
+    assert tfs.library_geometry("fused_step_gather", fpb, pad).layouts == forms.layouts
+    dev = torch.device("cuda", 0)
+    s_, nb = _PIPE_SHAPES[rows]
+    tfs.reset_launches()
+    steps = 0
+    for form in ("apply", "apply_noxf") + (("gather", "gather_noxf", "grouped") if forms.q else ()):
+        groups = {"group_sources": 1} if form == "grouped" else {}
+        fn, args, kw = bench.scene_step(db, form, s_, nb, dev, xf_every=5, radius_step=0.01,
+                                        **groups)
+        if form == "grouped":
+            args = list(args)
+            u = args[4].shape[0] // s_  # groups of one source
+            args[5], args[7] = args[5].clone(), args[7].clone()
+            args[5][0, 1], args[5][rows - 1, 0], args[7][-1, 2] = u, -4, 3 * u
+        want = _split_is_launch_b(lambda f: tfs._cuda(fn, *args, form=f, **kw))
+        assert want.shape == (rows, 2 * fpb)
+        steps += 1
+    assert sum(tfs.split_launches.values()) == steps
+    geo = dict(pad_len=pad, bins=bins, fpb=fpb)
+    table, fwd, br, xf = bench.spatializer_step(db, rows, dev, seed=5)
+    br = tuple(t.clone() for t in br)
+    br[0][0, 1], br[2][rows - 1, 3] = db.num_hrtf, -1
+    if forms.q:
+        xd = tfs._forward_reference(fwd[0][None], rows, *fwd[1:], None, None, **geo)
+    else:
+        from jefferson_tpu_torch.engine.stream import _window_xd
+
+        xd = _window_xd(fwd[0].unfold(0, pad, fpb), *fwd[1:], cfg)
+    _split_is_launch_b(lambda f: tsp._cuda(dev, rows, table, br, xf, *xd, None, form=f, **geo))
+    assert tfs.spatializer_forms[tfs.SPLIT] == 1
+
+
+@pytest.mark.parametrize("name", _PIPE + ("f128t2048",))
+def test_split_occupancy_of_the_layout_each_library_takes(name):
+    """The card holds at least one cluster of the split form in the layout
+    each library reports (the pipelined one past a t-tile: one CTA an SM),
+    and the query raises where a geometry has no split form."""
+    db = _geo_db(name)
+    fpb, pad = db.config.frames_per_buffer, db.config.pad_len
+    for lib, sides in (("fused_step_onehot", 2), ("fused_step_gather", 2),
+                       ("fused_step_gather", 1)):
+        occ = tfs.split_occupancy(lib, fpb, pad, sides)
+        assert occ["layout"] == tfs.geometry_forms(fpb, pad).layouts[lib == "fused_step_gather"]
+        assert occ["clusters"] >= 1 and occ["ranks"] == (pad // 2) // 128
+        if occ["layout"] == tfs.SPLIT_PIPE:
+            assert occ["ctas_per_sm"] == 1 and occ["threads"] == 320
+    _geo_db("f2")
+    with pytest.raises(RuntimeError, match="occupancy"):
+        tfs.split_occupancy("fused_step_gather", 2, 1024)
+
+
 # ---- kernel row 8 and the live path ------------------------------------------
 
 def _spatializer(db, rows, **kw):
