@@ -240,13 +240,21 @@ line:
              take it (f16, f4) both forms' device time alone at RING_TIMED
              (16 x 256, 16 x 64, 1 x 2,048, 1 x 1), the planes form's two
              launches apart, printed beside the bound and the issue floor;
-             at SPLIT_TIMED (f2048,
-             f128t2048, f441, f1024) rows 5-8's split form in the layout
-             the wrappers take, torch.equal to launch B and timed beside it
+             at SPLIT_TIMED (f2048, f128t2048, f441, f1024, f512, f256)
+             rows 5-8's split form in the layout the wrappers take,
+             torch.equal to launch B and timed beside it
              and the twin, and, where launch B takes a span of counts
              (fused_step.LAUNCH_B_SPANS), both forms' device time alone at
              the span's ends (scripts/split_layouts.py; the script reads
-             the whole crossover); each geometry's launches by kernel
+             the whole crossover); where a geometry has the split form,
+             the layout each library takes for blended and pre-blended rows
+             with its threads, shared memory, CTAs an SM and
+             cudaOccupancyMaxActiveClusters (the SMs its clusters cover,
+             fused_step.split_occupancy); at LIBRARY_TIMED (f512, f1024,
+             f2048, f128t2048) rows 5-8's tail product alone as one
+             torch.matmul, fp32, TF32 off (the library yardstick,
+             scripts/tail_times.tail_product_ms), device time alone beside
+             each row's reading; each geometry's launches by kernel
              and, of rows 2-8, those in the split form; then Renderer and
              StreamingSpatializer at fpb 2^24 raise before any launch,
              naming the resource no form supplies (launch B's t-tiles past

@@ -99,12 +99,12 @@ constexpr int T_QS = T_KC + 1;          // padded row stride of a q chunk
 // A CTA's tail covers TT output columns t (one t-tile; FPB at fpb 128).
 // Larger fpb take T_TILES tiles: along the grid's y in launch B and the
 // split form's chunked layout (each CTA builds its rows' q again), inside
-// the CTA in its narrow layout (q built once).  A smaller fpb that divides
-// TT (64, 32, ..., 2) fits the tile to the block: T_COLS = FPB columns, so
-// no FMA, shared memory or basis copy is spent past FPB, and each thread's
-// register tile narrows (TailTile, SplitTile).  One that does not (fpb
-// 100) keeps the TT-column tile, its columns past FPB unused (their basis
-// is 0 and nothing stores them).
+// the CTA in its pipelined layout (q built once).  A smaller fpb that
+// divides TT (64, 32, ..., 2) fits the tile to the block: T_COLS = FPB
+// columns, so no FMA, shared memory or basis copy is spent past FPB, and
+// each thread's register tile narrows (TailTile, SplitTile).  One that does
+// not (fpb 100) keeps the TT-column tile, its columns past FPB unused
+// (their basis is 0 and nothing stores them).
 constexpr int TT = 128;
 constexpr int T_TILES = (FPB + TT - 1) / TT;
 constexpr bool T_FIT = FPB < TT && TT % FPB == 0;  // the tile is as wide as the block
@@ -1514,8 +1514,8 @@ __device__ __forceinline__ void fold_tail_block(float (&acc)[TailTile::RI][TailT
 //     consecutive output columns per float4 of the basis; each output still
 //     sums fmaf(qr, br) then fmaf(qi, bi) over ascending k from 0, as
 //     tail_chunk_fma does;
-//   - the basis arrives in chunks of 32 bins (16 in the narrow layout) by
-//     cp.async, the next chunk in flight while this one is multiplied
+//   - the basis arrives in chunks of 32 bins (8 in the pipelined layout)
+//     by cp.async, the next chunk in flight while this one is multiplied
 //     (16-byte copies where fpb % 4 == 0, else 4-byte copies: rows of fpb
 //     floats);
 //   - each rank stores its block partials in its own shared memory; after
@@ -1538,26 +1538,36 @@ __device__ __forceinline__ void fold_tail_block(float (&acc)[TailTile::RI][TailT
 //     Where the tile fits a smaller block (T_FIT) its basis chunks, its
 //     partials and each thread's register tile narrow with it (SplitTile),
 //     and its shared memory shrinks to 36-66 KB.
-//   - narrow (split_tail_tiles), q once per (tile, block): the CTA builds
-//     its block's q whole (128 bins x (M + 4) x 2 planes at M = 64, 16
-//     crossfading rows a tile: 104 KB with the basis chunks, two CTAs an
-//     SM), then walks every t-tile inside, 16-bin basis chunks streaming
-//     in, each t-tile folded over distributed shared memory before the next
-//     starts.
 //   - pipelined (split_tail_pipe), past one t-tile: q once per (tile,
-//     block) for every kind of row, the t-tiles one unbroken stream of
-//     basis chunks through a ring, and the fold off the loop (below).
-// On an H100 the chunked layout took the least device time for rows 5-7
-// (filter rows pre-blended: a q chunk is four loads a product) at every
-// geometry, and for rows 2-4 and 8 at one t-tile; past it the narrow one
-// did (blending four table rows per filter row makes q dear, and q once
-// pays).  Past 8 blocks (pad 4096) a cluster of 16 ranks is not portable:
-// the launch allows it (cudaFuncAttributeNonPortableClusterSizeAllowed)
-// and an H100 holds 14 such clusters at two CTAs an SM.  Two other layouts
-// measured slower and went (PERF.md, PR 17): q once at M = 128 (one CTA
-// an SM) and 8 ranks of two blocks each at pad 4096.  What bounds both
-// kept layouts: the FMA loop, at about 2x the fp32 FMA time of the
-// clusters' SMs (PERF.md, the kernel table).
+//     block) for every kind of row at M = 128 (32 crossfading rows a tile),
+//     one CTA an SM of 256 multiply threads and 64 fold threads, the
+//     t-tiles one unbroken stream of basis chunks through a ring, each
+//     t-tile folded while the next is multiplied (below).
+// On an H100 (PERF.md, the pipelined layout) it took the least device
+// time for rows 2-4 and 8 past one t-tile (fpb 1024: 0.90-0.97x the
+// layout before it, which walked the t-tiles one after another; the live
+// block's one row 0.92x; fpb 256-512 and 441 within a run's spread of it
+// or faster) and for rows 5-7 from 16 t-tiles (fpb 2048: 0.83-0.97x the
+// chunked one's); below 16 it lost for rows 5-7 where the grid is a few
+// waves of its large tiles (fpb 256-1024, 1 x 2,048 rows: 64 tiles on 30
+// or 15 clusters), and at one t-tile (f128t2048) for every row.  So the
+// chunked layout stays for rows 5-7 below 16 t-tiles (filter rows
+// pre-blended: a q chunk is four loads a product, and two CTAs an SM fill
+// more of the card) and for every row at one t-tile.  Past 8 blocks (pad
+// 4096) a cluster of 16 ranks is not portable: the launch allows it
+// (cudaFuncAttributeNonPortableClusterSizeAllowed); an H100 holds 14 such
+// clusters at two CTAs an SM (112 SMs), 7 at one (112 SMs); at pad 2048 30
+// and 15 (120 SMs), at pad 1024 30 at one CTA an SM (120 SMs; the
+// occupancy query, jt_split_occupancy).  Other layouts measured slower and
+// went (PERF.md): 8 ranks of two blocks each at pad 4096; the t-tiles
+// walked one after another with a cluster barrier pair between them (q
+// once, M = 64, 128 threads, two CTAs an SM); the pipelined layout at M =
+// 64 with 4 x 8 thread tiles (one CTA an SM), at M = 128 with 8 x 16 (128
+// multiply threads), and at M = 64 with 8 x 8 (two CTAs an SM).  What
+// bounds every layout: the FMA loop, an 8 x 8 thread tile loading as many
+// shared-memory words a bin as the SM's schedulers issue FMAs for it, at
+// about 2x the fp32 FMA time of the clusters' SMs; a larger tile leaves
+// too few warps to hide the loads.
 // The form exists up to 16 blocks, below fpb 128 with fpb % 4 == 0
 // (HAS_SPLIT).
 namespace cg = cooperative_groups;
@@ -1586,7 +1596,6 @@ struct SplitShape {
   static constexpr int QLD = M + 4;                      // padded bin stride of q
   static constexpr int BASIS = 2 * KC * T_COLS;          // one chunk of both basis planes
   static_assert(SIDES == 1 || R <= 32, "one warp lays out a crossfading tile's rows");
-  static_assert(M <= 2 * 2 * KC, "a t-tile's partials fit in the two basis buffers");
 };
 // The chunked layout's tile at 256 threads: at TT columns 16 threads of 8
 // x 8 (columns 4tx .. 4tx+3 and 64+4tx ..); fitted to a smaller block, 4
@@ -1598,8 +1607,6 @@ struct SplitTile {
 };
 template <int SIDES>  // q a chunk at a time
 using ChunkedShape = SplitShape<SIDES, 128, SplitTile::RPT, SplitTile::CPT, T_KC>;
-template <int SIDES>
-using NarrowShape = SplitShape<SIDES, 64, 8, 8, T_KC / 2>;    // q once, 128 threads
 
 // A tile's filter rows arriving pre-blended (rows 5-7): old row r is
 // g_rows[r], a segment's boundary row g_last[r / seg].
@@ -1802,14 +1809,14 @@ __device__ __forceinline__ void split_stage_basis(float* dst, const float* __res
 // then imaginary term: tail_chunk_fma's order per output.  (Threads as 4
 // tx x 8 ty a warp, and the next bin's operands loaded into registers
 // during this bin's products, measured slower on the card.)
-template <class Shape>
+template <class Shape, int UNROLL = 2>
 __device__ __forceinline__ void split_chunk_fma(float (&acc)[Shape::RPT][Shape::CPT],
                                                 const float* qr, const float* qi,
                                                 const float* br, const float* bi, int tx,
                                                 int ty) {
   constexpr int RPT = Shape::RPT, CPT = Shape::CPT, VW = Shape::VW, G = Shape::G;
   constexpr int QLD = Shape::QLD;
-#pragma unroll 2
+#pragma unroll (UNROLL)
   for (int kk = 0; kk < Shape::KC; ++kk) {
 #pragma unroll
     for (int plane = 0; plane < 2; ++plane) {
@@ -1936,6 +1943,7 @@ split_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi, i
   constexpr int R = Shape::R, QLD = Shape::QLD, THREADS = Shape::THREADS, FOLD = R / RANKS;
   constexpr int BASIS = Shape::BASIS, RPT = Shape::RPT, CPT = Shape::CPT;
   static_assert(THREADS == 256 && FOLD * RANKS == R, "256 threads; ranks fold whole rows");
+  static_assert(Shape::M * T_COLS <= 2 * BASIS, "the partials fit in the two basis buffers");
   extern __shared__ __align__(16) float smem[];
   float* basis = smem;                       // [buffer][plane][T_KC][T_COLS]
   float* qr = smem + 2 * BASIS;              // [T_KC][QLD], m = (side*2 + ear)*R + row
@@ -1994,121 +2002,46 @@ split_tail_xfade(const float* __restrict__ xdr, const float* __restrict__ xdi, i
   cluster.sync();                            // keep this partial until every rank read it
 }
 
-// The narrow layout: q once per (tile, block), every t-tile walked inside,
-// one block a rank.
-template <int SIDES, int RANKS, class Shape>
-constexpr size_t narrow_smem() {
-  constexpr int FOLD = Shape::R / RANKS;
-  return sizeof(float) * (2 * Shape::BASIS + 2 * T_BLOCK * Shape::QLD + 2 * SIDES * 2 * FOLD +
-                          2 * TT);
-}
-
-template <int SIDES, int RANKS, class Shape, class Rows>
-__global__ void __launch_bounds__(Shape::THREADS, 256 / Shape::THREADS)
-split_tail_tiles(const float* __restrict__ xdr, const float* __restrict__ xdi, int rows,
-                 int seg, Rows src, const float* __restrict__ xf,
-                 const float* __restrict__ icr, const float* __restrict__ ici,
-                 float* __restrict__ out) {
-  constexpr int M = Shape::M, R = Shape::R, RPT = Shape::RPT, QLD = Shape::QLD;
-  constexpr int KC = Shape::KC, THREADS = Shape::THREADS;
-  constexpr int BASIS = Shape::BASIS, FOLD = R / RANKS;
-  constexpr int CHUNKS = T_BLOCK / KC;       // basis chunks a t-tile
-  static_assert(FOLD * RANKS == R && CHUNKS % 2 == 0, "ranks fold whole rows");
-  static_assert(Shape::TX * Shape::CPT == TT, "t-tiles of TT columns: past fpb 128 alone");
-  extern __shared__ __align__(16) float smem[];
-  float* basis = smem;                       // [buffer][plane][KC][TT]
-  float* part = smem;                        // [M][TT] after a t-tile's chunks
-  float* qr = smem + 2 * BASIS;              // [T_BLOCK][QLD]
-  float* qi = qr + T_BLOCK * QLD;
-  float* q4r = qi + T_BLOCK * QLD;           // [(side*2 + ear)*FOLD + row]
-  float* q4i = q4r + SIDES * 2 * FOLD;
-  float* b4r = q4i + SIDES * 2 * FOLD;       // [TT]
-  float* b4i = b4r + TT;
-  __shared__ SplitRows<SIDES, R, Rows> t;
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();  // this CTA's tail block
-  const int r0 = (int)(blockIdx.x / RANKS) * R;
-  const int tid = threadIdx.x;
-  const int kb = rank * T_BLOCK;
-
-  split_stage_basis<THREADS, KC>(basis, icr, ici, kb, 0, tid);
-  for (int i = tid; i < 2 * T_BLOCK * QLD; i += THREADS) qr[i] = 0.f;  // rows past the end
-  split_stage_rows<THREADS>(t, src, r0, rows, seg, tid);
-  for (int c = 0; c < S_CHUNKS; ++c)
-    split_stage_q<THREADS, SIDES, R, QLD>(t, src, xdr, xdi, r0, kb + c * T_KC,
-                                          qr + c * T_KC * QLD, qi + c * T_KC * QLD, tid);
-  split_last_bin_q<SIDES, R, FOLD>(t, src, xdr, xdi, r0, rows, rank, q4r, q4i, tid);
-  const float* parts[RANKS];
-#pragma unroll
-  for (int q = 0; q < RANKS; ++q) parts[q] = cluster.map_shared_rank(part, q);
-
-  const int tx = tid % Shape::TX, ty = tid / Shape::TX;
-  for (int t0 = 0; t0 < FPB; t0 += TT) {
-    float acc[RPT][Shape::CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int c = 0; c < Shape::CPT; ++c) acc[i][c] = 0.f;
-    for (int i = 0; i < CHUNKS; ++i) {
-      // its buffer's readers passed the last barrier
-      if (i + 1 < CHUNKS)
-        split_stage_basis<THREADS, KC>(basis + ((i + 1) & 1) * BASIS, icr, ici,
-                                       kb + (i + 1) * KC, t0, tid);
-      if (i + 1 < CHUNKS)
-        cp_async_wait<1>();
-      else
-        cp_async_wait<0>();
-      __syncthreads();
-      const float* br = basis + (i & 1) * BASIS;
-      split_chunk_fma<Shape>(acc, qr + i * KC * QLD, qi + i * KC * QLD, br, br + KC * TT, tx,
-                             ty);
-      __syncthreads();
-    }
-    split_store_partial<Shape>(part, acc, tx, ty);
-    split_last_bin_basis<THREADS>(icr, ici, t0, b4r, b4i, tid);
-    cluster.sync();                          // every rank's partial of this t-tile stored
-    split_fold<THREADS, SIDES, RANKS, M, FOLD>(parts, q4r, q4i, b4r, b4i, xf, r0, rows, rank, t0,
-                                               out, tid);
-    cluster.sync();                          // keep them until every rank read them
-    if (t0 + TT < FPB) split_stage_basis<THREADS, KC>(basis, icr, ici, kb, t0 + TT, tid);
-  }
-}
-
 // The pipelined layout, past one t-tile (T_COLS == TT): one block a rank,
 // q built once per (tile, block) for every kind of row, every t-tile
-// walked inside.  The CTA is PIPE_FOLDERS fold threads beside the Shape's
-// multiply threads:
-//   - the first PIPE_STAGES - 1 basis chunks are in flight before q is built
-//     (all threads build it, the items' loads two deep, split_stage_q);
+// walked inside, by the Shape's multiply threads (an 8 x 8 tile each)
+// beside PIPE_FOLDERS fold threads:
+//   - the first PIPE_STAGES - 1 basis chunks are in flight before q is
+//     built (all threads build it, the items' loads two deep,
+//     split_stage_q);
 //   - the multiply threads walk the t-tiles as one stream of KC-bin basis
 //     chunks (chunk n: t-tile n / CHUNKS, bins kb + (n % CHUNKS) * KC)
 //     through a ring of PIPE_STAGES, one barrier of their own a chunk: the
-//     next t-tile's first chunks land while this one's last are
-//     multiplied, and the ring never drains;
-//   - t-tile i's partial goes to its own buffer, part[i % 2], and the
-//     cluster barrier is split: the multiply threads arrive (release) after
-//     storing partial i and wait (acquire) only before storing partial i+1,
-//     a t-tile later; the fold threads wait, fold t-tile i over distributed
-//     shared memory (each rank its FOLD rows in block order, split_fold's
-//     sums four columns at a time) while t-tile i+1 is multiplied, then
-//     arrive.  So phase i completes when every rank stored partial i and
-//     folded t-tile i-1: partial i+1 overwrites what t-tile i-1's fold read
-//     only after every rank's fold of it.
-// Shared memory at M = 64 (SplitShape<SIDES, 64, 4, 8, 16>): q 2 x 128 x
-// 68 floats (69,632 bytes), the ring 4 x 2 x 16 x 128 (65,536), the two
-// partials 2 x 64 x 128 (65,536), the last bin's q: 196 KB, one CTA an SM,
-// 8 multiply warps and 2 fold warps.
-constexpr int PIPE_STAGES = 4;                      // basis chunks in the ring
-constexpr int PIPE_FOLDERS = 64;                    // fold threads (two warps)
+//     next t-tile's first chunk lands while this one's last is multiplied,
+//     and the ring never drains;
+//   - t-tile i's partial goes to a buffer of its own, and the cluster
+//     barrier is split, two phases a t-tile: phase 2i, every rank stored
+//     partial i (the multiply threads arrive after storing it); phase
+//     2i+1, every rank folded t-tile i (the fold threads arrive after
+//     folding it over distributed shared memory, each rank its FOLD rows
+//     in block order, split_fold's sums four columns at a time, while
+//     t-tile i+1 is multiplied).  The multiply threads wait on phase 2i
+//     (a barrier's latency: the ranks finish a t-tile together) and on
+//     phase 2i+1 only before storing partial i+1, a t-tile later.
+// The shape: M = 128 operand rows, 256 multiply threads of 8 x 8 outputs,
+// basis chunks of 8 bins in a ring of 3, one CTA an SM: q 2 x 128 x 132
+// floats (135,168 bytes), the ring 24,576, the partial 65,536, the last
+// bin's q, with the staged rows 223 KB of the 227 a CTA may have.  Warp w
+// multiplies 16 consecutive operand rows of one (side, ear) group, from
+// (w % 4) * M/4 + (w / 4) * 16, so that the warps of a tile's first rows
+// run on the SM's four schedulers (warp w on scheduler w % 4), and a warp
+// whose rows all lie past the last row skips the loop: a tile of one row
+// multiplies its four live operand rows on four warps, one a scheduler.
+constexpr int PIPE_STAGES = 3;                   // basis chunks in the ring
+constexpr int PIPE_FOLDERS = 64;                 // fold threads (two warps)
 template <int SIDES>
-using PipeShape = SplitShape<SIDES, 64, 4, 8, T_KC / 2>;
+using PipeShape = SplitShape<SIDES, 128, 8, 8, T_KC / 4>;
 
 template <int SIDES, int RANKS, class Shape>
 constexpr size_t pipe_smem() {
   constexpr int FOLD = Shape::R / RANKS;
   return sizeof(float) * (2 * T_BLOCK * Shape::QLD + PIPE_STAGES * Shape::BASIS +
-                          2 * Shape::M * T_COLS + 2 * SIDES * 2 * FOLD);
+                          Shape::M * T_COLS + 2 * SIDES * 2 * FOLD);
 }
 
 // The cluster barrier in halves: arrive publishes this thread's shared
@@ -2204,8 +2137,8 @@ split_tail_pipe(const float* __restrict__ xdr, const float* __restrict__ xdi, in
   float* qr = smem;                          // [T_BLOCK][QLD], m = (side*2 + ear)*R + row
   float* qi = qr + T_BLOCK * QLD;
   float* ring = qi + T_BLOCK * QLD;          // [stage][plane][KC][TT]
-  float* part = ring + PIPE_STAGES * BASIS;     // [t-tile % 2][M][TT]
-  float* q4r = part + 2 * PART;              // [(side*2 + ear)*FOLD + row]
+  float* part = ring + PIPE_STAGES * BASIS;  // [M][TT]
+  float* q4r = part + PART;                  // [(side*2 + ear)*FOLD + row]
   float* q4i = q4r + SIDES * 2 * FOLD;
   __shared__ SplitRows<SIDES, R, Rows> t;
 
@@ -2230,7 +2163,12 @@ split_tail_pipe(const float* __restrict__ xdr, const float* __restrict__ xdi, in
   __syncthreads();
 
   if (tid < THREADS) {
-    const int tx = tid % Shape::TX, ty = tid / Shape::TX;
+    constexpr int WARP_ROWS = 32 / Shape::TX * RPT;   // a warp's operand rows
+    static_assert(THREADS == 256 && WARP_ROWS == 16 && M / 4 % WARP_ROWS == 0 &&
+                  R % (M / 4) == 0, "eight warps, each within one (side, ear) group");
+    const int w = tid / 32, first = w % 4 * (M / 4) + w / 4 * WARP_ROWS;
+    const int tx = tid % Shape::TX, ty = (first + tid % 32 / Shape::TX * RPT) / RPT;
+    const bool live = r0 + first % R < rows;  // the warp's first row, inside the tile's group
     for (int tile = 0, n = 0; tile < T_TILES; ++tile) {
       float acc[RPT][CPT];
 #pragma unroll
@@ -2238,35 +2176,34 @@ split_tail_pipe(const float* __restrict__ xdr, const float* __restrict__ xdi, in
 #pragma unroll
         for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
       for (int c = 0; c < CHUNKS; ++c, ++n) {
-        cp_async_wait<PIPE_STAGES - 2>();       // chunk n is in (this thread's copies)
+        cp_async_wait<PIPE_STAGES - 2>();    // chunk n is in (this thread's copies)
         first_threads_sync<THREADS>();       // ... everyone's; slot (n-1) % PIPE_STAGES is free
         if (n + PIPE_STAGES - 1 < N)
           stage(n + PIPE_STAGES - 1);
         else
           cp_async_commit();                 // an empty group keeps the count
         const float* br = ring + n % PIPE_STAGES * BASIS;
-        split_chunk_fma<Shape>(acc, qr + c * KC * QLD, qi + c * KC * QLD, br, br + KC * TT, tx,
-                               ty);
+        if (live)
+          split_chunk_fma<Shape, KC>(acc, qr + c * KC * QLD, qi + c * KC * QLD, br,
+                                     br + KC * TT, tx, ty);
       }
-      if (tile > 0) cluster_wait();          // every rank folded t-tile tile-2: its buffer is free
-      split_store_partial<Shape>(part + (tile & 1) * PART, acc, tx, ty);
-      cluster_arrive();
+      if (tile > 0) cluster_wait();          // phase 2 tile - 1: every rank folded tile - 1
+      split_store_partial<Shape>(part, acc, tx, ty);
+      cluster_arrive();                      // phase 2 tile
+      cluster_wait();
+      cluster_arrive();                      // phase 2 tile + 1: ends once every rank folded
     }
-    cluster_wait();
-    cluster_arrive();
   } else {
     const float* parts[RANKS];
 #pragma unroll
     for (int q = 0; q < RANKS; ++q) parts[q] = cluster.map_shared_rank(part, q);
-    cluster_arrive();
     for (int tile = 0; tile < T_TILES; ++tile) {
+      cluster_arrive();                      // phase 2 tile
       cluster_wait();                        // every rank's partial of this t-tile stored
-      const float* buf[RANKS];
-#pragma unroll
-      for (int q = 0; q < RANKS; ++q) buf[q] = parts[q] + (tile & 1) * PART;
-      pipe_fold<SIDES, RANKS, M, FOLD>(buf, q4r, q4i, icr, ici, xf, r0, rows, rank, tile * TT,
+      pipe_fold<SIDES, RANKS, M, FOLD>(parts, q4r, q4i, icr, ici, xf, r0, rows, rank, tile * TT,
                                        out, tid - THREADS);
-      cluster_arrive();
+      cluster_arrive();                      // phase 2 tile + 1
+      if (tile + 1 < T_TILES) cluster_wait();
     }
   }
   cluster_wait();                            // keep the partials until every rank read them
@@ -2302,24 +2239,21 @@ cudaError_t launch_cluster(Kernel kernel, dim3 grid, int threads, size_t smem, i
 }
 
 // The split form's layouts (jt_geometry reports the one each kind of row
-// takes).  JT_SPLIT_LAYOUT names one for every kind of row in a library
-// built to time it against another (scripts/tail_times.py --split-layout)
-// where it exists (narrow: past one t-tile; pipelined: t-tiles of TT
-// columns); 0, the default, takes the rule of split_layout.
-enum SplitLayout { LAYOUT_NONE = 0, LAYOUT_CHUNKED = 1, LAYOUT_NARROW = 2, LAYOUT_PIPE = 3 };
-#ifndef JT_SPLIT_LAYOUT
-#define JT_SPLIT_LAYOUT 0
-#endif
+// takes).
+enum SplitLayout { LAYOUT_NONE = 0, LAYOUT_CHUNKED = 1, LAYOUT_PIPE = 2 };
 
 // The layout of launch B's split form for rows of kind Rows (blended:
-// RowsBlended): the pipelined one past one t-tile, else the chunked one
-// (kernels/fused_step.split_default says the same).
+// RowsBlended; kernels/fused_step.split_default says the same), where it
+// took the least device time alone on an H100 (PERF.md): the pipelined one
+// past one t-tile for blended rows and from PIPE_PRE_BLENDED_TILES t-tiles
+// for pre-blended rows, else the chunked one.
+constexpr int PIPE_PRE_BLENDED_TILES = 16;       // fpb 2048 and up
 template <class Rows>
 constexpr int split_layout() {
-  constexpr bool exists[4] = {false, true, T_TILES > 1, T_COLS == TT};
+  constexpr bool blended = std::is_same<Rows, RowsBlended>::value;
   if (!HAS_SPLIT) return LAYOUT_NONE;
-  if (JT_SPLIT_LAYOUT > 0 && JT_SPLIT_LAYOUT < 4 && exists[JT_SPLIT_LAYOUT]) return JT_SPLIT_LAYOUT;
-  return T_TILES > 1 ? LAYOUT_PIPE : LAYOUT_CHUNKED;
+  if (T_TILES > 1 && (blended || T_TILES >= PIPE_PRE_BLENDED_TILES)) return LAYOUT_PIPE;
+  return LAYOUT_CHUNKED;
 }
 
 // fn(kernel, rows a tile, CTAs along y, threads, shared memory) for the
@@ -2332,10 +2266,6 @@ cudaError_t with_split_kernel(Fn fn) {
     using Shape = PipeShape<SIDES>;
     return fn(split_tail_pipe<SIDES, S_NBLK, Shape, Rows>, Shape::R, 1,
               Shape::THREADS + PIPE_FOLDERS, pipe_smem<SIDES, S_NBLK, Shape>());
-  } else if constexpr (layout == LAYOUT_NARROW) {
-    using Shape = NarrowShape<SIDES>;
-    return fn(split_tail_tiles<SIDES, S_NBLK, Shape, Rows>, Shape::R, 1, Shape::THREADS,
-              narrow_smem<SIDES, S_NBLK, Shape>());
   } else if constexpr (layout == LAYOUT_CHUNKED) {
     using Shape = ChunkedShape<SIDES>;
     return fn(split_tail_xfade<SIDES, S_NBLK, Rows>, Shape::R, T_TILES, Shape::THREADS,

@@ -40,7 +40,7 @@
 // Geometry (fused_forward.cuh): both forms run at every geometry where
 // they exist (launch B everywhere, the split form where HAS_SPLIT), a CTA
 // per 32 rows and TT = 128 output columns, T_TILES along the grid's y (or,
-// in the split form's narrow layout, walked inside a CTA); below fpb 128,
+// in the split form's pipelined layout, walked inside a CTA); below fpb 128,
 // where fpb divides 128, T_COLS = fpb columns, 16 rows a CTA and each
 // thread's register tile narrowed to it (B_ROWS, TailTile).  At
 // a history of partial blocks (fpb 100, 441 under pad 1024) the entry with

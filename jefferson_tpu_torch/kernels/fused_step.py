@@ -35,7 +35,7 @@ card, launch B of rows 2-7 has two forms with the same bits, chosen by
 ``pick_form`` (the choice of shape, not a fallback): one CTA per 32
 rows, or the split form, a cluster of CTAs per tile, one per 128-bin
 block (``csrc/fused_forward.cuh``, in the layout ``split_default``
-names: chunked at one t-tile, pipelined past it).  Launch A, the forward every step of rows 1-6 runs first,
+names by the kind of row and the t-tiles).  Launch A, the forward every step of rows 1-6 runs first,
 takes its product form, or its few-block form up to ``FEW_NB`` blocks a
 source, or where neither exists its tile form, or its ring form up to fpb
 32, past that its two-launch planes form (``forward_form``); the tile form
@@ -162,6 +162,13 @@ PRE_BLENDED = ("fused_step_stream_xfade", "fused_step_xfade", "fused_apply_xfade
 # 0.2410 to 0.2964 / 0.3154), rows 2-4 at f64t256 8,192 (0.1482 / 0.1742),
 # rows 2 and 4 and rows 5 and 7 at f16 16,384 (0.6016 / 0.6362, 0.1589 /
 # 0.1930), row 7 at f4 16,384 (0.1214 / 0.1307) (PR 18).
+# Read again at f512, f1024 and f2048 with the pipelined layout from 8
+# t-tiles, the same spans: rows 2 / 3 / 4 / 8 at f512 1,024 rows 0.2722 / 0.3086,
+# 0.2721 / 0.3111, 0.2744 / 0.3104, 0.2011 / 0.2513 (the narrow layout);
+# f1024 512 rows 0.5427 / 0.6092, 0.5361 / 0.6111, 0.5312 / 0.6114, 0.4094
+# / 0.4898; f2048 256 rows 1.0737 / 1.1941, 1.0772 / 1.2046, 1.0745 /
+# 1.1923, 0.8297 / 0.9609; rows 5-7 at f2048 took the split form at 8 to
+# 4,096 rows.
 LAUNCH_B_SPANS: dict[tuple[int, int], dict[str, tuple[int, int]]] = {
     (4, 1024): {"pre-blended": (16384, 16384), "row 8": (6144, 16384)},
     (16, 1024): {"blended": (16384, 16384), "pre-blended": (16384, 16384),
@@ -228,17 +235,16 @@ _named_form: contextvars.ContextVar[str | None] = contextvars.ContextVar("form",
 
 # Launch B's split form exists where the blocked tail is 1 to
 # SPLIT_MAX_BLOCKS whole 128-bin blocks and fpb % 4 == 0 or fpb > 128
-# (csrc/fused_forward.cuh HAS_SPLIT), in one of three layouts with the
-# same bits, fixed when the library is built (``split_default``; the
-# library reports its own, ``Forms.layouts``): chunked (a CTA per t-tile
-# and block, q built a 32-bin chunk at a time), narrow (a CTA per block
-# walking every t-tile, q built once, 16-row crossfading tiles) or
-# pipelined (a CTA per block, q built once, the t-tiles one stream of basis
-# chunks through a ring, the fold by warps of its own while the next t-tile
-# is multiplied).  Their codes in the library's report (SplitLayout).
+# (csrc/fused_forward.cuh HAS_SPLIT), in one of two layouts with the same
+# bits, fixed when the library is built (``split_default``; the library
+# reports its own, ``Forms.layouts``): chunked (a CTA per t-tile and block,
+# q built a 32-bin chunk at a time) or pipelined (a CTA per block, q built
+# once, the t-tiles one stream of basis chunks through a ring, the fold by
+# warps of its own while the next t-tile is multiplied).  Their codes in
+# the library's report (SplitLayout).
 SPLIT_MAX_BLOCKS = 16
-SPLIT_CHUNKED, SPLIT_NARROW, SPLIT_PIPE = "chunked", "narrow", "pipelined"
-_LAYOUT_CODE = {"": 0, SPLIT_CHUNKED: 1, SPLIT_NARROW: 2, SPLIT_PIPE: 3}
+SPLIT_CHUNKED, SPLIT_PIPE = "chunked", "pipelined"
+_LAYOUT_CODE = {"": 0, SPLIT_CHUNKED: 1, SPLIT_PIPE: 2}
 
 # Launch B's output columns a CTA (csrc/fused_forward.cuh TT): its t-tiles
 # lie along the grid's y, which holds at most GRID_Y CTAs.  Below T_TILE a
@@ -313,11 +319,23 @@ def geometry_forms(fpb: int, pad_len: int) -> Forms:
     )
 
 
+# The t-tiles of 128 columns from which pre-blended rows (rows 5-7) take
+# the split form's pipelined layout, where it took less device time alone
+# than the chunked one on an H100 (PERF.md, the pipelined layout;
+# csrc/fused_forward.cuh PIPE_PRE_BLENDED_TILES).
+PIPE_PRE_BLENDED_TILES = 16
+
+
 def split_default(name: str, fpb: int) -> str:
     """The layout the split form takes for kernel ``name`` (rows 2-8; csrc/
-    fused_forward.cuh split_layout): the pipelined layout past fpb 128 (more
-    than one t-tile), else the chunked layout."""
-    return SPLIT_PIPE if fpb > T_TILE else SPLIT_CHUNKED
+    fused_forward.cuh split_layout), by its kind of row and the t-tiles of
+    128 columns: pipelined past one t-tile for blended rows (rows 2-4 and 8)
+    and from ``PIPE_PRE_BLENDED_TILES`` for pre-blended rows, else
+    chunked."""
+    t_tiles = -(-fpb // T_TILE)
+    if t_tiles > 1 and (name in BLENDED or t_tiles >= PIPE_PRE_BLENDED_TILES):
+        return SPLIT_PIPE
+    return SPLIT_CHUNKED
 
 
 def card_refusal(fpb: int, pad_len: int) -> str | None:

@@ -3,13 +3,15 @@ CTA per 32 rows) and timed beside it and the plain twin, for rows 2-8 at
 their main path's shapes, and its crossover against launch B over a range
 of row counts, read in turns.
 
-The split form (``csrc/fused_forward.cuh``) takes one of two layouts, fixed
-when a geometry's library is built (``kernels/fused_step.split_default``):
-chunked (a CTA per t-tile of 128 columns and 128-bin block, q built a
-32-bin chunk at a time) or narrow (a CTA per block walking every t-tile,
-q built once), with launch B's bits.  The wrappers take launch B or the
-split form by ``pick_form``; this script names each through the wrappers'
-private seams (``fused_step._cuda``, ``fused_spatializer._cuda``).
+The split form (``csrc/fused_forward.cuh``) takes, for each kind of row,
+the layout ``kernels/fused_step.split_default`` names, fixed when a
+geometry's library is built: chunked (a CTA per t-tile of 128 columns and
+128-bin block, q built a 32-bin chunk at a time) or pipelined (a CTA per
+block walking every t-tile, q built once, the basis one stream of chunks,
+the fold by warps of its own), with launch B's bits.  The wrappers take
+launch B or the split form by ``pick_form``; this script names each
+through the wrappers' private seams (``fused_step._cuda``,
+``fused_spatializer._cuda``).
 
     python -m jefferson_tpu_torch.scripts.split_layouts [--geometry f2048 ...]
         [--kernels NAME ...] [--cross 8 64 ...] [--repeat 2]

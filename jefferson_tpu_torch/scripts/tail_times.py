@@ -10,7 +10,8 @@ the readings.
 Run it as a file, with the checkout to time first on PYTHONPATH: it
 imports ``jefferson_tpu_torch`` from there (its ``scripts.split_layouts``
 gives rows 2-8's operands).  Rows 2-8 at split_layouts' main shapes (rows
-3-5 1 x 2,048, rows 2 and 6 16 x 256, row 7 16 x 512, row 8 4,096 rows;
+3-5 1 x 2,048, rows 2 and 6 16 x 256, row 7 16 x 512, row 8 4,096 rows
+and the live block's one row;
 rows 2-6 with launch A, as their wrappers run it), in launch B and in the
 split form where it exists; row 1 at 16 sources x 64 blocks (compact
 distance): the whole step, launch A alone in the form the step takes, and
@@ -19,14 +20,12 @@ launch B as the difference; launch A alone at 16 x 256, 16 x 64, 1 x
 ``forward_form`` names.  With ``--launch-a-forms`` it times launch A
 alone at those four shapes in each of the ring and planes forms the
 library has, and nothing else: the readings that set where the steps take
-the ring form (``fused_step.forward_form``).  ``--split-layout NAME``
-builds the libraries with launch B's split form in that layout for every
-kind of row, where the layout exists (``csrc/fused_forward.cuh``
-JT_SPLIT_LAYOUT), to time one layout against another in one checkout;
-each geometry's line names the layout its libraries report and, where the
-checkout has ``fused_step.split_occupancy``, the clusters the card holds at
-once and the SMs they cover.  ``--library`` also reads, for rows 5-8, the
-tail product alone as one PyTorch call (``tail_product_ms``).  A geometry is a name of
+the ring form (``fused_step.forward_form``).  Each geometry's line names
+the layout of launch B's split form its libraries report and, where the
+checkout has ``fused_step.split_occupancy``, the clusters the card holds
+at once and the SMs they cover.  ``--library`` also reads, for rows 5-8,
+the tail product alone as one PyTorch call (``tail_product_ms``).  A
+geometry is a name of
 split_layouts' ``GEOMETRIES`` or ``f<fpb>t<taps>`` (``f<fpb>``: 512 taps);
 the libraries of every geometry asked are built first, all at once.  Each number is the median of ``--readings``
 readings of device time alone (10 calls queued behind a stream held by a
@@ -49,7 +48,6 @@ LAUNCH_A_SHAPES = ((16, 256), (16, 64), (1, 2048), (1, 1))
 # library yardstick times at split_layouts' main shapes
 LIBRARY_ROWS = ("fused_step_stream_xfade", "fused_step_xfade", "fused_apply_xfade",
                 "fused_spatializer_apply")
-LAYOUT_CODES = {"chunked": 1, "narrow": 2, "pipelined": 3}
 
 
 def tail_product_ms(rows: int, sides: int, bins: int, fpb: int, device, timer) -> float:
@@ -90,8 +88,6 @@ def main(argv=None) -> int:
     p.add_argument("--readings", type=int, default=3)
     p.add_argument("--launch-a-forms", action="store_true",
                    help="launch A alone in its ring and planes forms, nothing else")
-    p.add_argument("--split-layout", choices=list(LAYOUT_CODES), default=None,
-                   help="build launch B's split form in this layout where it exists")
     p.add_argument("--library", action="store_true",
                    help="also rows 5-8's tail product as one torch.matmul")
     args = p.parse_args(argv)
@@ -110,9 +106,6 @@ def main(argv=None) -> int:
         raise RuntimeError("tail_times needs a CUDA device")
     configs = {name: EngineConfig(frames_per_buffer=fpb, hrtf_len=taps)
                for name, (fpb, taps) in geos.items()}
-    if args.split_layout:
-        build.NVCC_FLAGS = (*build.NVCC_FLAGS,
-                            f"-DJT_SPLIT_LAYOUT={LAYOUT_CODES[args.split_layout]}")
     build.build_all(["fused_step_onehot"] + ([] if args.launch_a_forms else ["fused_step_gather"]),
                     geometries=[(c.frames_per_buffer, c.pad_len) for c in configs.values()])
     device = torch.device("cuda", torch.cuda.current_device())
@@ -149,6 +142,9 @@ def main(argv=None) -> int:
                 continue
             call = sl.step(db, kernel, sl.MAIN_ROWS[kernel], device)[0]
             got[kernel] = {f: alone(lambda: call(f)) for f in tail}
+            if kernel == fs.SPATIALIZER:   # the live block's one row
+                one = sl.step(db, kernel, 1, device)[0]
+                got[f"{kernel}, 1 row"] = {f: alone(lambda: one(f)) for f in tail}
             if args.library and kernel in LIBRARY_ROWS:
                 got[kernel]["library"] = tail_product_ms(sl.MAIN_ROWS[kernel], 2, bins, fpb,
                                                          device, alone)

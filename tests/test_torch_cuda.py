@@ -590,27 +590,30 @@ def test_split_layouts_script_on_the_card(name):
 
 # fpb 256 and 512 (pad 1024: 4 tail blocks, 2 and 4 t-tiles), 1024 (8 and
 # 8), 2048 (16 and 16) and 441 (rows 7 and 8; a ragged t-tile, rows of 441
-# floats); rows -> (sources, blocks): one row, R + 1 crossfading rows (17),
-# R + 1 rows of one side (33), and 512 and 4,096 rows, the last tile ragged
+# floats); rows -> (sources, blocks): one row, 17 rows, R + 1 crossfading
+# rows (33), R + 1 rows of one side (65), and 512 and 4,096 rows, the last
+# tile ragged
 _PIPE = ("f256", "f512", "f1024", "f2048", "f441")
-_PIPE_SHAPES = {1: (1, 1), 17: (1, 17), 33: (3, 11), 512: (2, 256), 4096: (16, 256)}
+_PIPE_SHAPES = {1: (1, 1), 17: (1, 17), 33: (3, 11), 65: (5, 13), 512: (2, 256),
+                4096: (16, 256)}
 
 
 @pytest.mark.parametrize("rows", list(_PIPE_SHAPES))
 @pytest.mark.parametrize("name", _PIPE)
 def test_pipelined_layout_is_launch_b_bit_for_bit(name, rows):
-    """Both kinds of row take the pipelined layout there (the libraries
-    report it), each torch.equal to launch B: rows 6 and 7 pre-blended, with
-    and without the crossfade (two sides and one), row 2 blended in groups
-    of one source (group ends on segment ends) with ids outside its groups'
+    """The split form in the layout each library reports (the pipelined one
+    for blended rows everywhere here, for pre-blended rows at f2048), each
+    torch.equal to launch B: rows 6 and 7 pre-blended, with and without
+    the crossfade (two sides and one), row 2 blended in groups of one
+    source (group ends on segment ends) with ids outside its groups'
     tables, row 8 with ids outside the table."""
     db = _geo_db(name)
     cfg = db.config
     fpb, pad, bins = cfg.frames_per_buffer, cfg.pad_len, cfg.num_bins
     forms = tfs.geometry_forms(fpb, pad)
-    assert forms.layouts == (tfs.SPLIT_PIPE, tfs.SPLIT_PIPE)
-    assert tfs.library_geometry("fused_step_onehot", fpb, pad).layouts == forms.layouts
-    assert tfs.library_geometry("fused_step_gather", fpb, pad).layouts == forms.layouts
+    assert forms.layouts[0] == tfs.SPLIT_PIPE
+    for lib in tbuild.GEOMETRIC:
+        assert tfs.library_geometry(lib, fpb, pad).layouts == forms.layouts
     dev = torch.device("cuda", 0)
     s_, nb = _PIPE_SHAPES[rows]
     tfs.reset_launches()
@@ -645,8 +648,8 @@ def test_pipelined_layout_is_launch_b_bit_for_bit(name, rows):
 @pytest.mark.parametrize("name", _PIPE + ("f128t2048",))
 def test_split_occupancy_of_the_layout_each_library_takes(name):
     """The card holds at least one cluster of the split form in the layout
-    each library reports (the pipelined one past a t-tile: one CTA an SM),
-    and the query raises where a geometry has no split form."""
+    each library reports (the pipelined one: one CTA an SM), and the query
+    raises where a geometry has no split form."""
     db = _geo_db(name)
     fpb, pad = db.config.frames_per_buffer, db.config.pad_len
     for lib, sides in (("fused_step_onehot", 2), ("fused_step_gather", 2),
@@ -654,7 +657,7 @@ def test_split_occupancy_of_the_layout_each_library_takes(name):
         occ = tfs.split_occupancy(lib, fpb, pad, sides)
         assert occ["layout"] == tfs.geometry_forms(fpb, pad).layouts[lib == "fused_step_gather"]
         assert occ["clusters"] >= 1 and occ["ranks"] == (pad // 2) // 128
-        if occ["layout"] == tfs.SPLIT_PIPE:
+        if occ["layout"] == tfs.SPLIT_PIPE:  # 256 multiply threads and 64 fold threads
             assert occ["ctas_per_sm"] == 1 and occ["threads"] == 320
     _geo_db("f2")
     with pytest.raises(RuntimeError, match="occupancy"):
@@ -1087,7 +1090,7 @@ def test_a_refused_few_block_launch_raises(card):
     err = tfs._forward_entry((128, 1024))(
         card.index, torch.cuda.current_stream(card).cuda_stream, tfs._FWD_CODE[tfs.FWD_FEW],
         ops[0].data_ptr(), 1, tfs.FEW_NB + 1, *(t.data_ptr() for t in ops[2:5]), None, 0,
-        *bases, *(t.data_ptr() for t in xd))
+        *bases, *(t.data_ptr() for t in xd), None, None)   # no planes-form scratch
     assert err != 0
 
 

@@ -419,23 +419,26 @@ def test_geometry_forms_follow_the_sources_rules():
     """The forms each named geometry's library has (csrc/fused_forward.cuh;
     the card tests hold the libraries' own report to these)."""
     f = tfs.geometry_forms
-    assert f(128, 1024) == tfs.Forms(128, 1024, 513, 8, 9, True, True, True, True, True, 128)
-    assert f(64, 1024) == tfs.Forms(64, 1024, 513, 16, 1, True, True, False, False, True, 64)
-    assert f(256, 1024) == tfs.Forms(256, 1024, 513, 4, 5, True, True, False, False, True, 128)
-    assert f(512, 1024) == tfs.Forms(512, 1024, 513, 2, 0, True, True, False, False, True, 128)
-    assert f(1024, 2048) == tfs.Forms(1024, 2048, 1025, 2, 0, True, True, False, False, True, 128)
-    assert f(64, 512) == tfs.Forms(64, 512, 257, 8, 9, True, True, False, False, True, 64)
-    assert f(100, 1024) == tfs.Forms(100, 1024, 513, 0, 0, False, True, False, False, False, 128)
-    assert f(441, 1024) == tfs.Forms(441, 1024, 513, 0, 0, False, True, False, False, False, 128)
+    # the split form's layouts (blended rows, pre-blended rows)
+    C, P = (tfs.SPLIT_CHUNKED,) * 2, (tfs.SPLIT_PIPE,) * 2
+    W = (tfs.SPLIT_PIPE, tfs.SPLIT_CHUNKED)
+    assert f(128, 1024) == tfs.Forms(128, 1024, 513, 8, 9, True, True, True, True, True, 128, C)
+    assert f(64, 1024) == tfs.Forms(64, 1024, 513, 16, 1, True, True, False, False, True, 64, C)
+    assert f(256, 1024) == tfs.Forms(256, 1024, 513, 4, 5, True, True, False, False, True, 128, W)
+    assert f(512, 1024) == tfs.Forms(512, 1024, 513, 2, 0, True, True, False, False, True, 128, W)
+    assert f(1024, 2048) == tfs.Forms(1024, 2048, 1025, 2, 0, True, True, False, False, True, 128, W)
+    assert f(64, 512) == tfs.Forms(64, 512, 257, 8, 9, True, True, False, False, True, 64, C)
+    assert f(100, 1024) == tfs.Forms(100, 1024, 513, 0, 0, False, True, False, False, False, 128, C)
+    assert f(441, 1024) == tfs.Forms(441, 1024, 513, 0, 0, False, True, False, False, False, 128, W)
     assert f(32, 64) == tfs.Forms(32, 64, 33, 2, 15, False, False, False, False, True, 32)
     # past the old envelope: the tile form to Q 16, the product form to Q
     # 64, the split form to 16 blocks (2,049 bins; 4-byte basis copies past
     # fpb 128, whole float4 columns below it)
-    assert f(16, 1024) == tfs.Forms(16, 1024, 513, 64, 0, False, True, False, False, False, 16)
-    assert f(4, 1024) == tfs.Forms(4, 1024, 513, 256, 0, False, True, False, False, False, 4)
+    assert f(16, 1024) == tfs.Forms(16, 1024, 513, 64, 0, False, True, False, False, False, 16, C)
+    assert f(4, 1024) == tfs.Forms(4, 1024, 513, 256, 0, False, True, False, False, False, 4, C)
     assert f(2, 1024) == tfs.Forms(2, 1024, 513, 512, 0, False, False, False, False, False, 2)
-    assert f(2048, 4096) == tfs.Forms(2048, 4096, 2049, 2, 0, True, True, False, False, True, 128)
-    assert f(128, 4096) == tfs.Forms(128, 4096, 2049, 32, 0, True, True, False, False, False, 128)
+    assert f(2048, 4096) == tfs.Forms(2048, 4096, 2049, 2, 0, True, True, False, False, True, 128, P)
+    assert f(128, 4096) == tfs.Forms(128, 4096, 2049, 32, 0, True, True, False, False, False, 128, C)
     assert f(32, 4096).product is False and f(32, 2048).product is True
     # the choices among them
     assert tfs.forward_form(1, 64, 1024) == tfs.FWD_FEW

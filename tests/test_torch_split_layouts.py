@@ -38,17 +38,67 @@ def test_split_form_exists_to_sixteen_whole_blocks(fpb, pad, split):
 
 
 def test_the_layout_each_kernel_takes():
-    """Narrow for the kernels that blend their rows past one t-tile, else
-    chunked (csrc/fused_forward.cuh launch_split_tail)."""
+    """By the kind of row and the t-tiles of 128 columns (csrc/
+    fused_forward.cuh split_layout): chunked at one t-tile; past it
+    pipelined for blended rows, and for pre-blended rows chunked up to
+    fifteen and pipelined from sixteen (fpb 2048)."""
     blended = (tfs.GROUPED, "fused_step_stream_onehot_xfade",
                "fused_step_stream_onehot_grouped_xfade", tfs.SPATIALIZER)
     pre_blended = [k for k in sl.MAIN_ROWS if k not in blended]
     assert set(tfs.BLENDED) == set(blended) and len(pre_blended) == 6
     for fpb in (4, 64, 100, 128):
         assert {tfs.split_default(k, fpb) for k in sl.MAIN_ROWS} == {tfs.SPLIT_CHUNKED}
-    for fpb in (256, 441, 1024, 2048):
-        assert {tfs.split_default(k, fpb) for k in blended} == {tfs.SPLIT_NARROW}
-        assert {tfs.split_default(k, fpb) for k in pre_blended} == {tfs.SPLIT_CHUNKED}
+    for fpb, want_b, want_p in ((129, tfs.SPLIT_PIPE, tfs.SPLIT_CHUNKED),
+                                (256, tfs.SPLIT_PIPE, tfs.SPLIT_CHUNKED),
+                                (441, tfs.SPLIT_PIPE, tfs.SPLIT_CHUNKED),
+                                (896, tfs.SPLIT_PIPE, tfs.SPLIT_CHUNKED),
+                                (1024, tfs.SPLIT_PIPE, tfs.SPLIT_CHUNKED),
+                                (1920, tfs.SPLIT_PIPE, tfs.SPLIT_CHUNKED),
+                                (1921, tfs.SPLIT_PIPE, tfs.SPLIT_PIPE),
+                                (2048, tfs.SPLIT_PIPE, tfs.SPLIT_PIPE)):
+        assert {tfs.split_default(k, fpb) for k in blended} == {want_b}, fpb
+        assert {tfs.split_default(k, fpb) for k in pre_blended} == {want_p}, fpb
+
+
+_HEADER = Path(__file__).resolve().parents[1] / "jefferson_tpu_torch" / "csrc" / "fused_forward.cuh"
+
+
+def test_the_mirror_holds_the_headers_thresholds():
+    """fused_step's threshold and layout codes are the header's constants
+    (split_layout reads the one, jt_geometry reports the others)."""
+    import re
+
+    text = _HEADER.read_text()
+    got = {k: int(v) for k, v in re.findall(r"constexpr int (PIPE_\w+_TILES) = (\d+);", text)}
+    assert got == {"PIPE_PRE_BLENDED_TILES": tfs.PIPE_PRE_BLENDED_TILES}
+    enum = re.search(r"enum SplitLayout \{([^}]*)\}", text)[1]
+    codes = {k: int(v) for k, v in re.findall(r"LAYOUT_(\w+) = (\d+)", enum)}
+    assert codes == {"NONE": tfs._LAYOUT_CODE[""], "CHUNKED": tfs._LAYOUT_CODE[tfs.SPLIT_CHUNKED],
+                     "PIPE": tfs._LAYOUT_CODE[tfs.SPLIT_PIPE]}
+
+
+@pytest.mark.parametrize("name", sorted(_smoke().GEOMETRIES))
+def test_the_layouts_the_libraries_report_follow_the_headers_rule(name):
+    """At every geometry of phase geometry, ``geometry_forms`` gives the
+    layout the header's split_layout takes for each kind of row (the card
+    holds each library's own report to it, ``jt_geometry`` out[11:13]):
+    none without the split form, else by the t-tiles of 128 columns; phase
+    geometry times the split form wherever a library takes the pipelined
+    layout."""
+    smoke = _smoke()
+    fpb, taps = smoke.GEOMETRIES[name]
+    forms = tfs.geometry_forms(fpb, EngineConfig(frames_per_buffer=fpb, hrtf_len=taps).pad_len)
+    t_tiles = -(-fpb // tfs.T_TILE)
+    if not forms.split:
+        assert forms.layouts == ("", "")
+        return
+    want = (tfs.SPLIT_PIPE if t_tiles > 1 else tfs.SPLIT_CHUNKED,
+            tfs.SPLIT_PIPE if t_tiles >= 16 else tfs.SPLIT_CHUNKED)
+    assert forms.layouts == want
+    assert forms.layouts[0] == tfs.split_default(tfs.SPATIALIZER, fpb)
+    assert forms.layouts[1] == tfs.split_default("fused_apply_xfade", fpb)
+    if tfs.SPLIT_PIPE in forms.layouts:
+        assert name in smoke.SPLIT_TIMED
 
 
 def test_launch_b_spans_are_measured_counts_where_the_split_form_exists():
@@ -60,6 +110,20 @@ def test_launch_b_spans_are_measured_counts_where_the_split_form_exists():
         for kind, (first, last) in spans.items():
             assert kind in ("blended", "pre-blended", "row 8")
             assert first <= last and {first, last} <= set(sl.CROSS_ROWS)
+
+
+@pytest.mark.parametrize("geo,kind", [
+    (g, k) for g, spans in tfs.LAUNCH_B_SPANS.items() for k in spans
+    if g[0] > tfs.T_TILE and g[0] % tfs.T_TILE == 0])
+def test_launch_b_keeps_one_whole_wave_past_one_t_tile(geo, kind):
+    """Past one t-tile, at whole t-tiles, launch B keeps the one count
+    where its grid of ceil(rows / 32) x T_TILES CTAs is one whole wave of
+    128, for blended rows and row 8 alone; rows 5-7 take the split form
+    at every count there."""
+    t_tiles = geo[0] // tfs.T_TILE
+    assert kind in ("blended", "row 8")
+    assert tfs.LAUNCH_B_SPANS[geo][kind] == (128 * 32 // t_tiles,) * 2
+    assert "pre-blended" not in tfs.LAUNCH_B_SPANS[geo]
 
 
 @pytest.mark.parametrize("geo,kind", [(g, k) for g, spans in tfs.LAUNCH_B_SPANS.items()
@@ -196,3 +260,37 @@ def test_chip_smoke_times_the_split_form_where_it_is_new():
             assert smoke.split_cross(fpb, pad, tfs.SPATIALIZER) == tuple(sorted(
                 set(spans["row 8"])))
     assert smoke.split_cross(2048, 4096, "fused_step_xfade") == ()
+
+
+def test_the_library_yardstick_is_one_matmul_of_the_tail_product():
+    """tail_times.tail_product_ms times one torch.matmul of the rows' q
+    planes ((sides * 2 * rows) x 2 bins) by the tail basis (2 bins x fpb),
+    with TF32 off during the call and the caller's setting back after."""
+    from jefferson_tpu_torch.scripts import tail_times
+
+    seen = []
+
+    def timer(call):
+        seen.append((torch.backends.cuda.matmul.allow_tf32, tuple(call().shape)))
+        return 0.25
+
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        assert tail_times.tail_product_ms(3, 2, 9, 8, "cpu", timer) == 0.25
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert seen == [(False, (12, 8))]
+
+
+def test_the_smoke_reads_the_occupancy_and_the_library_yardstick():
+    """Phase geometry reads the occupancy of both render-step libraries and
+    the library yardstick of rows 5-8 at geometries it runs."""
+    from jefferson_tpu_torch.kernels import build
+    from jefferson_tpu_torch.scripts import tail_times
+
+    smoke = _smoke()
+    assert {lib for lib, _, _ in smoke.SPLIT_OCCUPANCY} == set(build.GEOMETRIC)
+    assert set(smoke.LIBRARY_TIMED) <= set(smoke.GEOMETRIES)
+    assert set(tail_times.LIBRARY_ROWS) == set(smoke.SPLIT_ROWS)
