@@ -1544,13 +1544,15 @@ __device__ __forceinline__ void fold_tail_block(float (&acc)[TailTile::RI][TailT
 //     t-tiles one unbroken stream of basis chunks through a ring, each
 //     t-tile folded while the next is multiplied (below).
 // On an H100 (PERF.md, the pipelined layout) it took the least device
-// time for rows 2-4 and 8 past one t-tile (fpb 1024: 0.90-0.97x the
-// layout before it, which walked the t-tiles one after another; the live
-// block's one row 0.92x; fpb 256-512 and 441 within a run's spread of it
-// or faster) and for rows 5-7 from 16 t-tiles (fpb 2048: 0.83-0.97x the
-// chunked one's); below 16 it lost for rows 5-7 where the grid is a few
-// waves of its large tiles (fpb 256-1024, 1 x 2,048 rows: 64 tiles on 30
-// or 15 clusters), and at one t-tile (f128t2048) for every row.  So the
+// time for rows 2-4 and 8 past one t-tile (against the layout before it,
+// which walked the t-tiles one after another: 0.90-0.97x at fpb 1024 and
+// 2048, rows 2 and 8 0.97-0.98x at fpb 256 and 512 and row 8 0.92x at 441,
+// the live block's one row 0.82-0.95x; rows 3 and 4 at fpb 256 and 512
+// within a run's spread) and for rows 5-7 from 16 t-tiles (fpb 2048:
+// 0.83-0.97x the chunked one's); below 16 it lost for rows 5-7 where the
+// grid is a few waves of its large tiles (fpb 256-1024, 1 x 2,048 rows: 64
+// tiles on 30 or 15 clusters), and at one t-tile (f128t2048) for every
+// row.  So the
 // chunked layout stays for rows 5-7 below 16 t-tiles (filter rows
 // pre-blended: a q chunk is four loads a product, and two CTAs an SM fill
 // more of the card) and for every row at one t-tile.  Past 8 blocks (pad

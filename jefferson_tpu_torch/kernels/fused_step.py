@@ -147,7 +147,7 @@ PRE_BLENDED = ("fused_step_stream_xfade", "fused_step_xfade", "fused_apply_xfade
 # counts between (an H100, 700 W; scripts/split_layouts.py, two readings in
 # turns; PERF.md, the kernel table).  From fpb 128 up (and at fpb 100)
 # launch B wins where its grid of ceil(rows / 32) x T_TILES CTAs is one
-# whole wave of 128 (and at f441 up to four), launch B / split ms: rows 2
+# whole wave of 128 (and at f441 up to four at PR 17, two since PR 20), launch B / split ms: rows 2
 # / 3 / 4 at f512 1,024 rows 0.2714 / 0.3100, 0.2725 / 0.3101, 0.2740 /
 # 0.3107; f1024 512 rows 0.5415 / 0.5808, 0.5346 / 0.5801, 0.5263 /
 # 0.5795; f2048 256 rows 1.0756 / 1.1448, 1.0750 / 1.1511, 1.0766 /
@@ -162,13 +162,16 @@ PRE_BLENDED = ("fused_step_stream_xfade", "fused_step_xfade", "fused_apply_xfade
 # 0.2410 to 0.2964 / 0.3154), rows 2-4 at f64t256 8,192 (0.1482 / 0.1742),
 # rows 2 and 4 and rows 5 and 7 at f16 16,384 (0.6016 / 0.6362, 0.1589 /
 # 0.1930), row 7 at f4 16,384 (0.1214 / 0.1307) (PR 18).
-# Read again at f512, f1024 and f2048 with the pipelined layout from 8
-# t-tiles, the same spans: rows 2 / 3 / 4 / 8 at f512 1,024 rows 0.2722 / 0.3086,
-# 0.2721 / 0.3111, 0.2744 / 0.3104, 0.2011 / 0.2513 (the narrow layout);
-# f1024 512 rows 0.5427 / 0.6092, 0.5361 / 0.6111, 0.5312 / 0.6114, 0.4094
-# / 0.4898; f2048 256 rows 1.0737 / 1.1941, 1.0772 / 1.2046, 1.0745 /
-# 1.1923, 0.8297 / 0.9609; rows 5-7 at f2048 took the split form at 8 to
-# 4,096 rows.
+# Read again with the pipelined layout past one t-tile (PR 20), the same
+# spans but at f441: rows 2 / 3 / 4 / 8 at f512 1,024 rows 0.2721 /
+# 0.3242, 0.2724 / 0.3261, 0.2772 / 0.3257, 0.2016 / 0.2676; f1024 512
+# rows 0.5427 / 0.6092, 0.5361 / 0.6111, 0.5312 / 0.6114, 0.4094 /
+# 0.4898; f2048 256 rows 1.0737 / 1.1941, 1.0772 / 1.2046, 1.0745 /
+# 1.1923, 0.8297 / 0.9609; row 8 at f256 2,048 rows 0.2017 / 0.2417;
+# rows 5-7 at f2048 took the split form at 8 to 4,096 rows.  Row 8 at f441
+# keeps launch B at 1,024 rows 0.2022 / 0.3185 and 2,048 0.3983 / 0.4773,
+# and no longer at 3,072 (0.6233 / 0.6390) and 4,096 (0.8087 / 0.8047),
+# within the spread.
 LAUNCH_B_SPANS: dict[tuple[int, int], dict[str, tuple[int, int]]] = {
     (4, 1024): {"pre-blended": (16384, 16384), "row 8": (6144, 16384)},
     (16, 1024): {"blended": (16384, 16384), "pre-blended": (16384, 16384),
@@ -177,7 +180,7 @@ LAUNCH_B_SPANS: dict[tuple[int, int], dict[str, tuple[int, int]]] = {
     (64, 1024): {"blended": (6144, 8192), "row 8": (3072, 16384)},
     (100, 1024): {"row 8": (4096, 4096)},
     (256, 1024): {"row 8": (2048, 2048)},
-    (441, 1024): {"row 8": (1024, 4096)},
+    (441, 1024): {"row 8": (1024, 2048)},
     (512, 1024): {"blended": (1024, 1024), "row 8": (1024, 1024)},
     (1024, 2048): {"blended": (512, 512), "row 8": (512, 512)},
     (2048, 4096): {"blended": (256, 256), "row 8": (256, 256)},

@@ -169,8 +169,9 @@ def test_pick_form_at_named_counts(name, rows, fpb, pad, want):
 @pytest.mark.parametrize("rows,fpb,pad,want", [
     (1, 441, 1024, tsp.SPLIT), (1, 128, 1024, tsp.CLUSTER), (12556, 128, 1024, tsp.SPLIT),
     (16384, 2048, 4096, tsp.SPLIT), (1, 2, 1024, tsp.LAUNCH_B),
-    # f441's render_scan chunk of 3,644 rows, inside launch B's span
-    (3644, 441, 1024, tsp.LAUNCH_B), (6144, 441, 1024, tsp.SPLIT),
+    # f441: launch B's span 1,024-2,048 rows; the render_scan chunk of
+    # 3,644 rows past it since the pipelined layout
+    (2048, 441, 1024, tsp.LAUNCH_B), (3644, 441, 1024, tsp.SPLIT), (6144, 441, 1024, tsp.SPLIT),
     # where the tile fits the block: launch B from 3,072 rows at fpb 64
     # (pad 512 and 1024) and 16, from 6,144 at fpb 4
     (4096, 64, 512, tsp.LAUNCH_B), (8192, 64, 1024, tsp.LAUNCH_B),
